@@ -1,0 +1,177 @@
+// Shared pieces of the paged decode and ragged prefill kernels: one
+// thread block stages a chunk of up to TOK kv tokens (K and V, bf16) in
+// shared memory, scores its query rows against them in fp32, and folds
+// the chunk into a per-row online softmax (running max m, running sum l,
+// fp32 accumulator acc) kept in shared memory across chunks. The loop
+// over chunks inside the block takes the place of the TPU grid's
+// sequential kv axis, which carried m/l/acc in VMEM from step to step.
+//
+// Shared memory layout (dynamic, sized by attend_smem_bytes):
+//   Ks [TOK][D] bf16 | Vs [TOK][D] bf16 | Qs [R][D] f32 | S [R][TOK] f32 |
+//   Acc [R][D] f32 | M [R] f32 | L [R] f32 | Alpha [R] f32 | RowPos [R] i32
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace attend {
+
+constexpr int NT = 256;             // threads per block
+constexpr int NWARPS = NT / 32;
+constexpr int TOK = 64;             // kv tokens staged per chunk
+constexpr float NEG_INF = -1e30f;   // the reference's masked score
+
+struct Smem {
+  __nv_bfloat16* ks;
+  __nv_bfloat16* vs;
+  float* qs;
+  float* s;
+  float* acc;
+  float* m;
+  float* l;
+  float* alpha;
+  int* rowpos;
+};
+
+__host__ __device__ inline size_t smem_bytes(int rows, int d) {
+  return (size_t)2 * TOK * d * sizeof(__nv_bfloat16)
+       + (size_t)rows * d * sizeof(float)          // Qs
+       + (size_t)rows * TOK * sizeof(float)        // S
+       + (size_t)rows * d * sizeof(float)          // Acc
+       + (size_t)3 * rows * sizeof(float)          // M, L, Alpha
+       + (size_t)rows * sizeof(int);               // RowPos
+}
+
+__device__ inline Smem carve(unsigned char* base, int rows, int d) {
+  Smem sm;
+  sm.ks = reinterpret_cast<__nv_bfloat16*>(base);
+  sm.vs = sm.ks + TOK * d;
+  sm.qs = reinterpret_cast<float*>(sm.vs + TOK * d);
+  sm.s = sm.qs + rows * d;
+  sm.acc = sm.s + rows * TOK;
+  sm.m = sm.acc + rows * d;
+  sm.l = sm.m + rows;
+  sm.alpha = sm.l + rows;
+  sm.rowpos = reinterpret_cast<int*>(sm.alpha + rows);
+  return sm;
+}
+
+__device__ inline void init_state(const Smem& sm, int rows, int d) {
+  for (int e = threadIdx.x; e < rows * d; e += NT) sm.acc[e] = 0.f;
+  for (int r = threadIdx.x; r < rows; r += NT) {
+    sm.m[r] = NEG_INF;
+    sm.l[r] = 0.f;
+  }
+}
+
+// Copy the chunk's token rows (D bf16 each, as 16-byte vectors) from
+// global into shared. `src_of_k(t)` / `src_of_v(t)` return the global
+// address of kv token t of the chunk.
+template <typename KFn, typename VFn>
+__device__ inline void load_chunk(const Smem& sm, int ntok, int d, KFn src_of_k,
+                                  VFn src_of_v) {
+  const int vecs = d / 8;  // uint4 = 8 bf16
+  for (int idx = threadIdx.x; idx < ntok * vecs; idx += NT) {
+    const int t = idx / vecs;
+    const int c = idx - t * vecs;
+    const uint4* ksrc = reinterpret_cast<const uint4*>(src_of_k(t)) + c;
+    const uint4* vsrc = reinterpret_cast<const uint4*>(src_of_v(t)) + c;
+    reinterpret_cast<uint4*>(sm.ks + t * d)[c] = *ksrc;
+    reinterpret_cast<uint4*>(sm.vs + t * d)[c] = *vsrc;
+  }
+}
+
+__device__ inline float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ inline float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// S[r][t] = scale * (q_r . k_t) for valid (r, t), NEG_INF otherwise.
+// One warp per kv token: each lane holds D/32 of the token's K values and
+// reduces one partial per query row across the warp. `valid(r, t)` is the
+// per-element mask of the caller's phase.
+template <typename ValidFn>
+__device__ inline void score_chunk(const Smem& sm, int rows, int ntok, int d,
+                                   float scale, ValidFn valid) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int t = warp; t < ntok; t += NWARPS) {
+    const __nv_bfloat16* krow = sm.ks + t * d;
+    for (int r = 0; r < rows; ++r) {
+      const float* qrow = sm.qs + r * d;
+      float part = 0.f;
+      for (int c = lane; c < d; c += 32) part += qrow[c] * __bfloat162float(krow[c]);
+      part = warp_sum(part);
+      if (lane == 0) sm.s[r * TOK + t] = valid(r, t) ? part * scale : NEG_INF;
+    }
+  }
+}
+
+// Online-softmax update for one chunk: per row, m_next = max(m, max_t s),
+// alpha = exp(m - m_next), p = exp(s - m_next) with masked entries forced
+// to exactly 0, l = l * alpha + sum(p). p overwrites S.
+__device__ inline void softmax_chunk(const Smem& sm, int rows, int ntok) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int r = warp; r < rows; r += NWARPS) {
+    float* srow = sm.s + r * TOK;
+    float mx = NEG_INF;
+    for (int t = lane; t < ntok; t += 32) mx = fmaxf(mx, srow[t]);
+    mx = warp_max(mx);
+    const float m_prev = sm.m[r];
+    const float m_next = fmaxf(m_prev, mx);
+    float sum = 0.f;
+    for (int t = lane; t < ntok; t += 32) {
+      const float sv = srow[t];
+      const float p = (sv == NEG_INF) ? 0.f : expf(sv - m_next);
+      srow[t] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      const float alpha = expf(m_prev - m_next);
+      sm.alpha[r] = alpha;
+      sm.l[r] = sm.l[r] * alpha + sum;
+      sm.m[r] = m_next;
+    }
+  }
+}
+
+// acc[r][:] = acc[r][:] * alpha[r] + sum_t bf16(p[r][t]) * v[t][:], with
+// p rounded to bf16 before the product as the TPU kernel's p.astype(v)
+// does, and the sum kept in fp32. Each thread owns whole acc elements.
+__device__ inline void pv_chunk(const Smem& sm, int rows, int ntok, int d) {
+  for (int e = threadIdx.x; e < rows * d; e += NT) {
+    const int r = e / d;
+    const int c = e - r * d;
+    const float* prow = sm.s + r * TOK;
+    float a = sm.acc[e] * sm.alpha[r];
+    for (int t = 0; t < ntok; ++t) {
+      const float p = __bfloat162float(__float2bfloat16(prow[t]));
+      a += p * __bfloat162float(sm.vs[t * d + c]);
+    }
+    sm.acc[e] = a;
+  }
+}
+
+// out row r = acc[r] / l[r] (l == 0 -> divide by 1: a fully masked row
+// gives exactly 0), cast to bf16. `dst_of(r)` is row r's global address.
+template <typename DstFn>
+__device__ inline void write_rows(const Smem& sm, int rows, int d, DstFn dst_of) {
+  for (int e = threadIdx.x; e < rows * d; e += NT) {
+    const int r = e / d;
+    const int c = e - r * d;
+    const float l = sm.l[r];
+    const float safe_l = (l == 0.f) ? 1.f : l;
+    dst_of(r)[c] = __float2bfloat16(sm.acc[e] / safe_l);
+  }
+}
+
+}  // namespace attend

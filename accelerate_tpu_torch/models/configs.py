@@ -1,0 +1,137 @@
+"""Decoder configuration and size presets (the serving path's fields).
+
+Counterpart of ``accelerate_tpu/models/configs.py``: the same field names
+and defaults for everything paged serving reads, with torch dtypes. The
+training-only knobs (remat, scan, pipeline, streaming) are not carried;
+fp8, MoE and the int8/int4 KV precisions are accepted as fields and
+raise ``NotImplementedError`` until their slices are ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+@dataclass
+class DecoderConfig:
+    """LLaMA-family causal LM config (GQA, SwiGLU, RMSNorm, split-half RoPE)."""
+
+    vocab_size: int = 32_000
+    num_layers: int = 12
+    embed_dim: int = 768
+    num_heads: int = 12
+    num_kv_heads: Optional[int] = None  # None -> MHA
+    head_dim: Optional[int] = None  # None -> embed_dim // num_heads
+    mlp_dim: Optional[int] = None  # None -> ~8/3 * embed, rounded to 256
+    max_seq_len: int = 2048
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    dtype: torch.dtype = torch.bfloat16  # compute dtype for activations
+    # cache-free attention: "auto" and "xla" run the plain attention
+    # (mha_reference); "flash" belongs to the training slice and raises
+    # until its kernels are ported
+    attention_impl: str = "auto"
+    # KV-cache length for generation (None -> max_seq_len)
+    max_cache_len: Optional[int] = None
+    # KV-cache storage precision; the paged arena's geometry (page size,
+    # page count) belongs to the serving engine that owns the arena
+    kv_cache_dtype: str = "bf16"
+    # token-block granule the packed ragged prefill pads each tail to
+    prefill_kernel_block: Optional[int] = None
+    # later slices of the port: accepted so a reference config carries
+    # over, rejected in __post_init__ until ported
+    use_fp8: bool = False
+    moe_num_experts: int = 0
+
+    def __post_init__(self):
+        if self.num_kv_heads is None:
+            self.num_kv_heads = self.num_heads
+        if self.head_dim is None:
+            self.head_dim = self.embed_dim // self.num_heads
+        if self.mlp_dim is None:
+            raw = int(self.embed_dim * 8 / 3)
+            self.mlp_dim = (raw + 255) // 256 * 256
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(
+                f"num_heads ({self.num_heads}) must be a multiple of "
+                f"num_kv_heads ({self.num_kv_heads})"
+            )
+        if self.kv_cache_dtype in ("int8", "int4"):
+            raise NotImplementedError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r}: the quantized KV "
+                "arena and the int8/int4 kernel entries are a later slice "
+                "of the port (ROADMAP queue 2)"
+            )
+        if self.kv_cache_dtype != "bf16":
+            raise ValueError(
+                f"kv_cache_dtype must be 'bf16', 'int8' or 'int4', got "
+                f"{self.kv_cache_dtype!r}"
+            )
+        if self.use_fp8:
+            raise NotImplementedError(
+                "use_fp8: the fp8 projections are a later slice of the port "
+                "(ROADMAP queue 1, training step)"
+            )
+        if self.moe_num_experts > 1:
+            raise NotImplementedError(
+                "moe_num_experts: MoE blocks are a later slice of the port "
+                "(ROADMAP queue 1, other families)"
+            )
+        if self.attention_impl not in ("xla", "flash", "auto"):
+            raise ValueError(
+                f"attention_impl must be 'auto', 'flash' or 'xla', got "
+                f"{self.attention_impl!r}"
+            )
+        if self.prefill_kernel_block is not None and self.prefill_kernel_block < 1:
+            raise ValueError(
+                f"prefill_kernel_block must be a positive token-block size, "
+                f"got {self.prefill_kernel_block}"
+            )
+
+    @property
+    def num_params(self) -> int:
+        e, h, kv, d, m, v = (
+            self.embed_dim, self.num_heads, self.num_kv_heads,
+            self.head_dim, self.mlp_dim, self.vocab_size,
+        )
+        per_layer = e * h * d + 2 * e * kv * d + h * d * e + 3 * e * m + 2 * e
+        head = 0 if self.tie_embeddings else e * v
+        return self.num_layers * per_layer + v * e + head + e
+
+    @classmethod
+    def tiny(cls, **kw):
+        """Test-size model."""
+        kw.setdefault("vocab_size", 256)
+        kw.setdefault("num_layers", 2)
+        kw.setdefault("embed_dim", 64)
+        kw.setdefault("num_heads", 4)
+        kw.setdefault("mlp_dim", 128)
+        kw.setdefault("max_seq_len", 128)
+        kw.setdefault("dtype", torch.float32)
+        return cls(**kw)
+
+    @classmethod
+    def small_1b(cls, **kw):
+        """~1.2B model: 16 layers, E 2048, 16 heads over 8 kv heads."""
+        kw.setdefault("vocab_size", 32_000)
+        kw.setdefault("num_layers", 16)
+        kw.setdefault("embed_dim", 2048)
+        kw.setdefault("num_heads", 16)
+        kw.setdefault("num_kv_heads", 8)
+        kw.setdefault("max_seq_len", 2048)
+        return cls(**kw)
+
+    @classmethod
+    def llama_7b(cls, **kw):
+        kw.setdefault("vocab_size", 32_000)
+        kw.setdefault("num_layers", 32)
+        kw.setdefault("embed_dim", 4096)
+        kw.setdefault("num_heads", 32)
+        kw.setdefault("mlp_dim", 11_008)
+        kw.setdefault("max_seq_len", 4096)
+        kw.setdefault("tie_embeddings", False)
+        return cls(**kw)

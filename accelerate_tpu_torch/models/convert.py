@@ -1,0 +1,104 @@
+"""Weights for the port's ``DecoderLM``: conversion from the reference's
+parameter tree, and a seeded random init on the device.
+
+The port's weights are a flat dict keyed like ``DecoderLM.state_dict()``
+(``embedding``, ``ln_final``, ``lm_head`` when untied, and
+``layers.{i}.ln_attn`` / ``ln_mlp`` / ``attn.wq`` ... / ``mlp.w_down``),
+with the reference's leaf layouts: ``wq [E, H, D]``, ``wk``/``wv
+[E, KVH, D]``, ``wo [H, D, E]``, ``w_gate``/``w_up [E, M]``,
+``w_down [M, E]``, ``embedding [V, E]``, ``lm_head [E, V]``.
+Load them with :meth:`DecoderLM.load_params`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .configs import DecoderConfig
+
+_BLOCK_LEAVES = {
+    "ln_attn": ("ln_attn",),
+    "ln_mlp": ("ln_mlp",),
+    "attn.wq": ("attn", "wq"),
+    "attn.wk": ("attn", "wk"),
+    "attn.wv": ("attn", "wv"),
+    "attn.wo": ("attn", "wo"),
+    "mlp.w_gate": ("mlp", "w_gate"),
+    "mlp.w_up": ("mlp", "w_up"),
+    "mlp.w_down": ("mlp", "w_down"),
+}
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return np.asarray(tree)
+
+
+def from_reference(params, config: DecoderConfig) -> dict:
+    """The reference ``DecoderLM``'s unboxed parameter tree (leaves already
+    numpy, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) -> the
+    port's weight dict of numpy arrays.
+
+    Scan-stacked trees (``scan_layers=True``) keep every block leaf under
+    ``layers/block/...`` with a leading layer axis; unrolled trees name
+    each block ``layer_{i}``. Both are accepted."""
+    out = {
+        "embedding": np.asarray(params["embedding"]),
+        "ln_final": np.asarray(params["ln_final"]),
+    }
+    if not config.tie_embeddings:
+        out["lm_head"] = np.asarray(params["lm_head"])
+    stacked = "layers" in params
+    for name, path in _BLOCK_LEAVES.items():
+        if stacked:
+            leaf = _leaf(params["layers"]["block"], path)
+            if leaf.shape[0] != config.num_layers:
+                raise ValueError(
+                    f"layers/block/{'/'.join(path)} stacks {leaf.shape[0]} "
+                    f"layers, config has {config.num_layers}"
+                )
+            for i in range(config.num_layers):
+                out[f"layers.{i}.{name}"] = leaf[i]
+        else:
+            for i in range(config.num_layers):
+                out[f"layers.{i}.{name}"] = _leaf(params[f"layer_{i}"], path)
+    return out
+
+
+def random_params(config: DecoderConfig, seed: int = 0,
+                  device: Optional[torch.device] = None) -> dict:
+    """Seeded random weights made on ``device`` (``None`` means CUDA; raises
+    without it unless ``device="cpu"``): normal(0.02) embeddings, fan-in
+    scaled normal matmul weights (the reference's initializers), unit
+    norms. Matmul weights and embeddings in the compute dtype."""
+    from .decoder import resolve_device
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    e, h, kv, d, m, v = (config.embed_dim, config.num_heads, config.num_kv_heads,
+                         config.head_dim, config.mlp_dim, config.vocab_size)
+    dt = config.dtype
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dt)
+
+    out = {"embedding": normal((v, e), 0.02),
+           "ln_final": torch.ones(e, device=dev)}
+    if not config.tie_embeddings:
+        out["lm_head"] = normal((e, v), e ** -0.5)
+    for i in range(config.num_layers):
+        p = f"layers.{i}."
+        out[p + "ln_attn"] = torch.ones(e, device=dev)
+        out[p + "ln_mlp"] = torch.ones(e, device=dev)
+        out[p + "attn.wq"] = normal((e, h, d), e ** -0.5)
+        out[p + "attn.wk"] = normal((e, kv, d), e ** -0.5)
+        out[p + "attn.wv"] = normal((e, kv, d), e ** -0.5)
+        out[p + "attn.wo"] = normal((h, d, e), (h * d) ** -0.5)
+        out[p + "mlp.w_gate"] = normal((e, m), e ** -0.5)
+        out[p + "mlp.w_up"] = normal((e, m), e ** -0.5)
+        out[p + "mlp.w_down"] = normal((m, e), m ** -0.5)
+    return out

@@ -1,0 +1,255 @@
+"""Build, load and launch the hand-written Hopper kernels.
+
+Each kernel source in ``accelerate_tpu_torch/csrc/`` has a plain C entry
+point that launches on the caller's stream, allocates nothing and returns
+``cudaGetLastError()``. At first use this module compiles every source
+with ``nvcc`` for ``sm_90a`` (one process per source, all started
+together) into ``accelerate_tpu_torch/_build/`` and loads the shared
+libraries with ``ctypes``; a library is named after the hash of its
+sources, so an edited kernel rebuilds and an unchanged one is reused.
+
+The checked wrappers (:func:`paged_decode`, :func:`ragged_prefill`) take
+CPU tensors to the plain PyTorch version in ``ops/attention.py``. For a
+CUDA tensor they check device, dtype, shape and contiguity, allocate the
+output, launch the kernel and add one to :data:`launch_counts`, or raise.
+Nothing falls back from the device to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .attention import DECODE_KERNEL_MAX_SQ
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+# kernel name -> (source file, C entry point, ctypes argtypes)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNELS = {
+    "paged_decode": (
+        "paged_decode.cu", "paged_decode_launch",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "ragged_prefill": (
+        "ragged_prefill.cu", "ragged_prefill_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+}
+
+# launches per kernel since the last reset_launch_counts(); a wrapper adds
+# one exactly where it launches its kernel, never on the plain path
+launch_counts = {name: 0 for name in KERNELS}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def reset_launch_counts():
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the toolkit's default location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def _source_digest(name: str) -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / KERNELS[name][0]]:
+        h.update(path.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_source_digest(name)}.so"
+
+
+def nvcc_command(name: str, out: Path) -> list:
+    """The nvcc command line that builds kernel ``name`` into ``out``."""
+    return [
+        nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
+        "-o", str(out), str(CSRC / KERNELS[name][0]),
+    ]
+
+
+def build(names=None) -> dict:
+    """Compile the kernels that have no library yet, one ``nvcc`` process
+    per source, all running at once. Returns ``{name: ptxas report}`` for
+    what was compiled. Raises with the compiler's output on failure."""
+    names = list(names or KERNELS)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        ), tmp, lib)
+    reports, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib)
+        reports[name] = out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def _lib(name: str):
+    with _lock:
+        fn = _libs.get(name)
+        if fn is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, KERNELS[name][1])
+            fn.argtypes = KERNELS[name][2]
+            fn.restype = ctypes.c_int
+            _libs[name] = fn
+        return fn
+
+
+def _launch(name: str, *args):
+    err = _lib(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+
+
+def _check(t: torch.Tensor, what: str, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _smem_limit_check(rows: int, d: int):
+    tok = 64
+    need = 2 * tok * d * 2 + rows * d * 4 * 2 + rows * tok * 4 + rows * 16
+    if need > 227 * 1024:
+        raise ValueError(
+            f"{rows} query rows at head_dim {d} need {need} bytes of shared "
+            "memory, above the 227 KB a Hopper block can use"
+        )
+
+
+def _require_cuda(t: torch.Tensor, name: str):
+    if t.device.type != "cuda":
+        raise RuntimeError(
+            f"{name}: tensors on {t.device} are neither CPU (plain version) "
+            "nor CUDA (kernel)"
+        )
+
+
+def paged_decode(q, k_pages, v_pages, page_table, pos, sm_scale: float):
+    """Paged decode attention: q [B, H, Sq, D] bf16, k/v pages
+    [NP, KVH, ps, D] bf16, page_table [B, P] int32, pos [B, Sq] int32 ->
+    out [B, H, Sq, D]. CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        from .attention import paged_decode_reference
+
+        return paged_decode_reference(q, k_pages, v_pages, page_table, pos, sm_scale)
+    _require_cuda(q, "paged_decode")
+    b, h, sq, d = q.shape
+    num_pages, kvh, ps, _ = k_pages.shape
+    p_per_slot = page_table.shape[1]
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if not 1 <= sq <= DECODE_KERNEL_MAX_SQ:
+        raise ValueError(
+            f"paged decode takes 1..{DECODE_KERNEL_MAX_SQ} query rows per slot, got {sq}"
+        )
+    if d % 8:
+        raise ValueError(f"head_dim {d} must be a multiple of 8 (16-byte loads)")
+    group = h // kvh
+    _smem_limit_check(group * sq, d)
+    dev = q.device
+    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
+    _check(k_pages, "k_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
+    _check(v_pages, "v_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
+    _check(page_table, "page_table", torch.int32, (b, p_per_slot), dev)
+    _check(pos, "pos", torch.int32, (b, sq), dev)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch(
+        "paged_decode", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, kvh, group, sq, d, ps, p_per_slot, float(sm_scale), stream,
+    )
+    return out
+
+
+def ragged_prefill(q, k_new, v_new, k_pages, v_pages, page_table, row_slot,
+                   row_pos, slot_hist, sm_scale: float, bt: int):
+    """Packed ragged prefill: q [1, H, CAP, D], k_new/v_new [1, KVH, CAP, D],
+    pages [NP, KVH, ps, D] (all bf16), page_table [S, P], row_slot/row_pos
+    [CAP], slot_hist [S] (int32) -> ``(out, k_payload, None, v_payload,
+    None)`` with payloads token-major [CAP, KVH, D]. CPU tensors run the
+    plain version."""
+    if q.device.type == "cpu":
+        from .attention import ragged_prefill_reference
+
+        return ragged_prefill_reference(
+            q, k_new, v_new, k_pages, v_pages, page_table, row_slot, row_pos,
+            slot_hist, sm_scale,
+        )
+    _require_cuda(q, "ragged_prefill")
+    _, h, cap, d = q.shape
+    num_pages, kvh, ps, _ = k_pages.shape
+    n_slots, p_per_slot = page_table.shape
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if d % 8:
+        raise ValueError(f"head_dim {d} must be a multiple of 8 (16-byte loads)")
+    if bt < 1 or 64 % bt or cap % bt:
+        raise ValueError(
+            f"token block {bt} must divide 64 and the capacity {cap}"
+        )
+    group = h // kvh
+    _smem_limit_check(bt * group, d)
+    dev = q.device
+    _check(q, "q", torch.bfloat16, (1, h, cap, d), dev)
+    _check(k_new, "k_new", torch.bfloat16, (1, kvh, cap, d), dev)
+    _check(v_new, "v_new", torch.bfloat16, (1, kvh, cap, d), dev)
+    _check(k_pages, "k_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
+    _check(v_pages, "v_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
+    _check(page_table, "page_table", torch.int32, (n_slots, p_per_slot), dev)
+    _check(row_slot, "row_slot", torch.int32, (cap,), dev)
+    _check(row_pos, "row_pos", torch.int32, (cap,), dev)
+    _check(slot_hist, "slot_hist", torch.int32, (n_slots,), dev)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch(
+        "ragged_prefill", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+        row_slot.data_ptr(), row_pos.data_ptr(), slot_hist.data_ptr(),
+        out.data_ptr(), kvh, group, cap, d, ps, p_per_slot, bt,
+        float(sm_scale), stream,
+    )
+    return out, k_new[0].transpose(0, 1), None, v_new[0].transpose(0, 1), None

@@ -1,0 +1,698 @@
+"""Continuous-batching serving engine over the paged KV arena.
+
+Counterpart of ``accelerate_tpu/serving/engine.py``, limited to the
+configuration users run with ``accelerate-tpu serve replica``: the paged
+arena, FIFO admission, no speculative decoding, no KV tiers. Many
+requests decode per device step against one paged arena, and admissions
+ride the packed ragged prefill:
+
+- **paged arena** (``pages.py``): ``[num_pages, KVH, page_size, D]``
+  pages per layer, per-slot page tables, page 0 the parking page, and
+  the copy-on-write prefix cache (on by default) so a prompt whose
+  prefix is cached prefills only its tail;
+- **batched decode step**: every slot decodes each step at a fixed batch
+  of ``num_slots``; inactive slots are parked at the last cache position,
+  where an active request always writes before it reads;
+- **packed ragged prefill**: each scheduler iteration packs the primary
+  admission's next tail segment, plus the whole tails of further queued
+  requests while capacity remains, into one token pack of the smallest
+  capacity that fits (``prefill_chunks`` rounded up to the token block);
+  a tail longer than the largest capacity continues mid-tail over its
+  own arena prefix on the next iteration;
+- **host-side scheduler**: the FIFO queue, slot allocator, per-request
+  token callbacks and a few serving metrics.
+
+Greedy decoding is ``argmax``; temperature/top-k sampling draws from a
+``torch.Generator`` per request, seeded by ``submit(seed=...)``.
+
+Everything else the reference engine offers (the multi-tenant
+scheduler, speculative verify, KV tiers and handoff, fault injection,
+drain, telemetry hooks, the flat arena, fused decode bursts) is a later
+slice of the port and raises here.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..generation import _sample
+from ..models.decoder import resolve_device
+from ..ops.attention import PREFILL_TOKEN_BLOCK
+from .pages import (
+    PageAllocator,
+    PagedTables,
+    PrefixCache,
+    arena_nbytes,
+    fork_page,
+    init_paged_arena,
+    set_table_entry,
+    set_table_row,
+)
+
+SHED_PAGE_EXHAUSTED = "page_exhausted"
+
+
+class PagePressure(RuntimeError):
+    """Raised by the page allocator when nothing is left to evict; the
+    engine turns it into a scheduling decision (shed the request) so the
+    serving loop never wedges on it."""
+
+
+@dataclass(eq=False)
+class Request:
+    """One generation request and its life-cycle state. ``tokens`` is the
+    generated continuation; ``result()`` returns prompt + continuation.
+    ``eq=False``: requests are identities, not values."""
+
+    prompt: np.ndarray
+    max_new_tokens: int
+    generator: Optional[torch.Generator] = None
+    on_token: Optional[Callable] = None
+    id: object = -1
+
+    # runtime state (engine-owned)
+    tokens: list = field(default_factory=list)
+    done: bool = False
+    slot: Optional[int] = None
+    submit_t: float = 0.0
+    first_token_t: Optional[float] = None
+    finish_t: Optional[float] = None
+    outcome: Optional[str] = None        # finished | shed | cancelled
+    finish_reason: Optional[str] = None  # eos | budget | ...
+    shed_reason: Optional[str] = None
+    prefix_hit: int = 0         # prompt tokens served from the prefix cache
+    prefill_dispatches: int = 0  # packed prefill dispatches its prompt rode
+
+    def result(self) -> np.ndarray:
+        """[prompt + generated] token ids."""
+        return np.concatenate([self.prompt, np.asarray(self.tokens, np.int32)])
+
+
+class ServingEngine:
+    """Slot-based continuous-batching scheduler over one ``DecoderLM``.
+
+    ``model`` is a ``DecoderLM`` on ``device``; ``params``, when given, is
+    a weight dict (``models/convert.py``) loaded into it first.
+    ``device=None`` means CUDA and raises without it; ``device="cpu"``
+    runs the kernels' plain versions. ``page_size`` selects the paged
+    arena (the only arena of this slice) with ``num_pages`` physical
+    pages (default: capacity-equivalent to ``num_slots * max_cache_len``
+    plus the parking page). ``temperature``/``top_k`` are engine-wide.
+    """
+
+    _LATER = {
+        "steps_per_call": "fused decode bursts",
+        "spec_draft_len": "speculative verify",
+        "drafter": "speculative verify",
+        "scheduler": "the multi-tenant scheduler",
+        "faults": "fault injection",
+        "kv_cache_dtype": "the int8/int4 KV arena",
+        "kv_tiers": "hierarchical KV tiers",
+        "telemetry": "telemetry hooks",
+        "replica": "the replica server",
+        "param_placer": "dispatched (offloaded) weights",
+        "donate": "buffer donation (the port updates in place)",
+    }
+
+    def __init__(
+        self,
+        model,
+        params: Optional[dict] = None,
+        *,
+        num_slots: int = 8,
+        max_cache_len: Optional[int] = None,
+        prefill_chunks=(64, 256),
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        eos_token_id: Optional[int] = None,
+        page_size: Optional[int] = 16,
+        num_pages: Optional[int] = None,
+        prefix_cache: bool = True,
+        prefix_max_entries: Optional[int] = None,
+        device=None,
+        **later,
+    ):
+        if later:
+            names = ", ".join(f"{k} ({self._LATER.get(k, 'unknown option')})"
+                              for k in sorted(later))
+            raise NotImplementedError(
+                f"ServingEngine options {names} belong to later slices of "
+                "the port (ROADMAP queue 1)"
+            )
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(
+                f"the model lives on {model.device}, the engine on {self.device}"
+            )
+        if params is not None:
+            model.load_params(params)
+        self.model = model
+        cfg = model.config
+        if cfg.kv_cache_dtype != "bf16":
+            raise NotImplementedError(
+                f"kv_cache_dtype {cfg.kv_cache_dtype!r} is a later slice of the port"
+            )
+        cap = max_cache_len or cfg.max_cache_len or cfg.max_seq_len
+        self.num_slots = int(num_slots)
+        self.max_cache_len = int(cap)
+        self.prefill_chunks = tuple(sorted(set(int(c) for c in prefill_chunks)))
+        if not self.prefill_chunks or self.prefill_chunks[0] < 1:
+            raise ValueError(f"bad prefill_chunks {prefill_chunks!r}")
+        self.temperature = float(temperature)
+        self.top_k = top_k
+        self.eos_token_id = eos_token_id
+
+        if not page_size:
+            raise NotImplementedError(
+                "the flat slot arena (page_size=None) is a later slice of the "
+                "port; serve on the paged arena (page_size=16)"
+            )
+        self.page_size = int(page_size)
+        if self.page_size & (self.page_size - 1):
+            raise ValueError(f"page_size must be a power of two, got {self.page_size}")
+        if self.max_cache_len % self.page_size:
+            raise ValueError(
+                f"page_size ({self.page_size}) must divide max_cache_len "
+                f"({self.max_cache_len})"
+            )
+        self.pages_per_slot = self.max_cache_len // self.page_size
+        self.num_pages = (
+            int(num_pages) if num_pages else 1 + self.num_slots * self.pages_per_slot
+        )
+        if self.num_pages < 2:
+            raise ValueError(f"num_pages ({self.num_pages}) must be >= 2")
+        self._allocator = PageAllocator(self.num_pages, reserved=1)
+        self._tables_host = PagedTables(self.num_slots, self.pages_per_slot, parking=0)
+        self._prefix = (
+            PrefixCache(self._allocator, self.page_size,
+                        max_entries=int(prefix_max_entries or 512))
+            if prefix_cache else None
+        )
+        self._arena = init_paged_arena(cfg, self.num_pages, self.page_size, self.device)
+        self.arena_bytes = arena_nbytes(self._arena)
+        self._page_tables = torch.zeros(
+            (self.num_slots, self.pages_per_slot), dtype=torch.int32, device=self.device
+        )
+        # packed ragged prefill: fixed pack capacities, each chunk bucket
+        # rounded up to the token block; the packer takes the smallest
+        # capacity that fits the round's packed tails
+        self._ragged_bt = int(cfg.prefill_kernel_block or PREFILL_TOKEN_BLOCK)
+        rb = self._ragged_bt
+        self._ragged_caps = tuple(sorted({-(-c // rb) * rb for c in self.prefill_chunks}))
+
+        # per-slot decode state, host side: the step feeds it to the device
+        self._tokens = np.zeros((self.num_slots,), np.int64)
+        self._lengths = np.zeros((self.num_slots,), np.int64)
+        self._active = np.zeros((self.num_slots,), bool)
+
+        self._queue: deque = deque()
+        self._free = list(range(self.num_slots))[::-1]  # pop() -> slot 0 first
+        self._slot_req: dict = {}
+        self._admitting = None
+        self._next_id = 0
+
+        # metrics
+        self.step_count = 0
+        self.prefill_dispatches = 0
+        self.prefill_packed_tokens = 0
+        self.page_forks = 0
+        self.requests_completed = 0
+        self.requests_shed = 0
+        self.generated_tokens = 0
+        self._step_samples: deque = deque(maxlen=512)  # (wall_s, tokens)
+        self._ttft: deque = deque(maxlen=2048)  # submit -> first token, s
+
+    # -- request API -------------------------------------------------------
+
+    def submit(self, prompt, *, max_new_tokens: int = 32, seed: int = 0,
+               on_token: Optional[Callable] = None, request_id=None) -> Request:
+        """Queue one request; returns its live :class:`Request` handle.
+        ``on_token(token_id, request)`` fires as each token is emitted;
+        ``seed`` seeds the request's sampling generator (unused when
+        greedy)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        need = prompt.size + max_new_tokens
+        if need > self.max_cache_len or self._plan_cover(prompt.size) > self.max_cache_len:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds the slot KV capacity ({self.max_cache_len}); raise "
+                "max_cache_len"
+            )
+        if request_id is None:
+            rid = self._next_id
+            self._next_id += 1
+        else:
+            rid = request_id
+            if isinstance(rid, int) and rid >= self._next_id:
+                self._next_id = rid + 1
+        gen = None
+        if self.temperature != 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
+                      generator=gen, on_token=on_token, id=rid)
+        req.submit_t = time.perf_counter()
+        self._queue.append(req)
+        return req
+
+    def generate_batched(self, prompts, *, max_new_tokens: int = 32, seeds=None):
+        """Submit ``prompts`` (list of 1-D id arrays), run to completion and
+        return the list of [prompt + generated] arrays."""
+        if seeds is None:
+            seeds = range(len(prompts))
+        else:
+            seeds = list(seeds)
+            if len(seeds) != len(prompts):
+                raise ValueError(
+                    f"seeds ({len(seeds)}) must match prompts ({len(prompts)})"
+                )
+        reqs = [self.submit(p, max_new_tokens=max_new_tokens, seed=s)
+                for p, s in zip(prompts, seeds)]
+        self.run()
+        bad = [r for r in reqs if r.outcome != "finished"]
+        if bad:
+            raise RuntimeError(
+                f"generate_batched: {len(bad)}/{len(reqs)} requests did not "
+                f"finish (first: id={bad[0].id} outcome={bad[0].outcome} "
+                f"shed_reason={bad[0].shed_reason}); the arena is "
+                "overcommitted for this batch: raise num_pages"
+            )
+        return [r.result() for r in reqs]
+
+    # -- scheduler ---------------------------------------------------------
+
+    def _pending(self) -> bool:
+        return bool(self._queue or self._admitting is not None or self._slot_req)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One scheduler iteration: advance prefill admission by one packed
+        dispatch, then run one batched decode step over every active slot.
+        Returns whether any work happened."""
+        progressed = self._advance_admission()
+        return self._decode_once() or progressed
+
+    def run(self):
+        """Drive :meth:`step` until queue, admissions and slots are idle."""
+        while self._pending():
+            self.step()
+
+    # -- terminal transitions ----------------------------------------------
+
+    def _release_slot(self, req: Request):
+        if req.slot is None:
+            return
+        slot = req.slot
+        self._slot_req.pop(slot, None)
+        self._active[slot] = False
+        self._release_slot_pages(slot)
+        self._free.append(slot)
+        req.slot = None
+
+    def _terminate(self, req: Request, now: float, outcome: str, reason: str):
+        """The single exit for every request: one terminal outcome, slot
+        and pages freed, counters fed."""
+        if req.done:
+            return
+        req.done = True
+        req.outcome = outcome
+        req.finish_reason = reason
+        req.finish_t = now
+        self._release_slot(req)
+        if outcome == "finished":
+            self.requests_completed += 1
+        elif outcome == "shed":
+            self.requests_shed += 1
+
+    def _abort_admission(self, reason: str):
+        """Tear down the mid-prefill admission: its slot returns to the free
+        list, its pages are released, the request is shed."""
+        req, slot = self._admitting[0], self._admitting[1]
+        self._admitting = None
+        self._release_slot_pages(slot)
+        self._free.append(slot)
+        req.slot = None
+        req.shed_reason = reason
+        self._terminate(req, time.perf_counter(), "shed", "shed")
+
+    # -- planning ------------------------------------------------------------
+
+    def _plan_chunks(self, prompt_len: int):
+        """(start, bucket) list covering [0, prompt_len) from the fixed
+        bucket set: largest bucket that fits, smallest (padded) for the
+        tail. The admission planner weighs prefix hits by it."""
+        plan, start = [], 0
+        while start < prompt_len:
+            rem = prompt_len - start
+            fit = [c for c in self.prefill_chunks if c <= rem]
+            bucket = fit[-1] if fit else self.prefill_chunks[0]
+            plan.append((start, bucket))
+            start += bucket
+        return plan
+
+    def _plan_cover(self, prompt_len: int) -> int:
+        start, bucket = self._plan_chunks(prompt_len)[-1]
+        return start + bucket
+
+    # -- paged-arena bookkeeping -------------------------------------------
+
+    def _alloc_page(self) -> int:
+        """One fresh page, evicting LRU prefix-cache entries under
+        pressure; raises :class:`PagePressure` when nothing is left."""
+        page = self._allocator.alloc()
+        while page is None and self._prefix is not None and self._prefix.evict_lru():
+            page = self._allocator.alloc()
+        if page is None:
+            raise PagePressure(
+                f"paged KV arena exhausted ({self.num_pages} pages, "
+                f"{len(self._slot_req)} live slots): raise num_pages"
+            )
+        return page
+
+    def _ensure_writable(self, req: Request, slot: int, lo_pos: int, hi_pos: int):
+        """Before a dispatch that writes positions [lo_pos, hi_pos] for
+        ``slot``: grow its page table to cover hi_pos, and copy-on-write
+        fork any page in the write range that is shared (prefix cache or
+        another slot still references it)."""
+        th = self._tables_host
+        ps = self.page_size
+        p_hi = hi_pos // ps
+        while th.alloc_count[slot] <= p_hi:
+            idx = th.alloc_count[slot]
+            page = self._alloc_page()
+            th.rows[slot][idx] = page
+            th.alloc_count[slot] = idx + 1
+            set_table_entry(self._page_tables, slot, idx, page)
+        for idx in range(lo_pos // ps, p_hi + 1):
+            page = int(th.rows[slot][idx])
+            if not self._allocator.shared(page):
+                continue
+            fresh = self._alloc_page()
+            fork_page(self._arena, page, fresh)
+            self._allocator.release(page)
+            th.rows[slot][idx] = fresh
+            set_table_entry(self._page_tables, slot, idx, fresh)
+            self.page_forks += 1
+
+    def _paged_admit_plan(self, req: Request, slot: int, seq: np.ndarray) -> list:
+        """Map the longest cached prefix of ``seq`` into the slot's fresh
+        page table (refcount++ per shared page) and return the chunk plan
+        for the uncached tail only, as [(global_start, bucket), ...]. At
+        least the final token always prefills: its logits seed the first
+        sampled token."""
+        th = self._tables_host
+        th.reset_slot(slot)
+        cold_chunks = len(self._plan_chunks(seq.size))
+        hit_len, entry = 0, None
+        if self._prefix is not None:
+            hit_len, entry = self._prefix.lookup(seq, limit=seq.size - 1)
+            # the tail plan must still fit the slot
+            while hit_len and (
+                hit_len + self._plan_cover(seq.size - hit_len) > self.max_cache_len
+            ):
+                hit_len = max(0, hit_len - self.page_size)
+            # a hit whose tail needs more prefill dispatches than the cold
+            # plan is a TTFT loss, not a win: decline it
+            if hit_len and len(self._plan_chunks(seq.size - hit_len)) > cold_chunks:
+                hit_len = 0
+            if hit_len == 0:
+                entry = None
+            self._prefix.record_hit(hit_len, entry)
+        if entry is not None:
+            n_map = -(-hit_len // self.page_size)
+            for i in range(n_map):
+                page = int(entry.pages[i])
+                self._allocator.retain(page)
+                th.rows[slot][i] = page
+            th.alloc_count[slot] = n_map
+        req.prefix_hit = hit_len
+        set_table_row(self._page_tables, slot, th.rows[slot])
+        tail_plan = self._plan_chunks(seq.size - hit_len)
+        return [(hit_len + start, bucket) for start, bucket in tail_plan]
+
+    def _insert_prefix(self, req: Request, slot: int):
+        """Admission finished: publish this prompt's pages to the prefix
+        cache. The request's own boundary page becomes shared here; its
+        first decode write into that page forks it."""
+        if self._prefix is None:
+            return
+        n_pages = -(-req.prompt.size // self.page_size)
+        if n_pages > self._tables_host.alloc_count[slot]:
+            return
+        self._prefix.insert(req.prompt, self._tables_host.rows[slot])
+
+    def _release_slot_pages(self, slot: int):
+        """Drop the slot's page references (pages still retained by the
+        prefix cache or another slot survive) and point its device table
+        row back at the parking page, so a parked decode write can never
+        land in a page that was reallocated."""
+        th = self._tables_host
+        for page in th.slot_pages(slot):
+            self._allocator.release(page)
+        th.reset_slot(slot)
+        set_table_row(self._page_tables, slot, th.rows[slot])
+
+    # -- admission -----------------------------------------------------------
+
+    def _advance_admission(self) -> bool:
+        if self._admitting is None:
+            if not self._free or not self._queue:
+                return False
+            req = self._queue.popleft()
+            slot = self._free.pop()
+            plan = self._paged_admit_plan(req, slot, req.prompt)
+            self._admitting = [req, slot, plan, 0]
+        return self._ragged_advance()
+
+    def _ragged_advance(self) -> bool:
+        """One packed ragged-prefill dispatch: the primary admission's next
+        tail segment plus, while capacity remains, the whole tails of
+        further queued requests, packed token-block-aligned into the
+        smallest pack capacity that fits."""
+        req, slot, plan, idx = self._admitting
+        bt = self._ragged_bt
+        cap_max = self._ragged_caps[-1]
+        # ``idx`` is the next global position to prefill (0 = nothing
+        # dispatched yet: start past the prefix hit of the admit plan; a
+        # first dispatch always advances past position 0)
+        cur = plan[0][0] if idx == 0 else idx
+        n = min(req.prompt.size - cur, cap_max)
+        try:
+            self._ensure_writable(req, slot, cur, cur + n - 1)
+        except PagePressure:
+            self._abort_admission(SHED_PAGE_EXHAUSTED)
+            return True
+        # packs: [request, slot, s0, s1, primary]. The primary may be
+        # mid-tail (longer than the largest pack); co-admitted tails are
+        # always whole, so every co-admit completes in this dispatch
+        packs = [[req, slot, cur, cur + n, True]]
+        used = -(-n // bt) * bt
+        while self._free and self._queue and used + bt <= cap_max:
+            nxt = self._queue[0]
+            if used + -(-int(nxt.prompt.size) // bt) * bt > cap_max:
+                break
+            self._queue.popleft()
+            slot2 = self._free.pop()
+            hit2 = self._paged_admit_plan(nxt, slot2, nxt.prompt)[0][0]
+            n2 = int(nxt.prompt.size) - hit2
+            try:
+                self._ensure_writable(nxt, slot2, hit2, hit2 + n2 - 1)
+            except PagePressure:
+                # back out and requeue at the head: it re-admits alone
+                self._release_slot_pages(slot2)
+                self._free.append(slot2)
+                nxt.prefix_hit = 0
+                self._queue.appendleft(nxt)
+                break
+            packs.append([nxt, slot2, hit2, hit2 + n2, False])
+            used += -(-n2 // bt) * bt
+        rcap = next(c for c in self._ragged_caps if c >= used)
+        ids = np.zeros((1, rcap), np.int64)
+        row_slot = np.full((rcap,), -1, np.int32)
+        row_pos = np.full((rcap,), -1, np.int32)
+        hist = np.zeros((self.num_slots,), np.int32)
+        last_rows = {}
+        r = 0
+        for preq, psl, s0, s1, _ in packs:
+            nseg = s1 - s0
+            nb = -(-nseg // bt)
+            ids[0, r:r + nseg] = preq.prompt[s0:s1]
+            # pad rows of a pack's last block keep the slot id (the kernel
+            # reads the block's first row to name its slot); pads are dead
+            # through pos = -1
+            row_slot[r:r + nb * bt] = psl
+            row_pos[r:r + nseg] = np.arange(s0, s1)
+            hist[psl] = s0
+            last_rows[psl] = r + nseg - 1
+            r += nb * bt
+        dev = self.device
+        row_pos_t = torch.as_tensor(row_pos, device=dev)
+        logits = self.model(
+            torch.as_tensor(ids, device=dev),
+            row_pos_t.clamp(min=0)[None],
+            cache=self._arena,
+            cache_positions=row_pos_t[None],
+            page_table=self._page_tables,
+            ragged_slots=torch.as_tensor(row_slot, device=dev),
+            slot_hist=torch.as_tensor(hist, device=dev),
+        )[0]  # [rcap, V]
+        self.prefill_dispatches += 1
+        fresh = sum(s1 - s0 for _, _, s0, s1, _ in packs)
+        self.prefill_packed_tokens += fresh
+        done = [p for p in packs if not (p[4] and p[3] < p[0].prompt.size)]
+        firsts = {}
+        if done:
+            rows = logits[[last_rows[p[1]] for p in done]]
+            if self.temperature == 0.0:
+                toks = _sample(rows, None, 0.0, None).tolist()
+            else:
+                toks = [int(_sample(rows[i:i + 1], p[0].generator,
+                                    self.temperature, self.top_k)[0])
+                        for i, p in enumerate(done)]
+            firsts = {p[1]: int(t) for p, t in zip(done, toks)}
+        now = time.perf_counter()
+        for preq, psl, s0, s1, primary in packs:
+            preq.prefill_dispatches += 1
+            if primary and s1 < preq.prompt.size:
+                # mid-tail: the primary stays the admission and resumes at
+                # position s1 next iteration (it filled the whole pack, so
+                # it never coexists with co-admits)
+                self._admitting[3] = s1
+                continue
+            if primary:
+                self._admitting = None
+            self._insert_prefix(preq, psl)
+            first_tok = firsts[psl]
+            self._tokens[psl] = first_tok
+            self._lengths[psl] = preq.prompt.size
+            preq.slot = psl
+            self._slot_req[psl] = preq
+            self._active[psl] = True
+            preq.first_token_t = now
+            self._ttft.append(now - preq.submit_t)
+            self._emit(preq, first_tok, now)
+        return True
+
+    # -- decode --------------------------------------------------------------
+
+    def _next_write_pos(self, req: Request) -> int:
+        """The slot's next cache write position: the latest emitted token's
+        K/V has not been written yet."""
+        return req.prompt.size + len(req.tokens) - 1
+
+    def _grow_or_resolve(self, req: Request, slot: int, lo: int, hi: int) -> bool:
+        """Grow a live slot's pages for the next write range; under page
+        pressure with nothing to evict, shed ``req`` itself. True when the
+        slot is still live and writable."""
+        try:
+            self._ensure_writable(req, slot, lo, hi)
+            return True
+        except PagePressure:
+            req.shed_reason = SHED_PAGE_EXHAUSTED
+            self._terminate(req, time.perf_counter(), "shed", "shed")
+            return False
+
+    def _decode_once(self) -> bool:
+        if not self._slot_req:
+            return False
+        for slot, req in list(self._slot_req.items()):
+            pos = self._next_write_pos(req)
+            self._grow_or_resolve(req, slot, pos, pos)
+        if not self._slot_req:
+            return True  # every live slot was shed under page pressure
+        # inactive slots still flow through the fixed-batch step but must
+        # not write at ``lengths`` (a slot mid-admission has its prefix
+        # there): park them on the LAST cache position, which any request
+        # reaching it writes before attending. A freed slot's table row
+        # points at the parking page, so a parked write never lands in
+        # another request's page.
+        write_pos = np.where(self._active, self._lengths, self.max_cache_len - 1)
+        dev = self.device
+        pos_t = torch.as_tensor(write_pos, device=dev)
+        t0 = time.perf_counter()
+        logits = self.model(
+            torch.as_tensor(self._tokens, device=dev)[:, None],
+            pos_t[:, None],
+            cache=self._arena,
+            cache_positions=pos_t,
+            page_table=self._page_tables,
+        )[:, -1]  # [N, V]
+        live = list(self._slot_req.items())
+        if self.temperature == 0.0:
+            host = _sample(logits, None, 0.0, None).cpu().numpy()
+        else:
+            host = self._tokens.copy()
+            for slot, req in live:
+                host[slot] = int(_sample(logits[slot:slot + 1], req.generator,
+                                         self.temperature, self.top_k)[0])
+        now = time.perf_counter()
+        wall = now - t0
+        self.step_count += 1
+        for slot, _ in live:
+            self._tokens[slot] = host[slot]
+            self._lengths[slot] += 1
+        for slot, req in live:
+            self._emit(req, int(host[slot]), now)
+        self._step_samples.append((wall, len(live)))
+        return True
+
+    def _emit(self, req: Request, token: int, now: float):
+        req.tokens.append(token)
+        self.generated_tokens += 1
+        if req.on_token is not None:
+            try:
+                req.on_token(token, req)
+            except Exception:
+                # a raising consumer costs exactly its own request, never
+                # the serving loop
+                self._terminate(req, now, "cancelled", "callback_error")
+                return
+        if self.eos_token_id is not None and token == self.eos_token_id:
+            self._finish(req, now, "eos")
+        elif len(req.tokens) >= req.max_new_tokens:
+            self._finish(req, now, "budget")
+
+    def _finish(self, req: Request, now: float, reason: str = "budget"):
+        self._terminate(req, now, "finished", reason)
+
+    # -- metrics -------------------------------------------------------------
+
+    def metrics(self) -> dict:
+        """Serving gauges, ``serving/``-namespaced like the reference's."""
+        out = {
+            "serving/queue_depth": len(self._queue),
+            "serving/slot_occupancy": len(self._slot_req) / self.num_slots,
+            "serving/requests_completed": self.requests_completed,
+            "serving/requests_shed": self.requests_shed,
+            "serving/generated_tokens": self.generated_tokens,
+            "serving/decode_steps": self.step_count,
+            "serving/prefill_dispatches": self.prefill_dispatches,
+            "serving/prefill_packed_tokens": self.prefill_packed_tokens,
+            "serving/arena_bytes": self.arena_bytes,
+            "serving/pages_in_use": self._allocator.in_use,
+            "serving/pages_total": self.num_pages,
+            "serving/page_forks": self.page_forks,
+        }
+        if self._step_samples:
+            wall = sum(w for w, _ in self._step_samples)
+            toks = sum(n for _, n in self._step_samples)
+            if wall > 0:
+                out["serving/tokens_per_s"] = toks / wall
+            out["serving/decode_step_ms_p50"] = 1e3 * float(
+                np.median([w for w, _ in self._step_samples])
+            )
+        if self._ttft:
+            out["serving/ttft_ms_p50"] = 1e3 * float(np.median(self._ttft))
+        if self._prefix is not None:
+            out["serving/prefix_hit_ratio"] = self._prefix.hit_ratio
+            out["serving/prefix_hit_tokens"] = self._prefix.hit_tokens
+        return out

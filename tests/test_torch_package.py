@@ -1,0 +1,143 @@
+"""Package-level contracts of the PyTorch/CUDA port.
+
+- ``accelerate_tpu_torch`` (and ``chip_smoke.py``) import no ``jax``,
+  ``flax``, ``optax`` or ``accelerate_tpu`` module: an AST scan of every
+  source, plus a fresh interpreter that imports the package and finds no
+  JAX in ``sys.modules``.
+- Entry points (the model, the weight init, the engine) mean CUDA when
+  given no device and raise without it, unless ``device="cpu"`` is given.
+- The kernel wrappers take CPU tensors to the plain version without
+  counting a launch, refuse any other non-CUDA device, and build with an
+  nvcc command for ``sm_90a``; later-slice options raise.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from accelerate_tpu_torch.models.configs import DecoderConfig
+from accelerate_tpu_torch.models.convert import random_params
+from accelerate_tpu_torch.models.decoder import DecoderLM
+from accelerate_tpu_torch.ops import attention, kernels
+from accelerate_tpu_torch.serving.engine import ServingEngine
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "accelerate_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, accelerate_tpu_torch, accelerate_tpu_torch.serving.engine; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; "
+            "assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    cfg = DecoderConfig.tiny()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DecoderLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        random_params(cfg)
+    model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(model, max_cache_len=64, page_size=8)
+    eng = ServingEngine(model, max_cache_len=64, page_size=8, device="cpu")
+    out = eng.generate_batched([np.arange(3, 9)], max_new_tokens=2)
+    assert out[0].shape == (8,)
+
+
+def test_engine_rejects_model_on_other_device():
+    cfg = DecoderConfig.tiny()
+    model = DecoderLM(cfg, device="meta")
+    with pytest.raises(ValueError, match="model lives on"):
+        ServingEngine(model, max_cache_len=64, page_size=8, device="cpu")
+
+
+def test_wrappers_route_cpu_tensors_to_plain():
+    rng = np.random.RandomState(0)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 1, 16)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((5, 2, 8, 16)).astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((5, 2, 8, 16)).astype(np.float32))
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    pos = torch.tensor([[9], [4]], dtype=torch.int32)
+    before = dict(kernels.launch_counts)
+    out = kernels.paged_decode(q, kp, vp, table, pos, 0.25)
+    ref = attention.paged_decode_reference(q, kp, vp, table, pos, 0.25)
+    assert kernels.launch_counts == before
+    torch.testing.assert_close(out, ref, atol=0.0, rtol=0.0)
+
+
+def test_wrappers_refuse_other_devices():
+    """No silent fallback: a tensor that is neither on the CPU nor on a
+    CUDA device is refused, not run through the plain version."""
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    q = torch.empty((2, 4, 1, 16), **meta)
+    kp = torch.empty((5, 2, 8, 16), **meta)
+    table = torch.empty((2, 2), device="meta", dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="neither CPU"):
+        kernels.paged_decode(q, kp, kp, table, table[:, :1], 0.25)
+    with pytest.raises(RuntimeError, match="neither CPU"):
+        kernels.ragged_prefill(q[:1], kp[:1], kp[:1], kp, kp, table, table[0],
+                               table[0], table[0], 0.25, 8)
+
+
+@pytest.mark.parametrize("name", sorted(kernels.KERNELS))
+def test_nvcc_command_targets_sm90a(name, tmp_path):
+    cmd = kernels.nvcc_command(name, tmp_path / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert str(kernels.CSRC / kernels.KERNELS[name][0]) in cmd
+    assert {"-shared", "-O3"} <= set(cmd)
+    assert (kernels.CSRC / kernels.KERNELS[name][0]).exists()
+    assert kernels.library_path(name).parent == kernels.BUILD_DIR
+
+
+def test_later_slices_raise():
+    with pytest.raises(NotImplementedError, match="later slice"):
+        DecoderConfig.tiny(kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        DecoderConfig.tiny(moe_num_experts=4)
+    cfg = DecoderConfig.tiny()
+    model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
+    with pytest.raises(NotImplementedError, match="speculative"):
+        ServingEngine(model, max_cache_len=64, device="cpu", spec_draft_len=2)
+    with pytest.raises(NotImplementedError, match="flat slot arena"):
+        ServingEngine(model, max_cache_len=64, device="cpu", page_size=None)
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        model(ids, cache=[{}] * cfg.num_layers)
+    flash = DecoderLM(DecoderConfig.tiny(attention_impl="flash"), device="cpu")
+    with pytest.raises(NotImplementedError, match="flash"):
+        flash(ids)
