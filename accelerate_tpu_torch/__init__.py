@@ -1,22 +1,34 @@
-"""PyTorch/CUDA port of ``accelerate_tpu``'s paged serving path.
+"""PyTorch/CUDA port of ``accelerate_tpu``: paged serving and the
+training step.
 
 The JAX package (``accelerate_tpu``) stays the reference; this package is
 its counterpart for an NVIDIA H100. Module paths mirror the reference:
 
 - ``models/configs.py``, ``models/decoder.py``, ``models/convert.py``
-- ``ops/layers.py``, ``ops/attention.py`` (plain versions + kernel
-  dispatch), ``ops/kernels.py`` (nvcc build, ctypes binding, checked
-  wrappers with launch counters), ``csrc/*.cu`` (the hand-written
-  Hopper kernels)
+- ``ops/layers.py``, ``ops/losses.py``, ``ops/attention.py`` (plain
+  versions + kernel dispatch), ``ops/kernels.py`` (nvcc build, ctypes
+  binding, checked wrappers with launch counters), ``csrc/*.cu`` (the
+  hand-written Hopper kernels)
 - ``serving/pages.py``, ``serving/engine.py``, ``generation.py``
+- ``accelerator.py``, ``optimizer.py``, ``scheduler.py``, ``state.py``,
+  ``data.py``, ``utils/dataclasses.py`` (the training contract)
 
 Entry points take ``device=None``, which means CUDA; without CUDA they
 raise unless the caller passes ``device="cpu"`` (the plain PyTorch
 versions of the kernels then run). Nothing here imports JAX.
 """
 
+from .accelerator import Accelerator
 from .models.configs import DecoderConfig
 from .models.decoder import DecoderLM
+from .optimizer import AcceleratedOptimizer
+from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
 from .serving.engine import ServingEngine
+from .state import AcceleratorState, GradientState
+from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionConfig
 
-__all__ = ["DecoderConfig", "DecoderLM", "ServingEngine"]
+__all__ = [
+    "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",
+    "DecoderConfig", "DecoderLM", "GradientAccumulationPlugin", "GradientState",
+    "MixedPrecisionConfig", "ServingEngine", "warmup_cosine_decay_schedule",
+]

@@ -1,10 +1,10 @@
-"""Decoder configuration and size presets (the serving path's fields).
+"""Decoder configuration and size presets.
 
 Counterpart of ``accelerate_tpu/models/configs.py``: the same field names
-and defaults for everything paged serving reads, with torch dtypes. The
-training-only knobs (remat, scan, pipeline, streaming) are not carried;
-fp8, MoE and the int8/int4 KV precisions are accepted as fields and
-raise ``NotImplementedError`` until their slices are ported.
+and defaults for everything paged serving and the training step read,
+with torch dtypes. fp8, MoE, dropout, pipelining and the int8/int4 KV
+precisions are accepted as fields and raise ``NotImplementedError``
+until their slices are ported; weight streaming is not carried.
 """
 
 from __future__ import annotations
@@ -31,10 +31,23 @@ class DecoderConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16  # compute dtype for activations
-    # cache-free attention: "auto" and "xla" run the plain attention
-    # (mha_reference); "flash" belongs to the training slice and raises
-    # until its kernels are ported
+    # cache-free attention (ops/attention.dot_product_attention): "flash"
+    # runs the flash kernels (their plain versions on the CPU), "xla" the
+    # plain attention, "auto" the kernels on CUDA where the shapes allow
     attention_impl: str = "auto"
+    # training: per-block activation checkpointing. "full" recomputes the
+    # whole block in backward; "save_attention" keeps the flash kernel's
+    # out and lse (and, unlike the reference, its q/k/v inputs: PERF.md);
+    # "save_dots" is a later slice
+    remat: bool = True
+    remat_policy: str = "save_attention"
+    # the reference rolls the blocks into one lax.scan; eager PyTorch runs
+    # the same blocks in a loop, so this changes nothing numerically. Kept
+    # so a reference config carries over (it decides the reference tree's
+    # layout, see models/convert.py)
+    scan_layers: bool = True
+    # token chunks of the fused LM-head cross entropy (ops/losses.py)
+    fused_ce_chunks: int = 8
     # KV-cache length for generation (None -> max_seq_len)
     max_cache_len: Optional[int] = None
     # KV-cache storage precision; the paged arena's geometry (page size,
@@ -46,6 +59,8 @@ class DecoderConfig:
     # over, rejected in __post_init__ until ported
     use_fp8: bool = False
     moe_num_experts: int = 0
+    dropout_rate: float = 0.0
+    pipeline_stages: int = 1
 
     def __post_init__(self):
         if self.num_kv_heads is None:
@@ -81,6 +96,29 @@ class DecoderConfig:
                 "moe_num_experts: MoE blocks are a later slice of the port "
                 "(ROADMAP queue 1, other families)"
             )
+        if self.dropout_rate > 0.0:
+            raise NotImplementedError(
+                "dropout_rate > 0: dropout belongs to a later slice of the port "
+                "(ROADMAP queue 1, training options); JAX's dropout bits cannot "
+                "be reproduced in torch, so it would be held by distribution"
+            )
+        if self.pipeline_stages > 1:
+            raise NotImplementedError(
+                "pipeline_stages > 1: pipelining is multi-device, a later slice "
+                "of the port (ROADMAP queue 1, multi-device)"
+            )
+        if self.remat_policy == "save_dots":
+            raise NotImplementedError(
+                "remat_policy='save_dots' belongs to a later slice of the port "
+                "(ROADMAP queue 1, training options)"
+            )
+        if self.remat_policy not in ("full", "save_attention"):
+            raise ValueError(
+                f"remat_policy must be 'full', 'save_attention' or 'save_dots', "
+                f"got {self.remat_policy!r}"
+            )
+        if self.fused_ce_chunks < 1:
+            raise ValueError(f"fused_ce_chunks must be >= 1, got {self.fused_ce_chunks}")
         if self.attention_impl not in ("xla", "flash", "auto"):
             raise ValueError(
                 f"attention_impl must be 'auto', 'flash' or 'xla', got "
@@ -112,6 +150,7 @@ class DecoderConfig:
         kw.setdefault("mlp_dim", 128)
         kw.setdefault("max_seq_len", 128)
         kw.setdefault("dtype", torch.float32)
+        kw.setdefault("remat", False)
         return cls(**kw)
 
     @classmethod

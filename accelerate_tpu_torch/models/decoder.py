@@ -1,12 +1,28 @@
-"""LLaMA-family causal decoder for the paged serving path.
+"""LLaMA-family causal decoder: paged serving and the training step.
 
 Counterpart of ``accelerate_tpu/models/decoder.py``. Parameters keep the
 reference's layouts (``wq [E, H, D]``, ``wk``/``wv [E, KVH, D]``,
 ``wo [H, D, E]``, ``w_gate``/``w_up [E, M]``, ``w_down [M, E]``,
 ``embedding [V, E]``, ``lm_head [E, V]``) so converted weights load
-without transposes. Matmul weights and the embedding are stored in the
-compute dtype (the reference casts them there at every use, which rounds
-the same way); norm weights stay fp32.
+without transposes. By default (serving) matmul weights and the embedding
+are stored in the compute dtype (the reference casts them there at every
+use, which rounds the same way) and norm weights stay fp32; training
+passes ``param_dtype=torch.float32`` for fp32 master weights, which every
+forward casts at use: matmul weights and the embedding to the compute
+dtype as the reference model does, and every floating parameter first to
+the Accelerator's compute dtype when its mixed precision sets one
+(:meth:`DecoderLM.set_param_cast`, the reference's ``_cast_params``).
+
+Training (``labels`` given, no cache): attention through
+``ops/attention.dot_product_attention`` (the flash kernels under
+``attention_impl="flash"``, or ``"auto"`` on CUDA where shapes allow),
+then the final norm, the tied LM head and the fused chunked cross entropy
+(``ops/losses.py``), returning ``{"loss": ...}``. With ``config.remat``
+each block is checkpointed (``torch.utils.checkpoint``): ``"full"``
+recomputes the whole block, the flash forward included, in backward;
+``"save_attention"`` checkpoints the parts before and after the flash op
+separately, so its saved q, k, v, out and lse are reused and the forward
+kernel runs once.
 
 ``DecoderAttention`` carries two cache branches, both over the paged
 arena (per layer ``{"k", "v"}`` leaves of [num_pages, KVH, page_size, D],
@@ -17,8 +33,9 @@ updated IN PLACE; the page size is read from the leaves):
 - packed ragged prefill (``ragged_slots`` + ``slot_hist``): the ragged
   prefill kernel, then the scatter (pad rows land on parking page 0).
 
-With no cache the forward is the plain causal attention
-(``mha_reference``), used as the teacher-forced oracle. Every other
+With no cache the forward is the cache-free causal attention of
+``dot_product_attention`` (the plain ``mha_reference`` unless the flash
+kernels are chosen), used as the teacher-forced oracle. Every other
 reference branch raises ``NotImplementedError`` naming its later slice.
 """
 
@@ -29,13 +46,16 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (
-    mha_reference,
+    dot_product_attention,
+    flash_route,
     paged_decode_attention,
     ragged_prefill_attention,
 )
 from ..ops.layers import apply_rotary_embedding, rms_norm, rotary_embedding_tables, swiglu
+from ..ops.losses import fused_linear_cross_entropy
 from .configs import DecoderConfig
 
 
@@ -55,34 +75,62 @@ def _later(what: str, where: str):
     raise NotImplementedError(f"{what} belongs to a later slice of the port ({where})")
 
 
-class DecoderAttention(nn.Module):
+class _Module(nn.Module):
+    """Base of the decoder's modules: parameters made on one device, and
+    the mixed-precision cast every parameter takes at use."""
+
+    # the Accelerator's compute dtype (set_param_cast), None without one
+    param_cast: Optional[torch.dtype] = None
+
+    def _param(self, shape, device, dtype):
+        return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+
+    def _use(self, p: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``p`` as the forward reads it: rounded to the mixed-precision
+        compute dtype if one is set, then to ``dtype`` if given."""
+        if self.param_cast is not None:
+            p = p.to(self.param_cast)
+        return p if dtype is None else p.to(dtype)
+
+
+class DecoderAttention(_Module):
     def __init__(self, config: DecoderConfig, device, param_dtype):
         super().__init__()
         e, h, kv, d = config.embed_dim, config.num_heads, config.num_kv_heads, config.head_dim
         self.config = config
+        self.wq = self._param((e, h, d), device, param_dtype)
+        self.wk = self._param((e, kv, d), device, param_dtype)
+        self.wv = self._param((e, kv, d), device, param_dtype)
+        self.wo = self._param((h, d, e), device, param_dtype)
 
-        def p(*shape):
-            return nn.Parameter(torch.empty(shape, device=device, dtype=param_dtype),
-                                requires_grad=False)
-
-        self.wq, self.wk, self.wv = p(e, h, d), p(e, kv, d), p(e, kv, d)
-        self.wo = p(h, d, e)
-
-    def forward(self, x, sin, cos, cache=None, cache_positions=None,
-                page_table=None, ragged_slots=None, slot_hist=None):
+    def qkv(self, x, sin, cos):
+        """Projections and RoPE: x [B, S, E] -> q [B, H, S, D], k/v
+        [B, KVH, S, D] (views of the projections, not contiguous)."""
         cfg = self.config
-        e, h, kv, d = cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        e, h, kv, d, dt = cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.dtype
         b, s = x.shape[0], x.shape[1]
-        q = (x @ self.wq.reshape(e, h * d)).reshape(b, s, h, d).transpose(1, 2)
-        k = (x @ self.wk.reshape(e, kv * d)).reshape(b, s, kv, d).transpose(1, 2)
-        v = (x @ self.wv.reshape(e, kv * d)).reshape(b, s, kv, d).transpose(1, 2)
-        q = apply_rotary_embedding(q, sin, cos)
-        k = apply_rotary_embedding(k, sin, cos)
+        q = (x @ self._use(self.wq, dt).reshape(e, h * d)).reshape(b, s, h, d).transpose(1, 2)
+        k = (x @ self._use(self.wk, dt).reshape(e, kv * d)).reshape(b, s, kv, d).transpose(1, 2)
+        v = (x @ self._use(self.wv, dt).reshape(e, kv * d)).reshape(b, s, kv, d).transpose(1, 2)
+        return apply_rotary_embedding(q, sin, cos), apply_rotary_embedding(k, sin, cos), v
 
+    def project_out(self, out):
+        """Attention output [B, H, S, D] -> [B, S, E]."""
+        cfg = self.config
+        b, h, s, d = out.shape
+        out = out.transpose(1, 2).reshape(b, s, h * d)
+        return out @ self._use(self.wo, cfg.dtype).reshape(h * d, cfg.embed_dim)
+
+    def attend(self, q, k, v, kv_mask=None):
+        """Cache-free causal attention (training, and the plain forward)."""
+        return dot_product_attention(q, k, v, causal=True, kv_mask=kv_mask,
+                                     impl=self.config.attention_impl)
+
+    def forward(self, x, sin, cos, kv_mask=None, cache=None, cache_positions=None,
+                page_table=None, ragged_slots=None, slot_hist=None):
+        q, k, v = self.qkv(x, sin, cos)
         if cache is None:
-            if cfg.attention_impl == "flash":
-                _later("flash attention (training forward)", "ROADMAP queue 2, kernels 1-3")
-            out = mha_reference(q, k, v, causal=True)
+            out = self.attend(q, k, v, kv_mask)
         elif page_table is None or cache_positions is None:
             _later("the flat (non-paged) KV cache and whole-prompt prefill",
                    "ROADMAP queue 1, generate()")
@@ -91,8 +139,7 @@ class DecoderAttention(nn.Module):
                                        ragged_slots, slot_hist)
         else:
             out = self._paged_decode(q, k, v, cache, cache_positions, page_table)
-        out = out.transpose(1, 2).reshape(b, s, h * d)
-        return out @ self.wo.reshape(h * d, e)
+        return self.project_out(out)
 
     def _ragged_prefill(self, q, k, v, cache, cache_positions, page_table,
                         ragged_slots, slot_hist):
@@ -143,67 +190,103 @@ class DecoderAttention(nn.Module):
         )
 
 
-class DecoderMLP(nn.Module):
+class DecoderMLP(_Module):
     def __init__(self, config: DecoderConfig, device, param_dtype):
         super().__init__()
         e, m = config.embed_dim, config.mlp_dim
         self.config = config
-
-        def p(*shape):
-            return nn.Parameter(torch.empty(shape, device=device, dtype=param_dtype),
-                                requires_grad=False)
-
-        self.w_gate, self.w_up, self.w_down = p(e, m), p(e, m), p(m, e)
+        self.w_gate = self._param((e, m), device, param_dtype)
+        self.w_up = self._param((e, m), device, param_dtype)
+        self.w_down = self._param((m, e), device, param_dtype)
 
     def forward(self, x):
-        return swiglu(x @ self.w_gate, x @ self.w_up) @ self.w_down
+        dt = self.config.dtype
+        gate = x @ self._use(self.w_gate, dt)
+        up = x @ self._use(self.w_up, dt)
+        return swiglu(gate, up) @ self._use(self.w_down, dt)
 
 
-class DecoderBlock(nn.Module):
-    def __init__(self, config: DecoderConfig, device, param_dtype):
+class DecoderBlock(_Module):
+    def __init__(self, config: DecoderConfig, device, param_dtype, norm_dtype):
         super().__init__()
         self.config = config
-        self.ln_attn = nn.Parameter(torch.ones(config.embed_dim, device=device),
-                                    requires_grad=False)
-        self.ln_mlp = nn.Parameter(torch.ones(config.embed_dim, device=device),
-                                   requires_grad=False)
+        self.ln_attn = nn.Parameter(torch.ones(config.embed_dim, device=device, dtype=norm_dtype))
+        self.ln_mlp = nn.Parameter(torch.ones(config.embed_dim, device=device, dtype=norm_dtype))
         self.attn = DecoderAttention(config, device, param_dtype)
         self.mlp = DecoderMLP(config, device, param_dtype)
 
-    def forward(self, x, sin, cos, **cache_kw):
-        y = rms_norm(x, self.ln_attn, self.config.norm_eps)
-        x = x + self.attn(y, sin, cos, **cache_kw)
-        y = rms_norm(x, self.ln_mlp, self.config.norm_eps)
-        return x + self.mlp(y)
+    def _norm(self, x, w):
+        return rms_norm(x, self._use(w), self.config.norm_eps)
+
+    def _mlp_half(self, x, attn_out):
+        """Residual of the attention output, then the MLP half."""
+        x = x + self.attn.project_out(attn_out)
+        return x + self.mlp(self._norm(x, self.ln_mlp))
+
+    def _pre_attention(self, x, sin, cos):
+        q, k, v = self.attn.qkv(self._norm(x, self.ln_attn), sin, cos)
+        return q.contiguous(), k.contiguous(), v.contiguous()
+
+    def _plain(self, x, sin, cos, kv_mask=None, **cache_kw):
+        x = x + self.attn(self._norm(x, self.ln_attn), sin, cos, kv_mask=kv_mask, **cache_kw)
+        return x + self.mlp(self._norm(x, self.ln_mlp))
+
+    def forward(self, x, sin, cos, kv_mask=None, **cache_kw):
+        cfg = self.config
+        if not (cfg.remat and torch.is_grad_enabled() and cache_kw.get("cache") is None):
+            return self._plain(x, sin, cos, kv_mask=kv_mask, **cache_kw)
+        s = x.shape[1]
+        flash = flash_route(cfg.attention_impl, x.device, s, s, cfg.head_dim)
+        if cfg.remat_policy == "full" or not flash:
+            # with no flash residuals to keep, save_attention is full remat,
+            # as the reference's save_only_these_names policy then saves nothing
+            return checkpoint(self._plain, x, sin, cos, kv_mask, use_reentrant=False)
+        # save_attention: recompute the parts around the flash op, whose
+        # autograd context keeps q, k, v, out and lse
+        q, k, v = checkpoint(self._pre_attention, x, sin, cos, use_reentrant=False)
+        out = self.attn.attend(q, k, v, kv_mask)
+        return checkpoint(self._mlp_half, x, out, use_reentrant=False)
 
 
-class DecoderLM(nn.Module):
-    """Causal LM: ``forward(input_ids, positions, ...) -> logits`` fp32.
+class DecoderLM(_Module):
+    """Causal LM: ``forward(input_ids, positions, ...) -> logits`` fp32, or
+    ``{"loss": ...}`` when ``labels`` are given (training).
 
     ``cache`` is the paged arena (a list over layers of ``{"k", "v"}``
     tensors, see ``serving/pages.init_paged_arena``), mutated in place.
     ``device=None`` means CUDA and raises without it; pass
-    ``device="cpu"`` for the plain versions on the CPU. Parameters are
-    created uninitialized: load them with ``models/convert.py``."""
+    ``device="cpu"`` for the plain versions on the CPU. ``param_dtype``
+    None stores matmul weights and the embedding in the compute dtype and
+    norms in fp32, frozen (serving); a dtype stores every parameter in it,
+    trainable (fp32 master weights for training). Parameters are created
+    uninitialized: load them with ``models/convert.py``."""
 
-    def __init__(self, config: DecoderConfig, device=None):
+    def __init__(self, config: DecoderConfig, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
         self.device = resolve_device(device)
-        dt = config.dtype
-        self.embedding = nn.Parameter(
-            torch.empty(config.vocab_size, config.embed_dim, device=self.device, dtype=dt),
-            requires_grad=False)
+        dt = param_dtype or config.dtype
+        norm_dt = param_dtype or torch.float32
+        self.embedding = self._param((config.vocab_size, config.embed_dim), self.device, dt)
         self.layers = nn.ModuleList(
-            DecoderBlock(config, self.device, dt) for _ in range(config.num_layers)
+            DecoderBlock(config, self.device, dt, norm_dt) for _ in range(config.num_layers)
         )
-        self.ln_final = nn.Parameter(torch.ones(config.embed_dim, device=self.device),
-                                     requires_grad=False)
+        self.ln_final = nn.Parameter(
+            torch.ones(config.embed_dim, device=self.device, dtype=norm_dt))
         self.lm_head = None
         if not config.tie_embeddings:
-            self.lm_head = nn.Parameter(
-                torch.empty(config.embed_dim, config.vocab_size, device=self.device, dtype=dt),
-                requires_grad=False)
+            self.lm_head = self._param((config.embed_dim, config.vocab_size), self.device, dt)
+        if param_dtype is None:
+            self.requires_grad_(False)
+
+    def set_param_cast(self, dtype: Optional[torch.dtype]):
+        """Round every floating parameter to ``dtype`` at use (None: off).
+        The Accelerator sets its mixed-precision compute dtype here."""
+        for m in self.modules():
+            if isinstance(m, _Module):
+                m.param_cast = dtype
+        return self
 
     def load_params(self, params: dict):
         """Copy a weight dict (``models/convert.py``: numpy arrays or
@@ -215,10 +298,12 @@ class DecoderLM(nn.Module):
         return self
 
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                *, cache=None, cache_positions=None, page_table=None,
-                ragged_slots=None, slot_hist=None) -> torch.Tensor:
+                *, labels: Optional[torch.Tensor] = None, cache=None, cache_positions=None,
+                page_table=None, ragged_slots=None, slot_hist=None):
         cfg = self.config
         b, s = input_ids.shape
+        if labels is not None and cache is not None:
+            raise ValueError("labels (training loss) take the cache-free forward")
         if page_table is not None and cache_positions is None:
             raise ValueError("page_table (paged slot-arena decode) requires cache_positions")
         if (ragged_slots is not None) != (slot_hist is not None):
@@ -229,7 +314,8 @@ class DecoderLM(nn.Module):
             raise ValueError(
                 "ragged_slots (packed ragged prefill) requires page_table and cache_positions"
             )
-        x = self.embedding[input_ids.long()].to(cfg.dtype)
+        # gather, then cast: the same values as casting the whole table first
+        x = self._use(self.embedding[input_ids.long()], cfg.dtype)
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)
         sin, cos = rotary_embedding_tables(positions, cfg.head_dim,
@@ -240,6 +326,20 @@ class DecoderLM(nn.Module):
                 cache_positions=cache_positions, page_table=page_table,
                 ragged_slots=ragged_slots, slot_hist=slot_hist,
             )
-        x = rms_norm(x, self.ln_final, cfg.norm_eps)
-        head = self.embedding.t() if cfg.tie_embeddings else self.lm_head
+        x = rms_norm(x, self._use(self.ln_final), cfg.norm_eps)
+        head = self._use(self.embedding.t() if cfg.tie_embeddings else self.lm_head, cfg.dtype)
+        if labels is not None:
+            return {"loss": self._head_ce_loss(x, head, labels)}
         return (x @ head).float()
+
+    def _head_ce_loss(self, x, head, labels):
+        """HF convention, as the reference's ``_head_ce_loss``: labels ==
+        input_ids, shifted here so position i predicts token i+1; mean CE
+        over the targets that are not -100, through the fused chunked
+        LM head."""
+        cfg = self.config
+        b, s = x.shape[0], x.shape[1]
+        hidden = x[:, :-1].reshape(b * (s - 1), cfg.embed_dim)
+        targets = labels[:, 1:].reshape(b * (s - 1))
+        return fused_linear_cross_entropy(hidden, head, targets, ignore_index=-100,
+                                          num_chunks=cfg.fused_ce_chunks)

@@ -1,5 +1,5 @@
-"""Attention for the paged serving path: plain PyTorch versions and the
-dispatch to the hand-written Hopper kernels.
+"""Attention: plain PyTorch versions and the dispatch to the hand-written
+Hopper kernels.
 
 Counterpart of ``accelerate_tpu/ops/attention.py``. Layouts match the
 reference's public functions: q [B, H, S, D], k/v [B, KVH, S, D], paged
@@ -12,6 +12,14 @@ Each kernel sits beside its plain version:
   (csrc/paged_decode.cu); plain version :func:`paged_decode_reference`.
 - :func:`ragged_prefill_attention` -> ``ops/kernels.ragged_prefill``
   (csrc/ragged_prefill.cu); plain version :func:`ragged_prefill_reference`.
+- :func:`flash_attention` (one ``torch.autograd.Function``),
+  :func:`flash_attention_with_lse` and :func:`flash_attention_bwd` ->
+  ``ops/kernels.flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv``
+  (csrc/flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu); plain versions
+  :func:`flash_fwd_reference`, :func:`flash_bwd_dq_reference` and
+  :func:`flash_bwd_dkv_reference`.
+- :func:`dot_product_attention` dispatches between the flash kernels and
+  :func:`mha_reference`, as the reference's dispatcher does.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises. Nothing falls back from the device to the plain version.
@@ -30,6 +38,11 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps exp() semantics with no
 PREFILL_TOKEN_BLOCK = 8
 # widest multi-query decode the kernel takes (decode 1, speculative verify K+1)
 DECODE_KERNEL_MAX_SQ = 16
+# what the flash kernels take: head dims, and the tile every sequence
+# length must fill (the public functions ask for the reference's
+# 128-multiples, see _pick_block)
+FLASH_KERNEL_HEAD_DIMS = (64, 128)
+FLASH_KERNEL_SEQ_MULTIPLE = 64
 
 
 def mha_reference(
@@ -218,3 +231,291 @@ def ragged_prefill_attention(
         row_slot.to(torch.int32), row_pos.to(torch.int32),
         slot_hist.to(torch.int32), scale, bt,
     )
+
+
+# ---------------------------------------------------------------------------
+# flash attention (the training path): plain versions of the three kernels,
+# the autograd Function, the public functions and the dispatcher.
+#
+# Semantics of the reference's Pallas kernels (accelerate_tpu/ops/
+# attention.py _mask_block / _fwd_kernel / _dq_kernel / _dkv_kernel):
+# causal is ``col <= row`` on global indices (top-left aligned, unlike
+# mha_reference's bottom-right ``tril(k = skv - sq)``; the two agree when
+# Sq == Skv); ``kv_mask`` [B, Skv] nonzero may be attended; segment ids
+# [B, S] attend iff equal; masked scores are NEG_INF and masked p is
+# exactly 0. A row with no attended key gives out = 0 and lse = NEG_INF
+# (the reference's forward gives the mean of the V rows it visited there;
+# its backward treats the row as empty, as both versions here do).
+# ``masks`` is the tuple ``(kv_mask, q_seg, kv_seg)``, entries int32 or None.
+# ---------------------------------------------------------------------------
+
+
+def _pick_block(s: int) -> int:
+    """The reference's block choice (ops/attention.py _pick_block): the
+    public flash functions take what it takes, sequence lengths that are
+    multiples of 128. The kernels' own tiles are smaller (64)."""
+    for cand in (1024, 512, 256, 128):
+        if cand <= s and s % cand == 0:
+            return cand
+    return 0
+
+
+def _flash_valid(q, k, masks, causal: bool):
+    """Validity of every (row, col) as a bool tensor broadcastable to
+    [B, KVH, G, Sq, Skv], or None when nothing is masked."""
+    kv_mask, q_seg, kv_seg = masks
+    sq, skv = q.shape[2], k.shape[2]
+    valid = None
+
+    def both(a, m):
+        return m if a is None else a & m
+
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(skv, device=q.device)[None, :]
+        valid = (cols <= rows)[None, None, None]
+    if kv_mask is not None:
+        valid = both(valid, (kv_mask != 0)[:, None, None, None, :])
+    if q_seg is not None:
+        valid = both(valid, (q_seg[:, :, None] == kv_seg[:, None, :])[:, None, None])
+    return valid
+
+
+def _grouped(x, kvh):
+    b, h, s, d = x.shape
+    return x.reshape(b, kvh, h // kvh, s, d)
+
+
+def _flash_scores(q, k, masks, causal, sm_scale):
+    """fp32 scores [B, KVH, G, Sq, Skv], masked entries NEG_INF, and the
+    validity (None when unmasked)."""
+    qg = _grouped(q, k.shape[1])
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg.float(), k.float()) * sm_scale
+    valid = _flash_valid(q, k, masks, causal)
+    if valid is not None:
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    return s, valid
+
+
+def flash_fwd_reference(q, k, v, masks, causal: bool, sm_scale: float):
+    """Plain version of the flash forward kernel -> ``(out, lse [B, H, Sq]
+    fp32)``: one softmax over the whole row instead of the kernel's online
+    one, p rounded to v's dtype before the PV product, out = acc / l."""
+    b, h, sq, d = q.shape
+    s, valid = _flash_scores(q, k, masks, causal, sm_scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if valid is not None:
+        p = torch.where(valid, p, torch.zeros_like(p))
+    l = p.sum(dim=-1, keepdim=True)
+    safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
+    acc = torch.einsum("bkgqc,bkcd->bkgqd", p.to(v.dtype).float(), v.float())
+    out = (acc / safe_l).reshape(b, h, sq, d).to(q.dtype)
+    lse = torch.where(l == 0.0, torch.full_like(l, NEG_INF), m + torch.log(safe_l))
+    return out, lse.reshape(b, h, sq)
+
+
+def _flash_p_ds(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float):
+    """What both backward kernels recompute, fp32 [B, KVH, G, Sq, Skv]:
+    p = exp(s - lse) with masked p = 0, and dS = p (dO V^T - delta) scale."""
+    b, h, sq, _ = q.shape
+    kvh = k.shape[1]
+    s, valid = _flash_scores(q, k, masks, causal, sm_scale)
+    p = torch.exp(s - lse.reshape(b, kvh, h // kvh, sq, 1))
+    if valid is not None:
+        p = torch.where(valid, p, torch.zeros_like(p))
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", _grouped(do, kvh).float(), v.float())
+    return p, p * (dp - delta.reshape(b, kvh, h // kvh, sq, 1)) * sm_scale
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float):
+    """Plain version of the dQ kernel -> dq [B, H, Sq, D]: dQ = dS K with
+    dS rounded to k's dtype. ``lse`` and ``delta`` are [B, H, Sq] fp32
+    (delta = rowsum(dO * O), see :func:`flash_delta`)."""
+    b, h, sq, d = q.shape
+    _, ds = _flash_p_ds(q, k, v, do, lse, delta, masks, causal, sm_scale)
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds.to(k.dtype).float(), k.float())
+    return dq.reshape(b, h, sq, d).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float):
+    """Plain version of the dK/dV kernel -> ``(dk, dv)`` [B, KVH, Skv, D]:
+    dV = p^T dO with p in fp32, dK = dS^T q with dS rounded to q's dtype,
+    both summed over each kv head's query-head group."""
+    kvh = k.shape[1]
+    p, ds = _flash_p_ds(q, k, v, do, lse, delta, masks, causal, sm_scale)
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p, _grouped(do, kvh).float())
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds.to(q.dtype).float(), _grouped(q, kvh).float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, [B, H, Sq]: the backward kernels'
+    per-row input, computed outside them as the reference does."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def _int_masks(kv_mask, q_segment_ids, kv_segment_ids):
+    def as_int(t):
+        return None if t is None else t.to(torch.int32).contiguous()
+
+    return as_int(kv_mask), as_int(q_segment_ids), as_int(kv_segment_ids)
+
+
+def _flash_blocks(q, k):
+    if not _pick_block(q.shape[2]) or not _pick_block(k.shape[2]):
+        raise ValueError(
+            f"sequence lengths ({q.shape[2]}, {k.shape[2]}) need a 128-multiple block; "
+            "pad inputs or use dot_product_attention (auto-fallback)"
+        )
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash kernels as one differentiable op, in place of the
+    reference's ``_flash_core`` custom VJP. The forward keeps q, k, v, out
+    and lse for the backward, so a block that recomputes everything but
+    this op (remat ``save_attention``) never re-runs the forward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, q_seg, kv_seg, causal, sm_scale):
+        from . import kernels
+
+        masks = (kv_mask, q_seg, kv_seg)
+        out, lse = kernels.flash_fwd(q, k, v, masks, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse, kv_mask, q_seg, kv_seg)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from . import kernels
+
+        q, k, v, out, lse, kv_mask, q_seg, kv_seg = ctx.saved_tensors
+        masks = (kv_mask, q_seg, kv_seg)
+        do = do.contiguous()
+        delta = flash_delta(out, do)
+        dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, masks, ctx.causal, ctx.sm_scale)
+        dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, masks, ctx.causal,
+                                       ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Flash attention, differentiable. q [B, H, Sq, D]; k/v [B, KVH, Skv, D]
+    (KVH divides H; K/V are never expanded). ``kv_mask`` [B, Skv]: nonzero
+    may be attended. ``q_segment_ids`` / ``kv_segment_ids`` [B, S]: tokens
+    attend only within equal ids. Sequence lengths are multiples of 128,
+    as the reference's block choice asks. CUDA tensors run the kernels
+    (bf16), CPU tensors their plain versions."""
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    h, kvh = q.shape[1], k.shape[1]
+    if h % kvh:
+        raise ValueError(f"query heads ({h}) must be a multiple of kv heads ({kvh})")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("q_segment_ids and kv_segment_ids must be given together")
+    _flash_blocks(q, k)
+    kvm, qs, ks = _int_masks(kv_mask, q_segment_ids, kv_segment_ids)
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                kvm, qs, ks, bool(causal), float(sm_scale))
+
+
+def flash_attention_with_lse(
+    q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+):
+    """Forward only: ``(out, lse [B, H, Sq] fp32)`` from the forward
+    kernel, for a caller that builds its own backward (the ring attention
+    of a later slice) with :func:`flash_attention_bwd`."""
+    from . import kernels
+
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _flash_blocks(q, k)
+    masks = _int_masks(kv_mask, None, None)
+    return kernels.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), masks,
+                             bool(causal), float(sm_scale))
+
+
+def flash_attention_bwd(
+    q, k, v, out, lse, do, *, causal: bool = False, sm_scale: Optional[float] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+):
+    """``(dq, dk, dv)`` of one q/kv block pair given a (possibly global)
+    lse [B, H, Sq]: with p = exp(s - lse) the partial gradients of several
+    kv blocks sum to the whole, which is what a ring backward needs."""
+    from . import kernels
+
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _flash_blocks(q, k)
+    masks = _int_masks(kv_mask, None, None)
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    lse = lse.float().contiguous()
+    delta = flash_delta(out, do)
+    dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, masks, bool(causal), float(sm_scale))
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, masks, bool(causal),
+                                   float(sm_scale))
+    return dq, dk, dv
+
+
+def flash_route(impl: str, device: torch.device, sq: int, skv: int, head_dim: int,
+                has_bias: bool = False) -> bool:
+    """Does :func:`dot_product_attention` take the flash kernels for these
+    inputs? ``"flash"`` always (raising where it cannot), ``"xla"`` or a
+    bias never; ``"auto"`` on a CUDA tensor exactly where the reference's
+    TPU gate passes (sequence lengths with a 128-multiple block, head_dim
+    % 128 == 0). What the kernels cannot take there (not bf16, a head_dim
+    they were not built for) raises in their wrappers."""
+    if impl not in ("auto", "flash", "xla"):
+        raise ValueError(f"impl must be 'auto', 'flash' or 'xla', got {impl!r}")
+    if impl == "xla" or has_bias:
+        return False
+    if impl == "flash":
+        return True
+    return (device.type == "cuda" and bool(_pick_block(sq)) and bool(_pick_block(skv))
+            and head_dim % 128 == 0)
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Attention dispatcher: the flash kernels where :func:`flash_route`
+    says so, :func:`mha_reference` otherwise. Layout [B, H, S, D]. The
+    plain path honours kv_mask and segment ids by folding them into the
+    additive bias (NEG_INF where masked), as the reference does."""
+    if impl == "flash" and bias is not None:
+        raise ValueError(
+            "flash impl does not support arbitrary bias; use kv_mask/segment_ids or impl='xla'"
+        )
+    if flash_route(impl, q.device, q.shape[2], k.shape[2], q.shape[-1],
+                   has_bias=bias is not None):
+        return flash_attention(
+            q, k, v, causal=causal, sm_scale=sm_scale, kv_mask=kv_mask,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        )
+    parts = [] if bias is None else [bias]
+    if kv_mask is not None:
+        parts.append(torch.where(kv_mask[:, None, None, :] != 0, 0.0, NEG_INF))
+    if q_segment_ids is not None:
+        same = q_segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :]
+        parts.append(torch.where(same, 0.0, NEG_INF))
+    folded = sum(parts) if parts else None
+    return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale, bias=folded)

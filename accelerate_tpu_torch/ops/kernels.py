@@ -8,9 +8,10 @@ together) into ``accelerate_tpu_torch/_build/`` and loads the shared
 libraries with ``ctypes``; a library is named after the hash of its
 sources, so an edited kernel rebuilds and an unchanged one is reused.
 
-The checked wrappers (:func:`paged_decode`, :func:`ragged_prefill`) take
-CPU tensors to the plain PyTorch version in ``ops/attention.py``. For a
-CUDA tensor they check device, dtype, shape and contiguity, allocate the
+The checked wrappers (:func:`paged_decode`, :func:`ragged_prefill`,
+:func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`) take CPU
+tensors to the plain PyTorch version in ``ops/attention.py``. For a CUDA
+tensor they check device, dtype, shape and contiguity, allocate the
 output, launch the kernel and add one to :data:`launch_counts`, or raise.
 Nothing falls back from the device to the plain version.
 """
@@ -27,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from .attention import DECODE_KERNEL_MAX_SQ
+from .attention import DECODE_KERNEL_MAX_SQ, FLASH_KERNEL_HEAD_DIMS, FLASH_KERNEL_SEQ_MULTIPLE
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -44,6 +45,18 @@ KERNELS = {
     "ragged_prefill": (
         "ragged_prefill.cu", "ragged_prefill_launch",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "flash_fwd": (
+        "flash_fwd.cu", "flash_fwd_launch",
+        [_P] * 8 + [_I] * 7 + [_F, _P],
+    ),
+    "flash_bwd_dq": (
+        "flash_bwd_dq.cu", "flash_bwd_dq_launch",
+        [_P] * 10 + [_I] * 7 + [_F, _P],
+    ),
+    "flash_bwd_dkv": (
+        "flash_bwd_dkv.cu", "flash_bwd_dkv_launch",
+        [_P] * 11 + [_I] * 7 + [_F, _P],
     ),
 }
 
@@ -253,3 +266,110 @@ def ragged_prefill(q, k_new, v_new, k_pages, v_pages, page_table, row_slot,
         float(sm_scale), stream,
     )
     return out, k_new[0].transpose(0, 1), None, v_new[0].transpose(0, 1), None
+
+
+def _flash_shapes(q, k, v, masks, name):
+    """Check the flash kernels' shared inputs on a CUDA device; returns
+    ``(b, h, kvh, sq, skv, d)`` and the mask pointers (None when absent)."""
+    _require_cuda(q, name)
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if d not in FLASH_KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the flash kernels take {FLASH_KERNEL_HEAD_DIMS}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(
+            f"{name}: the flash kernels take bf16 tensors, got {q.dtype} "
+            "(train with mixed_precision='bf16', or use attention_impl='xla')"
+        )
+    if sq % FLASH_KERNEL_SEQ_MULTIPLE or skv % FLASH_KERNEL_SEQ_MULTIPLE:
+        raise ValueError(
+            f"sequence lengths ({sq}, {skv}) must be multiples of "
+            f"{FLASH_KERNEL_SEQ_MULTIPLE} (the kernels' tile)"
+        )
+    dev = q.device
+    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
+    _check(k, "k", torch.bfloat16, (b, kvh, skv, d), dev)
+    _check(v, "v", torch.bfloat16, (b, kvh, skv, d), dev)
+    kv_mask, q_seg, kv_seg = masks
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("q_seg and kv_seg must be given together")
+    ptrs = []
+    for t, what, n in ((kv_mask, "kv_mask", skv), (q_seg, "q_seg", sq), (kv_seg, "kv_seg", skv)):
+        if t is not None:
+            _check(t, what, torch.int32, (b, n), dev)
+        ptrs.append(None if t is None else t.data_ptr())
+    return (b, h, kvh, sq, skv, d), ptrs
+
+
+def flash_fwd(q, k, v, masks, causal: bool, sm_scale: float):
+    """Flash forward: q [B, H, Sq, D], k/v [B, KVH, Skv, D] (bf16 on CUDA),
+    ``masks = (kv_mask [B, Skv], q_seg [B, Sq], kv_seg [B, Skv])`` int32 or
+    None -> ``(out [B, H, Sq, D], lse [B, H, Sq] fp32)``. CPU tensors run
+    the plain version."""
+    if q.device.type == "cpu":
+        from .attention import flash_fwd_reference
+
+        return flash_fwd_reference(q, k, v, masks, causal, sm_scale)
+    (b, h, kvh, sq, skv, d), mp = _flash_shapes(q, k, v, masks, "flash_fwd")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch(
+        "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), *mp,
+        out.data_ptr(), lse.data_ptr(), b, h, kvh, sq, skv, d, int(causal),
+        float(sm_scale), stream,
+    )
+    return out, lse
+
+
+def _flash_bwd_inputs(q, do, lse, delta):
+    b, h, sq, d = q.shape
+    dev = q.device
+    _check(do, "do", torch.bfloat16, (b, h, sq, d), dev)
+    _check(lse, "lse", torch.float32, (b, h, sq), dev)
+    _check(delta, "delta", torch.float32, (b, h, sq), dev)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float):
+    """dQ of flash attention from the forward's lse and delta = rowsum(dO
+    * O), both [B, H, Sq] fp32 -> dq [B, H, Sq, D]. CPU tensors run the
+    plain version."""
+    if q.device.type == "cpu":
+        from .attention import flash_bwd_dq_reference
+
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, masks, causal, sm_scale)
+    shape, mp = _flash_shapes(q, k, v, masks, "flash_bwd_dq")
+    _flash_bwd_inputs(q, do, lse, delta)
+    b, h, kvh, sq, skv, d = shape
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch(
+        "flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *mp, dq.data_ptr(), b, h, kvh, sq, skv, d,
+        int(causal), float(sm_scale), stream,
+    )
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float):
+    """dK and dV of flash attention, summed over each kv head's query-head
+    group -> ``(dk, dv)`` [B, KVH, Skv, D]. CPU tensors run the plain
+    version."""
+    if q.device.type == "cpu":
+        from .attention import flash_bwd_dkv_reference
+
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, masks, causal, sm_scale)
+    shape, mp = _flash_shapes(q, k, v, masks, "flash_bwd_dkv")
+    _flash_bwd_inputs(q, do, lse, delta)
+    b, h, kvh, sq, skv, d = shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch(
+        "flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *mp, dk.data_ptr(), dv.data_ptr(), b, h, kvh,
+        sq, skv, d, int(causal), float(sm_scale), stream,
+    )
+    return dk, dv

@@ -1,0 +1,63 @@
+"""Optimizer wrapper.
+
+Counterpart of ``accelerate_tpu/optimizer.py`` (``AcceleratedOptimizer``),
+around a ``torch.optim.Optimizer``. It keeps the reference's call-site
+contract: while gradients accumulate (``GradientState.sync_gradients``
+False) ``step()`` is skipped and ``zero_grad()`` is a no-op, so the
+``.grad`` buffers keep summing the micro-batches; at a sync step the
+Accelerator's gradient clip runs, then the wrapped optimizer updates.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .state import GradientState
+
+
+class AcceleratedOptimizer(torch.optim.Optimizer):
+    """A ``torch.optim.Optimizer`` (so LR schedulers accept it) whose
+    parameter groups are the wrapped optimizer's. ``pre_step`` (the Accelerator's
+    clip) runs just before each real update."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, gradient_state: GradientState,
+                 pre_step: Optional[Callable[["AcceleratedOptimizer"], None]] = None):
+        # no super().__init__: the parameter groups are the wrapped
+        # optimizer's own
+        self.optimizer = optimizer
+        self.gradient_state = gradient_state
+        self._pre_step = pre_step
+        # True when the last update was skipped for non-finite fp16
+        # gradients; the port has no fp16 loss scaling yet (a later slice)
+        self.step_was_skipped = False
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    @param_groups.setter
+    def param_groups(self, groups):
+        self.optimizer.param_groups = groups
+
+    def parameters(self):
+        """Every parameter the wrapped optimizer updates."""
+        return [p for group in self.param_groups for p in group["params"]]
+
+    def zero_grad(self, set_to_none: bool = True):
+        """Clear the gradients, except while accumulating."""
+        if self.gradient_state.sync_gradients:
+            self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def step(self, closure=None):
+        """Update, except while accumulating (the micro-step returns with
+        the gradients left to sum)."""
+        if not self.gradient_state.sync_gradients:
+            return None
+        if self._pre_step is not None:
+            self._pre_step(self)
+        return self.optimizer.step(closure)
+
+    def __repr__(self):
+        return f"AcceleratedOptimizer({self.optimizer!r})"

@@ -3,12 +3,22 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels of ``accelerate_tpu_torch/csrc`` with
-nvcc for sm_90a, holds each against its plain PyTorch version at the
-paged serving path's shapes (small_1b: H=16, KVH=8, D=128, page 16),
-then serves small_1b at full width (16 layers, random weights from a
-seed) through ``ServingEngine`` and checks the generated tokens against
-a teacher-forced plain forward. Prints the card, the per-kernel
-numbers, and as its last line
+nvcc for sm_90a and holds each against its plain PyTorch version: the
+paged decode and ragged prefill kernels at the serving path's shapes
+(small_1b: H=16, KVH=8, D=128, page 16), the flash forward, dQ and dK/dV
+kernels at the training path's (B 8, S 2048, causal) and in masked cases.
+Then it drives both paths at small_1b's full width, each with the launch
+counters reset just before it and read just after:
+
+- serving: ``ServingEngine`` over random weights from a seed, the
+  generated tokens checked against a teacher-forced cache-free forward;
+- training: ``Accelerator(mixed_precision="bf16")`` over fp32 master
+  weights, a few steps of the eager loop and of ``build_train_step``,
+  launch counts of layers x micro-batches per step, a falling loss on a
+  fixed batch, one step held against plain attention, throughput, MFU,
+  peak memory and a step profile.
+
+Prints the card, the per-kernel numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Exits non-zero, with no result line, when CUDA is absent, when the
@@ -281,6 +291,240 @@ def prefill_phase(gen, dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+# flash kernels (training path): the main path's attention shape
+TRAIN_B, TRAIN_S = 8, 2048
+# kernel vs plain for the flash kernels: |kernel - plain| <= FLASH_ATOL *
+# rms(plain) + KERNEL_RTOL * |plain|. Both versions round at the same
+# sites (p to bf16 before PV, dS to bf16 before dS K / dS^T q) and write
+# bf16; they differ by fp32 summation order (~1e-6 relative) and where
+# the forward's p is rounded (running vs final max, 2^-9 relative per
+# term), so an element may land one bf16 ulp (2^-8 relative) apart. The
+# gradients' scale depends on the inputs, hence an atol relative to the
+# tensor's rms (2^-6 of it) rather than an absolute one
+FLASH_ATOL = 2.0 ** -6
+# lse is fp32 in both versions: m + log(l) with l summed in another order
+LSE_ATOL = 1e-3
+
+
+def check_close_rel(name: str, got, want) -> float:
+    """Max abs error of ``got`` vs ``want`` under the flash tolerance."""
+    want32 = want.float()
+    diff = (got.float() - want32).abs()
+    rms = want32.square().mean().sqrt().item()
+    limit = FLASH_ATOL * rms + KERNEL_RTOL * want32.abs()
+    err = diff.max().item()
+    if not math.isfinite(err) or bool((diff > limit).any()):
+        fail(f"{name} vs plain: max abs err {err} exceeds {FLASH_ATOL} * rms "
+             f"({rms:.4g}) + {KERNEL_RTOL} * |plain|")
+    return err
+
+
+def flash_inputs(gen, dev, b, s, causal=True, kv_mask=None, seg=None, d=D, skv=None):
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    skv = skv or s
+    q, k, v = rnd(b, H, s, d), rnd(b, KVH, skv, d), rnd(b, KVH, skv, d)
+    do = rnd(b, H, s, d)
+    to_int = (lambda t: None if t is None else t.to(dev, torch.int32).contiguous())
+    masks = (to_int(kv_mask), to_int(seg), to_int(seg))
+    return dict(q=q, k=k, v=v, do=do, masks=masks, causal=causal,
+                scale=1.0 / math.sqrt(d))
+
+
+def flash_masked_cases(gen, dev):
+    """B 2, S 512: (a) causal, a kv_mask whose batch row 0 is fully masked
+    and whose row 1 is left-padded by 100 positions; (b) causal, three
+    segments per row, of other lengths in each row; (c) the kv_mask of (a)
+    without causal masking. Then the kernels' other shapes: (d) head_dim
+    64, causal, Sq 256 over Skv 512 (top-left aligned)."""
+    import torch
+
+    s = 512
+    kv_mask = torch.ones((2, s), dtype=torch.int32)
+    kv_mask[0] = 0
+    kv_mask[1, :100] = 0
+    seg = torch.zeros((2, s), dtype=torch.int32)
+    seg[0, 200:] = 1
+    seg[0, 300:] = 2
+    seg[1, 64:] = 1
+    seg[1, 450:] = 2
+    return {"S 512, causal, kv_mask": flash_inputs(gen, dev, 2, s, kv_mask=kv_mask),
+            "S 512, causal, segments": flash_inputs(gen, dev, 2, s, seg=seg),
+            "S 512, full, kv_mask": flash_inputs(gen, dev, 2, s, causal=False, kv_mask=kv_mask),
+            "causal, D 64, Sq 256 < Skv 512": flash_inputs(gen, dev, 2, 256, d=64, skv=512)}
+
+
+def flash_attended_pairs(x) -> int:
+    """(query, key) pairs this input attends, counted from its masks."""
+    import torch
+
+    from accelerate_tpu_torch.ops.attention import _flash_valid
+
+    q, k = x["q"], x["k"]
+    valid = _flash_valid(q, k, x["masks"], x["causal"])
+    b, h, s = q.shape[0], q.shape[1], q.shape[2]
+    if valid is None:
+        return b * h * s * k.shape[2]
+    per_b = torch.broadcast_to(valid, (b, 1, 1, s, k.shape[2])).sum().item()
+    return int(per_b) * h
+
+
+def flash_phases(gen, dev):
+    """The flash forward, dQ and dK/dV kernels against their plain
+    versions at the main path's shape (B 8, S 2048, H 16, KVH 8, D 128,
+    causal, bf16) and in the masked cases, each timed beside its bound
+    and SDPA. Returns the three kernel rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.ops.attention import (
+        NEG_INF, flash_bwd_dkv_reference, flash_bwd_dq_reference, flash_delta,
+        flash_fwd_reference,
+    )
+
+    def fwd_kernel(x):
+        return kernels.flash_fwd(x["q"], x["k"], x["v"], x["masks"], x["causal"], x["scale"])
+
+    def fwd_plain(x):
+        return flash_fwd_reference(x["q"], x["k"], x["v"], x["masks"], x["causal"], x["scale"])
+
+    def bwd_args(x):
+        return (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"], x["masks"],
+                x["causal"], x["scale"])
+
+    def counted(name, fn):
+        before = kernels.launch_counts[name]
+        out = fn()
+        torch.cuda.synchronize()
+        if kernels.launch_counts[name] != before + 1:
+            fail(f"{name} wrapper did not count its launch")
+        return out
+
+    def check_case(x, tag):
+        """Hold all three kernels against the plain versions on one
+        input; the backward's lse and delta come from the plain forward
+        and are fed to both versions. Returns {kernel: max abs err}."""
+        out_k, lse_k = counted("flash_fwd", lambda: fwd_kernel(x))
+        out_p, lse_p = fwd_plain(x)
+        errs = {"flash_fwd": check_close_rel(f"flash_fwd ({tag})", out_k, out_p)}
+        lse_err = (lse_k - lse_p).abs().max().item()
+        if not lse_err <= LSE_ATOL:
+            fail(f"flash_fwd ({tag}) lse vs plain: max abs err {lse_err} > {LSE_ATOL}")
+        x["lse"], x["delta"] = lse_p, flash_delta(out_p, x["do"])
+        dq_k = counted("flash_bwd_dq", lambda: kernels.flash_bwd_dq(*bwd_args(x)))
+        dk_k, dv_k = counted("flash_bwd_dkv", lambda: kernels.flash_bwd_dkv(*bwd_args(x)))
+        dq_p = flash_bwd_dq_reference(*bwd_args(x))
+        dk_p, dv_p = flash_bwd_dkv_reference(*bwd_args(x))
+        errs["flash_bwd_dq"] = check_close_rel(f"flash_bwd_dq ({tag})", dq_k, dq_p)
+        errs["flash_bwd_dkv"] = max(check_close_rel(f"flash_bwd_dkv dk ({tag})", dk_k, dk_p),
+                                    check_close_rel(f"flash_bwd_dkv dv ({tag})", dv_k, dv_p))
+        empty = lse_p <= NEG_INF / 2  # rows with no attended key
+        if bool(empty.any()):
+            if out_k.float().abs()[empty].max().item() != 0.0 or bool(
+                    (lse_k[empty] != NEG_INF).any()):
+                fail(f"flash_fwd ({tag}): a fully masked row is not exactly 0 / NEG_INF")
+            if dq_k.float().abs()[empty].max().item() != 0.0:
+                fail(f"flash_bwd_dq ({tag}): a fully masked row has a nonzero dq")
+        print(f"flash kernels vs plain ({tag}): max abs err fwd "
+              f"{errs['flash_fwd']:.3e} (lse {lse_err:.2e}), dq "
+              f"{errs['flash_bwd_dq']:.3e}, dk/dv {errs['flash_bwd_dkv']:.3e}; "
+              f"{int(empty.sum().item())} fully masked rows")
+        return errs
+
+    x = flash_inputs(gen, dev, TRAIN_B, TRAIN_S)
+    errs = check_case(x, f"B {TRAIN_B}, S {TRAIN_S}, causal")
+    for tag, case in flash_masked_cases(gen, dev).items():
+        check_case(case, f"B 2, {tag}")
+
+    ms = {"flash_fwd": cuda_time_ms(lambda: fwd_kernel(x), iters=10, warmup=2),
+          "flash_bwd_dq": cuda_time_ms(lambda: kernels.flash_bwd_dq(*bwd_args(x)),
+                                       iters=10, warmup=2),
+          "flash_bwd_dkv": cuda_time_ms(lambda: kernels.flash_bwd_dkv(*bwd_args(x)),
+                                        iters=10, warmup=2)}
+    plain = {name: cuda_time_ms(fn, iters=3, warmup=1) for name, fn in (
+        ("flash_fwd", lambda: fwd_plain(x)),
+        ("flash_bwd_dq", lambda: flash_bwd_dq_reference(*bwd_args(x))),
+        ("flash_bwd_dkv", lambda: flash_bwd_dkv_reference(*bwd_args(x))))}
+
+    # yardstick: SDPA, forward alone and its backward alone (the backward
+    # computes dq, dk and dv in one call: the library time of both rows)
+    q, k, v = (x[n].detach().requires_grad_() for n in ("q", "k", "v"))
+    sdpa = dict(is_causal=True, scale=x["scale"], enable_gqa=True)
+    sdpa_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        x["q"], x["k"], x["v"], **sdpa), iters=10, warmup=2)
+    out_lib = F.scaled_dot_product_attention(q, k, v, **sdpa)
+    sdpa_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        out_lib, (q, k, v), x["do"], retain_graph=True), iters=10, warmup=2)
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
+
+    pairs = flash_attended_pairs(x)
+    elt = x["q"].numel() * 2  # one bf16 [B, H, S, D] tensor, bytes
+    kv_elt = x["k"].numel() * 2
+    row = TRAIN_B * H * TRAIN_S * 4  # one fp32 [B, H, S] tensor
+    work = {  # (bytes moved, flops): inputs read once, outputs written once
+        "flash_fwd": (2 * elt + 2 * kv_elt + row, 4 * D * pairs),
+        "flash_bwd_dq": (3 * elt + 2 * kv_elt + 2 * row, 6 * D * pairs),
+        "flash_bwd_dkv": (2 * elt + 4 * kv_elt + 2 * row, 8 * D * pairs),
+    }
+    rows = []
+    for name, src, line in (("flash_fwd", "flash_fwd.cu", 400),
+                            ("flash_bwd_dq", "flash_bwd_dq.cu", 440),
+                            ("flash_bwd_dkv", "flash_bwd_dkv.cu", 488)):
+        bound_ms, bound_by = bound(*work[name])
+        print(f"kernel {name}: B {TRAIN_B}, S {TRAIN_S}, H {H}, KVH {KVH}, D {D}, "
+              f"causal bf16, {pairs} attended pairs, max_abs_err {errs[name]:.3e} "
+              f"(tol {FLASH_ATOL}*rms + {KERNEL_RTOL}*|plain|), kernel {ms[name]:.4f} ms, "
+              f"plain {plain[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"library sdpa {library[name]:.4f} ms")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"accelerate_tpu_torch/csrc/{src}",
+                     "replaces": f"accelerate_tpu/ops/attention.py:{line}",
+                     "max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain[name],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library[name]})
+    return rows
+
+
+# CUPTI reports launch-queue stalls as events of this name; they are no
+# work of the card and are left out of its busy time
+PROFILER_MARKERS = ("Command Buffer Full",)
+
+
+def device_time(prof):
+    """``(busy ms, [(ms, calls, name)])`` from the profiler's device-side
+    events alone: the kernels, copies and sets the card ran, busy time
+    being the union of their intervals. (Summing every row's self device
+    time instead counts each kernel twice: once as itself, once under the
+    CPU op that launched it.) Annotation ranges drawn on the device
+    timeline, such as the optimizer's step, span gaps between kernels and
+    are left out too."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA or e.name in PROFILER_MARKERS
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (end - start) / 1e3, calls + 1)
+    busy_us, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()), reverse=True)
+    return busy_us / 1e3, rows
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -356,7 +600,8 @@ def main_path(dev, card: str):
     if reqs[6].prefill_dispatches < 2:
         fail("the 1000-token prompt did not continue mid-tail over an arena prefix")
 
-    # teacher-forced plain forward (mha_reference, causal, no cache)
+    # teacher-forced cache-free forward (at these lengths, no 128-multiple:
+    # mha_reference, causal)
     worst_gap, exact, total = 0.0, 0, 0
     with torch.no_grad():
         for r in reqs:
@@ -410,9 +655,7 @@ def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5):
             engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(r[0] for r in rows)
+    busy_ms, rows = device_time(prof)
     if not rows:
         print("profile: the profiler recorded no device time (not measured)")
         return
@@ -420,8 +663,258 @@ def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5):
           f"tokens: wall {wall_ms / steps:.3f} ms/step, device busy "
           f"{busy_ms / steps:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}% of "
           f"wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
-    for ms, count, key in sorted(rows, reverse=True)[:8]:
+    for ms, count, key in rows[:8]:
         print(f"  {ms / steps:8.3f} ms/step  {count // steps:4d}/step  {key[:90]}")
+
+
+# the training path (training slice): small_1b at full width, batch 8 x
+# 2048, bf16 mixed precision over fp32 master weights, remat save_attention.
+# The setup is bench.py's _train_bench: AdamW(3e-4, betas (0.9, 0.999),
+# eps 1e-8, weight decay 1e-4 on every parameter, as optax.adamw decays
+# every leaf) under warmup_cosine_decay_schedule(0, 3e-4, 100, 1000).
+TRAIN_LR = 3e-4
+TRAIN_STEPS = 3          # per entry point (eager loop, build_train_step)
+TRAIN_FALL_STEPS = 10    # constant-lr steps on one fixed batch
+TRAIN_FUSED_MICRO = 2    # micro-batches per build_train_step update
+# flash vs plain attention (attention_impl="xla": mha_reference through
+# autograd) on the same weights and batch, one forward + backward. Both
+# keep activations in bf16 through 16 layers and round at different sites
+# (the plain path rounds p after normalising and its dP / dS products to
+# bf16; the kernels keep dP and dS in fp32 until dS is rounded once).
+# This script read 1.04e-5 (loss) and 6.46e-6 (grad norm) relative on an
+# NVIDIA H100 80GB HBM3 at 700 W; the limits leave ~10x and ~150x of that.
+# The grad-norm limit is shown to bite: the same step with the dK/dV
+# kernel's dK zeroed must land beyond it (train_control below)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_NORM_RTOL = 1e-3
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def train_path(dev, card: str):
+    """Train small_1b at full width through both entry points of the
+    port's Accelerator. Returns the flash kernels' launches on this path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, warmup_cosine_decay_schedule
+    from accelerate_tpu_torch.accelerator import global_grad_norm
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+
+    cfg = DecoderConfig.small_1b()
+    b, s = TRAIN_B, TRAIN_S
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (b, s))
+    batch = {"input_ids": ids, "labels": ids}
+
+
+    def loss_and_norm(model):
+        """One forward + backward on the fixed batch, no update."""
+        acc = Accelerator(mixed_precision="bf16")
+        acc.prepare(model)
+        model.zero_grad(set_to_none=True)  # a fused step leaves its gradients
+        out = model(**{k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        out["loss"].backward()
+        norm = global_grad_norm(model.parameters()).item()
+        model.zero_grad(set_to_none=True)
+        return out["loss"].item(), norm
+
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device=dev, param_dtype=torch.float32)
+    model.load_params(random_params(cfg, seed=0, device=dev, dtype=torch.float32))
+    torch.cuda.synchronize()
+    print(f"train path: small_1b ({cfg.num_layers} layers, E {cfg.embed_dim}, H "
+          f"{cfg.num_heads}, KVH {cfg.num_kv_heads}, D {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, {cfg.num_params / 1e9:.3f}B params), fp32 masters seed 0, "
+          f"bf16 compute, remat {cfg.remat_policy}, batch {b} x {s}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    acc = Accelerator(mixed_precision="bf16")
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, warmup_cosine_decay_schedule(0.0, TRAIN_LR, 100, 1000))
+    model, opt, sched, loader = acc.prepare(model, opt, sched, [batch] * TRAIN_STEPS)
+
+    def expect(before, per_kernel, what):
+        for name in FLASH_KERNELS:
+            got = kernels.launch_counts[name] - before[name]
+            if got != per_kernel:
+                fail(f"{name}: {got} launches in {what}, expected {per_kernel}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, eager_ms = [], []
+    for mb in loader:  # the eager loop
+        before = dict(kernels.launch_counts)
+        t0 = time.perf_counter()
+        with acc.accumulate(model):
+            loss = model(**mb)["loss"]
+            acc.backward(loss)
+            acc.clip_grad_norm_(max_norm=1.0)
+            opt.step()
+            sched.step()
+            opt.zero_grad()
+        losses.append(loss.item())
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        expect(before, cfg.num_layers, "one eager step (one micro-batch)")
+    step = acc.build_train_step(micro_steps=TRAIN_FUSED_MICRO)
+    fused_ms, norms = [], []
+    for _ in range(TRAIN_STEPS):
+        before = dict(kernels.launch_counts)
+        t0 = time.perf_counter()
+        m = step(batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        fused_ms.append((time.perf_counter() - t0) * 1e3)
+        expect(before, cfg.num_layers * TRAIN_FUSED_MICRO,
+               f"one build_train_step step ({TRAIN_FUSED_MICRO} micro-batches)")
+    torch.cuda.synchronize()
+    launches = {name: kernels.launch_counts[name] for name in FLASH_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"non-finite training loss or grad norm: {losses}, {norms}")
+    print(f"train path: eager losses {[round(x, 5) for x in losses[:TRAIN_STEPS]]}, "
+          f"build_train_step losses {[round(x, 5) for x in losses[TRAIN_STEPS:]]}, grad "
+          f"norms {[round(x, 5) for x in norms]}, lr now {sched.get_last_lr()[0]:.3e}, "
+          f"launches {launches}")
+
+    # throughput: the steady build_train_step steps (the first one warms up)
+    step_ms = sorted(fused_ms[1:])[len(fused_ms[1:]) // 2]
+    tokens_per_s = b * s / (step_ms / 1e3)
+    flops_per_token = 6 * cfg.num_params + 6 * cfg.num_layers * s * cfg.embed_dim
+    mfu = tokens_per_s * flops_per_token / BF16_FLOPS_PER_S
+    print(f"train path on {card}: {tokens_per_s:.1f} tokens/s, {step_ms:.1f} ms/step "
+          f"(median of steady build_train_step steps {[round(x, 1) for x in fused_ms]}; "
+          f"eager steps {[round(x, 1) for x in eager_ms]} ms), MFU {100 * mfu:.2f}% "
+          f"({flops_per_token / 1e9:.3f} GFLOP/token over 989 TFLOP/s bf16), peak memory "
+          f"{peak_gb:.2f} GB")
+
+    # the loss falls: constant lr on the one fixed batch, from the seed weights
+    model.load_params(random_params(cfg, seed=0, device=dev, dtype=torch.float32))
+    acc = Accelerator(mixed_precision="bf16")
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    step = acc.build_train_step()
+    curve = [step(batch)["loss"].item() for _ in range(TRAIN_FALL_STEPS)]
+    if not all(math.isfinite(x) for x in curve) or not curve[-1] < curve[0]:
+        fail(f"the loss did not fall over {TRAIN_FALL_STEPS} steps at lr {TRAIN_LR}: {curve}")
+    print(f"train path: {TRAIN_FALL_STEPS} steps at constant lr {TRAIN_LR} on one batch: "
+          f"loss {[round(x, 4) for x in curve]}")
+
+    # held against plain attention on the trained weights (at the seed
+    # weights attention barely moves the loss): same weights, same batch
+    loss_f, norm_f = loss_and_norm(model)
+    plain = DecoderLM(dataclasses.replace(cfg, attention_impl="xla"), device=dev,
+                      param_dtype=torch.float32)
+    plain.load_state_dict(model.state_dict())
+    loss_x, norm_x = loss_and_norm(plain)
+    del plain
+    if not (math.isfinite(loss_f) and math.isfinite(norm_f)):
+        fail(f"flash step: loss {loss_f}, grad norm {norm_f}")
+    if abs(loss_f - loss_x) > TRAIN_LOSS_RTOL * abs(loss_x):
+        fail(f"flash loss {loss_f} vs plain attention {loss_x}: beyond {TRAIN_LOSS_RTOL} rel")
+    if abs(norm_f - norm_x) > TRAIN_GRAD_NORM_RTOL * abs(norm_x):
+        fail(f"flash grad norm {norm_f} vs plain attention {norm_x}: beyond "
+             f"{TRAIN_GRAD_NORM_RTOL} rel")
+    print(f"train path: one step vs plain attention (after the {TRAIN_FALL_STEPS} steps): "
+          f"loss {loss_f:.6f} vs {loss_x:.6f} (rel {abs(loss_f - loss_x) / abs(loss_x):.2e}, "
+          f"tol {TRAIN_LOSS_RTOL}), grad norm {norm_f:.6f} vs {norm_x:.6f} (rel "
+          f"{abs(norm_f - norm_x) / abs(norm_x):.2e}, tol {TRAIN_GRAD_NORM_RTOL})")
+    train_control(model, loss_and_norm, norm_x)
+    profile_train(step, batch, card)
+    del model, opt, acc, step
+    remat_memory(cfg, dev, batch)
+    return launches
+
+
+def train_control(model, loss_and_norm, norm_plain):
+    """The grad-norm check against plain attention must see a broken
+    backward: the same step with dK zeroed after the dK/dV kernel (a dK
+    dropped inside the autograd Function) has to land beyond its limit."""
+    from unittest import mock
+
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+
+    real = kernels.flash_bwd_dkv
+
+    def dk_zeroed(*args):
+        dk, dv = real(*args)
+        return torch.zeros_like(dk), dv
+
+    with mock.patch.object(kernels, "flash_bwd_dkv", dk_zeroed):
+        _, norm_c = loss_and_norm(model)
+    rel = abs(norm_c - norm_plain) / abs(norm_plain)
+    if not rel > TRAIN_GRAD_NORM_RTOL:
+        fail(f"control: with dK zeroed the grad norm {norm_c} is within "
+             f"{TRAIN_GRAD_NORM_RTOL} rel of plain attention's {norm_plain}: the check is blind")
+    print(f"train path: control, dK zeroed in the flash backward: grad norm {norm_c:.6f} "
+          f"vs plain {norm_plain:.6f} (rel {rel:.2e}, beyond tol {TRAIN_GRAD_NORM_RTOL})")
+
+
+def remat_memory(cfg, dev, batch):
+    """One forward + backward under each remat policy: the peak memory
+    above the weights and the flash forward launches (save_attention
+    keeps the kernel's residuals, full re-runs it in backward)."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+
+    for policy in ("save_attention", "full"):
+        config = dataclasses.replace(cfg, remat_policy=policy)
+        model = DecoderLM(config, device=dev, param_dtype=torch.float32)
+        model.load_params(random_params(config, seed=0, device=dev, dtype=torch.float32))
+        Accelerator(mixed_precision="bf16").prepare(model)
+        inputs = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernels.launch_counts["flash_fwd"]
+        model(**inputs)["loss"].backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        fwd = kernels.launch_counts["flash_fwd"] - before
+        print(f"remat {policy}: one forward + backward at batch {TRAIN_B} x {TRAIN_S}: "
+              f"peak {peak / 1e9:.3f} GB above the weights, {fwd} flash forward launches")
+        del model
+        torch.cuda.empty_cache()
+
+
+def profile_train(step, batch, card: str):
+    """Where a training step's time goes: torch.profiler over one
+    build_train_step step. Prints the device-busy share of the wall and
+    the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, rows = device_time(prof)
+    if not rows:
+        print("train profile: the profiler recorded no device time (not measured)")
+        return
+    print(f"train profile on {card}: one build_train_step step: wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall, idle "
+          f"{100 - 100 * busy_ms / wall_ms:.1f}%), {sum(r[1] for r in rows)} device ops")
+    for ms, count, key in rows[:10]:
+        print(f"  {ms:9.2f} ms  {count:5d} calls  {key[:90]}")
 
 
 def main():
@@ -465,13 +958,15 @@ def main():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = [decode_phase(gen, dev), prefill_phase(gen, dev)]
+    rows = [decode_phase(gen, dev), prefill_phase(gen, dev), *flash_phases(gen, dev)]
+    # each path is driven with the counts reset just before it and read
+    # just after; a kernel's launches come from its own path
     launches = main_path(dev, card)
+    launches.update(train_path(dev, card))
     for row in rows:
         row["launches"] = launches[row["name"]]
-    for row in rows:
         if row["launches"] < 1:
-            fail(f"{row['name']} was not launched on the main path")
+            fail(f"{row['name']} was not launched on its path")
     if "jax" in sys.modules or "accelerate_tpu" in sys.modules:
         fail("the port imported jax or accelerate_tpu")
     print(card)

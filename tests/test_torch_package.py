@@ -4,8 +4,9 @@
   ``flax``, ``optax`` or ``accelerate_tpu`` module: an AST scan of every
   source, plus a fresh interpreter that imports the package and finds no
   JAX in ``sys.modules``.
-- Entry points (the model, the weight init, the engine) mean CUDA when
-  given no device and raise without it, unless ``device="cpu"`` is given.
+- Entry points (the model, the weight init, the engine, the Accelerator)
+  mean CUDA when given no device and raise without it, unless
+  ``device="cpu"`` is given.
 - The kernel wrappers take CPU tensors to the plain version without
   counting a launch, refuse any other non-CUDA device, and build with an
   nvcc command for ``sm_90a``; later-slice options raise.
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from accelerate_tpu_torch import Accelerator
 from accelerate_tpu_torch.models.configs import DecoderConfig
 from accelerate_tpu_torch.models.convert import random_params
 from accelerate_tpu_torch.models.decoder import DecoderLM
@@ -51,7 +53,11 @@ def test_sources_import_no_jax(path):
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import sys, accelerate_tpu_torch, accelerate_tpu_torch.serving.engine; "
+    code = ("import sys, accelerate_tpu_torch, accelerate_tpu_torch.serving.engine, "
+            "accelerate_tpu_torch.accelerator, accelerate_tpu_torch.data, "
+            "accelerate_tpu_torch.ops.losses, accelerate_tpu_torch.optimizer, "
+            "accelerate_tpu_torch.scheduler, accelerate_tpu_torch.state, "
+            "accelerate_tpu_torch.utils.dataclasses; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad")
@@ -77,6 +83,20 @@ def test_entry_points_raise_without_cuda(no_cuda):
     eng = ServingEngine(model, max_cache_len=64, page_size=8, device="cpu")
     out = eng.generate_batched([np.arange(3, 9)], max_new_tokens=2)
     assert out[0].shape == (8,)
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda):
+    cfg = DecoderConfig.tiny()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Accelerator()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Accelerator(mixed_precision="bf16")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DecoderLM(cfg, param_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        random_params(cfg, dtype=torch.float32)
+    acc = Accelerator(device="cpu")
+    assert acc.device == torch.device("cpu") and acc.mixed_precision == "no"
 
 
 def test_engine_rejects_model_on_other_device():
@@ -112,6 +132,16 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(RuntimeError, match="neither CPU"):
         kernels.ragged_prefill(q[:1], kp[:1], kp[:1], kp, kp, table, table[0],
                                table[0], table[0], 0.25, 8)
+    q = torch.empty((1, 4, 128, 64), **meta)
+    k = torch.empty((1, 2, 128, 64), **meta)
+    stats = torch.empty((1, 4, 128), device="meta", dtype=torch.float32)
+    masks = (None, None, None)
+    with pytest.raises(RuntimeError, match="neither CPU"):
+        kernels.flash_fwd(q, k, k, masks, True, 0.125)
+    with pytest.raises(RuntimeError, match="neither CPU"):
+        kernels.flash_bwd_dq(q, k, k, q, stats, stats, masks, True, 0.125)
+    with pytest.raises(RuntimeError, match="neither CPU"):
+        kernels.flash_bwd_dkv(q, k, k, q, stats, stats, masks, True, 0.125)
 
 
 @pytest.mark.parametrize("name", sorted(kernels.KERNELS))
@@ -129,6 +159,12 @@ def test_later_slices_raise():
         DecoderConfig.tiny(kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError, match="later slice"):
         DecoderConfig.tiny(moe_num_experts=4)
+    for kw in ({"dropout_rate": 0.1}, {"pipeline_stages": 2}, {"remat_policy": "save_dots"}):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            DecoderConfig.tiny(**kw)
+    for mode in ("fp16", "fp8"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            Accelerator(mixed_precision=mode, device="cpu")
     cfg = DecoderConfig.tiny()
     model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
     with pytest.raises(NotImplementedError, match="speculative"):
@@ -138,6 +174,21 @@ def test_later_slices_raise():
     ids = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="later slice"):
         model(ids, cache=[{}] * cfg.num_layers)
-    flash = DecoderLM(DecoderConfig.tiny(attention_impl="flash"), device="cpu")
-    with pytest.raises(NotImplementedError, match="flash"):
-        flash(ids)
+    acc = Accelerator(device="cpu")
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    acc.prepare(model, opt)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        acc.build_train_step(steps_per_call=2)
+
+
+def test_flash_impl_runs_the_plain_flash_path_on_cpu():
+    """attention_impl="flash" (a later slice in the serving-only port) is
+    the flash path now: on the CPU, the kernels' plain versions."""
+    cfg = DecoderConfig.tiny(attention_impl="flash", max_seq_len=128)
+    params = random_params(cfg, device="cpu")
+    flash = DecoderLM(cfg, device="cpu").load_params(params)
+    plain = DecoderLM(DecoderConfig.tiny(attention_impl="xla", max_seq_len=128),
+                      device="cpu").load_params(params)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 128)))
+    with torch.no_grad():
+        torch.testing.assert_close(flash(ids), plain(ids), atol=1e-4, rtol=1e-4)
