@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of ``accelerate_tpu``: paged serving and the
-training step.
+"""PyTorch/CUDA port of ``accelerate_tpu``: serving (paged and flat
+arenas), KV-cache generation and the training step.
 
 The JAX package (``accelerate_tpu``) stays the reference; this package is
 its counterpart for an NVIDIA H100. Module paths mirror the reference:
@@ -9,7 +9,9 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   versions + kernel dispatch), ``ops/kernels.py`` (nvcc build, ctypes
   binding, checked wrappers with launch counters), ``csrc/*.cu`` (the
   hand-written Hopper kernels)
-- ``serving/pages.py``, ``serving/engine.py``, ``generation.py``
+- ``serving/pages.py``, ``serving/arena.py``, ``serving/engine.py``,
+  ``generation.py`` (``generate``), ``utils/quantization.py`` (int8/int4
+  KV storage)
 - ``accelerator.py``, ``optimizer.py``, ``scheduler.py``, ``state.py``,
   ``data.py``, ``utils/dataclasses.py`` (the training contract)
 
@@ -19,6 +21,7 @@ versions of the kernels then run). Nothing here imports JAX.
 """
 
 from .accelerator import Accelerator
+from .generation import generate
 from .models.configs import DecoderConfig
 from .models.decoder import DecoderLM
 from .optimizer import AcceleratedOptimizer
@@ -30,5 +33,5 @@ from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionConfig
 __all__ = [
     "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",
     "DecoderConfig", "DecoderLM", "GradientAccumulationPlugin", "GradientState",
-    "MixedPrecisionConfig", "ServingEngine", "warmup_cosine_decay_schedule",
+    "MixedPrecisionConfig", "ServingEngine", "generate", "warmup_cosine_decay_schedule",
 ]

@@ -1,4 +1,5 @@
-// Shared pieces of the paged decode and ragged prefill kernels: one
+// Shared pieces of the decode (paged, dense, dense quantized) and ragged
+// prefill kernels: one
 // thread block stages a chunk of up to TOK kv tokens (K and V, bf16) in
 // shared memory, scores its query rows against them in fp32, and folds
 // the chunk into a per-row online softmax (running max m, running sum l,
@@ -81,6 +82,45 @@ __device__ inline void load_chunk(const Smem& sm, int ntok, int d, KFn src_of_k,
   }
 }
 
+// Stage a chunk of quantized K (or V) token rows as bf16 in shared memory:
+// each value is the int8 payload (int4: two values a byte, the even
+// head_dim index in the low nibble) times its row's fp32 scale, computed
+// in fp32 and rounded ONCE to bf16 with __float2bfloat16_rn. That is
+// dequantize_kv's `(payload.float() * scale).to(bf16)`, so the kernel
+// scores exactly the bf16 values the plain version scores. `payload_of(t)`
+// is the global address of token t's payload row (d bytes for int8, d / 2
+// for int4; 16-byte aligned), `scale_of(t)` its scale. Each thread turns
+// one 16-byte load into 16 (int8) or 32 (int4) bf16 values.
+template <typename PayFn, typename ScaleFn>
+__device__ inline void dequant_rows(__nv_bfloat16* dst, int ntok, int d, int bits,
+                                    PayFn payload_of, ScaleFn scale_of) {
+  const int per_vec = bits == 4 ? 32 : 16;  // values one 16-byte load holds
+  const int vecs = d / per_vec;
+  for (int idx = threadIdx.x; idx < ntok * vecs; idx += NT) {
+    const int t = idx / vecs;
+    const int c = idx - t * vecs;
+    const uint4 raw = reinterpret_cast<const uint4*>(payload_of(t))[c];
+    const float s = scale_of(t);
+    const int8_t* bytes = reinterpret_cast<const int8_t*>(&raw);
+    __align__(16) __nv_bfloat16 vals[32];
+    if (bits == 4) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int lo = (int)(int8_t)((uint8_t)bytes[i] << 4) >> 4;  // sign-extend
+        const int hi = (int)bytes[i] >> 4;                           // arithmetic
+        vals[2 * i] = __float2bfloat16_rn((float)lo * s);
+        vals[2 * i + 1] = __float2bfloat16_rn((float)hi * s);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) vals[i] = __float2bfloat16_rn((float)bytes[i] * s);
+    }
+    uint4* out = reinterpret_cast<uint4*>(dst + t * d + c * per_vec);
+    const uint4* src = reinterpret_cast<const uint4*>(vals);
+    for (int v = 0; v < per_vec / 8; ++v) out[v] = src[v];
+  }
+}
+
 __device__ inline float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -159,6 +199,21 @@ __device__ inline void pv_chunk(const Smem& sm, int rows, int ntok, int d) {
     }
     sm.acc[e] = a;
   }
+}
+
+// Fold one staged chunk (Ks/Vs filled, not yet synchronised) into the
+// rows' online softmax: scores under `valid(r, t)`, the softmax update,
+// the PV product. Ends synchronised, so the next chunk may be staged.
+template <typename ValidFn>
+__device__ inline void attend_staged_chunk(const Smem& sm, int rows, int ntok, int d,
+                                           float scale, ValidFn valid) {
+  __syncthreads();
+  score_chunk(sm, rows, ntok, d, scale, valid);
+  __syncthreads();
+  softmax_chunk(sm, rows, ntok);
+  __syncthreads();
+  pv_chunk(sm, rows, ntok, d);
+  __syncthreads();
 }
 
 // out row r = acc[r] / l[r] (l == 0 -> divide by 1: a fully masked row

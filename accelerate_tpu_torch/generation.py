@@ -1,18 +1,38 @@
-"""Token sampling shared by the serving engine.
+"""Autoregressive generation with a KV cache, and the token sampler the
+serving engine shares.
 
-Counterpart of ``accelerate_tpu/generation.py``'s ``_sample``. Greedy is
-``argmax``, which returns the first maximum in both frameworks, so greedy
-tokens agree with the reference given equal logits. Temperature and
-top-k sampling draw from the caller's ``torch.Generator`` (one per
-request in the engine); its bits differ from ``jax.random``'s, so
-sampled tokens are compared by distribution, not token for token.
+Counterpart of ``accelerate_tpu/generation.py``. :func:`generate` runs the
+prompt once through the model (whole-prompt prefill: the flash forward
+kernel where the shapes allow, writing the cache), samples the first
+token from the last row, then runs ``max_new_tokens - 1`` single-stream
+decode steps against the cache (the dense decode kernel). The cache is
+right-sized as the reference does (:func:`_right_size_cache`).
+
+What the reference keeps beside it has nothing to do in eager PyTorch:
+its jit caches of compiled prefill and decode programs (``_LOOP_CACHE``,
+``_SIZED_DEF_CACHE``, ``clear_generation_caches``) exist so that a
+definition re-hits its compiled loops, and the port compiles nothing; a
+right-sized "definition" is here only the cache length handed to
+:meth:`DecoderLM.init_cache`. ``depipeline`` folds pipeline stages back
+into the layer scan, and the port has no pipelining yet (ROADMAP queue
+1). ``generate_dispatched`` and the seq2seq loops are later slices.
+
+Greedy is ``argmax``, which returns the first maximum in both frameworks,
+so greedy tokens agree with the reference given equal logits.
+Temperature and top-k sampling draw from the caller's ``torch.Generator``;
+its bits differ from ``jax.random``'s, so sampled tokens are compared by
+distribution, not token for token.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
+
+# right-sized caches round prompt + budget up to this many positions
+_CACHE_BUCKET = 256
 
 
 def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -26,3 +46,67 @@ def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
         logits = torch.where(logits < kth, torch.full_like(logits, -torch.inf), logits)
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[..., 0]
+
+
+def _right_size_cache(config, prompt_len: int, max_new_tokens: int) -> int:
+    """The cache length generate() allocates: an explicit
+    ``config.max_cache_len`` as it is; else prompt + budget rounded up to a
+    256 bucket and capped at ``max_seq_len`` (decode cost follows the
+    cache length, so a short generation should not pay for a
+    max_seq_len cache). When even the cap is short, ``max_seq_len``, so
+    the capacity check raises."""
+    if config.max_cache_len is not None:
+        return int(config.max_cache_len)
+    need = prompt_len + max_new_tokens
+    sized = min(-(-need // _CACHE_BUCKET) * _CACHE_BUCKET, config.max_seq_len)
+    return sized if sized >= need else int(config.max_seq_len)
+
+
+@torch.no_grad()
+def generate(
+    model,
+    input_ids,
+    *,
+    max_new_tokens: int = 32,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    return_prefill_seconds: bool = False,
+):
+    """Generate ``max_new_tokens`` continuations of ``input_ids`` [B, S]
+    with ``model`` (a ``DecoderLM``, on the device it was built on).
+    ``temperature=0`` is greedy; otherwise tokens are drawn from
+    ``generator``. Returns [B, S + max_new_tokens] token ids (int64, on
+    the model's device), and the prefill wall time in seconds when asked
+    (the TTFT component; the device is synchronised before the clock
+    stops)."""
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    dev = model.device
+    input_ids = torch.as_tensor(input_ids, device=dev).long()
+    b, s = input_ids.shape
+    cap = _right_size_cache(model.config, s, max_new_tokens)
+    if s + max_new_tokens > cap:
+        raise ValueError(
+            f"prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds the KV cache "
+            f"capacity ({cap}); raise config.max_cache_len"
+        )
+    cache = model.init_cache(b, cap)
+
+    t0 = time.perf_counter()
+    logits = model(input_ids, torch.arange(s, device=dev), cache=cache)
+    tok = _sample(logits[:, -1], generator, temperature, top_k)
+    if return_prefill_seconds and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prefill_seconds = time.perf_counter() - t0
+
+    tokens = [tok]
+    for pos in range(s, s + max_new_tokens - 1):
+        logits = model(tok[:, None], torch.arange(pos, pos + 1, device=dev),
+                       cache=cache, decode=True)
+        tok = _sample(logits[:, -1], generator, temperature, top_k)
+        tokens.append(tok)
+    result = torch.cat([input_ids, torch.stack(tokens, dim=1)], dim=1)
+    if return_prefill_seconds:
+        return result, prefill_seconds
+    return result

@@ -2,9 +2,13 @@
 
 Counterpart of ``accelerate_tpu/models/configs.py``: the same field names
 and defaults for everything paged serving and the training step read,
-with torch dtypes. fp8, MoE, dropout, pipelining and the int8/int4 KV
-precisions are accepted as fields and raise ``NotImplementedError``
-until their slices are ported; weight streaming is not carried.
+with torch dtypes. ``kv_cache_dtype`` takes "bf16", "int8" and "int4"
+(the quantized paged arena still raises, in the serving engine). fp8,
+MoE, dropout and pipelining are accepted as fields and raise
+``NotImplementedError`` until their slices are ported; weight streaming
+is not carried. The reference's ``decode_kernel`` / ``decode_kernel_block``
+knobs are not carried: the Hopper decode kernels walk 64-token chunks,
+so there is no kv block to choose.
 """
 
 from __future__ import annotations
@@ -50,8 +54,10 @@ class DecoderConfig:
     fused_ce_chunks: int = 8
     # KV-cache length for generation (None -> max_seq_len)
     max_cache_len: Optional[int] = None
-    # KV-cache storage precision; the paged arena's geometry (page size,
-    # page count) belongs to the serving engine that owns the arena
+    # KV-cache storage precision: "bf16" (the compute dtype), or "int8" /
+    # "int4" payloads with one fp32 scale per (token, kv head). The paged
+    # arena's geometry (page size, page count) belongs to the serving
+    # engine that owns the arena
     kv_cache_dtype: str = "bf16"
     # token-block granule the packed ragged prefill pads each tail to
     prefill_kernel_block: Optional[int] = None
@@ -75,16 +81,15 @@ class DecoderConfig:
                 f"num_heads ({self.num_heads}) must be a multiple of "
                 f"num_kv_heads ({self.num_kv_heads})"
             )
-        if self.kv_cache_dtype in ("int8", "int4"):
-            raise NotImplementedError(
-                f"kv_cache_dtype={self.kv_cache_dtype!r}: the quantized KV "
-                "arena and the int8/int4 kernel entries are a later slice "
-                "of the port (ROADMAP queue 2)"
-            )
-        if self.kv_cache_dtype != "bf16":
+        if self.kv_cache_dtype not in ("bf16", "int8", "int4"):
             raise ValueError(
                 f"kv_cache_dtype must be 'bf16', 'int8' or 'int4', got "
                 f"{self.kv_cache_dtype!r}"
+            )
+        if self.kv_cache_dtype == "int4" and self.head_dim % 2:
+            raise ValueError(
+                f"int4 KV packing pairs head_dim values into bytes; head_dim "
+                f"must be even, got {self.head_dim}"
             )
         if self.use_fp8:
             raise NotImplementedError(
@@ -155,7 +160,8 @@ class DecoderConfig:
 
     @classmethod
     def small_1b(cls, **kw):
-        """~1.2B model: 16 layers, E 2048, 16 heads over 8 kv heads."""
+        """0.821B model (``num_params``): 16 layers, E 2048, 16 heads over 8
+        kv heads, M 5632. The reference's docstring says ~1.2B."""
         kw.setdefault("vocab_size", 32_000)
         kw.setdefault("num_layers", 16)
         kw.setdefault("embed_dim", 2048)
@@ -166,6 +172,8 @@ class DecoderConfig:
 
     @classmethod
     def llama_7b(cls, **kw):
+        """6.7B model: 32 layers, E 4096, 32 heads (MHA), D 128, M 11008,
+        untied LM head."""
         kw.setdefault("vocab_size", 32_000)
         kw.setdefault("num_layers", 32)
         kw.setdefault("embed_dim", 4096)

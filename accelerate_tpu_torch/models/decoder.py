@@ -1,4 +1,5 @@
-"""LLaMA-family causal decoder: paged serving and the training step.
+"""LLaMA-family causal decoder: serving, KV-cache generation and the
+training step.
 
 Counterpart of ``accelerate_tpu/models/decoder.py``. Parameters keep the
 reference's layouts (``wq [E, H, D]``, ``wk``/``wv [E, KVH, D]``,
@@ -24,19 +25,39 @@ recomputes the whole block, the flash forward included, in backward;
 separately, so its saved q, k, v, out and lse are reused and the forward
 kernel runs once.
 
-``DecoderAttention`` carries two cache branches, both over the paged
-arena (per layer ``{"k", "v"}`` leaves of [num_pages, KVH, page_size, D],
-updated IN PLACE; the page size is read from the leaves):
+``DecoderAttention`` carries five cache branches. Caches are updated IN
+PLACE (the reference returns new arrays; the port writes into the
+tensors it is given).
+
+Over the paged arena (per layer ``{"k", "v"}`` leaves of [num_pages,
+KVH, page_size, D]; the page size is read from the leaves):
 
 - slot-arena decode (``cache_positions`` + ``page_table``): scatter the
   fresh K/V through the page table, then the paged decode read;
 - packed ragged prefill (``ragged_slots`` + ``slot_hist``): the ragged
   prefill kernel, then the scatter (pad rows land on parking page 0).
 
+Over a dense cache (:meth:`DecoderLM.init_cache`: per layer ``{"k",
+"v"}`` of [B, KVH, L, D] in the compute dtype, or int8 payloads
+[B, KVH, L, D or D / 2] plus ``{"k_scale", "v_scale"}`` [B, KVH, L, 1]
+fp32, and ``"index"``, the position the next single-stream write lands
+at; the storage format is read from the leaves):
+
+- whole-prompt prefill (no ``cache_positions``, ``decode=False``): write
+  positions [0, S), set the index to S, and attend causally through
+  ``dot_product_attention`` (the flash forward kernel where
+  ``flash_route`` allows it); a quantized cache stores payload and scales
+  and attends over the dequantized values, as the reference does;
+- dense slot-arena decode (``cache_positions`` without ``page_table``):
+  scatter at each batch row's own position(s), quantizing on write, then
+  ``decode_attention`` with [B, S] positions (the dense decode kernel);
+- single-stream decode / chunk (``decode=True``, no ``cache_positions``):
+  write at the index, advance it, then ``decode_attention`` with
+  positions ``index + arange(S)``.
+
 With no cache the forward is the cache-free causal attention of
 ``dot_product_attention`` (the plain ``mha_reference`` unless the flash
-kernels are chosen), used as the teacher-forced oracle. Every other
-reference branch raises ``NotImplementedError`` naming its later slice.
+kernels are chosen), used as the teacher-forced oracle.
 """
 
 from __future__ import annotations
@@ -49,6 +70,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (
+    decode_attention,
+    decode_attention_reference,
     dot_product_attention,
     flash_route,
     paged_decode_attention,
@@ -56,6 +79,7 @@ from ..ops.attention import (
 )
 from ..ops.layers import apply_rotary_embedding, rms_norm, rotary_embedding_tables, swiglu
 from ..ops.losses import fused_linear_cross_entropy
+from ..utils.quantization import dequantize_kv, kv_cache_bits, quantize_kv
 from .configs import DecoderConfig
 
 
@@ -71,8 +95,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _later(what: str, where: str):
-    raise NotImplementedError(f"{what} belongs to a later slice of the port ({where})")
+def _cache_bits(cache: dict, head_dim: int) -> int:
+    """Storage bits of a dense cache's K/V payload: 0 for the compute
+    dtype, else 8 (int8) or 4 (int4, a D / 2 payload row)."""
+    if "k_scale" not in cache:
+        return 0
+    return 4 if 2 * cache["k"].shape[-1] == head_dim else 8
 
 
 class _Module(nn.Module):
@@ -127,19 +155,112 @@ class DecoderAttention(_Module):
                                      impl=self.config.attention_impl)
 
     def forward(self, x, sin, cos, kv_mask=None, cache=None, cache_positions=None,
-                page_table=None, ragged_slots=None, slot_hist=None):
+                page_table=None, ragged_slots=None, slot_hist=None, decode=False):
         q, k, v = self.qkv(x, sin, cos)
         if cache is None:
             out = self.attend(q, k, v, kv_mask)
-        elif page_table is None or cache_positions is None:
-            _later("the flat (non-paged) KV cache and whole-prompt prefill",
-                   "ROADMAP queue 1, generate()")
         elif ragged_slots is not None:
             out = self._ragged_prefill(q, k, v, cache, cache_positions, page_table,
                                        ragged_slots, slot_hist)
-        else:
+        elif page_table is not None:
             out = self._paged_decode(q, k, v, cache, cache_positions, page_table)
+        elif cache_positions is not None:
+            out = self._slot_decode(q, k, v, cache, cache_positions)
+        elif decode:
+            out = self._stream_decode(q, k, v, cache)
+        else:
+            out = self._prefill(q, k, v, cache)
         return self.project_out(out)
+
+    def _prefill(self, q, k, v, cache):
+        """Whole-prompt prefill: the cache starts at 0, so plain causal
+        attention over the fresh K/V stays on the flash path. A quantized
+        cache stores payload + scales and attends over the DEQUANTIZED
+        values: the stored cache is the source of truth, so this prefill
+        agrees token for token with a chunked one that reads it back."""
+        s = q.shape[2]
+        length = cache["k"].shape[2]
+        if s > length:
+            raise ValueError(f"a {s}-token prefill does not fit the {length}-position cache")
+        bits = _cache_bits(cache, self.config.head_dim)
+        if bits:
+            k_q, k_s = quantize_kv(k, bits)
+            v_q, v_s = quantize_kv(v, bits)
+            cache["k"][:, :, :s] = k_q
+            cache["v"][:, :, :s] = v_q
+            cache["k_scale"][:, :, :s] = k_s
+            cache["v_scale"][:, :, :s] = v_s
+            k = dequantize_kv(k_q, k_s, bits, q.dtype)
+            v = dequantize_kv(v_q, v_s, bits, q.dtype)
+        else:
+            cache["k"][:, :, :s] = k
+            cache["v"][:, :, :s] = v
+        cache["index"] = s
+        return dot_product_attention(q, k, v, causal=True, impl=self.config.attention_impl)
+
+    def _slot_decode(self, q, k, v, cache, cache_positions):
+        """Dense slot-arena decode: every batch row writes its fresh K/V at
+        its own position(s), quantizing on write, then attends its own
+        prefix. Stale entries past a row's frontier (a previous occupant,
+        bucket padding) are overwritten before they are attended."""
+        b, s = q.shape[0], q.shape[2]
+        pos2d = cache_positions[:, None] if cache_positions.dim() == 1 else cache_positions
+        if pos2d.shape[1] != s:
+            raise ValueError(
+                f"cache_positions covers {pos2d.shape[1]} positions per slot "
+                f"but {s} tokens were fed"
+            )
+        rows = torch.arange(b, device=q.device)[:, None]
+        pos_l = pos2d.long()
+        k_new, v_new = k.transpose(1, 2), v.transpose(1, 2)  # [B, S, KVH, D]
+        bits = _cache_bits(cache, self.config.head_dim)
+        scale_kw = {}
+        if bits:
+            k_new, k_s = quantize_kv(k_new, bits)
+            v_new, v_s = quantize_kv(v_new, bits)
+            cache["k_scale"][rows, :, pos_l] = k_s
+            cache["v_scale"][rows, :, pos_l] = v_s
+            scale_kw = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"],
+                        "kv_quant_bits": bits}
+        cache["k"][rows, :, pos_l] = k_new
+        cache["v"][rows, :, pos_l] = v_new
+        return decode_attention(q.contiguous(), cache["k"], cache["v"], q_positions=pos2d,
+                                **scale_kw)
+
+    def _stream_decode(self, q, k, v, cache):
+        """Single-stream decode (S == 1, generate()'s loop) or a prefill
+        chunk (S > 1, the flat engine's admission against a slot view):
+        write at the cache index, advance it, attend positions
+        ``index + arange(S)``."""
+        s = q.shape[2]
+        cur = int(cache["index"])
+        length = cache["k"].shape[2]
+        if cur + s > length:
+            raise ValueError(
+                f"writing {s} tokens at position {cur} overruns the {length}-position cache"
+            )
+        bits = _cache_bits(cache, self.config.head_dim)
+        scale_kw = {}
+        if bits:
+            k, k_s = quantize_kv(k, bits)
+            v, v_s = quantize_kv(v, bits)
+            cache["k_scale"][:, :, cur:cur + s] = k_s
+            cache["v_scale"][:, :, cur:cur + s] = v_s
+            scale_kw = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"],
+                        "kv_quant_bits": bits}
+        cache["k"][:, :, cur:cur + s] = k
+        cache["v"][:, :, cur:cur + s] = v
+        cache["index"] = cur + s
+        positions = cur + torch.arange(s, device=q.device)
+        if s == 1:
+            return decode_attention(q.contiguous(), cache["k"], cache["v"],
+                                    q_positions=positions, **scale_kw)
+        # a prefill chunk: the reference forces the masked-dense read here
+        # whatever the chunk size (accelerate_tpu/models/decoder.py:467-481),
+        # so chunked prefill stays identical to whole-prompt prefill; its own
+        # choice, not a fallback from the kernel
+        return decode_attention_reference(q, cache["k"], cache["v"], positions,
+                                          **scale_kw)
 
     def _ragged_prefill(self, q, k, v, cache, cache_positions, page_table,
                         ragged_slots, slot_hist):
@@ -252,8 +373,10 @@ class DecoderLM(_Module):
     """Causal LM: ``forward(input_ids, positions, ...) -> logits`` fp32, or
     ``{"loss": ...}`` when ``labels`` are given (training).
 
-    ``cache`` is the paged arena (a list over layers of ``{"k", "v"}``
-    tensors, see ``serving/pages.init_paged_arena``), mutated in place.
+    ``cache`` is a list over layers of cache dicts, mutated in place: the
+    paged arena (``serving/pages.init_paged_arena``) or a dense cache
+    (:meth:`init_cache`, ``serving/arena.init_arena``); ``decode`` selects
+    the single-stream step over a dense cache (see the module docstring).
     ``device=None`` means CUDA and raises without it; pass
     ``device="cpu"`` for the plain versions on the CPU. ``param_dtype``
     None stores matmul weights and the embedding in the compute dtype and
@@ -288,6 +411,33 @@ class DecoderLM(_Module):
                 m.param_cast = dtype
         return self
 
+    def init_cache(self, batch: int, length: int, kv_cache_dtype: Optional[str] = None) -> list:
+        """All-zeros dense KV cache for ``batch`` rows of ``length``
+        positions: one dict per layer with ``"k"`` / ``"v"`` [B, KVH, L, D]
+        in the compute dtype (``kv_cache_dtype`` "bf16"), or int8 payloads
+        [B, KVH, L, D] ("int8") / [B, KVH, L, D / 2] ("int4") beside
+        ``"k_scale"`` / ``"v_scale"`` [B, KVH, L, 1] fp32; and ``"index"``
+        0. ``kv_cache_dtype`` None takes the config's."""
+        cfg = self.config
+        bits = kv_cache_bits(kv_cache_dtype or cfg.kv_cache_dtype)
+        if bits == 4 and cfg.head_dim % 2:
+            raise ValueError(f"int4 KV packing needs an even head_dim, got {cfg.head_dim}")
+        rows = (batch, cfg.num_kv_heads, length)
+
+        def zeros(width, dtype):
+            return torch.zeros(rows + (width,), dtype=dtype, device=self.device)
+
+        def layer():
+            if bits == 16:
+                return {"k": zeros(cfg.head_dim, cfg.dtype), "v": zeros(cfg.head_dim, cfg.dtype),
+                        "index": 0}
+            width = cfg.head_dim // 2 if bits == 4 else cfg.head_dim
+            return {"k": zeros(width, torch.int8), "v": zeros(width, torch.int8),
+                    "k_scale": zeros(1, torch.float32), "v_scale": zeros(1, torch.float32),
+                    "index": 0}
+
+        return [layer() for _ in range(cfg.num_layers)]
+
     def load_params(self, params: dict):
         """Copy a weight dict (``models/convert.py``: numpy arrays or
         tensors, keyed like ``state_dict()``) into the module, casting to
@@ -299,11 +449,13 @@ class DecoderLM(_Module):
 
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 *, labels: Optional[torch.Tensor] = None, cache=None, cache_positions=None,
-                page_table=None, ragged_slots=None, slot_hist=None):
+                page_table=None, ragged_slots=None, slot_hist=None, decode: bool = False):
         cfg = self.config
         b, s = input_ids.shape
         if labels is not None and cache is not None:
             raise ValueError("labels (training loss) take the cache-free forward")
+        if (cache_positions is not None or decode) and cache is None:
+            raise ValueError("cache_positions and decode need a cache")
         if page_table is not None and cache_positions is None:
             raise ValueError("page_table (paged slot-arena decode) requires cache_positions")
         if (ragged_slots is not None) != (slot_hist is not None):
@@ -324,7 +476,7 @@ class DecoderLM(_Module):
             x = block(
                 x, sin, cos, cache=None if cache is None else cache[i],
                 cache_positions=cache_positions, page_table=page_table,
-                ragged_slots=ragged_slots, slot_hist=slot_hist,
+                ragged_slots=ragged_slots, slot_hist=slot_hist, decode=decode,
             )
         x = rms_norm(x, self._use(self.ln_final), cfg.norm_eps)
         head = self._use(self.embedding.t() if cfg.tie_embeddings else self.lm_head, cfg.dtype)

@@ -10,6 +10,11 @@ Each kernel sits beside its plain version:
 
 - :func:`paged_decode_attention` -> ``ops/kernels.paged_decode``
   (csrc/paged_decode.cu); plain version :func:`paged_decode_reference`.
+- :func:`decode_attention` -> ``ops/kernels.dense_decode`` /
+  ``dense_decode_quant`` (csrc/dense_decode.cu, dense_decode_quant.cu)
+  at decode widths (Sq <= 16); plain version
+  :func:`decode_attention_reference`, which is also the read of wider
+  query blocks, as in the reference.
 - :func:`ragged_prefill_attention` -> ``ops/kernels.ragged_prefill``
   (csrc/ragged_prefill.cu); plain version :func:`ragged_prefill_reference`.
 - :func:`flash_attention` (one ``torch.autograd.Function``),
@@ -138,6 +143,60 @@ def paged_decode_attention(
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     pos = _positions_2d(q_positions, q.shape[0])
     return kernels.paged_decode(q, k_pages, v_pages, page_table, pos, scale)
+
+
+def decode_attention_reference(q, k, v, q_positions, sm_scale=None, *, k_scale=None,
+                               v_scale=None, kv_quant_bits: int = 0):
+    """Plain dense-cache decode: a quantized cache (``kv_quant_bits`` 8 or
+    4) is dequantized first with ``dequantize_kv``, then the masked-dense
+    read :func:`decode_attention_dense` runs."""
+    if kv_quant_bits:
+        from ..utils.quantization import dequantize_kv
+
+        k = dequantize_kv(k, k_scale, kv_quant_bits, q.dtype)
+        v = dequantize_kv(v, v_scale, kv_quant_bits, q.dtype)
+    return decode_attention_dense(q, k, v, q_positions=q_positions, sm_scale=sm_scale)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_positions: torch.Tensor,
+    sm_scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    kv_quant_bits: int = 0,
+) -> torch.Tensor:
+    """Decode attention over a dense cache with per-row validity.
+
+    q [B, H, Sq, D]; k/v [B, KVH, L, D], the whole cache, already holding
+    the query rows' own K/V. ``q_positions`` [Sq] (shared by the batch:
+    single-stream decode) or [B, Sq] (per-slot: the flat serving arena) is
+    each query row's global position; it attends cache position c iff
+    ``c <= its position``. ``kv_quant_bits`` (8 or 4, with ``k_scale`` /
+    ``v_scale`` [B, KVH, L, 1] fp32): k/v are int8 payloads (int4 packed
+    two a byte along D).
+
+    At decode widths (Sq <= 16) the dense decode kernel reads only each
+    row's live positions (its plain version on a CPU tensor). A wider Sq
+    takes the masked-dense read, as the reference's dispatch does by
+    design (``_DECODE_KERNEL_MAX_SQ``): such a block is prefill-shaped."""
+    from . import kernels
+
+    if kv_quant_bits and (k_scale is None or v_scale is None):
+        raise ValueError("kv_quant_bits needs k_scale and v_scale")
+    sq, d = q.shape[2], q.shape[3]
+    if sq > DECODE_KERNEL_MAX_SQ:
+        return decode_attention_reference(q, k, v, q_positions, sm_scale, k_scale=k_scale,
+                                          v_scale=v_scale, kv_quant_bits=kv_quant_bits)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    pos = _positions_2d(q_positions, q.shape[0])
+    if kv_quant_bits:
+        return kernels.dense_decode_quant(q, k, v, k_scale, v_scale, pos, scale,
+                                          kv_quant_bits)
+    return kernels.dense_decode(q, k, v, pos, scale)
 
 
 def ragged_prefill_reference(q, k_new, v_new, k_pages, v_pages, page_table,

@@ -9,7 +9,8 @@ libraries with ``ctypes``; a library is named after the hash of its
 sources, so an edited kernel rebuilds and an unchanged one is reused.
 
 The checked wrappers (:func:`paged_decode`, :func:`ragged_prefill`,
-:func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`) take CPU
+:func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`,
+:func:`dense_decode`, :func:`dense_decode_quant`) take CPU
 tensors to the plain PyTorch version in ``ops/attention.py``. For a CUDA
 tensor they check device, dtype, shape and contiguity, allocate the
 output, launch the kernel and add one to :data:`launch_counts`, or raise.
@@ -57,6 +58,14 @@ KERNELS = {
     "flash_bwd_dkv": (
         "flash_bwd_dkv.cu", "flash_bwd_dkv_launch",
         [_P] * 11 + [_I] * 7 + [_F, _P],
+    ),
+    "dense_decode": (
+        "dense_decode.cu", "dense_decode_launch",
+        [_P] * 5 + [_I] * 6 + [_F, _P],
+    ),
+    "dense_decode_quant": (
+        "dense_decode_quant.cu", "dense_decode_quant_launch",
+        [_P] * 7 + [_I] * 7 + [_F, _P],
     ),
 }
 
@@ -373,3 +382,89 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float)
         sq, skv, d, int(causal), float(sm_scale), stream,
     )
     return dk, dv
+
+
+def _dense_decode_shapes(q, k, pos, name, per_load: int):
+    """Check what both dense decode kernels share on a CUDA device; returns
+    ``(b, kvh, group, sq, length, d)``. ``per_load`` is how many head_dim
+    values one 16-byte load of a K/V row holds."""
+    _require_cuda(q, name)
+    b, h, sq, d = q.shape
+    kvh, length = k.shape[1], k.shape[2]
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if not 1 <= sq <= DECODE_KERNEL_MAX_SQ:
+        raise ValueError(
+            f"dense decode takes 1..{DECODE_KERNEL_MAX_SQ} query rows per batch row, got {sq}"
+        )
+    if d % per_load:
+        raise ValueError(
+            f"head_dim {d} must be a multiple of {per_load} (16-byte loads of the K/V rows)"
+        )
+    group = h // kvh
+    _smem_limit_check(group * sq, d)
+    _check(q, "q", torch.bfloat16, (b, h, sq, d), q.device)
+    _check(pos, "pos", torch.int32, (b, sq), q.device)
+    return b, kvh, group, sq, length, d
+
+
+def _check_aligned(*named):
+    for what, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must start on a 16-byte boundary (16-byte loads)")
+
+
+def dense_decode(q, k, v, pos, sm_scale: float):
+    """Decode attention over a dense cache: q [B, H, Sq, D] bf16, k/v
+    [B, KVH, L, D] bf16, pos [B, Sq] int32 -> out [B, H, Sq, D]; query row
+    t of batch row b attends kv positions <= pos[b, t]. CPU tensors run
+    the plain version."""
+    if q.device.type == "cpu":
+        from .attention import decode_attention_reference
+
+        return decode_attention_reference(q, k, v, pos, sm_scale)
+    b, kvh, group, sq, length, d = _dense_decode_shapes(q, k, pos, "dense_decode", 8)
+    dev = q.device
+    _check(k, "k", torch.bfloat16, (b, kvh, length, d), dev)
+    _check(v, "v", torch.bfloat16, (b, kvh, length, d), dev)
+    _check_aligned(("k", k), ("v", v))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch(
+        "dense_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), b, kvh, group, sq, length, d, float(sm_scale), stream,
+    )
+    return out
+
+
+def dense_decode_quant(q, k, v, k_scale, v_scale, pos, sm_scale: float, bits: int):
+    """Decode attention over a dense quantized cache: q [B, H, Sq, D] bf16,
+    k/v int8 payloads [B, KVH, L, D] (``bits`` 8) or [B, KVH, L, D / 2]
+    (``bits`` 4, two values a byte), k_scale/v_scale [B, KVH, L, 1] fp32,
+    pos [B, Sq] int32 -> out [B, H, Sq, D]. CPU tensors run the plain
+    version (dequantize, then the masked-dense read)."""
+    if bits not in (8, 4):
+        raise ValueError(f"KV quantization supports 8 or 4 bits, got {bits}")
+    if q.device.type == "cpu":
+        from .attention import decode_attention_reference
+
+        return decode_attention_reference(q, k, v, pos, sm_scale, k_scale=k_scale,
+                                          v_scale=v_scale, kv_quant_bits=bits)
+    per_load = 32 if bits == 4 else 16
+    b, kvh, group, sq, length, d = _dense_decode_shapes(
+        q, k, pos, "dense_decode_quant", per_load)
+    pd = d // 2 if bits == 4 else d
+    dev = q.device
+    _check(k, "k payload", torch.int8, (b, kvh, length, pd), dev)
+    _check(v, "v payload", torch.int8, (b, kvh, length, pd), dev)
+    _check(k_scale, "k_scale", torch.float32, (b, kvh, length, 1), dev)
+    _check(v_scale, "v_scale", torch.float32, (b, kvh, length, 1), dev)
+    _check_aligned(("k payload", k), ("v payload", v))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch(
+        "dense_decode_quant", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, kvh, group, sq, length, d, bits, float(sm_scale), stream,
+    )
+    return out

@@ -1,4 +1,4 @@
-"""Paged continuous-batching serving engine."""
+"""Continuous-batching serving engine over the paged or the flat KV arena."""
 
 from .engine import Request, ServingEngine
 

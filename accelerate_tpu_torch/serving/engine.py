@@ -1,10 +1,10 @@
-"""Continuous-batching serving engine over the paged KV arena.
+"""Continuous-batching serving engine over the paged or the flat KV arena.
 
-Counterpart of ``accelerate_tpu/serving/engine.py``, limited to the
-configuration users run with ``accelerate-tpu serve replica``: the paged
-arena, FIFO admission, no speculative decoding, no KV tiers. Many
-requests decode per device step against one paged arena, and admissions
-ride the packed ragged prefill:
+Counterpart of ``accelerate_tpu/serving/engine.py``, limited to FIFO
+admission, no speculative decoding, no KV tiers. Many requests decode per
+device step against one arena. On the paged arena (``page_size``, what
+users run with ``accelerate-tpu serve replica``) admissions ride the
+packed ragged prefill:
 
 - **paged arena** (``pages.py``): ``[num_pages, KVH, page_size, D]``
   pages per layer, per-slot page tables, page 0 the parking page, and
@@ -22,13 +22,22 @@ ride the packed ragged prefill:
 - **host-side scheduler**: the FIFO queue, slot allocator, per-request
   token callbacks and a few serving metrics.
 
+On the flat arena (``page_size=None``, the reference's default;
+``arena.py``) each slot is one batch row of a dense
+[num_slots, KVH, max_cache_len, D] cache, quantized when
+``kv_cache_dtype`` is "int8" or "int4". Admission is per-slot chunked
+prefill in the ``prefill_chunks`` buckets against a slot view (the
+masked-dense read, as the reference forces for chunks); the batched
+decode step writes each slot's token at its own position and reads
+through the dense decode kernel.
+
 Greedy decoding is ``argmax``; temperature/top-k sampling draws from a
 ``torch.Generator`` per request, seeded by ``submit(seed=...)``.
 
 Everything else the reference engine offers (the multi-tenant
 scheduler, speculative verify, KV tiers and handoff, fault injection,
-drain, telemetry hooks, the flat arena, fused decode bursts) is a later
-slice of the port and raises here.
+drain, telemetry hooks, fused decode bursts, the quantized paged arena)
+is a later slice of the port and raises here.
 """
 
 from __future__ import annotations
@@ -44,11 +53,12 @@ import torch
 from ..generation import _sample
 from ..models.decoder import resolve_device
 from ..ops.attention import PREFILL_TOKEN_BLOCK
+from ..utils.quantization import kv_cache_bits
+from .arena import arena_nbytes, init_arena, slot_view, write_slot
 from .pages import (
     PageAllocator,
     PagedTables,
     PrefixCache,
-    arena_nbytes,
     fork_page,
     init_paged_arena,
     set_table_entry,
@@ -87,7 +97,7 @@ class Request:
     finish_reason: Optional[str] = None  # eos | budget | ...
     shed_reason: Optional[str] = None
     prefix_hit: int = 0         # prompt tokens served from the prefix cache
-    prefill_dispatches: int = 0  # packed prefill dispatches its prompt rode
+    prefill_dispatches: int = 0  # prefill dispatches (packs or chunks) its prompt rode
 
     def result(self) -> np.ndarray:
         """[prompt + generated] token ids."""
@@ -101,9 +111,12 @@ class ServingEngine:
     a weight dict (``models/convert.py``) loaded into it first.
     ``device=None`` means CUDA and raises without it; ``device="cpu"``
     runs the kernels' plain versions. ``page_size`` selects the paged
-    arena (the only arena of this slice) with ``num_pages`` physical
-    pages (default: capacity-equivalent to ``num_slots * max_cache_len``
-    plus the parking page). ``temperature``/``top_k`` are engine-wide.
+    arena with ``num_pages`` physical pages (default: capacity-equivalent
+    to ``num_slots * max_cache_len`` plus the parking page);
+    ``page_size=None`` the flat arena. ``kv_cache_dtype`` ("bf16", "int8"
+    or "int4"; default: the model config's) is the KV storage precision;
+    the quantized paged arena is a later slice and raises.
+    ``temperature``/``top_k`` are engine-wide.
     """
 
     _LATER = {
@@ -112,7 +125,6 @@ class ServingEngine:
         "drafter": "speculative verify",
         "scheduler": "the multi-tenant scheduler",
         "faults": "fault injection",
-        "kv_cache_dtype": "the int8/int4 KV arena",
         "kv_tiers": "hierarchical KV tiers",
         "telemetry": "telemetry hooks",
         "replica": "the replica server",
@@ -135,6 +147,7 @@ class ServingEngine:
         num_pages: Optional[int] = None,
         prefix_cache: bool = True,
         prefix_max_entries: Optional[int] = None,
+        kv_cache_dtype: Optional[str] = None,
         device=None,
         **later,
     ):
@@ -154,9 +167,14 @@ class ServingEngine:
             model.load_params(params)
         self.model = model
         cfg = model.config
-        if cfg.kv_cache_dtype != "bf16":
+        self.kv_cache_dtype = kv_cache_dtype or cfg.kv_cache_dtype
+        kv_cache_bits(self.kv_cache_dtype)  # raises on an unknown value
+        if page_size and self.kv_cache_dtype != "bf16":
             raise NotImplementedError(
-                f"kv_cache_dtype {cfg.kv_cache_dtype!r} is a later slice of the port"
+                f"kv_cache_dtype {self.kv_cache_dtype!r} on the paged arena (the int8/int4 "
+                "entries of the paged decode and ragged prefill kernels, scale leaves "
+                "through page forks and prefix shares) is the next slice of the port "
+                "(ROADMAP queue 1 item 3); the flat arena (page_size=None) serves it"
             )
         cap = max_cache_len or cfg.max_cache_len or cfg.max_seq_len
         self.num_slots = int(num_slots)
@@ -168,43 +186,15 @@ class ServingEngine:
         self.top_k = top_k
         self.eos_token_id = eos_token_id
 
+        self._prefix = None
         if not page_size:
-            raise NotImplementedError(
-                "the flat slot arena (page_size=None) is a later slice of the "
-                "port; serve on the paged arena (page_size=16)"
-            )
-        self.page_size = int(page_size)
-        if self.page_size & (self.page_size - 1):
-            raise ValueError(f"page_size must be a power of two, got {self.page_size}")
-        if self.max_cache_len % self.page_size:
-            raise ValueError(
-                f"page_size ({self.page_size}) must divide max_cache_len "
-                f"({self.max_cache_len})"
-            )
-        self.pages_per_slot = self.max_cache_len // self.page_size
-        self.num_pages = (
-            int(num_pages) if num_pages else 1 + self.num_slots * self.pages_per_slot
-        )
-        if self.num_pages < 2:
-            raise ValueError(f"num_pages ({self.num_pages}) must be >= 2")
-        self._allocator = PageAllocator(self.num_pages, reserved=1)
-        self._tables_host = PagedTables(self.num_slots, self.pages_per_slot, parking=0)
-        self._prefix = (
-            PrefixCache(self._allocator, self.page_size,
-                        max_entries=int(prefix_max_entries or 512))
-            if prefix_cache else None
-        )
-        self._arena = init_paged_arena(cfg, self.num_pages, self.page_size, self.device)
+            self.page_size = None
+            self._arena = init_arena(model, self.num_slots, self.max_cache_len,
+                                     self.kv_cache_dtype)
+        else:
+            self._init_paged(cfg, int(page_size), num_pages, prefix_cache,
+                             prefix_max_entries)
         self.arena_bytes = arena_nbytes(self._arena)
-        self._page_tables = torch.zeros(
-            (self.num_slots, self.pages_per_slot), dtype=torch.int32, device=self.device
-        )
-        # packed ragged prefill: fixed pack capacities, each chunk bucket
-        # rounded up to the token block; the packer takes the smallest
-        # capacity that fits the round's packed tails
-        self._ragged_bt = int(cfg.prefill_kernel_block or PREFILL_TOKEN_BLOCK)
-        rb = self._ragged_bt
-        self._ragged_caps = tuple(sorted({-(-c // rb) * rb for c in self.prefill_chunks}))
 
         # per-slot decode state, host side: the step feeds it to the device
         self._tokens = np.zeros((self.num_slots,), np.int64)
@@ -227,6 +217,42 @@ class ServingEngine:
         self.generated_tokens = 0
         self._step_samples: deque = deque(maxlen=512)  # (wall_s, tokens)
         self._ttft: deque = deque(maxlen=2048)  # submit -> first token, s
+
+    def _init_paged(self, cfg, page_size: int, num_pages, prefix_cache: bool,
+                    prefix_max_entries):
+        """The paged arena, its allocator, host tables, prefix cache and
+        the packed ragged prefill's capacities."""
+        self.page_size = page_size
+        if self.page_size & (self.page_size - 1):
+            raise ValueError(f"page_size must be a power of two, got {self.page_size}")
+        if self.max_cache_len % self.page_size:
+            raise ValueError(
+                f"page_size ({self.page_size}) must divide max_cache_len "
+                f"({self.max_cache_len})"
+            )
+        self.pages_per_slot = self.max_cache_len // self.page_size
+        self.num_pages = (
+            int(num_pages) if num_pages else 1 + self.num_slots * self.pages_per_slot
+        )
+        if self.num_pages < 2:
+            raise ValueError(f"num_pages ({self.num_pages}) must be >= 2")
+        self._allocator = PageAllocator(self.num_pages, reserved=1)
+        self._tables_host = PagedTables(self.num_slots, self.pages_per_slot, parking=0)
+        self._prefix = (
+            PrefixCache(self._allocator, self.page_size,
+                        max_entries=int(prefix_max_entries or 512))
+            if prefix_cache else None
+        )
+        self._arena = init_paged_arena(cfg, self.num_pages, self.page_size, self.device)
+        self._page_tables = torch.zeros(
+            (self.num_slots, self.pages_per_slot), dtype=torch.int32, device=self.device
+        )
+        # packed ragged prefill: fixed pack capacities, each chunk bucket
+        # rounded up to the token block; the packer takes the smallest
+        # capacity that fits the round's packed tails
+        self._ragged_bt = int(cfg.prefill_kernel_block or PREFILL_TOKEN_BLOCK)
+        rb = self._ragged_bt
+        self._ragged_caps = tuple(sorted({-(-c // rb) * rb for c in self.prefill_chunks}))
 
     # -- request API -------------------------------------------------------
 
@@ -314,7 +340,8 @@ class ServingEngine:
         slot = req.slot
         self._slot_req.pop(slot, None)
         self._active[slot] = False
-        self._release_slot_pages(slot)
+        if self.page_size:
+            self._release_slot_pages(slot)
         self._free.append(slot)
         req.slot = None
 
@@ -334,8 +361,9 @@ class ServingEngine:
             self.requests_shed += 1
 
     def _abort_admission(self, reason: str):
-        """Tear down the mid-prefill admission: its slot returns to the free
-        list, its pages are released, the request is shed."""
+        """Tear down the mid-prefill admission (paged arena, under page
+        pressure): its slot returns to the free list, its pages are
+        released, the request is shed."""
         req, slot = self._admitting[0], self._admitting[1]
         self._admitting = None
         self._release_slot_pages(slot)
@@ -469,9 +497,40 @@ class ServingEngine:
                 return False
             req = self._queue.popleft()
             slot = self._free.pop()
-            plan = self._paged_admit_plan(req, slot, req.prompt)
+            if self.page_size:
+                plan = self._paged_admit_plan(req, slot, req.prompt)
+            else:
+                plan = self._plan_chunks(req.prompt.size)
             self._admitting = [req, slot, plan, 0]
-        return self._ragged_advance()
+        return self._ragged_advance() if self.page_size else self._flat_advance()
+
+    def _flat_advance(self) -> bool:
+        """One bucketed prefill chunk of the admitting request against its
+        slot view (flat arena): queries at positions start .. start + C - 1
+        attend the slot's whole prefix, so chunks continue exactly. The
+        last chunk's last valid row samples the first token (the padding
+        rows of a bucketed final chunk give logits nobody reads)."""
+        req, slot, plan, idx = self._admitting
+        start, bucket = plan[idx]
+        seg = req.prompt[start:start + bucket]
+        chunk = np.zeros((1, bucket), np.int64)
+        chunk[0, :seg.size] = seg
+        dev = self.device
+        view = slot_view(self._arena, slot, start)
+        logits = self.model(torch.as_tensor(chunk, device=dev),
+                            start + torch.arange(bucket, device=dev), cache=view,
+                            decode=True)[0]  # [bucket, V]
+        write_slot(self._arena, view, slot)
+        self.prefill_dispatches += 1
+        req.prefill_dispatches += 1
+        if idx + 1 < len(plan):
+            self._admitting[3] = idx + 1
+            return True
+        self._admitting = None
+        row = logits[seg.size - 1][None]
+        first = int(_sample(row, req.generator, self.temperature, self.top_k)[0])
+        self._go_live(req, slot, first, time.perf_counter())
+        return True
 
     def _ragged_advance(self) -> bool:
         """One packed ragged-prefill dispatch: the primary admission's next
@@ -571,16 +630,20 @@ class ServingEngine:
             if primary:
                 self._admitting = None
             self._insert_prefix(preq, psl)
-            first_tok = firsts[psl]
-            self._tokens[psl] = first_tok
-            self._lengths[psl] = preq.prompt.size
-            preq.slot = psl
-            self._slot_req[psl] = preq
-            self._active[psl] = True
-            preq.first_token_t = now
-            self._ttft.append(now - preq.submit_t)
-            self._emit(preq, first_tok, now)
+            self._go_live(preq, psl, firsts[psl], now)
         return True
+
+    def _go_live(self, req: Request, slot: int, first_tok: int, now: float):
+        """Admission done: the slot decodes from the next step on, and the
+        first token is emitted."""
+        self._tokens[slot] = first_tok
+        self._lengths[slot] = req.prompt.size
+        req.slot = slot
+        self._slot_req[slot] = req
+        self._active[slot] = True
+        req.first_token_t = now
+        self._ttft.append(now - req.submit_t)
+        self._emit(req, first_tok, now)
 
     # -- decode --------------------------------------------------------------
 
@@ -604,11 +667,12 @@ class ServingEngine:
     def _decode_once(self) -> bool:
         if not self._slot_req:
             return False
-        for slot, req in list(self._slot_req.items()):
-            pos = self._next_write_pos(req)
-            self._grow_or_resolve(req, slot, pos, pos)
-        if not self._slot_req:
-            return True  # every live slot was shed under page pressure
+        if self.page_size:
+            for slot, req in list(self._slot_req.items()):
+                pos = self._next_write_pos(req)
+                self._grow_or_resolve(req, slot, pos, pos)
+            if not self._slot_req:
+                return True  # every live slot was shed under page pressure
         # inactive slots still flow through the fixed-batch step but must
         # not write at ``lengths`` (a slot mid-admission has its prefix
         # there): park them on the LAST cache position, which any request
@@ -618,13 +682,14 @@ class ServingEngine:
         write_pos = np.where(self._active, self._lengths, self.max_cache_len - 1)
         dev = self.device
         pos_t = torch.as_tensor(write_pos, device=dev)
+        paged = {"page_table": self._page_tables} if self.page_size else {}
         t0 = time.perf_counter()
         logits = self.model(
             torch.as_tensor(self._tokens, device=dev)[:, None],
             pos_t[:, None],
             cache=self._arena,
             cache_positions=pos_t,
-            page_table=self._page_tables,
+            **paged,
         )[:, -1]  # [N, V]
         live = list(self._slot_req.items())
         if self.temperature == 0.0:
@@ -678,10 +743,11 @@ class ServingEngine:
             "serving/prefill_dispatches": self.prefill_dispatches,
             "serving/prefill_packed_tokens": self.prefill_packed_tokens,
             "serving/arena_bytes": self.arena_bytes,
-            "serving/pages_in_use": self._allocator.in_use,
-            "serving/pages_total": self.num_pages,
-            "serving/page_forks": self.page_forks,
         }
+        if self.page_size:
+            out["serving/pages_in_use"] = self._allocator.in_use
+            out["serving/pages_total"] = self.num_pages
+            out["serving/page_forks"] = self.page_forks
         if self._step_samples:
             wall = sum(w for w, _ in self._step_samples)
             toks = sum(n for _, n in self._step_samples)

@@ -241,10 +241,6 @@ def init_paged_arena(config, num_pages: int, page_size: int,
     ]
 
 
-def arena_nbytes(arena: list) -> int:
-    return sum(t.numel() * t.element_size() for layer in arena for t in layer.values())
-
-
 def fork_page(arena: list, src: int, dst: int):
     """Copy physical page ``src`` -> ``dst`` in every K/V leaf of every
     layer, in place: the copy-on-write fork."""

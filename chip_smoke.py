@@ -2,21 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels of ``accelerate_tpu_torch/csrc`` with
-nvcc for sm_90a and holds each against its plain PyTorch version: the
-paged decode and ragged prefill kernels at the serving path's shapes
+Builds the seven hand-written kernels of ``accelerate_tpu_torch/csrc``
+with nvcc for sm_90a and holds each against its plain PyTorch version:
+the paged decode and ragged prefill kernels at the serving path's shapes
 (small_1b: H=16, KVH=8, D=128, page 16), the flash forward, dQ and dK/dV
-kernels at the training path's (B 8, S 2048, causal) and in masked cases.
-Then it drives both paths at small_1b's full width, each with the launch
-counters reset just before it and read just after:
+kernels at the training path's (B 8, S 2048, causal) and in masked
+cases, the dense decode kernel and its int8/int4 entry at the flat
+engine's and generate()'s shapes. Then it drives four paths at full
+width, each with the launch counters reset just before it and read just
+after:
 
-- serving: ``ServingEngine`` over random weights from a seed, the
-  generated tokens checked against a teacher-forced cache-free forward;
+- serving: the paged ``ServingEngine`` on small_1b over random weights
+  from a seed, the generated tokens checked against a teacher-forced
+  cache-free forward;
+- flat serving: the same requests through the flat-arena engine
+  (``page_size=None``), checked alike, with a control run whose dense
+  decode output is zeroed and must fail the check;
 - training: ``Accelerator(mixed_precision="bf16")`` over fp32 master
   weights, a few steps of the eager loop and of ``build_train_step``,
   launch counts of layers x micro-batches per step, a falling loss on a
   fixed batch, one step held against plain attention, throughput, MFU,
-  peak memory and a step profile.
+  peak memory and a step profile;
+- generation: ``generate()`` on llama_7b with bf16, int8 and int4 KV
+  caches, launch counts per call, every step's logits held against the
+  plain forward (and a zeroed-kernel control), decode ms/token by
+  differential timing beside the weight-read bound, and a decode-step
+  profile.
 
 Prints the card, the per-kernel numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -30,6 +41,8 @@ plain versions are exact fp32 references.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -489,6 +502,120 @@ def flash_phases(gen, dev):
     return rows
 
 
+# dense decode kernels (#5): the flat engine's arena (small_1b, 8 live
+# slots + one parked, L 2048) and the generate path's cache (llama_7b:
+# H = KVH = 32, prompt 512 + 64 new tokens right-sized to L 768)
+FLAT_LENGTHS = [17, 130, 256, 511, 700, 1024, 1300, 1500]
+GEN_HEADS, GEN_CACHE, GEN_POS = 32, 768, 575
+
+
+def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
+    """Hold the dense decode kernel (``bits`` 0) or its quantized entry
+    (``bits`` 8 / 4, payloads from the port's quantize_kv) against the
+    plain version on one input, and time kernel, plain version and SDPA
+    over the same arena with the boolean mask (quantized: on K/V
+    dequantized beforehand, so SDPA's time leaves the dequant out).
+    Returns the phase's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.ops.attention import decode_attention, decode_attention_reference
+    from accelerate_tpu_torch.utils.quantization import dequantize_kv, quantize_kv
+
+    scale = 1.0 / math.sqrt(D)
+    name = "dense_decode_quant" if bits else "dense_decode"
+    kw, k_lib, v_lib = {}, k, v
+    if bits:
+        (k, ks), (v, vs) = quantize_kv(k, bits), quantize_kv(v, bits)
+        kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
+        k_lib = dequantize_kv(k, ks, bits, torch.bfloat16)
+        v_lib = dequantize_kv(v, vs, bits, torch.bfloat16)
+
+    def run_kernel():
+        return decode_attention(q, k, v, q_positions=pos, **kw)
+
+    def run_plain():
+        return decode_attention_reference(q, k, v, pos, scale, **kw)
+
+    before = kernels.launch_counts[name]
+    out_k = run_kernel()
+    torch.cuda.synchronize()
+    if kernels.launch_counts[name] != before + 1:
+        fail(f"{name} wrapper did not count its launch")
+    err = check_close(f"{name} ({tag})", out_k, run_plain())
+    ms = cuda_time_ms(run_kernel)
+    plain_ms = cuda_time_ms(run_plain, iters=5, warmup=1)
+    length = k.shape[2]
+    mask = (torch.arange(length, device=dev)[None, None, None, :] <= pos[:, None, :, None])
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k_lib, v_lib, attn_mask=mask, scale=scale, enable_gqa=True))
+
+    # bytes: q and out once, each batch row's live K/V rows (positions
+    # 0 .. max of its query positions: payload and scale when quantized)
+    # once, the positions; flops: QK and PV over each query row's
+    # attended positions
+    b, h, sq, _ = q.shape
+    kvh = k.shape[1]
+    row_bytes = {0: D * 2, 8: D + 4, 4: D // 2 + 4}[bits]
+    live = sum(min(int(p.max()) + 1, length) for p in pos)
+    nbytes = 2 * q.numel() * 2 + live * kvh * row_bytes * 2 + pos.numel() * 4
+    attended = sum(int(p) + 1 for p in pos.flatten().tolist())
+    bound_ms, bound_by = bound(nbytes, 4 * D * h * attended)
+    print(f"kernel {name} ({tag}): B {b}, H {h}, KVH {kvh}, Sq {sq}, L {length}, "
+          f"max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}), library sdpa {library_ms:.4f} ms"
+          + (" (on K/V dequantized beforehand)" if bits else ""))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def dense_decode_phases(gen, dev):
+    """The dense decode kernel and its int8 / int4 entry at the paths'
+    shapes: (a) the flat engine's decode step on small_1b (B 9 = 8 live
+    slots of lengths 17..1500 + one parked at 2047, H 16, KVH 8, L 2048);
+    (b) generate()'s decode step on llama_7b (B 1 and B 4, H = KVH = 32,
+    L 768, position 575); (c) Sq 4 with per-row positions on (a)'s arena;
+    (d) int8 and int4 at (a). Returns the two kernel rows."""
+    import torch
+
+    from accelerate_tpu_torch.ops.attention import decode_attention
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    b = len(FLAT_LENGTHS) + 1
+    pos_a = torch.tensor([n - 1 for n in FLAT_LENGTHS] + [MAX_CACHE - 1],
+                         dtype=torch.int32, device=dev)[:, None]
+    q_a, k_a, v_a = rnd(b, H, 1, D), rnd(b, KVH, MAX_CACHE, D), rnd(b, KVH, MAX_CACHE, D)
+    flat = dense_case(gen, dev, "a: small_1b flat arena, 8 live + parked", q_a, k_a, v_a, pos_a)
+    live_ms = cuda_time_ms(lambda: decode_attention(
+        q_a[:-1], k_a[:-1], v_a[:-1], q_positions=pos_a[:-1]))
+    print(f"kernel dense_decode (a) without the parked slot: {live_ms:.4f} ms")
+    errs = [flat["max_abs_err"]]
+    for gb in (1, 4):
+        pos_b = torch.full((gb, 1), GEN_POS, dtype=torch.int32, device=dev)
+        errs.append(dense_case(
+            gen, dev, f"b: llama_7b generate, B {gb}", rnd(gb, GEN_HEADS, 1, D),
+            rnd(gb, GEN_HEADS, GEN_CACHE, D), rnd(gb, GEN_HEADS, GEN_CACHE, D),
+            pos_b)["max_abs_err"])
+    pos_c = (pos_a - 3 + torch.arange(4, dtype=torch.int32, device=dev)[None]).clamp(min=0)
+    errs.append(dense_case(gen, dev, "c: Sq 4, per-row positions", rnd(b, H, 4, D), k_a, v_a,
+                           pos_c)["max_abs_err"])
+    quant = {bits: dense_case(gen, dev, f"d: int{bits}, arena of (a)", q_a, k_a, v_a, pos_a,
+                              bits=bits) for bits in (8, 4)}
+    rows = [dict(name="dense_decode", route="cuda",
+                 source="accelerate_tpu_torch/csrc/dense_decode.cu",
+                 replaces="accelerate_tpu/ops/attention.py:977", **flat)]
+    rows[0]["max_abs_err"] = max(errs)
+    rows.append(dict(name="dense_decode_quant", route="cuda",
+                     source="accelerate_tpu_torch/csrc/dense_decode_quant.cu",
+                     replaces="accelerate_tpu/ops/attention.py:898", **quant[8]))
+    rows[1]["max_abs_err"] = max(quant[8]["max_abs_err"], quant[4]["max_abs_err"])
+    return rows
+
+
 # CUPTI reports launch-queue stalls as events of this name; they are no
 # work of the card and are left out of its busy time
 PROFILER_MARKERS = ("Command Buffer Full",)
@@ -530,8 +657,42 @@ def device_time(prof):
 # ---------------------------------------------------------------------------
 
 
+def teacher_forced(model, reqs, new_tokens: int, dev):
+    """Each request's generated tokens against the cache-free plain
+    forward of its prompt + continuation (at these lengths, none a
+    128-multiple: mha_reference, causal): ``(worst gap, exact, total)``,
+    the gap being how many logits a token sits below that forward's
+    argmax."""
+    import torch
+
+    worst_gap, exact, total = 0.0, 0, 0
+    with torch.no_grad():
+        for r in reqs:
+            seq = torch.as_tensor(r.result(), dtype=torch.long, device=dev)[None]
+            n = r.prompt.size
+            rows = model(seq)[0][n - 1: n - 1 + new_tokens]
+            toks = torch.as_tensor(r.tokens, device=dev)
+            gap = rows.max(dim=-1).values - rows.gather(1, toks[:, None])[:, 0]
+            worst_gap = max(worst_gap, gap.max().item())
+            exact += int((gap == 0).sum().item())
+            total += new_tokens
+    return worst_gap, exact, total
+
+
+def zeroed(real):
+    """A kernel wrapper that launches the real kernel (and counts it) but
+    hands back zeros: the controls' broken attention."""
+    import torch
+
+    def wrapper(*args):
+        return torch.zeros_like(real(*args))
+
+    return wrapper
+
+
 def main_path(dev, card: str):
-    """Serve small_1b at full width through the paged ServingEngine."""
+    """Serve small_1b at full width through the paged ServingEngine.
+    Returns its launches and what the flat path runs beside it."""
     import numpy as np
     import torch
 
@@ -600,20 +761,7 @@ def main_path(dev, card: str):
     if reqs[6].prefill_dispatches < 2:
         fail("the 1000-token prompt did not continue mid-tail over an arena prefix")
 
-    # teacher-forced cache-free forward (at these lengths, no 128-multiple:
-    # mha_reference, causal)
-    worst_gap, exact, total = 0.0, 0, 0
-    with torch.no_grad():
-        for r in reqs:
-            seq = torch.as_tensor(r.result(), dtype=torch.long, device=dev)[None]
-            logits = model(seq)[0]
-            n = r.prompt.size
-            rows = logits[n - 1: n - 1 + new_tokens]
-            toks = torch.as_tensor(r.tokens, device=dev)
-            gap = rows.max(dim=-1).values - rows.gather(1, toks[:, None])[:, 0]
-            worst_gap = max(worst_gap, gap.max().item())
-            exact += int((gap == 0).sum().item())
-            total += new_tokens
+    worst_gap, exact, total = teacher_forced(model, reqs, new_tokens, dev)
     if not math.isfinite(worst_gap) or worst_gap > TOP2_MARGIN:
         fail(f"a generated token is {worst_gap} logits below the plain "
              f"forward's argmax (margin {TOP2_MARGIN})")
@@ -629,10 +777,86 @@ def main_path(dev, card: str):
           f"{m['serving/ttft_ms_p50']:.2f} ms, decode "
           f"{m['serving/decode_step_ms_p50']:.3f} ms/step (p50)")
     profile_decode(model, eng_kw, prompt, card)
-    return launches
+    paged = {"tokens_per_s": tps, "ttft_ms_p50": m["serving/ttft_ms_p50"],
+             "step_ms_p50": m["serving/decode_step_ms_p50"], "arena_bytes": engine.arena_bytes}
+    return launches, {"model": model, "prompts": prompts, "prompt": prompt, "paged": paged}
 
 
-def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5):
+def flat_path(dev, card: str, model, prompts, prompt, paged: dict) -> int:
+    """Serve the same requests on the same small_1b through the flat-arena
+    ServingEngine (page_size=None): chunked prefill against slot views,
+    the dense decode kernel in every decode step. Tokens are checked
+    teacher-forced, and the same run with the kernel's output zeroed must
+    fail that check. Returns dense_decode's launches on this path."""
+    from unittest import mock
+
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+
+    cfg = model.config
+    eng_kw = dict(num_slots=8, page_size=None, max_cache_len=MAX_CACHE,
+                  prefill_chunks=(128, 512), device=dev)
+    new_tokens = 32
+    warm = ServingEngine(model, **eng_kw)
+    warm.generate_batched([prompt(40), prompt(300)], max_new_tokens=4)
+    del warm
+
+    def serve():
+        engine = ServingEngine(model, **eng_kw)
+        reqs = [engine.submit(p, max_new_tokens=new_tokens, seed=i)
+                for i, p in enumerate(prompts)]
+        engine.run()
+        return engine, reqs
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine, reqs = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    for r in reqs:
+        if r.outcome != "finished" or len(r.tokens) != new_tokens:
+            fail(f"flat path: request {r.id} ended {r.outcome} with {len(r.tokens)} tokens")
+    steps = engine.step_count
+    if launches["dense_decode"] != steps * cfg.num_layers:
+        fail(f"flat path: dense_decode launches {launches['dense_decode']} != "
+             f"{steps} decode steps x {cfg.num_layers} layers")
+    others = {k: n for k, n in launches.items() if n and k != "dense_decode"}
+    if others:
+        fail(f"flat path launched other kernels: {others}")
+    worst_gap, exact, total = teacher_forced(model, reqs, new_tokens, dev)
+    if not math.isfinite(worst_gap) or worst_gap > TOP2_MARGIN:
+        fail(f"flat path: a generated token is {worst_gap} logits below the plain "
+             f"forward's argmax (margin {TOP2_MARGIN})")
+    m = engine.metrics()
+    arena_bytes, chunks = engine.arena_bytes, engine.prefill_dispatches
+    del engine
+    with mock.patch.object(kernels, "dense_decode", zeroed(kernels.dense_decode)):
+        control, creqs = serve()
+    del control
+    gap_c, exact_c, _ = teacher_forced(model, creqs, new_tokens, dev)
+    if not gap_c > TOP2_MARGIN:
+        fail(f"flat path control: with the dense decode output zeroed every token is "
+             f"within {TOP2_MARGIN} of the plain argmax (worst {gap_c}): the check is blind")
+    tps = m["serving/generated_tokens"] / wall
+    print(f"flat path: {len(reqs)} requests x {new_tokens} tokens, {steps} decode steps, "
+          f"{chunks} prefill chunks, launches {launches}")
+    print(f"flat path: teacher-forced check: {exact}/{total} tokens are the plain argmax, "
+          f"worst gap {worst_gap:.4f} (margin {TOP2_MARGIN}); control (dense decode output "
+          f"zeroed): {exact_c}/{total} exact, worst gap {gap_c:.4f}, fails the check")
+    print(f"flat path on {card}: {tps:.1f} tokens/s over {wall:.3f} s, TTFT p50 "
+          f"{m['serving/ttft_ms_p50']:.2f} ms, decode {m['serving/decode_step_ms_p50']:.3f} "
+          f"ms/step (p50), arena {arena_bytes / 1e9:.3f} GB; paged path (same run): "
+          f"{paged['tokens_per_s']:.1f} tokens/s, TTFT p50 {paged['ttft_ms_p50']:.2f} ms, "
+          f"decode {paged['step_ms_p50']:.3f} ms/step, arena {paged['arena_bytes'] / 1e9:.3f} GB")
+    profile_decode(model, eng_kw, prompt, card, label="flat profile")
+    return launches["dense_decode"]
+
+
+def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5, label: str = "profile"):
     """Where a decode step's time goes: torch.profiler over a few steps
     with all 8 slots live at ~400 tokens. Prints the device-busy share
     of the wall and the kernels with the most device time."""
@@ -643,11 +867,15 @@ def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5):
 
     engine = ServingEngine(model, **eng_kw)
     for _ in range(8):
-        # budget outlasts the window: no slot finishes and parks inside it
-        engine.submit(prompt(400), max_new_tokens=steps + 16)
+        # budget outlasts admission (the flat engine prefills one 128-token
+        # chunk per iteration: 32 iterations for 8 x 400 tokens) and the
+        # window: no slot finishes and parks inside it
+        engine.submit(prompt(400), max_new_tokens=steps + 48)
     while engine._queue or engine._admitting is not None:
         engine.step()
     engine.step()  # one plain step outside the window
+    if len(engine._slot_req) != 8:
+        fail(f"{label}: {len(engine._slot_req)} of 8 slots live before the window")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -657,9 +885,9 @@ def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5):
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, rows = device_time(prof)
     if not rows:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"{label}: the profiler recorded no device time (not measured)")
         return
-    print(f"profile on {card}: {steps} decode steps, 8 live slots at ~400 "
+    print(f"{label} on {card}: {steps} decode steps, 8 live slots at ~400 "
           f"tokens: wall {wall_ms / steps:.3f} ms/step, device busy "
           f"{busy_ms / steps:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}% of "
           f"wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
@@ -917,6 +1145,223 @@ def profile_train(step, batch, card: str):
         print(f"  {ms:9.2f} ms  {count:5d} calls  {key[:90]}")
 
 
+# the generate path (generation slice): llama_7b at full width, random
+# weights from seed 0, prompts of 512 tokens (a 128-multiple, so the
+# whole-prompt prefill takes the flash forward kernel)
+GEN_PROMPT = 512
+GEN_RUNS = (("bf16", 1, 64), ("int8", 4, 64), ("int4", 1, 32))  # (KV, batch, new)
+GEN_BASE, GEN_EXTRA = 16, 48  # differential timing: both lengths right-size to L 768
+
+
+class capture_logits:
+    """Collect, through a forward hook on the model, the logits every
+    generate() step samples from (the last row of each call's output)."""
+
+    def __init__(self, model):
+        self.model, self.rows = model, []
+
+    def __enter__(self):
+        self.handle = self.model.register_forward_hook(
+            lambda m, args, out: self.rows.append(out[:, -1].float().clone()))
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+    def stacked(self):
+        import torch
+
+        return torch.stack(self.rows, dim=1)  # [B, new, V]
+
+
+def token_gaps(logits, tokens):
+    """``(worst gap, exact count)`` of ``tokens`` [B, new] under ``logits``
+    [B, new, V]: how far each token sits below the argmax."""
+    gap = logits.max(dim=-1).values - logits.gather(2, tokens[..., None])[..., 0]
+    return gap.max().item(), int((gap == 0).sum().item())
+
+
+def set_kv_cache_dtype(model, kv: str):
+    """The same weights with another KV-cache storage: ``init_cache`` (and
+    so generate()) takes the precision from the model's config, and no
+    layer reads it otherwise."""
+    import dataclasses
+
+    model.config = dataclasses.replace(model.config, kv_cache_dtype=kv)
+
+
+def generate_path(dev, card: str):
+    """generate() on llama_7b at full width: bf16 KV at B 1, int8 KV at B 4
+    and int4 KV at B 1, each call with the counts reset before it and
+    read after it (32 flash forward launches for the prefill, 32 x
+    (new - 1) dense decode launches). Tokens and each step's logits are
+    held against the cache-free plain forward (bf16) or against the same
+    quantized run with the quantized kernel patched to its plain version;
+    the bf16 check must fail with the decode kernel's output zeroed.
+    Returns the dense decode kernels' launches on this path."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import generate
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.ops.attention import decode_attention_reference
+
+    cfg = DecoderConfig.llama_7b()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device=dev)
+    model.load_params(random_params(cfg, seed=0, device=dev))
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"generate path: llama_7b ({cfg.num_layers} layers, E {cfg.embed_dim}, H "
+          f"{cfg.num_heads}, KVH {cfg.num_kv_heads}, D {cfg.head_dim}, M {cfg.mlp_dim}, vocab "
+          f"{cfg.vocab_size}, untied head, {cfg.num_params / 1e9:.3f}B params, "
+          f"{weight_bytes / 1e9:.2f} GB bf16), random weights seed 0, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(0)
+    ids = {b: torch.as_tensor(rng.randint(3, cfg.vocab_size, (b, GEN_PROMPT)), device=dev)
+           for b in (1, 4)}
+    generate(model, ids[1][:, :128], max_new_tokens=4)  # warm-up, not counted
+
+    def run(kv, b, new, check=True):
+        """One generate() call: tokens [B, new], the logits they were
+        sampled from (when checked; timed calls capture nothing), TTFT
+        seconds, launches."""
+        set_kv_cache_dtype(model, kv)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        cap = capture_logits(model) if check else contextlib.nullcontext()
+        with cap:
+            out, ttft = generate(model, ids[b], max_new_tokens=new, return_prefill_seconds=True)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        set_kv_cache_dtype(model, "bf16")
+        decode = "dense_decode_quant" if kv != "bf16" else "dense_decode"
+        want = {"flash_fwd": cfg.num_layers, decode: cfg.num_layers * (new - 1)}
+        got = {k: n for k, n in launches.items() if n}
+        if check and got != want:
+            fail(f"generate ({kv} KV, B {b}, {new} new): launches {got}, expected {want}")
+        return out[:, GEN_PROMPT:], cap.stacked() if check else None, ttft, launches
+
+    def forced_plain_logits(kv, seq, new):
+        """The logits of a cached run over ``seq`` [B, prompt + new] fed
+        teacher-forced, with the quantized decode kernel patched to its
+        plain version (dequantize, masked-dense read)."""
+        def plain(q, k, v, k_scale, v_scale, pos, sm_scale, bits):
+            return decode_attention_reference(q, k, v, pos, sm_scale, k_scale=k_scale,
+                                              v_scale=v_scale, kv_quant_bits=bits)
+
+        set_kv_cache_dtype(model, kv)
+        cache = model.init_cache(seq.shape[0], GEN_CACHE)
+        with mock.patch.object(kernels, "dense_decode_quant", plain), torch.no_grad(), \
+                capture_logits(model) as cap:
+            model(seq[:, :GEN_PROMPT], torch.arange(GEN_PROMPT, device=dev), cache=cache)
+            for p in range(GEN_PROMPT, GEN_PROMPT + new - 1):
+                model(seq[:, p:p + 1], torch.arange(p, p + 1, device=dev), cache=cache,
+                      decode=True)
+        set_kv_cache_dtype(model, "bf16")
+        return cap.stacked()
+
+    def cache_free_logits(b, toks):
+        with torch.no_grad():
+            full = model(torch.cat([ids[b], toks], dim=1))
+        return full[:, GEN_PROMPT - 1: GEN_PROMPT - 1 + toks.shape[1]]
+
+    launches = {"dense_decode": 0, "dense_decode_quant": 0}
+    for kv, b, new in GEN_RUNS:
+        toks, logits, ttft, got = run(kv, b, new)
+        if kv == "bf16":
+            plain = cache_free_logits(b, toks)
+            against = "the cache-free plain forward"
+        else:
+            plain = forced_plain_logits(kv, torch.cat([ids[b], toks], dim=1), new)
+            against = f"the same {kv} run with the kernel's plain version"
+        gap, exact = token_gaps(plain, toks)
+        diff = (logits - plain).abs().max().item()
+        if not math.isfinite(gap) or gap > TOP2_MARGIN:
+            fail(f"generate ({kv} KV, B {b}): a token is {gap} logits below the argmax of "
+                 f"{against} (margin {TOP2_MARGIN})")
+        for name in launches:
+            launches[name] += got.get(name, 0)
+        print(f"generate ({kv} KV, B {b}, prompt {GEN_PROMPT}, {new} new, greedy): launches "
+              f"{ {k: n for k, n in got.items() if n} }, TTFT (prefill) {ttft * 1e3:.2f} ms; "
+              f"vs {against}: {exact}/{toks.numel()} tokens its argmax, worst gap "
+              f"{gap:.4f} (margin {TOP2_MARGIN}), max |logit diff| {diff:.4f}")
+        if kv == "bf16":
+            with mock.patch.object(kernels, "dense_decode", zeroed(kernels.dense_decode)):
+                ctoks, clogits, _, _ = run(kv, b, new)
+            cgap, cexact = token_gaps(cache_free_logits(b, ctoks), ctoks)
+            if not cgap > TOP2_MARGIN:
+                fail(f"generate control: with the dense decode output zeroed every token is "
+                     f"within {TOP2_MARGIN} of the plain argmax (worst {cgap}): the check "
+                     "is blind")
+            print(f"generate control (bf16, dense decode output zeroed): {cexact}/"
+                  f"{ctoks.numel()} tokens the plain argmax, worst gap {cgap:.4f}: fails "
+                  "the check")
+
+    # decode ms/token by bench.py's differential method: (t[base + extra] -
+    # t[base]) / extra cancels the prefill and per-call costs
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    for kv, b in (("bf16", 1), ("int8", 4)):
+        def wall(new):
+            t0 = time.perf_counter()
+            run(kv, b, new, check=False)
+            return time.perf_counter() - t0
+
+        diffs = [(wall(GEN_BASE + GEN_EXTRA) - wall(GEN_BASE)) / GEN_EXTRA for _ in range(2)]
+        ms = 1e3 * sorted(diffs)[0]
+        print(f"generate on {card} ({kv} KV, B {b}): decode {ms:.3f} ms/token "
+              f"(differential over {GEN_EXTRA} tokens, best of {[round(1e3 * d, 3) for d in diffs]}), "
+              f"{b * 1e3 / ms:.1f} tokens/s; bound {bound_ms:.3f} ms/token (the "
+              f"{weight_bytes / 1e9:.2f} GB of weights read once at 3.35 TB/s)")
+    profile_generate(model, ids[1], card, "bf16")
+    profile_generate(model, ids[4], card, "int8")
+    return launches
+
+
+def profile_generate(model, ids, card: str, kv: str, steps: int = 5):
+    """Where a generate() decode step's time goes: torch.profiler over a
+    few single-stream steps after a 512-token prefill, with a ``kv``
+    cache. Prints the device-busy share of the wall and the kernels with
+    the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = ids.device
+    b, s = ids.shape
+    set_kv_cache_dtype(model, kv)
+    with torch.no_grad():
+        cache = model.init_cache(b, GEN_CACHE)
+        tok = model(ids, torch.arange(s, device=dev), cache=cache)[:, -1].argmax(-1)
+
+        def step(p):
+            return model(tok[:, None], torch.arange(p, p + 1, device=dev), cache=cache,
+                         decode=True)[:, -1].argmax(-1)
+
+        tok = step(s)  # one step outside the window
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                tok = step(s + 1 + i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    set_kv_cache_dtype(model, "bf16")
+    busy_ms, rows = device_time(prof)
+    if not rows:
+        print("generate profile: the profiler recorded no device time (not measured)")
+        return
+    print(f"generate profile on {card}: {steps} decode steps, {kv} KV, B {b}, position ~{s}: wall "
+          f"{wall_ms / steps:.3f} ms/step, device busy {busy_ms / steps:.3f} ms/step "
+          f"({100 * busy_ms / wall_ms:.1f}% of wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
+    for ms, count, key in rows[:8]:
+        print(f"  {ms / steps:8.3f} ms/step  {count // steps:4d}/step  {key[:90]}")
+
+
 def main():
     try:
         import torch
@@ -958,11 +1403,19 @@ def main():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = [decode_phase(gen, dev), prefill_phase(gen, dev), *flash_phases(gen, dev)]
+    rows = [decode_phase(gen, dev), prefill_phase(gen, dev), *flash_phases(gen, dev),
+            *dense_decode_phases(gen, dev)]
     # each path is driven with the counts reset just before it and read
-    # just after; a kernel's launches come from its own path
-    launches = main_path(dev, card)
+    # just after; a kernel's launches come from its own path (the dense
+    # decode kernel's from generate() and the flat engine together)
+    launches, serving = main_path(dev, card)
+    flat_launches = flat_path(dev, card, serving.pop("model"), **serving)
+    del serving
     launches.update(train_path(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()  # the training path's memory, before llama_7b
+    launches.update(generate_path(dev, card))
+    launches["dense_decode"] += flat_launches
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] < 1:

@@ -9,7 +9,8 @@
   ``device="cpu"`` is given.
 - The kernel wrappers take CPU tensors to the plain version without
   counting a launch, refuse any other non-CUDA device, and build with an
-  nvcc command for ``sm_90a``; later-slice options raise.
+  nvcc command for ``sm_90a``; later-slice options raise (the quantized
+  paged arena names the next slice).
 """
 
 import ast
@@ -54,6 +55,8 @@ def test_sources_import_no_jax(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, accelerate_tpu_torch, accelerate_tpu_torch.serving.engine, "
+            "accelerate_tpu_torch.serving.arena, accelerate_tpu_torch.generation, "
+            "accelerate_tpu_torch.utils.quantization, "
             "accelerate_tpu_torch.accelerator, accelerate_tpu_torch.data, "
             "accelerate_tpu_torch.ops.losses, accelerate_tpu_torch.optimizer, "
             "accelerate_tpu_torch.scheduler, accelerate_tpu_torch.state, "
@@ -142,6 +145,15 @@ def test_wrappers_refuse_other_devices():
         kernels.flash_bwd_dq(q, k, k, q, stats, stats, masks, True, 0.125)
     with pytest.raises(RuntimeError, match="neither CPU"):
         kernels.flash_bwd_dkv(q, k, k, q, stats, stats, masks, True, 0.125)
+    q = torch.empty((2, 4, 1, 128), **meta)
+    k = torch.empty((2, 2, 64, 128), **meta)
+    pay = torch.empty((2, 2, 64, 128), device="meta", dtype=torch.int8)
+    scale = torch.empty((2, 2, 64, 1), device="meta", dtype=torch.float32)
+    pos = torch.empty((2, 1), device="meta", dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="neither CPU"):
+        kernels.dense_decode(q, k, k, pos, 0.125)
+    with pytest.raises(RuntimeError, match="neither CPU"):
+        kernels.dense_decode_quant(q, pay, pay, scale, scale, pos, 0.125, 8)
 
 
 @pytest.mark.parametrize("name", sorted(kernels.KERNELS))
@@ -156,10 +168,9 @@ def test_nvcc_command_targets_sm90a(name, tmp_path):
 
 def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
-        DecoderConfig.tiny(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="later slice"):
         DecoderConfig.tiny(moe_num_experts=4)
-    for kw in ({"dropout_rate": 0.1}, {"pipeline_stages": 2}, {"remat_policy": "save_dots"}):
+    for kw in ({"dropout_rate": 0.1}, {"pipeline_stages": 2}, {"remat_policy": "save_dots"},
+               {"use_fp8": True}):
         with pytest.raises(NotImplementedError, match="later slice"):
             DecoderConfig.tiny(**kw)
     for mode in ("fp16", "fp8"):
@@ -167,13 +178,12 @@ def test_later_slices_raise():
             Accelerator(mixed_precision=mode, device="cpu")
     cfg = DecoderConfig.tiny()
     model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ServingEngine(model, max_cache_len=64, device="cpu", kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError, match="speculative"):
         ServingEngine(model, max_cache_len=64, device="cpu", spec_draft_len=2)
-    with pytest.raises(NotImplementedError, match="flat slot arena"):
-        ServingEngine(model, max_cache_len=64, device="cpu", page_size=None)
-    ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model(ids, cache=[{}] * cfg.num_layers)
+    with pytest.raises(NotImplementedError, match="fused decode bursts"):
+        ServingEngine(model, max_cache_len=64, device="cpu", steps_per_call=2)
     acc = Accelerator(device="cpu")
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     acc.prepare(model, opt)
