@@ -9,9 +9,11 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   versions + kernel dispatch), ``ops/kernels.py`` (nvcc build, ctypes
   binding, checked wrappers with launch counters), ``csrc/*.cu`` (the
   hand-written Hopper kernels)
-- ``serving/pages.py``, ``serving/arena.py``, ``serving/engine.py``,
-  ``generation.py`` (``generate``), ``utils/quantization.py`` (int8/int4
-  KV storage)
+- ``serving/pages.py`` (paged arena, prefix cache, n-gram drafter),
+  ``serving/arena.py``, ``serving/engine.py`` (paged or flat, bf16 or
+  int8/int4 KV, speculative verify), ``serving/drift.py``
+  (``kv_quant_drift``), ``generation.py`` (``generate``),
+  ``utils/quantization.py`` (int8/int4 KV storage)
 - ``accelerator.py``, ``optimizer.py``, ``scheduler.py``, ``state.py``,
   ``data.py``, ``utils/dataclasses.py`` (the training contract)
 

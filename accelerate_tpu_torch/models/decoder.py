@@ -30,12 +30,18 @@ PLACE (the reference returns new arrays; the port writes into the
 tensors it is given).
 
 Over the paged arena (per layer ``{"k", "v"}`` leaves of [num_pages,
-KVH, page_size, D]; the page size is read from the leaves):
+KVH, page_size, D] in the compute dtype, or int8 payload pages
+[num_pages, KVH, page_size, D or D / 2] beside ``{"k_scale",
+"v_scale"}`` [num_pages, KVH, page_size, 1] fp32; page size and storage
+are read from the leaves):
 
-- slot-arena decode (``cache_positions`` + ``page_table``): scatter the
-  fresh K/V through the page table, then the paged decode read;
+- slot-arena decode (``cache_positions`` + ``page_table``; S = 1, or
+  K + 1 for a speculative verify step): scatter the fresh K/V through
+  the page table (``quantize_kv`` on a quantized arena), then the paged
+  decode read;
 - packed ragged prefill (``ragged_slots`` + ``slot_hist``): the ragged
-  prefill kernel, then the scatter (pad rows land on parking page 0).
+  prefill kernel (quantize-on-write fused on a quantized arena), then the
+  scatter of payload and scales (pad rows land on parking page 0).
 
 Over a dense cache (:meth:`DecoderLM.init_cache`: per layer ``{"k",
 "v"}`` of [B, KVH, L, D] in the compute dtype, or int8 payloads
@@ -96,8 +102,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _cache_bits(cache: dict, head_dim: int) -> int:
-    """Storage bits of a dense cache's K/V payload: 0 for the compute
-    dtype, else 8 (int8) or 4 (int4, a D / 2 payload row)."""
+    """Storage bits of a cache's (dense or paged) K/V payload: 0 for the
+    compute dtype, else 8 (int8) or 4 (int4, a D / 2 payload row)."""
     if "k_scale" not in cache:
         return 0
     return 4 if 2 * cache["k"].shape[-1] == head_dim else 8
@@ -270,13 +276,19 @@ class DecoderAttention(_Module):
                 f"got batch {q.shape[0]}"
             )
         row_pos = cache_positions[0] if cache_positions.dim() == 2 else cache_positions
-        out, k_pay, _, v_pay, _ = ragged_prefill_attention(
+        bits = _cache_bits(cache, self.config.head_dim)
+        scale_kw = {}
+        if bits:
+            scale_kw = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"],
+                        "kv_quant_bits": bits}
+        out, k_pay, k_scl, v_pay, v_scl = ragged_prefill_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), cache["k"], cache["v"],
             page_table=page_table, row_slot=ragged_slots, row_pos=row_pos,
-            slot_hist=slot_hist, token_block=self.config.prefill_kernel_block,
+            slot_hist=slot_hist, token_block=self.config.prefill_kernel_block, **scale_kw,
         )
-        # scatter through the page table, in place. Pad rows (-1) route to
-        # physical page 0, the parking page, whose content is never read.
+        # scatter payload (and scales) through the page table, in place.
+        # Pad rows (-1) route to physical page 0, the parking page, whose
+        # content is never read.
         ps = cache["k"].shape[2]
         valid = (ragged_slots >= 0) & (row_pos >= 0)
         srow = ragged_slots.long().clamp(min=0)
@@ -285,9 +297,17 @@ class DecoderAttention(_Module):
         off = spos % ps
         cache["k"][page, :, off] = k_pay
         cache["v"][page, :, off] = v_pay
+        if bits:
+            cache["k_scale"][page, :, off] = k_scl
+            cache["v_scale"][page, :, off] = v_scl
         return out
 
     def _paged_decode(self, q, k, v, cache, cache_positions, page_table):
+        """Slot-arena decode over the paged arena (S = 1 a decode step,
+        S = K + 1 a speculative verify step): every slot writes its fresh
+        K/V at its own position(s), quantized with ``quantize_kv`` on a
+        quantized arena (payload and scales at [page, :, off]), then the
+        paged decode read."""
         b, s = q.shape[0], q.shape[2]
         pos2d = cache_positions[:, None] if cache_positions.dim() == 1 else cache_positions
         if pos2d.shape[1] != s:
@@ -303,11 +323,21 @@ class DecoderAttention(_Module):
         rows = torch.arange(b, device=q.device)[:, None]
         page = page_table[rows, pos_l // ps].long()  # [B, S]
         off = pos_l % ps
-        cache["k"][page, :, off] = k.transpose(1, 2)  # [B, S, KVH, D]
-        cache["v"][page, :, off] = v.transpose(1, 2)
+        k_new, v_new = k.transpose(1, 2), v.transpose(1, 2)  # [B, S, KVH, D]
+        bits = _cache_bits(cache, self.config.head_dim)
+        scale_kw = {}
+        if bits:
+            k_new, k_s = quantize_kv(k_new, bits)
+            v_new, v_s = quantize_kv(v_new, bits)
+            cache["k_scale"][page, :, off] = k_s
+            cache["v_scale"][page, :, off] = v_s
+            scale_kw = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"],
+                        "kv_quant_bits": bits}
+        cache["k"][page, :, off] = k_new
+        cache["v"][page, :, off] = v_new
         return paged_decode_attention(
             q.contiguous(), cache["k"], cache["v"], page_table=page_table,
-            q_positions=pos2d,
+            q_positions=pos2d, **scale_kw,
         )
 
 

@@ -8,15 +8,18 @@ Query head ``h`` reads kv head ``h // group``, so K/V are never expanded.
 
 Each kernel sits beside its plain version:
 
-- :func:`paged_decode_attention` -> ``ops/kernels.paged_decode``
-  (csrc/paged_decode.cu); plain version :func:`paged_decode_reference`.
+- :func:`paged_decode_attention` -> ``ops/kernels.paged_decode`` /
+  ``paged_decode_quant`` (csrc/paged_decode.cu, paged_decode_quant.cu);
+  plain version :func:`paged_decode_reference`.
 - :func:`decode_attention` -> ``ops/kernels.dense_decode`` /
   ``dense_decode_quant`` (csrc/dense_decode.cu, dense_decode_quant.cu)
   at decode widths (Sq <= 16); plain version
   :func:`decode_attention_reference`, which is also the read of wider
   query blocks, as in the reference.
-- :func:`ragged_prefill_attention` -> ``ops/kernels.ragged_prefill``
-  (csrc/ragged_prefill.cu); plain version :func:`ragged_prefill_reference`.
+- :func:`ragged_prefill_attention` -> ``ops/kernels.ragged_prefill`` /
+  ``ragged_prefill_quant`` (csrc/ragged_prefill.cu,
+  ragged_prefill_quant.cu); plain version :func:`ragged_prefill_reference`
+  (quantize-on-write: :func:`_quantize_block`).
 - :func:`flash_attention` (one ``torch.autograd.Function``),
   :func:`flash_attention_with_lse` and :func:`flash_attention_bwd` ->
   ``ops/kernels.flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv``
@@ -105,11 +108,20 @@ def gather_kv_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tens
     return g.reshape(b, kvh, p * ps, d)
 
 
-def paged_decode_reference(q, k_pages, v_pages, page_table, q_positions, sm_scale):
-    """Plain paged decode: gather each slot's pages into position order,
-    then the masked-dense read."""
+def paged_decode_reference(q, k_pages, v_pages, page_table, q_positions, sm_scale, *,
+                           k_scale=None, v_scale=None, kv_quant_bits: int = 0):
+    """Plain paged decode: gather each slot's pages into position order
+    (a quantized arena's scale pages too), then the masked-dense read of
+    :func:`decode_attention_reference`, which dequantizes first, as the
+    reference's gather path does."""
     k_full = gather_kv_pages(k_pages, page_table)
     v_full = gather_kv_pages(v_pages, page_table)
+    if kv_quant_bits:
+        return decode_attention_reference(
+            q, k_full, v_full, q_positions, sm_scale,
+            k_scale=gather_kv_pages(k_scale, page_table),
+            v_scale=gather_kv_pages(v_scale, page_table), kv_quant_bits=kv_quant_bits,
+        )
     return decode_attention_dense(
         q, k_full, v_full, q_positions=q_positions, sm_scale=sm_scale
     )
@@ -130,18 +142,30 @@ def paged_decode_attention(
     page_table: torch.Tensor,
     q_positions: torch.Tensor,
     sm_scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    kv_quant_bits: int = 0,
 ) -> torch.Tensor:
     """Decode attention reading K/V through a per-slot page table.
 
     q [B, H, Sq, D]; k_pages/v_pages [NP, KVH, ps, D]; ``page_table``
-    [B, P] int32; ``q_positions`` [B, Sq] (or [Sq]) global positions. On a
-    CUDA tensor the paged decode kernel walks each slot's live pages
+    [B, P] int32; ``q_positions`` [B, Sq] (or [Sq]) global positions.
+    ``kv_quant_bits`` (8 or 4, with ``k_scale`` / ``v_scale``
+    [NP, KVH, ps, 1] fp32, the scale pages beside the payload pages): the
+    pages hold int8 payloads [NP, KVH, ps, D] (int4: D / 2, two values a
+    byte). On a CUDA tensor the paged decode kernel (or its quantized
+    entry, dequantizing in-register) walks each slot's live pages
     straight from the arena; on a CPU tensor the plain gather + masked
     dense read runs."""
     from . import kernels
 
+    if kv_quant_bits and (k_scale is None or v_scale is None):
+        raise ValueError("kv_quant_bits needs k_scale and v_scale")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     pos = _positions_2d(q_positions, q.shape[0])
+    if kv_quant_bits:
+        return kernels.paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale,
+                                          page_table, pos, scale, kv_quant_bits)
     return kernels.paged_decode(q, k_pages, v_pages, page_table, pos, scale)
 
 
@@ -199,13 +223,48 @@ def decode_attention(
     return kernels.dense_decode(q, k, v, pos, scale)
 
 
+def _quantize_block(x: torch.Tensor, bits: int):
+    """The ragged prefill kernel's quantize-on-write, copied from the
+    reference's ``_quantize_block`` (accelerate_tpu/ops/attention.py:1315):
+    per row over D, ``scale = amax / qmax`` (1.0 where amax is 0) and
+    ``qf = clamp(round(x32 / scale), -qmax, qmax)``. It DIVIDES by the
+    scale, where ``utils.quantization.quantize_kv`` (the decode-time
+    writes) multiplies by its reciprocal; the two can give payloads one
+    step apart where ``x / scale`` lies within an ulp of a .5 tie. Returns
+    ``(payload int8 [..., D or D / 2], scale fp32 [..., 1], qf * scale
+    fp32 [..., D])``; int4 packs pairs, the even index in the low nibble."""
+    qmax = float((1 << (bits - 1)) - 1)
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: PyTorch turns a division by a Python scalar on
+    # CUDA into a product with its reciprocal, which is not amax / qmax
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, qmax), torch.ones_like(amax))
+    qf = torch.clamp(torch.round(x32 / scale), -qmax, qmax)
+    payload = qf.to(torch.int8)
+    if bits == 4:
+        payload = (payload[..., 0::2] & 0x0F) | ((payload[..., 1::2] & 0x0F) << 4)
+    return payload, scale, qf * scale
+
+
 def ragged_prefill_reference(q, k_new, v_new, k_pages, v_pages, page_table,
-                             row_slot, row_pos, slot_hist, scale):
+                             row_slot, row_pos, slot_hist, scale, *, k_scale=None,
+                             v_scale=None, kv_quant_bits: int = 0):
     """Plain packed ragged prefill: per-row gathered arena context plus the
     packed fresh K/V, masked exactly as the kernel masks, fp32 softmax.
     Pad rows (slot or position -1) output exactly 0. Returns
-    ``(out [1, H, CAP, D], k_payload, None, v_payload, None)`` with the
-    payloads token-major [CAP, KVH, D] for the caller's arena scatter."""
+    ``(out [1, H, CAP, D], k_payload, k_scale, v_payload, v_scale)`` with
+    the payloads token-major [CAP, KVH, pd] for the caller's arena scatter
+    (unquantized: k_new / v_new themselves and no scales).
+
+    Quantized (``kv_quant_bits`` 8 or 4, scale pages ``k_scale`` /
+    ``v_scale``): the arena context is dequantized with ``dequantize_kv``;
+    every packed row, pads included, is quantized with
+    :func:`_quantize_block`, and the fresh tail is attended over
+    ``qf * scale`` rounded once to q's dtype, the values the cache serves
+    later. This is the plain version of the KERNEL, so it divides by the
+    scale as the kernel does and the CUDA kernel's payloads can be held
+    bit for bit against it; the reference's own plain
+    ``_ragged_prefill_reference`` quantizes with ``quantize_kv`` instead."""
     _, h, cap, d = q.shape
     kvh = k_pages.shape[1]
     group = h // kvh
@@ -214,8 +273,21 @@ def ragged_prefill_reference(q, k_new, v_new, k_pages, v_pages, page_table,
     slot_hist = slot_hist.long()
     kn_t = k_new[0].transpose(0, 1)  # [CAP, KVH, D]
     vn_t = v_new[0].transpose(0, 1)
-    k_ctx = gather_kv_pages(k_pages, page_table)  # [S, KVH, L, D]
+    k_ctx = gather_kv_pages(k_pages, page_table)  # [S, KVH, L, pd]
     v_ctx = gather_kv_pages(v_pages, page_table)
+    k_scl = v_scl = None
+    kf, vf = k_new[0], v_new[0]  # [KVH, CAP, D]: what the fresh tail attends
+    if kv_quant_bits:
+        from ..utils.quantization import dequantize_kv
+
+        k_ctx = dequantize_kv(k_ctx, gather_kv_pages(k_scale, page_table), kv_quant_bits,
+                              q.dtype)
+        v_ctx = dequantize_kv(v_ctx, gather_kv_pages(v_scale, page_table), kv_quant_bits,
+                              q.dtype)
+        kn_t, k_scl, k_deq = _quantize_block(kn_t, kv_quant_bits)
+        vn_t, v_scl, v_deq = _quantize_block(vn_t, kv_quant_bits)
+        kf = k_deq.to(q.dtype).transpose(0, 1)
+        vf = v_deq.to(q.dtype).transpose(0, 1)
     sl = row_slot.clamp(min=0)
     k_row = k_ctx[sl]  # [CAP, KVH, L, D]: per-row slot context
     v_row = v_ctx[sl]
@@ -226,9 +298,7 @@ def ragged_prefill_reference(q, k_new, v_new, k_pages, v_pages, page_table,
     hist_r = torch.where(row_slot >= 0, slot_hist[sl], torch.zeros_like(sl))
     valid_ctx = (lpos[None, :] < hist_r[:, None]) & (lpos[None, :] <= row_pos[:, None])
     s_ctx = torch.where(valid_ctx[None, None], s_ctx, torch.full_like(s_ctx, NEG_INF))
-    kf = k_new[0]  # [KVH, CAP, D]
-    vf = v_new[0]
-    s_new = torch.einsum("kgrd,kcd->kgrc", qg.float(), kf.float()) * scale
+    s_new =torch.einsum("kgrd,kcd->kgrc", qg.float(), kf.float()) * scale
     valid_new = ((row_slot[None, :] == row_slot[:, None])
                  & (row_slot[:, None] >= 0)
                  & (row_pos[None, :] <= row_pos[:, None])
@@ -242,7 +312,7 @@ def ragged_prefill_reference(q, k_new, v_new, k_pages, v_pages, page_table,
     row_ok = (row_slot >= 0) & (row_pos >= 0)
     out = torch.where(row_ok[None, None, :, None], out, torch.zeros_like(out))
     out = out.reshape(h, cap, d)[None].to(q.dtype)
-    return out, kn_t, None, vn_t, None
+    return out, kn_t, k_scl, vn_t, v_scl
 
 
 def ragged_prefill_attention(
@@ -258,8 +328,12 @@ def ragged_prefill_attention(
     slot_hist: torch.Tensor,
     sm_scale: Optional[float] = None,
     token_block: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    kv_quant_bits: int = 0,
 ):
-    """Packed ragged prefill attention over the paged KV arena.
+    """Packed ragged prefill attention over the paged KV arena, with
+    quantize-on-write fused for a quantized arena.
 
     q/k_new/v_new [1, H|KVH, CAP, D]: the packed fresh tails of every
     admission in this dispatch (post-RoPE). ``row_slot``/``row_pos`` [CAP]
@@ -268,12 +342,17 @@ def ragged_prefill_attention(
     token-block aligned (the packer's contract). ``slot_hist`` [S] int32
     is each slot's live prefix already in the arena. Each row attends its
     slot's arena prefix ``[0, hist)`` plus the packed fresh rows of the
-    same slot at or below its own position.
+    same slot at or below its own position. ``kv_quant_bits`` (8 or 4,
+    with ``k_scale`` / ``v_scale`` [NP, KVH, ps, 1] fp32): the pages are
+    int8 payloads, read dequantized; the fresh rows are quantized and
+    attended dequantized.
 
-    Returns ``(out [1, H, CAP, D], k_payload, None, v_payload, None)``,
-    payloads token-major [CAP, KVH, D] (the scale slots stay None until
-    the quantized arena is ported). A CUDA tensor launches the ragged
-    prefill kernel; a CPU tensor runs :func:`ragged_prefill_reference`."""
+    Returns ``(out [1, H, CAP, D], k_payload, k_scale, v_payload,
+    v_scale)``, payloads token-major [CAP, KVH, pd] and scales [CAP, KVH,
+    1] for the caller's arena scatter (unquantized: k_new / v_new
+    themselves and None). A CUDA tensor launches the ragged prefill kernel
+    (or its quantized entry); a CPU tensor runs
+    :func:`ragged_prefill_reference`."""
     from . import kernels
 
     b, h, cap, d = q.shape
@@ -284,12 +363,17 @@ def ragged_prefill_attention(
         raise ValueError(
             f"packed capacity {cap} must be a multiple of the token block {bt}"
         )
+    if kv_quant_bits and (k_scale is None or v_scale is None):
+        raise ValueError("kv_quant_bits needs k_scale and v_scale")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    return kernels.ragged_prefill(
-        q, k_new, v_new, k_pages, v_pages, page_table,
-        row_slot.to(torch.int32), row_pos.to(torch.int32),
-        slot_hist.to(torch.int32), scale, bt,
-    )
+    rows = (row_slot.to(torch.int32), row_pos.to(torch.int32), slot_hist.to(torch.int32))
+    if kv_quant_bits:
+        return kernels.ragged_prefill_quant(
+            q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, page_table, *rows,
+            scale, bt, kv_quant_bits,
+        )
+    return kernels.ragged_prefill(q, k_new, v_new, k_pages, v_pages, page_table, *rows,
+                                  scale, bt)
 
 
 # ---------------------------------------------------------------------------

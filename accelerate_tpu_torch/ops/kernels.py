@@ -8,9 +8,10 @@ together) into ``accelerate_tpu_torch/_build/`` and loads the shared
 libraries with ``ctypes``; a library is named after the hash of its
 sources, so an edited kernel rebuilds and an unchanged one is reused.
 
-The checked wrappers (:func:`paged_decode`, :func:`ragged_prefill`,
-:func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`,
-:func:`dense_decode`, :func:`dense_decode_quant`) take CPU
+The checked wrappers (:func:`paged_decode`, :func:`paged_decode_quant`,
+:func:`ragged_prefill`, :func:`ragged_prefill_quant`, :func:`flash_fwd`,
+:func:`flash_bwd_dq`, :func:`flash_bwd_dkv`, :func:`dense_decode`,
+:func:`dense_decode_quant`) take CPU
 tensors to the plain PyTorch version in ``ops/attention.py``. For a CUDA
 tensor they check device, dtype, shape and contiguity, allocate the
 output, launch the kernel and add one to :data:`launch_counts`, or raise.
@@ -66,6 +67,14 @@ KERNELS = {
     "dense_decode_quant": (
         "dense_decode_quant.cu", "dense_decode_quant_launch",
         [_P] * 7 + [_I] * 7 + [_F, _P],
+    ),
+    "paged_decode_quant": (
+        "paged_decode_quant.cu", "paged_decode_quant_launch",
+        [_P] * 8 + [_I] * 8 + [_F, _P],
+    ),
+    "ragged_prefill_quant": (
+        "ragged_prefill_quant.cu", "ragged_prefill_quant_launch",
+        [_P] * 16 + [_I] * 8 + [_F, _P],
     ),
 }
 
@@ -277,6 +286,128 @@ def ragged_prefill(q, k_new, v_new, k_pages, v_pages, page_table, row_slot,
     return out, k_new[0].transpose(0, 1), None, v_new[0].transpose(0, 1), None
 
 
+def _quant_bits_check(bits: int):
+    if bits not in (8, 4):
+        raise ValueError(f"KV quantization supports 8 or 4 bits, got {bits}")
+
+
+def _quant_pages_check(k_pages, v_pages, k_scale, v_scale, d: int, bits: int, dev):
+    """Check a quantized arena's payload and scale pages on a CUDA device;
+    returns ``(num_pages, kvh, ps)``. Payload rows are read with 16-byte
+    loads of 16 (int8) or 32 (int4) values."""
+    per_load = 32 if bits == 4 else 16
+    if d % per_load:
+        raise ValueError(
+            f"head_dim {d} must be a multiple of {per_load} (16-byte loads of the "
+            f"int{bits} payload rows)"
+        )
+    num_pages, kvh, ps, _ = k_pages.shape
+    pd = d // 2 if bits == 4 else d
+    _check(k_pages, "k payload pages", torch.int8, (num_pages, kvh, ps, pd), dev)
+    _check(v_pages, "v payload pages", torch.int8, (num_pages, kvh, ps, pd), dev)
+    _check(k_scale, "k_scale pages", torch.float32, (num_pages, kvh, ps, 1), dev)
+    _check(v_scale, "v_scale pages", torch.float32, (num_pages, kvh, ps, 1), dev)
+    _check_aligned(("k payload pages", k_pages), ("v payload pages", v_pages))
+    return num_pages, kvh, ps
+
+
+def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, page_table, pos,
+                       sm_scale: float, bits: int):
+    """Paged decode attention over a quantized arena: q [B, H, Sq, D] bf16,
+    int8 payload pages [NP, KVH, ps, D] (``bits`` 8) or [NP, KVH, ps, D / 2]
+    (``bits`` 4, two values a byte), fp32 scale pages [NP, KVH, ps, 1],
+    page_table [B, P] int32, pos [B, Sq] int32 -> out [B, H, Sq, D]. CPU
+    tensors run the plain version (gather, dequantize, masked-dense read)."""
+    _quant_bits_check(bits)
+    if q.device.type == "cpu":
+        from .attention import paged_decode_reference
+
+        return paged_decode_reference(q, k_pages, v_pages, page_table, pos, sm_scale,
+                                      k_scale=k_scale, v_scale=v_scale, kv_quant_bits=bits)
+    _require_cuda(q, "paged_decode_quant")
+    b, h, sq, d = q.shape
+    kvh = k_pages.shape[1]
+    p_per_slot = page_table.shape[1]
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if not 1 <= sq <= DECODE_KERNEL_MAX_SQ:
+        raise ValueError(
+            f"paged decode takes 1..{DECODE_KERNEL_MAX_SQ} query rows per slot, got {sq}"
+        )
+    group = h // kvh
+    _smem_limit_check(group * sq, d)
+    dev = q.device
+    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
+    _, kvh, ps = _quant_pages_check(k_pages, v_pages, k_scale, v_scale, d, bits, dev)
+    _check(page_table, "page_table", torch.int32, (b, p_per_slot), dev)
+    _check(pos, "pos", torch.int32, (b, sq), dev)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch(
+        "paged_decode_quant", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), b, kvh, group, sq, d, ps, p_per_slot, bits, float(sm_scale), stream,
+    )
+    return out
+
+
+def ragged_prefill_quant(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, page_table,
+                         row_slot, row_pos, slot_hist, sm_scale: float, bt: int, bits: int):
+    """Packed ragged prefill over a quantized arena, quantize-on-write
+    fused: q [1, H, CAP, D], k_new/v_new [1, KVH, CAP, D] (bf16), int8
+    payload pages [NP, KVH, ps, D or D / 2] with fp32 scale pages
+    [NP, KVH, ps, 1], page_table [S, P], row_slot/row_pos [CAP], slot_hist
+    [S] (int32) -> ``(out [1, H, CAP, D], k_payload [CAP, KVH, pd] int8,
+    k_scale [CAP, KVH, 1] fp32, v_payload, v_scale)``: every packed row
+    quantized (pads too), token-major for the caller's arena scatter. CPU
+    tensors run the plain version."""
+    _quant_bits_check(bits)
+    if q.device.type == "cpu":
+        from .attention import ragged_prefill_reference
+
+        return ragged_prefill_reference(
+            q, k_new, v_new, k_pages, v_pages, page_table, row_slot, row_pos, slot_hist,
+            sm_scale, k_scale=k_scale, v_scale=v_scale, kv_quant_bits=bits,
+        )
+    _require_cuda(q, "ragged_prefill_quant")
+    _, h, cap, d = q.shape
+    kvh = k_pages.shape[1]
+    n_slots, p_per_slot = page_table.shape
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if bt < 1 or 64 % bt or cap % bt:
+        raise ValueError(
+            f"token block {bt} must divide 64 and the capacity {cap}"
+        )
+    group = h // kvh
+    _smem_limit_check(bt * group, d)
+    dev = q.device
+    _check(q, "q", torch.bfloat16, (1, h, cap, d), dev)
+    _check(k_new, "k_new", torch.bfloat16, (1, kvh, cap, d), dev)
+    _check(v_new, "v_new", torch.bfloat16, (1, kvh, cap, d), dev)
+    _, kvh, ps = _quant_pages_check(k_pages, v_pages, k_scale, v_scale, d, bits, dev)
+    _check(page_table, "page_table", torch.int32, (n_slots, p_per_slot), dev)
+    _check(row_slot, "row_slot", torch.int32, (cap,), dev)
+    _check(row_pos, "row_pos", torch.int32, (cap,), dev)
+    _check(slot_hist, "slot_hist", torch.int32, (n_slots,), dev)
+    pd = d // 2 if bits == 4 else d
+    out = torch.empty_like(q)
+    k_pay = torch.empty((cap, kvh, pd), dtype=torch.int8, device=dev)
+    v_pay = torch.empty_like(k_pay)
+    k_scl = torch.empty((cap, kvh, 1), dtype=torch.float32, device=dev)
+    v_scl = torch.empty_like(k_scl)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch(
+        "ragged_prefill_quant", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        page_table.data_ptr(), row_slot.data_ptr(), row_pos.data_ptr(), slot_hist.data_ptr(),
+        out.data_ptr(), k_pay.data_ptr(), k_scl.data_ptr(), v_pay.data_ptr(),
+        v_scl.data_ptr(), kvh, group, cap, d, ps, p_per_slot, bt, bits,
+        float(sm_scale), stream,
+    )
+    return out, k_pay, k_scl, v_pay, v_scl
+
+
 def _flash_shapes(q, k, v, masks, name):
     """Check the flash kernels' shared inputs on a CUDA device; returns
     ``(b, h, kvh, sq, skv, d)`` and the mask pointers (None when absent)."""
@@ -443,8 +574,7 @@ def dense_decode_quant(q, k, v, k_scale, v_scale, pos, sm_scale: float, bits: in
     (``bits`` 4, two values a byte), k_scale/v_scale [B, KVH, L, 1] fp32,
     pos [B, Sq] int32 -> out [B, H, Sq, D]. CPU tensors run the plain
     version (dequantize, then the masked-dense read)."""
-    if bits not in (8, 4):
-        raise ValueError(f"KV quantization supports 8 or 4 bits, got {bits}")
+    _quant_bits_check(bits)
     if q.device.type == "cpu":
         from .attention import decode_attention_reference
 

@@ -1,18 +1,28 @@
 """Continuous-batching serving engine over the paged or the flat KV arena.
 
 Counterpart of ``accelerate_tpu/serving/engine.py``, limited to FIFO
-admission, no speculative decoding, no KV tiers. Many requests decode per
-device step against one arena. On the paged arena (``page_size``, what
-users run with ``accelerate-tpu serve replica``) admissions ride the
-packed ragged prefill:
+admission and no KV tiers. Many requests decode per device step against
+one arena. On the paged arena (``page_size``, what users run with
+``accelerate-tpu serve replica``) admissions ride the packed ragged
+prefill:
 
 - **paged arena** (``pages.py``): ``[num_pages, KVH, page_size, D]``
   pages per layer, per-slot page tables, page 0 the parking page, and
   the copy-on-write prefix cache (on by default) so a prompt whose
-  prefix is cached prefills only its tail;
+  prefix is cached prefills only its tail. ``kv_cache_dtype`` "int8" or
+  "int4" stores int8 payload pages beside fp32 scale pages, which ride
+  every fork and prefix share with their payload; decode writes quantize
+  with ``quantize_kv``, the packed prefill quantizes on write inside its
+  kernel, and both kernels read the pages dequantized;
 - **batched decode step**: every slot decodes each step at a fixed batch
   of ``num_slots``; inactive slots are parked at the last cache position,
   where an active request always writes before it reads;
+- **speculative verify** (``spec_draft_len=K``, paged arena only): the
+  host-side drafter (:class:`~.pages.NGramDrafter` by default) proposes K
+  tokens per slot and one batched step feeds ``[last, d1..dK]`` at K + 1
+  positions through the paged decode kernel (Sq = K + 1), emitting the
+  longest accepted draft prefix plus one model token; greedy and sampled
+  tokens are those of K + 1 sequential steps;
 - **packed ragged prefill**: each scheduler iteration packs the primary
   admission's next tail segment, plus the whole tails of further queued
   requests while capacity remains, into one token pack of the smallest
@@ -35,9 +45,9 @@ Greedy decoding is ``argmax``; temperature/top-k sampling draws from a
 ``torch.Generator`` per request, seeded by ``submit(seed=...)``.
 
 Everything else the reference engine offers (the multi-tenant
-scheduler, speculative verify, KV tiers and handoff, fault injection,
-drain, telemetry hooks, fused decode bursts, the quantized paged arena)
-is a later slice of the port and raises here.
+scheduler, KV tiers and handoff, fault injection, drain, telemetry
+hooks, fused decode bursts) is a later slice of the port and raises
+here.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from ..ops.attention import PREFILL_TOKEN_BLOCK
 from ..utils.quantization import kv_cache_bits
 from .arena import arena_nbytes, init_arena, slot_view, write_slot
 from .pages import (
+    NGramDrafter,
     PageAllocator,
     PagedTables,
     PrefixCache,
@@ -98,6 +109,8 @@ class Request:
     shed_reason: Optional[str] = None
     prefix_hit: int = 0         # prompt tokens served from the prefix cache
     prefill_dispatches: int = 0  # prefill dispatches (packs or chunks) its prompt rode
+    spec_proposed: int = 0      # draft tokens verified for it
+    spec_accepted: int = 0      # of which accepted
 
     def result(self) -> np.ndarray:
         """[prompt + generated] token ids."""
@@ -114,15 +127,15 @@ class ServingEngine:
     arena with ``num_pages`` physical pages (default: capacity-equivalent
     to ``num_slots * max_cache_len`` plus the parking page);
     ``page_size=None`` the flat arena. ``kv_cache_dtype`` ("bf16", "int8"
-    or "int4"; default: the model config's) is the KV storage precision;
-    the quantized paged arena is a later slice and raises.
-    ``temperature``/``top_k`` are engine-wide.
+    or "int4"; default: the model config's) is the KV storage precision,
+    on either arena. ``spec_draft_len=K`` (paged arena only) turns on
+    speculative verify with ``drafter`` (default
+    :class:`~.pages.NGramDrafter`); it reserves K positions of per-slot
+    headroom. ``temperature``/``top_k`` are engine-wide.
     """
 
     _LATER = {
         "steps_per_call": "fused decode bursts",
-        "spec_draft_len": "speculative verify",
-        "drafter": "speculative verify",
         "scheduler": "the multi-tenant scheduler",
         "faults": "fault injection",
         "kv_tiers": "hierarchical KV tiers",
@@ -148,6 +161,8 @@ class ServingEngine:
         prefix_cache: bool = True,
         prefix_max_entries: Optional[int] = None,
         kv_cache_dtype: Optional[str] = None,
+        spec_draft_len: int = 0,
+        drafter=None,
         device=None,
         **later,
     ):
@@ -169,13 +184,13 @@ class ServingEngine:
         cfg = model.config
         self.kv_cache_dtype = kv_cache_dtype or cfg.kv_cache_dtype
         kv_cache_bits(self.kv_cache_dtype)  # raises on an unknown value
-        if page_size and self.kv_cache_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_cache_dtype {self.kv_cache_dtype!r} on the paged arena (the int8/int4 "
-                "entries of the paged decode and ragged prefill kernels, scale leaves "
-                "through page forks and prefix shares) is the next slice of the port "
-                "(ROADMAP queue 1 item 3); the flat arena (page_size=None) serves it"
+        self.spec_k = max(0, int(spec_draft_len))
+        if self.spec_k and not page_size:
+            raise ValueError(
+                "speculative decoding (spec_draft_len > 0) requires the paged "
+                "arena; pass page_size=..."
             )
+        self._drafter = (drafter or NGramDrafter()) if self.spec_k else None
         cap = max_cache_len or cfg.max_cache_len or cfg.max_seq_len
         self.num_slots = int(num_slots)
         self.max_cache_len = int(cap)
@@ -215,6 +230,8 @@ class ServingEngine:
         self.requests_completed = 0
         self.requests_shed = 0
         self.generated_tokens = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self._step_samples: deque = deque(maxlen=512)  # (wall_s, tokens)
         self._ttft: deque = deque(maxlen=2048)  # submit -> first token, s
 
@@ -243,7 +260,8 @@ class ServingEngine:
                         max_entries=int(prefix_max_entries or 512))
             if prefix_cache else None
         )
-        self._arena = init_paged_arena(cfg, self.num_pages, self.page_size, self.device)
+        self._arena = init_paged_arena(cfg, self.num_pages, self.page_size, self.device,
+                                       self.kv_cache_dtype)
         self._page_tables = torch.zeros(
             (self.num_slots, self.pages_per_slot), dtype=torch.int32, device=self.device
         )
@@ -267,11 +285,14 @@ class ServingEngine:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        need = prompt.size + max_new_tokens
+        # speculative verify writes up to spec_k positions past the last
+        # sequential write, so spec reserves that much per-slot headroom
+        need = prompt.size + max_new_tokens + self.spec_k
         if need > self.max_cache_len or self._plan_cover(prompt.size) > self.max_cache_len:
             raise ValueError(
-                f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) "
-                f"exceeds the slot KV capacity ({self.max_cache_len}); raise "
+                f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens})"
+                + (f" + spec headroom ({self.spec_k})" if self.spec_k else "")
+                + f" exceeds the slot KV capacity ({self.max_cache_len}); raise "
                 "max_cache_len"
             )
         if request_id is None:
@@ -667,6 +688,8 @@ class ServingEngine:
     def _decode_once(self) -> bool:
         if not self._slot_req:
             return False
+        if self.spec_k:
+            return self._spec_verify_once()
         if self.page_size:
             for slot, req in list(self._slot_req.items()):
                 pos = self._next_write_pos(req)
@@ -710,6 +733,88 @@ class ServingEngine:
         self._step_samples.append((wall, len(live)))
         return True
 
+    def _draft_context(self, req: Request) -> np.ndarray:
+        """The tail of the request's prompt + generation the drafter reads
+        (all of it when the drafter sets no ``lookback``)."""
+        lb = int(getattr(self._drafter, "lookback", 0) or 0)
+        gen = np.asarray(req.tokens[-lb:] if lb else req.tokens, np.int32)
+        if lb and gen.size >= lb:
+            return gen
+        head = req.prompt[-(lb - gen.size):] if lb else req.prompt
+        return np.concatenate([np.asarray(head, np.int32), gen])
+
+    def _verify_candidates(self, logits, live):
+        """The model's token at every verify position, ``(cand [N, K+1],
+        states)``. Sampled, each live slot draws its K + 1 candidates in
+        order from its generator, as K + 1 sequential steps would, and
+        ``states[slot][i]`` is the generator's state after draw i, so
+        acceptance can put the generator where the sequential loop would
+        stand. Greedy: argmax, and no states."""
+        if self.temperature == 0.0:
+            flat = logits.reshape(-1, logits.shape[-1])
+            return _sample(flat, None, 0.0, None).reshape(logits.shape[:2]).cpu().numpy(), None
+        cand = np.zeros(logits.shape[:2], np.int64)
+        states = {}
+        for slot, req in live:
+            states[slot] = []
+            for i in range(logits.shape[1]):
+                cand[slot, i] = int(_sample(logits[slot, i:i + 1], req.generator,
+                                            self.temperature, self.top_k)[0])
+                states[slot].append(req.generator.get_state())
+        return cand, states
+
+    def _spec_verify_once(self) -> bool:
+        """One speculative round: the drafter proposes K tokens per live
+        slot, one batched step feeds ``[last, d1..dK]`` at positions
+        ``lengths .. lengths + K`` (inactive slots parked at the last
+        position) through the paged decode kernel at Sq = K + 1, and each
+        slot emits its longest accepted draft prefix plus the model's
+        token after it. Rejected drafts' K/V sit past the new frontier,
+        where the decode mask hides them until they are overwritten."""
+        k = self.spec_k
+        drafts = np.zeros((self.num_slots, k), np.int64)
+        for slot, req in list(self._slot_req.items()):
+            drafts[slot] = self._drafter.propose(self._draft_context(req), k)
+            pos = self._next_write_pos(req)
+            self._grow_or_resolve(req, slot, pos, pos + k)
+        if not self._slot_req:
+            return True  # every live slot was shed under page pressure
+        seq = np.concatenate([self._tokens[:, None], drafts], axis=1)  # [N, K+1]
+        pos = self._lengths[:, None] + np.arange(k + 1)[None, :]
+        write_pos = np.where(self._active[:, None], pos, self.max_cache_len - 1)
+        dev = self.device
+        pos_t = torch.as_tensor(write_pos, device=dev)
+        t0 = time.perf_counter()
+        logits = self.model(torch.as_tensor(seq, device=dev), pos_t, cache=self._arena,
+                            cache_positions=pos_t, page_table=self._page_tables)  # [N, K+1, V]
+        live = list(self._slot_req.items())
+        cand, states = self._verify_candidates(logits, live)
+        now = time.perf_counter()
+        wall = now - t0
+        self.step_count += 1
+        emitted = 0
+        for slot, req in live:
+            matched = cand[slot, :k] == drafts[slot]
+            accepted = int(np.cumprod(matched).sum())
+            if states is not None:
+                # the generator as accepted + 1 sequential draws leave it
+                req.generator.set_state(states[slot][accepted])
+            self._tokens[slot] = cand[slot, accepted]
+            self._lengths[slot] += accepted + 1
+            req.spec_proposed += k
+            req.spec_accepted += accepted
+            self.spec_proposed += k
+            self.spec_accepted += accepted
+            n_emit = accepted + 1
+            for i in range(n_emit):
+                # the verify wall amortized over the slot's emitted run
+                self._emit(req, int(cand[slot, i]), t0 + wall * (i + 1) / n_emit)
+                emitted += 1
+                if req.done:
+                    break  # budget or eos inside the run: drop the rest
+        self._step_samples.append((wall, emitted))
+        return True
+
     def _emit(self, req: Request, token: int, now: float):
         req.tokens.append(token)
         self.generated_tokens += 1
@@ -743,7 +848,16 @@ class ServingEngine:
             "serving/prefill_dispatches": self.prefill_dispatches,
             "serving/prefill_packed_tokens": self.prefill_packed_tokens,
             "serving/arena_bytes": self.arena_bytes,
+            # storage bits per K/V value (16: the compute dtype), beside
+            # arena_bytes to tell a quantized arena from a shrunk one
+            "serving/kv_cache_bits": kv_cache_bits(self.kv_cache_dtype),
         }
+        if self.spec_k:
+            out["serving/spec_proposed"] = self.spec_proposed
+            out["serving/spec_accepted"] = self.spec_accepted
+            out["serving/spec_accept_rate"] = (
+                self.spec_accepted / self.spec_proposed if self.spec_proposed else 0.0
+            )
         if self.page_size:
             out["serving/pages_in_use"] = self._allocator.in_use
             out["serving/pages_total"] = self.num_pages

@@ -6,7 +6,9 @@ classes are this package's own copy of the reference's numpy
 bookkeeping (the port imports nothing from the JAX package):
 
 - K/V leaves are ``[num_pages, KVH, page_size, D]`` physical pages per
-  layer; a per-slot page table ``[num_slots, pages_per_slot] int32``
+  layer (a quantized arena: int8 payload pages plus fp32 scale pages
+  ``[num_pages, KVH, page_size, 1]``, :func:`init_paged_arena`); a
+  per-slot page table ``[num_slots, pages_per_slot] int32``
   maps positions ``[c*page_size, (c+1)*page_size)`` of a slot to a
   physical page. Page 0 is the reserved parking page: unallocated table
   entries point at it, and inactive slots' decode writes land there.
@@ -15,6 +17,8 @@ bookkeeping (the port imports nothing from the JAX package):
   a hit maps the shared pages into the new slot's table and only the
   tail is prefilled. Shared pages are copy-on-write: the engine forks a
   page (:func:`fork_page`) before the first divergent write.
+- :class:`NGramDrafter` proposes speculative drafts from the request's
+  own history (prompt lookup).
 
 The torch helpers update the arena and the page tables IN PLACE (JAX
 returned new arrays); callers keep using the same tensors.
@@ -28,6 +32,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..utils.quantization import kv_cache_bits
 
 
 def _digest(tokens: np.ndarray) -> bytes:
@@ -204,6 +210,46 @@ class PrefixCache:
         return self.hits / self.lookups if self.lookups else 0.0
 
 
+class NGramDrafter:
+    """Prompt-lookup speculative drafter (model-free, host-side).
+
+    ``propose(context, k)`` matches the last ``order`` tokens of the
+    request's prompt+generation history against earlier occurrences
+    (longest order first, most recent match first) and proposes the ``k``
+    tokens that followed; short or missing matches pad by repeating the
+    last token. Accepted tokens are always the target model's own
+    samples, so a draft only decides how many tokens one verify step
+    emits, never which. ``lookback`` bounds the scan to the trailing
+    tokens of the history."""
+
+    def __init__(self, order: int = 3, min_order: int = 1, lookback: int = 1024):
+        if order < 1 or min_order < 1 or min_order > order:
+            raise ValueError(f"bad n-gram orders ({order}, {min_order})")
+        if lookback < 2:
+            raise ValueError(f"lookback must be >= 2, got {lookback}")
+        self.order = int(order)
+        self.min_order = int(min_order)
+        self.lookback = int(lookback)
+
+    def propose(self, context: np.ndarray, k: int) -> np.ndarray:
+        context = np.asarray(context, np.int32).reshape(-1)[-self.lookback:]
+        out = np.full((k,), int(context[-1]) if context.size else 0, np.int32)
+        if context.size < 2:
+            return out
+        for n in range(min(self.order, context.size - 1), self.min_order - 1, -1):
+            pat = context[-n:]
+            # most recent earlier occurrence of the n-gram
+            windows = np.lib.stride_tricks.sliding_window_view(context[:-1], n)
+            matches = np.nonzero((windows == pat).all(axis=1))[0]
+            if matches.size == 0:
+                continue
+            j = int(matches[-1])
+            cont = context[j + n: j + n + k]
+            out[: cont.size] = cont
+            return out
+        return out
+
+
 class PagedTables:
     """Host mirror of the device page tables: one np row per slot plus the
     allocated-entry count. Entries beyond ``alloc_count`` are parking-page
@@ -229,21 +275,39 @@ class PagedTables:
 # ---------------------------------------------------------------------------
 
 
-def init_paged_arena(config, num_pages: int, page_size: int,
-                     device: torch.device) -> list:
-    """All-zeros paged cache: one ``{"k", "v"}`` dict per layer, each leaf
-    ``[num_pages, KVH, page_size, D]`` in the config's compute dtype."""
-    shape = (num_pages, config.num_kv_heads, page_size, config.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=config.dtype, device=device),
-         "v": torch.zeros(shape, dtype=config.dtype, device=device)}
-        for _ in range(config.num_layers)
-    ]
+def init_paged_arena(config, num_pages: int, page_size: int, device: torch.device,
+                     kv_cache_dtype: Optional[str] = None) -> list:
+    """All-zeros paged cache: one dict per layer. ``kv_cache_dtype``
+    (None: the config's) "bf16" gives ``{"k", "v"}`` leaves
+    ``[num_pages, KVH, page_size, D]`` in the config's compute dtype;
+    "int8" / "int4" give int8 payload pages ``[num_pages, KVH, page_size,
+    D]`` / ``[..., D // 2]`` beside ``{"k_scale", "v_scale"}``
+    ``[num_pages, KVH, page_size, 1]`` fp32: the scale pages have the
+    payload pages' rank and leading axes, so every page operation moves
+    both."""
+    bits = kv_cache_bits(kv_cache_dtype or config.kv_cache_dtype)
+    rows = (num_pages, config.num_kv_heads, page_size)
+
+    def zeros(width, dtype):
+        return torch.zeros(rows + (width,), dtype=dtype, device=device)
+
+    def layer():
+        if bits == 16:
+            return {"k": zeros(config.head_dim, config.dtype),
+                    "v": zeros(config.head_dim, config.dtype)}
+        width = config.head_dim // 2 if bits == 4 else config.head_dim
+        return {"k": zeros(width, torch.int8), "v": zeros(width, torch.int8),
+                "k_scale": zeros(1, torch.float32), "v_scale": zeros(1, torch.float32)}
+
+    return [layer() for _ in range(config.num_layers)]
 
 
 def fork_page(arena: list, src: int, dst: int):
-    """Copy physical page ``src`` -> ``dst`` in every K/V leaf of every
-    layer, in place: the copy-on-write fork."""
+    """Copy physical page ``src`` -> ``dst`` in every leaf of every layer,
+    in place: the copy-on-write fork. A quantized arena's scale pages are
+    leaves like the payload pages, so scales ride every fork (and every
+    prefix share, which maps the same page ids) with their payload; one
+    can never be forked or shared without the other."""
     for layer in arena:
         for leaf in layer.values():
             leaf[dst].copy_(leaf[src])

@@ -5,7 +5,7 @@ The port's own copy of the KV part of ``accelerate_tpu/utils/quantization.py``
 is the reference's, so payloads and scales agree bit for bit:
 
 - the scale is ``amax / qmax`` per (token, kv head) over head_dim, 1.0
-  for an all-zero row;
+  for an all-zero row, a true division on every device;
 - values are ``round(x * (1 / scale))``: a multiply by the reciprocal,
   not a division, which can round differently at .5;
 - ``torch.round`` rounds half to even, as ``jnp.round`` does;
@@ -50,7 +50,9 @@ def quantize_kv(x: torch.Tensor, bits: int):
     qmax = float(2 ** (bits - 1) - 1)
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    # a tensor divisor: PyTorch turns a division by a Python scalar on
+    # CUDA into a product with its reciprocal, which is not amax / qmax
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, qmax), torch.ones_like(amax))
     q = torch.clamp(torch.round(x32 * (1.0 / scale)), -qmax, qmax).to(torch.int8)
     if bits == 4:
         if x.shape[-1] % 2:

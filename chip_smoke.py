@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the seven hand-written kernels of ``accelerate_tpu_torch/csrc``
+Builds the nine hand-written kernels of ``accelerate_tpu_torch/csrc``
 with nvcc for sm_90a and holds each against its plain PyTorch version:
-the paged decode and ragged prefill kernels at the serving path's shapes
-(small_1b: H=16, KVH=8, D=128, page 16), the flash forward, dQ and dK/dV
-kernels at the training path's (B 8, S 2048, causal) and in masked
-cases, the dense decode kernel and its int8/int4 entry at the flat
-engine's and generate()'s shapes. Then it drives four paths at full
-width, each with the launch counters reset just before it and read just
-after:
+the paged decode kernel and its int8/int4 entry (Sq 1 and the verify
+step's Sq 5) and the ragged prefill kernel and its int8/int4 entry
+(quantize-on-write payloads and scales bit for bit) at the serving
+path's shapes (small_1b: H=16, KVH=8, D=128, page 16), the flash
+forward, dQ and dK/dV kernels at the training path's (B 8, S 2048,
+causal) and in masked cases, the dense decode kernel and its int8/int4
+entry at the flat engine's and generate()'s shapes. Then it drives six
+paths at full width, each with the launch counters reset just before
+each run and read just after:
 
 - serving: the paged ``ServingEngine`` on small_1b over random weights
   from a seed, the generated tokens checked against a teacher-forced
@@ -18,6 +20,14 @@ after:
 - flat serving: the same requests through the flat-arena engine
   (``page_size=None``), checked alike, with a control run whose dense
   decode output is zeroed and must fail the check;
+- quantized serving: the same requests on the int8 and the int4 paged
+  arena (the quantized kernel entries only), tokens checked against a
+  teacher-forced quantized single-stream replay with plain kernels, a
+  zeroed-kernel control, arena bytes against bf16; then the drift
+  harness (``kv_quant_drift``) on small_1b;
+- speculative verify: ``spec_draft_len=4`` on the bf16 and the int8
+  paged arena, one paged decode launch per layer per verify step,
+  tokens checked teacher-forced, timed beside the run without spec;
 - training: ``Accelerator(mixed_precision="bf16")`` over fp32 master
   weights, a few steps of the eager loop and of ``build_train_step``,
   launch counts of layers x micro-batches per step, a falling loss on a
@@ -118,109 +128,215 @@ def bound(nbytes: float, flops: float):
 # ---------------------------------------------------------------------------
 
 
-def decode_phase(gen, dev):
-    """Paged decode: 8 live slots of mixed length + one parked slot."""
+# the paged-serving decode shape: 8 live slots of these lengths plus one
+# parked at position 2047 (all-parking table row), shuffled page ids
+PAGED_LENGTHS = [17, 130, 256, 511, 700, 1024, 1300, 1500]
+SPEC_K = 4  # speculative draft length of the spec path: verify reads Sq = 5
+
+
+def paged_case(dev, sq: int):
+    """Page table [9, 128] and query positions [9, sq] of the paged decode
+    shape: live slot s holds PAGED_LENGTHS[s] + sq - 1 tokens on pages
+    drawn from a shuffled range and queries its last sq positions (sq 1 a
+    decode step, sq K + 1 a verify step); the parked slot queries 2047 on
+    every row. Returns ``(table, pos, num_pages)``."""
     import torch
-    import torch.nn.functional as F
 
-    from accelerate_tpu_torch.ops import kernels
-    from accelerate_tpu_torch.ops.attention import (
-        gather_kv_pages, paged_decode_attention, paged_decode_reference,
-    )
-
-    lengths = [17, 130, 256, 511, 700, 1024, 1300, 1500]
     p_per_slot = MAX_CACHE // PAGE
-    b = len(lengths) + 1  # + one parked slot
-    live_pages = [-(-n // PAGE) for n in lengths]
+    b = len(PAGED_LENGTHS) + 1
+    live_pages = [-(-(n + sq - 1) // PAGE) for n in PAGED_LENGTHS]
     num_pages = 1 + sum(live_pages)
     host_gen = torch.Generator().manual_seed(0)
     perm = (torch.randperm(num_pages - 1, generator=host_gen) + 1).tolist()
     table = torch.zeros((b, p_per_slot), dtype=torch.int32)
-    pos = torch.zeros((b, 1), dtype=torch.int32)
+    pos = torch.full((b, sq), MAX_CACHE - 1, dtype=torch.int32)
     at = 0
-    for s, n in enumerate(lengths):
+    for s, n in enumerate(PAGED_LENGTHS):
         table[s, : live_pages[s]] = torch.tensor(perm[at: at + live_pages[s]])
         at += live_pages[s]
-        pos[s, 0] = n - 1
-    pos[b - 1, 0] = MAX_CACHE - 1  # parked: all-parking table row
-    table, pos = table.to(dev), pos.to(dev)
-    q = torch.randn((b, H, 1, D), generator=gen, device=dev).to(torch.bfloat16)
-    k_pages = torch.randn((num_pages, KVH, PAGE, D), generator=gen, device=dev).to(torch.bfloat16)
-    v_pages = torch.randn((num_pages, KVH, PAGE, D), generator=gen, device=dev).to(torch.bfloat16)
-    scale = 1.0 / math.sqrt(D)
+        pos[s] = n - 1 + torch.arange(sq)
+    return table.to(dev), pos.to(dev), num_pages
 
-    def run_kernel():
-        return paged_decode_attention(q, k_pages, v_pages, page_table=table, q_positions=pos)
 
-    def run_plain():
-        return paged_decode_reference(q, k_pages, v_pages, table, pos, scale)
-
-    before = kernels.launch_counts["paged_decode"]
-    out_k = run_kernel()
-    torch.cuda.synchronize()
-    if kernels.launch_counts["paged_decode"] != before + 1:
-        fail("paged_decode wrapper did not count its launch")
-    out_p = run_plain()
-    err = check_close("paged_decode", out_k, out_p)
-    ms = cuda_time_ms(run_kernel)
-    plain_ms = cuda_time_ms(run_plain)
-    live_ms = cuda_time_ms(lambda: paged_decode_attention(
-        q[:-1], k_pages, v_pages, page_table=table[:-1], q_positions=pos[:-1]))
-
-    k_full = gather_kv_pages(k_pages, table)
-    v_full = gather_kv_pages(v_pages, table)
-    mask = (torch.arange(k_full.shape[2], device=dev)[None, None, None, :]
-            <= pos[:, None, :, None])
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q, k_full, v_full, attn_mask=mask, scale=scale, enable_gqa=True))
-
-    # bytes: q, out, tables once, and every distinct K/V page the live
-    # ranges touch (the parked slot's row is one parking page)
+def paged_work(table, pos, row_bytes: int, heads: int = H):
+    """(bytes, flops) of one paged decode call: q and out, the tables and
+    positions once, every distinct page the slots' live ranges touch once
+    (``row_bytes`` per token and kv head, K and V), and QK + PV over each
+    query row's attended positions."""
+    b, sq = pos.shape
     pages_read = set()
     for s in range(b):
-        n_pages = int(pos[s, 0].item()) // PAGE + 1
+        n_pages = int(pos[s].max().item()) // PAGE + 1
         pages_read.update(table[s, :n_pages].tolist())
-    kv_bytes = len(pages_read) * KVH * PAGE * D * 2 * 2
-    nbytes = 2 * q.numel() * 2 + kv_bytes + table.numel() * 4 + pos.numel() * 4
-    attended = sum(int(p) + 1 for p in pos[:, 0].tolist())  # kv per query row
-    flops = 4 * D * H * attended
-    bound_ms, bound_by = bound(nbytes, flops)
-    print(f"kernel paged_decode: slots {b} (lengths {lengths} + parked), "
-          f"max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}), "
-          f"library sdpa {library_ms:.4f} ms; kernel without the parked slot "
-          f"{live_ms:.4f} ms")
-    return {"name": "paged_decode", "route": "cuda",
-            "source": "accelerate_tpu_torch/csrc/paged_decode.cu",
-            "replaces": "accelerate_tpu/ops/attention.py:926",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    kv_bytes = len(pages_read) * KVH * PAGE * row_bytes * 2
+    nbytes = 2 * b * heads * sq * D * 2 + kv_bytes + table.numel() * 4 + pos.numel() * 4
+    attended = sum(int(p) + 1 for p in pos.flatten().tolist())  # kv per query row
+    return nbytes, 4 * D * heads * attended
 
 
-def prefill_phase(gen, dev):
-    """Packed ragged prefill: a 512-row pack of three slots — one with an
-    arena prefix (hist > 0), one ending mid-block on pad rows, and one
-    whole pad block."""
+def paged_library_ms(q, k_pages, v_pages, table, pos):
+    """SDPA with a boolean mask over each slot's pages gathered into dense
+    K/V beforehand (the gather is left out of the time)."""
     import torch
     import torch.nn.functional as F
 
-    from accelerate_tpu_torch.ops import kernels
-    from accelerate_tpu_torch.ops.attention import (
-        PREFILL_TOKEN_BLOCK, gather_kv_pages, ragged_prefill_attention,
-        ragged_prefill_reference,
-    )
+    from accelerate_tpu_torch.ops.attention import gather_kv_pages
 
-    bt = PREFILL_TOKEN_BLOCK
-    cap = 512
-    packs = [(0, 300, 256), (1, 0, 243)]  # (slot, hist, tail)
-    n_slots = 3
-    p_per_slot = 64  # 1024 positions: covers hist + tail of every pack
-    table = torch.zeros((n_slots, p_per_slot), dtype=torch.int32)
+    k_full = gather_kv_pages(k_pages, table)
+    v_full = gather_kv_pages(v_pages, table)
+    mask = (torch.arange(k_full.shape[2], device=q.device)[None, None, None, :]
+            <= pos[:, None, :, None])
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k_full, v_full, attn_mask=mask, scale=1.0 / math.sqrt(D), enable_gqa=True))
+
+
+def counted(name: str, fn):
+    """Run ``fn`` once and fail unless kernel ``name`` counted one launch."""
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+
+    before = kernels.launch_counts[name]
+    out = fn()
+    torch.cuda.synchronize()
+    if kernels.launch_counts[name] != before + 1:
+        fail(f"{name} wrapper did not count its launch")
+    return out
+
+
+def paged_inputs(gen, dev, sq: int):
+    """q [9, H, sq, D] and bf16 K/V pages of ``paged_case(dev, sq)``,
+    drawn from ``gen`` in that order. Returns ``(q, k_pages, v_pages,
+    table, pos)``."""
+    import torch
+
+    table, pos, num_pages = paged_case(dev, sq)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q = rnd(pos.shape[0], H, sq, D)
+    return q, rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D), table, pos
+
+
+def decode_phase(gen, dev, gen_spec):
+    """Paged decode: 8 live slots of mixed length + one parked slot, at Sq
+    1 (a decode step; inputs from ``gen``) and Sq K + 1 (a verify step;
+    inputs from ``gen_spec``)."""
+    from accelerate_tpu_torch.ops.attention import paged_decode_attention, paged_decode_reference
+
+    q, k_pages, v_pages, table, pos1 = paged_inputs(gen, dev, 1)
+    spec = paged_inputs(gen_spec, dev, SPEC_K + 1)
+    scale = 1.0 / math.sqrt(D)
+
+    def run_kernel(q=q, k_pages=k_pages, v_pages=v_pages, table=table, pos=pos1):
+        return paged_decode_attention(q, k_pages, v_pages, page_table=table, q_positions=pos)
+
+    def run_plain(q=q, k_pages=k_pages, v_pages=v_pages, table=table, pos=pos1):
+        return paged_decode_reference(q, k_pages, v_pages, table, pos, scale)
+
+    b = pos1.shape[0]
+    err = check_close("paged_decode", counted("paged_decode", run_kernel), run_plain())
+    err_spec = check_close(f"paged_decode (Sq {SPEC_K + 1})",
+                           counted("paged_decode", lambda: run_kernel(*spec)),
+                           run_plain(*spec))
+    ms = cuda_time_ms(run_kernel)
+    plain_ms = cuda_time_ms(run_plain)
+    spec_ms = cuda_time_ms(lambda: run_kernel(*spec))
+    spec_plain_ms = cuda_time_ms(lambda: run_plain(*spec))
+    q_live, table_live, pos_live = q[:-1], table[:-1], pos1[:-1]
+    live_ms = cuda_time_ms(lambda: paged_decode_attention(
+        q_live, k_pages, v_pages, page_table=table_live, q_positions=pos_live))
+    library_ms = paged_library_ms(q, k_pages, v_pages, table, pos1)
+    bound_ms, bound_by = bound(*paged_work(table, pos1, D * 2))
+    spec_bound_ms, _ = bound(*paged_work(spec[3], spec[4], D * 2))
+    print(f"kernel paged_decode: slots {b} (lengths {PAGED_LENGTHS} + parked), "
+          f"max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+          f"library sdpa {library_ms:.4f} ms; kernel without the parked slot "
+          f"{live_ms:.4f} ms; Sq {SPEC_K + 1} (verify, per-row positions): max_abs_err "
+          f"{err_spec:.3e}, kernel {spec_ms:.4f} ms, plain {spec_plain_ms:.4f} ms, bound "
+          f"{spec_bound_ms * 1e3:.2f} us")
+    return {"name": "paged_decode", "route": "cuda",
+            "source": "accelerate_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "accelerate_tpu/ops/attention.py:926",
+            "max_abs_err": max(err, err_spec), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def paged_decode_quant_phase(gen, dev):
+    """The paged decode kernel's int8 / int4 entry at the paged-serving
+    shape (payloads from the port's quantize_kv), Sq 1 and Sq K + 1.
+    Returns the kernel's row (int8 at Sq 1 timed; errors over all cases)."""
+    import torch
+
+    from accelerate_tpu_torch.ops.attention import paged_decode_attention, paged_decode_reference
+    from accelerate_tpu_torch.utils.quantization import dequantize_kv, quantize_kv
+
+    q_spec, k_pages, v_pages, table, pos = paged_inputs(gen, dev, SPEC_K + 1)
+    q, pos1 = q_spec[:, :, :1].contiguous(), pos[:, :1].contiguous()  # Sq 1: the first row
+    b = pos.shape[0]
+    scale = 1.0 / math.sqrt(D)
+    rows, errs = {}, []
+    for bits in (8, 4):
+        (kq, ks), (vq, vs) = quantize_kv(k_pages, bits), quantize_kv(v_pages, bits)
+        kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
+
+        def run_kernel(q=q, pos=pos1):
+            return paged_decode_attention(q, kq, vq, page_table=table, q_positions=pos, **kw)
+
+        def run_plain(q=q, pos=pos1):
+            return paged_decode_reference(q, kq, vq, table, pos, scale, **kw)
+
+        errs.append(check_close(f"paged_decode_quant (int{bits})",
+                                counted("paged_decode_quant", run_kernel), run_plain()))
+        errs.append(check_close(f"paged_decode_quant (int{bits}, Sq {SPEC_K + 1})",
+                                counted("paged_decode_quant",
+                                        lambda: run_kernel(q_spec, pos)),
+                                run_plain(q_spec, pos)))
+        ms, plain_ms = cuda_time_ms(run_kernel), cuda_time_ms(run_plain)
+        spec_ms = cuda_time_ms(lambda: run_kernel(q_spec, pos))
+        library_ms = paged_library_ms(q, dequantize_kv(kq, ks, bits, torch.bfloat16),
+                                      dequantize_kv(vq, vs, bits, torch.bfloat16), table, pos1)
+        row_bytes = (D // 2 if bits == 4 else D) + 4
+        bound_ms, bound_by = bound(*paged_work(table, pos1, row_bytes))
+        spec_bound_ms, _ = bound(*paged_work(table, pos, row_bytes))
+        print(f"kernel paged_decode_quant (int{bits}): slots {b}, Sq 1, max_abs_err "
+              f"{errs[-2]:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}), library "
+              f"sdpa {library_ms:.4f} ms (on K/V gathered and dequantized beforehand: leaves "
+              f"out the gather and the dequant); Sq {SPEC_K + 1}: max_abs_err "
+              f"{errs[-1]:.3e}, kernel {spec_ms:.4f} ms, bound {spec_bound_ms * 1e3:.2f} us")
+        rows[bits] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms}
+    return dict(name="paged_decode_quant", route="cuda",
+                source="accelerate_tpu_torch/csrc/paged_decode_quant.cu",
+                replaces="accelerate_tpu/ops/attention.py:889", max_abs_err=max(errs),
+                **rows[8])
+
+
+# packed ragged prefill: a 512-row pack of three slots — one with an
+# arena prefix (hist > 0), one ending mid-block on pad rows, and one
+# whole pad block. (slot, hist, tail)
+PREFILL_CAP = 512
+PREFILL_PACKS = [(0, 300, 256), (1, 0, 243)]
+
+
+def prefill_case(dev):
+    """Page table [3, 64] (1024 positions: covers hist + tail of every
+    pack), row_slot / row_pos [512] and slot_hist [3] of PREFILL_PACKS.
+    Returns those and the page count."""
+    import torch
+
+    from accelerate_tpu_torch.ops.attention import PREFILL_TOKEN_BLOCK
+
+    bt, cap, n_slots = PREFILL_TOKEN_BLOCK, PREFILL_CAP, 3
+    table = torch.zeros((n_slots, 64), dtype=torch.int32)
     row_slot = torch.full((cap,), -1, dtype=torch.int32)
     row_pos = torch.full((cap,), -1, dtype=torch.int32)
     slot_hist = torch.zeros((n_slots,), dtype=torch.int32)
     next_page, r = 1, 0
-    for slot, hist, tail in packs:
+    for slot, hist, tail in PREFILL_PACKS:
         need = -(-(hist + tail) // PAGE)
         table[slot, :need] = torch.arange(next_page, next_page + need)
         next_page += need
@@ -231,44 +347,24 @@ def prefill_phase(gen, dev):
         r += nb * bt
     if cap - r < bt:
         fail("prefill phase pack leaves no whole pad block")
-    num_pages = next_page
-    table, row_slot, row_pos, slot_hist = (
-        t.to(dev) for t in (table, row_slot, row_pos, slot_hist))
+    rows = dict(page_table=table, row_slot=row_slot, row_pos=row_pos, slot_hist=slot_hist)
+    return {k: t.to(dev) for k, t in rows.items()}, next_page
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    q, k_new, v_new = rnd(1, H, cap, D), rnd(1, KVH, cap, D), rnd(1, KVH, cap, D)
-    k_pages, v_pages = rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D)
-    scale = 1.0 / math.sqrt(D)
-    kw = dict(page_table=table, row_slot=row_slot, row_pos=row_pos,
-              slot_hist=slot_hist)
+def prefill_library_ms(q, k_new, v_new, k_pages, v_pages, rows):
+    """SDPA over a dense layout holding each slot's gathered arena prefix
+    (bf16 pages, built beforehand) followed by the packed fresh rows,
+    masked as the kernel masks."""
+    import torch
+    import torch.nn.functional as F
 
-    def run_kernel():
-        return ragged_prefill_attention(q, k_new, v_new, k_pages, v_pages, **kw)
+    from accelerate_tpu_torch.ops.attention import gather_kv_pages
 
-    def run_plain():
-        return ragged_prefill_reference(q, k_new, v_new, k_pages, v_pages, table,
-                                        row_slot, row_pos, slot_hist, scale)
-
-    before = kernels.launch_counts["ragged_prefill"]
-    out_k = run_kernel()[0]
-    torch.cuda.synchronize()
-    if kernels.launch_counts["ragged_prefill"] != before + 1:
-        fail("ragged_prefill wrapper did not count its launch")
-    out_p = run_plain()[0]
-    err = check_close("ragged_prefill", out_k, out_p)
-    pad = (row_pos < 0)
-    if out_k[0][:, pad].abs().max().item() != 0.0:
-        fail("ragged_prefill pad rows are not exactly 0")
-    ms = cuda_time_ms(run_kernel)
-    plain_ms = cuda_time_ms(run_plain, iters=5, warmup=1)
-
-    # yardstick: SDPA over a dense layout holding each slot's gathered
-    # arena prefix followed by the packed fresh rows, masked alike
+    dev = q.device
+    table, row_slot, row_pos = rows["page_table"], rows["row_slot"], rows["row_pos"]
     ctx_k, ctx_v, ctx_slot, ctx_pos = [], [], [], []
     kf, vf = gather_kv_pages(k_pages, table), gather_kv_pages(v_pages, table)
-    for slot, hist, _ in packs:
+    for slot, hist, _ in PREFILL_PACKS:
         if hist:
             ctx_k.append(kf[slot, :, :hist])
             ctx_v.append(vf[slot, :, :hist])
@@ -281,19 +377,59 @@ def prefill_phase(gen, dev):
     mask = ((col_slot[None, :] == row_slot[:, None]) & (col_pos[None, :] >= 0)
             & (col_pos[None, :] <= row_pos[:, None]))
     mask[:, 0] |= ~mask.any(dim=1)  # pad rows: keep SDPA finite
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q, k_dense, v_dense, attn_mask=mask[None, None], scale=scale,
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k_dense, v_dense, attn_mask=mask[None, None], scale=1.0 / math.sqrt(D),
         enable_gqa=True))
 
-    hist_pages = sum(-(-hist // PAGE) for _, hist, _ in packs)
-    nbytes = (2 * q.numel() * 2 + (k_new.numel() + v_new.numel()) * 2
-              + hist_pages * KVH * PAGE * D * 2 * 2
-              + (table.numel() + 2 * cap + n_slots) * 4)
+
+def prefill_work(row_bytes: int, out_bytes_per_row: int = 0):
+    """(bytes, flops) of one packed prefill call over PREFILL_PACKS: q, the
+    fresh bf16 K/V and out once, the arena prefix's pages once (``row_bytes``
+    per token and kv head, K and V), ``out_bytes_per_row`` more per packed
+    row and kv head for K and V (the quantized payload and scale), the row
+    maps and tables; QK + PV over every attended (query, key) pair."""
+    cap = PREFILL_CAP
+    hist_pages = sum(-(-hist // PAGE) for _, hist, _ in PREFILL_PACKS)
+    nbytes = (2 * H * cap * D * 2 + 2 * KVH * cap * D * 2
+              + hist_pages * KVH * PAGE * row_bytes * 2
+              + 2 * cap * KVH * out_bytes_per_row + (3 * 64 + 2 * cap + 3) * 4)
     attended = sum((hist + tail) * (hist + tail + 1) // 2 - hist * (hist + 1) // 2
-                   for _, hist, tail in packs)
-    flops = 4 * D * H * attended
-    bound_ms, bound_by = bound(nbytes, flops)
-    print(f"kernel ragged_prefill: cap {cap}, packs (slot, hist, tail) {packs} "
+                   for _, hist, tail in PREFILL_PACKS)
+    return nbytes, 4 * D * H * attended
+
+
+def prefill_phase(gen, dev):
+    """Packed ragged prefill (bf16) over PREFILL_PACKS and a pad block."""
+    import torch
+
+    from accelerate_tpu_torch.ops.attention import ragged_prefill_attention, ragged_prefill_reference
+
+    rows, num_pages = prefill_case(dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    cap = PREFILL_CAP
+    q, k_new, v_new = rnd(1, H, cap, D), rnd(1, KVH, cap, D), rnd(1, KVH, cap, D)
+    k_pages, v_pages = rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D)
+    scale = 1.0 / math.sqrt(D)
+
+    def run_kernel():
+        return ragged_prefill_attention(q, k_new, v_new, k_pages, v_pages, **rows)
+
+    def run_plain():
+        return ragged_prefill_reference(q, k_new, v_new, k_pages, v_pages, *rows.values(),
+                                        scale)
+
+    out_k = counted("ragged_prefill", run_kernel)[0]
+    err = check_close("ragged_prefill", out_k, run_plain()[0])
+    if out_k[0][:, rows["row_pos"] < 0].abs().max().item() != 0.0:
+        fail("ragged_prefill pad rows are not exactly 0")
+    ms = cuda_time_ms(run_kernel)
+    plain_ms = cuda_time_ms(run_plain, iters=5, warmup=1)
+    library_ms = prefill_library_ms(q, k_new, v_new, k_pages, v_pages, rows)
+    bound_ms, bound_by = bound(*prefill_work(D * 2))
+    print(f"kernel ragged_prefill: cap {cap}, packs (slot, hist, tail) {PREFILL_PACKS} "
           f"+ pad block, max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
           f"({bound_by}), library sdpa {library_ms:.4f} ms")
@@ -302,6 +438,69 @@ def prefill_phase(gen, dev):
             "replaces": "accelerate_tpu/ops/attention.py:1469",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def prefill_quant_phase(gen, dev):
+    """The ragged prefill kernel's int8 / int4 entry over PREFILL_PACKS
+    and a pad block, the arena pages quantized by the port's quantize_kv:
+    payloads and scales (pad rows included) must equal the plain
+    version's bit for bit, out within the tolerance, pad rows exactly 0.
+    Returns the kernel's row (int8 timed; errors over both)."""
+    import torch
+
+    from accelerate_tpu_torch.ops.attention import ragged_prefill_attention, ragged_prefill_reference
+    from accelerate_tpu_torch.utils.quantization import dequantize_kv, quantize_kv
+
+    rows, num_pages = prefill_case(dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    cap = PREFILL_CAP
+    q, k_new, v_new = rnd(1, H, cap, D), rnd(1, KVH, cap, D), rnd(1, KVH, cap, D)
+    k_pages, v_pages = rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D)
+    scale = 1.0 / math.sqrt(D)
+    out_rows, errs = {}, []
+    for bits in (8, 4):
+        (kq, ks), (vq, vs) = quantize_kv(k_pages, bits), quantize_kv(v_pages, bits)
+        kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
+
+        def run_kernel():
+            return ragged_prefill_attention(q, k_new, v_new, kq, vq, **rows, **kw)
+
+        def run_plain():
+            return ragged_prefill_reference(q, k_new, v_new, kq, vq, *rows.values(), scale,
+                                            **kw)
+
+        got, want = counted("ragged_prefill_quant", run_kernel), run_plain()
+        errs.append(check_close(f"ragged_prefill_quant (int{bits})", got[0], want[0]))
+        if got[0][0][:, rows["row_pos"] < 0].abs().max().item() != 0.0:
+            fail(f"ragged_prefill_quant (int{bits}) pad rows are not exactly 0")
+        differ = {what: int((g != w).sum().item()) for what, g, w in zip(
+            ("k payload", "k scale", "v payload", "v scale"), got[1:], want[1:])}
+        if any(differ.values()):
+            fail(f"ragged_prefill_quant (int{bits}): values that differ from the plain "
+                 f"version's (must be bit-exact): {differ}")
+        ms = cuda_time_ms(run_kernel)
+        plain_ms = cuda_time_ms(run_plain, iters=5, warmup=1)
+        library_ms = prefill_library_ms(
+            q, k_new, v_new, dequantize_kv(kq, ks, bits, torch.bfloat16),
+            dequantize_kv(vq, vs, bits, torch.bfloat16), rows)
+        pd = D // 2 if bits == 4 else D
+        bound_ms, bound_by = bound(*prefill_work(pd + 4, pd + 4))
+        print(f"kernel ragged_prefill_quant (int{bits}): cap {cap}, packs {PREFILL_PACKS} + "
+              f"pad block, payloads and scales bit-exact ({2 * cap * KVH} rows), out "
+              f"max_abs_err {errs[-1]:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}), library sdpa {library_ms:.4f} ms (on K/V gathered and "
+              "dequantized beforehand: leaves out the gather, the dequant and the "
+              "quantize-on-write)")
+        out_rows[bits] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": library_ms}
+    return dict(name="ragged_prefill_quant", route="cuda",
+                source="accelerate_tpu_torch/csrc/ragged_prefill_quant.cu",
+                replaces="accelerate_tpu/ops/attention.py:1458", max_abs_err=max(errs),
+                **out_rows[8])
 
 
 # flash kernels (training path): the main path's attention shape
@@ -409,14 +608,6 @@ def flash_phases(gen, dev):
         return (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"], x["masks"],
                 x["causal"], x["scale"])
 
-    def counted(name, fn):
-        before = kernels.launch_counts[name]
-        out = fn()
-        torch.cuda.synchronize()
-        if kernels.launch_counts[name] != before + 1:
-            fail(f"{name} wrapper did not count its launch")
-        return out
-
     def check_case(x, tag):
         """Hold all three kernels against the plain versions on one
         input; the backward's lse and delta come from the plain forward
@@ -519,7 +710,6 @@ def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
     import torch
     import torch.nn.functional as F
 
-    from accelerate_tpu_torch.ops import kernels
     from accelerate_tpu_torch.ops.attention import decode_attention, decode_attention_reference
     from accelerate_tpu_torch.utils.quantization import dequantize_kv, quantize_kv
 
@@ -538,12 +728,7 @@ def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
     def run_plain():
         return decode_attention_reference(q, k, v, pos, scale, **kw)
 
-    before = kernels.launch_counts[name]
-    out_k = run_kernel()
-    torch.cuda.synchronize()
-    if kernels.launch_counts[name] != before + 1:
-        fail(f"{name} wrapper did not count its launch")
-    err = check_close(f"{name} ({tag})", out_k, run_plain())
+    err = check_close(f"{name} ({tag})", counted(name, run_kernel), run_plain())
     ms = cuda_time_ms(run_kernel)
     plain_ms = cuda_time_ms(run_plain, iters=5, warmup=1)
     length = k.shape[2]
@@ -699,7 +884,6 @@ def main_path(dev, card: str):
     from accelerate_tpu_torch.models.configs import DecoderConfig
     from accelerate_tpu_torch.models.convert import random_params
     from accelerate_tpu_torch.models.decoder import DecoderLM
-    from accelerate_tpu_torch.ops import kernels
     from accelerate_tpu_torch.serving.engine import ServingEngine
 
     cfg = DecoderConfig.small_1b()
@@ -733,20 +917,7 @@ def main_path(dev, card: str):
     prompts = [first_shared, prompt(40), prompt(40), prompt(400), prompt(40),
                prompt(400), long_prompt, prompt(40), second_shared]
     new_tokens = 32
-    engine = ServingEngine(model, **eng_kw)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    reqs = [engine.submit(p, max_new_tokens=new_tokens, seed=i)
-            for i, p in enumerate(prompts)]
-    engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.launch_counts)
-
-    for r in reqs:
-        if r.outcome != "finished" or len(r.tokens) != new_tokens:
-            fail(f"request {r.id} ended {r.outcome} with {len(r.tokens)} tokens")
+    engine, reqs, wall, launches = serve_counted(model, prompts, new_tokens, **eng_kw)
     m = engine.metrics()
     steps, dispatches = engine.step_count, engine.prefill_dispatches
     if launches["paged_decode"] != steps * cfg.num_layers:
@@ -790,8 +961,6 @@ def flat_path(dev, card: str, model, prompts, prompt, paged: dict) -> int:
     fail that check. Returns dense_decode's launches on this path."""
     from unittest import mock
 
-    import torch
-
     from accelerate_tpu_torch.ops import kernels
     from accelerate_tpu_torch.serving.engine import ServingEngine
 
@@ -803,23 +972,7 @@ def flat_path(dev, card: str, model, prompts, prompt, paged: dict) -> int:
     warm.generate_batched([prompt(40), prompt(300)], max_new_tokens=4)
     del warm
 
-    def serve():
-        engine = ServingEngine(model, **eng_kw)
-        reqs = [engine.submit(p, max_new_tokens=new_tokens, seed=i)
-                for i, p in enumerate(prompts)]
-        engine.run()
-        return engine, reqs
-
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    engine, reqs = serve()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.launch_counts)
-    for r in reqs:
-        if r.outcome != "finished" or len(r.tokens) != new_tokens:
-            fail(f"flat path: request {r.id} ended {r.outcome} with {len(r.tokens)} tokens")
+    engine, reqs, wall, launches = serve_counted(model, prompts, new_tokens, **eng_kw)
     steps = engine.step_count
     if launches["dense_decode"] != steps * cfg.num_layers:
         fail(f"flat path: dense_decode launches {launches['dense_decode']} != "
@@ -835,7 +988,7 @@ def flat_path(dev, card: str, model, prompts, prompt, paged: dict) -> int:
     arena_bytes, chunks = engine.arena_bytes, engine.prefill_dispatches
     del engine
     with mock.patch.object(kernels, "dense_decode", zeroed(kernels.dense_decode)):
-        control, creqs = serve()
+        control, creqs, _, _ = serve_counted(model, prompts, new_tokens, **eng_kw)
     del control
     gap_c, exact_c, _ = teacher_forced(model, creqs, new_tokens, dev)
     if not gap_c > TOP2_MARGIN:
@@ -856,6 +1009,233 @@ def flat_path(dev, card: str, model, prompts, prompt, paged: dict) -> int:
     return launches["dense_decode"]
 
 
+def serve_counted(model, prompts, new_tokens: int, **eng_kw):
+    """Serve ``prompts`` greedily on a fresh engine with the launch counts
+    reset just before and read just after. Returns ``(engine, requests,
+    wall seconds, launches)``; fails unless every request finished with
+    its budget."""
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(model, **eng_kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=new_tokens, seed=i) for i, p in enumerate(prompts)]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    for r in reqs:
+        if r.outcome != "finished" or len(r.tokens) != new_tokens:
+            fail(f"request {r.id} ended {r.outcome} with {len(r.tokens)} tokens "
+                 f"({eng_kw.get('kv_cache_dtype')}, spec {eng_kw.get('spec_draft_len', 0)})")
+    return engine, reqs, wall, launches
+
+
+def expect_launches(what: str, launches: dict, want: dict):
+    """Fail unless the kernels launched are exactly ``want`` (name: count)."""
+    got = {k: n for k, n in launches.items() if n}
+    if got != {k: n for k, n in want.items() if n} or not all(want.values()):
+        fail(f"{what}: launches {got}, expected {want}")
+
+
+def quant_replay(model, reqs, kv: str, new_tokens: int, dev):
+    """Each request's tokens against a teacher-forced replay through the
+    quantized single-stream path (``init_cache(1, L, kv)``, whole-prompt
+    prefill, then ``decode=True`` steps) with every kernel it reaches
+    patched to its plain version: the same storage math as the paged
+    engine on another route. ``(worst gap, exact, total)``, the gap being
+    how many logits a token sits below the replay's argmax."""
+    from unittest import mock
+
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.ops.attention import decode_attention_reference, flash_fwd_reference
+
+    def dense_quant_plain(q, k, v, k_scale, v_scale, pos, sm_scale, bits):
+        return decode_attention_reference(q, k, v, pos, sm_scale, k_scale=k_scale,
+                                          v_scale=v_scale, kv_quant_bits=bits)
+
+    worst_gap, exact, total = 0.0, 0, 0
+    with mock.patch.object(kernels, "dense_decode_quant", dense_quant_plain), \
+            mock.patch.object(kernels, "flash_fwd", flash_fwd_reference), torch.no_grad():
+        for r in reqs:
+            seq = torch.as_tensor(r.result(), dtype=torch.long, device=dev)[None]
+            n = r.prompt.size
+            cache = model.init_cache(1, n + new_tokens, kv)
+            rows = [model(seq[:, :n], torch.arange(n, device=dev), cache=cache)[0, -1]]
+            for p in range(n, n + new_tokens - 1):
+                rows.append(model(seq[:, p:p + 1], torch.arange(p, p + 1, device=dev),
+                                  cache=cache, decode=True)[0, -1])
+            gap, n_exact = token_gaps(torch.stack(rows)[None],
+                                      torch.as_tensor(r.tokens, device=dev)[None])
+            worst_gap = max(worst_gap, gap)
+            exact += n_exact
+            total += new_tokens
+    return worst_gap, exact, total
+
+
+def quant_path(dev, card: str, model, prompts, prompt, paged: dict) -> dict:
+    """Serve the main path's requests on the int8 and then the int4 paged
+    arena: the quantized entries of the paged decode and ragged prefill
+    kernels in every step and dispatch (16 launches each), no bf16 one;
+    the prefix hit and the mid-tail continuation on quantized pages;
+    tokens held against the quantized single-stream replay, and the same
+    run with paged_decode_quant's output zeroed must fail that check.
+    Returns the quantized kernels' launches on this path."""
+    from unittest import mock
+
+    from accelerate_tpu_torch.ops import kernels
+
+    cfg = model.config
+    new_tokens = 32
+    eng_kw = dict(num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                  prefill_chunks=(128, 512), device=dev)
+    launches = {"paged_decode_quant": 0, "ragged_prefill_quant": 0}
+    for kv, min_ratio in (("int8", 1.8), ("int4", 3.0)):
+        serve_counted(model, [prompt(40), prompt(300)], 4, kv_cache_dtype=kv, **eng_kw)
+        engine, reqs, wall, got = serve_counted(model, prompts, new_tokens, kv_cache_dtype=kv,
+                                                **eng_kw)
+        steps, dispatches = engine.step_count, engine.prefill_dispatches
+        expect_launches(f"quant path ({kv})", got, {
+            "paged_decode_quant": steps * cfg.num_layers,
+            "ragged_prefill_quant": dispatches * cfg.num_layers})
+        for name in launches:
+            launches[name] += got[name]
+        if reqs[-1].prefix_hit != 256:
+            fail(f"quant path ({kv}): the shared-prefix request hit {reqs[-1].prefix_hit} "
+                 "cached tokens, expected 256")
+        if reqs[6].prefill_dispatches < 2:
+            fail(f"quant path ({kv}): the 1000-token prompt did not continue mid-tail")
+        ratio = paged["arena_bytes"] / engine.arena_bytes
+        if not ratio >= min_ratio:
+            fail(f"quant path ({kv}): arena {engine.arena_bytes} bytes is {ratio:.3f}x "
+                 f"smaller than bf16's, below {min_ratio}x")
+        m = engine.metrics()
+        del engine
+        gap, exact, total = quant_replay(model, reqs, kv, new_tokens, dev)
+        if not math.isfinite(gap) or gap > TOP2_MARGIN:
+            fail(f"quant path ({kv}): a token is {gap} logits below the argmax of the "
+                 f"quantized single-stream replay (margin {TOP2_MARGIN})")
+        print(f"quant path ({kv} KV): {len(reqs)} requests x {new_tokens} tokens, {steps} "
+              f"decode steps, {dispatches} prefill dispatches, prefix hit "
+              f"{reqs[-1].prefix_hit} tokens, launches { {k: n for k, n in got.items() if n} }")
+        print(f"quant path ({kv} KV): vs the {kv} single-stream replay with plain kernels: "
+              f"{exact}/{total} tokens its argmax, worst gap {gap:.4f} (margin {TOP2_MARGIN})")
+        print(f"quant path ({kv} KV) on {card}: {m['serving/generated_tokens'] / wall:.1f} "
+              f"tokens/s over {wall:.3f} s, TTFT p50 {m['serving/ttft_ms_p50']:.2f} ms, decode "
+              f"{m['serving/decode_step_ms_p50']:.3f} ms/step (p50), arena "
+              f"{m['serving/arena_bytes'] / 1e9:.4f} GB ({ratio:.3f}x smaller than bf16, "
+              f"min {min_ratio}); bf16 paged path: {paged['tokens_per_s']:.1f} tokens/s, TTFT "
+              f"p50 {paged['ttft_ms_p50']:.2f} ms, decode {paged['step_ms_p50']:.3f} ms/step, "
+              f"arena {paged['arena_bytes'] / 1e9:.4f} GB")
+        if kv == "int8":
+            with mock.patch.object(kernels, "paged_decode_quant",
+                                   zeroed(kernels.paged_decode_quant)):
+                control, creqs, _, _ = serve_counted(model, prompts, new_tokens,
+                                                     kv_cache_dtype=kv, **eng_kw)
+            del control
+            cgap, cexact, _ = quant_replay(model, creqs, kv, new_tokens, dev)
+            if not cgap > TOP2_MARGIN:
+                fail(f"quant path control: with paged_decode_quant's output zeroed every "
+                     f"token is within {TOP2_MARGIN} of the replay's argmax (worst {cgap}): "
+                     "the check is blind")
+            print(f"quant path control (int8, paged_decode_quant output zeroed): "
+                  f"{cexact}/{total} tokens the replay's argmax, worst gap {cgap:.4f}: fails "
+                  "the check")
+            profile_decode(model, {**eng_kw, "kv_cache_dtype": kv}, prompt, card,
+                           label="int8 profile")
+    return launches
+
+
+def drift_phase(model, prompts, card: str):
+    """The port's kv_quant_drift on small_1b: int8 and int4 against one
+    bf16 baseline on the paged arena, over 4 of the main path's prompts.
+    Random weights say nothing of quality: the gate is finite values."""
+    from accelerate_tpu_torch.serving import kv_quant_drift
+
+    t0 = time.perf_counter()
+    base = None
+    for kv in ("int8", "int4"):
+        r = kv_quant_drift(model, prompts[:4], kv_cache_dtype=kv, max_new_tokens=16,
+                           page_size=PAGE, num_slots=4, max_cache_len=512,
+                           prefill_chunks=(128, 512), baseline=base)
+        base = r["baseline"]
+        keys = ("token_match_rate", "exact_streams", "logit_mse", "logit_rel_err",
+                "arena_bytes_ratio")
+        if not all(math.isfinite(float(r[k])) for k in keys):
+            fail(f"drift ({kv}): non-finite result {[(k, r[k]) for k in keys]}")
+        print(f"drift ({kv} vs bf16, small_1b, 4 prompts x 16 tokens, paged arena) on {card}: "
+              f"token_match_rate {r['token_match_rate']:.4f} over {r['tokens_compared']} "
+              f"tokens, exact_streams {r['exact_streams']}/{r['sequences']}, logit_mse "
+              f"{r['logit_mse']:.4e}, logit_rel_err {r['logit_rel_err']:.4e}, "
+              f"arena_bytes_ratio {r['arena_bytes_ratio']:.3f}")
+    print(f"drift: {time.perf_counter() - t0:.1f} s")
+
+
+def spec_path(dev, card: str, model, prompt):
+    """Speculative verify (spec_draft_len 4) on the bf16 and the int8
+    paged arena, greedy, over prompts that repeat a 16-token pattern so
+    the n-gram drafter has something to propose. Each verify step is one
+    paged decode launch per layer at Sq 5; tokens are held teacher-forced
+    (bf16: the cache-free plain forward; int8: the quantized single-stream
+    replay) and timed beside the same requests without spec."""
+    import numpy as np
+
+    cfg = model.config
+    new_tokens = 32
+    prompts = [np.concatenate([prompt(8 + 8 * i), np.tile(prompt(16), 4 + i)])
+               for i in range(8)]
+    eng_kw = dict(num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                  prefill_chunks=(128, 512), device=dev)
+    for kv in ("bf16", "int8"):
+        decode, prefill = (("paged_decode", "ragged_prefill") if kv == "bf16"
+                           else ("paged_decode_quant", "ragged_prefill_quant"))
+        serve_counted(model, prompts[:2], 4, kv_cache_dtype=kv, spec_draft_len=SPEC_K,
+                      **eng_kw)  # warm-up
+        plain, _, plain_wall, _ = serve_counted(model, prompts, new_tokens, kv_cache_dtype=kv,
+                                                **eng_kw)
+        pm = plain.metrics()
+        del plain
+        engine, reqs, wall, got = serve_counted(model, prompts, new_tokens, kv_cache_dtype=kv,
+                                                spec_draft_len=SPEC_K, **eng_kw)
+        steps, dispatches = engine.step_count, engine.prefill_dispatches
+        expect_launches(f"spec path ({kv})", got, {decode: steps * cfg.num_layers,
+                                                   prefill: dispatches * cfg.num_layers})
+        m = engine.metrics()
+        del engine
+        if not m["serving/spec_proposed"] > 0:
+            fail(f"spec path ({kv}): the drafter proposed nothing")
+        if kv == "bf16":
+            gap, exact, total = teacher_forced(model, reqs, new_tokens, dev)
+            against = "the cache-free plain forward"
+        else:
+            gap, exact, total = quant_replay(model, reqs, kv, new_tokens, dev)
+            against = "the int8 single-stream replay with plain kernels"
+        if not math.isfinite(gap) or gap > TOP2_MARGIN:
+            fail(f"spec path ({kv}): a token is {gap} logits below the argmax of {against} "
+                 f"(margin {TOP2_MARGIN})")
+        print(f"spec path ({kv} KV, K {SPEC_K}): {len(reqs)} requests x {new_tokens} tokens, "
+              f"prompts {[int(p.size) for p in prompts]}, {steps} verify steps (Sq "
+              f"{SPEC_K + 1}), {dispatches} prefill dispatches, launches "
+              f"{ {k: n for k, n in got.items() if n} }; proposed {m['serving/spec_proposed']}, "
+              f"accepted {m['serving/spec_accepted']} (rate "
+              f"{m['serving/spec_accept_rate']:.4f}); vs {against}: {exact}/{total} tokens its "
+              f"argmax, worst gap {gap:.4f} (margin {TOP2_MARGIN})")
+        print(f"spec path ({kv} KV) on {card}: spec {m['serving/generated_tokens'] / wall:.1f} "
+              f"tokens/s, decode {m['serving/decode_step_ms_p50']:.3f} ms/verify step (p50), "
+              f"{steps} steps; without spec {pm['serving/generated_tokens'] / plain_wall:.1f} "
+              f"tokens/s, {pm['serving/decode_step_ms_p50']:.3f} ms/step, "
+              f"{pm['serving/decode_steps']} steps")
+        if kv == "bf16":
+            profile_decode(model, {**eng_kw, "spec_draft_len": SPEC_K}, prompt, card,
+                           label="spec profile")
+
+
 def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5, label: str = "profile"):
     """Where a decode step's time goes: torch.profiler over a few steps
     with all 8 slots live at ~400 tokens. Prints the device-busy share
@@ -869,8 +1249,9 @@ def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5, label: str 
     for _ in range(8):
         # budget outlasts admission (the flat engine prefills one 128-token
         # chunk per iteration: 32 iterations for 8 x 400 tokens) and the
-        # window: no slot finishes and parks inside it
-        engine.submit(prompt(400), max_new_tokens=steps + 48)
+        # window, even when a verify step emits K + 1 tokens: no slot
+        # finishes and parks inside it
+        engine.submit(prompt(400), max_new_tokens=(steps + 48) * (1 + engine.spec_k))
     while engine._queue or engine._admitting is not None:
         engine.step()
     engine.step()  # one plain step outside the window
@@ -1402,15 +1783,28 @@ def main():
                 print(f"  {name}: {line.strip()}")
 
     dev = torch.device("cuda")
+    # the bf16 serving, training and dense decode phases draw their inputs
+    # from `gen` in a fixed order, so each tolerance holds on the inputs it
+    # was shown on; the quantized entries' and the verify step's inputs
+    # come from their own generator and move none of those
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = [decode_phase(gen, dev), prefill_phase(gen, dev), *flash_phases(gen, dev),
-            *dense_decode_phases(gen, dev)]
+    gen_new = torch.Generator(device=dev).manual_seed(1)
+    rows = [decode_phase(gen, dev, gen_new), paged_decode_quant_phase(gen_new, dev),
+            prefill_phase(gen, dev), prefill_quant_phase(gen_new, dev),
+            *flash_phases(gen, dev), *dense_decode_phases(gen, dev)]
     # each path is driven with the counts reset just before it and read
     # just after; a kernel's launches come from its own path (the dense
-    # decode kernel's from generate() and the flat engine together)
+    # decode kernel's from generate() and the flat engine together, the
+    # quantized paged kernels' from the int8 and int4 runs together)
     launches, serving = main_path(dev, card)
-    flat_launches = flat_path(dev, card, serving.pop("model"), **serving)
-    del serving
+    model = serving.pop("model")
+    flat_launches = flat_path(dev, card, model, **serving)
+    launches.update(quant_path(dev, card, model, **serving))
+    drift_phase(model, serving["prompts"], card)
+    spec_path(dev, card, model, serving["prompt"])
+    del serving, model
+    gc.collect()
+    torch.cuda.empty_cache()
     launches.update(train_path(dev, card))
     gc.collect()
     torch.cuda.empty_cache()  # the training path's memory, before llama_7b

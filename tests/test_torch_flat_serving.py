@@ -99,15 +99,23 @@ def test_flat_and_paged_engines_agree(models):
 
 
 def test_quantized_paged_arena_raises(models):
+    """The quantized paged arena no longer raises (the int8/int4 entries
+    of the paged kernels are ported): both arenas take the KV storage
+    from the engine knob or the model config, and only an unknown dtype
+    raises."""
     _, _, model = models
-    for kw in ({"kv_cache_dtype": "int8"}, {"kv_cache_dtype": "int4"}):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            ServingEngine(model, device="cpu", page_size=8, **kw, **ENG_KW)
+    for kv in ("int8", "int4"):
+        eng = ServingEngine(model, device="cpu", page_size=8, kv_cache_dtype=kv, **ENG_KW)
+        width = 16 if kv == "int8" else 8
+        assert tuple(eng._arena[0]["k"].shape) == (eng.num_pages, 2, 8, width)
+        assert tuple(eng._arena[0]["k_scale"].shape) == (eng.num_pages, 2, 8, 1)
     cfg = DecoderConfig.tiny(num_kv_heads=2, max_seq_len=64, kv_cache_dtype="int4")
     quantized = DecoderLM(cfg, device="cpu").load_params(model.state_dict())
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServingEngine(quantized, device="cpu", page_size=8, **ENG_KW)
+    eng = ServingEngine(quantized, device="cpu", page_size=8, **ENG_KW)
+    assert eng.kv_cache_dtype == "int4" and eng._arena[0]["k"].dtype == torch.int8
     eng = ServingEngine(quantized, device="cpu", page_size=None, **ENG_KW)
     assert eng.kv_cache_dtype == "int4" and tuple(eng._arena[0]["k"].shape) == (2, 2, 64, 8)
-    with pytest.raises(ValueError, match="kv_cache_dtype"):
-        ServingEngine(model, device="cpu", page_size=None, kv_cache_dtype="fp8", **ENG_KW)
+    for page_size in (None, 8):
+        with pytest.raises(ValueError, match="kv_cache_dtype"):
+            ServingEngine(model, device="cpu", page_size=page_size, kv_cache_dtype="fp8",
+                          **ENG_KW)

@@ -9,8 +9,7 @@
   ``device="cpu"`` is given.
 - The kernel wrappers take CPU tensors to the plain version without
   counting a launch, refuse any other non-CUDA device, and build with an
-  nvcc command for ``sm_90a``; later-slice options raise (the quantized
-  paged arena names the next slice).
+  nvcc command for ``sm_90a``; later-slice options raise.
 """
 
 import ast
@@ -28,6 +27,7 @@ from accelerate_tpu_torch.models.convert import random_params
 from accelerate_tpu_torch.models.decoder import DecoderLM
 from accelerate_tpu_torch.ops import attention, kernels
 from accelerate_tpu_torch.serving.engine import ServingEngine
+from accelerate_tpu_torch.utils.quantization import quantize_kv
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "accelerate_tpu_torch"
@@ -55,7 +55,8 @@ def test_sources_import_no_jax(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, accelerate_tpu_torch, accelerate_tpu_torch.serving.engine, "
-            "accelerate_tpu_torch.serving.arena, accelerate_tpu_torch.generation, "
+            "accelerate_tpu_torch.serving.arena, accelerate_tpu_torch.serving.drift, "
+            "accelerate_tpu_torch.generation, "
             "accelerate_tpu_torch.utils.quantization, "
             "accelerate_tpu_torch.accelerator, accelerate_tpu_torch.data, "
             "accelerate_tpu_torch.ops.losses, accelerate_tpu_torch.optimizer, "
@@ -119,8 +120,27 @@ def test_wrappers_route_cpu_tensors_to_plain():
     before = dict(kernels.launch_counts)
     out = kernels.paged_decode(q, kp, vp, table, pos, 0.25)
     ref = attention.paged_decode_reference(q, kp, vp, table, pos, 0.25)
-    assert kernels.launch_counts == before
     torch.testing.assert_close(out, ref, atol=0.0, rtol=0.0)
+    # the quantized entries: int8 payload and fp32 scale pages
+    kq, ks = quantize_kv(kp, 8)
+    vq, vs = quantize_kv(vp, 8)
+    out = kernels.paged_decode_quant(q, kq, vq, ks, vs, table, pos, 0.25, 8)
+    ref = attention.paged_decode_reference(q, kq, vq, table, pos, 0.25, k_scale=ks,
+                                           v_scale=vs, kv_quant_bits=8)
+    torch.testing.assert_close(out, ref, atol=0.0, rtol=0.0)
+    qp = q[:1, :, :, :].expand(1, 4, 8, 16).contiguous()
+    kn = kp[:1, :, :, :].contiguous()
+    rows = torch.tensor([0] * 8, dtype=torch.int32)
+    row_pos = torch.arange(3, 11, dtype=torch.int32)
+    hist = torch.tensor([3, 0], dtype=torch.int32)
+    got = kernels.ragged_prefill_quant(qp, kn, kn, kq, vq, ks, vs, table, rows, row_pos,
+                                       hist, 0.25, 8, 8)
+    want = attention.ragged_prefill_reference(qp, kn, kn, kq, vq, table, rows, row_pos,
+                                              hist, 0.25, k_scale=ks, v_scale=vs,
+                                              kv_quant_bits=8)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0.0, rtol=0.0)
+    assert kernels.launch_counts == before
 
 
 def test_wrappers_refuse_other_devices():
@@ -154,6 +174,15 @@ def test_wrappers_refuse_other_devices():
         kernels.dense_decode(q, k, k, pos, 0.125)
     with pytest.raises(RuntimeError, match="neither CPU"):
         kernels.dense_decode_quant(q, pay, pay, scale, scale, pos, 0.125, 8)
+    pages = torch.empty((5, 2, 8, 128), device="meta", dtype=torch.int8)
+    page_scale = torch.empty((5, 2, 8, 1), device="meta", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="neither CPU"):
+        kernels.paged_decode_quant(q, pages, pages, page_scale, page_scale, table, pos,
+                                   0.125, 8)
+    with pytest.raises(RuntimeError, match="neither CPU"):
+        kernels.ragged_prefill_quant(q[:1], k[:1, :, :8], k[:1, :, :8], pages, pages,
+                                     page_scale, page_scale, table, table[0], table[0],
+                                     table[0], 0.125, 8, 8)
 
 
 @pytest.mark.parametrize("name", sorted(kernels.KERNELS))
@@ -178,12 +207,16 @@ def test_later_slices_raise():
             Accelerator(mixed_precision=mode, device="cpu")
     cfg = DecoderConfig.tiny()
     model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServingEngine(model, max_cache_len=64, device="cpu", kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ServingEngine(model, max_cache_len=64, device="cpu", spec_draft_len=2)
-    with pytest.raises(NotImplementedError, match="fused decode bursts"):
-        ServingEngine(model, max_cache_len=64, device="cpu", steps_per_call=2)
+    for kw, what in (({"steps_per_call": 2}, "fused decode bursts"),
+                     ({"scheduler": object()}, "multi-tenant scheduler"),
+                     ({"faults": object()}, "fault injection"),
+                     ({"kv_tiers": object()}, "KV tiers"),
+                     ({"telemetry": object()}, "telemetry hooks")):
+        with pytest.raises(NotImplementedError, match=what):
+            ServingEngine(model, max_cache_len=64, device="cpu", **kw)
+    # the quantized paged arena and speculative verify are this port's now
+    ServingEngine(model, max_cache_len=64, device="cpu", kv_cache_dtype="int8",
+                  spec_draft_len=2)
     acc = Accelerator(device="cpu")
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     acc.prepare(model, opt)
