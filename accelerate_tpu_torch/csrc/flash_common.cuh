@@ -1,7 +1,10 @@
-// Shared pieces of the three flash-attention kernels (forward, dQ, dK/dV).
+// Shared pieces of the flash-attention kernels: the masks and their
+// semantics, NEG_INF and the shared-memory opt-in serve all three; the
+// tiles and products below serve the two backward kernels (dQ, dK/dV).
+// The forward runs on the tensor cores instead (flash_fwd.cu, hopper.cuh).
 //
-// Every kernel works on tiles staged in shared memory as fp32 and computes
-// its products on the CUDA cores with fp32 FMAs: bf16 inputs convert
+// Each backward kernel works on tiles staged in shared memory as fp32 and
+// computes its products on the CUDA cores with fp32 FMAs: bf16 inputs convert
 // exactly, so each product equals the TPU kernel's bf16-in, fp32-
 // accumulate dot up to the order of summation. A block has NT = 256
 // threads seen as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread
@@ -159,19 +162,6 @@ __device__ __forceinline__ void store_rows_d(bf16* dst, const float (&acc)[4][D 
       reinterpret_cast<__nv_bfloat162*>(o)[0] = lo;
       reinterpret_cast<__nv_bfloat162*>(o)[1] = hi;
     }
-}
-
-// reductions over the 16 threads of one tile row (a half warp)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // Is (query row `row`, kv column `col`) attended? `qseg` is the query

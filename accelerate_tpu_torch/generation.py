@@ -19,9 +19,11 @@ into the layer scan, and the port has no pipelining yet (ROADMAP queue
 
 Greedy is ``argmax``, which returns the first maximum in both frameworks,
 so greedy tokens agree with the reference given equal logits.
-Temperature and top-k sampling draw from the caller's ``torch.Generator``;
-its bits differ from ``jax.random``'s, so sampled tokens are compared by
-distribution, not token for token.
+Temperature and top-k sampling draw from the caller's ``torch.Generator``,
+or, without one, from a fresh generator seeded with 0 for each call, as
+the reference takes ``PRNGKey(0)`` when given no key: two calls then
+give the same tokens. Its bits differ from ``jax.random``'s, so sampled
+tokens are compared by distribution, not token for token.
 """
 
 from __future__ import annotations
@@ -76,7 +78,9 @@ def generate(
     """Generate ``max_new_tokens`` continuations of ``input_ids`` [B, S]
     with ``model`` (a ``DecoderLM``, on the device it was built on).
     ``temperature=0`` is greedy; otherwise tokens are drawn from
-    ``generator``. Returns [B, S + max_new_tokens] token ids (int64, on
+    ``generator``, and without one from ``torch.Generator`` seeded with 0
+    once per call (the reference's ``PRNGKey(0)``), so the call is
+    reproducible. Returns [B, S + max_new_tokens] token ids (int64, on
     the model's device), and the prefill wall time in seconds when asked
     (the TTFT component; the device is synchronised before the clock
     stops)."""
@@ -92,6 +96,8 @@ def generate(
             f"capacity ({cap}); raise config.max_cache_len"
         )
     cache = model.init_cache(b, cap)
+    if temperature > 0.0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
 
     t0 = time.perf_counter()
     logits = model(input_ids, torch.arange(s, device=dev), cache=cache)

@@ -123,8 +123,8 @@ class ServingEngine:
     ``model`` is a ``DecoderLM`` on ``device``; ``params``, when given, is
     a weight dict (``models/convert.py``) loaded into it first.
     ``device=None`` means CUDA and raises without it; ``device="cpu"``
-    runs the kernels' plain versions. ``page_size`` selects the paged
-    arena with ``num_pages`` physical pages (default: capacity-equivalent
+    runs the kernels' plain versions. ``page_size`` (default None, the
+    flat arena, as the reference) selects the paged arena with ``num_pages`` physical pages (default: capacity-equivalent
     to ``num_slots * max_cache_len`` plus the parking page);
     ``page_size=None`` the flat arena. ``kv_cache_dtype`` ("bf16", "int8"
     or "int4"; default: the model config's) is the KV storage precision,
@@ -156,7 +156,7 @@ class ServingEngine:
         temperature: float = 0.0,
         top_k: Optional[int] = None,
         eos_token_id: Optional[int] = None,
-        page_size: Optional[int] = 16,
+        page_size: Optional[int] = None,
         num_pages: Optional[int] = None,
         prefix_cache: bool = True,
         prefix_max_entries: Optional[int] = None,

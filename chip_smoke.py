@@ -10,7 +10,10 @@ step's Sq 5) and the ragged prefill kernel and its int8/int4 entry
 path's shapes (small_1b: H=16, KVH=8, D=128, page 16), the flash
 forward, dQ and dK/dV kernels at the training path's (B 8, S 2048,
 causal) and in masked cases, the dense decode kernel and its int8/int4
-entry at the flat engine's and generate()'s shapes. Then it drives six
+entry at the flat engine's and generate()'s shapes. The flash forward
+runs on the tensor cores: the SASS of its built library must hold
+warpgroup matrix multiplies (HGMMA) and TMA tile loads (UTMALDG), or the
+run fails. Then it drives six
 paths at full width, each with the launch counters reset just before
 each run and read just after:
 
@@ -115,6 +118,25 @@ def check_close(name: str, got, want) -> float:
         fail(f"{name} vs plain: max abs err {err} exceeds {KERNEL_ATOL} + "
              f"{KERNEL_RTOL} * |plain|")
     return err
+
+
+def sass_gate() -> dict:
+    """Count the warpgroup matrix multiplies (HGMMA) and TMA tile loads
+    (UTMALDG) in the SASS of the built flash forward library, read with
+    the cuobjdump of nvcc's toolkit; fails unless both are present."""
+    from accelerate_tpu_torch.ops import kernels
+
+    tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
+    lib = kernels.library_path("flash_fwd")
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {lib.name} failed: {res.stderr.strip()[-500:]}")
+    counts = {op: res.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"flash_fwd SASS: HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}")
+    if not all(counts.values()):
+        fail(f"flash_fwd does not run on the tensor cores through TMA: SASS counts {counts}")
+    return counts
 
 
 def bound(nbytes: float, flops: float):
@@ -1781,6 +1803,7 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    sass_gate()
 
     dev = torch.device("cuda")
     # the bf16 serving, training and dense decode phases draw their inputs

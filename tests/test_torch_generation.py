@@ -33,7 +33,7 @@ from accelerate_tpu.models import DecoderLM as JaxLM
 from accelerate_tpu.parallel.sharding import unbox_params
 from accelerate_tpu_torch.generation import _right_size_cache, generate
 from accelerate_tpu_torch.models.configs import DecoderConfig
-from accelerate_tpu_torch.models.convert import from_reference
+from accelerate_tpu_torch.models.convert import from_reference, random_params
 from accelerate_tpu_torch.models.decoder import DecoderLM
 
 ATOL = 1e-4
@@ -176,3 +176,18 @@ def test_sampling_is_seeded_and_top1_is_greedy():
     assert out.shape == (2, 10) and seconds > 0.0
     with pytest.raises(ValueError, match="max_new_tokens"):
         generate(model, ids, max_new_tokens=0)
+
+
+def test_sampling_without_a_generator_is_seed_zero():
+    """Sampled generate() with no generator draws from a generator seeded
+    with 0 once per call (the reference's PRNGKey(0) when given no key):
+    two calls agree, and equal an explicit ``manual_seed(0)``."""
+    cfg = DecoderConfig.tiny(max_seq_len=64)
+    model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
+    ids = torch.arange(1, 9)[None]
+    runs = [generate(model, ids, max_new_tokens=16, temperature=1.0) for _ in range(2)]
+    seeded = generate(model, ids, max_new_tokens=16, temperature=1.0,
+                      generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(runs[0], runs[1])
+    torch.testing.assert_close(runs[0], seeded)
+    assert runs[0].shape == (1, 24)

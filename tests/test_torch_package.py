@@ -216,12 +216,27 @@ def test_later_slices_raise():
             ServingEngine(model, max_cache_len=64, device="cpu", **kw)
     # the quantized paged arena and speculative verify are this port's now
     ServingEngine(model, max_cache_len=64, device="cpu", kv_cache_dtype="int8",
-                  spec_draft_len=2)
+                  page_size=8, spec_draft_len=2)
     acc = Accelerator(device="cpu")
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     acc.prepare(model, opt)
     with pytest.raises(NotImplementedError, match="later slice"):
         acc.build_train_step(steps_per_call=2)
+
+
+def test_engine_defaults_to_the_flat_arena_as_the_reference():
+    """``page_size`` defaults to None (the reference's default: the flat
+    arena), and speculative verify without a page size raises, as the
+    reference does."""
+    import inspect
+
+    assert inspect.signature(ServingEngine).parameters["page_size"].default is None
+    cfg = DecoderConfig.tiny()
+    model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
+    eng = ServingEngine(model, max_cache_len=64, device="cpu")
+    assert eng.page_size is None
+    with pytest.raises(ValueError, match="requires the paged arena"):
+        ServingEngine(model, device="cpu", spec_draft_len=2)
 
 
 def test_flash_impl_runs_the_plain_flash_path_on_cpu():
