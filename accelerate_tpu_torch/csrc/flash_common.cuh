@@ -1,39 +1,27 @@
-// Shared pieces of the flash-attention kernels: the masks and their
-// semantics, NEG_INF and the shared-memory opt-in serve all three; the
-// tiles and products below serve the two backward kernels (dQ, dK/dV).
-// The forward runs on the tensor cores instead (flash_fwd.cu, hopper.cuh).
-//
-// Each backward kernel works on tiles staged in shared memory as fp32 and
-// computes its products on the CUDA cores with fp32 FMAs: bf16 inputs convert
-// exactly, so each product equals the TPU kernel's bf16-in, fp32-
-// accumulate dot up to the order of summation. A block has NT = 256
-// threads seen as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread
-// owns a small register tile of every product it takes part in.
-//
-// Layouts. A product C[i][j] += sum_k A[i][k] B[k][j] reads both operands
-// "k-major" from shared memory: At[k][i] and B[k][j], each row padded by
-// PAD floats, so a thread reads its 4 (or 2) consecutive i's or j's as one
-// float4 (float2) and neighbouring threads read neighbouring addresses.
-// Tiles are loaded from global memory either row-major (X[r][d]) or
-// transposed (Xt[d][r]), whichever the product needs.
+// Shared pieces of the three flash-attention kernels (flash_fwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): the masks and their semantics,
+// NEG_INF, the load of one K/V ring tile, the store of a wgmma
+// accumulator's rows and the shared-memory opt-in. The Hopper building
+// blocks (TMA, mbarriers, wgmma) are in hopper.cuh.
 //
 // Masking follows the TPU kernel (accelerate_tpu/ops/attention.py
 // _mask_block): causal is cols <= rows on global indices (top-left
 // aligned), kv_mask [B, Skv] nonzero = may be attended, segment ids
-// [B, S] attend iff equal. A masked score is NEG_INF = -1e30 and its
-// probability is forced to exactly 0.
+// [B, S] attend iff equal. A masked score is NEG_INF = -1e30 in the
+// reference and its probability is forced to exactly 0; the kernels make
+// a masked score -inf, so its exp2 is exactly 0.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace flash {
 
-constexpr int NT = 256;           // threads per block
-constexpr int TX = 16;            // threads along a tile's column axis
-constexpr int PAD = 4;            // row padding (floats): keeps float4 alignment
 constexpr float NEG_INF = -1e30f; // the reference's masked score
+constexpr float LOG2E = 1.4426950408889634f;  // scores in log2 units: p = exp2
 
 typedef __nv_bfloat16 bf16;
 
@@ -44,126 +32,6 @@ struct Masks {
   const int* kv_seg;   // [B, Skv]
 };
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// rows [0, R) of a row-major [R, D] bf16 block -> dst[R][D + PAD] fp32.
-// Neighbouring threads read neighbouring 16-byte vectors of one row.
-template <int R, int D>
-__device__ __forceinline__ void load_rows(float* dst, const bf16* src) {
-  constexpr int V = D / 8;
-  for (int idx = threadIdx.x; idx < R * V; idx += NT) {
-    const int r = idx / V;
-    const int c = (idx - r * V) * 8;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-    const bf16* h = reinterpret_cast<const bf16*>(&raw);
-    float* o = dst + r * (D + PAD) + c;
-    *reinterpret_cast<float4*>(o) = make_float4(
-        __bfloat162float(h[0]), __bfloat162float(h[1]),
-        __bfloat162float(h[2]), __bfloat162float(h[3]));
-    *reinterpret_cast<float4*>(o + 4) = make_float4(
-        __bfloat162float(h[4]), __bfloat162float(h[5]),
-        __bfloat162float(h[6]), __bfloat162float(h[7]));
-  }
-}
-
-// the same block transposed -> dst[D][R + PAD] fp32. Neighbouring threads
-// take neighbouring rows, so the shared-memory stores do not conflict.
-template <int R, int D>
-__device__ __forceinline__ void load_rows_t(float* dst, const bf16* src) {
-  constexpr int V = D / 8;
-  for (int idx = threadIdx.x; idx < R * V; idx += NT) {
-    const int r = idx % R;
-    const int c = (idx / R) * 8;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-    const bf16* h = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * (R + PAD) + r] = __bfloat162float(h[j]);
-  }
-}
-
-// n consecutive int32 values (a mask row segment) -> shared
-__device__ __forceinline__ void load_ints(int* dst, const int* src, int n) {
-  for (int i = threadIdx.x; i < n; i += NT) dst[i] = src[i];
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(float (&x)[N], const float* p);
-
-template <>
-__device__ __forceinline__ void load_vec<4>(float (&x)[4], const float* p) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-}
-
-template <>
-__device__ __forceinline__ void load_vec<2>(float (&x)[2], const float* p) {
-  const float2 t = *reinterpret_cast<const float2*>(p);
-  x[0] = t.x; x[1] = t.y;
-}
-
-// acc[i][j] += sum_{k < K} At[k][i0 + i] * Bt[k][j0 + j]  (i < RM, j < RN)
-template <int RM, int RN, int K>
-__device__ __forceinline__ void mm(float (&acc)[RM][RN], const float* at, int lda,
-                                   int i0, const float* bt, int ldb, int j0) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[RM], b[RN];
-    load_vec<RM>(a, at + k * lda + i0);
-    load_vec<RN>(b, bt + k * ldb + j0);
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// The head-dim product: acc[i][4g + j] += sum_{k < K} At[k][i0 + i] *
-// B[k][64g + j0 + j] for g < D/64, j < 4. Splitting a thread's 4 * D/64
-// output columns into groups 64 apart keeps each float4 read of B
-// contiguous across the 16 threads of a row (tx * 4 for tx < 16).
-template <int D, int K>
-__device__ __forceinline__ void mm_d(float (&acc)[4][D / 16], const float* at, int lda,
-                                     int i0, const float* b, int j0) {
-  constexpr int NG = D / 64;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[4];
-    load_vec<4>(a, at + k * lda + i0);
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      float x[4];
-      load_vec<4>(x, b + k * (D + PAD) + 64 * g + j0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][4 * g + j] = fmaf(a[i], x[j], acc[i][4 * g + j]);
-    }
-  }
-}
-
-// store rows i0 + i (i < 4) of a [*, D] output tile, columns as mm_d
-// lays them out, divided by div[i], as bf16
-template <int D>
-__device__ __forceinline__ void store_rows_d(bf16* dst, const float (&acc)[4][D / 16],
-                                             int i0, int j0, const float (&div)[4]) {
-  constexpr int NG = D / 64;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      bf16* o = dst + (size_t)(i0 + i) * D + 64 * g + j0;
-      __nv_bfloat162 lo = __floats2bfloat162_rn(acc[i][4 * g] / div[i],
-                                                acc[i][4 * g + 1] / div[i]);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(acc[i][4 * g + 2] / div[i],
-                                                acc[i][4 * g + 3] / div[i]);
-      reinterpret_cast<__nv_bfloat162*>(o)[0] = lo;
-      reinterpret_cast<__nv_bfloat162*>(o)[1] = hi;
-    }
-}
-
 // Is (query row `row`, kv column `col`) attended? `qseg` is the query
 // row's segment id (ignored without segments); `kvm` / `kvs` the column's
 // kv_mask / segment id, staged by the caller.
@@ -173,6 +41,120 @@ __device__ __forceinline__ bool attended(bool causal, const Masks& mk, int row, 
   if (mk.kv_mask && kvm == 0) return false;
   if (mk.q_seg && qseg != kvs) return false;
   return true;
+}
+
+// ---- dS rounded as the plain version rounds it ----------------------
+//
+// Both backward kernels round dS = p (dP - delta) scale to bf16 where the
+// TPU kernel does (ds.astype(k.dtype)). Their S and dP come from wgmma,
+// whose fp32 sums run in another order than the plain version's fp32
+// matmul (a cuBLAS SGEMM: one FMA per d, in d order; a replay in that
+// order matched it bit for bit on an H100), so the two fp32 dS differ by
+// a few ulps (far more only where dP - delta cancels and dS is small).
+// Where that straddles a bf16 rounding boundary the two round one bf16 ulp
+// apart, and a large dS (a row or column with few attended keys, p near
+// 1) carries that ulp into dQ or dK as an error the size of the whole
+// tolerance. So an element with p >= REPLAY_MIN_P whose fp32 dS lies
+// within REPLAY_WINDOW fp32 ulps of a boundary is computed again from the
+// tiles in shared memory, in the plain version's order and rounding
+// (ds_replay), and rounds as the plain version does. Below REPLAY_MIN_P a
+// flipped dS moves dQ / dK by at most 2^-8 of a term that is itself under
+// 2^-8 of its row's probability mass.
+constexpr int REPLAY_WINDOW = 256;
+constexpr float REPLAY_MIN_P = 1.f / 256;
+
+__device__ __forceinline__ bool replay_ds(float p, float ds) {
+  const int lo = (int)(__float_as_uint(ds) & 0xFFFFu);
+  return p >= REPLAY_MIN_P && abs(lo - 0x8000) < REPLAY_WINDOW;
+}
+
+// 16-byte chunk c (bf16 elements 8 c .. 8 c + 7) of row r of a tile that
+// TMA wrote in 64-column boxes of `box` bytes with the 128-byte swizzle
+__device__ __forceinline__ uint4 swizzled_chunk(const uint8_t* tile, int box, int r, int c) {
+  return *reinterpret_cast<const uint4*>(tile + (c / 8) * box + r * 128 + ((c % 8) ^ (r % 8)) * 16);
+}
+
+// acc + x.lo y.lo, then + x.hi y.hi: two fp32 FMAs over a pair of bf16
+// (the low half of a word is the lower d)
+__device__ __forceinline__ float fma_bf16x2(uint32_t x, uint32_t y, float acc) {
+  acc = fmaf(__uint_as_float(x << 16), __uint_as_float(y << 16), acc);
+  return fmaf(__uint_as_float(x & 0xFFFF0000u), __uint_as_float(y & 0xFFFF0000u), acc);
+}
+
+// dS of (query row qr of the Q / dO tiles, kv row kr of the K / V tiles)
+// in the plain version's order and rounding: s = q . k and dP = dO . v,
+// each one fp32 FMA per d in d order from 0 (the plain version's matmul,
+// bit for bit), then p = exp(s * scale - lse) and dS = p (dP - delta)
+// scale one rounded step at a time, as the plain version's elementwise
+// ops take them (the _rn intrinsics keep the compiler from fusing two
+// steps into one FMA). q_box / k_box are the box sizes of the query-side
+// and kv-side tiles. The loop is not unrolled: its loads would otherwise
+// be hoisted into registers the accumulators need.
+template <int D>
+__device__ __forceinline__ float ds_replay(const uint8_t* q, const uint8_t* dout, int q_box, int qr,
+                                           const uint8_t* k, const uint8_t* v, int k_box, int kr,
+                                           float lse, float delta, float scale) {
+  float s = 0.f, dp = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 a = swizzled_chunk(q, q_box, qr, c), b = swizzled_chunk(k, k_box, kr, c);
+    const uint4 x = swizzled_chunk(dout, q_box, qr, c), y = swizzled_chunk(v, k_box, kr, c);
+    s = fma_bf16x2(a.x, b.x, s);
+    dp = fma_bf16x2(x.x, y.x, dp);
+    s = fma_bf16x2(a.y, b.y, s);
+    dp = fma_bf16x2(x.y, y.y, dp);
+    s = fma_bf16x2(a.z, b.z, s);
+    dp = fma_bf16x2(x.z, y.z, dp);
+    s = fma_bf16x2(a.w, b.w, s);
+    dp = fma_bf16x2(x.w, y.w, dp);
+  }
+  const float p = expf(__fsub_rn(__fmul_rn(s, scale), lse));
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
+}
+
+// Thread 0's load of one ring tile of the forward and dQ kernels: rows
+// [k0, k0 + ROWS) of K and V of kv matrix `bkv`, BOXES boxes of 64
+// columns each (K at `st`, V BOXES * ROWS * 128 bytes further), then the
+// tile's kv_mask and kv_seg rows (ROWS ints each, when present), all
+// counted on `bar`. Rows past Skv read as zeros.
+template <int BOXES, int ROWS>
+__device__ __forceinline__ void load_kv_tile(uint8_t* st, const CUtensorMap* tk,
+                                             const CUtensorMap* tv, uint64_t* bar,
+                                             const Masks& mk, int b, int bkv, int k0, int Skv) {
+  constexpr int BOX = ROWS * 128;  // bytes of one box
+  constexpr int BYTES = BOXES * BOX;
+  const uint32_t mask_bytes = 4u * (uint32_t)min(ROWS, Skv - k0);
+  uint32_t bytes = 2 * BYTES;
+  if (mk.kv_mask) bytes += mask_bytes;
+  if (mk.kv_seg) bytes += mask_bytes;
+  hopper::mbar_expect_tx(bar, bytes);
+#pragma unroll
+  for (int c = 0; c < BOXES; ++c) {
+    hopper::tma_load_3d(st + c * BOX, tk, bar, 64 * c, k0, bkv);
+    hopper::tma_load_3d(st + BYTES + c * BOX, tv, bar, 64 * c, k0, bkv);
+  }
+  int* kvm = reinterpret_cast<int*>(st + 2 * BYTES);
+  if (mk.kv_mask) hopper::bulk_load(kvm, mk.kv_mask + (size_t)b * Skv + k0, mask_bytes, bar);
+  if (mk.kv_seg) hopper::bulk_load(kvm + ROWS, mk.kv_seg + (size_t)b * Skv + k0, mask_bytes, bar);
+}
+
+// A thread's share of a [64 x D] fp32 wgmma accumulator (register i: row
+// (i / 2) % 2 of the thread's two, column 8 (i / 4) + 2 (lane % 4) + i % 2)
+// -> bf16 rows row[0] and row[1] of the row-major [rows, D] tensor at
+// `out`; rows at or past `rows` are not stored.
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[D / 2],
+                                          const int (&row)[2], int rows, int lane) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (row[u] >= rows) continue;
+    bf16* dst = out + (size_t)row[u] * D + 2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int i = 4 * c + 2 * u;
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) = __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, once.

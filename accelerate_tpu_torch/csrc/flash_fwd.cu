@@ -60,7 +60,6 @@ constexpr int WG_ROWS = 64;  // query rows per warpgroup
 constexpr int THREADS = 256;
 constexpr int STAGES = 2;
 constexpr int CONSUMER_WARPS = THREADS / 32;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
@@ -77,31 +76,6 @@ struct Layout {
   static_assert(STAGE % 1024 == 0 && STAGE_OFF % 1024 == 0, "swizzle atoms");
   static_assert(ALLOC <= 232448, "shared memory of one block");
 };
-
-// thread 0: tile j's K and V (and its kv_mask / kv_seg rows) into stage
-// j % STAGES, all counted on that stage's full barrier
-template <int D>
-__device__ __forceinline__ void issue_kv(uint8_t* smem, int j, const CUtensorMap* tk,
-                                         const CUtensorMap* tv, uint64_t* full, const Masks& mk,
-                                         int b, int bkv, int Skv) {
-  using L = Layout<D>;
-  const int s = j % STAGES;
-  uint8_t* st = smem + L::STAGE_OFF + s * L::STAGE;
-  const int k0 = j * BK;
-  const uint32_t mask_bytes = 4u * (uint32_t)min(BK, Skv - k0);
-  uint32_t bytes = 2 * L::KV_BYTES;
-  if (mk.kv_mask) bytes += mask_bytes;
-  if (mk.kv_seg) bytes += mask_bytes;
-  mbar_expect_tx(&full[s], bytes);
-#pragma unroll
-  for (int c = 0; c < L::BOXES; ++c) {
-    tma_load_3d(st + c * L::KV_BOX, tk, &full[s], 64 * c, k0, bkv);
-    tma_load_3d(st + L::KV_BYTES + c * L::KV_BOX, tv, &full[s], 64 * c, k0, bkv);
-  }
-  int* kvm = reinterpret_cast<int*>(st + 2 * L::KV_BYTES);
-  if (mk.kv_mask) bulk_load(kvm, mk.kv_mask + (size_t)b * Skv + k0, mask_bytes, &full[s]);
-  if (mk.kv_seg) bulk_load(kvm + BK, mk.kv_seg + (size_t)b * Skv + k0, mask_bytes, &full[s]);
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
@@ -147,7 +121,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     mbar_expect_tx(q_full, L::BOXES * L::Q_BOX);
 #pragma unroll
     for (int c = 0; c < L::BOXES; ++c) tma_load_3d(qs + c * L::Q_BOX, &tq, q_full, 64 * c, q0, bh);
-    issue_kv<D>(smem, 0, &tk, &tv, full, mk, b, bkv, Skv);
+    load_kv_tile<L::BOXES, BK>(smem + L::STAGE_OFF, &tk, &tv, &full[0], mk, b, bkv, 0, Skv);
   }
 
   // this thread's two rows of the accumulators: r and r + 8 of the block
@@ -174,7 +148,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     if (tid == 0 && j + 1 < nk) {
       const int j1 = j + 1;
       if (j1 >= STAGES) mbar_wait(&empty[j1 % STAGES], (j1 / STAGES - 1) & 1);
-      issue_kv<D>(smem, j1, &tk, &tv, full, mk, b, bkv, Skv);
+      load_kv_tile<L::BOXES, BK>(smem + L::STAGE_OFF + (j1 % STAGES) * L::STAGE, &tk, &tv,
+                                 &full[j1 % STAGES], mk, b, bkv, j1 * BK, Skv);
     }
     __syncwarp();
     mbar_wait(&full[s], (j / STAGES) & 1);
@@ -253,12 +228,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t db = sw128_desc(vst + kk * 16 * 128, L::KV_BOX, 1024);
-      if constexpr (D == 128) {
-        wgmma_m64n128k16_rs_tb(o, pa[kk], db, 1);
-      } else {
-        wgmma_m64n64k16_rs_tb(o, pa[kk], db, 1);
-      }
+      wgmma_rs_tb<D>(o, pa[kk], sw128_desc(vst + kk * 16 * 128, L::KV_BOX, 1024));
     }
     wgmma_commit();
     wgmma_wait<0>();

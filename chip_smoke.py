@@ -10,10 +10,10 @@ step's Sq 5) and the ragged prefill kernel and its int8/int4 entry
 path's shapes (small_1b: H=16, KVH=8, D=128, page 16), the flash
 forward, dQ and dK/dV kernels at the training path's (B 8, S 2048,
 causal) and in masked cases, the dense decode kernel and its int8/int4
-entry at the flat engine's and generate()'s shapes. The flash forward
-runs on the tensor cores: the SASS of its built library must hold
-warpgroup matrix multiplies (HGMMA) and TMA tile loads (UTMALDG), or the
-run fails. Then it drives six
+entry at the flat engine's and generate()'s shapes. The three flash
+kernels run on the tensor cores: the SASS of each built library must
+hold warpgroup matrix multiplies (HGMMA) and TMA tile loads (UTMALDG),
+or the run fails. Then it drives six
 paths at full width, each with the launch counters reset just before
 each run and read just after:
 
@@ -122,20 +122,24 @@ def check_close(name: str, got, want) -> float:
 
 def sass_gate() -> dict:
     """Count the warpgroup matrix multiplies (HGMMA) and TMA tile loads
-    (UTMALDG) in the SASS of the built flash forward library, read with
-    the cuobjdump of nvcc's toolkit; fails unless both are present."""
+    (UTMALDG) in the SASS of each built flash library (forward, dQ,
+    dK/dV), read with the cuobjdump of nvcc's toolkit; fails unless both
+    are present in every one."""
     from accelerate_tpu_torch.ops import kernels
 
     tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
-    lib = kernels.library_path("flash_fwd")
-    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
-                         timeout=300)
-    if res.returncode != 0:
-        fail(f"cuobjdump -sass {lib.name} failed: {res.stderr.strip()[-500:]}")
-    counts = {op: res.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
-    print(f"flash_fwd SASS: HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}")
-    if not all(counts.values()):
-        fail(f"flash_fwd does not run on the tensor cores through TMA: SASS counts {counts}")
+    counts = {}
+    for name in FLASH_KERNELS:
+        lib = kernels.library_path(name)
+        res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                             timeout=300)
+        if res.returncode != 0:
+            fail(f"cuobjdump -sass {lib.name} failed: {res.stderr.strip()[-500:]}")
+        counts[name] = {op: res.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+        print(f"{name} SASS: HGMMA {counts[name]['HGMMA']}, UTMALDG {counts[name]['UTMALDG']}")
+    for name, found in counts.items():
+        if not all(found.values()):
+            fail(f"{name} does not run on the tensor cores through TMA: SASS counts {found}")
     return counts
 
 
@@ -530,9 +534,11 @@ TRAIN_B, TRAIN_S = 8, 2048
 # kernel vs plain for the flash kernels: |kernel - plain| <= FLASH_ATOL *
 # rms(plain) + KERNEL_RTOL * |plain|. Both versions round at the same
 # sites (p to bf16 before PV, dS to bf16 before dS K / dS^T q) and write
-# bf16; they differ by fp32 summation order (~1e-6 relative) and where
+# bf16; they differ by fp32 summation order (~1e-6 relative), where
 # the forward's p is rounded (running vs final max, 2^-9 relative per
-# term), so an element may land one bf16 ulp (2^-8 relative) apart. The
+# term) and in the dV product's p (fp32 in the plain version, bf16 hi +
+# lo, ~2^-17 relative, in the kernel), so an element may land one bf16
+# ulp (2^-8 relative) apart. The
 # gradients' scale depends on the inputs, hence an atol relative to the
 # tensor's rms (2^-6 of it) rather than an absolute one
 FLASH_ATOL = 2.0 ** -6
@@ -573,7 +579,10 @@ def flash_masked_cases(gen, dev):
     and whose row 1 is left-padded by 100 positions; (b) causal, three
     segments per row, of other lengths in each row; (c) the kv_mask of (a)
     without causal masking. Then the kernels' other shapes: (d) head_dim
-    64, causal, Sq 256 over Skv 512 (top-left aligned)."""
+    64, causal, Sq 256 over Skv 512 (top-left aligned); (e) head_dim 128,
+    causal, Sq 192 over Skv 320: 64-multiples that are not 128-multiples,
+    so they cut the kernels' 128-row tiles. (e) draws from its own
+    generator (seed 2), so the other cases' inputs do not move."""
     import torch
 
     s = 512
@@ -588,7 +597,9 @@ def flash_masked_cases(gen, dev):
     return {"S 512, causal, kv_mask": flash_inputs(gen, dev, 2, s, kv_mask=kv_mask),
             "S 512, causal, segments": flash_inputs(gen, dev, 2, s, seg=seg),
             "S 512, full, kv_mask": flash_inputs(gen, dev, 2, s, causal=False, kv_mask=kv_mask),
-            "causal, D 64, Sq 256 < Skv 512": flash_inputs(gen, dev, 2, 256, d=64, skv=512)}
+            "causal, D 64, Sq 256 < Skv 512": flash_inputs(gen, dev, 2, 256, d=64, skv=512),
+            "causal, D 128, Sq 192 < Skv 320": flash_inputs(
+                torch.Generator(device=dev).manual_seed(2), dev, 2, 192, skv=320)}
 
 
 def flash_attended_pairs(x) -> int:
@@ -1314,8 +1325,9 @@ TRAIN_FUSED_MICRO = 2    # micro-batches per build_train_step update
 # bf16; the kernels keep dP and dS in fp32 until dS is rounded once).
 # This script read 1.04e-5 (loss) and 6.46e-6 (grad norm) relative on an
 # NVIDIA H100 80GB HBM3 at 700 W; the limits leave ~10x and ~150x of that.
-# The grad-norm limit is shown to bite: the same step with the dK/dV
-# kernel's dK zeroed must land beyond it (train_control below)
+# The grad-norm limit is shown to bite: the same step with the dQ
+# kernel's dQ, or the dK/dV kernel's dK or dV, zeroed must land beyond it
+# (train_control below)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_NORM_RTOL = 1e-3
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -1466,28 +1478,38 @@ def train_path(dev, card: str):
 
 def train_control(model, loss_and_norm, norm_plain):
     """The grad-norm check against plain attention must see a broken
-    backward: the same step with dK zeroed after the dK/dV kernel (a dK
-    dropped inside the autograd Function) has to land beyond its limit."""
+    backward in each kernel: the same step with dQ zeroed after the dQ
+    kernel, and with dK or dV zeroed after the dK/dV kernel (a gradient
+    dropped inside the autograd Function), has to land beyond its limit."""
     from unittest import mock
 
     import torch
 
     from accelerate_tpu_torch.ops import kernels
 
-    real = kernels.flash_bwd_dkv
+    real_dkv = kernels.flash_bwd_dkv
 
     def dk_zeroed(*args):
-        dk, dv = real(*args)
+        dk, dv = real_dkv(*args)
         return torch.zeros_like(dk), dv
 
-    with mock.patch.object(kernels, "flash_bwd_dkv", dk_zeroed):
-        _, norm_c = loss_and_norm(model)
-    rel = abs(norm_c - norm_plain) / abs(norm_plain)
-    if not rel > TRAIN_GRAD_NORM_RTOL:
-        fail(f"control: with dK zeroed the grad norm {norm_c} is within "
-             f"{TRAIN_GRAD_NORM_RTOL} rel of plain attention's {norm_plain}: the check is blind")
-    print(f"train path: control, dK zeroed in the flash backward: grad norm {norm_c:.6f} "
-          f"vs plain {norm_plain:.6f} (rel {rel:.2e}, beyond tol {TRAIN_GRAD_NORM_RTOL})")
+    def dv_zeroed(*args):
+        dk, dv = real_dkv(*args)
+        return dk, torch.zeros_like(dv)
+
+    for what, name, broken in (("dQ", "flash_bwd_dq", zeroed(kernels.flash_bwd_dq)),
+                               ("dK", "flash_bwd_dkv", dk_zeroed),
+                               ("dV", "flash_bwd_dkv", dv_zeroed)):
+        with mock.patch.object(kernels, name, broken):
+            _, norm_c = loss_and_norm(model)
+        rel = abs(norm_c - norm_plain) / abs(norm_plain)
+        if not rel > TRAIN_GRAD_NORM_RTOL:
+            fail(f"control: with {what} zeroed the grad norm {norm_c} is within "
+                 f"{TRAIN_GRAD_NORM_RTOL} rel of plain attention's {norm_plain}: the check "
+                 "is blind")
+        print(f"train path: control, {what} zeroed in the flash backward: grad norm "
+              f"{norm_c:.6f} vs plain {norm_plain:.6f} (rel {rel:.2e}, beyond tol "
+              f"{TRAIN_GRAD_NORM_RTOL})")
 
 
 def remat_memory(cfg, dev, batch):
