@@ -1,170 +1,113 @@
 // Packed ragged prefill attention over a quantized paged KV arena for
-// Hopper (sm_90a), int8 / int4 KV, with quantize-on-write fused.
+// Hopper (sm_90a) on the tensor cores, int8 / int4 KV, with
+// quantize-on-write.
 //
 // Replaces the TPU kernel `_ragged_prefill_kernel_call` via
 // `_prefill_quant_kernel_entry` and its `_quantize_block`
-// (accelerate_tpu/ops/attention.py), the quantized entry. As in the bf16
-// kernel (ragged_prefill.cu), each token block of the packed tails
-// attends (1) its slot's live arena prefix [0, hist), here int8 payload
-// pages [NP, KVH, ps, pd] (pd = D, or D / 2 for int4) with fp32 scale
-// pages [NP, KVH, ps, 1], dequantized in-register, then (2) the packed
-// fresh rows of the same slot at or below its position, which are
-// quantized and attended as the DEQUANTIZED values the cache serves later.
-// The kernel also emits every packed row's payload [CAP, KVH, pd] int8 and
-// scale [CAP, KVH, 1] fp32 for the caller's one arena scatter.
+// (accelerate_tpu/ops/attention.py), the quantized entry: as the bf16
+// entry (ragged_prefill.cu), each packed row attends its slot's arena
+// prefix, here int8 payload pages [NP, KVH, ps, pd] (pd = D, or D / 2 for
+// int4) with fp32 scale pages [NP, KVH, ps, 1] read dequantized, and the
+// packed fresh rows of its slot at or below its position, attended as the
+// DEQUANTIZED values the cache serves later. Every packed row's payload
+// [CAP, KVH, pd] int8 and scale [CAP, KVH, 1] fp32 (pads included) go to
+// the caller's one arena scatter.
 //
-// Bound: the larger of the bytes (q, fresh bf16 K/V in, payload and scale
-// out, the quantized prefix read once, out) over 3.35 TB/s and 4 * H * D
-// flops per attended query/key pair over 989 TF/s. Short packs are bound
-// by bytes, long prefixes with deep causal tails by the operations.
+// Bound: bytes at the serving path's packs (q, the fresh bf16 K/V, out,
+// payload and scale out, the quantized prefix read once: ~2.1-2.4 us at
+// 3.35 TB/s for a 512-row pack on small_1b), operations under a long
+// arena prefix.
 //
-// Design: ragged_prefill.cu's structure, one block per (token block i, kv
-// head h) covering R = bt * group query rows, both phases in 64-token
-// chunks with fp32 scores, online softmax and PV from shared memory.
-// - Arena phase: chunks staged through attend::dequant_rows (16-byte
-//   payload loads, payload * scale in fp32 rounded once to bf16).
-// - Fresh phase: chunks staged through attend::quant_rows, the
-//   `_quantize_block` expression (IEEE division by the scale, rintf, the
-//   clamp), so the tail attends qf * scale rounded to bf16, never the raw
-//   k_new as the bf16 kernel does.
-// - Payload and scale output: block (i, h) alone writes its own bt rows of
-//   kv head h, in a first pass that every block runs, pad blocks (slot -1)
-//   included: the reference quantizes every packed row and the caller
-//   scatters pad rows to the parking page, so no output byte is left
-//   uninitialised. Blocks that stage a fresh chunk of earlier rows
-//   re-quantize it and get the same values deterministically; nothing is
-//   revisited, so token blocks stay parallel (the TPU grid had to run its
-//   token-block axis in order because its output windows were revisited).
-// The build has no fast math: the quantize step needs div.rn and rintf,
-// or payloads stop being bit-exact against the plain version.
+// Design: two kernels in order on the caller's stream.
+// - The quantize pass quantizes each packed row of each kv head once:
+//   one warp per row (attend::quant_rows, the `_quantize_block`
+//   expression: IEEE division by the scale, rintf, the clamp), writing
+//   the payload and scale the caller scatters and the dequantized bf16
+//   rows (qf * scale rounded once) into a [2, KVH, CAP, D] workspace. The
+//   build has no fast math: the quantize step needs div.rn and rintf, or
+//   payloads stop being bit-exact against the plain version. (The
+//   CUDA-core kernel this replaces re-quantized every earlier fresh chunk
+//   in every block: O(CAP^2 / 8) quantize work where O(CAP) is enough.)
+// - The attention kernel (prefill_common.cuh) reads the workspace as its
+//   fresh K/V by TMA; its arena tiles are staged as payload and scale
+//   rows and dequantized by the block's threads into the swizzled bf16
+//   tile that the tensor cores read.
 #include "attend_common.cuh"
+#include "prefill_common.cuh"
 
-using attend::NT;
-using attend::TOK;
+namespace {
 
-__global__ void __launch_bounds__(NT)
-ragged_prefill_quant_kernel(const __nv_bfloat16* __restrict__ q,      // [1, H, CAP, D]
-                            const __nv_bfloat16* __restrict__ k_new,  // [1, KVH, CAP, D]
-                            const __nv_bfloat16* __restrict__ v_new,
-                            const int8_t* __restrict__ k_pages,       // [NP, KVH, ps, pd]
-                            const int8_t* __restrict__ v_pages,
-                            const float* __restrict__ k_scale,        // [NP, KVH, ps, 1]
-                            const float* __restrict__ v_scale,
-                            const int* __restrict__ page_table,       // [S, P]
-                            const int* __restrict__ row_slot,         // [CAP]
-                            const int* __restrict__ row_pos,          // [CAP]
-                            const int* __restrict__ slot_hist,        // [S]
-                            __nv_bfloat16* __restrict__ out,          // [1, H, CAP, D]
-                            int8_t* __restrict__ k_pay,               // [CAP, KVH, pd]
-                            float* __restrict__ k_scl,                // [CAP, KVH, 1]
-                            int8_t* __restrict__ v_pay,
-                            float* __restrict__ v_scl,
-                            int kvh, int group, int cap, int d, int ps, int p_per_slot,
-                            int bt, int bits, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int i = blockIdx.x;
+constexpr int QUANT_ROWS = attend::NWARPS;  // packed rows a quantize block takes
+
+// Grid (ceil(CAP / QUANT_ROWS), KVH): K then V of QUANT_ROWS packed rows
+// of one kv head, one warp a row.
+__global__ void __launch_bounds__(attend::NT)
+quantize_pass(const __nv_bfloat16* __restrict__ k_new,  // [1, KVH, CAP, D]
+              const __nv_bfloat16* __restrict__ v_new,
+              int8_t* __restrict__ k_pay, float* __restrict__ k_scl,  // [CAP, KVH, pd|1]
+              int8_t* __restrict__ v_pay, float* __restrict__ v_scl,
+              __nv_bfloat16* __restrict__ ws,  // [2, KVH, CAP, D]: dequantized K, V
+              int kvh, int cap, int d, int bits) {
+  const int row0 = blockIdx.x * QUANT_ROWS;
   const int h = blockIdx.y;
-  const int rows = bt * group;
+  const int ntok = min(QUANT_ROWS, cap - row0);
   const int pd = bits == 4 ? d / 2 : d;
-  const attend::Smem sm = attend::carve(smem_raw, rows, d);
-  const int row0 = i * bt;
-  auto row_addr = [&](auto* base, int r) {
-    const int head = h * group + r % group;
-    return base + ((size_t)head * cap + row0 + r / group) * d;
-  };
-  auto fresh_k = [&](int tok) { return k_new + ((size_t)h * cap + tok) * d; };
-  auto fresh_v = [&](int tok) { return v_new + ((size_t)h * cap + tok) * d; };
-  auto no_payload = [](int) -> int8_t* { return nullptr; };
-  auto no_scale = [](int) -> float* { return nullptr; };
-
-  // quantize-on-write of this block's own rows: payload + scale out
+  const size_t first = (size_t)h * cap + row0;  // [KVH, CAP] row of the block's first
+  const size_t plane = (size_t)kvh * cap * d;
   attend::quant_rows(
-      sm.ks, bt, d, bits, [&](int t) { return fresh_k(row0 + t); },
+      ws + first * d, ntok, d, bits, [&](int t) { return k_new + (first + t) * d; },
       [&](int t) { return k_pay + ((size_t)(row0 + t) * kvh + h) * pd; },
       [&](int t) { return k_scl + (size_t)(row0 + t) * kvh + h; });
   attend::quant_rows(
-      sm.vs, bt, d, bits, [&](int t) { return fresh_v(row0 + t); },
+      ws + plane + first * d, ntok, d, bits, [&](int t) { return v_new + (first + t) * d; },
       [&](int t) { return v_pay + ((size_t)(row0 + t) * kvh + h) * pd; },
       [&](int t) { return v_scl + (size_t)(row0 + t) * kvh + h; });
-
-  const int slot = row_slot[row0];
-  if (slot < 0) {
-    // a whole pad block: both phases are skipped, l stays 0, output 0
-    for (int e = threadIdx.x; e < rows * d; e += NT) {
-      const int r = e / d;
-      row_addr(out, r)[e - r * d] = __float2bfloat16(0.f);
-    }
-    return;
-  }
-  const int hist = slot_hist[slot];
-
-  for (int e = threadIdx.x; e < rows * d; e += NT) {
-    const int r = e / d;
-    sm.qs[e] = __bfloat162float(row_addr(q, r)[e - r * d]);
-  }
-  for (int r = threadIdx.x; r < rows; r += NT) sm.rowpos[r] = row_pos[row0 + r / group];
-  attend::init_state(sm, rows, d);
-  __syncthreads();  // the first pass's use of the K/V tiles is over
-
-  // arena phase: the slot's live prefix [0, hist), dequantized
-  const int* table = page_table + (size_t)slot * p_per_slot;
-  for (int base = 0; base < hist; base += TOK) {
-    const int ntok = min(TOK, hist - base);
-    auto row_of = [&](int t) {
-      const int kvp = base + t;
-      return ((size_t)table[kvp / ps] * kvh + h) * ps + kvp % ps;
-    };
-    attend::dequant_rows(
-        sm.ks, ntok, d, bits, [&](int t) { return k_pages + row_of(t) * pd; },
-        [&](int t) { return k_scale[row_of(t)]; });
-    attend::dequant_rows(
-        sm.vs, ntok, d, bits, [&](int t) { return v_pages + row_of(t) * pd; },
-        [&](int t) { return v_scale[row_of(t)]; });
-    attend::attend_staged_chunk(sm, rows, ntok, d, scale, [&](int r, int t) {
-      const int kvp = base + t;
-      return kvp < hist && kvp <= sm.rowpos[r];
-    });
-  }
-
-  // fresh phase: packed blocks jf <= i of the same slot, causal by
-  // position, staged quantized-then-dequantized
-  const int blocks_per_chunk = TOK / bt;
-  for (int jf0 = 0; jf0 <= i; jf0 += blocks_per_chunk) {
-    const int nb = min(blocks_per_chunk, i + 1 - jf0);
-    bool any = false;
-    for (int jb = 0; jb < nb; ++jb) any |= row_slot[(jf0 + jb) * bt] == slot;
-    if (!any) continue;  // uniform across the block: no divergent barrier
-    const int ntok = nb * bt;
-    const int tok0 = jf0 * bt;
-    attend::quant_rows(sm.ks, ntok, d, bits, [&](int t) { return fresh_k(tok0 + t); },
-                       no_payload, no_scale);
-    attend::quant_rows(sm.vs, ntok, d, bits, [&](int t) { return fresh_v(tok0 + t); },
-                       no_payload, no_scale);
-    attend::attend_staged_chunk(sm, rows, ntok, d, scale, [&](int r, int t) {
-      const int kvq = row_pos[tok0 + t];
-      return row_slot[(tok0 + t) / bt * bt] == slot && kvq >= 0 && kvq <= sm.rowpos[r];
-    });
-  }
-  attend::write_rows(sm, rows, d, [&](int r) { return row_addr(out, r); });
 }
 
+}  // namespace
+
+// q [1, H, CAP, D], k_new / v_new [1, KVH, CAP, D] bf16; payload pages
+// [NP, KVH, ps, pd] int8, scale pages [NP, KVH, ps, 1] fp32; page_table
+// [S, P], row_slot / row_pos [CAP], slot_hist [S] int32; out [1, H, CAP,
+// D] bf16, k_pay / v_pay [CAP, KVH, pd] int8, k_scl / v_scl [CAP, KVH, 1]
+// fp32 written; ws a bf16 [2, KVH, CAP, D] workspace. All contiguous and
+// 16-byte aligned; D 64 or 128, ps as the bf16 entry's (the wrapper checks
+// it). Launches the quantize pass and the attention kernel on `stream`,
+// allocates nothing, returns the first error.
 extern "C" int ragged_prefill_quant_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const void* k_scale, const void* v_scale, const void* page_table,
     const void* row_slot, const void* row_pos, const void* slot_hist, void* out,
-    void* k_pay, void* k_scl, void* v_pay, void* v_scl, int kvh, int group, int cap,
-    int d, int ps, int p_per_slot, int bt, int bits, float scale, void* stream) {
-  const size_t smem = attend::smem_bytes(bt * group, d);
-  cudaError_t err = cudaFuncSetAttribute(
-      ragged_prefill_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    void* k_pay, void* k_scl, void* v_pay, void* v_scl, void* ws, int kvh, int group,
+    int cap, int d, int ps, int p_per_slot, int bt, int bits, float scale, void* stream) {
+  (void)bt;
+  if (!prefill::page_size_ok(ps) || (bits != 8 && bits != 4)) return (int)cudaErrorInvalidValue;
+  using prefill::bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* wk = static_cast<bf16*>(ws);
+  bf16* wv = wk + (size_t)kvh * cap * d;
+  const dim3 qgrid((cap + QUANT_ROWS - 1) / QUANT_ROWS, kvh);
+  quantize_pass<<<qgrid, attend::NT, 0, st>>>(
+      static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
+      static_cast<int8_t*>(k_pay), static_cast<float*>(k_scl), static_cast<int8_t*>(v_pay),
+      static_cast<float*>(v_scl), wk, kvh, cap, d, bits);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(cap / bt, kvh);
-  ragged_prefill_quant_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
-      (const int8_t*)k_pages, (const int8_t*)v_pages, (const float*)k_scale,
-      (const float*)v_scale, (const int*)page_table, (const int*)row_slot,
-      (const int*)row_pos, (const int*)slot_hist, (__nv_bfloat16*)out, (int8_t*)k_pay,
-      (float*)k_scl, (int8_t*)v_pay, (float*)v_scl, kvh, group, cap, d, ps, p_per_slot,
-      bt, bits, scale);
-  return (int)cudaGetLastError();
+  const prefill::Pack pk{static_cast<const int*>(page_table), static_cast<const int*>(row_slot),
+                         static_cast<const int*>(row_pos), static_cast<const int*>(slot_hist),
+                         cap, kvh, ps, p_per_slot};
+  const prefill::QuantPages qp{static_cast<const int8_t*>(k_pages),
+                               static_cast<const int8_t*>(v_pages),
+                               static_cast<const float*>(k_scale),
+                               static_cast<const float*>(v_scale), bits};
+  const bf16* q_ = static_cast<const bf16*>(q);
+  bf16* op = static_cast<bf16*>(out);
+  const int h = kvh * group;
+  if (d == 128)
+    return (int)prefill::launch<128, true>(q_, wk, wv, nullptr, nullptr, qp, pk, op, h, group,
+                                           scale, st);
+  if (d == 64)
+    return (int)prefill::launch<64, true>(q_, wk, wv, nullptr, nullptr, qp, pk, op, h, group,
+                                          scale, st);
+  return (int)cudaErrorInvalidValue;
 }

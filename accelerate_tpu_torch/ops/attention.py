@@ -51,6 +51,8 @@ DECODE_KERNEL_MAX_SQ = 16
 # 128-multiples, see _pick_block)
 FLASH_KERNEL_HEAD_DIMS = (64, 128)
 FLASH_KERNEL_SEQ_MULTIPLE = 64
+# head dims the ragged prefill kernels take (one or two 64-column boxes)
+PREFILL_KERNEL_HEAD_DIMS = (64, 128)
 
 
 def mha_reference(

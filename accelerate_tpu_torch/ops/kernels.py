@@ -30,7 +30,12 @@ from pathlib import Path
 
 import torch
 
-from .attention import DECODE_KERNEL_MAX_SQ, FLASH_KERNEL_HEAD_DIMS, FLASH_KERNEL_SEQ_MULTIPLE
+from .attention import (
+    DECODE_KERNEL_MAX_SQ,
+    FLASH_KERNEL_HEAD_DIMS,
+    FLASH_KERNEL_SEQ_MULTIPLE,
+    PREFILL_KERNEL_HEAD_DIMS,
+)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -74,7 +79,7 @@ KERNELS = {
     ),
     "ragged_prefill_quant": (
         "ragged_prefill_quant.cu", "ragged_prefill_quant_launch",
-        [_P] * 16 + [_I] * 8 + [_F, _P],
+        [_P] * 17 + [_I] * 8 + [_F, _P],
     ),
 }
 
@@ -198,6 +203,32 @@ def _require_cuda(t: torch.Tensor, name: str):
         )
 
 
+def _prefill_kernel_check(q, k_pages, bt: int):
+    """What both ragged prefill kernels take: a query-head group over the
+    kv heads, head_dim 64 or 128 (one or two 64-column TMA boxes), a token
+    block dividing 64 and the capacity, and a page size whose runs of rows
+    tile the kernel's 64-row kv tiles (a multiple of 8 that divides 64, or
+    a multiple of 64). Returns ``(h, cap, d, kvh, ps, group)``."""
+    _, h, cap, d = q.shape
+    _, kvh, ps, _ = k_pages.shape
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if d not in PREFILL_KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"head_dim {d}: the ragged prefill kernels take {PREFILL_KERNEL_HEAD_DIMS}"
+        )
+    if bt < 1 or 64 % bt or cap % bt:
+        raise ValueError(
+            f"token block {bt} must divide 64 and the capacity {cap}"
+        )
+    if ps % 8 or (64 % ps and ps % 64):
+        raise ValueError(
+            f"page size {ps}: the ragged prefill kernels take a multiple of 8 that "
+            "divides 64 (8, 16, 32, 64) or a multiple of 64"
+        )
+    return h, cap, d, kvh, ps, h // kvh
+
+
 def paged_decode(q, k_pages, v_pages, page_table, pos, sm_scale: float):
     """Paged decode attention: q [B, H, Sq, D] bf16, k/v pages
     [NP, KVH, ps, D] bf16, page_table [B, P] int32, pos [B, Sq] int32 ->
@@ -251,19 +282,9 @@ def ragged_prefill(q, k_new, v_new, k_pages, v_pages, page_table, row_slot,
             slot_hist, sm_scale,
         )
     _require_cuda(q, "ragged_prefill")
-    _, h, cap, d = q.shape
-    num_pages, kvh, ps, _ = k_pages.shape
+    h, cap, d, kvh, ps, group = _prefill_kernel_check(q, k_pages, bt)
+    num_pages = k_pages.shape[0]
     n_slots, p_per_slot = page_table.shape
-    if h % kvh:
-        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
-    if d % 8:
-        raise ValueError(f"head_dim {d} must be a multiple of 8 (16-byte loads)")
-    if bt < 1 or 64 % bt or cap % bt:
-        raise ValueError(
-            f"token block {bt} must divide 64 and the capacity {cap}"
-        )
-    group = h // kvh
-    _smem_limit_check(bt * group, d)
     dev = q.device
     _check(q, "q", torch.bfloat16, (1, h, cap, d), dev)
     _check(k_new, "k_new", torch.bfloat16, (1, kvh, cap, d), dev)
@@ -274,6 +295,8 @@ def ragged_prefill(q, k_new, v_new, k_pages, v_pages, page_table, row_slot,
     _check(row_slot, "row_slot", torch.int32, (cap,), dev)
     _check(row_pos, "row_pos", torch.int32, (cap,), dev)
     _check(slot_hist, "slot_hist", torch.int32, (n_slots,), dev)
+    _check_aligned(("q", q), ("k_new", k_new), ("v_new", v_new), ("k_pages", k_pages),
+                   ("v_pages", v_pages))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch(
@@ -370,17 +393,8 @@ def ragged_prefill_quant(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, pa
             sm_scale, k_scale=k_scale, v_scale=v_scale, kv_quant_bits=bits,
         )
     _require_cuda(q, "ragged_prefill_quant")
-    _, h, cap, d = q.shape
-    kvh = k_pages.shape[1]
+    h, cap, d, kvh, ps, group = _prefill_kernel_check(q, k_pages, bt)
     n_slots, p_per_slot = page_table.shape
-    if h % kvh:
-        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
-    if bt < 1 or 64 % bt or cap % bt:
-        raise ValueError(
-            f"token block {bt} must divide 64 and the capacity {cap}"
-        )
-    group = h // kvh
-    _smem_limit_check(bt * group, d)
     dev = q.device
     _check(q, "q", torch.bfloat16, (1, h, cap, d), dev)
     _check(k_new, "k_new", torch.bfloat16, (1, kvh, cap, d), dev)
@@ -390,20 +404,23 @@ def ragged_prefill_quant(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, pa
     _check(row_slot, "row_slot", torch.int32, (cap,), dev)
     _check(row_pos, "row_pos", torch.int32, (cap,), dev)
     _check(slot_hist, "slot_hist", torch.int32, (n_slots,), dev)
+    _check_aligned(("q", q), ("k_new", k_new), ("v_new", v_new))
     pd = d // 2 if bits == 4 else d
     out = torch.empty_like(q)
     k_pay = torch.empty((cap, kvh, pd), dtype=torch.int8, device=dev)
     v_pay = torch.empty_like(k_pay)
     k_scl = torch.empty((cap, kvh, 1), dtype=torch.float32, device=dev)
     v_scl = torch.empty_like(k_scl)
+    # the quantize pass's dequantized fresh K and V, read by the attention
+    workspace = torch.empty((2, kvh, cap, d), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch(
         "ragged_prefill_quant", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         page_table.data_ptr(), row_slot.data_ptr(), row_pos.data_ptr(), slot_hist.data_ptr(),
         out.data_ptr(), k_pay.data_ptr(), k_scl.data_ptr(), v_pay.data_ptr(),
-        v_scl.data_ptr(), kvh, group, cap, d, ps, p_per_slot, bt, bits,
-        float(sm_scale), stream,
+        v_scl.data_ptr(), workspace.data_ptr(), kvh, group, cap, d, ps, p_per_slot, bt,
+        bits, float(sm_scale), stream,
     )
     return out, k_pay, k_scl, v_pay, v_scl
 

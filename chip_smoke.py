@@ -6,14 +6,17 @@ Builds the nine hand-written kernels of ``accelerate_tpu_torch/csrc``
 with nvcc for sm_90a and holds each against its plain PyTorch version:
 the paged decode kernel and its int8/int4 entry (Sq 1 and the verify
 step's Sq 5) and the ragged prefill kernel and its int8/int4 entry
-(quantize-on-write payloads and scales bit for bit) at the serving
-path's shapes (small_1b: H=16, KVH=8, D=128, page 16), the flash
-forward, dQ and dK/dV kernels at the training path's (B 8, S 2048,
-causal) and in masked cases, the dense decode kernel and its int8/int4
-entry at the flat engine's and generate()'s shapes. The three flash
-kernels run on the tensor cores: the SASS of each built library must
-hold warpgroup matrix multiplies (HGMMA) and TMA tile loads (UTMALDG),
-or the run fails. Then it drives six
+(quantize-on-write payloads and scales bit for bit; a 512-row pack, a
+pack of 2-3 slots a 64-row tile at CAP 208, and a 1536-position arena
+prefix under a 512-row tail) at the serving path's shapes (small_1b:
+H=16, KVH=8, D=128, page 16), the flash forward, dQ and dK/dV kernels
+at the training path's (B 8, S 2048, causal) and in masked cases, the
+dense decode kernel and its int8/int4 entry at the flat engine's and
+generate()'s shapes. Each is timed beside its bound and one SDPA call
+(the median of seven reads, with their spread). The flash and the
+ragged prefill kernels run on the tensor cores: the SASS of each built
+library must hold warpgroup matrix multiplies (HGMMA) and TMA tile
+loads (UTMALDG), or the run fails. Then it drives six
 paths at full width, each with the launch counters reset just before
 each run and read just after:
 
@@ -85,6 +88,11 @@ TOP2_MARGIN = 0.25
 
 PAGE = 16
 H, KVH, D = 16, 8, 128
+# the main path's TTFT p50 in three runs of this script with the ragged
+# prefill kernel on the CUDA cores (before its tensor-core design), NVIDIA
+# H100 80GB HBM3 at 700 W: host-clock readings, which move ~1.5x between
+# runs, printed beside this run's for scale
+CUDA_CORE_PREFILL_TTFT_MS = (75.27, 48.92, 70.03)
 MAX_CACHE = 2048
 
 
@@ -93,7 +101,17 @@ def fail(msg: str):
     sys.exit(1)
 
 
+# cycles the card spins (torch.cuda._sleep) before a timed run: ~60 ms at
+# an H100's clocks, longer than the host takes to queue the run's launches
+TIMING_SLEEP_CYCLES = 100_000_000
+
+
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time on the card of one call of ``fn``: CUDA events around
+    ``iters`` calls queued behind a spin of the card, so the card runs
+    them back to back and the host's own cost per call (tens of
+    microseconds of Python, ctypes and tensor-map encoding, more than a
+    short kernel takes) is not read as the kernel's time."""
     import torch
 
     for _ in range(warmup):
@@ -101,12 +119,32 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(TIMING_SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The yardstick of every kernel row: one PyTorch call for the same
+# function (SDPA). Its time moves between reads in one run (a single
+# 20-launch mean of the ragged prefill's SDPA read 0.0654 ms in one run,
+# 0.3436 in another), so a library time is the median of LIBRARY_READS
+# separate reads, each after its own warmup, printed with their spread
+LIBRARY_READS = 7
+
+
+def library_ms(fn, reads: int = LIBRARY_READS, **kw):
+    """``(median, min, max)`` of ``reads`` separate ``cuda_time_ms`` reads
+    of ``fn``, each after its own warmup (``kw`` goes to each read)."""
+    times = sorted(cuda_time_ms(fn, **kw) for _ in range(reads))
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def library_text(lib) -> str:
+    return f"{lib[0]:.4f} ms (median of {LIBRARY_READS} reads, {lib[1]:.4f}-{lib[2]:.4f})"
 
 
 def check_close(name: str, got, want) -> float:
@@ -122,14 +160,15 @@ def check_close(name: str, got, want) -> float:
 
 def sass_gate() -> dict:
     """Count the warpgroup matrix multiplies (HGMMA) and TMA tile loads
-    (UTMALDG) in the SASS of each built flash library (forward, dQ,
-    dK/dV), read with the cuobjdump of nvcc's toolkit; fails unless both
+    (UTMALDG) in the SASS of each built library of TENSOR_CORE_KERNELS
+    (the flash forward, dQ and dK/dV, the ragged prefill and its quantized
+    entry), read with the cuobjdump of nvcc's toolkit; fails unless both
     are present in every one."""
     from accelerate_tpu_torch.ops import kernels
 
     tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
     counts = {}
-    for name in FLASH_KERNELS:
+    for name in TENSOR_CORE_KERNELS:
         lib = kernels.library_path(name)
         res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                              timeout=300)
@@ -202,7 +241,8 @@ def paged_work(table, pos, row_bytes: int, heads: int = H):
 
 def paged_library_ms(q, k_pages, v_pages, table, pos):
     """SDPA with a boolean mask over each slot's pages gathered into dense
-    K/V beforehand (the gather is left out of the time)."""
+    K/V beforehand (the gather is left out of the time): ``library_ms``'s
+    ``(median, min, max)``."""
     import torch
     import torch.nn.functional as F
 
@@ -212,7 +252,7 @@ def paged_library_ms(q, k_pages, v_pages, table, pos):
     v_full = gather_kv_pages(v_pages, table)
     mask = (torch.arange(k_full.shape[2], device=q.device)[None, None, None, :]
             <= pos[:, None, :, None])
-    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+    return library_ms(lambda: F.scaled_dot_product_attention(
         q, k_full, v_full, attn_mask=mask, scale=1.0 / math.sqrt(D), enable_gqa=True))
 
 
@@ -273,21 +313,22 @@ def decode_phase(gen, dev, gen_spec):
     q_live, table_live, pos_live = q[:-1], table[:-1], pos1[:-1]
     live_ms = cuda_time_ms(lambda: paged_decode_attention(
         q_live, k_pages, v_pages, page_table=table_live, q_positions=pos_live))
-    library_ms = paged_library_ms(q, k_pages, v_pages, table, pos1)
+    library = paged_library_ms(q, k_pages, v_pages, table, pos1)
+    spec_library = paged_library_ms(*spec)
     bound_ms, bound_by = bound(*paged_work(table, pos1, D * 2))
     spec_bound_ms, _ = bound(*paged_work(spec[3], spec[4], D * 2))
     print(f"kernel paged_decode: slots {b} (lengths {PAGED_LENGTHS} + parked), "
           f"max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}), "
-          f"library sdpa {library_ms:.4f} ms; kernel without the parked slot "
+          f"library sdpa {library_text(library)}; kernel without the parked slot "
           f"{live_ms:.4f} ms; Sq {SPEC_K + 1} (verify, per-row positions): max_abs_err "
           f"{err_spec:.3e}, kernel {spec_ms:.4f} ms, plain {spec_plain_ms:.4f} ms, bound "
-          f"{spec_bound_ms * 1e3:.2f} us")
+          f"{spec_bound_ms * 1e3:.2f} us, library sdpa {library_text(spec_library)}")
     return {"name": "paged_decode", "route": "cuda",
             "source": "accelerate_tpu_torch/csrc/paged_decode.cu",
             "replaces": "accelerate_tpu/ops/attention.py:926",
             "max_abs_err": max(err, err_spec), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library[0]}
 
 
 def paged_decode_quant_phase(gen, dev):
@@ -322,19 +363,22 @@ def paged_decode_quant_phase(gen, dev):
                                 run_plain(q_spec, pos)))
         ms, plain_ms = cuda_time_ms(run_kernel), cuda_time_ms(run_plain)
         spec_ms = cuda_time_ms(lambda: run_kernel(q_spec, pos))
-        library_ms = paged_library_ms(q, dequantize_kv(kq, ks, bits, torch.bfloat16),
-                                      dequantize_kv(vq, vs, bits, torch.bfloat16), table, pos1)
+        k_deq = dequantize_kv(kq, ks, bits, torch.bfloat16)
+        v_deq = dequantize_kv(vq, vs, bits, torch.bfloat16)
+        library = paged_library_ms(q, k_deq, v_deq, table, pos1)
+        spec_library = paged_library_ms(q_spec, k_deq, v_deq, table, pos)
         row_bytes = (D // 2 if bits == 4 else D) + 4
         bound_ms, bound_by = bound(*paged_work(table, pos1, row_bytes))
         spec_bound_ms, _ = bound(*paged_work(table, pos, row_bytes))
         print(f"kernel paged_decode_quant (int{bits}): slots {b}, Sq 1, max_abs_err "
               f"{errs[-2]:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}), library "
-              f"sdpa {library_ms:.4f} ms (on K/V gathered and dequantized beforehand: leaves "
-              f"out the gather and the dequant); Sq {SPEC_K + 1}: max_abs_err "
-              f"{errs[-1]:.3e}, kernel {spec_ms:.4f} ms, bound {spec_bound_ms * 1e3:.2f} us")
+              f"sdpa {library_text(library)} (on K/V gathered and dequantized beforehand: "
+              f"leaves out the gather and the dequant); Sq {SPEC_K + 1}: max_abs_err "
+              f"{errs[-1]:.3e}, kernel {spec_ms:.4f} ms, bound {spec_bound_ms * 1e3:.2f} us, "
+              f"library sdpa {library_text(spec_library)}")
         rows[bits] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms}
+                      "bound_by": bound_by, "library_ms": library[0]}
     return dict(name="paged_decode_quant", route="cuda",
                 source="accelerate_tpu_torch/csrc/paged_decode_quant.cu",
                 replaces="accelerate_tpu/ops/attention.py:889", max_abs_err=max(errs),
@@ -346,23 +390,41 @@ def paged_decode_quant_phase(gen, dev):
 # whole pad block. (slot, hist, tail)
 PREFILL_CAP = 512
 PREFILL_PACKS = [(0, 300, 256), (1, 0, 243)]
+# two more packs, each checked in every entry, from their own generators
+# (so the inputs of the phases after them do not move): (a) 64-row tiles
+# of 2-3 slots each with slot boundaries mid-tile, tails ending mid-block,
+# arena prefixes across tile and page edges, a last partial tile of one
+# slot and a pad block, at a CAP that is not a multiple of 64; (b) one
+# long arena prefix under a whole-pack tail, where the operations, not the
+# bytes, set the bound. (CAP, packs, trailing pad block, seed)
+PREFILL_CASES = {
+    "a: 2-3 slots a tile, CAP 208": (
+        208, [(0, 37, 20), (1, 0, 27), (2, 100, 13), (3, 69, 40), (4, 0, 30), (5, 250, 18),
+              (6, 3, 21), (7, 0, 5)], True, 3),
+    "b: hist 1536 + 512 fresh": (512, [(0, 1536, 512)], False, 4),
+}
 
 
-def prefill_case(dev):
-    """Page table [3, 64] (1024 positions: covers hist + tail of every
-    pack), row_slot / row_pos [512] and slot_hist [3] of PREFILL_PACKS.
-    Returns those and the page count."""
+def prefill_case(dev, packs=PREFILL_PACKS, cap=PREFILL_CAP, pad_block=True):
+    """Page table [max slot + 2, P] (P pages cover hist + tail of every
+    pack, at least 64), row_slot / row_pos [cap] and slot_hist of
+    ``packs``, each slot's rows padded to the token block (pads keep the
+    slot, position -1), then pad rows (slot -1) to ``cap``; with
+    ``pad_block`` at least one whole pad block. Returns those and the page
+    count."""
     import torch
 
     from accelerate_tpu_torch.ops.attention import PREFILL_TOKEN_BLOCK
 
-    bt, cap, n_slots = PREFILL_TOKEN_BLOCK, PREFILL_CAP, 3
-    table = torch.zeros((n_slots, 64), dtype=torch.int32)
+    bt = PREFILL_TOKEN_BLOCK
+    n_slots = max(slot for slot, _, _ in packs) + 2
+    p_per_slot = max(64, max(-(-(hist + tail) // PAGE) for _, hist, tail in packs))
+    table = torch.zeros((n_slots, p_per_slot), dtype=torch.int32)
     row_slot = torch.full((cap,), -1, dtype=torch.int32)
     row_pos = torch.full((cap,), -1, dtype=torch.int32)
     slot_hist = torch.zeros((n_slots,), dtype=torch.int32)
     next_page, r = 1, 0
-    for slot, hist, tail in PREFILL_PACKS:
+    for slot, hist, tail in packs:
         need = -(-(hist + tail) // PAGE)
         table[slot, :need] = torch.arange(next_page, next_page + need)
         next_page += need
@@ -371,16 +433,28 @@ def prefill_case(dev):
         row_pos[r: r + tail] = torch.arange(hist, hist + tail)
         slot_hist[slot] = hist
         r += nb * bt
-    if cap - r < bt:
-        fail("prefill phase pack leaves no whole pad block")
+    if r > cap or (pad_block and cap - r < bt):
+        fail(f"prefill pack {packs} does not fit {cap} rows with a pad block ({pad_block})")
     rows = dict(page_table=table, row_slot=row_slot, row_pos=row_pos, slot_hist=slot_hist)
     return {k: t.to(dev) for k, t in rows.items()}, next_page
 
 
-def prefill_library_ms(q, k_new, v_new, k_pages, v_pages, rows):
+def prefill_inputs(gen, dev, cap, num_pages):
+    """q [1, H, cap, D], k_new / v_new [1, KVH, cap, D] and bf16 K/V pages
+    [num_pages, KVH, PAGE, D], drawn from ``gen`` in that order."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    return (rnd(1, H, cap, D), rnd(1, KVH, cap, D), rnd(1, KVH, cap, D),
+            rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D))
+
+
+def prefill_library_ms(q, k_new, v_new, k_pages, v_pages, rows, packs=PREFILL_PACKS):
     """SDPA over a dense layout holding each slot's gathered arena prefix
     (bf16 pages, built beforehand) followed by the packed fresh rows,
-    masked as the kernel masks."""
+    masked as the kernel masks: ``library_ms``'s ``(median, min, max)``."""
     import torch
     import torch.nn.functional as F
 
@@ -390,7 +464,7 @@ def prefill_library_ms(q, k_new, v_new, k_pages, v_pages, rows):
     table, row_slot, row_pos = rows["page_table"], rows["row_slot"], rows["row_pos"]
     ctx_k, ctx_v, ctx_slot, ctx_pos = [], [], [], []
     kf, vf = gather_kv_pages(k_pages, table), gather_kv_pages(v_pages, table)
-    for slot, hist, _ in PREFILL_PACKS:
+    for slot, hist, _ in packs:
         if hist:
             ctx_k.append(kf[slot, :, :hist])
             ctx_v.append(vf[slot, :, :hist])
@@ -403,130 +477,136 @@ def prefill_library_ms(q, k_new, v_new, k_pages, v_pages, rows):
     mask = ((col_slot[None, :] == row_slot[:, None]) & (col_pos[None, :] >= 0)
             & (col_pos[None, :] <= row_pos[:, None]))
     mask[:, 0] |= ~mask.any(dim=1)  # pad rows: keep SDPA finite
-    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+    return library_ms(lambda: F.scaled_dot_product_attention(
         q, k_dense, v_dense, attn_mask=mask[None, None], scale=1.0 / math.sqrt(D),
         enable_gqa=True))
 
 
-def prefill_work(row_bytes: int, out_bytes_per_row: int = 0):
-    """(bytes, flops) of one packed prefill call over PREFILL_PACKS: q, the
-    fresh bf16 K/V and out once, the arena prefix's pages once (``row_bytes``
-    per token and kv head, K and V), ``out_bytes_per_row`` more per packed
-    row and kv head for K and V (the quantized payload and scale), the row
-    maps and tables; QK + PV over every attended (query, key) pair."""
-    cap = PREFILL_CAP
-    hist_pages = sum(-(-hist // PAGE) for _, hist, _ in PREFILL_PACKS)
+def prefill_work(rows, row_bytes: int, out_bytes_per_row: int = 0, packs=PREFILL_PACKS):
+    """(bytes, flops) of one packed prefill call over ``packs`` with the
+    row maps ``rows``: q, the fresh bf16 K/V and out once, the arena
+    prefix's pages once (``row_bytes`` per token and kv head, K and V),
+    ``out_bytes_per_row`` more per packed row and kv head for K and V (the
+    quantized payload and scale), the row maps and tables; QK + PV over
+    every attended (query, key) pair."""
+    cap = rows["row_slot"].numel()
+    hist_pages = sum(-(-hist // PAGE) for _, hist, _ in packs)
     nbytes = (2 * H * cap * D * 2 + 2 * KVH * cap * D * 2
               + hist_pages * KVH * PAGE * row_bytes * 2
-              + 2 * cap * KVH * out_bytes_per_row + (3 * 64 + 2 * cap + 3) * 4)
+              + 2 * cap * KVH * out_bytes_per_row
+              + (rows["page_table"].numel() + 2 * cap + rows["slot_hist"].numel()) * 4)
     attended = sum((hist + tail) * (hist + tail + 1) // 2 - hist * (hist + 1) // 2
-                   for _, hist, tail in PREFILL_PACKS)
+                   for _, hist, tail in packs)
     return nbytes, 4 * D * H * attended
 
 
-def prefill_phase(gen, dev):
-    """Packed ragged prefill (bf16) over PREFILL_PACKS and a pad block."""
-    import torch
-
-    from accelerate_tpu_torch.ops.attention import ragged_prefill_attention, ragged_prefill_reference
-
-    rows, num_pages = prefill_case(dev)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-
-    cap = PREFILL_CAP
-    q, k_new, v_new = rnd(1, H, cap, D), rnd(1, KVH, cap, D), rnd(1, KVH, cap, D)
-    k_pages, v_pages = rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D)
-    scale = 1.0 / math.sqrt(D)
-
-    def run_kernel():
-        return ragged_prefill_attention(q, k_new, v_new, k_pages, v_pages, **rows)
-
-    def run_plain():
-        return ragged_prefill_reference(q, k_new, v_new, k_pages, v_pages, *rows.values(),
-                                        scale)
-
-    out_k = counted("ragged_prefill", run_kernel)[0]
-    err = check_close("ragged_prefill", out_k, run_plain()[0])
-    if out_k[0][:, rows["row_pos"] < 0].abs().max().item() != 0.0:
-        fail("ragged_prefill pad rows are not exactly 0")
-    ms = cuda_time_ms(run_kernel)
-    plain_ms = cuda_time_ms(run_plain, iters=5, warmup=1)
-    library_ms = prefill_library_ms(q, k_new, v_new, k_pages, v_pages, rows)
-    bound_ms, bound_by = bound(*prefill_work(D * 2))
-    print(f"kernel ragged_prefill: cap {cap}, packs (slot, hist, tail) {PREFILL_PACKS} "
-          f"+ pad block, max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by}), library sdpa {library_ms:.4f} ms")
-    return {"name": "ragged_prefill", "route": "cuda",
-            "source": "accelerate_tpu_torch/csrc/ragged_prefill.cu",
-            "replaces": "accelerate_tpu/ops/attention.py:1469",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+def prefill_check(name: str, got, want, rows, quant: bool) -> float:
+    """Hold one ragged prefill call against its plain version: out within
+    the tolerance, pad rows exactly 0, and (quantized) payloads and scales
+    of every packed row bit for bit. Returns out's max abs error."""
+    err = check_close(name, got[0], want[0])
+    pads = rows["row_pos"] < 0
+    if bool(pads.any()) and got[0][0][:, pads].abs().max().item() != 0.0:
+        fail(f"{name}: pad rows are not exactly 0")
+    if quant:
+        differ = {what: int((g != w).sum().item()) for what, g, w in zip(
+            ("k payload", "k scale", "v payload", "v scale"), got[1:], want[1:])}
+        if any(differ.values()):
+            fail(f"{name}: values that differ from the plain version's (must be "
+                 f"bit-exact): {differ}")
+    return err
 
 
-def prefill_quant_phase(gen, dev):
-    """The ragged prefill kernel's int8 / int4 entry over PREFILL_PACKS
-    and a pad block, the arena pages quantized by the port's quantize_kv:
-    payloads and scales (pad rows included) must equal the plain
-    version's bit for bit, out within the tolerance, pad rows exactly 0.
-    Returns the kernel's row (int8 timed; errors over both)."""
+def prefill_entry(name: str, dev, inputs, rows, packs, bits: int = 0, timed: bool = True):
+    """One entry of the ragged prefill kernel (``bits`` 0: bf16; 8 / 4:
+    quantized, the arena pages quantized by the port's quantize_kv) on one
+    pack: checked by ``prefill_check`` and, when ``timed``, timed beside
+    its plain version, SDPA (on K/V dequantized beforehand when quantized)
+    and its bound. Returns the phase's numbers."""
     import torch
 
     from accelerate_tpu_torch.ops.attention import ragged_prefill_attention, ragged_prefill_reference
     from accelerate_tpu_torch.utils.quantization import dequantize_kv, quantize_kv
 
-    rows, num_pages = prefill_case(dev)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-
-    cap = PREFILL_CAP
-    q, k_new, v_new = rnd(1, H, cap, D), rnd(1, KVH, cap, D), rnd(1, KVH, cap, D)
-    k_pages, v_pages = rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D)
-    scale = 1.0 / math.sqrt(D)
-    out_rows, errs = {}, []
-    for bits in (8, 4):
-        (kq, ks), (vq, vs) = quantize_kv(k_pages, bits), quantize_kv(v_pages, bits)
+    q, k_new, v_new, k_pages, v_pages = inputs
+    kernel = "ragged_prefill_quant" if bits else "ragged_prefill"
+    kw, k_lib, v_lib = {}, k_pages, v_pages
+    if bits:
+        (k_pages, ks), (v_pages, vs) = quantize_kv(k_pages, bits), quantize_kv(v_pages, bits)
         kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
+        k_lib = dequantize_kv(k_pages, ks, bits, torch.bfloat16)
+        v_lib = dequantize_kv(v_pages, vs, bits, torch.bfloat16)
 
-        def run_kernel():
-            return ragged_prefill_attention(q, k_new, v_new, kq, vq, **rows, **kw)
+    def run_kernel():
+        return ragged_prefill_attention(q, k_new, v_new, k_pages, v_pages, **rows, **kw)
 
-        def run_plain():
-            return ragged_prefill_reference(q, k_new, v_new, kq, vq, *rows.values(), scale,
-                                            **kw)
+    def run_plain():
+        return ragged_prefill_reference(q, k_new, v_new, k_pages, v_pages, *rows.values(),
+                                        1.0 / math.sqrt(D), **kw)
 
-        got, want = counted("ragged_prefill_quant", run_kernel), run_plain()
-        errs.append(check_close(f"ragged_prefill_quant (int{bits})", got[0], want[0]))
-        if got[0][0][:, rows["row_pos"] < 0].abs().max().item() != 0.0:
-            fail(f"ragged_prefill_quant (int{bits}) pad rows are not exactly 0")
-        differ = {what: int((g != w).sum().item()) for what, g, w in zip(
-            ("k payload", "k scale", "v payload", "v scale"), got[1:], want[1:])}
-        if any(differ.values()):
-            fail(f"ragged_prefill_quant (int{bits}): values that differ from the plain "
-                 f"version's (must be bit-exact): {differ}")
-        ms = cuda_time_ms(run_kernel)
-        plain_ms = cuda_time_ms(run_plain, iters=5, warmup=1)
-        library_ms = prefill_library_ms(
-            q, k_new, v_new, dequantize_kv(kq, ks, bits, torch.bfloat16),
-            dequantize_kv(vq, vs, bits, torch.bfloat16), rows)
-        pd = D // 2 if bits == 4 else D
-        bound_ms, bound_by = bound(*prefill_work(pd + 4, pd + 4))
-        print(f"kernel ragged_prefill_quant (int{bits}): cap {cap}, packs {PREFILL_PACKS} + "
-              f"pad block, payloads and scales bit-exact ({2 * cap * KVH} rows), out "
-              f"max_abs_err {errs[-1]:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by}), library sdpa {library_ms:.4f} ms (on K/V gathered and "
-              "dequantized beforehand: leaves out the gather, the dequant and the "
-              "quantize-on-write)")
-        out_rows[bits] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "library_ms": library_ms}
-    return dict(name="ragged_prefill_quant", route="cuda",
-                source="accelerate_tpu_torch/csrc/ragged_prefill_quant.cu",
-                replaces="accelerate_tpu/ops/attention.py:1458", max_abs_err=max(errs),
-                **out_rows[8])
+    err = prefill_check(name, counted(kernel, run_kernel), run_plain(), rows, bool(bits))
+    if not timed:
+        return {"max_abs_err": err}
+    pd = D // 2 if bits == 4 else D
+    work = prefill_work(rows, pd + 4, pd + 4, packs) if bits else prefill_work(rows, D * 2,
+                                                                               packs=packs)
+    bound_ms, bound_by = bound(*work)
+    return {"max_abs_err": err, "ms": cuda_time_ms(run_kernel),
+            "plain_ms": cuda_time_ms(run_plain, iters=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library": prefill_library_ms(q, k_new, v_new, k_lib, v_lib, rows, packs)}
+
+
+def entry(bits: int) -> str:
+    return f"int{bits}" if bits else "bf16"
+
+
+def prefill_phases(gen, gen_quant, dev):
+    """The ragged prefill kernel's three entries (bf16 with inputs from
+    ``gen``, int8 and int4 on one input from ``gen_quant``) at
+    PREFILL_PACKS and a pad block, then at PREFILL_CASES; (a) checked, the
+    others timed too. Returns the bf16 and the quantized kernel rows (int8
+    at PREFILL_PACKS timed; errors over every case and entry)."""
+    import torch
+
+    rows, num_pages = prefill_case(dev)
+    main = {0: prefill_inputs(gen, dev, PREFILL_CAP, num_pages)}
+    main[8] = main[4] = prefill_inputs(gen_quant, dev, PREFILL_CAP, num_pages)
+    res = {(bits, "main"): prefill_entry(f"ragged_prefill ({entry(bits)})", dev, main[bits],
+                                         rows, PREFILL_PACKS, bits) for bits in (0, 8, 4)}
+    for tag, (cap, packs, pad_block, seed) in PREFILL_CASES.items():
+        case_rows, case_pages = prefill_case(dev, packs, cap, pad_block)
+        inputs = prefill_inputs(torch.Generator(device=dev).manual_seed(seed), dev, cap,
+                                case_pages)
+        for bits in (0, 8, 4):
+            res[bits, tag] = prefill_entry(f"ragged_prefill ({entry(bits)}, {tag})", dev,
+                                           inputs, case_rows, packs, bits,
+                                           timed=tag.startswith("b"))
+    for (bits, tag), r in res.items():
+        what = f"cap {PREFILL_CAP}, packs (slot, hist, tail) {PREFILL_PACKS} + pad block" \
+            if tag == "main" else tag
+        line = (f"kernel {'ragged_prefill_quant' if bits else 'ragged_prefill'} "
+                f"({entry(bits)}, {what}): out max_abs_err "
+                f"{r['max_abs_err']:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|)"
+                + (", payloads and scales bit-exact" if bits else ""))
+        if "ms" in r:
+            line += (f", kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                     f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), library sdpa "
+                     f"{library_text(r['library'])}"
+                     + (" (on K/V gathered and dequantized beforehand: leaves out the gather, "
+                        "the dequant and the quantize-on-write)" if bits else ""))
+        print(line)
+    out = []
+    for name, bits, line in (("ragged_prefill", 0, 1469), ("ragged_prefill_quant", 8, 1458)):
+        r = res[bits, "main"]
+        errs = [v["max_abs_err"] for (b, _), v in res.items() if bool(b) == bool(bits)]
+        out.append({"name": name, "route": "cuda",
+                    "source": f"accelerate_tpu_torch/csrc/{name}.cu",
+                    "replaces": f"accelerate_tpu/ops/attention.py:{line}",
+                    "max_abs_err": max(errs), "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library"][0]})
+    return out
 
 
 # flash kernels (training path): the main path's attention shape
@@ -691,10 +771,10 @@ def flash_phases(gen, dev):
     # computes dq, dk and dv in one call: the library time of both rows)
     q, k, v = (x[n].detach().requires_grad_() for n in ("q", "k", "v"))
     sdpa = dict(is_causal=True, scale=x["scale"], enable_gqa=True)
-    sdpa_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+    sdpa_fwd = library_ms(lambda: F.scaled_dot_product_attention(
         x["q"], x["k"], x["v"], **sdpa), iters=10, warmup=2)
     out_lib = F.scaled_dot_product_attention(q, k, v, **sdpa)
-    sdpa_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+    sdpa_bwd = library_ms(lambda: torch.autograd.grad(
         out_lib, (q, k, v), x["do"], retain_graph=True), iters=10, warmup=2)
     library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
 
@@ -716,13 +796,13 @@ def flash_phases(gen, dev):
               f"causal bf16, {pairs} attended pairs, max_abs_err {errs[name]:.3e} "
               f"(tol {FLASH_ATOL}*rms + {KERNEL_RTOL}*|plain|), kernel {ms[name]:.4f} ms, "
               f"plain {plain[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"library sdpa {library[name]:.4f} ms")
+              f"library sdpa {library_text(library[name])}")
         rows.append({"name": name, "route": "cuda",
                      "source": f"accelerate_tpu_torch/csrc/{src}",
                      "replaces": f"accelerate_tpu/ops/attention.py:{line}",
                      "max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain[name],
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library[name]})
+                     "library_ms": library[name][0]})
     return rows
 
 
@@ -766,7 +846,7 @@ def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
     plain_ms = cuda_time_ms(run_plain, iters=5, warmup=1)
     length = k.shape[2]
     mask = (torch.arange(length, device=dev)[None, None, None, :] <= pos[:, None, :, None])
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+    library = library_ms(lambda: F.scaled_dot_product_attention(
         q, k_lib, v_lib, attn_mask=mask, scale=scale, enable_gqa=True))
 
     # bytes: q and out once, each batch row's live K/V rows (positions
@@ -783,10 +863,10 @@ def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
     print(f"kernel {name} ({tag}): B {b}, H {h}, KVH {kvh}, Sq {sq}, L {length}, "
           f"max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by}), library sdpa {library_ms:.4f} ms"
+          f"({bound_by}), library sdpa {library_text(library)}"
           + (" (on K/V dequantized beforehand)" if bits else ""))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library[0]}
 
 
 def dense_decode_phases(gen, dev):
@@ -978,9 +1058,11 @@ def main_path(dev, card: str):
     print(f"main path: teacher-forced check: {exact}/{total} tokens are the "
           f"plain argmax, worst gap {worst_gap:.4f} (margin {TOP2_MARGIN})")
     print(f"main path on {card}: {tps:.1f} tokens/s over {wall:.3f} s, TTFT p50 "
-          f"{m['serving/ttft_ms_p50']:.2f} ms, decode "
+          f"{m['serving/ttft_ms_p50']:.2f} ms (with the CUDA-core ragged prefill kernel: "
+          f"{' / '.join(f'{t:.2f}' for t in CUDA_CORE_PREFILL_TTFT_MS)} ms), decode "
           f"{m['serving/decode_step_ms_p50']:.3f} ms/step (p50)")
     profile_decode(model, eng_kw, prompt, card)
+    profile_prefill(model, eng_kw, prompts, new_tokens, card)
     paged = {"tokens_per_s": tps, "ttft_ms_p50": m["serving/ttft_ms_p50"],
              "step_ms_p50": m["serving/decode_step_ms_p50"], "arena_bytes": engine.arena_bytes}
     return launches, {"model": model, "prompts": prompts, "prompt": prompt, "paged": paged}
@@ -1269,6 +1351,25 @@ def spec_path(dev, card: str, model, prompt):
                            label="spec profile")
 
 
+def profile_prefill(model, eng_kw, prompts, new_tokens: int, card: str):
+    """The ragged prefill kernel's share of one served run of ``prompts``:
+    torch.profiler's device-side events over the whole run, the kernel's
+    total device time and launches beside the run's device busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve_counted(model, prompts, new_tokens, **eng_kw)
+    busy_ms, rows = device_time(prof)
+    if not rows:
+        print("prefill profile: the profiler recorded no device time (not measured)")
+        return
+    hits = [(m, n) for m, n, name in rows if "prefill_kernel" in name]
+    ms, calls = sum(m for m, _ in hits), sum(n for _, n in hits)
+    print(f"prefill profile on {card}: one served run of the main path's requests: the "
+          f"ragged prefill kernel {ms:.3f} ms of device time over {calls} launches "
+          f"({ms / max(calls, 1) * 1e3:.1f} us each), device busy {busy_ms:.1f} ms")
+
+
 def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5, label: str = "profile"):
     """Where a decode step's time goes: torch.profiler over a few steps
     with all 8 slots live at ~400 tokens. Prints the device-busy share
@@ -1331,6 +1432,8 @@ TRAIN_FUSED_MICRO = 2    # micro-batches per build_train_step update
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_NORM_RTOL = 1e-3
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the kernels whose SASS must hold wgmma (HGMMA) and TMA tile loads (UTMALDG)
+TENSOR_CORE_KERNELS = FLASH_KERNELS + ("ragged_prefill", "ragged_prefill_quant")
 
 
 def train_path(dev, card: str):
@@ -1835,7 +1938,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     gen_new = torch.Generator(device=dev).manual_seed(1)
     rows = [decode_phase(gen, dev, gen_new), paged_decode_quant_phase(gen_new, dev),
-            prefill_phase(gen, dev), prefill_quant_phase(gen_new, dev),
+            *prefill_phases(gen, gen_new, dev),
             *flash_phases(gen, dev), *dense_decode_phases(gen, dev)]
     # each path is driven with the counts reset just before it and read
     # just after; a kernel's launches come from its own path (the dense
