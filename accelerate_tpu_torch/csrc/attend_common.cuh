@@ -1,7 +1,7 @@
-// Shared pieces of the decode kernels (paged and dense, bf16 and
-// quantized), and the quantize-on-write step (quant_rows) of the
-// quantized ragged prefill's quantize pass: one thread block stages a chunk of up to TOK kv tokens (K and V, bf16) in
-// shared memory, scores its query rows against them in fp32, and folds
+// Shared pieces of the dense decode kernels (bf16 and quantized), and
+// the quantize-on-write step (quant_rows) of the quantized ragged
+// prefill's quantize pass: one thread block stages a chunk of up to TOK
+// kv tokens (K and V, bf16) in shared memory, scores its query rows against them in fp32, and folds
 // the chunk into a per-row online softmax (running max m, running sum l,
 // fp32 accumulator acc) kept in shared memory across chunks. The loop
 // over chunks inside the block takes the place of the TPU grid's

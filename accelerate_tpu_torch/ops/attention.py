@@ -9,8 +9,12 @@ Query head ``h`` reads kv head ``h // group``, so K/V are never expanded.
 Each kernel sits beside its plain version:
 
 - :func:`paged_decode_attention` -> ``ops/kernels.paged_decode`` /
-  ``paged_decode_quant`` (csrc/paged_decode.cu, paged_decode_quant.cu);
-  plain version :func:`paged_decode_reference`.
+  ``paged_decode_quant`` (csrc/paged_decode.cu, paged_decode_quant.cu
+  over csrc/decode_common.cuh); plain version
+  :func:`paged_decode_reference`. The kernels split each slot's kv walk
+  and merge the splits' partials in a second pass, whose plain version is
+  :func:`merge_decode_partials` (with :func:`decode_partial_reference`,
+  the plain partial of one kv range).
 - :func:`decode_attention` -> ``ops/kernels.dense_decode`` /
   ``dense_decode_quant`` (csrc/dense_decode.cu, dense_decode_quant.cu)
   at decode widths (Sq <= 16); plain version
@@ -46,6 +50,11 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps exp() semantics with no
 PREFILL_TOKEN_BLOCK = 8
 # widest multi-query decode the kernel takes (decode 1, speculative verify K+1)
 DECODE_KERNEL_MAX_SQ = 16
+# what the paged decode kernels take: head dims (the reference's compiled
+# gate, a 64-multiple) and query rows per kv head, R = group * Sq (four
+# 16-row tiles of their mma.sync products)
+DECODE_KERNEL_HEAD_DIMS = (64, 128)
+DECODE_KERNEL_MAX_ROWS = 64
 # what the flash kernels take: head dims, and the tile every sequence
 # length must fill (the public functions ask for the reference's
 # 128-multiples, see _pick_block)
@@ -129,6 +138,46 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, q_positions, sm_scal
     )
 
 
+def decode_partial_reference(q, k, v, q_positions, lo: int, hi: int, sm_scale):
+    """The plain partial of one split of the decode kernels' kv walk: the
+    masked-dense read of :func:`decode_attention_dense` restricted to kv
+    positions ``lo <= c < hi``. q [B, H, Sq, D], k/v [B, KVH, L, D],
+    ``q_positions`` [B, Sq] -> ``(m, l, acc)``: per query row the max
+    score m [B, H, Sq] (-inf where the row attends nothing in the range),
+    l = sum exp(s - m) and acc = sum p v [B, H, Sq, D] with p cast to v's
+    dtype before the product, all zero where m is -inf. The kernels keep m
+    in log2 units (m log2 e); this is the same state in natural units."""
+    b, h, sq, d = q.shape
+    kvh, length = k.shape[1], k.shape[2]
+    group = h // kvh
+    qg = q.reshape(b, kvh, group, sq, d).float()
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg, k.float()) * sm_scale
+    c = torch.arange(length, device=q.device)
+    ok = (c >= lo) & (c < hi) & (c[None, None, :] <= q_positions[:, :, None].long())
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, float("-inf")))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m)[..., None])
+    acc = torch.einsum("bkgqc,bkcd->bkgqd", p.to(v.dtype), v).float()
+    return (m.reshape(b, h, sq), p.sum(dim=-1).reshape(b, h, sq),
+            acc.reshape(b, h, sq, d))
+
+
+def merge_decode_partials(m, l, acc):
+    """The plain version of the decode kernels' merge pass: partials of S
+    splits, m / l [S, ...] and acc [S, ..., D] (natural units, as
+    :func:`decode_partial_reference` gives them) -> ``sum_i acc_i
+    exp(m_i - M) / sum_i l_i exp(m_i - M)``, M = max_i m_i, in fp32. A
+    partial with m_i = -inf weighs exactly 0, and a row with no weight at
+    all gives 0 (the reference's ``safe_l``)."""
+    big = m.amax(dim=0)
+    finite = ~torch.isinf(big)
+    w = torch.where(torch.isinf(m), torch.zeros_like(m),
+                    torch.exp(m - torch.where(finite, big, torch.zeros_like(big))))
+    num = (acc.float() * w[..., None]).sum(dim=0)
+    den = (l.float() * w).sum(dim=0)
+    return num / torch.where(den == 0, torch.ones_like(den), den)[..., None]
+
+
 def _positions_2d(q_positions: torch.Tensor, b: int) -> torch.Tensor:
     pos = q_positions.to(torch.int32)
     if pos.dim() == 1:  # [Sq] shared across the batch
@@ -156,9 +205,9 @@ def paged_decode_attention(
     [NP, KVH, ps, 1] fp32, the scale pages beside the payload pages): the
     pages hold int8 payloads [NP, KVH, ps, D] (int4: D / 2, two values a
     byte). On a CUDA tensor the paged decode kernel (or its quantized
-    entry, dequantizing in-register) walks each slot's live pages
-    straight from the arena; on a CPU tensor the plain gather + masked
-    dense read runs."""
+    entry, dequantizing on chip) walks each slot's live pages straight
+    from the arena, split across blocks, and merges the splits; on a CPU
+    tensor the plain gather + masked dense read runs."""
     from . import kernels
 
     if kv_quant_bits and (k_scale is None or v_scale is None):

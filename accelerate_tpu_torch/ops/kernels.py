@@ -21,6 +21,7 @@ Nothing falls back from the device to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,6 +32,8 @@ from pathlib import Path
 import torch
 
 from .attention import (
+    DECODE_KERNEL_HEAD_DIMS,
+    DECODE_KERNEL_MAX_ROWS,
     DECODE_KERNEL_MAX_SQ,
     FLASH_KERNEL_HEAD_DIMS,
     FLASH_KERNEL_SEQ_MULTIPLE,
@@ -47,7 +50,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "paged_decode": (
         "paged_decode.cu", "paged_decode_launch",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_P] * 7 + [_I] * 9 + [_F, _P],
     ),
     "ragged_prefill": (
         "ragged_prefill.cu", "ragged_prefill_launch",
@@ -75,7 +78,7 @@ KERNELS = {
     ),
     "paged_decode_quant": (
         "paged_decode_quant.cu", "paged_decode_quant_launch",
-        [_P] * 8 + [_I] * 8 + [_F, _P],
+        [_P] * 9 + [_I] * 10 + [_F, _P],
     ),
     "ragged_prefill_quant": (
         "ragged_prefill_quant.cu", "ragged_prefill_quant_launch",
@@ -229,6 +232,85 @@ def _prefill_kernel_check(q, k_pages, bt: int):
     return h, cap, d, kvh, ps, h // kvh
 
 
+# The paged decode kernel's split kv walk (csrc/decode_common.cuh): a split
+# is a run of whole DECODE_TILE-token tiles, at most DECODE_MAX_SPLIT_TILES
+# (the page ids a split stages in shared memory), and the blocks of every
+# slot's full reservation are DECODE_BLOCKS_PER_SM per SM: slots that hold
+# an eighth of their reservation on average still fill the card once.
+DECODE_TILE = 64
+DECODE_MAX_SPLIT_TILES = 32
+DECODE_BLOCKS_PER_SM = 8
+
+
+def decode_split_plan(b: int, kvh: int, capacity: int, sms: int):
+    """``(tiles_per_split, n_splits)`` of a paged decode call over ``b``
+    slots and ``kvh`` kv heads whose page tables reserve ``capacity``
+    positions each, on a card of ``sms`` SMs: the fewest tiles a split
+    that give every (slot, kv head) enough splits for
+    ``DECODE_BLOCKS_PER_SM * sms`` blocks over full reservations. Split
+    s covers tiles ``s * tiles_per_split ..`` (:func:`decode_split_ranges`);
+    the splits together cover the whole reservation."""
+    tiles = -(-capacity // DECODE_TILE)
+    want = max(-(-DECODE_BLOCKS_PER_SM * sms // (b * kvh)),
+               -(-tiles // DECODE_MAX_SPLIT_TILES))
+    per_split = -(-tiles // min(tiles, want))
+    return per_split, -(-tiles // per_split)
+
+
+def decode_split_ranges(max_pos: int, tiles_per_split: int):
+    """The kv position ranges ``[(lo, hi), ...]`` of the live splits of a
+    slot whose query rows reach ``max_pos``: the kernel walks tiles 0 ..
+    max_pos // 64, ``tiles_per_split`` a split, and a split past them
+    returns at once (the last live split's last tile may run past
+    ``max_pos``: its positions are masked)."""
+    span = tiles_per_split * DECODE_TILE
+    return [(lo, lo + span) for lo in range(0, max_pos // DECODE_TILE * DECODE_TILE + 1, span)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_kernel_check(h: int, sq: int, d: int, kvh: int, ps: int) -> int:
+    """What both paged decode kernels take: a query-head group over the kv
+    heads, head_dim in DECODE_KERNEL_HEAD_DIMS (the reference's compiled
+    gate, a 64-multiple), a page size that is a multiple of 8 (the
+    reference's gate; 16-byte copies of 4 scales), 1..DECODE_KERNEL_MAX_SQ
+    query rows a slot and R = group * Sq <= DECODE_KERNEL_MAX_ROWS (four
+    16-row tiles of the mma.sync products). Returns the group."""
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if d not in DECODE_KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the paged decode kernels take {DECODE_KERNEL_HEAD_DIMS}")
+    if ps < 8 or ps % 8:
+        raise ValueError(f"page size {ps}: the paged decode kernels take a multiple of 8")
+    if not 1 <= sq <= DECODE_KERNEL_MAX_SQ:
+        raise ValueError(
+            f"paged decode takes 1..{DECODE_KERNEL_MAX_SQ} query rows per slot, got {sq}"
+        )
+    group = h // kvh
+    if group * sq > DECODE_KERNEL_MAX_ROWS:
+        raise ValueError(
+            f"{group * sq} query rows per kv head (group {group} x Sq {sq}): the paged "
+            f"decode kernels take at most {DECODE_KERNEL_MAX_ROWS}"
+        )
+    return group
+
+
+def _decode_plan(q, page_table, kvh: int, ps: int, d: int):
+    """The split plan and the fp32 partials' workspace of one paged decode
+    call: ``(tiles_per_split, n_splits, workspace)``."""
+    b, h, sq, _ = q.shape
+    dev = q.device
+    per_split, n_splits = decode_split_plan(
+        b, kvh, page_table.shape[1] * ps, _sm_count(dev.index if dev.index is not None
+                                                     else torch.cuda.current_device()))
+    rows = (h // kvh) * sq
+    workspace = torch.empty(b * kvh * n_splits * rows * (d + 2), dtype=torch.float32, device=dev)
+    return per_split, n_splits, workspace
+
+
 def paged_decode(q, k_pages, v_pages, page_table, pos, sm_scale: float):
     """Paged decode attention: q [B, H, Sq, D] bf16, k/v pages
     [NP, KVH, ps, D] bf16, page_table [B, P] int32, pos [B, Sq] int32 ->
@@ -241,28 +323,21 @@ def paged_decode(q, k_pages, v_pages, page_table, pos, sm_scale: float):
     b, h, sq, d = q.shape
     num_pages, kvh, ps, _ = k_pages.shape
     p_per_slot = page_table.shape[1]
-    if h % kvh:
-        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
-    if not 1 <= sq <= DECODE_KERNEL_MAX_SQ:
-        raise ValueError(
-            f"paged decode takes 1..{DECODE_KERNEL_MAX_SQ} query rows per slot, got {sq}"
-        )
-    if d % 8:
-        raise ValueError(f"head_dim {d} must be a multiple of 8 (16-byte loads)")
-    group = h // kvh
-    _smem_limit_check(group * sq, d)
+    group = _decode_kernel_check(h, sq, d, kvh, ps)
     dev = q.device
     _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
     _check(k_pages, "k_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
     _check(v_pages, "v_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
     _check(page_table, "page_table", torch.int32, (b, p_per_slot), dev)
     _check(pos, "pos", torch.int32, (b, sq), dev)
+    _check_aligned(("q", q), ("k_pages", k_pages), ("v_pages", v_pages))
+    per_split, n_splits, workspace = _decode_plan(q, page_table, kvh, ps, d)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch(
         "paged_decode", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, kvh, group, sq, d, ps, p_per_slot, float(sm_scale), stream,
+        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), workspace.data_ptr(),
+        b, kvh, group, sq, d, ps, p_per_slot, per_split, n_splits, float(sm_scale), stream,
     )
     return out
 
@@ -349,27 +424,23 @@ def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, page_table, pos,
                                       k_scale=k_scale, v_scale=v_scale, kv_quant_bits=bits)
     _require_cuda(q, "paged_decode_quant")
     b, h, sq, d = q.shape
-    kvh = k_pages.shape[1]
+    _, kvh, ps, _ = k_pages.shape
     p_per_slot = page_table.shape[1]
-    if h % kvh:
-        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
-    if not 1 <= sq <= DECODE_KERNEL_MAX_SQ:
-        raise ValueError(
-            f"paged decode takes 1..{DECODE_KERNEL_MAX_SQ} query rows per slot, got {sq}"
-        )
-    group = h // kvh
-    _smem_limit_check(group * sq, d)
+    group = _decode_kernel_check(h, sq, d, kvh, ps)
     dev = q.device
     _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
-    _, kvh, ps = _quant_pages_check(k_pages, v_pages, k_scale, v_scale, d, bits, dev)
+    _quant_pages_check(k_pages, v_pages, k_scale, v_scale, d, bits, dev)
     _check(page_table, "page_table", torch.int32, (b, p_per_slot), dev)
     _check(pos, "pos", torch.int32, (b, sq), dev)
+    _check_aligned(("q", q), ("k_scale pages", k_scale), ("v_scale pages", v_scale))
+    per_split, n_splits, workspace = _decode_plan(q, page_table, kvh, ps, d)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch(
         "paged_decode_quant", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, kvh, group, sq, d, ps, p_per_slot, bits, float(sm_scale), stream,
+        out.data_ptr(), workspace.data_ptr(), b, kvh, group, sq, d, ps, p_per_slot, bits,
+        per_split, n_splits, float(sm_scale), stream,
     )
     return out
 

@@ -5,7 +5,10 @@
 Builds the nine hand-written kernels of ``accelerate_tpu_torch/csrc``
 with nvcc for sm_90a and holds each against its plain PyTorch version:
 the paged decode kernel and its int8/int4 entry (Sq 1 and the verify
-step's Sq 5) and the ragged prefill kernel and its int8/int4 entry
+step's Sq 5, plus six edge cases of its split kv walk in bf16, int8 and
+int4: a slot at position 0, lengths at a split edge +- 1, Sq 5 rows
+across a split edge, Sq 16 at group 2, group 1, pages of 8 and 32) and
+the ragged prefill kernel and its int8/int4 entry
 (quantize-on-write payloads and scales bit for bit; a 512-row pack, a
 pack of 2-3 slots a 64-row tile at CAP 208, and a 1536-position arena
 prefix under a 512-row tail) at the serving path's shapes (small_1b:
@@ -16,7 +19,9 @@ generate()'s shapes. Each is timed beside its bound and one SDPA call
 (the median of seven reads, with their spread). The flash and the
 ragged prefill kernels run on the tensor cores: the SASS of each built
 library must hold warpgroup matrix multiplies (HGMMA) and TMA tile
-loads (UTMALDG), or the run fails. Then it drives six
+loads (UTMALDG), or the run fails; the paged decode kernel's two
+libraries must hold mma.sync products (HMMA) and cp.async copies
+(LDGSTS), and ptxas must report no spills in them. Then it drives six
 paths at full width, each with the launch counters reset just before
 each run and read just after:
 
@@ -158,28 +163,47 @@ def check_close(name: str, got, want) -> float:
     return err
 
 
-def sass_gate() -> dict:
-    """Count the warpgroup matrix multiplies (HGMMA) and TMA tile loads
-    (UTMALDG) in the SASS of each built library of TENSOR_CORE_KERNELS
-    (the flash forward, dQ and dK/dV, the ragged prefill and its quantized
-    entry), read with the cuobjdump of nvcc's toolkit; fails unless both
-    are present in every one."""
+def sass_gate(names, ops, what: str) -> dict:
+    """Count each of ``ops`` in the SASS of each built library of
+    ``names``, read with the cuobjdump of nvcc's toolkit; fails unless
+    every one is present in each (the library does not ``what``)."""
     from accelerate_tpu_torch.ops import kernels
 
     tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
     counts = {}
-    for name in TENSOR_CORE_KERNELS:
+    for name in names:
         lib = kernels.library_path(name)
         res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                              timeout=300)
         if res.returncode != 0:
             fail(f"cuobjdump -sass {lib.name} failed: {res.stderr.strip()[-500:]}")
-        counts[name] = {op: res.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
-        print(f"{name} SASS: HGMMA {counts[name]['HGMMA']}, UTMALDG {counts[name]['UTMALDG']}")
+        counts[name] = {op: res.stdout.count(op) for op in ops}
+        print(f"{name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts[name].items()))
     for name, found in counts.items():
         if not all(found.values()):
-            fail(f"{name} does not run on the tensor cores through TMA: SASS counts {found}")
+            fail(f"{name} does not {what}: SASS counts {found}")
     return counts
+
+
+# the paged decode kernel's two libraries run their products on mma.sync
+# (HMMA in SASS) over tiles staged by cp.async (LDGSTS)
+DECODE_KERNELS = ("paged_decode", "paged_decode_quant")
+
+
+def decode_spill_gate(reports: dict):
+    """Fail if ptxas reported a spill in either paged decode library
+    (``reports``: ``kernels.build()``'s ptxas output of what this run
+    compiled)."""
+    import re
+
+    for name in DECODE_KERNELS:
+        if name not in reports:
+            print(f"{name}: library reused from an earlier build, no ptxas report in this run")
+            continue
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", reports[name])]
+        print(f"{name} ptxas: {len(spills) // 2} kernels, spill bytes {sum(spills)}")
+        if not spills or any(spills):
+            fail(f"{name}: ptxas reports spills (or no report): {spills}")
 
 
 def bound(nbytes: float, flops: float):
@@ -285,6 +309,95 @@ def paged_inputs(gen, dev, sq: int):
     return q, rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D), table, pos
 
 
+# edge cases of the paged decode kernel's split kv walk, each checked (not
+# timed) in bf16, int8 and int4 against the plain version, drawn from a
+# generator of their own so no later phase's inputs move: (tag, query
+# heads, Sq, page size, the last query position of each live slot as a
+# function of the split length E in tokens); each slot queries its last Sq
+# positions (from 0), and one parked slot (all rows at 2047 on the
+# parking page) is added to every case
+DECODE_EDGE_SEED = 6
+DECODE_EDGES = [
+    ("a: Sq 1, pos 0, tile and split edges +-1", H, 1, PAGE,
+     lambda e: [0, 63, 64, e - 1, e, e + 1, 2 * e]),
+    ("b: Sq 5 across split, tile and page edges", H, SPEC_K + 1, PAGE,
+     lambda e: [4, 18, 66, e - 1, e + 2, e + 4, 2 * e + 1]),
+    ("c: Sq 16, group 2 (R 32)", H, 16, PAGE, lambda e: [15, e + 7, e + 15, 1015]),
+    ("d: group 1 (H = KVH = 8), Sq 5", KVH, SPEC_K + 1, PAGE,
+     lambda e: [4, 18, 66, e - 1, e + 2, e + 4, 2 * e + 1]),
+    ("e: page 8, Sq 1", H, 1, 8, lambda e: [0, 63, 64, e - 1, e, e + 1, 2 * e]),
+    ("f: page 32, Sq 5", H, SPEC_K + 1, 32,
+     lambda e: [4, 18, 66, e - 1, e + 2, e + 4, 2 * e + 1]),
+]
+
+
+def decode_edge_inputs(dev):
+    """The DECODE_EDGES cases: ``[(tag, E, q, k_pages, v_pages, table,
+    pos)]`` with bf16 pages, live slots on shuffled pages, from one
+    generator seeded DECODE_EDGE_SEED."""
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(DECODE_EDGE_SEED)
+    host_gen = torch.Generator().manual_seed(DECODE_EDGE_SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = []
+    for tag, heads, sq, ps, lasts_of in DECODE_EDGES:
+        n_live = len(lasts_of(0))
+        b, p_per_slot = n_live + 1, MAX_CACHE // ps
+        per_split, _ = kernels.decode_split_plan(b, KVH, MAX_CACHE, sms)
+        e = per_split * kernels.DECODE_TILE
+        lasts = lasts_of(e)
+        need = [last // ps + 1 for last in lasts]
+        num_pages = 1 + sum(need)
+        perm = (torch.randperm(num_pages - 1, generator=host_gen) + 1).tolist()
+        table = torch.zeros((b, p_per_slot), dtype=torch.int32)
+        pos = torch.full((b, sq), MAX_CACHE - 1, dtype=torch.int32)
+        at = 0
+        for s, last in enumerate(lasts):
+            table[s, : need[s]] = torch.tensor(perm[at: at + need[s]])
+            at += need[s]
+            pos[s] = (last - sq + 1 + torch.arange(sq)).clamp(min=0)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        q = rnd(b, heads, sq, D)
+        cases.append((tag, e, q, rnd(num_pages, KVH, ps, D), rnd(num_pages, KVH, ps, D),
+                      table.to(dev), pos.to(dev)))
+    return cases
+
+
+def decode_edge_checks(dev, bits_list) -> float:
+    """Hold the paged decode kernel (``bits`` 0: bf16; 8 / 4: its quantized
+    entry on pages quantized by the port's quantize_kv) against its plain
+    version on every DECODE_EDGES case. Returns the max abs error."""
+    from accelerate_tpu_torch.ops.attention import paged_decode_attention, paged_decode_reference
+    from accelerate_tpu_torch.utils.quantization import quantize_kv
+
+    worst = 0.0
+    for tag, e, q, k_pages, v_pages, table, pos in decode_edge_inputs(dev):
+        errs = []
+        for bits in bits_list:
+            kw, kp, vp = {}, k_pages, v_pages
+            if bits:
+                (kp, ks), (vp, vs) = quantize_kv(k_pages, bits), quantize_kv(v_pages, bits)
+                kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
+            name = "paged_decode_quant" if bits else "paged_decode"
+            got = counted(name, lambda: paged_decode_attention(
+                q, kp, vp, page_table=table, q_positions=pos, **kw))
+            want = paged_decode_reference(q, kp, vp, table, pos, 1.0 / math.sqrt(D), **kw)
+            errs.append(check_close(f"{name} ({entry(bits)}, edge case {tag})", got, want))
+        worst = max(worst, *errs)
+        print(f"kernel paged_decode edge case {tag} (split {e} tokens, H {q.shape[1]}, "
+              f"page {k_pages.shape[2]}, slots' last positions {pos[:, -1].tolist()}): "
+              + ", ".join(f"{entry(bits)} max_abs_err {err:.3e}"
+                          for bits, err in zip(bits_list, errs))
+              + f" (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|)")
+    return worst
+
+
 def decode_phase(gen, dev, gen_spec):
     """Paged decode: 8 live slots of mixed length + one parked slot, at Sq
     1 (a decode step; inputs from ``gen``) and Sq K + 1 (a verify step;
@@ -306,6 +419,7 @@ def decode_phase(gen, dev, gen_spec):
     err_spec = check_close(f"paged_decode (Sq {SPEC_K + 1})",
                            counted("paged_decode", lambda: run_kernel(*spec)),
                            run_plain(*spec))
+    err_edges = decode_edge_checks(dev, (0,))
     ms = cuda_time_ms(run_kernel)
     plain_ms = cuda_time_ms(run_plain)
     spec_ms = cuda_time_ms(lambda: run_kernel(*spec))
@@ -323,11 +437,13 @@ def decode_phase(gen, dev, gen_spec):
           f"library sdpa {library_text(library)}; kernel without the parked slot "
           f"{live_ms:.4f} ms; Sq {SPEC_K + 1} (verify, per-row positions): max_abs_err "
           f"{err_spec:.3e}, kernel {spec_ms:.4f} ms, plain {spec_plain_ms:.4f} ms, bound "
-          f"{spec_bound_ms * 1e3:.2f} us, library sdpa {library_text(spec_library)}")
+          f"{spec_bound_ms * 1e3:.2f} us, library sdpa {library_text(spec_library)}; kernel / "
+          f"sdpa {ms / library[0]:.3f}x (Sq 1), {spec_ms / spec_library[0]:.3f}x (Sq "
+          f"{SPEC_K + 1})")
     return {"name": "paged_decode", "route": "cuda",
             "source": "accelerate_tpu_torch/csrc/paged_decode.cu",
             "replaces": "accelerate_tpu/ops/attention.py:926",
-            "max_abs_err": max(err, err_spec), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(err, err_spec, err_edges), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library[0]}
 
 
@@ -376,9 +492,11 @@ def paged_decode_quant_phase(gen, dev):
               f"sdpa {library_text(library)} (on K/V gathered and dequantized beforehand: "
               f"leaves out the gather and the dequant); Sq {SPEC_K + 1}: max_abs_err "
               f"{errs[-1]:.3e}, kernel {spec_ms:.4f} ms, bound {spec_bound_ms * 1e3:.2f} us, "
-              f"library sdpa {library_text(spec_library)}")
+              f"library sdpa {library_text(spec_library)}; kernel / sdpa "
+              f"{ms / library[0]:.3f}x (Sq 1), {spec_ms / spec_library[0]:.3f}x (Sq {SPEC_K + 1})")
         rows[bits] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": library[0]}
+    errs.append(decode_edge_checks(dev, (8, 4)))
     return dict(name="paged_decode_quant", route="cuda",
                 source="accelerate_tpu_torch/csrc/paged_decode_quant.cu",
                 replaces="accelerate_tpu/ops/attention.py:889", max_abs_err=max(errs),
@@ -1408,6 +1526,13 @@ def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5, label: str 
           f"wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
     for ms, count, key in rows[:8]:
         print(f"  {ms / steps:8.3f} ms/step  {count // steps:4d}/step  {key[:90]}")
+    # the paged decode kernel (#4) is two CUDA kernels a launch: the split
+    # walk and the merge pass (csrc/decode_common.cuh)
+    paged = [(ms, count) for ms, count, key in rows if "decode::" in key]
+    if paged:
+        ms, count = sum(m for m, _ in paged), sum(n for _, n in paged)
+        print(f"  {label}: paged decode kernel (#4, split walk + merge pass) "
+              f"{ms / steps:.3f} ms/step over {count // steps} CUDA kernels/step")
 
 
 # the training path (training slice): small_1b at full width, batch 8 x
@@ -1928,7 +2053,9 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    sass_gate()
+    sass_gate(TENSOR_CORE_KERNELS, ("HGMMA", "UTMALDG"), "run on the tensor cores through TMA")
+    sass_gate(DECODE_KERNELS, ("HMMA", "LDGSTS"), "run mma.sync over cp.async tiles")
+    decode_spill_gate(reports)
 
     dev = torch.device("cuda")
     # the bf16 serving, training and dense decode phases draw their inputs
