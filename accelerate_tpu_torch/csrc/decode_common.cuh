@@ -1,9 +1,12 @@
 // The decode attention kernel for Hopper (sm_90a): a split kv walk with a
 // merge pass, shared by the paged decode kernel's bf16 entry
-// (paged_decode.cu) and its int8 / int4 entry (paged_decode_quant.cu).
-// They replace the TPU kernel `_paged_decode_kernel_call`
-// (accelerate_tpu/ops/attention.py:926) through `_paged_kernel_entry`
-// (:882) and `_paged_quant_kernel_entry` (:889), whose body is
+// (paged_decode.cu) and its int8 / int4 entry (paged_decode_quant.cu), and
+// by the dense decode kernel's two entries (dense_decode.cu,
+// dense_decode_quant.cu). They replace the TPU kernels
+// `_paged_decode_kernel_call` (accelerate_tpu/ops/attention.py:926)
+// through `_paged_kernel_entry` (:882) and `_paged_quant_kernel_entry`
+// (:889), and `_dense_decode_kernel_call` (:977) through
+// `_dense_quant_kernel_entry` (:898); the body of all four is
 // `_decode_kernel_body` (:804).
 //
 // Semantics. Slot b's query rows attend its kv positions kvp <= the row's
@@ -58,11 +61,15 @@
 //   tile's load time, which is all it needs from the tensor cores.
 //
 // Addressing. Where kv row (slot b, kv head h, position p) lives is a
-// template parameter `Rows`: `begin` stages what a split needs and `row`
+// template parameter `Rows`: `begin` stages what a split needs, `row`
 // gives the row's index into the [rows, width] payload (and the [rows]
-// scales). `PagedRows` reads the slot's page table.
+// scales), `pos_limit` the last position the arena holds (a row whose
+// position lies past it attends every position up to it), and SCALE_RUN
+// how many consecutive positions' scales one copy moves. `PagedRows`
+// reads the slot's page table; `DenseRows` addresses a [B, KVH, L] arena.
 #pragma once
 
+#include <limits.h>
 #include <math_constants.h>
 #include <stdint.h>
 
@@ -145,6 +152,9 @@ __device__ __forceinline__ int swz(int t, int c) {
 // tile beyond the slot's reservation) read its last page: they lie past
 // every row's position, so they are masked.
 struct PagedRows {
+  // scales of 4 positions per 16-byte copy: they lie on one page (ps is a
+  // multiple of 8) and 16-byte aligned
+  static constexpr int SCALE_RUN = 4;
   const int* table;  // [B, P]
   int kvh, ps, p_per_slot;
   const int* ids;
@@ -162,6 +172,31 @@ struct PagedRows {
     const int page = ids[min(p / ps, p_per_slot - 1) - first];
     return ((size_t)page * kvh + h) * ps + p % ps;
   }
+
+  // positions are not bounded: a slot's reservation covers its positions
+  __host__ __device__ __forceinline__ int pos_limit() const { return INT_MAX; }
+};
+
+// The dense arena [B, KVH, L, width]: position p of batch row b is row
+// (b * KVH + h) * L + p. A tile that runs past L reads row L - 1 again
+// (the address is clamped inside the (b, h) row block), and `pos_limit`
+// bounds every row's position to L - 1, so those positions are masked: a
+// row whose position is L or more attends positions 0 .. L - 1 once each,
+// as the plain version does. Scales are copied one position at a time (4
+// bytes): a 16-byte run of 4 is aligned and inside the row block only
+// when L is a multiple of 4.
+struct DenseRows {
+  static constexpr int SCALE_RUN = 1;
+  int kvh, length;
+  int b;
+
+  __device__ __forceinline__ void begin(int*, int slot, int, int) { b = slot; }
+
+  __device__ __forceinline__ size_t row(int h, int p) const {
+    return ((size_t)b * kvh + h) * length + min(p, length - 1);
+  }
+
+  __host__ __device__ __forceinline__ int pos_limit() const { return length - 1; }
 };
 
 // What the kv rows hold: bf16 K/V rows [rows, D] (bits 0), or int8
@@ -224,13 +259,17 @@ __device__ __forceinline__ void issue_tile(uint8_t* st, const KvRows& kv, const 
       cp_async16(st + t * pd + c * 16, kp + row * pd + c * 16);
       cp_async16(st + TILE * D + t * pd + c * 16, vp + row * pd + c * 16);
     }
-    // scales: 16 bytes = 4 tokens of one page (ps is a multiple of 8)
+    // scales: Rows::SCALE_RUN positions a copy (16 bytes, or 4)
+    constexpr int RUN = Rows::SCALE_RUN;
     float* scl = reinterpret_cast<float*>(st + 2 * TILE * D);
-    if (tid < 2 * TILE / 4) {
-      const int kvsel = tid / (TILE / 4);
-      const int t = 4 * (tid % (TILE / 4));
-      const size_t row = rw.row(h, p0 + t);
-      cp_async16(scl + kvsel * TILE + t, (kvsel ? kv.v_scale : kv.k_scale) + row);
+    if (tid < 2 * TILE / RUN) {
+      const int kvsel = tid / (TILE / RUN);
+      const int t = RUN * (tid % (TILE / RUN));
+      const float* src = (kvsel ? kv.v_scale : kv.k_scale) + rw.row(h, p0 + t);
+      if constexpr (RUN == 4)
+        cp_async16(scl + kvsel * TILE + t, src);
+      else
+        cp_async4(scl + kvsel * TILE + t, src);
     }
   }
 }
@@ -319,15 +358,18 @@ __global__ void __launch_bounds__(NT) split_kernel(const bf16* __restrict__ q, K
       *reinterpret_cast<uint4*>(qs + swz<D>(r, c)) = make_uint4(0, 0, 0, 0);
   }
   cp_async_commit();
+  const int limit = rw.pos_limit();
   int maxpos = 0;
   for (int t = 0; t < sq; ++t) maxpos = max(maxpos, pos[b * sq + t]);
+  maxpos = min(maxpos, limit);
   const int ntiles = maxpos / TILE + 1;  // the slot's live tiles
   if (t0 >= ntiles) {  // a split past the slot's live range
     cp_async_wait<0>();
     return;
   }
   const int nt = min(tiles_per_split, ntiles - t0);
-  for (int r = tid; r < RT * 16; r += NT) rowpos[r] = r < rows ? pos[b * sq + r % sq] : -1;
+  for (int r = tid; r < RT * 16; r += NT)
+    rowpos[r] = r < rows ? min(pos[b * sq + r % sq], limit) : -1;
   cp_async_wait<0>();
   __syncthreads();
 
@@ -507,18 +549,22 @@ __global__ void __launch_bounds__(NT) split_kernel(const bf16* __restrict__ q, K
 // Row r of (slot b, kv head h) from the partials of the slot's live
 // splits, one block of D threads a row (thread d owns column d), rounded
 // once to bf16; a row with l == 0 writes 0 (never on the paths: every row
-// attends position 0).
+// attends position 0). The live splits are counted from the max position
+// bounded by `pos_limit`, as the split kernel counts the splits it writes:
+// the workspace holds nothing else.
 template <int D>
 __global__ void __launch_bounds__(D) merge_kernel(const float* __restrict__ ws,
                                                   const int* __restrict__ pos,
                                                   bf16* __restrict__ out, int kvh, int group,
-                                                  int sq, int tiles_per_split, int n_splits) {
+                                                  int sq, int tiles_per_split, int n_splits,
+                                                  int pos_limit) {
   __shared__ float warp_max[D / 32];
   const int b = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
   const int d = threadIdx.x;
   const int rows = group * sq;
   int maxpos = 0;
   for (int t = 0; t < sq; ++t) maxpos = max(maxpos, pos[b * sq + t]);
+  maxpos = min(maxpos, pos_limit);
   const int live = (maxpos / TILE) / tiles_per_split + 1;
   const size_t part0 = ((size_t)b * kvh + h) * n_splits;
   const size_t n_parts = (size_t)gridDim.x * kvh * n_splits;
@@ -564,8 +610,8 @@ cudaError_t launch_rt(const bf16* q, const KvRows& kv, const Rows& rw, const int
       q, kv, rw, pos, ws, kvh, group, sq, tiles_per_split, n_splits, scale * LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_kernel<D><<<dim3(b, kvh, group * sq), D, 0, stream>>>(ws, pos, out, kvh, group, sq,
-                                                              tiles_per_split, n_splits);
+  merge_kernel<D><<<dim3(b, kvh, group * sq), D, 0, stream>>>(
+      ws, pos, out, kvh, group, sq, tiles_per_split, n_splits, rw.pos_limit());
   return cudaGetLastError();
 }
 
@@ -585,9 +631,9 @@ cudaError_t launch_d(const bf16* q, const KvRows& kv, const Rows& rw, const int*
 }
 
 // Launch the split kernel and the merge pass on `stream`. D 64 or 128, R =
-// group * sq in 1..64, tiles_per_split * 64 / ps + 2 <= MAX_IDS (the
-// wrapper checks all of it and sizes the workspace: B * KVH * n_splits *
-// R * (D + 2) floats).
+// group * sq in 1..64, paged: tiles_per_split * 64 / ps + 2 <= MAX_IDS
+// (the wrapper checks all of it and sizes the workspace: B * KVH *
+// n_splits * R * (D + 2) floats).
 template <bool QUANT, class Rows>
 cudaError_t launch(const bf16* q, const KvRows& kv, const Rows& rw, const int* pos, float* ws,
                    bf16* out, int b, int kvh, int group, int sq, int d, int tiles_per_split,

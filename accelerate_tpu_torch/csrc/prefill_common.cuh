@@ -195,7 +195,7 @@ __device__ __forceinline__ void produce(uint8_t* st, uint64_t* bar, const Job& j
 
 // Each of `threads` consumer threads' share of dequantizing a staged arena tile into the
 // swizzled bf16 K and V tiles: payload * scale in fp32, rounded once to
-// bf16 (dequantize_kv's expression, as attend::dequant_rows), 16 bytes of
+// bf16 (dequantize_kv's expression, as decode::dequant_rows), 16 bytes of
 // bf16 a step; then the fence that hands the stores to the async proxy.
 template <int D>
 __device__ __forceinline__ void dequant_tile(uint8_t* kst, int bits, int threads) {

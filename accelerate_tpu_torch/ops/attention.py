@@ -16,8 +16,9 @@ Each kernel sits beside its plain version:
   :func:`merge_decode_partials` (with :func:`decode_partial_reference`,
   the plain partial of one kv range).
 - :func:`decode_attention` -> ``ops/kernels.dense_decode`` /
-  ``dense_decode_quant`` (csrc/dense_decode.cu, dense_decode_quant.cu)
-  at decode widths (Sq <= 16); plain version
+  ``dense_decode_quant`` (csrc/dense_decode.cu, dense_decode_quant.cu
+  over the same csrc/decode_common.cuh, with a dense row addressing) at
+  decode widths (Sq <= 16); plain version
   :func:`decode_attention_reference`, which is also the read of wider
   query blocks, as in the reference.
 - :func:`ragged_prefill_attention` -> ``ops/kernels.ragged_prefill`` /
@@ -255,7 +256,8 @@ def decode_attention(
     two a byte along D).
 
     At decode widths (Sq <= 16) the dense decode kernel reads only each
-    row's live positions (its plain version on a CPU tensor). A wider Sq
+    row's live positions, split across blocks, and merges the splits (its
+    plain version on a CPU tensor). A wider Sq
     takes the masked-dense read, as the reference's dispatch does by
     design (``_DECODE_KERNEL_MAX_SQ``): such a block is prefill-shaped."""
     from . import kernels

@@ -70,11 +70,11 @@ KERNELS = {
     ),
     "dense_decode": (
         "dense_decode.cu", "dense_decode_launch",
-        [_P] * 5 + [_I] * 6 + [_F, _P],
+        [_P] * 6 + [_I] * 8 + [_F, _P],
     ),
     "dense_decode_quant": (
         "dense_decode_quant.cu", "dense_decode_quant_launch",
-        [_P] * 7 + [_I] * 7 + [_F, _P],
+        [_P] * 8 + [_I] * 9 + [_F, _P],
     ),
     "paged_decode_quant": (
         "paged_decode_quant.cu", "paged_decode_quant_launch",
@@ -188,16 +188,6 @@ def _check(t: torch.Tensor, what: str, dtype, shape, device):
         raise ValueError(f"{what} must be contiguous")
 
 
-def _smem_limit_check(rows: int, d: int):
-    tok = 64
-    need = 2 * tok * d * 2 + rows * d * 4 * 2 + rows * tok * 4 + rows * 16
-    if need > 227 * 1024:
-        raise ValueError(
-            f"{rows} query rows at head_dim {d} need {need} bytes of shared "
-            "memory, above the 227 KB a Hopper block can use"
-        )
-
-
 def _require_cuda(t: torch.Tensor, name: str):
     if t.device.type != "cuda":
         raise RuntimeError(
@@ -232,10 +222,11 @@ def _prefill_kernel_check(q, k_pages, bt: int):
     return h, cap, d, kvh, ps, h // kvh
 
 
-# The paged decode kernel's split kv walk (csrc/decode_common.cuh): a split
-# is a run of whole DECODE_TILE-token tiles, at most DECODE_MAX_SPLIT_TILES
-# (the page ids a split stages in shared memory), and the blocks of every
-# slot's full reservation are DECODE_BLOCKS_PER_SM per SM: slots that hold
+# The decode kernels' split kv walk (csrc/decode_common.cuh, paged and
+# dense): a split is a run of whole DECODE_TILE-token tiles, at most
+# DECODE_MAX_SPLIT_TILES (the page ids a paged split stages in shared
+# memory), and the blocks of every slot's full reservation (a dense
+# arena's whole length) are DECODE_BLOCKS_PER_SM per SM: slots that hold
 # an eighth of their reservation on average still fill the card once.
 DECODE_TILE = 64
 DECODE_MAX_SPLIT_TILES = 32
@@ -243,9 +234,10 @@ DECODE_BLOCKS_PER_SM = 8
 
 
 def decode_split_plan(b: int, kvh: int, capacity: int, sms: int):
-    """``(tiles_per_split, n_splits)`` of a paged decode call over ``b``
-    slots and ``kvh`` kv heads whose page tables reserve ``capacity``
-    positions each, on a card of ``sms`` SMs: the fewest tiles a split
+    """``(tiles_per_split, n_splits)`` of a decode call over ``b`` slots
+    and ``kvh`` kv heads that reserve ``capacity`` positions each (a page
+    table's pages x page size, a dense arena's length), on a card of
+    ``sms`` SMs: the fewest tiles a split
     that give every (slot, kv head) enough splits for
     ``DECODE_BLOCKS_PER_SM * sms`` blocks over full reservations. Split
     s covers tiles ``s * tiles_per_split ..`` (:func:`decode_split_ranges`);
@@ -259,10 +251,11 @@ def decode_split_plan(b: int, kvh: int, capacity: int, sms: int):
 
 def decode_split_ranges(max_pos: int, tiles_per_split: int):
     """The kv position ranges ``[(lo, hi), ...]`` of the live splits of a
-    slot whose query rows reach ``max_pos``: the kernel walks tiles 0 ..
-    max_pos // 64, ``tiles_per_split`` a split, and a split past them
-    returns at once (the last live split's last tile may run past
-    ``max_pos``: its positions are masked)."""
+    slot whose query rows reach ``max_pos`` (on a dense arena of length
+    L, bounded to L - 1 first): the kernel walks tiles 0 .. max_pos // 64,
+    ``tiles_per_split`` a split, and a split past them returns at once
+    (the last live split's last tile may run past ``max_pos``: its
+    positions are masked)."""
     span = tiles_per_split * DECODE_TILE
     return [(lo, lo + span) for lo in range(0, max_pos // DECODE_TILE * DECODE_TILE + 1, span)]
 
@@ -272,40 +265,48 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _decode_kernel_check(h: int, sq: int, d: int, kvh: int, ps: int) -> int:
-    """What both paged decode kernels take: a query-head group over the kv
-    heads, head_dim in DECODE_KERNEL_HEAD_DIMS (the reference's compiled
-    gate, a 64-multiple), a page size that is a multiple of 8 (the
-    reference's gate; 16-byte copies of 4 scales), 1..DECODE_KERNEL_MAX_SQ
-    query rows a slot and R = group * Sq <= DECODE_KERNEL_MAX_ROWS (four
-    16-row tiles of the mma.sync products). Returns the group."""
+def _decode_rows_check(h: int, sq: int, d: int, kvh: int, what: str) -> int:
+    """What every kernel on the decode core (csrc/decode_common.cuh) takes:
+    a query-head group over the kv heads, head_dim in
+    DECODE_KERNEL_HEAD_DIMS (the reference's compiled gate, a 64-multiple),
+    1..DECODE_KERNEL_MAX_SQ query rows a slot and R = group * Sq <=
+    DECODE_KERNEL_MAX_ROWS (four 16-row tiles of the mma.sync products).
+    ``what`` names the kernels in the error. Returns the group."""
     if h % kvh:
         raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
     if d not in DECODE_KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the paged decode kernels take {DECODE_KERNEL_HEAD_DIMS}")
-    if ps < 8 or ps % 8:
-        raise ValueError(f"page size {ps}: the paged decode kernels take a multiple of 8")
+        raise ValueError(f"head_dim {d}: the {what} kernels take {DECODE_KERNEL_HEAD_DIMS}")
     if not 1 <= sq <= DECODE_KERNEL_MAX_SQ:
         raise ValueError(
-            f"paged decode takes 1..{DECODE_KERNEL_MAX_SQ} query rows per slot, got {sq}"
+            f"{what} takes 1..{DECODE_KERNEL_MAX_SQ} query rows per slot, got {sq}"
         )
     group = h // kvh
     if group * sq > DECODE_KERNEL_MAX_ROWS:
         raise ValueError(
-            f"{group * sq} query rows per kv head (group {group} x Sq {sq}): the paged "
-            f"decode kernels take at most {DECODE_KERNEL_MAX_ROWS}"
+            f"{group * sq} query rows per kv head (group {group} x Sq {sq}): the {what} "
+            f"kernels take at most {DECODE_KERNEL_MAX_ROWS}"
         )
     return group
 
 
-def _decode_plan(q, page_table, kvh: int, ps: int, d: int):
-    """The split plan and the fp32 partials' workspace of one paged decode
-    call: ``(tiles_per_split, n_splits, workspace)``."""
+def _decode_kernel_check(h: int, sq: int, d: int, kvh: int, ps: int) -> int:
+    """What both paged decode kernels take: :func:`_decode_rows_check`'s
+    shapes and a page size that is a multiple of 8 (the reference's gate;
+    16-byte copies of 4 scales). Returns the group."""
+    if ps < 8 or ps % 8:
+        raise ValueError(f"page size {ps}: the paged decode kernels take a multiple of 8")
+    return _decode_rows_check(h, sq, d, kvh, "paged decode")
+
+
+def _decode_plan(q, kvh: int, capacity: int, d: int):
+    """The split plan and the fp32 partials' workspace of one decode call
+    over ``capacity`` positions a slot: ``(tiles_per_split, n_splits,
+    workspace)``."""
     b, h, sq, _ = q.shape
     dev = q.device
     per_split, n_splits = decode_split_plan(
-        b, kvh, page_table.shape[1] * ps, _sm_count(dev.index if dev.index is not None
-                                                     else torch.cuda.current_device()))
+        b, kvh, capacity, _sm_count(dev.index if dev.index is not None
+                                    else torch.cuda.current_device()))
     rows = (h // kvh) * sq
     workspace = torch.empty(b * kvh * n_splits * rows * (d + 2), dtype=torch.float32, device=dev)
     return per_split, n_splits, workspace
@@ -331,7 +332,7 @@ def paged_decode(q, k_pages, v_pages, page_table, pos, sm_scale: float):
     _check(page_table, "page_table", torch.int32, (b, p_per_slot), dev)
     _check(pos, "pos", torch.int32, (b, sq), dev)
     _check_aligned(("q", q), ("k_pages", k_pages), ("v_pages", v_pages))
-    per_split, n_splits, workspace = _decode_plan(q, page_table, kvh, ps, d)
+    per_split, n_splits, workspace = _decode_plan(q, kvh, p_per_slot * ps, d)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch(
@@ -433,7 +434,7 @@ def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, page_table, pos,
     _check(page_table, "page_table", torch.int32, (b, p_per_slot), dev)
     _check(pos, "pos", torch.int32, (b, sq), dev)
     _check_aligned(("q", q), ("k_scale pages", k_scale), ("v_scale pages", v_scale))
-    per_split, n_splits, workspace = _decode_plan(q, page_table, kvh, ps, d)
+    per_split, n_splits, workspace = _decode_plan(q, kvh, p_per_slot * ps, d)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch(
@@ -603,25 +604,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float)
     return dk, dv
 
 
-def _dense_decode_shapes(q, k, pos, name, per_load: int):
-    """Check what both dense decode kernels share on a CUDA device; returns
-    ``(b, kvh, group, sq, length, d)``. ``per_load`` is how many head_dim
-    values one 16-byte load of a K/V row holds."""
+def _dense_decode_shapes(q, k, pos, name):
+    """Check what both dense decode kernels share on a CUDA device
+    (:func:`_decode_rows_check`'s shapes, a cache of one position or
+    more); returns ``(b, kvh, group, sq, length, d)``."""
     _require_cuda(q, name)
     b, h, sq, d = q.shape
     kvh, length = k.shape[1], k.shape[2]
-    if h % kvh:
-        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
-    if not 1 <= sq <= DECODE_KERNEL_MAX_SQ:
-        raise ValueError(
-            f"dense decode takes 1..{DECODE_KERNEL_MAX_SQ} query rows per batch row, got {sq}"
-        )
-    if d % per_load:
-        raise ValueError(
-            f"head_dim {d} must be a multiple of {per_load} (16-byte loads of the K/V rows)"
-        )
-    group = h // kvh
-    _smem_limit_check(group * sq, d)
+    group = _decode_rows_check(h, sq, d, kvh, "dense decode")
+    if length < 1:
+        raise ValueError("dense decode needs a cache of at least one position")
     _check(q, "q", torch.bfloat16, (b, h, sq, d), q.device)
     _check(pos, "pos", torch.int32, (b, sq), q.device)
     return b, kvh, group, sq, length, d
@@ -642,16 +634,18 @@ def dense_decode(q, k, v, pos, sm_scale: float):
         from .attention import decode_attention_reference
 
         return decode_attention_reference(q, k, v, pos, sm_scale)
-    b, kvh, group, sq, length, d = _dense_decode_shapes(q, k, pos, "dense_decode", 8)
+    b, kvh, group, sq, length, d = _dense_decode_shapes(q, k, pos, "dense_decode")
     dev = q.device
     _check(k, "k", torch.bfloat16, (b, kvh, length, d), dev)
     _check(v, "v", torch.bfloat16, (b, kvh, length, d), dev)
-    _check_aligned(("k", k), ("v", v))
+    _check_aligned(("q", q), ("k", k), ("v", v))
+    per_split, n_splits, workspace = _decode_plan(q, kvh, length, d)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch(
         "dense_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, kvh, group, sq, length, d, float(sm_scale), stream,
+        out.data_ptr(), workspace.data_ptr(), b, kvh, group, sq, length, d, per_split,
+        n_splits, float(sm_scale), stream,
     )
     return out
 
@@ -668,21 +662,21 @@ def dense_decode_quant(q, k, v, k_scale, v_scale, pos, sm_scale: float, bits: in
 
         return decode_attention_reference(q, k, v, pos, sm_scale, k_scale=k_scale,
                                           v_scale=v_scale, kv_quant_bits=bits)
-    per_load = 32 if bits == 4 else 16
-    b, kvh, group, sq, length, d = _dense_decode_shapes(
-        q, k, pos, "dense_decode_quant", per_load)
+    b, kvh, group, sq, length, d = _dense_decode_shapes(q, k, pos, "dense_decode_quant")
     pd = d // 2 if bits == 4 else d
     dev = q.device
     _check(k, "k payload", torch.int8, (b, kvh, length, pd), dev)
     _check(v, "v payload", torch.int8, (b, kvh, length, pd), dev)
     _check(k_scale, "k_scale", torch.float32, (b, kvh, length, 1), dev)
     _check(v_scale, "v_scale", torch.float32, (b, kvh, length, 1), dev)
-    _check_aligned(("k payload", k), ("v payload", v))
+    _check_aligned(("q", q), ("k payload", k), ("v payload", v))
+    per_split, n_splits, workspace = _decode_plan(q, kvh, length, d)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch(
         "dense_decode_quant", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, kvh, group, sq, length, d, bits, float(sm_scale), stream,
+        workspace.data_ptr(), b, kvh, group, sq, length, d, bits, per_split, n_splits,
+        float(sm_scale), stream,
     )
     return out

@@ -16,7 +16,7 @@ is the reference's, so payloads and scales agree bit for bit:
 
 :func:`dequantize_kv` computes ``payload.float() * scale`` and rounds
 once to the compute dtype: that rounding site is what the quantized
-decode kernel (``csrc/dense_decode_quant.cu``) copies.
+decode kernels (``csrc/decode_common.cuh``) copy.
 """
 
 from __future__ import annotations

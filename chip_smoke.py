@@ -15,13 +15,17 @@ prefix under a 512-row tail) at the serving path's shapes (small_1b:
 H=16, KVH=8, D=128, page 16), the flash forward, dQ and dK/dV kernels
 at the training path's (B 8, S 2048, causal) and in masked cases, the
 dense decode kernel and its int8/int4 entry at the flat engine's and
-generate()'s shapes. Each is timed beside its bound and one SDPA call
-(the median of seven reads, with their spread). The flash and the
-ragged prefill kernels run on the tensor cores: the SASS of each built
-library must hold warpgroup matrix multiplies (HGMMA) and TMA tile
-loads (UTMALDG), or the run fails; the paged decode kernel's two
-libraries must hold mma.sync products (HMMA) and cp.async copies
-(LDGSTS), and ptxas must report no spills in them. Then it drives six
+generate()'s shapes, at Sq 4, and in seven edge cases of its split kv
+walk in bf16, int8 and int4 (position 0, 63/64/65, split edges +- 1,
+Sq 16 at groups 2 and 1, L 1000, L 1001 with a row parked at 1000, rows
+at or past L). Each is timed beside its bound and one SDPA call (the
+median of seven reads, with their spread). The flash and the ragged
+prefill kernels run on the tensor cores: the SASS of each built library
+must hold warpgroup matrix multiplies (HGMMA) and TMA tile loads
+(UTMALDG), or the run fails; the four decode libraries (paged and
+dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
+cp.async copies (LDGSTS), and ptxas must report no spills in them.
+Then it drives six
 paths at full width, each with the launch counters reset just before
 each run and read just after:
 
@@ -185,13 +189,14 @@ def sass_gate(names, ops, what: str) -> dict:
     return counts
 
 
-# the paged decode kernel's two libraries run their products on mma.sync
-# (HMMA in SASS) over tiles staged by cp.async (LDGSTS)
-DECODE_KERNELS = ("paged_decode", "paged_decode_quant")
+# the decode kernels' four libraries (csrc/decode_common.cuh: paged and
+# dense, each bf16 and int8/int4) run their products on mma.sync (HMMA in
+# SASS) over tiles staged by cp.async (LDGSTS)
+DECODE_KERNELS = ("paged_decode", "paged_decode_quant", "dense_decode", "dense_decode_quant")
 
 
 def decode_spill_gate(reports: dict):
-    """Fail if ptxas reported a spill in either paged decode library
+    """Fail if ptxas reported a spill in any decode library
     (``reports``: ``kernels.build()``'s ptxas output of what this run
     compiled)."""
     import re
@@ -982,9 +987,86 @@ def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
           f"max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
           f"({bound_by}), library sdpa {library_text(library)}"
-          + (" (on K/V dequantized beforehand)" if bits else ""))
+          + (" (on K/V dequantized beforehand)" if bits else "")
+          + f"; kernel / sdpa {ms / library[0]:.3f}x")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library[0]}
+
+
+# edge cases of the dense decode kernel's split kv walk, each checked (not
+# timed) in bf16, int8 and int4 against the plain version, drawn from a
+# generator of their own so no other phase's inputs move: (tag, query
+# heads, Sq, cache length L, the last query position of each batch row as
+# a function of the split length E in tokens); each row queries its last
+# Sq positions (from 0), and a position at or past L attends all L
+DENSE_EDGE_SEED = 7
+DENSE_EDGES = [
+    ("a: Sq 1, pos 0, 63/64/65, split edges +-1, parked at L - 1", H, 1, MAX_CACHE,
+     lambda e: [0, 63, 64, 65, e - 1, e, e + 1, MAX_CACHE - 1]),
+    ("b: Sq 4 across tile and split edges", H, 4, MAX_CACHE,
+     lambda e: [3, 65, e - 1, e + 2, 2 * e + 1, MAX_CACHE - 1]),
+    ("c: Sq 16, group 2 (R 32)", H, 16, MAX_CACHE, lambda e: [15, e + 7, e + 15, 1015]),
+    ("d: Sq 16, group 1 (H = KVH = 8)", KVH, 16, MAX_CACHE,
+     lambda e: [15, e + 7, 1015, MAX_CACHE - 1]),
+    ("e: L 1000 (not a tile multiple), a row past L", H, 1, 1000,
+     lambda e: [0, 64, e - 1, e + 1, 999, 1200]),
+    ("f: L 1001 (not a multiple of 4), parked at 1000", H, 1, 1001,
+     lambda e: [0, 65, e + 1, 1000]),
+    ("g: Sq 4 rows at or past L (L 1001)", H, 4, 1001, lambda e: [1002, 1500, 64, 999]),
+]
+
+
+def dense_edge_inputs(dev):
+    """The DENSE_EDGES cases: ``[(tag, E, q, k, v, pos)]`` with bf16 K/V
+    [B, KVH, L, D], from one generator seeded DENSE_EDGE_SEED."""
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(DENSE_EDGE_SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = []
+    for tag, heads, sq, length, lasts_of in DENSE_EDGES:
+        b = len(lasts_of(0))
+        per_split, _ = kernels.decode_split_plan(b, KVH, length, sms)
+        e = per_split * kernels.DECODE_TILE
+        lasts = torch.tensor(lasts_of(e), dtype=torch.int32)
+        pos = (lasts[:, None] - sq + 1 + torch.arange(sq, dtype=torch.int32)).clamp(min=0)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        cases.append((tag, e, rnd(b, heads, sq, D), rnd(b, KVH, length, D),
+                      rnd(b, KVH, length, D), pos.to(dev)))
+    return cases
+
+
+def dense_edge_checks(dev) -> dict:
+    """Hold the dense decode kernel (bf16) and its quantized entry (int8,
+    int4 on K/V quantized by the port's quantize_kv) against the plain
+    version on every DENSE_EDGES case. Returns the max abs error of each
+    ``bits`` (0, 8, 4)."""
+    from accelerate_tpu_torch.ops.attention import decode_attention, decode_attention_reference
+    from accelerate_tpu_torch.utils.quantization import quantize_kv
+
+    worst = {0: 0.0, 8: 0.0, 4: 0.0}
+    for tag, e, q, k, v, pos in dense_edge_inputs(dev):
+        errs = {}
+        for bits in worst:
+            kw, kq, vq = {}, k, v
+            if bits:
+                (kq, ks), (vq, vs) = quantize_kv(k, bits), quantize_kv(v, bits)
+                kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
+            name = "dense_decode_quant" if bits else "dense_decode"
+            got = counted(name, lambda: decode_attention(q, kq, vq, q_positions=pos, **kw))
+            want = decode_attention_reference(q, kq, vq, pos, 1.0 / math.sqrt(D), **kw)
+            errs[bits] = check_close(f"{name} ({entry(bits)}, edge case {tag})", got, want)
+            worst[bits] = max(worst[bits], errs[bits])
+        print(f"kernel dense_decode edge case {tag} (split {e} tokens, H {q.shape[1]}, "
+              f"Sq {q.shape[2]}, L {k.shape[2]}, rows' last positions {pos[:, -1].tolist()}): "
+              + ", ".join(f"{entry(bits)} max_abs_err {err:.3e}" for bits, err in errs.items())
+              + f" (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|)")
+    return worst
 
 
 def dense_decode_phases(gen, dev):
@@ -993,7 +1075,8 @@ def dense_decode_phases(gen, dev):
     slots of lengths 17..1500 + one parked at 2047, H 16, KVH 8, L 2048);
     (b) generate()'s decode step on llama_7b (B 1 and B 4, H = KVH = 32,
     L 768, position 575); (c) Sq 4 with per-row positions on (a)'s arena;
-    (d) int8 and int4 at (a). Returns the two kernel rows."""
+    (d) int8 and int4 at (a); then the DENSE_EDGES cases (their own
+    inputs). Returns the two kernel rows."""
     import torch
 
     from accelerate_tpu_torch.ops.attention import decode_attention
@@ -1021,14 +1104,16 @@ def dense_decode_phases(gen, dev):
                            pos_c)["max_abs_err"])
     quant = {bits: dense_case(gen, dev, f"d: int{bits}, arena of (a)", q_a, k_a, v_a, pos_a,
                               bits=bits) for bits in (8, 4)}
+    edges = dense_edge_checks(dev)
     rows = [dict(name="dense_decode", route="cuda",
                  source="accelerate_tpu_torch/csrc/dense_decode.cu",
                  replaces="accelerate_tpu/ops/attention.py:977", **flat)]
-    rows[0]["max_abs_err"] = max(errs)
+    rows[0]["max_abs_err"] = max(*errs, edges[0])
     rows.append(dict(name="dense_decode_quant", route="cuda",
                      source="accelerate_tpu_torch/csrc/dense_decode_quant.cu",
                      replaces="accelerate_tpu/ops/attention.py:898", **quant[8]))
-    rows[1]["max_abs_err"] = max(quant[8]["max_abs_err"], quant[4]["max_abs_err"])
+    rows[1]["max_abs_err"] = max(quant[8]["max_abs_err"], quant[4]["max_abs_err"], edges[8],
+                                 edges[4])
     return rows
 
 
@@ -1526,13 +1611,21 @@ def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5, label: str 
           f"wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
     for ms, count, key in rows[:8]:
         print(f"  {ms / steps:8.3f} ms/step  {count // steps:4d}/step  {key[:90]}")
-    # the paged decode kernel (#4) is two CUDA kernels a launch: the split
-    # walk and the merge pass (csrc/decode_common.cuh)
-    paged = [(ms, count) for ms, count, key in rows if "decode::" in key]
-    if paged:
-        ms, count = sum(m for m, _ in paged), sum(n for _, n in paged)
-        print(f"  {label}: paged decode kernel (#4, split walk + merge pass) "
-              f"{ms / steps:.3f} ms/step over {count // steps} CUDA kernels/step")
+    kernel = "dense decode kernel #5" if eng_kw["page_size"] is None else "paged decode kernel #4"
+    decode_kernel_share(rows, steps, label, kernel)
+
+
+def decode_kernel_share(rows, steps: int, label: str, kernel: str):
+    """Print the decode kernel's device time per step from a profile's
+    ``rows``: a launch of it is two CUDA kernels of the ``decode::``
+    namespace, the split walk and the merge pass (csrc/decode_common.cuh),
+    the paged kernel's (#4) or the dense one's (#5), whichever the
+    profiled step ran."""
+    hits = [(ms, count) for ms, count, key in rows if "decode::" in key]
+    if hits:
+        ms, count = sum(m for m, _ in hits), sum(n for _, n in hits)
+        print(f"  {label}: {kernel} (split walk + merge pass) {ms / steps:.3f} ms/step over "
+              f"{count // steps} CUDA kernels/step")
 
 
 # the training path (training slice): small_1b at full width, batch 8 x
@@ -2013,6 +2106,7 @@ def profile_generate(model, ids, card: str, kv: str, steps: int = 5):
           f"({100 * busy_ms / wall_ms:.1f}% of wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
     for ms, count, key in rows[:8]:
         print(f"  {ms / steps:8.3f} ms/step  {count // steps:4d}/step  {key[:90]}")
+    decode_kernel_share(rows, steps, f"generate profile ({kv} KV)", "dense decode kernel #5")
 
 
 def main():
