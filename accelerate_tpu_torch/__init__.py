@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of ``accelerate_tpu``: serving (paged and flat
-arenas), KV-cache generation and the training step.
+arenas, and one engine behind HTTP as a replica), KV-cache generation and
+the training step.
 
 The JAX package (``accelerate_tpu``) stays the reference; this package is
 its counterpart for an NVIDIA H100. Module paths mirror the reference:
@@ -11,9 +12,14 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   hand-written Hopper kernels)
 - ``serving/pages.py`` (paged arena, prefix cache, n-gram drafter),
   ``serving/arena.py``, ``serving/engine.py`` (paged or flat, bf16 or
-  int8/int4 KV, speculative verify), ``serving/drift.py``
-  (``kv_quant_drift``), ``generation.py`` (``generate``),
-  ``utils/quantization.py`` (int8/int4 KV storage)
+  int8/int4 KV, speculative verify, cancel / timeout / drain),
+  ``serving/replica_server.py`` (``ReplicaServer``: the engine over
+  stdlib HTTP), ``serving/drift.py`` (``kv_quant_drift``),
+  ``generation.py`` (``generate``), ``utils/quantization.py`` (int8/int4
+  KV storage)
+- ``telemetry/exporter.py`` (``prometheus_text``), ``telemetry/fleet.py``
+  (``load_score``), ``commands/serve.py`` (``python -m
+  accelerate_tpu_torch.commands.serve replica``)
 - ``accelerator.py``, ``optimizer.py``, ``scheduler.py``, ``state.py``,
   ``data.py``, ``utils/dataclasses.py`` (the training contract)
 

@@ -30,7 +30,11 @@ prefill:
   a tail longer than the largest capacity continues mid-tail over its
   own arena prefix on the next iteration;
 - **host-side scheduler**: the FIFO queue, slot allocator, per-request
-  token callbacks and a few serving metrics.
+  token callbacks, cancels and ``timeout_s`` expiries (reaped at the top
+  of every step, queued, admitting and live alike), the drain
+  (``request_drain`` / ``drain``) and the serving gauges a replica server
+  and a router read (``metrics()``: ITL, free slots and pages,
+  ``load_score``).
 
 On the flat arena (``page_size=None``, the reference's default;
 ``arena.py``) each slot is one batch row of a dense
@@ -44,14 +48,20 @@ through the dense decode kernel.
 Greedy decoding is ``argmax``; temperature/top-k sampling draws from a
 ``torch.Generator`` per request, seeded by ``submit(seed=...)``.
 
+HTTP handler threads of a replica server (``replica_server.py``) call
+:meth:`ServingEngine.submit`, :meth:`Request.cancel` and
+:meth:`ServingEngine.metrics` while one loop thread runs
+:meth:`ServingEngine.step`: those touch host state only (the queue, flags,
+counters, ``req.tokens``), and every device op stays on the loop thread.
+
 Everything else the reference engine offers (the multi-tenant
-scheduler, KV tiers and handoff, fault injection, drain, telemetry
-hooks, fused decode bursts) is a later slice of the port and raises
-here.
+scheduler, KV tiers and handoff, fault injection, telemetry hooks,
+fused decode bursts) is a later slice of the port and raises here.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -62,7 +72,9 @@ import torch
 
 from ..generation import _sample
 from ..models.decoder import resolve_device
+from ..ops import kernels
 from ..ops.attention import PREFILL_TOKEN_BLOCK
+from ..telemetry.fleet import load_score
 from ..utils.quantization import kv_cache_bits
 from .arena import arena_nbytes, init_arena, slot_view, write_slot
 from .pages import (
@@ -77,6 +89,7 @@ from .pages import (
 )
 
 SHED_PAGE_EXHAUSTED = "page_exhausted"
+SHED_DRAINING = "draining"
 
 
 class PagePressure(RuntimeError):
@@ -89,13 +102,24 @@ class PagePressure(RuntimeError):
 class Request:
     """One generation request and its life-cycle state. ``tokens`` is the
     generated continuation; ``result()`` returns prompt + continuation.
-    ``eq=False``: requests are identities, not values."""
+    ``eq=False``: requests are identities, not values (the queue's
+    ``remove`` must not compare prompt arrays).
+
+    Every submitted request reaches exactly one terminal ``outcome``:
+    ``"finished"`` (eos or token budget), ``"shed"`` (page exhaustion or
+    drain: ``shed_reason`` says which) or ``"cancelled"`` (``cancel()``,
+    ``timeout_s`` expiry, or a raising ``on_token`` callback).
+    ``finish_reason`` carries the finer cause."""
 
     prompt: np.ndarray
     max_new_tokens: int
     generator: Optional[torch.Generator] = None
     on_token: Optional[Callable] = None
     id: object = -1
+    tenant: str = "default"
+    priority: int = 0
+    timeout_s: Optional[float] = None    # hard wall from submit to cancel
+    replica: Optional[str] = None        # which engine served this hop
 
     # runtime state (engine-owned)
     tokens: list = field(default_factory=list)
@@ -105,8 +129,10 @@ class Request:
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
     outcome: Optional[str] = None        # finished | shed | cancelled
-    finish_reason: Optional[str] = None  # eos | budget | ...
+    finish_reason: Optional[str] = None  # eos | budget | timeout | ...
     shed_reason: Optional[str] = None
+    _last_token_t: float = 0.0
+    _cancel: bool = False
     prefix_hit: int = 0         # prompt tokens served from the prefix cache
     prefill_dispatches: int = 0  # prefill dispatches (packs or chunks) its prompt rode
     spec_proposed: int = 0      # draft tokens verified for it
@@ -115,6 +141,15 @@ class Request:
     def result(self) -> np.ndarray:
         """[prompt + generated] token ids."""
         return np.concatenate([self.prompt, np.asarray(self.tokens, np.int32)])
+
+    def cancel(self) -> bool:
+        """Request cancellation: the engine frees the slot and pages at its
+        next scheduler iteration and the request ends ``cancelled``. False
+        if already terminal."""
+        if self.done:
+            return False
+        self._cancel = True
+        return True
 
 
 class ServingEngine:
@@ -131,16 +166,18 @@ class ServingEngine:
     on either arena. ``spec_draft_len=K`` (paged arena only) turns on
     speculative verify with ``drafter`` (default
     :class:`~.pages.NGramDrafter`); it reserves K positions of per-slot
-    headroom. ``temperature``/``top_k`` are engine-wide.
+    headroom. ``temperature``/``top_k`` are engine-wide. ``replica`` is the
+    engine's fleet identity, stamped on every request.
+    ``steps_per_call`` above 1 (fused decode bursts) and ``telemetry``
+    are later slices and raise; ``telemetry`` stays None.
     """
 
     _LATER = {
-        "steps_per_call": "fused decode bursts",
+        "steps_per_call": "fused decode bursts, queue 1 item 2",
+        "telemetry": "telemetry hooks",
         "scheduler": "the multi-tenant scheduler",
         "faults": "fault injection",
         "kv_tiers": "hierarchical KV tiers",
-        "telemetry": "telemetry hooks",
-        "replica": "the replica server",
         "param_placer": "dispatched (offloaded) weights",
         "donate": "buffer donation (the port updates in place)",
     }
@@ -164,8 +201,15 @@ class ServingEngine:
         spec_draft_len: int = 0,
         drafter=None,
         device=None,
+        replica: Optional[str] = None,
+        steps_per_call: int = 1,
+        telemetry=None,
         **later,
     ):
+        if int(steps_per_call) > 1:
+            later["steps_per_call"] = steps_per_call
+        if telemetry is not None:
+            later["telemetry"] = telemetry
         if later:
             names = ", ".join(f"{k} ({self._LATER.get(k, 'unknown option')})"
                               for k in sorted(later))
@@ -220,7 +264,13 @@ class ServingEngine:
         self._free = list(range(self.num_slots))[::-1]  # pop() -> slot 0 first
         self._slot_req: dict = {}
         self._admitting = None
+        # request ids: HTTP handler threads submit while the loop thread
+        # steps, so the counter moves under a lock
         self._next_id = 0
+        self._id_lock = threading.Lock()
+        self.replica = str(replica) if replica else None
+        self.telemetry = None
+        self._draining = False
 
         # metrics
         self.step_count = 0
@@ -229,11 +279,13 @@ class ServingEngine:
         self.page_forks = 0
         self.requests_completed = 0
         self.requests_shed = 0
+        self.requests_cancelled = 0
         self.generated_tokens = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
         self._step_samples: deque = deque(maxlen=512)  # (wall_s, tokens)
         self._ttft: deque = deque(maxlen=2048)  # submit -> first token, s
+        self._itl: deque = deque(maxlen=2048)  # inter-token gaps, s
 
     def _init_paged(self, cfg, page_size: int, num_pages, prefix_cache: bool,
                     prefix_max_entries):
@@ -275,11 +327,23 @@ class ServingEngine:
     # -- request API -------------------------------------------------------
 
     def submit(self, prompt, *, max_new_tokens: int = 32, seed: int = 0,
-               on_token: Optional[Callable] = None, request_id=None) -> Request:
+               on_token: Optional[Callable] = None, tenant: str = "default",
+               priority: int = 0, deadline_s: Optional[float] = None,
+               timeout_s: Optional[float] = None, request_id=None) -> Request:
         """Queue one request; returns its live :class:`Request` handle.
         ``on_token(token_id, request)`` fires as each token is emitted;
         ``seed`` seeds the request's sampling generator (unused when
-        greedy)."""
+        greedy). ``timeout_s`` cancels the request (freeing its slot and
+        pages) if it has not finished that many seconds after submit.
+        ``request_id`` (int or str) overrides the engine-assigned id; an
+        external int id bumps the auto counter past itself.
+
+        The queue is FIFO: ``tenant``, ``priority`` and ``deadline_s`` are
+        recorded (``tenant``, ``priority``) or ignored (``deadline_s``)
+        until the multi-tenant scheduler (ROADMAP queue 1 item 4). A
+        submit to a draining engine returns the request already terminal,
+        ``outcome`` "shed" with ``shed_reason`` "draining": backpressure is
+        a value, not an exception."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -295,19 +359,27 @@ class ServingEngine:
                 + f" exceeds the slot KV capacity ({self.max_cache_len}); raise "
                 "max_cache_len"
             )
-        if request_id is None:
-            rid = self._next_id
-            self._next_id += 1
-        else:
-            rid = request_id
-            if isinstance(rid, int) and rid >= self._next_id:
-                self._next_id = rid + 1
+        with self._id_lock:
+            if request_id is None:
+                rid = self._next_id
+                self._next_id += 1
+            else:
+                rid = request_id
+                if isinstance(rid, int) and rid >= self._next_id:
+                    self._next_id = rid + 1
         gen = None
         if self.temperature != 0.0:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
-                      generator=gen, on_token=on_token, id=rid)
+                      generator=gen, on_token=on_token, id=rid,
+                      tenant=str(tenant or "default"), priority=int(priority),
+                      timeout_s=None if timeout_s is None else float(timeout_s),
+                      replica=self.replica)
         req.submit_t = time.perf_counter()
+        if self._draining:
+            req.shed_reason = SHED_DRAINING
+            self._terminate(req, req.submit_t, "shed", "shed")
+            return req
         self._queue.append(req)
         return req
 
@@ -342,16 +414,132 @@ class ServingEngine:
 
     @torch.no_grad()
     def step(self) -> bool:
-        """One scheduler iteration: advance prefill admission by one packed
+        """One scheduler iteration: shed the queue when draining, reap
+        cancels and timeouts, advance prefill admission by one packed
         dispatch, then run one batched decode step over every active slot.
         Returns whether any work happened."""
-        progressed = self._advance_admission()
+        if self._draining and self._queue:
+            # request_drain() only sets the flag (it may fire from a signal
+            # handler); the queue shed always runs here, on the loop thread
+            self._shed_queue_for_drain()
+        progressed = self._reap()
+        progressed = self._advance_admission() or progressed
         return self._decode_once() or progressed
 
     def run(self):
         """Drive :meth:`step` until queue, admissions and slots are idle."""
+        try:
+            while self._pending():
+                self.step()
+        except Exception:
+            self._flight_dump("serving_exception")
+            raise
+
+    def serve(self, should_stop: Optional[Callable[[], bool]] = None,
+              idle_sleep_s: float = 0.001):
+        """Long-running loop: keep scheduling as requests arrive (from
+        another thread's ``submit``) until ``should_stop()`` returns True;
+        idle iterations sleep ``idle_sleep_s``. A drain
+        (:meth:`request_drain`) finishes the in-flight requests and
+        returns even when ``should_stop`` never fires; with no
+        ``should_stop`` it returns once idle."""
+        try:
+            while should_stop is None or not should_stop():
+                busy = self.step()
+                if self._draining and not self._pending():
+                    return
+                if not busy:
+                    if should_stop is None and not self._pending():
+                        return
+                    time.sleep(idle_sleep_s)
+        except Exception:
+            self._flight_dump("serving_exception")
+            raise
+
+    # -- warmup ----------------------------------------------------------------
+
+    def _kernel_names(self) -> tuple:
+        """The kernels this engine's arena and ``kv_cache_dtype`` launch on
+        a CUDA device (``ops/kernels.py`` names)."""
+        quant = "_quant" if kv_cache_bits(self.kv_cache_dtype) < 16 else ""
+        if self.page_size:
+            return (f"paged_decode{quant}", f"ragged_prefill{quant}")
+        return (f"dense_decode{quant}",)
+
+    def warmup(self):
+        """The port's counterpart of the reference's warmup, which compiles
+        every program the engine can dispatch. Eager PyTorch has no
+        programs to compile; what the first request would otherwise wait
+        for is the nvcc build of the kernels, so on CUDA this builds
+        :meth:`_kernel_names` now. On the CPU (the plain versions) there is
+        nothing to build. Runs no forward pass and needs an idle engine."""
+        if self._slot_req or self._queue or self._admitting is not None:
+            raise RuntimeError("warmup() needs an idle engine")
+        if self.device.type == "cuda":
+            kernels.build(self._kernel_names())
+
+    def mark_steady(self):
+        """No-op. The reference snapshots its compile counters here so that
+        ``serving/admission_recompiles`` counts every later compile; the
+        port compiles no programs, keeps no compile counter and exports no
+        such gauge."""
+
+    # -- drain / flight ----------------------------------------------------------
+
+    def request_drain(self):
+        """Flag-only drain: later submits shed with ``shed_reason``
+        "draining", and everything still queued is shed at the top of the
+        next :meth:`step`; in-flight requests finish under whatever loop
+        drives :meth:`step`. Setting one flag is the whole effect, so this
+        is safe from a signal handler or another thread mid-step."""
+        self._draining = True
+
+    def _shed_queue_for_drain(self):
+        now = time.perf_counter()
+        for req in list(self._queue):
+            try:
+                self._queue.remove(req)
+            except ValueError:
+                continue
+            req.shed_reason = SHED_DRAINING
+            self._terminate(req, now, "shed", "shed")
+
+    def drain(self, timeout_s: Optional[float] = None) -> dict:
+        """Graceful shutdown on the owner thread: stop admitting, shed the
+        queue, step until every in-flight request finishes (or
+        ``timeout_s`` passes: the stragglers are then cancelled with
+        reason "drain_timeout"). Every request submitted before the drain
+        ends with a definite outcome. Returns ``{completed, shed,
+        cancelled}``."""
+        self.request_drain()
+        self._shed_queue_for_drain()
+        deadline = time.perf_counter() + timeout_s if timeout_s is not None else None
         while self._pending():
+            if deadline is not None and time.perf_counter() > deadline:
+                now = time.perf_counter()
+                if self._admitting is not None:
+                    self._abort_admission(now, "cancelled", "drain_timeout")
+                for req in list(self._slot_req.values()):
+                    self._terminate(req, now, "cancelled", "drain_timeout")
+                break
             self.step()
+        return {
+            "completed": self.requests_completed,
+            "shed": self.requests_shed,
+            "cancelled": self.requests_cancelled,
+        }
+
+    def _flight_dump(self, reason: str):
+        """The reference dumps its telemetry session's flight recorder
+        here; the port has no telemetry session yet (ROADMAP queue 1 item
+        4), so there is nothing to dump."""
+
+    def flight_dump(self, reason: str) -> bool:
+        """Capture a flight-recorder bundle now (``POST /v1/flight`` on a
+        replica server lands here). Returns whether a flight recorder
+        exists to dump to: False until the port has telemetry."""
+        self._flight_dump(str(reason))
+        return False
 
     # -- terminal transitions ----------------------------------------------
 
@@ -371,7 +559,6 @@ class ServingEngine:
         and pages freed, counters fed."""
         if req.done:
             return
-        req.done = True
         req.outcome = outcome
         req.finish_reason = reason
         req.finish_t = now
@@ -380,18 +567,65 @@ class ServingEngine:
             self.requests_completed += 1
         elif outcome == "shed":
             self.requests_shed += 1
+        else:
+            self.requests_cancelled += 1
+        # last: a handler thread that sees ``done`` sees the slot freed and
+        # the counters fed
+        req.done = True
 
-    def _abort_admission(self, reason: str):
-        """Tear down the mid-prefill admission (paged arena, under page
-        pressure): its slot returns to the free list, its pages are
-        released, the request is shed."""
+    def _reap(self) -> bool:
+        """Process cancellations and ``timeout_s`` expiries: queued,
+        admitting and live alike. A cancelled or timed-out request frees
+        its slot and pages now."""
+        now = time.perf_counter()
+        progressed = False
+
+        def reason(req):
+            if req._cancel:
+                return "cancelled"
+            if req.timeout_s is not None and now - req.submit_t > req.timeout_s:
+                return "timeout"
+            return None
+
+        for req in list(self._slot_req.values()):
+            why = reason(req)
+            if why:
+                self._terminate(req, now, "cancelled", why)
+                progressed = True
+        if self._admitting is not None:
+            why = reason(self._admitting[0])
+            if why:
+                self._abort_admission(now, "cancelled", why)
+                progressed = True
+        for req in list(self._queue):
+            why = reason(req)
+            if why:
+                try:
+                    self._queue.remove(req)
+                except ValueError:
+                    continue
+                self._terminate(req, now, "cancelled", why)
+                progressed = True
+        return progressed
+
+    def _abort_admission(self, now: float, outcome: str, reason: str):
+        """Tear down the mid-prefill admission (cancel, timeout or page
+        exhaustion): the slot returns to the free list, its partly
+        prefilled pages are released on the paged arena (the prefix cache
+        never saw them: a prompt is published only once admitted), and
+        the request terminates with ``outcome`` (a shed records
+        ``reason`` as its ``shed_reason``)."""
         req, slot = self._admitting[0], self._admitting[1]
         self._admitting = None
-        self._release_slot_pages(slot)
+        if self.page_size:
+            self._release_slot_pages(slot)
         self._free.append(slot)
         req.slot = None
-        req.shed_reason = reason
-        self._terminate(req, time.perf_counter(), "shed", "shed")
+        if outcome == "shed":
+            req.shed_reason = req.shed_reason or reason
+            self._terminate(req, now, "shed", "shed")
+        else:
+            self._terminate(req, now, outcome, reason)
 
     # -- planning ------------------------------------------------------------
 
@@ -569,7 +803,7 @@ class ServingEngine:
         try:
             self._ensure_writable(req, slot, cur, cur + n - 1)
         except PagePressure:
-            self._abort_admission(SHED_PAGE_EXHAUSTED)
+            self._abort_admission(time.perf_counter(), "shed", SHED_PAGE_EXHAUSTED)
             return True
         # packs: [request, slot, s0, s1, primary]. The primary may be
         # mid-tail (longer than the largest pack); co-admitted tails are
@@ -818,6 +1052,9 @@ class ServingEngine:
     def _emit(self, req: Request, token: int, now: float):
         req.tokens.append(token)
         self.generated_tokens += 1
+        if req._last_token_t:
+            self._itl.append(now - req._last_token_t)
+        req._last_token_t = now
         if req.on_token is not None:
             try:
                 req.on_token(token, req)
@@ -837,7 +1074,9 @@ class ServingEngine:
     # -- metrics -------------------------------------------------------------
 
     def metrics(self) -> dict:
-        """Serving gauges, ``serving/``-namespaced like the reference's."""
+        """Serving gauges, ``serving/``-namespaced like the reference's.
+        Safe from another thread while the loop steps: it reads host state
+        only, and snapshots each sample deque before reading it."""
         out = {
             "serving/queue_depth": len(self._queue),
             "serving/slot_occupancy": len(self._slot_req) / self.num_slots,
@@ -852,6 +1091,14 @@ class ServingEngine:
             # arena_bytes to tell a quantized arena from a shrunk one
             "serving/kv_cache_bits": kv_cache_bits(self.kv_cache_dtype),
         }
+        if self.requests_shed or self.requests_cancelled:
+            out["serving/shed"] = self.requests_shed
+            out["serving/cancelled"] = self.requests_cancelled
+            # no preemption without the multi-tenant scheduler
+            out["serving/preemptions"] = 0
+            out["serving/resumptions"] = 0
+        if self._draining:
+            out["serving/draining"] = True
         if self.spec_k:
             out["serving/spec_proposed"] = self.spec_proposed
             out["serving/spec_accepted"] = self.spec_accepted
@@ -861,18 +1108,42 @@ class ServingEngine:
         if self.page_size:
             out["serving/pages_in_use"] = self._allocator.in_use
             out["serving/pages_total"] = self.num_pages
+            out["serving/page_size"] = self.page_size
             out["serving/page_forks"] = self.page_forks
-        if self._step_samples:
-            wall = sum(w for w, _ in self._step_samples)
-            toks = sum(n for _, n in self._step_samples)
+        samples = list(self._step_samples)
+        if samples:
+            wall = sum(w for w, _ in samples)
+            toks = sum(n for _, n in samples)
             if wall > 0:
                 out["serving/tokens_per_s"] = toks / wall
-            out["serving/decode_step_ms_p50"] = 1e3 * float(
-                np.median([w for w, _ in self._step_samples])
-            )
-        if self._ttft:
-            out["serving/ttft_ms_p50"] = 1e3 * float(np.median(self._ttft))
+            out["serving/decode_step_ms_p50"] = 1e3 * float(np.median([w for w, _ in samples]))
+        ttft = list(self._ttft)
+        if ttft:
+            out["serving/ttft_ms_p50"] = 1e3 * float(np.median(ttft))
+        itl = np.asarray(list(self._itl))
+        if itl.size:
+            out["serving/itl_p50_ms"] = 1e3 * float(np.percentile(itl, 50))
+            out["serving/itl_p95_ms"] = 1e3 * float(np.percentile(itl, 95))
+            # p99 of the most recent 128 gaps: the live gauge, which decays
+            # once a regression clears (the reference's window)
+            out["serving/itl_recent_p99_ms"] = round(
+                1e3 * float(np.percentile(itl[-128:], 99)), 3)
         if self._prefix is not None:
             out["serving/prefix_hit_ratio"] = self._prefix.hit_ratio
             out["serving/prefix_hit_tokens"] = self._prefix.hit_tokens
+        # the placement signal a router ranks replicas by, with the raw
+        # components it folds (telemetry/fleet.py)
+        out["serving/num_slots"] = self.num_slots
+        out["serving/free_slots"] = self.num_slots - len(self._slot_req)
+        if self.page_size:
+            out["serving/free_pages"] = self._allocator.free_count
+        out["serving/load_score"] = load_score(
+            queue_depth=out["serving/queue_depth"],
+            num_slots=self.num_slots,
+            slot_occupancy=out["serving/slot_occupancy"],
+            free_pages=out.get("serving/free_pages"),
+            pages_total=self.num_pages if self.page_size else None,
+            itl_recent_p99_ms=out.get("serving/itl_recent_p99_ms"),
+            draining=self._draining,
+        )
         return out

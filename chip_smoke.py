@@ -25,7 +25,7 @@ must hold warpgroup matrix multiplies (HGMMA) and TMA tile loads
 (UTMALDG), or the run fails; the four decode libraries (paged and
 dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
 cp.async copies (LDGSTS), and ptxas must report no spills in them.
-Then it drives six
+Then it drives seven
 paths at full width, each with the launch counters reset just before
 each run and read just after:
 
@@ -43,6 +43,15 @@ each run and read just after:
 - speculative verify: ``spec_draft_len=4`` on the bf16 and the int8
   paged arena, one paged decode launch per layer per verify step,
   tokens checked teacher-forced, timed beside the run without spec;
+- the replica: the paged engine behind the port's ``ReplicaServer`` on
+  loopback HTTP, a sequential pass whose tokens and launches must equal
+  the in-process engine's fed one request at a time, a concurrent wave
+  from 9 client threads (teacher-forced, launches from the replica
+  engine's own steps and dispatches; client-side tokens/s, TTFT and
+  ITL), then ``python -m accelerate_tpu_torch.commands.serve replica``
+  as a subprocess on the int8 arena (tokens against the in-process int8
+  engine, a cancel mid-stream, exit code 0 after SIGTERM) and
+  ``--config tiny`` refused on CUDA by the decode kernels' gate;
 - training: ``Accelerator(mixed_precision="bf16")`` over fp32 master
   weights, a few steps of the eager loop and of ``build_train_step``,
   launch counts of layers x micro-batches per step, a falling loss on a
@@ -54,7 +63,8 @@ each run and read just after:
   differential timing beside the weight-read bound, and a decode-step
   profile.
 
-Prints the card, the per-kernel numbers, and as its last line
+Prints each phase's wall seconds and their total on one line, the
+card, the per-kernel numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Exits non-zero, with no result line, when CUDA is absent, when the
@@ -1554,6 +1564,276 @@ def spec_path(dev, card: str, model, prompt):
                            label="spec profile")
 
 
+# ---------------------------------------------------------------------------
+# replica path: the engine behind loopback HTTP, as `serve replica` runs it
+# ---------------------------------------------------------------------------
+
+REPLICA_HTTP_TIMEOUT = 300  # seconds for one HTTP call
+REPLICA_START_TIMEOUT = 300  # the CLI's start: imports, weights, CUDA context
+REPLICA_EXIT_TIMEOUT = 60    # SIGTERM to exit code
+
+
+def http_stream(url: str, body: dict, on_token=None):
+    """POST a streamed ``/v1/submit``: ``(events, t_sent, token_times)``, the
+    host clock at the request and at each token event's arrival.
+    ``on_token(i)`` runs as token event i arrives."""
+    import http.client
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=REPLICA_HTTP_TIMEOUT)
+    try:
+        t_sent = time.perf_counter()
+        conn.request("POST", "/v1/submit", body=json.dumps({**body, "stream": True}),
+                     headers={"Content-Type": "application/json"})
+        events, times = [], []
+        for line in conn.getresponse():
+            events.append(json.loads(line))
+            if events[-1]["event"] == "token":
+                times.append(time.perf_counter())
+                if on_token is not None:
+                    on_token(len(times) - 1)
+        return events, t_sent, times
+    finally:
+        conn.close()
+
+
+def http_json(url: str, body=None):
+    """GET (``body`` None) or POST JSON; the decoded JSON answer."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=REPLICA_HTTP_TIMEOUT) as resp:
+        return json.loads(resp.read())
+
+
+def replica_stream_done(what: str, events, new_tokens: int, outcome: str = "finished"):
+    """The tokens of a stream that must end ``done`` with ``outcome`` and,
+    when finished, ``new_tokens`` tokens equal to its token events."""
+    if not events or events[-1]["event"] != "done":
+        fail(f"{what}: the stream broke off without its done event")
+    done = events[-1]
+    toks = [e["token"] for e in events[:-1]]
+    if done["outcome"] != outcome or toks != done["tokens"]:
+        fail(f"{what}: outcome {done['outcome']} ({done['finish_reason']}), {len(toks)} "
+             f"streamed tokens against {len(done['tokens'])} in done; expected {outcome}")
+    if outcome == "finished" and len(toks) != new_tokens:
+        fail(f"{what}: {len(toks)} tokens, expected {new_tokens}")
+    return toks
+
+
+def serve_one_at_a_time(model, prompts, new_tokens: int, **eng_kw):
+    """The in-process twin of a sequential replica pass: a fresh engine fed
+    ``prompts`` one at a time, each run to completion. ``(tokens,
+    launches)`` with the counts reset just before and read just after."""
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(model, **eng_kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tokens = []
+    for p in prompts:
+        r = engine.submit(p, max_new_tokens=new_tokens)
+        engine.run()
+        if r.outcome != "finished":
+            fail(f"in-process twin: request ended {r.outcome}")
+        tokens.append(list(r.tokens))
+    torch.cuda.synchronize()
+    return tokens, dict(kernels.launch_counts)
+
+
+def replica_path(dev, card: str, model, prompts):
+    """Serve small_1b through the port's ReplicaServer over loopback HTTP.
+    (a) In process, bf16: a sequential pass whose tokens and launch counts
+    must be those of the in-process engine fed the same requests one at a
+    time (one request at a time on both sides: the same schedule, shapes
+    and kernels), then a concurrent wave from 9 client threads held as
+    main_path holds itself (teacher-forced, launches = the replica engine's
+    own steps and dispatches x layers; a concurrent wave packs and batches
+    as its arrivals fall, so its counts are not main_path's). (b) The CLI
+    (``python -m accelerate_tpu_torch.commands.serve replica``) as a
+    subprocess on the int8 paged arena: 4 requests with the tokens of the
+    in-process int8 engine on the same seed, a cancel mid-stream, and exit
+    code 0 after SIGTERM. (c) ``--config tiny`` on CUDA fails the decode
+    kernels' gate at build. Returns the launches of (a)'s passes."""
+    import argparse
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.commands import serve as serve_cli
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.serving import ReplicaServer
+    from accelerate_tpu_torch.serving.engine import Request, ServingEngine
+
+    cfg = model.config
+    new_tokens = 32
+    eng_kw = dict(num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                  prefill_chunks=(128, 512), device=dev)
+    bodies = [{"prompt": [int(t) for t in p], "max_new_tokens": new_tokens} for p in prompts]
+
+    # (a) sequential: the replica against its in-process twin
+    twin_tokens, twin_launches = serve_one_at_a_time(model, prompts, new_tokens, **eng_kw)
+    server = ReplicaServer(ServingEngine(model, **eng_kw), name="chip-seq").start()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        seq_tokens = [replica_stream_done(f"replica sequential request {i}",
+                                          http_stream(f"{server.url}/v1/submit", b)[0],
+                                          new_tokens)
+                      for i, b in enumerate(bodies)]
+        torch.cuda.synchronize()
+        seq_launches = dict(kernels.launch_counts)
+    finally:
+        server.close()
+    if seq_tokens != twin_tokens:
+        bad = [i for i, (a, b) in enumerate(zip(seq_tokens, twin_tokens)) if a != b]
+        fail(f"replica sequential pass: requests {bad} streamed other tokens than the "
+             "in-process engine fed one request at a time")
+    if seq_launches != twin_launches:
+        fail(f"replica sequential pass: launches {seq_launches} != the in-process "
+             f"engine's {twin_launches}")
+    print(f"replica path (sequential, bf16): {len(bodies)} requests x {new_tokens} tokens "
+          "over loopback HTTP, tokens identical to the in-process engine fed one request "
+          f"at a time; launches identical: { {k: n for k, n in seq_launches.items() if n} }")
+
+    # (a) concurrent wave, one client thread per request
+    engine = ServingEngine(model, **eng_kw)
+    server = ReplicaServer(engine, name="chip-wave").start()
+    results = [None] * len(bodies)
+
+    def client(i):
+        results[i] = http_stream(f"{server.url}/v1/submit", bodies[i])
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(bodies))]
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=REPLICA_HTTP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wave_launches = dict(kernels.launch_counts)
+        if any(t.is_alive() for t in threads) or None in results:
+            fail("replica wave: a client thread did not finish")
+        m = engine.metrics()
+    finally:
+        server.close()
+    reqs = []
+    for i, (events, _, _) in enumerate(results):
+        toks = replica_stream_done(f"replica wave request {i}", events, new_tokens)
+        reqs.append(Request(prompt=np.asarray(prompts[i], np.int32),
+                            max_new_tokens=new_tokens, tokens=toks))
+    expect_launches("replica wave", wave_launches, {
+        "paged_decode": engine.step_count * cfg.num_layers,
+        "ragged_prefill": engine.prefill_dispatches * cfg.num_layers})
+    worst_gap, exact, total = teacher_forced(model, reqs, new_tokens, dev)
+    if not math.isfinite(worst_gap) or worst_gap > TOP2_MARGIN:
+        fail(f"replica wave: a streamed token is {worst_gap} logits below the plain "
+             f"forward's argmax (margin {TOP2_MARGIN})")
+    ttft = [times[0] - sent for _, sent, times in results]
+    itl = [b - a for _, _, times in results for a, b in zip(times, times[1:])]
+    n_tok = sum(len(times) for _, _, times in results)
+    print(f"replica wave (bf16): {len(bodies)} concurrent streams, {engine.step_count} decode "
+          f"steps, {engine.prefill_dispatches} prefill dispatches, launches "
+          f"{ {k: n for k, n in wave_launches.items() if n} }; teacher-forced: {exact}/{total} "
+          f"tokens the plain argmax, worst gap {worst_gap:.4f} (margin {TOP2_MARGIN})")
+    print(f"replica wave on {card}: client side {n_tok / wall:.1f} tokens/s over {wall:.3f} s, "
+          f"TTFT p50 {1e3 * float(np.median(ttft)):.2f} ms, ITL p50 "
+          f"{1e3 * float(np.median(itl)):.3f} ms; engine gauges {m['serving/tokens_per_s']:.1f} "
+          f"tokens/s (decode steps only), TTFT p50 {m['serving/ttft_ms_p50']:.2f} ms, ITL p50 "
+          f"{m['serving/itl_p50_ms']:.3f} ms, decode {m['serving/decode_step_ms_p50']:.3f} "
+          "ms/step (p50)")
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the CLI as a subprocess, int8 KV, against the in-process int8 engine
+    cli_prompts = prompts[:4]
+    twin_int8, _ = serve_one_at_a_time(model, cli_prompts, new_tokens,
+                                       kv_cache_dtype="int8", **eng_kw)
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.serve", "replica",
+           "--config", "small_1b", "--page-size", str(PAGE), "--num-slots", "8",
+           "--max-cache-len", str(MAX_CACHE), "--prefill-chunks", "128,512",
+           "--kv-cache-dtype", "int8", "--init-seed", "0", "--port", "0"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile(mode="w+") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            line = []
+            reader = threading.Thread(target=lambda: line.append(proc.stdout.readline()),
+                                      daemon=True)
+            reader.start()
+            reader.join(timeout=REPLICA_START_TIMEOUT)
+            if not line or not line[0].strip():
+                err.seek(0)
+                fail(f"replica CLI printed no startup line: {err.read()[-2000:]}")
+            url = json.loads(line[0])["url"]
+            started = time.perf_counter() - t0
+            cli_tokens = [replica_stream_done(
+                f"replica CLI request {i}",
+                http_stream(f"{url}/v1/submit", {**bodies[i], "request_id": f"cli-{i}"})[0],
+                new_tokens) for i in range(len(cli_prompts))]
+            if cli_tokens != twin_int8:
+                bad = [i for i, (a, b) in enumerate(zip(cli_tokens, twin_int8)) if a != b]
+                fail(f"replica CLI (int8): requests {bad} streamed other tokens than the "
+                     "in-process int8 engine on the same seed")
+
+            def cancel_at(i):
+                if i == 3:
+                    http_json(f"{url}/v1/cancel", {"request_id": "cli-cancel"})
+
+            events, _, _ = http_stream(f"{url}/v1/submit", {
+                **bodies[1], "max_new_tokens": 1000, "request_id": "cli-cancel"},
+                on_token=cancel_at)
+            replica_stream_done("replica CLI cancel", events, 0, outcome="cancelled")
+            health = http_json(f"{url}/v1/health")
+            if health["free_slots"] != 8 or health["queue_depth"] != 0:
+                fail(f"replica CLI: after the cancel /v1/health reads {health}")
+            proc.terminate()  # SIGTERM: drain, then exit
+            try:
+                rc = proc.wait(timeout=REPLICA_EXIT_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                fail(f"replica CLI did not exit within {REPLICA_EXIT_TIMEOUT} s of SIGTERM")
+            if rc != 0:
+                err.seek(0)
+                fail(f"replica CLI exited {rc} after SIGTERM: {err.read()[-2000:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            proc.stdout.close()
+    print(f"replica CLI (small_1b, int8 KV, subprocess): started in {started:.1f} s; "
+          f"{len(cli_prompts)} requests x {new_tokens} tokens identical to the in-process "
+          f"int8 engine; a cancel after {len(events) - 1} tokens ended "
+          f"{events[-1]['outcome']}, /v1/health free_slots {health['free_slots']}; exit code "
+          "0 after SIGTERM")
+
+    # (c) tiny has no kernel path on the card: the gate refuses it at build
+    parser = argparse.ArgumentParser()
+    serve_cli.register(parser)
+    try:
+        serve_cli.build_replica_engine(parser.parse_args(["replica", "--config", "tiny"]))
+    except ValueError as exc:
+        if "gate" not in str(exc):
+            fail(f"replica CLI --config tiny on CUDA raised another error: {exc}")
+        print(f"replica CLI --config tiny on CUDA refused at build: {exc}")
+    else:
+        fail("replica CLI --config tiny on CUDA built an engine")
+    return {name: {k: n for k, n in counts.items() if n}
+            for name, counts in (("sequential", seq_launches), ("wave", wave_launches))}
+
+
 def profile_prefill(model, eng_kw, prompts, new_tokens: int, card: str):
     """The ragged prefill kernel's share of one served run of ``prompts``:
     torch.profiler's device-side events over the whole run, the kernel's
@@ -2110,6 +2390,7 @@ def profile_generate(model, ids, card: str, kv: str, steps: int = 5):
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2139,6 +2420,15 @@ def main():
 
     from accelerate_tpu_torch.ops import kernels
 
+    # wall seconds of each phase, printed on one line with their total
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
     t0 = time.perf_counter()
     reports = kernels.build()
     print(f"build: {sorted(kernels.KERNELS)} with nvcc for sm_90a in "
@@ -2150,6 +2440,7 @@ def main():
     sass_gate(TENSOR_CORE_KERNELS, ("HGMMA", "UTMALDG"), "run on the tensor cores through TMA")
     sass_gate(DECODE_KERNELS, ("HMMA", "LDGSTS"), "run mma.sync over cp.async tiles")
     decode_spill_gate(reports)
+    phase_s["build and SASS gates"] = time.perf_counter() - t0
 
     dev = torch.device("cuda")
     # the bf16 serving, training and dense decode phases draw their inputs
@@ -2158,26 +2449,35 @@ def main():
     # come from their own generator and move none of those
     gen = torch.Generator(device=dev).manual_seed(0)
     gen_new = torch.Generator(device=dev).manual_seed(1)
-    rows = [decode_phase(gen, dev, gen_new), paged_decode_quant_phase(gen_new, dev),
-            *prefill_phases(gen, gen_new, dev),
-            *flash_phases(gen, dev), *dense_decode_phases(gen, dev)]
+    # (in this order: each phase draws from the generators where the
+    # single expression that listed them did)
+    rows = [timed("paged decode kernel", decode_phase, gen, dev, gen_new),
+            timed("paged decode quant kernel", paged_decode_quant_phase, gen_new, dev),
+            *timed("ragged prefill kernels", prefill_phases, gen, gen_new, dev),
+            *timed("flash kernels", flash_phases, gen, dev),
+            *timed("dense decode kernels", dense_decode_phases, gen, dev)]
     # each path is driven with the counts reset just before it and read
     # just after; a kernel's launches come from its own path (the dense
     # decode kernel's from generate() and the flat engine together, the
     # quantized paged kernels' from the int8 and int4 runs together)
-    launches, serving = main_path(dev, card)
+    launches, serving = timed("main path", main_path, dev, card)
     model = serving.pop("model")
-    flat_launches = flat_path(dev, card, model, **serving)
-    launches.update(quant_path(dev, card, model, **serving))
-    drift_phase(model, serving["prompts"], card)
-    spec_path(dev, card, model, serving["prompt"])
+    flat_launches = timed("flat path", lambda: flat_path(dev, card, model, **serving))
+    launches.update(timed("quant path", lambda: quant_path(dev, card, model, **serving)))
+    timed("drift", drift_phase, model, serving["prompts"], card)
+    timed("spec path", spec_path, dev, card, model, serving["prompt"])
+    # the replica's launches stay off the kernels line: its rows keep the
+    # launches of their own paths
+    replica_launches = timed("replica path", replica_path, dev, card, model,
+                             serving["prompts"])
+    print(f"replica path launches: {json.dumps(replica_launches)}")
     del serving, model
     gc.collect()
     torch.cuda.empty_cache()
-    launches.update(train_path(dev, card))
+    launches.update(timed("train path", train_path, dev, card))
     gc.collect()
     torch.cuda.empty_cache()  # the training path's memory, before llama_7b
-    launches.update(generate_path(dev, card))
+    launches.update(timed("generate path", generate_path, dev, card))
     launches["dense_decode"] += flat_launches
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -2185,6 +2485,8 @@ def main():
             fail(f"{row['name']} was not launched on its path")
     if "jax" in sys.modules or "accelerate_tpu" in sys.modules:
         fail("the port imported jax or accelerate_tpu")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; total {time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,7 @@ from accelerate_tpu_torch.models.convert import random_params
 from accelerate_tpu_torch.models.decoder import DecoderLM
 from accelerate_tpu_torch.ops import attention, kernels
 from accelerate_tpu_torch.serving.engine import ServingEngine
+from accelerate_tpu_torch.serving.replica_server import ReplicaServer
 from accelerate_tpu_torch.utils.quantization import quantize_kv
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -61,7 +62,11 @@ def test_import_leaves_jax_unloaded():
             "accelerate_tpu_torch.accelerator, accelerate_tpu_torch.data, "
             "accelerate_tpu_torch.ops.losses, accelerate_tpu_torch.optimizer, "
             "accelerate_tpu_torch.scheduler, accelerate_tpu_torch.state, "
-            "accelerate_tpu_torch.utils.dataclasses; "
+            "accelerate_tpu_torch.utils.dataclasses, "
+            "accelerate_tpu_torch.serving.replica_server, "
+            "accelerate_tpu_torch.telemetry.exporter, "
+            "accelerate_tpu_torch.telemetry.fleet, "
+            "accelerate_tpu_torch.commands.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad")
@@ -217,6 +222,14 @@ def test_later_slices_raise():
     # the quantized paged arena and speculative verify are this port's now
     ServingEngine(model, max_cache_len=64, device="cpu", kv_cache_dtype="int8",
                   page_size=8, spec_draft_len=2)
+    # and so is the replica identity, with the server; its fault injection
+    # is a later slice
+    eng = ServingEngine(model, max_cache_len=64, device="cpu", replica="r0",
+                        steps_per_call=1)
+    assert eng.replica == "r0" and eng.telemetry is None
+    assert eng.submit(np.arange(3, 9), max_new_tokens=2).replica == "r0"
+    with pytest.raises(NotImplementedError, match="fault injection"):
+        ReplicaServer(eng, faults=object())
     acc = Accelerator(device="cpu")
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     acc.prepare(model, opt)
