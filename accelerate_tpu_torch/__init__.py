@@ -12,11 +12,13 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   hand-written Hopper kernels)
 - ``serving/pages.py`` (paged arena, prefix cache, n-gram drafter),
   ``serving/arena.py``, ``serving/engine.py`` (paged or flat, bf16 or
-  int8/int4 KV, speculative verify, cancel / timeout / drain),
+  int8/int4 KV, speculative verify, decode bursts, cancel / timeout /
+  drain, ``generate_batched``),
   ``serving/replica_server.py`` (``ReplicaServer``: the engine over
   stdlib HTTP), ``serving/drift.py`` (``kv_quant_drift``),
   ``generation.py`` (``generate``), ``utils/quantization.py`` (int8/int4
   KV storage)
+- ``utils/cuda_graphs.py`` (the decode and verify steps as CUDA graphs)
 - ``telemetry/exporter.py`` (``prometheus_text``), ``telemetry/fleet.py``
   (``load_score``), ``commands/serve.py`` (``python -m
   accelerate_tpu_torch.commands.serve replica``)
@@ -34,12 +36,13 @@ from .models.configs import DecoderConfig
 from .models.decoder import DecoderLM
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
-from .serving.engine import ServingEngine
+from .serving.engine import ServingEngine, generate_batched
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionConfig
 
 __all__ = [
     "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",
     "DecoderConfig", "DecoderLM", "GradientAccumulationPlugin", "GradientState",
-    "MixedPrecisionConfig", "ServingEngine", "generate", "warmup_cosine_decay_schedule",
+    "MixedPrecisionConfig", "ServingEngine", "generate", "generate_batched",
+    "warmup_cosine_decay_schedule",
 ]

@@ -12,8 +12,10 @@ init does not reproduce a JAX replica's), wraps its ``ServingEngine`` in a
 ``{"role", "replica", "port", "url"}`` and serves until SIGTERM has
 drained it. The model and the engine live on CUDA unless ``--device``
 names another device (``--device cpu`` runs the kernels' plain versions).
-On CUDA the config must pass the decode kernels' gate, which is checked
-before a port is bound: ``tiny`` (head_dim 16) serves only with
+``--steps-per-call K`` serves decode bursts of K steps. On CUDA every
+decode step runs as a CUDA graph captured before the port is bound, and
+the config must pass the decode kernels' gate, which is checked before a
+port is bound too: ``tiny`` (head_dim 16) serves only with
 ``--device cpu``. The ``router`` role is a later slice of the port.
 """
 
@@ -73,7 +75,8 @@ def register(parser):
     replica.add_argument("--temperature", type=float, default=0.0)
     replica.add_argument("--top-k", type=int, default=None)
     replica.add_argument("--steps-per-call", type=int, default=1,
-                         help="fused decode bursts (a later slice: above 1 raises)")
+                         help="decode steps per burst: K steps replayed back to back "
+                              "with one host read, where no admission waits")
     replica.add_argument("--init-seed", type=int, default=0,
                          help="random-weight seed (two replicas launched with "
                               "the same config and seed serve the same weights)")
@@ -152,6 +155,9 @@ def _serve_replica(args) -> int:
     from ..serving.replica_server import ReplicaServer
 
     engine = build_replica_engine(args)
+    # the kernels' build and, on CUDA, the capture of the decode (or
+    # verify) step's graph happen here, before a port is bound: no request
+    # waits on either, and no HTTP thread runs while the loop captures
     engine.warmup()
     engine.mark_steady()
     server = ReplicaServer(

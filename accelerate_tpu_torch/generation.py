@@ -4,9 +4,17 @@ serving engine shares.
 Counterpart of ``accelerate_tpu/generation.py``. :func:`generate` runs the
 prompt once through the model (whole-prompt prefill: the flash forward
 kernel where the shapes allow, writing the cache), samples the first
-token from the last row, then runs ``max_new_tokens - 1`` single-stream
-decode steps against the cache (the dense decode kernel). The cache is
-right-sized as the reference does (:func:`_right_size_cache`).
+token from the last row, then runs ``max_new_tokens - 1`` decode steps
+against the cache (the dense decode kernel). The cache is right-sized as
+the reference does (:func:`_right_size_cache`).
+
+The decode step (:func:`_decode_body`) reads its token and position from
+device buffers and writes through the slot-arena branch of the model
+(``cache_positions``), so nothing in it depends on a host value. On CUDA
+it is captured once per call as a CUDA graph (``utils/cuda_graphs.py``)
+and replayed for every step, the token fed back on the device and read
+once at the end: the counterpart of the reference's ``lax.scan`` decode
+loop. The CPU runs the same body eagerly.
 
 What the reference keeps beside it has nothing to do in eager PyTorch:
 its jit caches of compiled prefill and decode programs (``_LOOP_CACHE``,
@@ -28,10 +36,13 @@ tokens are compared by distribution, not token for token.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
 import torch
+
+from .utils import cuda_graphs
 
 # right-sized caches round prompt + budget up to this many positions
 _CACHE_BUCKET = 256
@@ -62,6 +73,19 @@ def _right_size_cache(config, prompt_len: int, max_new_tokens: int) -> int:
     need = prompt_len + max_new_tokens
     sized = min(-(-need // _CACHE_BUCKET) * _CACHE_BUCKET, config.max_seq_len)
     return sized if sized >= need else int(config.max_seq_len)
+
+
+def _decode_body(model, cache, tok: torch.Tensor, pos: torch.Tensor, greedy: bool):
+    """One decode step of :func:`generate` on device buffers, what its CUDA
+    graph captures: ``tok`` [B] through the model at position ``pos`` [B]
+    (int64), the greedy argmax written back into ``tok``, ``pos`` one
+    further. Returns the logits [B, V] (a sampled step draws from them
+    outside the graph)."""
+    logits = model(tok[:, None], pos[:, None], cache=cache, cache_positions=pos)[:, -1]
+    if greedy:
+        tok.copy_(torch.argmax(logits, dim=-1))
+    pos.add_(1)
+    return logits
 
 
 @torch.no_grad()
@@ -106,13 +130,20 @@ def generate(
         torch.cuda.synchronize(dev)
     prefill_seconds = time.perf_counter() - t0
 
-    tokens = [tok]
-    for pos in range(s, s + max_new_tokens - 1):
-        logits = model(tok[:, None], torch.arange(pos, pos + 1, device=dev),
-                       cache=cache, decode=True)
-        tok = _sample(logits[:, -1], generator, temperature, top_k)
-        tokens.append(tok)
-    result = torch.cat([input_ids, torch.stack(tokens, dim=1)], dim=1)
+    out = torch.empty((b, max_new_tokens), dtype=torch.long, device=dev)
+    out[:, 0] = tok
+    if max_new_tokens > 1:
+        pos = torch.full((b,), s, dtype=torch.long, device=dev)
+        greedy = temperature == 0.0
+        step = functools.partial(_decode_body, model, cache, tok, pos, greedy)
+        if cuda_graphs.captures(dev):
+            step = cuda_graphs.capture(step, dev, restore=(tok, pos)).replay
+        for i in range(1, max_new_tokens):
+            logits = step()
+            if not greedy:
+                tok.copy_(_sample(logits, generator, temperature, top_k))
+            out[:, i] = tok
+    result = torch.cat([input_ids, out], dim=1)
     if return_prefill_seconds:
         return result, prefill_seconds
     return result

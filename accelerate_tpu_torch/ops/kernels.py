@@ -16,10 +16,18 @@ tensors to the plain PyTorch version in ``ops/attention.py``. For a CUDA
 tensor they check device, dtype, shape and contiguity, allocate the
 output, launch the kernel and add one to :data:`launch_counts`, or raise.
 Nothing falls back from the device to the plain version.
+
+A CUDA graph (``utils/cuda_graphs.py``) launches on replay what its
+capture recorded and runs no wrapper: while a graph is captured the
+wrappers on the capturing thread count into the capture's own record
+(:func:`recording`), and each replay adds that record to
+:data:`launch_counts` (:func:`add_launches`). A launch from any other
+thread meanwhile counts as usual.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -89,6 +97,9 @@ KERNELS = {
 # launches per kernel since the last reset_launch_counts(); a wrapper adds
 # one exactly where it launches its kernel, never on the plain path
 launch_counts = {name: 0 for name in KERNELS}
+# where this thread's wrappers count while it captures a graph (no
+# ``record``: launch_counts)
+_capture = threading.local()
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -97,6 +108,33 @@ _lock = threading.Lock()
 def reset_launch_counts():
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the launches made inside into a fresh dict, yielded, and not
+    into :data:`launch_counts`: what a CUDA graph's capture records, and
+    what each of its replays then adds. Only this thread's launches are
+    recorded."""
+    if _record() is not None:
+        raise RuntimeError("launches are already being recorded (a capture inside a capture)")
+    _capture.record = {}
+    try:
+        yield _capture.record
+    finally:
+        _capture.record = None
+
+
+def _record():
+    """The record this thread's launches go to, or None (launch_counts)."""
+    return getattr(_capture, "record", None)
+
+
+def add_launches(counts: dict):
+    """Add a capture's recorded launches to :data:`launch_counts`: one
+    replay of its graph."""
+    for name, n in counts.items():
+        launch_counts[name] += n
 
 
 def nvcc_path() -> str:
@@ -161,6 +199,11 @@ def _lib(name: str):
     with _lock:
         fn = _libs.get(name)
         if fn is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"the {name} kernel is not loaded, and a CUDA graph capture cannot "
+                    "build or load it: run the step once before capturing it"
+                )
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             fn = getattr(lib, KERNELS[name][1])
@@ -174,7 +217,15 @@ def _launch(name: str, *args):
     err = _lib(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launch_counts[name] += 1
+    _count(name)
+
+
+def _count(name: str):
+    """One launch of kernel ``name``: into :data:`launch_counts`, or into
+    the record of the graph this thread is capturing."""
+    record = _record()
+    counts = launch_counts if record is None else record
+    counts[name] = counts.get(name, 0) + 1
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape, device):

@@ -35,7 +35,9 @@ def rotary_embedding_tables(
     """(sin, cos) tables for RoPE; positions [..., S] -> [..., S, head_dim/2]."""
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exponent)
+    # a device fill, not a copy of a host scalar: a CUDA graph captures this
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / torch.pow(base, exponent)
     angles = positions.float()[..., None] * freqs
     return torch.sin(angles).to(dtype), torch.cos(angles).to(dtype)
 

@@ -4,8 +4,9 @@ one engine behind HTTP (``replica_server.py``), and the KV-quantization
 drift harness (``drift.py``)."""
 
 from .drift import kv_quant_drift
-from .engine import Request, ServingEngine
+from .engine import Request, ServingEngine, generate_batched
 from .pages import NGramDrafter
 from .replica_server import ReplicaServer
 
-__all__ = ["NGramDrafter", "ReplicaServer", "Request", "ServingEngine", "kv_quant_drift"]
+__all__ = ["NGramDrafter", "ReplicaServer", "Request", "ServingEngine", "generate_batched",
+           "kv_quant_drift"]

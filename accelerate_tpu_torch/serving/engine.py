@@ -16,13 +16,23 @@ prefill:
   kernel, and both kernels read the pages dequantized;
 - **batched decode step**: every slot decodes each step at a fixed batch
   of ``num_slots``; inactive slots are parked at the last cache position,
-  where an active request always writes before it reads;
+  where an active request always writes before it reads. On CUDA the
+  step runs as the replay of a CUDA graph (``utils/cuda_graphs.py``),
+  captured once per engine over fixed device buffers of tokens, write
+  positions and active flags (the reference's jitted step); the CPU runs
+  the same step body eagerly;
+- **decode bursts** (``steps_per_call=K``): K steps back to back with the
+  next token and the write positions moving on the device and one read
+  of the [K, N] tokens, when no admission is in flight or can start and
+  every live slot has K tokens of budget left (the reference's
+  ``_burst_len``); otherwise one step;
 - **speculative verify** (``spec_draft_len=K``, paged arena only): the
   host-side drafter (:class:`~.pages.NGramDrafter` by default) proposes K
   tokens per slot and one batched step feeds ``[last, d1..dK]`` at K + 1
   positions through the paged decode kernel (Sq = K + 1), emitting the
   longest accepted draft prefix plus one model token; greedy and sampled
-  tokens are those of K + 1 sequential steps;
+  tokens are those of K + 1 sequential steps. The verify step is a CUDA
+  graph too; spec replaces the burst, as in the reference;
 - **packed ragged prefill**: each scheduler iteration packs the primary
   admission's next tail segment, plus the whole tails of further queued
   requests while capacity remains, into one token pack of the smallest
@@ -45,8 +55,11 @@ masked-dense read, as the reference forces for chunks); the batched
 decode step writes each slot's token at its own position and reads
 through the dense decode kernel.
 
-Greedy decoding is ``argmax``; temperature/top-k sampling draws from a
-``torch.Generator`` per request, seeded by ``submit(seed=...)``.
+Greedy decoding is ``argmax``, inside the graph; temperature/top-k
+sampling draws from a ``torch.Generator`` per request, seeded by
+``submit(seed=...)``, outside the graph and on the device: each live
+slot's generator draws once per step, in step order, so a burst gives
+the tokens of K single steps.
 
 HTTP handler threads of a replica server (``replica_server.py``) call
 :meth:`ServingEngine.submit`, :meth:`Request.cancel` and
@@ -55,8 +68,8 @@ HTTP handler threads of a replica server (``replica_server.py``) call
 counters, ``req.tokens``), and every device op stays on the loop thread.
 
 Everything else the reference engine offers (the multi-tenant
-scheduler, KV tiers and handoff, fault injection, telemetry hooks,
-fused decode bursts) is a later slice of the port and raises here.
+scheduler, KV tiers and handoff, fault injection, telemetry hooks) is a
+later slice of the port and raises here.
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ from ..models.decoder import resolve_device
 from ..ops import kernels
 from ..ops.attention import PREFILL_TOKEN_BLOCK
 from ..telemetry.fleet import load_score
+from ..utils import cuda_graphs
 from ..utils.quantization import kv_cache_bits
 from .arena import arena_nbytes, init_arena, slot_view, write_slot
 from .pages import (
@@ -168,12 +182,12 @@ class ServingEngine:
     :class:`~.pages.NGramDrafter`); it reserves K positions of per-slot
     headroom. ``temperature``/``top_k`` are engine-wide. ``replica`` is the
     engine's fleet identity, stamped on every request.
-    ``steps_per_call`` above 1 (fused decode bursts) and ``telemetry``
-    are later slices and raise; ``telemetry`` stays None.
+    ``steps_per_call=K`` runs decode bursts of K steps where the
+    reference's rules allow one (ignored under spec, which replaces the
+    burst). ``telemetry`` is a later slice and raises; it stays None.
     """
 
     _LATER = {
-        "steps_per_call": "fused decode bursts, queue 1 item 2",
         "telemetry": "telemetry hooks",
         "scheduler": "the multi-tenant scheduler",
         "faults": "fault injection",
@@ -206,8 +220,6 @@ class ServingEngine:
         telemetry=None,
         **later,
     ):
-        if int(steps_per_call) > 1:
-            later["steps_per_call"] = steps_per_call
         if telemetry is not None:
             later["telemetry"] = telemetry
         if later:
@@ -244,6 +256,7 @@ class ServingEngine:
         self.temperature = float(temperature)
         self.top_k = top_k
         self.eos_token_id = eos_token_id
+        self.steps_per_call = max(1, int(steps_per_call))
 
         self._prefix = None
         if not page_size:
@@ -255,10 +268,25 @@ class ServingEngine:
                              prefix_max_entries)
         self.arena_bytes = arena_nbytes(self._arena)
 
-        # per-slot decode state, host side: the step feeds it to the device
-        self._tokens = np.zeros((self.num_slots,), np.int64)
-        self._lengths = np.zeros((self.num_slots,), np.int64)
-        self._active = np.zeros((self.num_slots,), bool)
+        # per-slot decode state. The host arrays are the scheduler's; before
+        # each decode step or burst one transfer copies them into fixed
+        # device buffers (last tokens, write positions, active flags) that
+        # the step body, and its CUDA graph, read and move forward
+        n = self.num_slots
+        self._tokens = np.zeros((n,), np.int64)
+        self._lengths = np.zeros((n,), np.int64)
+        self._active = np.zeros((n,), bool)
+        self._state_dev = torch.zeros((3, n), dtype=torch.long, device=self.device)
+        self._tok_dev, self._pos_dev, self._act_dev = self._state_dev.unbind(0)
+        self._burst_dev = torch.zeros((self.steps_per_call, n), dtype=torch.long,
+                                      device=self.device)  # one burst's tokens
+        if self.spec_k:
+            # the verify step's [last, d1..dK] and their write positions
+            self._verify_dev = torch.zeros((2, n, self.spec_k + 1), dtype=torch.long,
+                                           device=self.device)
+            self._cand_dev = torch.zeros((n, self.spec_k + 1), dtype=torch.long,
+                                         device=self.device)
+        self._graphs: dict = {}  # step name -> CapturedStep (CUDA only)
 
         self._queue: deque = deque()
         self._free = list(range(self.num_slots))[::-1]  # pop() -> slot 0 first
@@ -283,7 +311,7 @@ class ServingEngine:
         self.generated_tokens = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
-        self._step_samples: deque = deque(maxlen=512)  # (wall_s, tokens)
+        self._step_samples: deque = deque(maxlen=512)  # (wall_s, tokens, steps)
         self._ttft: deque = deque(maxlen=2048)  # submit -> first token, s
         self._itl: deque = deque(maxlen=2048)  # inter-token gaps, s
 
@@ -468,15 +496,24 @@ class ServingEngine:
 
     def warmup(self):
         """The port's counterpart of the reference's warmup, which compiles
-        every program the engine can dispatch. Eager PyTorch has no
-        programs to compile; what the first request would otherwise wait
-        for is the nvcc build of the kernels, so on CUDA this builds
-        :meth:`_kernel_names` now. On the CPU (the plain versions) there is
-        nothing to build. Runs no forward pass and needs an idle engine."""
+        every program the engine can dispatch. On CUDA this builds
+        :meth:`_kernel_names` (the nvcc build the first request would
+        otherwise wait for) and captures the CUDA graph of every step the
+        engine replays: the decode step (a burst replays it K times) or,
+        under spec, the verify step. The capture runs the step over parked
+        slots, whose writes land where no request reads. On the CPU (the
+        plain versions, no graphs) there is nothing to do. Needs an idle
+        engine."""
         if self._slot_req or self._queue or self._admitting is not None:
             raise RuntimeError("warmup() needs an idle engine")
         if self.device.type == "cuda":
             kernels.build(self._kernel_names())
+            if self.spec_k:
+                self._load_verify_state(np.zeros((self.num_slots, self.spec_k), np.int64))
+                self._step_fn("verify")
+            else:
+                self._load_decode_state()
+                self._step_fn("decode")
 
     def mark_steady(self):
         """No-op. The reference snapshots its compile counters here so that
@@ -919,52 +956,104 @@ class ServingEngine:
             self._terminate(req, time.perf_counter(), "shed", "shed")
             return False
 
+    def _burst_len(self) -> int:
+        """``steps_per_call`` when a burst can neither delay an admission
+        (none in flight, and the queue cannot be admitted) nor overshoot a
+        request's token budget, else 1 (the reference's ``_burst_len``)."""
+        k = self.steps_per_call
+        if k <= 1 or self._admitting is not None or (self._queue and self._free):
+            return 1
+        remaining = min(req.max_new_tokens - len(req.tokens)
+                        for req in self._slot_req.values())
+        return k if remaining >= k else 1
+
+    def _load_decode_state(self):
+        """Copy the host's per-slot state into the decode step's device
+        buffers in one transfer. Inactive slots still flow through the
+        fixed-batch step but must not write at ``lengths`` (a slot
+        mid-admission has its prefix there): they are parked on the LAST
+        cache position, which any request reaching it writes before
+        attending, and do not move. A freed slot's table row points at the
+        parking page, so a parked write never lands in another request's
+        page."""
+        write_pos = np.where(self._active, self._lengths, self.max_cache_len - 1)
+        state = np.stack([self._tokens, write_pos, self._active]).astype(np.int64)
+        self._state_dev.copy_(torch.from_numpy(state))
+
+    def _decode_body(self) -> torch.Tensor:
+        """One decode step on the device buffers, what the step's CUDA graph
+        captures: every slot's token through the model at its write
+        position, the greedy argmax into the token buffer, the active
+        slots' positions one further. Returns the logits [N, V]."""
+        pos = self._pos_dev
+        paged = {"page_table": self._page_tables} if self.page_size else {}
+        logits = self.model(self._tok_dev[:, None], pos[:, None], cache=self._arena,
+                            cache_positions=pos, **paged)[:, -1]
+        if self.temperature == 0.0:
+            self._tok_dev.copy_(torch.argmax(logits, dim=-1))
+        pos.add_(self._act_dev)
+        return logits
+
+    def _step_fn(self, name: str):
+        """Step ``name`` ("decode" or "verify") as this engine runs it: on
+        CUDA the replay of its graph, captured here at first use (warmup()
+        captures ahead of traffic) from the device buffers as the caller
+        loaded them; on the CPU the body itself."""
+        step = self._graphs.get(name)
+        if step is None:
+            body = self._decode_body if name == "decode" else self._verify_body
+            if not cuda_graphs.captures(self.device):
+                return body
+            restore = (self._tok_dev, self._pos_dev) if name == "decode" else ()
+            step = self._graphs[name] = cuda_graphs.capture(body, self.device,
+                                                            restore=restore)
+        return step.replay
+
     def _decode_once(self) -> bool:
         if not self._slot_req:
             return False
         if self.spec_k:
             return self._spec_verify_once()
+        k = self._burst_len()
         if self.page_size:
             for slot, req in list(self._slot_req.items()):
                 pos = self._next_write_pos(req)
-                self._grow_or_resolve(req, slot, pos, pos)
+                self._grow_or_resolve(req, slot, pos, pos + k - 1)
             if not self._slot_req:
                 return True  # every live slot was shed under page pressure
-        # inactive slots still flow through the fixed-batch step but must
-        # not write at ``lengths`` (a slot mid-admission has its prefix
-        # there): park them on the LAST cache position, which any request
-        # reaching it writes before attending. A freed slot's table row
-        # points at the parking page, so a parked write never lands in
-        # another request's page.
-        write_pos = np.where(self._active, self._lengths, self.max_cache_len - 1)
-        dev = self.device
-        pos_t = torch.as_tensor(write_pos, device=dev)
-        paged = {"page_table": self._page_tables} if self.page_size else {}
-        t0 = time.perf_counter()
-        logits = self.model(
-            torch.as_tensor(self._tokens, device=dev)[:, None],
-            pos_t[:, None],
-            cache=self._arena,
-            cache_positions=pos_t,
-            **paged,
-        )[:, -1]  # [N, V]
         live = list(self._slot_req.items())
-        if self.temperature == 0.0:
-            host = _sample(logits, None, 0.0, None).cpu().numpy()
-        else:
-            host = self._tokens.copy()
-            for slot, req in live:
-                host[slot] = int(_sample(logits[slot:slot + 1], req.generator,
-                                         self.temperature, self.top_k)[0])
+        self._load_decode_state()
+        step = self._step_fn("decode")
+        t0 = time.perf_counter()
+        for i in range(k):
+            logits = step()
+            if self.temperature != 0.0:
+                # each live slot's generator draws once a step, in step
+                # order, on the device: no host read until the burst ends
+                for slot, req in live:
+                    self._tok_dev[slot:slot + 1].copy_(
+                        _sample(logits[slot:slot + 1], req.generator, self.temperature,
+                                self.top_k))
+            self._burst_dev[i].copy_(self._tok_dev)
+        host = self._burst_dev[:k].cpu().numpy()  # [K, N]; waits for the burst
         now = time.perf_counter()
         wall = now - t0
-        self.step_count += 1
+        self.step_count += k
         for slot, _ in live:
-            self._tokens[slot] = host[slot]
-            self._lengths[slot] += 1
-        for slot, req in live:
-            self._emit(req, int(host[slot]), now)
-        self._step_samples.append((wall, len(live)))
+            self._tokens[slot] = host[k - 1, slot]
+            self._lengths[slot] += k
+        emitted = 0
+        for i in range(k):
+            # a burst delivers K tokens in one host read: its wall is
+            # amortized over them, so ITL reads the per-token pace instead
+            # of K - 1 zeros and one K-sized gap
+            ts = t0 + wall * (i + 1) / k
+            for slot, req in list(self._slot_req.items()):
+                self._emit(req, int(host[i, slot]), ts)
+                emitted += 1
+        # delivered tokens only: an eos mid-burst drops the rest of its
+        # slot's burst tokens, and tokens/s must not claim them
+        self._step_samples.append((wall, emitted, k))
         return True
 
     def _draft_context(self, req: Request) -> np.ndarray:
@@ -977,16 +1066,37 @@ class ServingEngine:
         head = req.prompt[-(lb - gen.size):] if lb else req.prompt
         return np.concatenate([np.asarray(head, np.int32), gen])
 
+    def _load_verify_state(self, drafts: np.ndarray):
+        """Copy ``[last, d1..dK]`` and their write positions ``lengths ..
+        lengths + K`` (inactive slots parked at the last position) into the
+        verify step's device buffers, in one transfer."""
+        k = self.spec_k
+        seq = np.concatenate([self._tokens[:, None], drafts], axis=1)  # [N, K+1]
+        pos = self._lengths[:, None] + np.arange(k + 1)[None, :]
+        write_pos = np.where(self._active[:, None], pos, self.max_cache_len - 1)
+        self._verify_dev.copy_(torch.from_numpy(np.stack([seq, write_pos]).astype(np.int64)))
+
+    def _verify_body(self) -> torch.Tensor:
+        """The verify step on its device buffers, what its CUDA graph
+        captures: the model over ``[last, d1..dK]`` at K + 1 positions a
+        slot (Sq = K + 1 through the paged decode kernel), the greedy
+        argmax into the candidate buffer. Returns the logits [N, K+1, V]."""
+        seq, pos = self._verify_dev.unbind(0)
+        logits = self.model(seq, pos, cache=self._arena, cache_positions=pos,
+                            page_table=self._page_tables)
+        if self.temperature == 0.0:
+            self._cand_dev.copy_(torch.argmax(logits, dim=-1))
+        return logits
+
     def _verify_candidates(self, logits, live):
         """The model's token at every verify position, ``(cand [N, K+1],
         states)``. Sampled, each live slot draws its K + 1 candidates in
         order from its generator, as K + 1 sequential steps would, and
         ``states[slot][i]`` is the generator's state after draw i, so
         acceptance can put the generator where the sequential loop would
-        stand. Greedy: argmax, and no states."""
+        stand. Greedy: the step's argmax, and no states."""
         if self.temperature == 0.0:
-            flat = logits.reshape(-1, logits.shape[-1])
-            return _sample(flat, None, 0.0, None).reshape(logits.shape[:2]).cpu().numpy(), None
+            return self._cand_dev.cpu().numpy(), None
         cand = np.zeros(logits.shape[:2], np.int64)
         states = {}
         for slot, req in live:
@@ -1013,14 +1123,10 @@ class ServingEngine:
             self._grow_or_resolve(req, slot, pos, pos + k)
         if not self._slot_req:
             return True  # every live slot was shed under page pressure
-        seq = np.concatenate([self._tokens[:, None], drafts], axis=1)  # [N, K+1]
-        pos = self._lengths[:, None] + np.arange(k + 1)[None, :]
-        write_pos = np.where(self._active[:, None], pos, self.max_cache_len - 1)
-        dev = self.device
-        pos_t = torch.as_tensor(write_pos, device=dev)
+        self._load_verify_state(drafts)
+        step = self._step_fn("verify")
         t0 = time.perf_counter()
-        logits = self.model(torch.as_tensor(seq, device=dev), pos_t, cache=self._arena,
-                            cache_positions=pos_t, page_table=self._page_tables)  # [N, K+1, V]
+        logits = step()  # [N, K+1, V]
         live = list(self._slot_req.items())
         cand, states = self._verify_candidates(logits, live)
         now = time.perf_counter()
@@ -1046,7 +1152,7 @@ class ServingEngine:
                 emitted += 1
                 if req.done:
                     break  # budget or eos inside the run: drop the rest
-        self._step_samples.append((wall, emitted))
+        self._step_samples.append((wall, emitted, 1))
         return True
 
     def _emit(self, req: Request, token: int, now: float):
@@ -1112,11 +1218,13 @@ class ServingEngine:
             out["serving/page_forks"] = self.page_forks
         samples = list(self._step_samples)
         if samples:
-            wall = sum(w for w, _ in samples)
-            toks = sum(n for _, n in samples)
+            wall = sum(w for w, _, _ in samples)
+            toks = sum(n for _, n, _ in samples)
             if wall > 0:
                 out["serving/tokens_per_s"] = toks / wall
-            out["serving/decode_step_ms_p50"] = 1e3 * float(np.median([w for w, _ in samples]))
+            # per step: a burst's wall over its K steps
+            out["serving/decode_step_ms_p50"] = 1e3 * float(
+                np.median([w / k for w, _, k in samples]))
         ttft = list(self._ttft)
         if ttft:
             out["serving/ttft_ms_p50"] = 1e3 * float(np.median(ttft))
@@ -1147,3 +1255,24 @@ class ServingEngine:
             draining=self._draining,
         )
         return out
+
+
+def generate_batched(model, params, prompts, *, max_new_tokens: int = 32,
+                     num_slots: Optional[int] = None, seeds=None, **engine_kwargs):
+    """One-shot batched generation (the reference's module-level
+    ``generate_batched``): build a :class:`ServingEngine` of
+    ``min(max(len(prompts), 1), 8)`` slots unless ``num_slots`` says
+    otherwise (``engine_kwargs`` pass through, ``steps_per_call`` and
+    ``device`` among them), submit every prompt, run to completion.
+    Returns the list of [prompt + generated] id arrays. Request i draws
+    from ``seeds[i]`` (default i): the tokens of ``generate()`` with
+    ``torch.Generator().manual_seed(seeds[i])``. ``params`` (a weight dict,
+    or None for the model's own) is loaded into ``model`` first. For a
+    long-lived server keep an engine instead: this builds one (and, on
+    CUDA, captures its graphs) per call."""
+    engine = ServingEngine(
+        model, params,
+        num_slots=num_slots or min(max(len(prompts), 1), 8),
+        **engine_kwargs,
+    )
+    return engine.generate_batched(prompts, max_new_tokens=max_new_tokens, seeds=seeds)

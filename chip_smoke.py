@@ -25,9 +25,17 @@ must hold warpgroup matrix multiplies (HGMMA) and TMA tile loads
 (UTMALDG), or the run fails; the four decode libraries (paged and
 dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
 cp.async copies (LDGSTS), and ptxas must report no spills in them.
-Then it drives seven
+Then it drives eight
 paths at full width, each with the launch counters reset just before
-each run and read just after:
+each run and read just after. Every decode step, verify step and decode
+burst of those paths runs as the replay of a CUDA graph
+(``accelerate_tpu_torch/utils/cuda_graphs.py``): each engine captures
+its step when it warms up, before the counters are reset, and each
+generate() call captures its decode step after its prefill; a replay
+adds the launches its capture recorded, so the counts read as the eager
+steps' did. Each capture prints its seconds and the memory reserved
+after it. The zeroed-kernel controls build their engine or call inside
+the patch, so their graphs replay the zeroed wrapper:
 
 - serving: the paged ``ServingEngine`` on small_1b over random weights
   from a seed, the generated tokens checked against a teacher-forced
@@ -43,6 +51,10 @@ each run and read just after:
 - speculative verify: ``spec_draft_len=4`` on the bf16 and the int8
   paged arena, one paged decode launch per layer per verify step,
   tokens checked teacher-forced, timed beside the run without spec;
+- decode bursts: the main path's requests at ``steps_per_call`` 4 and
+  8, whose tokens, decode steps, prefill dispatches and launches must
+  equal the main path's, then the replica's concurrent wave once more
+  at ``steps_per_call`` 4, beside the wave at 1 of the replica path;
 - the replica: the paged engine behind the port's ``ReplicaServer`` on
   loopback HTTP, a sequential pass whose tokens and launches must equal
   the in-process engine's fed one request at a time, a concurrent wave
@@ -60,8 +72,14 @@ each run and read just after:
 - generation: ``generate()`` on llama_7b with bf16, int8 and int4 KV
   caches, launch counts per call, every step's logits held against the
   plain forward (and a zeroed-kernel control), decode ms/token by
-  differential timing beside the weight-read bound, and a decode-step
-  profile.
+  differential timing beside the weight-read bound, with the decode step
+  captured (as generate() runs it) and uncaptured, and a decode-step
+  profile of both.
+
+The decode profiles (paged bf16, flat, int8, verify; generate() at B 1
+bf16 and B 4 int8) read wall, device busy and idle share per step for
+the uncaptured step body (this script hands the engine, or generate(),
+the body in place of its graph), the captured step, and bursts of 4.
 
 Prints each phase's wall seconds and their total on one line, the
 card, the per-kernel numbers, and as its last line
@@ -83,6 +101,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -113,6 +132,11 @@ H, KVH, D = 16, 8, 128
 # runs, printed beside this run's for scale
 CUDA_CORE_PREFILL_TTFT_MS = (75.27, 48.92, 70.03)
 MAX_CACHE = 2048
+
+
+# every CUDA graph capture's own seconds (warm-up included), in order:
+# main() installs the logging capture that appends them
+CAPTURE_SECONDS = []
 
 
 def fail(msg: str):
@@ -1278,7 +1302,11 @@ def main_path(dev, card: str):
     profile_prefill(model, eng_kw, prompts, new_tokens, card)
     paged = {"tokens_per_s": tps, "ttft_ms_p50": m["serving/ttft_ms_p50"],
              "step_ms_p50": m["serving/decode_step_ms_p50"], "arena_bytes": engine.arena_bytes}
-    return launches, {"model": model, "prompts": prompts, "prompt": prompt, "paged": paged}
+    main = {"tokens": [list(r.tokens) for r in reqs], "steps": steps,
+            "dispatches": dispatches, "launches": dict(launches), "tokens_per_s": tps,
+            "step_ms_p50": m["serving/decode_step_ms_p50"]}
+    return launches, {"model": model, "prompts": prompts, "prompt": prompt, "paged": paged,
+                      "main": main}
 
 
 def flat_path(dev, card: str, model, prompts, prompt, paged: dict) -> int:
@@ -1338,16 +1366,19 @@ def flat_path(dev, card: str, model, prompts, prompt, paged: dict) -> int:
 
 
 def serve_counted(model, prompts, new_tokens: int, **eng_kw):
-    """Serve ``prompts`` greedily on a fresh engine with the launch counts
-    reset just before and read just after. Returns ``(engine, requests,
-    wall seconds, launches)``; fails unless every request finished with
-    its budget."""
+    """Serve ``prompts`` (request i seeded i; greedy unless ``eng_kw``
+    sets a temperature) on a fresh engine, warmed up first (its
+    kernels built and its step's CUDA graph captured, as ``serve replica``
+    does before it binds a port), with the launch counts reset just before
+    and read just after. Returns ``(engine, requests, wall seconds,
+    launches)``; fails unless every request finished with its budget."""
     import torch
 
     from accelerate_tpu_torch.ops import kernels
     from accelerate_tpu_torch.serving.engine import ServingEngine
 
     engine = ServingEngine(model, **eng_kw)
+    engine.warmup()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1633,6 +1664,7 @@ def serve_one_at_a_time(model, prompts, new_tokens: int, **eng_kw):
     from accelerate_tpu_torch.serving.engine import ServingEngine
 
     engine = ServingEngine(model, **eng_kw)
+    engine.warmup()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     tokens = []
@@ -1659,20 +1691,19 @@ def replica_path(dev, card: str, model, prompts):
     subprocess on the int8 paged arena: 4 requests with the tokens of the
     in-process int8 engine on the same seed, a cancel mid-stream, and exit
     code 0 after SIGTERM. (c) ``--config tiny`` on CUDA fails the decode
-    kernels' gate at build. Returns the launches of (a)'s passes."""
+    kernels' gate at build. Returns the launches of (a)'s passes and the
+    wave's numbers."""
     import argparse
     import tempfile
     import threading
 
-    import numpy as np
     import torch
 
     from accelerate_tpu_torch.commands import serve as serve_cli
     from accelerate_tpu_torch.ops import kernels
     from accelerate_tpu_torch.serving import ReplicaServer
-    from accelerate_tpu_torch.serving.engine import Request, ServingEngine
+    from accelerate_tpu_torch.serving.engine import ServingEngine
 
-    cfg = model.config
     new_tokens = 32
     eng_kw = dict(num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
                   prefill_chunks=(128, 512), device=dev)
@@ -1680,7 +1711,9 @@ def replica_path(dev, card: str, model, prompts):
 
     # (a) sequential: the replica against its in-process twin
     twin_tokens, twin_launches = serve_one_at_a_time(model, prompts, new_tokens, **eng_kw)
-    server = ReplicaServer(ServingEngine(model, **eng_kw), name="chip-seq").start()
+    seq_engine = ServingEngine(model, **eng_kw)
+    seq_engine.warmup()
+    server = ReplicaServer(seq_engine, name="chip-seq").start()
     try:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -1704,59 +1737,9 @@ def replica_path(dev, card: str, model, prompts):
           f"at a time; launches identical: { {k: n for k, n in seq_launches.items() if n} }")
 
     # (a) concurrent wave, one client thread per request
-    engine = ServingEngine(model, **eng_kw)
-    server = ReplicaServer(engine, name="chip-wave").start()
-    results = [None] * len(bodies)
-
-    def client(i):
-        results[i] = http_stream(f"{server.url}/v1/submit", bodies[i])
-
-    threads = [threading.Thread(target=client, args=(i,), daemon=True)
-               for i in range(len(bodies))]
-    try:
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=REPLICA_HTTP_TIMEOUT)
-        wall = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        wave_launches = dict(kernels.launch_counts)
-        if any(t.is_alive() for t in threads) or None in results:
-            fail("replica wave: a client thread did not finish")
-        m = engine.metrics()
-    finally:
-        server.close()
-    reqs = []
-    for i, (events, _, _) in enumerate(results):
-        toks = replica_stream_done(f"replica wave request {i}", events, new_tokens)
-        reqs.append(Request(prompt=np.asarray(prompts[i], np.int32),
-                            max_new_tokens=new_tokens, tokens=toks))
-    expect_launches("replica wave", wave_launches, {
-        "paged_decode": engine.step_count * cfg.num_layers,
-        "ragged_prefill": engine.prefill_dispatches * cfg.num_layers})
-    worst_gap, exact, total = teacher_forced(model, reqs, new_tokens, dev)
-    if not math.isfinite(worst_gap) or worst_gap > TOP2_MARGIN:
-        fail(f"replica wave: a streamed token is {worst_gap} logits below the plain "
-             f"forward's argmax (margin {TOP2_MARGIN})")
-    ttft = [times[0] - sent for _, sent, times in results]
-    itl = [b - a for _, _, times in results for a, b in zip(times, times[1:])]
-    n_tok = sum(len(times) for _, _, times in results)
-    print(f"replica wave (bf16): {len(bodies)} concurrent streams, {engine.step_count} decode "
-          f"steps, {engine.prefill_dispatches} prefill dispatches, launches "
-          f"{ {k: n for k, n in wave_launches.items() if n} }; teacher-forced: {exact}/{total} "
-          f"tokens the plain argmax, worst gap {worst_gap:.4f} (margin {TOP2_MARGIN})")
-    print(f"replica wave on {card}: client side {n_tok / wall:.1f} tokens/s over {wall:.3f} s, "
-          f"TTFT p50 {1e3 * float(np.median(ttft)):.2f} ms, ITL p50 "
-          f"{1e3 * float(np.median(itl)):.3f} ms; engine gauges {m['serving/tokens_per_s']:.1f} "
-          f"tokens/s (decode steps only), TTFT p50 {m['serving/ttft_ms_p50']:.2f} ms, ITL p50 "
-          f"{m['serving/itl_p50_ms']:.3f} ms, decode {m['serving/decode_step_ms_p50']:.3f} "
-          "ms/step (p50)")
-    del engine, server
-    gc.collect()
-    torch.cuda.empty_cache()
+    wave = replica_wave(model, prompts, new_tokens, "chip-wave", **eng_kw)
+    wave_launches = wave.pop("launches")
+    print(f"replica wave on {card}: " + wave_text(wave))
 
     # (b) the CLI as a subprocess, int8 KV, against the in-process int8 engine
     cli_prompts = prompts[:4]
@@ -1830,8 +1813,166 @@ def replica_path(dev, card: str, model, prompts):
         print(f"replica CLI --config tiny on CUDA refused at build: {exc}")
     else:
         fail("replica CLI --config tiny on CUDA built an engine")
-    return {name: {k: n for k, n in counts.items() if n}
-            for name, counts in (("sequential", seq_launches), ("wave", wave_launches))}
+    launches = {name: {k: n for k, n in counts.items() if n}
+                for name, counts in (("sequential", seq_launches), ("wave", wave_launches))}
+    return launches, wave
+
+
+def replica_wave(model, prompts, new_tokens: int, name: str, **eng_kw) -> dict:
+    """A concurrent wave through the port's ReplicaServer over loopback
+    HTTP, one client thread per request, on an engine warmed up first (as
+    ``serve replica`` does before it binds a port). Held as main_path holds
+    itself: every stream finished with its budget, tokens teacher-forced,
+    launches the replica engine's own steps and dispatches x layers.
+    Returns the client-side and engine numbers, with the launches."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.serving import ReplicaServer
+    from accelerate_tpu_torch.serving.engine import Request, ServingEngine
+
+    cfg = model.config
+    bodies = [{"prompt": [int(t) for t in p], "max_new_tokens": new_tokens} for p in prompts]
+    engine = ServingEngine(model, **eng_kw)
+    engine.warmup()
+    server = ReplicaServer(engine, name=name).start()
+    results = [None] * len(bodies)
+
+    def client(i):
+        results[i] = http_stream(f"{server.url}/v1/submit", bodies[i])
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(bodies))]
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=REPLICA_HTTP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        if any(t.is_alive() for t in threads) or None in results:
+            fail(f"{name}: a client thread did not finish")
+        m = engine.metrics()
+    finally:
+        server.close()
+    reqs = []
+    for i, (events, _, _) in enumerate(results):
+        toks = replica_stream_done(f"{name} request {i}", events, new_tokens)
+        reqs.append(Request(prompt=np.asarray(prompts[i], np.int32),
+                            max_new_tokens=new_tokens, tokens=toks))
+    expect_launches(name, launches, {
+        "paged_decode": engine.step_count * cfg.num_layers,
+        "ragged_prefill": engine.prefill_dispatches * cfg.num_layers})
+    worst_gap, exact, total = teacher_forced(model, reqs, new_tokens, eng_kw["device"])
+    if not math.isfinite(worst_gap) or worst_gap > TOP2_MARGIN:
+        fail(f"{name}: a streamed token is {worst_gap} logits below the plain "
+             f"forward's argmax (margin {TOP2_MARGIN})")
+    ttft = [times[0] - sent for _, sent, times in results]
+    itl = [b - a for _, _, times in results for a, b in zip(times, times[1:])]
+    n_tok = sum(len(times) for _, _, times in results)
+    print(f"{name} (bf16, steps_per_call {engine.steps_per_call}): {len(bodies)} concurrent "
+          f"streams, {engine.step_count} decode steps, {engine.prefill_dispatches} prefill "
+          f"dispatches, launches { {k: n for k, n in launches.items() if n} }; "
+          f"teacher-forced: {exact}/{total} tokens the plain argmax, worst gap "
+          f"{worst_gap:.4f} (margin {TOP2_MARGIN})")
+    out = {"steps_per_call": engine.steps_per_call, "tokens_per_s": n_tok / wall,
+           "wall_s": wall, "ttft_ms_p50": 1e3 * float(np.median(ttft)),
+           "itl_ms_p50": 1e3 * float(np.median(itl)),
+           "engine_tokens_per_s": m["serving/tokens_per_s"],
+           "engine_ttft_ms_p50": m["serving/ttft_ms_p50"],
+           "engine_itl_ms_p50": m["serving/itl_p50_ms"],
+           "step_ms_p50": m["serving/decode_step_ms_p50"], "launches": launches}
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def wave_text(w: dict) -> str:
+    return (f"steps_per_call {w['steps_per_call']}: client side {w['tokens_per_s']:.1f} "
+            f"tokens/s over {w['wall_s']:.3f} s, TTFT p50 {w['ttft_ms_p50']:.2f} ms, ITL p50 "
+            f"{w['itl_ms_p50']:.3f} ms; engine gauges {w['engine_tokens_per_s']:.1f} tokens/s "
+            f"(decode steps only), TTFT p50 {w['engine_ttft_ms_p50']:.2f} ms, ITL p50 "
+            f"{w['engine_itl_ms_p50']:.3f} ms, decode {w['step_ms_p50']:.3f} ms/step (p50)")
+
+
+BURST_KS = (4, 8)  # steps_per_call of the burst path's runs
+
+
+def burst_path(dev, card: str, model, prompts, main: dict, wave: dict):
+    """Decode bursts on the main path's traffic: the same 9 requests x 32
+    tokens through small_1b's paged bf16 engine at steps_per_call 4 and 8.
+    A burst waits while an admission is in flight or can start, and while
+    a budget would overshoot, so the schedule is main_path's: greedy
+    tokens, decode steps, prefill dispatches and launches must equal
+    main_path's, and at least one burst must run. Sampled, tokens at K 4
+    must equal K 1's on the same seeds. Then the replica's
+    concurrent wave once more at steps_per_call 4, printed beside the
+    wave at 1 from this run's replica path."""
+    new_tokens = 32
+    eng_kw = dict(num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                  prefill_chunks=(128, 512), device=dev)
+    for k in BURST_KS:
+        engine, reqs, wall, launches = serve_counted(model, prompts, new_tokens,
+                                                     steps_per_call=k, **eng_kw)
+        if [list(r.tokens) for r in reqs] != main["tokens"]:
+            bad = [i for i, (r, t) in enumerate(zip(reqs, main["tokens"])) if list(r.tokens) != t]
+            fail(f"burst path (K {k}): requests {bad} got other tokens than main path's")
+        got = (engine.step_count, engine.prefill_dispatches)
+        if got != (main["steps"], main["dispatches"]):
+            fail(f"burst path (K {k}): {got} decode steps and prefill dispatches, main "
+                 f"path {(main['steps'], main['dispatches'])}")
+        if launches != main["launches"]:
+            fail(f"burst path (K {k}): launches {launches} != main path's {main['launches']}")
+        bursts = [n for _, _, n in engine._step_samples]
+        if k not in bursts:
+            fail(f"burst path (K {k}): no burst of {k} ran")
+        m = engine.metrics()
+        print(f"burst path (K {k}): {len(reqs)} requests x {new_tokens} tokens identical to "
+              f"main path's; {bursts.count(k)} bursts of {k} and {bursts.count(1)} single "
+              f"steps, {engine.step_count} decode steps and {engine.prefill_dispatches} prefill "
+              f"dispatches as main path's, launches identical: "
+              f"{ {name: n for name, n in launches.items() if n} }")
+        print(f"burst path (K {k}) on {card}: {m['serving/generated_tokens'] / wall:.1f} "
+              f"tokens/s over {wall:.3f} s, TTFT p50 {m['serving/ttft_ms_p50']:.2f} ms, decode "
+              f"{m['serving/decode_step_ms_p50']:.3f} ms/step (p50 of burst wall / steps), ITL "
+              f"p50 {m['serving/itl_p50_ms']:.3f} ms; main path (K 1, this run): "
+              f"{main['tokens_per_s']:.1f} tokens/s, {main['step_ms_p50']:.3f} ms/step")
+        del engine
+    # sampled (temperature 1.0, top_k 8; request i seeded i): each slot's
+    # generator draws on the device between replays, outside the graph,
+    # once a step in step order, so K 4 must give K 1's tokens
+    sampled = {}
+    for k in (1, 4):
+        engine, reqs, wall, launches = serve_counted(
+            model, prompts, new_tokens, steps_per_call=k, temperature=1.0, top_k=8, **eng_kw)
+        expect_launches(f"burst path (sampled, K {k})", launches, {
+            "paged_decode": engine.step_count * model.config.num_layers,
+            "ragged_prefill": engine.prefill_dispatches * model.config.num_layers})
+        m = engine.metrics()
+        sampled[k] = [list(r.tokens) for r in reqs]
+        print(f"burst path (sampled, K {k}) on {card}: {m['serving/generated_tokens'] / wall:.1f} "
+              f"tokens/s over {wall:.3f} s, decode {m['serving/decode_step_ms_p50']:.3f} "
+              f"ms/step (p50), {engine.step_count} decode steps; greedy (K 1, main path, this "
+              f"run) {main['step_ms_p50']:.3f} ms/step")
+        del engine
+    if sampled[4] != sampled[1]:
+        bad = [i for i, (a, b) in enumerate(zip(sampled[4], sampled[1])) if a != b]
+        fail(f"burst path (sampled): requests {bad} got other tokens at K 4 than at K 1")
+    print(f"burst path (sampled): {len(prompts)} requests x {new_tokens} tokens identical at "
+          "K 4 and K 1")
+    wave4 = replica_wave(model, prompts, new_tokens, "chip-wave-k4", steps_per_call=4,
+                         **eng_kw)
+    wave4.pop("launches")
+    print(f"replica wave on {card}: " + wave_text(wave4))
+    print(f"replica wave on {card} (replica path, this run): " + wave_text(wave))
 
 
 def profile_prefill(model, eng_kw, prompts, new_tokens: int, card: str):
@@ -1853,46 +1994,117 @@ def profile_prefill(model, eng_kw, prompts, new_tokens: int, card: str):
           f"({ms / max(calls, 1) * 1e3:.1f} us each), device busy {busy_ms:.1f} ms")
 
 
-def profile_decode(model, eng_kw, prompt, card: str, steps: int = 5, label: str = "profile"):
-    """Where a decode step's time goes: torch.profiler over a few steps
-    with all 8 slots live at ~400 tokens. Prints the device-busy share
-    of the wall and the kernels with the most device time."""
+# the burst length of profile_decode's burst window
+PROFILE_BURST = 4
+
+
+def profiled(run, calls: int):
+    """Two windows of ``calls`` calls of ``run()``, the card synchronised
+    before and after each: the first timed on the host clock alone, the
+    second under torch.profiler (whose tracing of every kernel and op
+    slows the wall). ``(wall ms, profiled wall ms, device busy ms,
+    rows)``, rows as :func:`device_time` gives them (empty when the
+    profiler saw no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from accelerate_tpu_torch.serving.engine import ServingEngine
-
-    engine = ServingEngine(model, **eng_kw)
-    for _ in range(8):
-        # budget outlasts admission (the flat engine prefills one 128-token
-        # chunk per iteration: 32 iterations for 8 x 400 tokens) and the
-        # window, even when a verify step emits K + 1 tokens: no slot
-        # finishes and parks inside it
-        engine.submit(prompt(400), max_new_tokens=(steps + 48) * (1 + engine.spec_k))
-    while engine._queue or engine._admitting is not None:
-        engine.step()
-    engine.step()  # one plain step outside the window
-    if len(engine._slot_req) != 8:
-        fail(f"{label}: {len(engine._slot_req)} of 8 slots live before the window")
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
+        for _ in range(calls):
+            run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        traced_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, rows = device_time(prof)
+    return wall_ms, traced_ms, busy_ms, rows
+
+
+def window_text(what: str, n: int, wall_ms: float, traced_ms: float, busy_ms: float,
+                rows) -> str:
+    """One measured window's line, per step: the wall, the wall under the
+    profiler, device busy and the idle share (busy against the
+    unprofiled wall of as many steps)."""
+    text = (f"{what}: {n} + {n} steps, wall {wall_ms / n:.3f} ms/step ({traced_ms / n:.3f} "
+            "under the profiler), device busy ")
     if not rows:
-        print(f"{label}: the profiler recorded no device time (not measured)")
-        return
-    print(f"{label} on {card}: {steps} decode steps, 8 live slots at ~400 "
-          f"tokens: wall {wall_ms / steps:.3f} ms/step, device busy "
-          f"{busy_ms / steps:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}% of "
-          f"wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
+        return text + "not measured"
+    return text + (f"{busy_ms / n:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}% of wall, idle "
+                   f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
+
+
+# decode steps in each profiled window of a captured step (K 1, or bursts
+# of PROFILE_BURST): long enough that a window's fixed costs (a
+# synchronize on each side, the profiler's start and stop) stay small
+# beside the ~3 ms steps it times. An uncaptured window times fewer: its
+# steps take 15-90 ms of host time each, and the profiler's processing
+# grows with every traced launch
+PROFILE_STEPS = 48
+UNCAPTURED_STEPS = 12
+
+
+def profile_decode(model, eng_kw, prompt, card: str, steps: int = PROFILE_STEPS,
+                   label: str = "profile"):
+    """Where a decode (or verify) step's time goes, with and without its
+    CUDA graph: windows on one engine with all 8 slots live at ~400
+    tokens, each timed alone and then again under torch.profiler
+    (:func:`profiled`): (1) ``UNCAPTURED_STEPS`` calls of the step body,
+    uncaptured (this script hands the engine its body in place of the
+    graph's replay); (2) ``steps`` replays of the captured step at K 1,
+    what the engine serves with; (3) without spec, ``steps`` decode steps
+    in bursts of ``PROFILE_BURST``.
+    Prints each window's wall, device busy and idle share per decode
+    step, and the kernels with the most device time in (2)."""
+    from unittest import mock
+
+    import torch
+
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(model, steps_per_call=PROFILE_BURST, **eng_kw)
+    engine.warmup()
+    engine.steps_per_call = 1
+    window_steps = UNCAPTURED_STEPS + steps + (0 if engine.spec_k else steps)
+    budget = (2 * window_steps + 64) * (1 + engine.spec_k)
+    for _ in range(8):
+        # the budget outlasts admission (the flat engine prefills one
+        # 128-token chunk per iteration: 32 iterations for 8 x 400 tokens)
+        # and the windows (two of each kind; no bursts under spec), even
+        # when a verify step emits K + 1 tokens: no slot finishes and
+        # parks inside them
+        engine.submit(prompt(400), max_new_tokens=budget)
+    while engine._queue or engine._admitting is not None:
+        engine.step()
+    engine.step()  # one plain step outside the windows
+    if len(engine._slot_req) != 8:
+        fail(f"{label}: {len(engine._slot_req)} of 8 slots live before the window")
+    body = engine._verify_body if engine.spec_k else engine._decode_body
+
+    def window(what, calls):
+        before = engine.step_count
+        wall_ms, traced_ms, busy_ms, rows = profiled(engine.step, calls)
+        n = (engine.step_count - before) // 2
+        print(f"{label} on {card}: " + window_text(what, n, wall_ms, traced_ms, busy_ms, rows)
+              + ", 8 live slots at ~400 tokens")
+        return n, rows
+
+    with mock.patch.object(engine, "_step_fn", lambda name: body):
+        window("uncaptured step body", UNCAPTURED_STEPS)
+    n, rows = window("captured verify step" if engine.spec_k else "captured step, K 1", steps)
+    if not engine.spec_k:
+        engine.steps_per_call = PROFILE_BURST
+        window(f"captured bursts, K {PROFILE_BURST}", steps // PROFILE_BURST)
+    if len(engine._slot_req) != 8:
+        fail(f"{label}: a slot finished inside the windows")
+    torch.cuda.synchronize()
     for ms, count, key in rows[:8]:
-        print(f"  {ms / steps:8.3f} ms/step  {count // steps:4d}/step  {key[:90]}")
+        print(f"  {ms / n:8.3f} ms/step  {count // n:4d}/step  {key[:90]}")
     kernel = "dense decode kernel #5" if eng_kw["page_size"] is None else "paged decode kernel #4"
-    decode_kernel_share(rows, steps, label, kernel)
+    decode_kernel_share(rows, n, label, kernel)
 
 
 def decode_kernel_share(rows, steps: int, label: str, kernel: str):
@@ -2180,18 +2392,38 @@ GEN_BASE, GEN_EXTRA = 16, 48  # differential timing: both lengths right-size to 
 
 
 class capture_logits:
-    """Collect, through a forward hook on the model, the logits every
-    generate() step samples from (the last row of each call's output)."""
+    """Collect the logits every generate() step samples from: the
+    prefill's last row through a forward hook on the model (its one call
+    of more than one token; the decode body's warm-up and capture calls
+    are single tokens), then each decode step's as its graph's replay
+    leaves them in the graph's output buffer."""
 
     def __init__(self, model):
         self.model, self.rows = model, []
 
     def __enter__(self):
-        self.handle = self.model.register_forward_hook(
-            lambda m, args, out: self.rows.append(out[:, -1].float().clone()))
+        from unittest import mock
+
+        from accelerate_tpu_torch.utils import cuda_graphs
+
+        def prefill_row(m, args, out):
+            if args[0].shape[1] > 1:
+                self.rows.append(out[:, -1].float().clone())
+
+        real = cuda_graphs.CapturedStep.replay
+
+        def replay(step):
+            out = real(step)
+            self.rows.append(out.float().clone())
+            return out
+
+        self.handle = self.model.register_forward_hook(prefill_row)
+        self.patch = mock.patch.object(cuda_graphs.CapturedStep, "replay", replay)
+        self.patch.start()
         return self
 
     def __exit__(self, *exc):
+        self.patch.stop()
         self.handle.remove()
 
     def stacked(self):
@@ -2236,6 +2468,7 @@ def generate_path(dev, card: str):
     from accelerate_tpu_torch.models.decoder import DecoderLM
     from accelerate_tpu_torch.ops import kernels
     from accelerate_tpu_torch.ops.attention import decode_attention_reference
+    from accelerate_tpu_torch.utils import cuda_graphs
 
     cfg = DecoderConfig.llama_7b()
     t0 = time.perf_counter()
@@ -2283,14 +2516,14 @@ def generate_path(dev, card: str):
 
         set_kv_cache_dtype(model, kv)
         cache = model.init_cache(seq.shape[0], GEN_CACHE)
-        with mock.patch.object(kernels, "dense_decode_quant", plain), torch.no_grad(), \
-                capture_logits(model) as cap:
-            model(seq[:, :GEN_PROMPT], torch.arange(GEN_PROMPT, device=dev), cache=cache)
+        with mock.patch.object(kernels, "dense_decode_quant", plain), torch.no_grad():
+            rows = [model(seq[:, :GEN_PROMPT], torch.arange(GEN_PROMPT, device=dev),
+                          cache=cache)[:, -1]]
             for p in range(GEN_PROMPT, GEN_PROMPT + new - 1):
-                model(seq[:, p:p + 1], torch.arange(p, p + 1, device=dev), cache=cache,
-                      decode=True)
+                rows.append(model(seq[:, p:p + 1], torch.arange(p, p + 1, device=dev),
+                                  cache=cache, decode=True)[:, -1])
         set_kv_cache_dtype(model, "bf16")
-        return cap.stacked()
+        return torch.stack(rows, dim=1).float()
 
     def cache_free_logits(b, toks):
         with torch.no_grad():
@@ -2330,32 +2563,70 @@ def generate_path(dev, card: str):
                   "the check")
 
     # decode ms/token by bench.py's differential method: (t[base + extra] -
-    # t[base]) / extra cancels the prefill and per-call costs
+    # t[base]) / extra cancels the prefill and per-call costs. Each call's
+    # graph capture is a per-call cost too, but one that varies by more
+    # than the 48 steps take (0.1-0.5 s a capture), so its own seconds
+    # come off each call's wall first (as the reference's compiled loop,
+    # cached across calls, stays out of bench.py's). Each length runs with
+    # the decode step captured, as generate() runs it, and uncaptured:
+    # this script hands generate() the step body in place of a graph, so
+    # it calls the body every step. Each call's whole wall (prefill,
+    # capture and decode) is printed too: what a caller of generate() waits
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    uncaptured = mock.patch.object(
+        cuda_graphs, "capture",
+        lambda body, device, restore=(): types.SimpleNamespace(replay=body))
     for kv, b in (("bf16", 1), ("int8", 4)):
-        def wall(new):
+        def call(new):
+            """(whole wall, capture seconds) of one generate() call."""
+            captures = len(CAPTURE_SECONDS)
             t0 = time.perf_counter()
             run(kv, b, new, check=False)
-            return time.perf_counter() - t0
+            return time.perf_counter() - t0, sum(CAPTURE_SECONDS[captures:])
 
-        diffs = [(wall(GEN_BASE + GEN_EXTRA) - wall(GEN_BASE)) / GEN_EXTRA for _ in range(2)]
-        ms = 1e3 * sorted(diffs)[0]
-        print(f"generate on {card} ({kv} KV, B {b}): decode {ms:.3f} ms/token "
-              f"(differential over {GEN_EXTRA} tokens, best of {[round(1e3 * d, 3) for d in diffs]}), "
-              f"{b * 1e3 / ms:.1f} tokens/s; bound {bound_ms:.3f} ms/token (the "
-              f"{weight_bytes / 1e9:.2f} GB of weights read once at 3.35 TB/s)")
+        per_token, capture_s = {}, []
+        for what, ctx in (("captured", contextlib.nullcontext()), ("uncaptured", uncaptured)):
+            with ctx:
+                pairs = [(call(GEN_BASE + GEN_EXTRA), call(GEN_BASE)) for _ in range(2)]
+            diffs = [((long_w - long_c) - (short_w - short_c)) / GEN_EXTRA
+                     for (long_w, long_c), (short_w, short_c) in pairs]
+            capture_s += [c for pair in pairs for _, c in pair if c]
+            ms = per_token[what] = 1e3 * sorted(diffs)[0]
+            whole = {n: [round(1e3 * pair[i][0], 3) for pair in pairs]
+                     for i, n in enumerate((GEN_BASE + GEN_EXTRA, GEN_BASE))}
+            print(f"generate on {card} ({kv} KV, B {b}, decode step {what}): decode "
+                  f"{ms:.3f} ms/token (differential over {GEN_EXTRA} tokens, best of "
+                  f"{[round(1e3 * d, 3) for d in diffs]}), {b * 1e3 / ms:.1f} tokens/s; bound "
+                  f"{bound_ms:.3f} ms/token (the {weight_bytes / 1e9:.2f} GB of weights read "
+                  "once at 3.35 TB/s); whole calls (prefill, capture and decode) "
+                  + ", ".join(f"{n} new tokens {w} ms" for n, w in whole.items()))
+        saved_ms = per_token["uncaptured"] - per_token["captured"]
+        capture_ms = 1e3 * sorted(capture_s)[len(capture_s) // 2]
+        print(f"generate on {card} ({kv} KV, B {b}): a call's capture {capture_ms:.3f} ms "
+              f"(median of {len(capture_s)} calls, two warm-up steps included), the graph "
+              f"saves {saved_ms:.3f} ms/token: a call of fewer than "
+              f"{1 + capture_ms / saved_ms:.1f} new tokens pays more for its capture than "
+              "its graph saves")
     profile_generate(model, ids[1], card, "bf16")
     profile_generate(model, ids[4], card, "int8")
     return launches
 
 
-def profile_generate(model, ids, card: str, kv: str, steps: int = 5):
-    """Where a generate() decode step's time goes: torch.profiler over a
-    few single-stream steps after a 512-token prefill, with a ``kv``
-    cache. Prints the device-busy share of the wall and the kernels with
-    the most device time."""
+def profile_generate(model, ids, card: str, kv: str, steps: int = PROFILE_STEPS):
+    """Where a generate() decode step's time goes, with and without its
+    CUDA graph: greedy steps of generate()'s decode body after a
+    512-token prefill with a ``kv`` cache, timed alone and then again
+    under torch.profiler (:func:`profiled`): ``UNCAPTURED_STEPS`` called
+    directly (uncaptured), then ``steps`` replayed from its graph (what
+    generate() runs).
+    Prints each window's wall, device busy and idle share, and the
+    kernels with the most device time of the graph's."""
+    import functools
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch.generation import _decode_body
+    from accelerate_tpu_torch.utils import cuda_graphs
 
     dev = ids.device
     b, s = ids.shape
@@ -2363,27 +2634,29 @@ def profile_generate(model, ids, card: str, kv: str, steps: int = 5):
     with torch.no_grad():
         cache = model.init_cache(b, GEN_CACHE)
         tok = model(ids, torch.arange(s, device=dev), cache=cache)[:, -1].argmax(-1)
+        pos = torch.full((b,), s, dtype=torch.long, device=dev)
+        body = functools.partial(_decode_body, model, cache, tok, pos, True)
+        out = torch.empty((b, 2 * (UNCAPTURED_STEPS + steps) + 1), dtype=torch.long,
+                          device=dev)
+        done = [0]
 
-        def step(p):
-            return model(tok[:, None], torch.arange(p, p + 1, device=dev), cache=cache,
-                         decode=True)[:, -1].argmax(-1)
+        def loop(step):
+            def run():
+                step()
+                out[:, done[0]] = tok
+                done[0] += 1
+            return run
 
-        tok = step(s)  # one step outside the window
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(steps):
-                tok = step(s + 1 + i)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        loop(body)()  # one step outside the windows
+        windows = [("uncaptured step body", UNCAPTURED_STEPS,
+                    *profiled(loop(body), UNCAPTURED_STEPS))]
+        graph = cuda_graphs.capture(body, dev, restore=(tok, pos))
+        windows.append(("captured step", steps, *profiled(loop(graph.replay), steps)))
     set_kv_cache_dtype(model, "bf16")
-    busy_ms, rows = device_time(prof)
-    if not rows:
-        print("generate profile: the profiler recorded no device time (not measured)")
-        return
-    print(f"generate profile on {card}: {steps} decode steps, {kv} KV, B {b}, position ~{s}: wall "
-          f"{wall_ms / steps:.3f} ms/step, device busy {busy_ms / steps:.3f} ms/step "
-          f"({100 * busy_ms / wall_ms:.1f}% of wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
+    for what, n, wall_ms, traced_ms, busy_ms, rows in windows:
+        print(f"generate profile on {card}: {kv} KV, B {b}, position ~{s}: "
+              + window_text(what, n, wall_ms, traced_ms, busy_ms, rows))
+    rows = windows[-1][-1]
     for ms, count, key in rows[:8]:
         print(f"  {ms / steps:8.3f} ms/step  {count // steps:4d}/step  {key[:90]}")
     decode_kernel_share(rows, steps, f"generate profile ({kv} KV)", "dense decode kernel #5")
@@ -2419,6 +2692,22 @@ def main():
     print(card)
 
     from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.utils import cuda_graphs
+
+    # every CUDA graph the port captures prints its capture's seconds (its
+    # warm-up included) and the memory reserved after it, once
+    capture = cuda_graphs.capture
+
+    def logged_capture(body, device, **kw):
+        step = capture(body, device, **kw)
+        CAPTURE_SECONDS.append(step.seconds)
+        name = getattr(body, "__qualname__", None) or body.func.__qualname__
+        print(f"graph capture: {name} in {step.seconds:.3f} s, "
+              f"{sum(step.launches.values())} kernel launches a replay, memory reserved "
+              f"{torch.cuda.memory_reserved() / 1e9:.3f} GB")
+        return step
+
+    cuda_graphs.capture = logged_capture
 
     # wall seconds of each phase, printed on one line with their total
     phase_s = {}
@@ -2462,15 +2751,19 @@ def main():
     # quantized paged kernels' from the int8 and int4 runs together)
     launches, serving = timed("main path", main_path, dev, card)
     model = serving.pop("model")
+    main_run = serving.pop("main")
     flat_launches = timed("flat path", lambda: flat_path(dev, card, model, **serving))
     launches.update(timed("quant path", lambda: quant_path(dev, card, model, **serving)))
     timed("drift", drift_phase, model, serving["prompts"], card)
     timed("spec path", spec_path, dev, card, model, serving["prompt"])
     # the replica's launches stay off the kernels line: its rows keep the
     # launches of their own paths
-    replica_launches = timed("replica path", replica_path, dev, card, model,
-                             serving["prompts"])
+    replica_launches, wave = timed("replica path", replica_path, dev, card, model,
+                                   serving["prompts"])
     print(f"replica path launches: {json.dumps(replica_launches)}")
+    # the burst path's launches stay off the kernels line too: they must
+    # equal main path's, which are on it
+    timed("burst path", burst_path, dev, card, model, serving["prompts"], main_run, wave)
     del serving, model
     gc.collect()
     torch.cuda.empty_cache()

@@ -212,8 +212,7 @@ def test_later_slices_raise():
             Accelerator(mixed_precision=mode, device="cpu")
     cfg = DecoderConfig.tiny()
     model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
-    for kw, what in (({"steps_per_call": 2}, "fused decode bursts"),
-                     ({"scheduler": object()}, "multi-tenant scheduler"),
+    for kw, what in (({"scheduler": object()}, "multi-tenant scheduler"),
                      ({"faults": object()}, "fault injection"),
                      ({"kv_tiers": object()}, "KV tiers"),
                      ({"telemetry": object()}, "telemetry hooks")):
@@ -230,11 +229,10 @@ def test_later_slices_raise():
     assert eng.submit(np.arange(3, 9), max_new_tokens=2).replica == "r0"
     with pytest.raises(NotImplementedError, match="fault injection"):
         ReplicaServer(eng, faults=object())
-    acc = Accelerator(device="cpu")
-    opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    acc.prepare(model, opt)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        acc.build_train_step(steps_per_call=2)
+    # decode bursts are this port's now (tests/test_torch_bursts.py), and
+    # so is build_train_step(steps_per_call=K) (tests/test_torch_training.py)
+    assert ServingEngine(model, max_cache_len=64, device="cpu",
+                         steps_per_call=4).steps_per_call == 4
 
 
 def test_engine_defaults_to_the_flat_arena_as_the_reference():

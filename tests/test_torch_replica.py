@@ -371,21 +371,36 @@ def test_engine_drain_returns_outcomes(served, arena):
 def test_warmup_builds_the_engines_kernels(served, arena, kv, monkeypatch):
     """``warmup()`` needs an idle engine; on CUDA it builds exactly the
     kernels the engine's arena and KV dtype launch (so the first request
-    holds no nvcc build) and runs nothing; on the CPU it builds nothing."""
+    holds no nvcc build) and captures the decode step's CUDA graph (so it
+    holds no capture either), serving nothing; on the CPU it does
+    neither. The capture is stubbed here: it runs only on the card."""
     from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.utils import cuda_graphs
 
     _, _, model, prompts = served
-    built = []
+    built, captured = [], []
+
+    class Captured:
+        seconds = 0.0
+
+        def __init__(self, body, device, restore=()):
+            captured.append(body.__name__)
+
+        def replay(self):
+            raise AssertionError("warmup() replays nothing")
+
     monkeypatch.setattr(kernels, "build", lambda names=None: built.append(tuple(names)))
+    monkeypatch.setattr(cuda_graphs, "capture", Captured)
     engine = _engine(model, arena, kv_cache_dtype=kv)
     engine.warmup()
-    assert built == []
+    assert built == [] and captured == []
     engine.device = torch.device("cuda")  # the branch a CUDA engine takes
     engine.warmup()
     quant = "_quant" if kv == "int8" else ""
     want = ((f"paged_decode{quant}", f"ragged_prefill{quant}") if arena == "paged"
             else (f"dense_decode{quant}",))
     assert built == [want] and set(want) <= set(kernels.KERNELS)
+    assert captured == ["_decode_body"] and list(engine._graphs) == ["decode"]
     assert engine.step_count == engine.prefill_dispatches == 0
     engine.submit(prompts[0], max_new_tokens=2)
     with pytest.raises(RuntimeError, match="idle engine"):
@@ -581,7 +596,7 @@ def test_cli_device_rules(monkeypatch):
     """Without ``--device`` the replica means CUDA and raises without it
     (before any model is built); on CUDA ``tiny`` fails the decode
     kernels' gate with an error that names the config and the gate; the
-    KV-tier flags and the router are later slices."""
+    KV-tier flags and the router are later slices; `--steps-per-call` builds."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_cli.build_replica_engine(_args("--config", "small_1b"))
@@ -592,8 +607,9 @@ def test_cli_device_rules(monkeypatch):
             serve_cli.build_replica_engine(_args("--config", "tiny", "--page-size", page))
     with pytest.raises(NotImplementedError, match="KV tiers"):
         serve_cli.build_replica_engine(_args("--device", "cpu", "--kv-host-entries", "4"))
-    with pytest.raises(NotImplementedError, match="fused decode bursts"):
-        serve_cli.build_replica_engine(_args("--device", "cpu", "--steps-per-call", "2"))
+    # decode bursts are this port's now
+    assert serve_cli.build_replica_engine(
+        _args("--device", "cpu", "--steps-per-call", "2")).steps_per_call == 2
     assert serve_cli.main(["router"]) == 1
 
 
