@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of ``accelerate_tpu``: serving (paged and flat
-arenas, and one engine behind HTTP as a replica), KV-cache generation and
-the training step.
+arenas, and one engine behind HTTP as a replica), KV-cache generation,
+big-model dispatch (device / pinned-host / disk tiers, weight
+quantization on load) and the training step.
 
 The JAX package (``accelerate_tpu``) stays the reference; this package is
 its counterpart for an NVIDIA H100. Module paths mirror the reference:
@@ -16,8 +17,17 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   drain, ``generate_batched``),
   ``serving/replica_server.py`` (``ReplicaServer``: the engine over
   stdlib HTTP), ``serving/drift.py`` (``kv_quant_drift``),
-  ``generation.py`` (``generate``), ``utils/quantization.py`` (int8/int4
+  ``generation.py`` (``generate``, ``generate_dispatched``),
+  ``utils/quantization.py`` (int8/int4/NF4 weights on load, int8/int4
   KV storage)
+- ``big_modeling.py`` (``load_checkpoint_and_dispatch``,
+  ``dispatch_model``, ``init_empty_weights``, ``cpu_offload``,
+  ``disk_offload``, ``cpu_offload_with_hook``,
+  ``load_and_quantize_model``), ``utils/modeling.py`` (device maps, the
+  checkpoint load pipeline), ``utils/serialization.py`` (safetensors and
+  pickle checkpoints), ``utils/offload.py`` (the disk tier),
+  ``runtime/native.py`` + ``csrc/host_runtime.cpp`` (the load path's
+  native helpers, built with g++)
 - ``utils/cuda_graphs.py`` (the decode and verify steps as CUDA graphs)
 - ``telemetry/exporter.py`` (``prometheus_text``), ``telemetry/fleet.py``
   (``load_score``), ``commands/serve.py`` (``python -m
@@ -31,7 +41,16 @@ versions of the kernels then run). Nothing here imports JAX.
 """
 
 from .accelerator import Accelerator
-from .generation import generate
+from .big_modeling import (
+    cpu_offload,
+    cpu_offload_with_hook,
+    disk_offload,
+    dispatch_model,
+    init_empty_weights,
+    load_and_quantize_model,
+    load_checkpoint_and_dispatch,
+)
+from .generation import generate, generate_dispatched
 from .models.configs import DecoderConfig
 from .models.decoder import DecoderLM
 from .optimizer import AcceleratedOptimizer
@@ -39,10 +58,14 @@ from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
 from .serving.engine import ServingEngine, generate_batched
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionConfig
+from .utils.quantization import QuantizationConfig
 
 __all__ = [
     "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",
     "DecoderConfig", "DecoderLM", "GradientAccumulationPlugin", "GradientState",
-    "MixedPrecisionConfig", "ServingEngine", "generate", "generate_batched",
+    "MixedPrecisionConfig", "QuantizationConfig", "ServingEngine", "cpu_offload",
+    "cpu_offload_with_hook", "disk_offload", "dispatch_model", "generate",
+    "generate_batched", "generate_dispatched", "init_empty_weights",
+    "load_and_quantize_model", "load_checkpoint_and_dispatch",
     "warmup_cosine_decay_schedule",
 ]

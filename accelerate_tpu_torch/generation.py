@@ -23,7 +23,17 @@ definition re-hits its compiled loops, and the port compiles nothing; a
 right-sized "definition" is here only the cache length handed to
 :meth:`DecoderLM.init_cache`. ``depipeline`` folds pipeline stages back
 into the layer scan, and the port has no pipelining yet (ROADMAP queue
-1). ``generate_dispatched`` and the seq2seq loops are later slices.
+1). The seq2seq loops are a later slice.
+
+:func:`generate_dispatched` is :func:`generate` over a big-model
+``DispatchedModel`` (``big_modeling.py``): its disk-tier weights are
+made pinned host tensors once per call, then the same eager prefill and
+captured decode step run, with each block's host-tier weights copied
+into their device buffer inside the step. Every such step captures: a
+copy from pinned memory with ``non_blocking=True`` is an asynchronous
+memcpy a graph records (a blocking copy would synchronize, which a
+capture refuses), and the dispatch path holds host-tier weights only in
+pinned memory on CUDA (a failed pin raises).
 
 Greedy is ``argmax``, which returns the first maximum in both frameworks,
 so greedy tokens agree with the reference given equal logits.
@@ -147,3 +157,11 @@ def generate(
     if return_prefill_seconds:
         return result, prefill_seconds
     return result
+
+
+def generate_dispatched(dispatched, input_ids, **kwargs):
+    """:func:`generate` over a ``DispatchedModel``: its weights where they
+    are (device, pinned host, disk, quantized), disk-tier weights made
+    pinned once for the call. Takes :func:`generate`'s keyword arguments."""
+    with dispatched._concrete():
+        return generate(dispatched.model, input_ids, **kwargs)

@@ -1,14 +1,17 @@
 """Decoder configuration and size presets.
 
 Counterpart of ``accelerate_tpu/models/configs.py``: the same field names
-and defaults for everything paged serving and the training step read,
-with torch dtypes. ``kv_cache_dtype`` takes "bf16", "int8" and "int4"
-(the quantized paged arena still raises, in the serving engine). fp8,
-MoE, dropout and pipelining are accepted as fields and raise
-``NotImplementedError`` until their slices are ported; weight streaming
-is not carried. The reference's ``decode_kernel`` / ``decode_kernel_block``
-knobs are not carried: the Hopper decode kernels walk 64-token chunks,
-so there is no kv block to choose.
+and defaults for everything serving, generation, big-model dispatch and
+the training step read, with torch dtypes. ``kv_cache_dtype`` takes
+"bf16", "int8" and "int4" on every cache (the dense cache, the flat and
+the paged arena). Weight streaming needs no flag: big-model dispatch
+(``big_modeling.py``) streams every weight it places in host memory or
+on disk, so ``stream_layer_weights`` is accepted only as False, for a
+reference config to carry over. fp8, MoE, dropout and pipelining are
+accepted as fields and raise ``NotImplementedError`` until their slices
+are ported. The reference's ``decode_kernel`` /
+``decode_kernel_block`` knobs are not carried: the Hopper decode kernels
+walk 64-token chunks, so there is no kv block to choose.
 """
 
 from __future__ import annotations
@@ -61,6 +64,10 @@ class DecoderConfig:
     kv_cache_dtype: str = "bf16"
     # token-block granule the packed ragged prefill pads each tail to
     prefill_kernel_block: Optional[int] = None
+    # the reference's switch for per-layer weight streaming; the port's
+    # dispatch streams whatever it places off the card, so True is
+    # rejected in __post_init__
+    stream_layer_weights: bool = False
     # later slices of the port: accepted so a reference config carries
     # over, rejected in __post_init__ until ported
     use_fp8: bool = False
@@ -106,6 +113,13 @@ class DecoderConfig:
                 "dropout_rate > 0: dropout belongs to a later slice of the port "
                 "(ROADMAP queue 1, training options); JAX's dropout bits cannot "
                 "be reproduced in torch, so it would be held by distribution"
+            )
+        if self.stream_layer_weights:
+            raise ValueError(
+                "stream_layer_weights: the port streams host-tier weights whenever "
+                "big-model dispatch places them in host memory or on disk "
+                "(big_modeling.load_checkpoint_and_dispatch / dispatch_model); "
+                "there is no flag to set"
             )
         if self.pipeline_stages > 1:
             raise NotImplementedError(

@@ -64,6 +64,13 @@ at; the storage format is read from the leaves):
 With no cache the forward is the cache-free causal attention of
 ``dot_product_attention`` (the plain ``mha_reference`` unless the flash
 kernels are chosen), used as the teacher-forced oracle.
+
+Big-model dispatch (``big_modeling.py``) builds the model on the meta
+device and binds its weights to what the tiers hold: device tensors
+(rows of stacked leaves), :class:`StreamedWeight` for host-tier weights
+(a block stages its own into shared device buffers before it runs, the
+model its top-level ones) and ``QuantizedLayer`` views dequantized at
+use. ``_use`` reads every weight through :func:`_resolve`.
 """
 
 from __future__ import annotations
@@ -109,22 +116,65 @@ def _cache_bits(cache: dict, head_dim: int) -> int:
     return 4 if 2 * cache["k"].shape[-1] == head_dim else 8
 
 
+def _resolve(p) -> torch.Tensor:
+    """A weight as a tensor on the model's device. Big-model dispatch
+    (``big_modeling.py``) binds weights that are not tensors: a host-tier
+    weight's device buffer (:class:`StreamedWeight`), or a quantized
+    layer dequantized at use (``utils/quantization.QuantizedLayer``);
+    both give their tensor through ``weight()``."""
+    return p if isinstance(p, torch.Tensor) else p.weight()
+
+
+class StreamedWeight:
+    """A weight that lives in host memory (pinned on CUDA) and is copied
+    into a device buffer before the module that owns it runs.
+
+    ``host`` is the host tensor (one layer's row of a stacked leaf, or a
+    whole leaf), None for a disk-tier weight outside a call of its
+    dispatched model; ``buffer`` is the device tensor every layer of the
+    same weight kind shares, so the card holds one layer of it at a time.
+    :meth:`stage` copies asynchronously on the current stream: the copy
+    orders after the previous layer's use of the buffer, and a CUDA graph
+    captures it."""
+
+    def __init__(self, host: Optional[torch.Tensor], buffer: torch.Tensor):
+        self.host, self.buffer = host, buffer
+
+    def stage(self):
+        if self.host is None:
+            raise RuntimeError("a disk-tier weight is only loaded during a call of its "
+                               "DispatchedModel (or generate_dispatched)")
+        self.buffer.copy_(self.host, non_blocking=True)
+
+    def weight(self) -> torch.Tensor:
+        return self.buffer
+
+
 class _Module(nn.Module):
     """Base of the decoder's modules: parameters made on one device, and
     the mixed-precision cast every parameter takes at use."""
 
     # the Accelerator's compute dtype (set_param_cast), None without one
     param_cast: Optional[torch.dtype] = None
+    # host-tier weights to stage before this module runs (big-model
+    # dispatch binds them: a block's own and its sublayers', or the
+    # model's top-level ones)
+    streamed: tuple = ()
 
     def _param(self, shape, device, dtype):
         return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
-    def _use(self, p: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def _use(self, p, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """``p`` as the forward reads it: rounded to the mixed-precision
         compute dtype if one is set, then to ``dtype`` if given."""
+        p = _resolve(p)
         if self.param_cast is not None:
             p = p.to(self.param_cast)
         return p if dtype is None else p.to(dtype)
+
+    def _stage(self):
+        for w in self.streamed:
+            w.stage()
 
 
 class DecoderAttention(_Module):
@@ -384,6 +434,7 @@ class DecoderBlock(_Module):
 
     def forward(self, x, sin, cos, kv_mask=None, **cache_kw):
         cfg = self.config
+        self._stage()
         if not (cfg.remat and torch.is_grad_enabled() and cache_kw.get("cache") is None):
             return self._plain(x, sin, cos, kv_mask=kv_mask, **cache_kw)
         s = x.shape[1]
@@ -496,8 +547,9 @@ class DecoderLM(_Module):
             raise ValueError(
                 "ragged_slots (packed ragged prefill) requires page_table and cache_positions"
             )
+        self._stage()
         # gather, then cast: the same values as casting the whole table first
-        x = self._use(self.embedding[input_ids.long()], cfg.dtype)
+        x = self._use(_resolve(self.embedding)[input_ids.long()], cfg.dtype)
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)
         sin, cos = rotary_embedding_tables(positions, cfg.head_dim,
@@ -509,7 +561,8 @@ class DecoderLM(_Module):
                 ragged_slots=ragged_slots, slot_hist=slot_hist, decode=decode,
             )
         x = rms_norm(x, self._use(self.ln_final), cfg.norm_eps)
-        head = self._use(self.embedding.t() if cfg.tie_embeddings else self.lm_head, cfg.dtype)
+        head = self._use(_resolve(self.embedding).t() if cfg.tie_embeddings else self.lm_head,
+                         cfg.dtype)
         if labels is not None:
             return {"loss": self._head_ce_loss(x, head, labels)}
         return (x @ head).float()

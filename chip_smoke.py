@@ -25,7 +25,7 @@ must hold warpgroup matrix multiplies (HGMMA) and TMA tile loads
 (UTMALDG), or the run fails; the four decode libraries (paged and
 dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
 cp.async copies (LDGSTS), and ptxas must report no spills in them.
-Then it drives eight
+Then it drives nine
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -74,7 +74,18 @@ the patch, so their graphs replay the zeroed wrapper:
   plain forward (and a zeroed-kernel control), decode ms/token by
   differential timing beside the weight-read bound, with the decode step
   captured (as generate() runs it) and uncaptured, and a decode-step
-  profile of both.
+  profile of both;
+- big-model dispatch: generate()'s llama_7b weights written as the
+  reference's stacked bf16 checkpoint (sharded, with an index) in a
+  temporary directory, then ``load_checkpoint_and_dispatch`` and
+  ``generate_dispatched`` (a) all on the card, tokens identical to
+  generate() on the in-memory model, TTFT split into the load's phases
+  and the prefill; (b) on three tiers under an explicit ``max_memory``,
+  tokens identical to (a), peak device memory under its limit, ms/token
+  against the host-tier bytes over a measured pinned H2D rate, and a
+  control whose streamer skips one layer's copies; (c) quantized on load
+  (int8, NF4 + double quant), tokens identical to generate() on the
+  dequantized weights, packed bytes and the weight bytes a step reads.
 
 The decode profiles (paged bf16, flat, int8, verify; generate() at B 1
 bf16 and B 4 int8) read wall, device busy and idle share per step for
@@ -2456,7 +2467,8 @@ def generate_path(dev, card: str):
     held against the cache-free plain forward (bf16) or against the same
     quantized run with the quantized kernel patched to its plain version;
     the bf16 check must fail with the decode kernel's output zeroed.
-    Returns the dense decode kernels' launches on this path."""
+    Returns the dense decode kernels' launches on this path, and the model
+    and the B 1 prompt (for the dispatch path)."""
     from unittest import mock
 
     import numpy as np
@@ -2609,7 +2621,7 @@ def generate_path(dev, card: str):
               "its graph saves")
     profile_generate(model, ids[1], card, "bf16")
     profile_generate(model, ids[4], card, "int8")
-    return launches
+    return launches, {"model": model, "prompt": ids[1]}
 
 
 def profile_generate(model, ids, card: str, kv: str, steps: int = PROFILE_STEPS):
@@ -2660,6 +2672,324 @@ def profile_generate(model, ids, card: str, kv: str, steps: int = PROFILE_STEPS)
     for ms, count, key in rows[:8]:
         print(f"  {ms / steps:8.3f} ms/step  {count // steps:4d}/step  {key[:90]}")
     decode_kernel_share(rows, steps, f"generate profile ({kv} KV)", "dense decode kernel #5")
+
+
+DISPATCH_NEW = 8        # new tokens of each checked dispatched call
+DISPATCH_EXTRA = 16     # extra tokens of the differential ms/token calls
+DISPATCH_SHARD = 4 << 30  # the checkpoint's shard size
+DISPATCH_CONTROL_LAYER = 5  # the layer whose host-tier copies the control skips
+H2D_PROBE_BYTES = 1 << 30
+
+
+def h2d_gb_s(dev) -> float:
+    """Pinned host -> device copy rate in GB/s: a 1 GiB copy, best of 3
+    after one warm-up, CUDA events around each."""
+    import torch
+
+    host = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    buf = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, device=dev)
+    buf.copy_(host, non_blocking=True)
+    best = math.inf
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        buf.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    del host, buf
+    return H2D_PROBE_BYTES / best / 1e6
+
+
+def tier_bytes(params, device_map) -> dict:
+    """Bytes of a dispatched tree per tier (packed tensors counted as they
+    are stored)."""
+    from accelerate_tpu_torch.utils.modeling import placement_of
+    from accelerate_tpu_torch.utils.serialization import flatten_pytree
+
+    out = {"device": 0, "cpu": 0, "disk": 0}
+    for path, leaf in flatten_pytree(params).items():
+        out[placement_of(path, device_map)] += math.prod(leaf.shape) * leaf.dtype.itemsize
+    return out
+
+
+def step_weight_bytes(params, cfg) -> int:
+    """Weight bytes one B-1 decode step reads: each layer reads its own
+    row of a stacked leaf (int4: the byte row it shares with its pair)
+    and the whole scale of a quantized leaf (a stacked leaf's scale rows
+    are shared by all layers: K = 32 layers < group 128), the
+    head its whole matrix, the embedding one row."""
+    from accelerate_tpu_torch.models.convert import reference_leaves
+    from accelerate_tpu_torch.utils.quantization import QuantizedWeight
+    from accelerate_tpu_torch.utils.serialization import flatten_pytree
+
+    def nbytes(t):
+        return sum(math.prod(x.shape) * x.dtype.itemsize for x in flatten_pytree(t).values())
+
+    total = 0
+    for path, leaf in reference_leaves(params).items():
+        if path == "embedding":
+            total += cfg.embed_dim * leaf.dtype.itemsize
+        elif not path.startswith("layers/"):
+            total += nbytes(leaf)
+        elif isinstance(leaf, QuantizedWeight):
+            total += cfg.num_layers * (nbytes(leaf.data) // leaf.data.shape[0]
+                                       + nbytes(leaf.scale))
+        else:
+            total += nbytes(leaf)
+    return total
+
+
+def dispatch_path(dev, card: str, gen: dict):
+    """Big-model dispatch of llama_7b at full width and depth on one card:
+    generate_path's random weights (seed 0) are streamed from the card to
+    a checkpoint in the reference's format (stacked flat keys, bf16,
+    sharded with an index) in a temporary directory, then loaded by
+    ``load_checkpoint_and_dispatch`` and decoded by
+    ``generate_dispatched`` in three cases, each call with the launch
+    counts reset before it and read after it (32 flash forward launches,
+    32 x (new - 1) dense decode):
+
+    (a) every weight on the card ("auto"): tokens identical to
+        ``generate()`` on the in-memory model; TTFT from the load's start
+        to the first token, by phase;
+    (b) three tiers under an explicit ``max_memory``: tokens identical to
+        (a); peak device memory under the device-tier bytes, two layers of
+        the blocks' host-tier bytes, the top-level host-tier leaves (staged
+        whole) and (a)'s measured transient (the KV cache, activations,
+        the decode graph's pool), printed as headroom in layers; ms/token beside the
+        host-tier bytes over a measured pinned H2D rate; a control whose
+        streamer skips one layer's copies must fail the token check;
+    (c) int8 (group 128) and NF4 with double quantization on load: tokens
+        identical to ``generate()`` on a ``DecoderLM`` loaded with
+        ``dequantize_params`` of the same packed leaves; packed bytes,
+        load phases, ms/token and the weight bytes a step reads.
+
+    Returns the path's launches of the flash forward and dense decode
+    kernels."""
+    import os
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from accelerate_tpu_torch import (QuantizationConfig, generate, generate_dispatched,
+                                      init_empty_weights, load_checkpoint_and_dispatch)
+    from accelerate_tpu_torch.models.convert import export_reference_checkpoint, from_reference
+    from accelerate_tpu_torch.models.decoder import DecoderLM, StreamedWeight
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.utils.modeling import compute_module_sizes, placement_of
+    from accelerate_tpu_torch.utils.quantization import dequantize_params, quantized_nbytes
+    from accelerate_tpu_torch.utils.serialization import flatten_pytree, peek_flat_structs
+
+    model, prompt = gen.pop("model"), gen.pop("prompt")
+    cfg = model.config
+    p_len = prompt.shape[1]
+    tmp = tempfile.mkdtemp(prefix="dispatch-")
+    launches = {"flash_fwd": 0, "dense_decode": 0}
+    try:
+        host_free = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
+        disk_free = shutil.disk_usage(tmp).free
+        print(f"dispatch path: {tmp}: {disk_free / 1e9:.1f} GB of disk free, "
+              f"{host_free / 1e9:.1f} GB of host memory available (the phase writes a "
+              f"{cfg.num_params * 2 / 1e9:.1f} GB checkpoint and a disk-tier offload folder)")
+        # the bf16 checkpoint, the disk tier's ~45% of it, and headroom
+        need = 1.5 * cfg.num_params * 2
+        if disk_free < need:
+            fail(f"dispatch path: {disk_free / 1e9:.1f} GB of free disk in {tmp}; it needs "
+                 f"{need / 1e9:.1f} GB")
+
+        def counted(fn, *args, check=True, new=DISPATCH_NEW, **kw):
+            """One call with the counts reset before and read after; the
+            launches must be 32 flash forward + 32 x (new - 1) dense decode."""
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            got = {k: n for k, n in kernels.launch_counts.items() if n}
+            want = {"flash_fwd": cfg.num_layers, "dense_decode": cfg.num_layers * (new - 1)}
+            if check and got != want:
+                fail(f"dispatch path: launches {got}, expected {want}")
+            for k in launches:
+                launches[k] += got.get(k, 0)
+            return out
+
+        want = counted(generate, model, prompt, max_new_tokens=DISPATCH_NEW)[:, p_len:]
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "ckpt", "model.safetensors")
+        files = export_reference_checkpoint(dict(model.state_dict()), cfg, ckpt,
+                                            dtype=torch.bfloat16, max_shard_size=DISPATCH_SHARD)
+        export_s = time.perf_counter() - t0
+        structs = peek_flat_structs(ckpt)
+        ckpt_bytes = sum(s.numel() * s.element_size() for s in structs.values())
+        print(f"dispatch path: checkpoint of {len(structs)} stacked bf16 leaves "
+              f"({ckpt_bytes / 1e9:.2f} GB) in {len(files)} file(s) (shards of at most "
+              f"{DISPATCH_SHARD >> 30} GiB and an index when more than one), streamed from the "
+              f"card layer slice by layer slice in {export_s:.1f} s")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def tokens(m, new=DISPATCH_NEW, prefill=False, check=True):
+            out = counted(generate_dispatched, m, prompt, max_new_tokens=new, check=check,
+                          new=new, return_prefill_seconds=prefill)
+            if prefill:
+                return out[0][:, p_len:], out[1]
+            return out[:, p_len:]
+
+        def ms_per_token(m):
+            """Differential decode ms/token: (wall[new + extra] - wall[new])
+            / extra, each call's capture seconds taken off its wall."""
+            walls = []
+            for new in (DISPATCH_NEW + DISPATCH_EXTRA, DISPATCH_NEW):
+                captures = len(CAPTURE_SECONDS)
+                t = time.perf_counter()
+                tokens(m, new)
+                walls.append(time.perf_counter() - t - sum(CAPTURE_SECONDS[captures:]))
+            return 1e3 * (walls[0] - walls[1]) / DISPATCH_EXTRA
+
+        def phases_text(m):
+            return ", ".join(f"{k} {v:.2f} s" for k, v in m.phase_seconds.items())
+
+        # (a) all on the card
+        t0 = time.perf_counter()
+        m = load_checkpoint_and_dispatch(cfg, ckpt, device_map="auto", dtype=torch.bfloat16)
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got, prefill_s = tokens(m, prefill=True)
+        # what a call allocates beyond the weights: (b)'s limit takes it
+        transient = torch.cuda.max_memory_allocated() - before
+        if set(m.device_map.values()) != {"device"}:
+            fail(f"dispatch (a): 'auto' did not put every weight on the card: {m.device_map}")
+        if not torch.equal(got, want):
+            fail(f"dispatch (a): tokens {got.tolist()} differ from generate() on the "
+                 f"in-memory model {want.tolist()}")
+        all_ms = ms_per_token(m)
+        print(f"dispatch (a) on {card}: all on the card, map {m.device_map}; {DISPATCH_NEW} "
+              f"tokens identical to generate() on the in-memory model; TTFT "
+              f"{(load_s + prefill_s) * 1e3:.1f} ms = load {load_s * 1e3:.1f} ms ("
+              f"{phases_text(m)}; the read is from a warm page cache: this run just wrote "
+              f"the file) + prefill {prefill_s * 1e3:.1f} ms; decode {all_ms:.3f} ms/token; "
+              f"a call allocates {transient / 1e9:.3f} GB beyond the weights")
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) three tiers
+        abstract = init_empty_weights(cfg)
+        sizes = compute_module_sizes(abstract, dtype=torch.bfloat16)
+        # the card takes the embedding, attention and norms, pinned host
+        # memory the MLP's down projection, the disk the rest
+        budget = {"device": sum(sizes[k] for k in ("embedding", "layers/block/attn",
+                                                   "layers/block/ln_attn", "layers/block/ln_mlp")),
+                  "cpu": sizes["layers/block/mlp/w_down"], "disk": 1 << 62}
+        offload = os.path.join(tmp, "offload")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m = load_checkpoint_and_dispatch(cfg, ckpt, device_map="sequential", max_memory=budget,
+                                         offload_folder=offload, dtype=torch.bfloat16)
+        load_s = time.perf_counter() - t0
+        got, prefill_s = tokens(m, prefill=True)
+        peak = torch.cuda.max_memory_allocated() - base
+        if set(m.device_map.values()) != {"device", "cpu", "disk"}:
+            fail(f"dispatch (b): the map does not use all three tiers: {m.device_map}")
+        if not torch.equal(got, want):
+            fail(f"dispatch (b): tokens {got.tolist()} differ from (a)'s {want.tolist()}")
+        tiers = tier_bytes(m.params, m.device_map)
+        host_step = tiers["cpu"] + tiers["disk"]
+        buffers = sum(b.numel() * b.element_size() for b in m._buffers.values())
+        # host-tier bytes of the blocks' stacked leaves (staged a layer at
+        # a time) and of the top-level leaves (staged whole)
+        host_block = sum(math.prod(leaf.shape) * leaf.dtype.itemsize
+                         for path, leaf in flatten_pytree(m.params).items()
+                         if path.startswith("layers/")
+                         and placement_of(path, m.device_map) != "device")
+        host_top = host_step - host_block
+        host_layer = host_block / cfg.num_layers
+        limit = tiers["device"] + 2 * host_layer + host_top + transient
+        headroom = (limit - peak) / host_layer
+        if peak > limit:
+            fail(f"dispatch (b): peak device memory {peak / 1e9:.3f} GB over the limit "
+                 f"{limit / 1e9:.3f} GB ({headroom:.2f} layers of host-tier bytes): the path "
+                 "holds more than two layers of streamed weights")
+        rate = h2d_gb_s(dev)
+        tier_ms = ms_per_token(m)
+        bound_ms = host_step / rate / 1e6
+        print(f"dispatch (b) on {card}: map {m.device_map}; tiers {tiers} bytes; "
+              f"{DISPATCH_NEW} tokens identical to (a); load {load_s * 1e3:.1f} ms "
+              f"({phases_text(m)}) + prefill {prefill_s * 1e3:.1f} ms (after the call made "
+              "the disk tier pinned)")
+        print(f"dispatch (b) on {card}: peak device memory {peak / 1e9:.3f} GB <= "
+              f"{limit / 1e9:.3f} GB (device tier {tiers['device'] / 1e9:.3f} + 2 x one layer "
+              f"of the blocks' host-tier bytes {host_layer / 1e9:.3f} + top-level host-tier "
+              f"leaves {host_top / 1e9:.3f} + (a)'s transient {transient / 1e9:.3f}), headroom "
+              f"{headroom:.2f} layers; the host-tier device buffers hold "
+              f"{buffers / 1e9:.3f} GB")
+        print(f"dispatch (b) on {card}: H2D {host_step / 1e9:.3f} GB per decode step; "
+              f"{tier_ms:.3f} ms/token (differential over {DISPATCH_EXTRA} tokens) against a "
+              f"bound of {bound_ms:.3f} ms/token (host-tier bytes over the pinned H2D rate "
+              f"{rate:.2f} GB/s measured with a 1 GiB copy), {bound_ms / tier_ms:.2f} of it")
+
+        real_stage = StreamedWeight.stage
+
+        def skipping(w):
+            if any(w is s for s in m.model.layers[DISPATCH_CONTROL_LAYER].streamed):
+                return
+            real_stage(w)
+
+        with mock.patch.object(StreamedWeight, "stage", skipping):
+            control = tokens(m)
+        if torch.equal(control, want):
+            fail(f"dispatch (b) control: with layer {DISPATCH_CONTROL_LAYER}'s host-tier "
+                 "copies skipped the tokens still equal (a)'s: the check is blind")
+        print(f"dispatch (b) control (layer {DISPATCH_CONTROL_LAYER}'s host-tier copies "
+              f"skipped): {int((control == want).sum())}/{want.numel()} tokens equal (a)'s: "
+              "fails the check")
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) quantized on load
+        bf16_bytes = ckpt_bytes
+        # every bf16 weight once, but the embedding's one row
+        bf16_step = ckpt_bytes - (cfg.vocab_size - 1) * cfg.embed_dim * 2
+        for label, qc in (("int8 (group 128)", QuantizationConfig(load_in_8bit=True)),
+                          ("NF4 + double quant", QuantizationConfig(
+                              load_in_4bit=True, quant_type="nf4", double_quant=True))):
+            t0 = time.perf_counter()
+            m = load_checkpoint_and_dispatch(cfg, ckpt, device_map="auto",
+                                             dtype=torch.bfloat16, quantization_config=qc)
+            load_s = time.perf_counter() - t0
+            got = tokens(m)
+            q_ms = ms_per_token(m)
+            packed = quantized_nbytes(m.params)
+            step_bytes = step_weight_bytes(m.params, cfg)
+            with torch.no_grad():
+                dq = dequantize_params(m.params)
+                plain = DecoderLM(cfg, device=dev).load_params(from_reference(dq, cfg))
+                del dq
+                want_q = counted(generate, plain, prompt,
+                                 max_new_tokens=DISPATCH_NEW)[:, p_len:]
+            if not torch.equal(got, want_q):
+                fail(f"dispatch (c) {label}: tokens {got.tolist()} differ from generate() on "
+                     f"the dequantized weights {want_q.tolist()}")
+            print(f"dispatch (c) on {card}: {label}: {DISPATCH_NEW} tokens identical to "
+                  f"generate() on a DecoderLM of the dequantized packed leaves "
+                  f"({int((got == want).sum())}/{want.numel()} equal to bf16's); packed "
+                  f"{packed / 1e9:.3f} GB vs bf16 {bf16_bytes / 1e9:.3f} GB; load "
+                  f"{load_s * 1e3:.1f} ms ({phases_text(m)}); decode {q_ms:.3f} ms/token; a "
+                  f"step reads {step_bytes / 1e9:.3f} GB of weights (bf16: "
+                  f"{bf16_step / 1e9:.3f} GB)")
+            del m, plain
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 def main():
@@ -2770,8 +3100,14 @@ def main():
     launches.update(timed("train path", train_path, dev, card))
     gc.collect()
     torch.cuda.empty_cache()  # the training path's memory, before llama_7b
-    launches.update(timed("generate path", generate_path, dev, card))
-    launches["dense_decode"] += flat_launches
+    gen_launches, gen = timed("generate path", generate_path, dev, card)
+    launches.update(gen_launches)
+    # the dispatch path frees generate_path's model once it has written
+    # the checkpoint from it
+    dispatch_launches = timed("dispatch path", dispatch_path, dev, card, gen)
+    del gen
+    launches["dense_decode"] += flat_launches + dispatch_launches["dense_decode"]
+    launches["flash_fwd"] += dispatch_launches["flash_fwd"]
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] < 1:

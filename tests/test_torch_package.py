@@ -1,12 +1,16 @@
 """Package-level contracts of the PyTorch/CUDA port.
 
 - ``accelerate_tpu_torch`` (and ``chip_smoke.py``) import no ``jax``,
-  ``flax``, ``optax`` or ``accelerate_tpu`` module: an AST scan of every
-  source, plus a fresh interpreter that imports the package and finds no
-  JAX in ``sys.modules``.
-- Entry points (the model, the weight init, the engine, the Accelerator)
-  mean CUDA when given no device and raise without it, unless
-  ``device="cpu"`` is given.
+  ``flax``, ``optax``, ``accelerate_tpu``, ``safetensors`` or
+  ``ml_dtypes`` module (the card's machine has none of them; the port
+  reads and writes safetensors itself and takes bfloat16 from torch): an
+  AST scan of every source, plus a fresh interpreter that imports the
+  package and finds none of them in ``sys.modules``.
+- Entry points (the model, the weight init, the engine, the Accelerator,
+  big-model dispatch) mean CUDA when given no device and raise without
+  it, unless ``device="cpu"`` is given.
+- The load path's native helper is built with g++, and a failed build
+  raises: nothing falls back to the plain version behind it.
 - The kernel wrappers take CPU tensors to the plain version without
   counting a launch, refuse any other non-CUDA device, and build with an
   nvcc command for ``sm_90a``; later-slice options raise.
@@ -32,7 +36,7 @@ from accelerate_tpu_torch.utils.quantization import quantize_kv
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "accelerate_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu", "safetensors", "ml_dtypes")
 
 
 def _imports(path: Path):
@@ -66,7 +70,9 @@ def test_import_leaves_jax_unloaded():
             "accelerate_tpu_torch.serving.replica_server, "
             "accelerate_tpu_torch.telemetry.exporter, "
             "accelerate_tpu_torch.telemetry.fleet, "
-            "accelerate_tpu_torch.commands.serve; "
+            "accelerate_tpu_torch.commands.serve, accelerate_tpu_torch.big_modeling, "
+            "accelerate_tpu_torch.utils.modeling, accelerate_tpu_torch.utils.serialization, "
+            "accelerate_tpu_torch.utils.offload, accelerate_tpu_torch.runtime.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad")
@@ -92,6 +98,53 @@ def test_entry_points_raise_without_cuda(no_cuda):
     eng = ServingEngine(model, max_cache_len=64, page_size=8, device="cpu")
     out = eng.generate_batched([np.arange(3, 9)], max_new_tokens=2)
     assert out[0].shape == (8,)
+
+
+def test_dispatch_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from accelerate_tpu_torch import (QuantizationConfig, cpu_offload, cpu_offload_with_hook,
+                                      disk_offload, dispatch_model, generate_dispatched,
+                                      init_empty_weights, load_and_quantize_model,
+                                      load_checkpoint_and_dispatch)
+    from accelerate_tpu_torch.big_modeling import DispatchedModel
+    from accelerate_tpu_torch.utils.modeling import get_max_memory
+    from accelerate_tpu_torch.utils.serialization import flatten_pytree, save_pytree
+
+    cfg = DecoderConfig.tiny()
+    abstract = init_empty_weights(cfg)  # meta tensors: no device to ask for
+    params = {k: torch.zeros(v.shape) for k, v in flatten_pytree(abstract).items()}
+    ckpt = str(tmp_path / "m.safetensors")
+    save_pytree(params, ckpt)
+    qc = QuantizationConfig(load_in_8bit=True)
+    for call in (lambda: load_checkpoint_and_dispatch(cfg, ckpt),
+                 lambda: load_checkpoint_and_dispatch(cfg, ckpt, quantization_config=qc),
+                 lambda: dispatch_model(cfg, params, {"": "device"}),
+                 lambda: DispatchedModel(cfg, params),
+                 lambda: cpu_offload(cfg, params),
+                 lambda: disk_offload(cfg, params, str(tmp_path / "off")),
+                 lambda: cpu_offload_with_hook(cfg, params),
+                 lambda: load_and_quantize_model(cfg, ckpt, qc),
+                 lambda: get_max_memory()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    model = load_checkpoint_and_dispatch(cfg, ckpt, device="cpu")
+    out = generate_dispatched(model, torch.arange(3, 9)[None], max_new_tokens=2)
+    assert out.shape == (1, 8) and out.device.type == "cpu"
+
+
+def test_failed_host_helper_build_raises(monkeypatch, tmp_path):
+    """A g++ that fails raises with its output; the quantizer does not
+    fall back to the plain version behind it."""
+    from accelerate_tpu_torch.runtime import native
+    from accelerate_tpu_torch.utils.quantization import quantize_array_host
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "COMPILER", "false")
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.raises(RuntimeError, match="failed"):
+        native.build()
+    with pytest.raises(RuntimeError, match="failed"):
+        quantize_array_host(torch.ones(8, 4), bits=8, group_size=4)
+    assert not list((tmp_path / "build").glob("*.so"))
 
 
 def test_training_entry_points_raise_without_cuda(no_cuda):
