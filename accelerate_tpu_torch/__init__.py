@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ``accelerate_tpu``: serving (paged and flat
 arenas, and one engine behind HTTP as a replica), KV-cache generation,
 big-model dispatch (device / pinned-host / disk tiers, weight
-quantization on load) and the training step.
+quantization on load) and the training step with its checkpoints.
 
 The JAX package (``accelerate_tpu``) stays the reference; this package is
 its counterpart for an NVIDIA H100. Module paths mirror the reference:
@@ -33,7 +33,10 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   (``load_score``), ``commands/serve.py`` (``python -m
   accelerate_tpu_torch.commands.serve replica``)
 - ``accelerator.py``, ``optimizer.py``, ``scheduler.py``, ``state.py``,
-  ``data.py``, ``utils/dataclasses.py`` (the training contract)
+  ``data.py``, ``utils/dataclasses.py`` (the training contract);
+  ``checkpointing.py``, ``utils/random.py``, ``utils/other.py``,
+  ``utils/constants.py`` (``save_state`` / ``load_state`` /
+  ``save_model`` in the reference's checkpoint format)
 
 Entry points take ``device=None``, which means CUDA; without CUDA they
 raise unless the caller passes ``device="cpu"`` (the plain PyTorch
@@ -41,6 +44,9 @@ versions of the kernels then run). Nothing here imports JAX.
 """
 
 from .accelerator import Accelerator
+from .checkpointing import (load_accelerator_state, load_custom_state, save_accelerator_state,
+                            save_custom_state, save_model_weights)
+from .data import DataLoader, skip_first_batches
 from .big_modeling import (
     cpu_offload,
     cpu_offload_with_hook,
@@ -57,15 +63,19 @@ from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
 from .serving.engine import ServingEngine, generate_batched
 from .state import AcceleratorState, GradientState
-from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionConfig
+from .utils.dataclasses import (GradientAccumulationPlugin, MixedPrecisionConfig,
+                                ProjectConfiguration)
 from .utils.quantization import QuantizationConfig
+from .utils.random import set_seed
 
 __all__ = [
     "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",
-    "DecoderConfig", "DecoderLM", "GradientAccumulationPlugin", "GradientState",
-    "MixedPrecisionConfig", "QuantizationConfig", "ServingEngine", "cpu_offload",
-    "cpu_offload_with_hook", "disk_offload", "dispatch_model", "generate",
-    "generate_batched", "generate_dispatched", "init_empty_weights",
-    "load_and_quantize_model", "load_checkpoint_and_dispatch",
+    "DataLoader", "DecoderConfig", "DecoderLM", "GradientAccumulationPlugin",
+    "GradientState", "MixedPrecisionConfig", "ProjectConfiguration", "QuantizationConfig",
+    "ServingEngine", "cpu_offload", "cpu_offload_with_hook", "disk_offload",
+    "dispatch_model", "generate", "generate_batched", "generate_dispatched",
+    "init_empty_weights", "load_accelerator_state", "load_and_quantize_model",
+    "load_checkpoint_and_dispatch", "load_custom_state", "save_accelerator_state",
+    "save_custom_state", "save_model_weights", "set_seed", "skip_first_batches",
     "warmup_cosine_decay_schedule",
 ]

@@ -18,6 +18,12 @@ training slice. The user's loop is the reference's:
 or the fused step, ``step = accelerator.build_train_step()`` then
 ``metrics = step(batch)`` per update.
 
+A run resumes as the reference's does: ``Accelerator(project_config=
+ProjectConfiguration(project_dir, automatic_checkpoint_naming=True))``,
+``save_state()`` every so often and ``load_state()`` in the new process
+(``checkpointing.py``: the reference's checkpoint format, so either side
+resumes the other's run); ``save_model`` exports the weights.
+
 Where the reference computes gradients inside one jit, the port runs
 PyTorch's autograd: ``backward`` sums each micro-batch's gradient, divided
 by the accumulation count, into the parameters' ``.grad``; the wrapped
@@ -34,6 +40,11 @@ update function does.
 from __future__ import annotations
 
 import contextlib
+import gc
+import logging
+import os
+import shutil
+import uuid
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -41,10 +52,13 @@ import torch
 from torch import nn
 
 from .data import prepare_data_loader, send_to_device
+from .data import skip_first_batches as _skip_first_batches
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
-from .utils.dataclasses import GradientAccumulationPlugin
+from .utils.dataclasses import GradientAccumulationPlugin, ProjectConfiguration
+
+logger = logging.getLogger(__name__)
 
 
 def global_grad_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -115,14 +129,32 @@ def _split(batch, micro: int):
     return [part(batch, i) for i in range(micro)]
 
 
+def _checkpoint_index(folder: str) -> int:
+    """The integer suffix of ``checkpoint_<i>``, -1 without one."""
+    tail = folder.rsplit("_", 1)[-1]
+    return int(tail) if tail.isdigit() else -1
+
+
+class _RemovableHandle:
+    def __init__(self, registry: dict, key):
+        self.registry = registry
+        self.key = key
+
+    def remove(self):
+        self.registry.pop(self.key, None)
+
+
 class Accelerator:
     """``mixed_precision`` "no" or "bf16" ("fp16"/"fp8" are later slices);
     ``gradient_accumulation_steps`` (or a ``GradientAccumulationPlugin``);
-    ``device=None`` means CUDA and raises without it, ``device="cpu"``
-    runs the plain versions of the kernels."""
+    ``project_dir`` / ``project_config`` (a ``ProjectConfiguration``):
+    where ``save_state`` writes; ``device=None`` means CUDA and raises
+    without it, ``device="cpu"`` runs the plain versions of the kernels."""
 
     def __init__(self, mixed_precision="no", gradient_accumulation_steps: int = 1,
                  gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
+                 project_dir: Optional[str] = None,
+                 project_config: Optional[ProjectConfiguration] = None,
                  device=None):
         if gradient_accumulation_plugin is not None and gradient_accumulation_steps != 1:
             raise ValueError(
@@ -132,9 +164,16 @@ class Accelerator:
             num_steps=gradient_accumulation_steps)
         self.state = AcceleratorState(mixed_precision, device)
         self.gradient_state = GradientState(plugin)
+        self.project_configuration = project_config or ProjectConfiguration(
+            project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
         self.step = 0  # micro-steps since the last sync (accumulate())
         self._clip_max_norm: Optional[float] = None
         self._models, self._optimizers, self._schedulers, self._dataloaders = [], [], [], []
+        self._custom_objects: list = []
+        self._save_model_state_pre_hook: dict = {}
+        self._load_model_state_pre_hook: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -147,6 +186,19 @@ class Accelerator:
     @property
     def sync_gradients(self) -> bool:
         return self.gradient_state.sync_gradients
+
+    @property
+    def project_dir(self) -> Optional[str]:
+        return self.project_configuration.project_dir
+
+    @property
+    def logging_dir(self) -> Optional[str]:
+        return self.project_configuration.logging_dir
+
+    @property
+    def save_iteration(self) -> int:
+        """The index of the next automatically named checkpoint."""
+        return self.project_configuration.iteration
 
     # -- prepare ---------------------------------------------------------
 
@@ -300,7 +352,7 @@ class Accelerator:
             norm = global_grad_norm(params)
             if self._clip_max_norm is not None:
                 _clip_grads(params, self._clip_max_norm, norm)
-            opt.optimizer.step()
+            opt.update()
             for sched in schedulers:
                 sched.scheduler.step()
             return {"loss": loss, "grad_norm": norm}
@@ -316,3 +368,139 @@ class Accelerator:
             return {**metrics, "loss_mean": torch.stack(losses).mean()}
 
         return window
+
+    # -- checkpoints (the reference's accelerator.py:2178-2300) ---------
+
+    def save(self, obj, f, safe_serialization: bool = True):
+        """Write a tree of tensors to ``f`` (``utils/other.save``)."""
+        from .utils.other import save
+
+        save(obj, f, save_on_each_node=self.project_configuration.save_on_each_node,
+             safe_serialization=safe_serialization)
+
+    def save_model(self, model, save_directory, max_shard_size="10GB",
+                   safe_serialization: bool = True):
+        """Export ``model``'s weights as the reference's ``save_model`` does
+        (``checkpointing.save_model_weights``)."""
+        from .checkpointing import save_model_weights
+
+        save_model_weights(model, save_directory, max_shard_size=max_shard_size,
+                           safe_serialization=safe_serialization)
+
+    def register_for_checkpointing(self, *objects):
+        """Save and load ``objects`` (each with ``state_dict`` and
+        ``load_state_dict``) with the accelerator's state."""
+        invalid = [obj for obj in objects
+                   if not (hasattr(obj, "state_dict") and hasattr(obj, "load_state_dict"))]
+        if invalid:
+            raise ValueError(
+                "All `objects` must include a `state_dict` and `load_state_dict` function "
+                f"to be stored: {invalid}")
+        self._custom_objects.extend(objects)
+
+    def register_save_state_pre_hook(self, hook):
+        """``hook(models, weights, output_dir)`` runs before every
+        ``save_state``; ``weights`` is an empty list, as the reference's.
+        Returns a handle whose ``remove()`` unregisters it."""
+        key = uuid.uuid4()
+        self._save_model_state_pre_hook[key] = hook
+        return _RemovableHandle(self._save_model_state_pre_hook, key)
+
+    def register_load_state_pre_hook(self, hook):
+        """``hook(models, [], input_dir)`` runs before every ``load_state``,
+        as the reference calls it; see :meth:`register_save_state_pre_hook`."""
+        key = uuid.uuid4()
+        self._load_model_state_pre_hook[key] = hook
+        return _RemovableHandle(self._load_model_state_pre_hook, key)
+
+    def save_state(self, output_dir: Optional[str] = None, safe_serialization: bool = True,
+                   **save_model_func_kwargs):
+        """Save the prepared models, optimizers, schedulers and data
+        loaders, the registered objects, the random states and ``step``
+        into ``output_dir``. With ``automatic_checkpoint_naming`` the
+        directory is ``{project_dir}/checkpoints/checkpoint_<save_iteration>``;
+        past ``total_limit`` checkpoints the oldest (by index) are deleted
+        first, and an existing directory of that name raises. Returns the
+        directory."""
+        from .checkpointing import save_accelerator_state
+
+        config = self.project_configuration
+        if config.automatic_checkpoint_naming:
+            output_dir = os.path.join(self.project_dir, "checkpoints")
+        elif output_dir is None:
+            raise ValueError("save_state() needs output_dir without automatic_checkpoint_naming")
+        os.makedirs(output_dir, exist_ok=True)
+        if config.automatic_checkpoint_naming:
+            folders = [os.path.join(output_dir, f) for f in os.listdir(output_dir)]
+            if config.total_limit is not None and len(folders) + 1 > config.total_limit:
+                folders.sort(key=_checkpoint_index)
+                for folder in folders[: len(folders) + 1 - config.total_limit]:
+                    shutil.rmtree(folder, ignore_errors=True)
+            output_dir = os.path.join(output_dir, f"checkpoint_{self.save_iteration}")
+            if os.path.exists(output_dir):
+                raise ValueError(
+                    f"Checkpoint directory {output_dir} ({self.save_iteration}) already "
+                    "exists. Please manually override `self.save_iteration` with what "
+                    "iteration to start with.")
+        os.makedirs(output_dir, exist_ok=True)
+        logger.info("Saving current state to %s", output_dir)
+        for hook in self._save_model_state_pre_hook.values():
+            hook(self._models, [], output_dir)
+        path = save_accelerator_state(
+            output_dir, models=self._models, optimizers=self._optimizers,
+            schedulers=self._schedulers, dataloaders=self._dataloaders,
+            custom_objects=self._custom_objects, step=self.step,
+            safe_serialization=safe_serialization)
+        config.iteration += 1
+        return path
+
+    def load_state(self, input_dir: Optional[str] = None, **load_model_func_kwargs):
+        """Load what :meth:`save_state` wrote (or the reference's
+        ``save_state``) into the prepared objects; ``None`` with
+        ``automatic_checkpoint_naming`` takes the newest checkpoint. The
+        saved ``step`` replaces the accelerator's. Every tensor lands on
+        the device of the parameter or state it replaces."""
+        from .checkpointing import load_accelerator_state
+
+        if input_dir is None:
+            if not self.project_configuration.automatic_checkpoint_naming:
+                raise ValueError("load_state() needs input_dir without "
+                                 "automatic_checkpoint_naming")
+            base = os.path.join(self.project_dir, "checkpoints")
+            input_dir = os.path.join(base, sorted(os.listdir(base), key=_checkpoint_index)[-1])
+        logger.info("Loading states from %s", input_dir)
+        for hook in self._load_model_state_pre_hook.values():
+            hook(self._models, [], input_dir)
+        override_step = load_accelerator_state(
+            input_dir, models=self._models, optimizers=self._optimizers,
+            schedulers=self._schedulers, dataloaders=self._dataloaders,
+            custom_objects=self._custom_objects)
+        if override_step is not None:
+            self.step = override_step
+
+    def get_state_dict(self, model, unwrap: bool = True) -> dict:
+        """The model's ``state_dict()`` on the host (the reference returns
+        its host-replicated variables)."""
+        return {k: v.detach().to("cpu") for k, v in model.state_dict().items()}
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        """``data.skip_first_batches``: resume an epoch past its first
+        ``num_batches`` batches."""
+        return _skip_first_batches(dataloader, num_batches)
+
+    def free_memory(self, *objects):
+        """Drop every prepared object, reset ``step``, collect garbage and
+        return the card's cached blocks. Returns ``objects`` as Nones, for
+        ``a, b = accelerator.free_memory(a, b)``."""
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self.step = 0
+        gc.collect()
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+        return [None] * len(objects)
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)

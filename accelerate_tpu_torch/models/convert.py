@@ -18,6 +18,10 @@ or :meth:`QuantizedWeight.layer` views of a stacked quantized leaf.
 alike) back into the reference's scan-stacked tree, so tests compare the
 two leaf by leaf, and :func:`export_reference_checkpoint` writes one as
 the reference's stacked checkpoint, a layer slice at a time.
+
+:func:`optimizer_state_to_reference` and
+:func:`optimizer_state_from_reference` map a torch ``AdamW``'s state to
+``optax.adamw``'s and back, through the same layout as the weights.
 """
 
 from __future__ import annotations
@@ -154,6 +158,23 @@ def to_reference(weights: dict, config: DecoderConfig) -> dict:
                               for ref, (names, shape) in layout.items()})
 
 
+def reference_entries(weights: Mapping, config: DecoderConfig, prefix: str = "",
+                      dtype: Optional[torch.dtype] = None) -> list:
+    """The port's weight dict (tensors on any device, or anything keyed
+    alike: gradients, Adam moments) as ``(prefix + reference name, shape,
+    dtype, fetch)`` entries of ``utils/serialization.save_entries``, in
+    the reference's tree order, block leaves stacked along the layer axis
+    (``config.scan_layers``) or unrolled. ``fetch`` yields a stacked
+    leaf's layer slices one at a time, so a writer holds one slice on the
+    host, not the stack. ``dtype`` None keeps each leaf's own."""
+    out = []
+    for ref, (names, shape) in reference_layout(config, weights).items():
+        dt = dtype or weights[names[0]].dtype
+        out.append((prefix + ref, shape, dt,
+                    (lambda ns, dt: lambda: (weights[n].detach().to(dt) for n in ns))(names, dt)))
+    return out
+
+
 def export_reference_checkpoint(weights: dict, config: DecoderConfig, path,
                                 dtype: torch.dtype = torch.bfloat16,
                                 max_shard_size: Optional[int] = None) -> list:
@@ -161,13 +182,136 @@ def export_reference_checkpoint(weights: dict, config: DecoderConfig, path,
     reference's checkpoint of ``dtype`` at ``path``: its flat names in its
     tree order, block leaves stacked along the layer axis
     (``config.scan_layers``) or unrolled, sharded with an index when
-    ``max_shard_size`` is given. A stacked leaf is written one layer slice
-    at a time, so the host holds one slice, not the stack. Returns the
-    files written."""
-    entries = [(ref, shape, dtype,
-                (lambda ns: lambda: (weights[n].detach().to(dtype) for n in ns))(names))
-               for ref, (names, shape) in reference_layout(config, weights).items()]
-    return save_entries(entries, path, max_shard_size)
+    ``max_shard_size`` is given, one layer slice on the host at a time
+    (:func:`reference_entries`). Returns the files written."""
+    return save_entries(reference_entries(weights, config, dtype=dtype), path, max_shard_size)
+
+
+# optax.adamw(schedule) is chain(scale_by_adam, add_decayed_weights,
+# scale_by_learning_rate): its state flattens to the Adam count and
+# moments under "0/" and, when the learning rate is a schedule, the
+# schedule's count under "2/" (a constant rate keeps no state)
+ADAM_COUNT, MU, NU, SCHEDULE_COUNT = "0/count", "0/mu/", "0/nu/", "2/count"
+
+
+def _moment_layout(model):
+    """(parameters by name, config or None): a ``DecoderLM`` maps through
+    the reference's layout, any other module keeps its own names."""
+    params = dict(model.named_parameters())
+    config = getattr(model, "config", None)
+    return params, (config if isinstance(config, DecoderConfig) else None)
+
+
+def _check_adamw(optimizer):
+    if not isinstance(optimizer, torch.optim.AdamW):
+        raise TypeError(f"optax.adamw's state maps to torch.optim.AdamW's, not "
+                        f"{type(optimizer).__name__}'s")
+    if any(group.get("amsgrad") for group in optimizer.param_groups):
+        raise NotImplementedError("optax.adamw has no amsgrad state")
+
+
+def _lambda_schedule(scheduler):
+    """The torch ``LambdaLR`` a schedule count maps to, or None."""
+    inner = getattr(scheduler, "scheduler", scheduler)
+    return inner if isinstance(inner, torch.optim.lr_scheduler.LambdaLR) else None
+
+
+def optimizer_state_to_reference(optimizer, model, scheduler=None) -> list:
+    """A torch ``AdamW``'s state as ``optax.adamw``'s, in
+    ``(key, shape, dtype, fetch)`` entries (``utils/serialization``):
+    ``0/count`` (int32, the update count, every parameter's ``step``),
+    ``0/mu/<name>`` (``exp_avg``) and ``0/nu/<name>`` (``exp_avg_sq``),
+    fp32, and ``2/count`` (int32, ``LambdaLR.last_epoch``) when
+    ``scheduler`` is a ``LambdaLR``, as optax keeps a schedule's count.
+    For a ``DecoderLM`` the names and the stacked layout are the
+    reference's weights' (:func:`reference_entries`: a stacked moment is
+    fetched a layer slice at a time); any other module's moments keep
+    its parameter names and have no reference counterpart. A parameter
+    the optimizer has not updated yet has zero moments, as optax's
+    initial state. betas, eps and weight decay are hyperparameters: no
+    optax state holds them."""
+    _check_adamw(optimizer)
+    params, config = _moment_layout(model)
+    counts = {int(optimizer.state[p]["step"]) for p in params.values()
+              if "step" in optimizer.state.get(p, {})}
+    if len(counts) > 1:
+        raise ValueError(f"the parameters' update counts differ ({sorted(counts)}): "
+                         "optax keeps one count")
+    count = counts.pop() if counts else 0
+
+    def moments(key):
+        return {n: (optimizer.state[p][key] if key in optimizer.state.get(p, {})
+                    else torch.zeros_like(p, dtype=torch.float32))
+                for n, p in params.items()}
+
+    def scalar(value):
+        return (torch.Size(()), torch.int32,
+                (lambda v: lambda: torch.tensor(v, dtype=torch.int32))(int(value)))
+
+    entries = [(ADAM_COUNT, *scalar(count))]
+    for prefix, key in ((MU, "exp_avg"), (NU, "exp_avg_sq")):
+        m = moments(key)
+        if config is not None:
+            entries += reference_entries(m, config, prefix=prefix, dtype=torch.float32)
+        else:
+            entries += [(prefix + n, tuple(t.shape), torch.float32,
+                         (lambda t: lambda: t.detach().float())(t)) for n, t in m.items()]
+    sched = _lambda_schedule(scheduler)
+    if sched is not None:
+        entries.append((SCHEDULE_COUNT, *scalar(sched.last_epoch)))
+    return entries
+
+
+def _step_tensor(optimizer, group, p, count: int) -> torch.Tensor:
+    """``count`` as a parameter's ``step``, where torch keeps it: beside the
+    state it replaces, else on the parameter's device for a capturable or
+    fused group and as a CPU scalar otherwise (torch's AdamW)."""
+    old = optimizer.state.get(p, {}).get("step")
+    if old is not None:
+        return torch.full_like(old, count)
+    on_param = group.get("capturable") or group.get("fused")
+    return torch.tensor(float(count), dtype=torch.float32,
+                        device=p.device if on_param else "cpu")
+
+
+def optimizer_state_from_reference(flat: Mapping, optimizer, model, scheduler=None):
+    """Load ``optax.adamw``'s state (the flat dict of an optimizer
+    checkpoint, :func:`optimizer_state_to_reference`'s names) into a torch
+    ``AdamW`` over ``model``'s parameters: every ``step`` becomes
+    ``0/count``, ``exp_avg`` / ``exp_avg_sq`` the moments, each a new
+    tensor like its parameter (its device and dtype), copied from a layer
+    slice of the stacked leaf. With a ``LambdaLR`` ``scheduler`` and a
+    ``2/count`` in ``flat``, the schedule moves to that count and each
+    group's ``lr`` becomes ``base_lr * lambda(count)``, as optax
+    evaluates its schedule. The optimizer keeps the betas, eps and weight
+    decay it was built with (optax's state holds none)."""
+    _check_adamw(optimizer)
+    params, config = _moment_layout(model)
+    count = int(flat[ADAM_COUNT])
+    views = {}
+    for prefix in (MU, NU):
+        tree = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+        views[prefix] = (from_reference(tree, config) if config is not None
+                         else {n: tree[n] for n in params})
+    group_of = {id(p): g for g in optimizer.param_groups for p in g["params"]}
+    for name, p in params.items():
+        group = group_of[id(p)]
+        state = {"step": _step_tensor(optimizer, group, p, count)}
+        for prefix, key in ((MU, "exp_avg"), (NU, "exp_avg_sq")):
+            src = views[prefix][name]
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{prefix}{name}: shape {tuple(src.shape)}, parameter "
+                                 f"{tuple(p.shape)}")
+            state[key] = torch.empty_like(p, memory_format=torch.contiguous_format).copy_(src)
+        optimizer.state[p] = state
+    sched = _lambda_schedule(scheduler)
+    if sched is not None and SCHEDULE_COUNT in flat:
+        steps = int(flat[SCHEDULE_COUNT])
+        sched.last_epoch = steps
+        sched._step_count = steps + 1
+        for group, base, fn in zip(optimizer.param_groups, sched.base_lrs, sched.lr_lambdas):
+            group["lr"] = base * fn(steps)
+        sched._last_lr = [group["lr"] for group in optimizer.param_groups]
 
 
 def random_params(config: DecoderConfig, seed: int = 0,

@@ -6,6 +6,8 @@ contract: while gradients accumulate (``GradientState.sync_gradients``
 False) ``step()`` is skipped and ``zero_grad()`` is a no-op, so the
 ``.grad`` buffers keep summing the micro-batches; at a sync step the
 Accelerator's gradient clip runs, then the wrapped optimizer updates.
+``step_count`` counts the updates applied (not the micro-steps), as the
+reference's engine does; its checkpoint records it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ class AcceleratedOptimizer(torch.optim.Optimizer):
         # True when the last update was skipped for non-finite fp16
         # gradients; the port has no fp16 loss scaling yet (a later slice)
         self.step_was_skipped = False
+        self.step_count = 0  # updates applied
 
     @property
     def param_groups(self):
@@ -57,7 +60,19 @@ class AcceleratedOptimizer(torch.optim.Optimizer):
             return None
         if self._pre_step is not None:
             self._pre_step(self)
-        return self.optimizer.step(closure)
+        return self.update(closure)
+
+    def update(self, closure=None):
+        """One update of the wrapped optimizer, counted in ``step_count``."""
+        out = self.optimizer.step(closure)
+        self.step_count += 1
+        return out
+
+    def state_dict(self) -> dict:
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state_dict: dict):
+        self.optimizer.load_state_dict(state_dict)
 
     def __repr__(self):
         return f"AcceleratedOptimizer({self.optimizer!r})"

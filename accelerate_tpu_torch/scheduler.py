@@ -71,5 +71,24 @@ class AcceleratedScheduler:
     def get_last_lr(self):
         return self.scheduler.get_last_lr()
 
+    def state_dict(self) -> dict:
+        """The reference's ``{"manual_steps": n}``, which counts steps only
+        of a scheduler detached from its optimizer: the port's always
+        steps with it, for which the reference records 0. The torch
+        scheduler's own state goes beside it under ``"torch"``."""
+        return {"manual_steps": 0, "torch": self.scheduler.state_dict()}
+
+    def load_state_dict(self, state_dict: dict):
+        """Load the torch scheduler's state when the file has it. The
+        reference's file has none: its schedule's position is the
+        optimizer state's update count, which loading that state set."""
+        if "torch" in state_dict:
+            self.scheduler.load_state_dict(state_dict["torch"])
+            # the optimizer's state holds no learning rate: it is the one
+            # the schedule set at its last step
+            for group, lr in zip(self.scheduler.optimizer.param_groups,
+                                 self.scheduler.get_last_lr()):
+                group["lr"] = lr
+
     def __repr__(self):
         return f"AcceleratedScheduler({self.scheduler!r})"

@@ -1,10 +1,10 @@
-"""The training step's configuration: mixed precision and gradient
-accumulation.
+"""The training step's configuration: mixed precision, gradient
+accumulation and the project's checkpoint layout.
 
 Counterpart of the parts of ``accelerate_tpu/utils/dataclasses.py`` that
 the single-device training slice reads (``PrecisionType``,
-``MixedPrecisionConfig``, ``GradientAccumulationPlugin``), with torch
-dtypes. fp16 (loss scaling) and fp8 are later slices and raise.
+``MixedPrecisionConfig``, ``GradientAccumulationPlugin``,
+``ProjectConfiguration``), with torch dtypes. fp16 (loss scaling) and fp8 are later slices and raise.
 """
 
 from __future__ import annotations
@@ -64,3 +64,28 @@ class GradientAccumulationPlugin:
     def __post_init__(self):
         if self.num_steps < 1:
             raise ValueError(f"num_steps must be >= 1, got {self.num_steps}")
+
+
+@dataclass
+class ProjectConfiguration:
+    """Where ``Accelerator.save_state`` writes. With
+    ``automatic_checkpoint_naming`` checkpoints go to
+    ``{project_dir}/checkpoints/checkpoint_{iteration}``, and at most
+    ``total_limit`` of them are kept (the oldest go first).
+    ``logging_dir`` defaults to ``project_dir``. ``save_on_each_node``
+    is kept for the reference's signature: one process writes here."""
+
+    project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+
+    def set_directories(self, project_dir: Optional[str] = None):
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        self.set_directories(self.project_dir)

@@ -202,6 +202,20 @@ def save_entries(entries, path: str | os.PathLike, max_shard_size: int | None = 
     return files
 
 
+def materialize_entries(entries) -> dict[str, torch.Tensor]:
+    """``(key, shape, dtype, fetch)`` entries as ``{key: CPU tensor}``, each
+    fetched whole (a stacked leaf's slices concatenated)."""
+    out = {}
+    for key, shape, dtype, fetch in entries:
+        got = fetch()
+        pieces = [got] if isinstance(got, (torch.Tensor, np.ndarray)) else list(got)
+        flat = torch.cat([_as_tensor(p).reshape(-1) for p in pieces])
+        if flat.dtype != dtype:
+            raise ValueError(f"{key} produced {flat.dtype}, its entry says {dtype}")
+        out[key] = flat.reshape(shape)
+    return out
+
+
 def save_pytree(tree, path: str | os.PathLike, safe_serialization: bool = True,
                 max_shard_size: int | None = None):
     """Save a tree of tensors (or numpy arrays). With ``max_shard_size``

@@ -25,7 +25,7 @@ must hold warpgroup matrix multiplies (HGMMA) and TMA tile loads
 (UTMALDG), or the run fails; the four decode libraries (paged and
 dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
 cp.async copies (LDGSTS), and ptxas must report no spills in them.
-Then it drives nine
+Then it drives ten
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -69,6 +69,16 @@ the patch, so their graphs replay the zeroed wrapper:
   launch counts of layers x micro-batches per step, a falling loss on a
   fixed batch, one step held against plain attention, throughput, MFU,
   peak memory and a step profile;
+- checkpoints: small_1b trained as above over the port's shuffled
+  ``DataLoader``, saved twice mid-epoch (``save_state`` with automatic
+  naming, ``total_limit=1``) and resumed from the newest checkpoint by a
+  fresh Accelerator over other weights: losses, learning rates, a CUDA
+  draw and every parameter equal the uninterrupted run's bit for bit,
+  each resumed micro-step launches the three flash kernels once per
+  layer, and two controls (no optimizer state, no loader position) end
+  elsewhere; then ``save_model`` shards the trained weights, and the
+  export, read into a fresh model, greedily generates the trained
+  model's tokens;
 - generation: ``generate()`` on llama_7b with bf16, int8 and int4 KV
   caches, launch counts per call, every step's logits held against the
   plain forward (and a zeroed-kernel control), decode ms/token by
@@ -2394,6 +2404,262 @@ def profile_train(step, batch, card: str):
         print(f"  {ms:9.2f} ms  {count:5d} calls  {key[:90]}")
 
 
+# the checkpoint path (training-checkpoint slice): small_1b trained as the
+# training path trains it (bf16 over fp32 masters, B 8 x 2048, two
+# micro-batches an update), over the port's shuffled DataLoader of 64
+# sequences from seed 0: 8 micro-batches, 4 updates, an epoch. Run A saves
+# after 2 and 3 updates (both mid-epoch) and trains 2 more, into the next
+# epoch; run B resumes the second save from other weights
+CKPT_SEQS = 64
+CKPT_SAVES = (2, 1)      # updates before each of run A's saves
+CKPT_RESUMED = 2         # updates after the last save (run A) or the load (B)
+CKPT_LR_WARMUP, CKPT_LR_DECAY = 2, 10
+CKPT_PROMPT, CKPT_NEW = 128, 8
+CKPT_SHARD = "1GB"       # save_model's max_shard_size
+
+
+def dir_bytes(path, skip: tuple = ()) -> int:
+    """Bytes of the files under ``path``, but those whose names start
+    with one of ``skip``."""
+    import os
+
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files if not f.startswith(skip))
+
+
+def checkpoint_path(dev, card: str):
+    """Training checkpoints of small_1b at full width and depth on one card:
+
+    (a) run A trains 2 updates, ``save_state()``, 1 update, ``save_state()``
+        (``total_limit=1``: the second save deletes ``checkpoint_0`` before
+        it writes ``checkpoint_1``), one CUDA draw, 2 more updates; run B,
+        a fresh Accelerator over a model built from seed 1, loads the newest
+        checkpoint (``load_state()``), draws, and trains 2 updates. Losses,
+        learning rates, the draw and every parameter must equal run A's bit
+        for bit (``torch.equal``), and each resumed micro-step launches the
+        three flash kernels once per layer;
+    (b) two controls, a resume without the optimizer file and one without
+        the loader's position, must each end on other parameters;
+    (c) ``save_model`` shards the trained weights (1 GB shards + index),
+        ``load_flat_dict`` reads them into a fresh ``DecoderLM``, and greedy
+        ``generate()`` of 8 tokens from a 128-token prompt gives the
+        trained model's tokens.
+
+    Prints the free disk, each save's and load's seconds, GB and GB/s (to
+    and from the page cache: nothing is synced to the disk) and the
+    checkpoint's and the export's sizes. Deletes what it wrote."""
+    import os
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (Accelerator, DataLoader, ProjectConfiguration, generate,
+                                      warmup_cosine_decay_schedule)
+    from accelerate_tpu_torch import checkpointing
+    from accelerate_tpu_torch.data import DataLoaderShard
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import from_reference, random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.utils.serialization import load_flat_dict
+
+    cfg = DecoderConfig.small_1b()
+    seqs = np.random.RandomState(0).randint(0, cfg.vocab_size, (CKPT_SEQS, TRAIN_S))
+    dataset = [{"input_ids": s, "labels": s} for s in seqs]
+    work = tempfile.mkdtemp(prefix="checkpoint-")
+    free = shutil.disk_usage(work).free
+    state_gb = cfg.num_params * 4 * 3 / 1e9  # fp32 weights and two moments
+    print(f"checkpoint path: {work}: {free / 1e9:.1f} GB of disk free (a checkpoint is "
+          f"~{state_gb:.1f} GB, total_limit 1; the export ~{state_gb / 3:.1f} GB)")
+    if free < 1.1 * state_gb * 4 / 3:  # the checkpoint and the export, at once
+        fail(f"checkpoint path: {free / 1e9:.1f} GB of free disk in {work}")
+
+    def build(seed):
+        acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2,
+                          project_config=ProjectConfiguration(
+                              project_dir=work, automatic_checkpoint_naming=True,
+                              total_limit=1))
+        model = DecoderLM(cfg, device=dev, param_dtype=torch.float32)
+        model.load_params(random_params(cfg, seed=seed, device=dev, dtype=torch.float32))
+        opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=1e-4)
+        sched = torch.optim.lr_scheduler.LambdaLR(opt, warmup_cosine_decay_schedule(
+            0.0, TRAIN_LR, CKPT_LR_WARMUP, CKPT_LR_DECAY))
+        loader = DataLoader(dataset, batch_size=TRAIN_B, shuffle=True, seed=0)
+        return (acc, *acc.prepare(model, opt, sched, loader))
+
+    def forever(loader):
+        while True:
+            yield from loader
+
+    def train(run, batches, updates, counted=False):
+        """The eager loop until ``updates`` updates closed; appends (loss,
+        lr) per micro-step to ``run["record"]``."""
+        acc, model, opt, sched = run["acc"], run["model"], run["opt"], run["sched"]
+        for mb in batches:
+            before = dict(kernels.launch_counts)
+            with acc.accumulate(model):
+                loss = model(**mb)["loss"]
+                acc.backward(loss)
+                acc.clip_grad_norm_(max_norm=1.0)
+                opt.step()
+                sched.step()
+                opt.zero_grad()
+            run["record"].append((loss.item(), sched.get_last_lr()[0]))
+            if counted:
+                for name in FLASH_KERNELS:
+                    got = kernels.launch_counts[name] - before[name]
+                    if got != cfg.num_layers:
+                        fail(f"checkpoint path: {name} launched {got} times in a resumed "
+                             f"micro-step, expected {cfg.num_layers}")
+            if acc.sync_gradients:
+                updates -= 1
+                if updates == 0:
+                    return
+
+    def timed_io(what, fn, bytes_of):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        gb = bytes_of(out) / 1e9
+        print(f"checkpoint path on {card}: {what}: {s:.2f} s, {gb:.3f} GB, {gb / s:.2f} GB/s")
+        return out
+
+    def host_params(model):
+        return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+    def resume(tag, patches=(), unread=()):
+        """Run B (or a control): seed-1 weights, load_state(), a draw, the
+        resumed updates. Returns its record, draw and parameters.
+        ``unread``: the prefixes of the files the load does not read."""
+        acc, model, opt, sched, loader = build(1)
+        run = {"acc": acc, "model": model, "opt": opt, "sched": sched, "record": []}
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            timed_io(f"{tag}: load_state()", acc.load_state,
+                     lambda _: dir_bytes(newest, tuple(unread)))
+        draw = torch.rand(4, device=dev)
+        kernels.reset_launch_counts()
+        train(run, forever(loader), CKPT_RESUMED, counted=not patches)
+        return run["record"], draw, host_params(model), run
+
+    try:
+        t0 = time.perf_counter()
+        acc, model, opt, sched, loader = build(0)
+        run_a = {"acc": acc, "model": model, "opt": opt, "sched": sched, "record": []}
+        print(f"checkpoint path: small_1b ({cfg.num_params / 1e9:.3f}B params), fp32 masters "
+              f"seed 0, bf16 compute, batch {TRAIN_B} x {TRAIN_S}, accumulation 2, "
+              f"{CKPT_SEQS} shuffled sequences (seed 0), built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        batches = forever(loader)
+        checkpoints = os.path.join(work, "checkpoints")
+        for i, updates in enumerate(CKPT_SAVES):
+            train(run_a, batches, updates)
+            path = timed_io(f"run A: save_state() {i}", acc.save_state, dir_bytes)
+            kept = sorted(os.listdir(checkpoints))
+            if kept != [f"checkpoint_{i}"]:
+                fail(f"checkpoint path: after save {i} the project holds {kept}")
+        newest = path
+        state_bytes = dir_bytes(newest)
+        draw_a = torch.rand(4, device=dev)
+        saved = len(run_a["record"])
+        train(run_a, batches, CKPT_RESUMED)
+        record_a = run_a["record"][saved:]
+        params_a = host_params(model)
+        del batches, run_a, acc, model, opt, sched, loader
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        record_b, draw_b, params_b, run_b = resume("run B")
+        if record_b != record_a:
+            fail(f"checkpoint path: resumed (loss, lr) {record_b} != run A's {record_a}")
+        if not torch.equal(draw_b, draw_a):
+            fail(f"checkpoint path: resumed CUDA draw {draw_b.tolist()} != {draw_a.tolist()}")
+        differ = [k for k in params_a if not torch.equal(params_a[k], params_b[k])]
+        if differ:
+            fail(f"checkpoint path: {len(differ)} parameters differ from run A's after the "
+                 f"resume, e.g. {differ[:3]}")
+        print(f"checkpoint path: run B resumed bit for bit: (loss, lr) per micro-step "
+              f"{[(round(l, 6), f'{r:.3e}') for l, r in record_b]}, the CUDA draw and all "
+              f"{len(params_b)} parameters equal run A's; flash launches "
+              f"{ {n: kernels.launch_counts[n] for n in FLASH_KERNELS} } over "
+              f"{len(record_b)} micro-steps ({cfg.num_layers} each a micro-step)")
+        model_b = run_b["model"]
+        del run_b
+        gc.collect()
+
+        real_find = checkpointing._find
+        controls = {
+            "no optimizer state": ([mock.patch.object(
+                checkpointing, "_find",
+                lambda folder, stem: None if stem.startswith("optimizer")
+                else real_find(folder, stem))], ("optimizer",)),
+            "no loader position": ([mock.patch.object(
+                DataLoaderShard, "load_state_dict", lambda self, state: None)], ()),
+        }
+        for tag, (patches, unread) in controls.items():
+            _, _, params_c, run_c = resume(f"control ({tag})", patches, unread)
+            del run_c
+            gc.collect()
+            torch.cuda.empty_cache()
+            differ = [k for k in params_a if not torch.equal(params_a[k], params_c[k])]
+            if not differ:
+                fail(f"checkpoint path: control ({tag}) ended on run A's parameters: the "
+                     "bitwise check is blind to it")
+            worst = max((params_a[k] - params_c[k]).abs().max().item() for k in differ)
+            print(f"checkpoint path: control ({tag}): {len(differ)} of {len(params_a)} "
+                  f"parameters differ from run A's (max |diff| {worst:.3e})")
+        del params_a, params_b, params_c
+
+        export = os.path.join(work, "export")
+        acc = Accelerator(mixed_precision="bf16")
+        timed_io(f"save_model(max_shard_size={CKPT_SHARD!r})",
+                 lambda: acc.save_model(model_b, export, max_shard_size=CKPT_SHARD),
+                 lambda _: dir_bytes(export))
+        files = sorted(os.listdir(export))
+        if "model.safetensors.index.json" not in files or len(files) < 3:
+            fail(f"checkpoint path: the export holds {files}, not shards and an index")
+        t = time.perf_counter()
+        flat = load_flat_dict(os.path.join(export, "model.safetensors"))
+        fresh = DecoderLM(cfg, device=dev, param_dtype=torch.float32)
+        fresh.load_params(from_reference(
+            {k[len("params/"):]: v for k, v in flat.items()}, cfg))
+        fresh.set_param_cast(torch.bfloat16)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        gb = dir_bytes(export) / 1e9
+        print(f"checkpoint path on {card}: export read into a fresh DecoderLM: {s:.2f} s, "
+              f"{gb:.3f} GB, {gb / s:.2f} GB/s; {len(files) - 1} shards + index")
+        del flat
+        prompt = torch.as_tensor(
+            np.random.RandomState(1).randint(3, cfg.vocab_size, (1, CKPT_PROMPT)), device=dev)
+        want = generate(model_b, prompt, max_new_tokens=CKPT_NEW)[:, CKPT_PROMPT:]
+        kernels.reset_launch_counts()
+        got = generate(fresh, prompt, max_new_tokens=CKPT_NEW)[:, CKPT_PROMPT:]
+        torch.cuda.synchronize()
+        decode = kernels.launch_counts["dense_decode"]
+        if decode != cfg.num_layers * (CKPT_NEW - 1):
+            fail(f"checkpoint path: generate() launched dense_decode {decode} times, expected "
+                 f"{cfg.num_layers * (CKPT_NEW - 1)}")
+        if not torch.equal(got, want):
+            fail(f"checkpoint path: the export generates {got.tolist()}, the trained model "
+                 f"{want.tolist()}")
+        print(f"checkpoint path on {card}: the export's greedy tokens equal the trained "
+              f"model's: {got.tolist()[0]} ({decode} dense decode launches); checkpoint "
+              f"{state_bytes / 1e9:.3f} GB on disk, export {gb:.3f} GB")
+        del fresh, model_b
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # the generate path (generation slice): llama_7b at full width, random
 # weights from seed 0, prompts of 512 tokens (a 128-multiple, so the
 # whole-prompt prefill takes the flash forward kernel)
@@ -3099,7 +3365,12 @@ def main():
     torch.cuda.empty_cache()
     launches.update(timed("train path", train_path, dev, card))
     gc.collect()
-    torch.cuda.empty_cache()  # the training path's memory, before llama_7b
+    torch.cuda.empty_cache()
+    # its flash launches stay off the kernels line, as the replica's: the
+    # rows keep the training path's
+    timed("checkpoint path", checkpoint_path, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()  # the training paths' memory, before llama_7b
     gen_launches, gen = timed("generate path", generate_path, dev, card)
     launches.update(gen_launches)
     # the dispatch path frees generate_path's model once it has written

@@ -72,7 +72,9 @@ def test_import_leaves_jax_unloaded():
             "accelerate_tpu_torch.telemetry.fleet, "
             "accelerate_tpu_torch.commands.serve, accelerate_tpu_torch.big_modeling, "
             "accelerate_tpu_torch.utils.modeling, accelerate_tpu_torch.utils.serialization, "
-            "accelerate_tpu_torch.utils.offload, accelerate_tpu_torch.runtime.native; "
+            "accelerate_tpu_torch.utils.offload, accelerate_tpu_torch.runtime.native, "
+            "accelerate_tpu_torch.checkpointing, accelerate_tpu_torch.utils.random, "
+            "accelerate_tpu_torch.utils.other, accelerate_tpu_torch.utils.constants; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad")
@@ -157,6 +159,8 @@ def test_training_entry_points_raise_without_cuda(no_cuda):
         DecoderLM(cfg, param_dtype=torch.float32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         random_params(cfg, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Accelerator(project_dir="checkpoints-not-made")
     acc = Accelerator(device="cpu")
     assert acc.device == torch.device("cpu") and acc.mixed_precision == "no"
 
