@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the paged or the flat KV arena.
 
-Counterpart of ``accelerate_tpu/serving/engine.py``, limited to FIFO
-admission and no KV tiers. Many requests decode per device step against
+Counterpart of ``accelerate_tpu/serving/engine.py``, without KV tiers
+and telemetry hooks. Many requests decode per device step against
 one arena. On the paged arena (``page_size``, what users run with
 ``accelerate-tpu serve replica``) admissions ride the packed ragged
 prefill:
@@ -39,12 +39,27 @@ prefill:
   capacity that fits (``prefill_chunks`` rounded up to the token block);
   a tail longer than the largest capacity continues mid-tail over its
   own arena prefix on the next iteration;
-- **host-side scheduler**: the FIFO queue, slot allocator, per-request
-  token callbacks, cancels and ``timeout_s`` expiries (reaped at the top
-  of every step, queued, admitting and live alike), the drain
+- **host-side scheduler**: the FIFO queue (or, with ``scheduler=``, the
+  multi-tenant policy tier of ``scheduler.py``), slot allocator,
+  per-request token callbacks, cancels and ``timeout_s`` expiries (reaped
+  at the top of every step, queued, admitting and live alike), the drain
   (``request_drain`` / ``drain``) and the serving gauges a replica server
   and a router read (``metrics()``: ITL, free slots and pages,
-  ``load_score``).
+  ``load_score``);
+- **multi-tenant scheduling** (``scheduler=SchedulerConfig(...)``):
+  weighted-fair, priority-classed, quota-metered queues whose overflow
+  sheds at submit; watermark shedding under page pressure; preemption,
+  which pages a lower-priority live slot out through the prefix cache,
+  requeues it at the front of its class and later re-admits it by
+  replaying prompt + generated tokens (mostly prefix hits) with nothing
+  sampled, so its tokens are those of an uninterrupted run; and, with
+  ``itl_slo_ms``, the AIMD controller that sets how many prefill
+  dispatches may run between decode steps. Preemption parks the slot in
+  the captured step's fixed buffers, as a cancel does, and a resume
+  reloads them: no scheduling action captures a new graph;
+- **fault injection** (``faults=FaultInjector(...)``, ``faults.py``):
+  page squeezes, storms and delays at the step boundaries and before
+  each decode and prefill dispatch.
 
 On the flat arena (``page_size=None``, the reference's default;
 ``arena.py``) each slot is one batch row of a dense
@@ -67,9 +82,9 @@ HTTP handler threads of a replica server (``replica_server.py``) call
 :meth:`ServingEngine.step`: those touch host state only (the queue, flags,
 counters, ``req.tokens``), and every device op stays on the loop thread.
 
-Everything else the reference engine offers (the multi-tenant
-scheduler, KV tiers and handoff, fault injection, telemetry hooks) is a
-later slice of the port and raises here.
+Everything else the reference engine offers (KV tiers and handoff,
+telemetry hooks, dispatched weights) is a later slice of the port and
+raises here.
 """
 
 from __future__ import annotations
@@ -101,15 +116,20 @@ from .pages import (
     set_table_entry,
     set_table_row,
 )
-
-SHED_PAGE_EXHAUSTED = "page_exhausted"
-SHED_DRAINING = "draining"
+from .scheduler import (
+    SHED_DRAINING,
+    SHED_PAGE_EXHAUSTED,
+    SHED_PAGE_PRESSURE,
+    MultiTenantScheduler,
+    PrefillBudgetController,
+    SchedulerConfig,
+)
 
 
 class PagePressure(RuntimeError):
     """Raised by the page allocator when nothing is left to evict; the
-    engine turns it into a scheduling decision (shed the request) so the
-    serving loop never wedges on it."""
+    engine turns it into a scheduling decision (preempt a victim, shed a
+    request) so the serving loop never wedges on it."""
 
 
 @dataclass(eq=False)
@@ -120,8 +140,9 @@ class Request:
     ``remove`` must not compare prompt arrays).
 
     Every submitted request reaches exactly one terminal ``outcome``:
-    ``"finished"`` (eos or token budget), ``"shed"`` (page exhaustion or
-    drain: ``shed_reason`` says which) or ``"cancelled"`` (``cancel()``,
+    ``"finished"`` (eos or token budget), ``"shed"`` (admission control,
+    load shedding, page exhaustion or drain: ``shed_reason`` says which)
+    or ``"cancelled"`` (``cancel()``,
     ``timeout_s`` expiry, or a raising ``on_token`` callback).
     ``finish_reason`` carries the finer cause."""
 
@@ -132,6 +153,7 @@ class Request:
     id: object = -1
     tenant: str = "default"
     priority: int = 0
+    deadline_s: Optional[float] = None   # scheduling hint (EDF within class)
     timeout_s: Optional[float] = None    # hard wall from submit to cancel
     replica: Optional[str] = None        # which engine served this hop
 
@@ -145,8 +167,12 @@ class Request:
     outcome: Optional[str] = None        # finished | shed | cancelled
     finish_reason: Optional[str] = None  # eos | budget | timeout | ...
     shed_reason: Optional[str] = None
+    preemptions: int = 0
     _last_token_t: float = 0.0
     _cancel: bool = False
+    # preempted and requeued: its re-admission replays prompt + tokens[:-1]
+    # and samples nothing (the generator stays where the last step left it)
+    _resume: bool = False
     prefix_hit: int = 0         # prompt tokens served from the prefix cache
     prefill_dispatches: int = 0  # prefill dispatches (packs or chunks) its prompt rode
     spec_proposed: int = 0      # draft tokens verified for it
@@ -184,13 +210,16 @@ class ServingEngine:
     engine's fleet identity, stamped on every request.
     ``steps_per_call=K`` runs decode bursts of K steps where the
     reference's rules allow one (ignored under spec, which replaces the
-    burst). ``telemetry`` is a later slice and raises; it stays None.
+    burst). ``scheduler`` (a :class:`~.scheduler.SchedulerConfig` or a
+    :class:`~.scheduler.MultiTenantScheduler`) replaces the FIFO queue
+    with the multi-tenant policy tier; ``faults`` (a
+    :class:`~.faults.FaultInjector`) is consulted at each step and before
+    each dispatch. ``telemetry`` is a later slice and raises; it stays
+    None.
     """
 
     _LATER = {
         "telemetry": "telemetry hooks",
-        "scheduler": "the multi-tenant scheduler",
-        "faults": "fault injection",
         "kv_tiers": "hierarchical KV tiers",
         "param_placer": "dispatched (offloaded) weights",
         "donate": "buffer donation (the port updates in place)",
@@ -217,6 +246,8 @@ class ServingEngine:
         device=None,
         replica: Optional[str] = None,
         steps_per_call: int = 1,
+        scheduler=None,
+        faults=None,
         telemetry=None,
         **later,
     ):
@@ -288,6 +319,23 @@ class ServingEngine:
                                          device=self.device)
         self._graphs: dict = {}  # step name -> CapturedStep (CUDA only)
 
+        # scheduler=None keeps the FIFO deque; a SchedulerConfig or a
+        # MultiTenantScheduler switches submit() and step() to the policy
+        # tier (scheduler.py), with the ITL controller when it sets an SLO
+        if isinstance(scheduler, SchedulerConfig):
+            scheduler = MultiTenantScheduler(scheduler)
+        self._sched: Optional[MultiTenantScheduler] = scheduler
+        self._controller = None
+        if scheduler is not None and scheduler.config.itl_slo_ms is not None:
+            self._controller = PrefillBudgetController(
+                scheduler.config.itl_slo_ms,
+                budget=scheduler.config.prefill_budget,
+                min_budget=scheduler.config.prefill_budget_min,
+                max_budget=scheduler.config.prefill_budget_max,
+            )
+        self._faults = faults
+        self._prefill_credit = 0.0
+
         self._queue: deque = deque()
         self._free = list(range(self.num_slots))[::-1]  # pop() -> slot 0 first
         self._slot_req: dict = {}
@@ -308,12 +356,16 @@ class ServingEngine:
         self.requests_completed = 0
         self.requests_shed = 0
         self.requests_cancelled = 0
+        self.preemptions = 0
+        self.resumptions = 0
         self.generated_tokens = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
         self._step_samples: deque = deque(maxlen=512)  # (wall_s, tokens, steps)
         self._ttft: deque = deque(maxlen=2048)  # submit -> first token, s
         self._itl: deque = deque(maxlen=2048)  # inter-token gaps, s
+        self._itl_emitted = 0   # lifetime gap count; the controller only
+        self._itl_observed = 0  # observes when these differ (fresh gaps)
 
     def _init_paged(self, cfg, page_size: int, num_pages, prefix_cache: bool,
                     prefix_max_entries):
@@ -366,21 +418,30 @@ class ServingEngine:
         ``request_id`` (int or str) overrides the engine-assigned id; an
         external int id bumps the auto counter past itself.
 
-        The queue is FIFO: ``tenant``, ``priority`` and ``deadline_s`` are
-        recorded (``tenant``, ``priority``) or ignored (``deadline_s``)
-        until the multi-tenant scheduler (ROADMAP queue 1 item 4). A
-        submit to a draining engine returns the request already terminal,
-        ``outcome`` "shed" with ``shed_reason`` "draining": backpressure is
-        a value, not an exception."""
+        Without a scheduler the queue is FIFO and ``tenant``, ``priority``
+        and ``deadline_s`` are only recorded. With one,
+        they drive the weighted-fair, priority-classed queue (``deadline_s``
+        orders a class earliest-deadline first), and admission control
+        applies: a submit past the queue bounds returns the request
+        already terminal, ``outcome`` "shed" with ``shed_reason``
+        "queue_full" or "tenant_queue_full". A submit to a draining engine
+        returns it shed with ``shed_reason`` "draining". Backpressure is a
+        value, not an exception."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        cover = self._plan_cover(prompt.size)
+        if self._sched is not None and self._sched.config.preemption:
+            # a preemptible request must be re-admittable at any point of
+            # its progress: the worst-case replay (prompt + every generated
+            # token but the last) must itself chunk-plan within the slot
+            cover = max(cover, self._plan_cover(prompt.size + max_new_tokens - 1))
         # speculative verify writes up to spec_k positions past the last
         # sequential write, so spec reserves that much per-slot headroom
         need = prompt.size + max_new_tokens + self.spec_k
-        if need > self.max_cache_len or self._plan_cover(prompt.size) > self.max_cache_len:
+        if need > self.max_cache_len or cover > self.max_cache_len:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens})"
                 + (f" + spec headroom ({self.spec_k})" if self.spec_k else "")
@@ -401,12 +462,17 @@ class ServingEngine:
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                       generator=gen, on_token=on_token, id=rid,
                       tenant=str(tenant or "default"), priority=int(priority),
+                      deadline_s=None if deadline_s is None else float(deadline_s),
                       timeout_s=None if timeout_s is None else float(timeout_s),
                       replica=self.replica)
         req.submit_t = time.perf_counter()
         if self._draining:
-            req.shed_reason = SHED_DRAINING
-            self._terminate(req, req.submit_t, "shed", "shed")
+            self._shed(req, SHED_DRAINING)
+            return req
+        if self._sched is not None:
+            ok, reason = self._sched.admit(req)
+            if not ok:
+                self._shed(req, reason)
             return req
         self._queue.append(req)
         return req
@@ -437,22 +503,61 @@ class ServingEngine:
 
     # -- scheduler ---------------------------------------------------------
 
+    def _queued_depth(self) -> int:
+        return self._sched.total_queued if self._sched is not None else len(self._queue)
+
     def _pending(self) -> bool:
-        return bool(self._queue or self._admitting is not None or self._slot_req)
+        return bool(self._queued_depth() or self._admitting is not None or self._slot_req)
 
     @torch.no_grad()
     def step(self) -> bool:
-        """One scheduler iteration: shed the queue when draining, reap
-        cancels and timeouts, advance prefill admission by one packed
-        dispatch, then run one batched decode step over every active slot.
-        Returns whether any work happened."""
-        if self._draining and self._queue:
+        """One scheduler iteration: fire due faults, shed the queue when
+        draining, reap cancels and timeouts, apply the scheduler's pressure
+        decisions (shed, preempt), advance prefill admission (one packed
+        dispatch, or as many as the ITL budget's credit allows under a
+        scheduler), then run one batched decode step over every active
+        slot. Returns whether any work happened."""
+        if self._faults is not None:
+            self._faults.on_step(self)
+        if self._draining and self._queued_depth():
             # request_drain() only sets the flag (it may fire from a signal
             # handler); the queue shed always runs here, on the loop thread
             self._shed_queue_for_drain()
         progressed = self._reap()
-        progressed = self._advance_admission() or progressed
-        return self._decode_once() or progressed
+        if self._sched is not None:
+            progressed = self._shed_on_pressure() or progressed
+            progressed = self._maybe_preempt() or progressed
+            budget = (self._controller.budget if self._controller is not None
+                      else self._sched.config.prefill_budget)
+            if not self._slot_req:
+                # throttling prefill protects live decodes' ITL; with none
+                # live there is nothing to protect: admit freely
+                budget = max(budget, 1.0)
+            self._prefill_credit = min(self._prefill_credit + budget, max(1.0, budget))
+            while self._prefill_credit >= 1.0:
+                if not self._advance_admission():
+                    break
+                self._prefill_credit -= 1.0
+                progressed = True
+        else:
+            progressed = self._advance_admission() or progressed
+        progressed = self._decode_once() or progressed
+        if self._controller is not None and self._itl_emitted != self._itl_observed:
+            # fresh gaps only: idle iterations (serve() polling an empty
+            # engine) must not replay the last window's p99 into the
+            # controller at the loop's rate
+            self._itl_observed = self._itl_emitted
+            p99, n = self._recent_itl_p99_ms()
+            self._controller.observe(p99, samples=n)
+        return progressed
+
+    def _recent_itl_p99_ms(self, window: int = 128):
+        """p99 over the most recent ITL gaps, in ms, and how many gaps: what
+        the prefill-budget controller acts on."""
+        if not self._itl:
+            return None, 0
+        recent = list(self._itl)[-window:]
+        return 1e3 * float(np.percentile(np.asarray(recent), 99)), len(recent)
 
     def run(self):
         """Drive :meth:`step` until queue, admissions and slots are idle."""
@@ -504,7 +609,7 @@ class ServingEngine:
         slots, whose writes land where no request reads. On the CPU (the
         plain versions, no graphs) there is nothing to do. Needs an idle
         engine."""
-        if self._slot_req or self._queue or self._admitting is not None:
+        if self._slot_req or self._queued_depth() or self._admitting is not None:
             raise RuntimeError("warmup() needs an idle engine")
         if self.device.type == "cuda":
             kernels.build(self._kernel_names())
@@ -531,12 +636,24 @@ class ServingEngine:
         is safe from a signal handler or another thread mid-step."""
         self._draining = True
 
+    def _queued(self) -> list:
+        """Snapshot of every queued request."""
+        return self._sched.queued() if self._sched is not None else list(self._queue)
+
+    def _unqueue(self, req: Request) -> bool:
+        """Drop ``req`` from the queue; False if it is not queued."""
+        if self._sched is not None:
+            return self._sched.remove(req)
+        try:
+            self._queue.remove(req)
+        except ValueError:
+            return False
+        return True
+
     def _shed_queue_for_drain(self):
         now = time.perf_counter()
-        for req in list(self._queue):
-            try:
-                self._queue.remove(req)
-            except ValueError:
+        for req in self._queued():
+            if not self._unqueue(req):
                 continue
             req.shed_reason = SHED_DRAINING
             self._terminate(req, now, "shed", "shed")
@@ -610,6 +727,10 @@ class ServingEngine:
         # the counters fed
         req.done = True
 
+    def _shed(self, req: Request, reason: str):
+        req.shed_reason = reason
+        self._terminate(req, time.perf_counter(), "shed", "shed")
+
     def _reap(self) -> bool:
         """Process cancellations and ``timeout_s`` expiries: queued,
         admitting and live alike. A cancelled or timed-out request frees
@@ -634,12 +755,10 @@ class ServingEngine:
             if why:
                 self._abort_admission(now, "cancelled", why)
                 progressed = True
-        for req in list(self._queue):
+        for req in self._queued():
             why = reason(req)
             if why:
-                try:
-                    self._queue.remove(req)
-                except ValueError:
+                if not self._unqueue(req):
                     continue
                 self._terminate(req, now, "cancelled", why)
                 progressed = True
@@ -663,6 +782,95 @@ class ServingEngine:
             self._terminate(req, now, "shed", "shed")
         else:
             self._terminate(req, now, outcome, reason)
+
+    # -- pressure: shedding and preemption ------------------------------------
+
+    def _page_free_frac(self) -> float:
+        if not self.page_size:
+            return 1.0
+        usable = self.num_pages - self._allocator.reserved
+        return self._allocator.free_count / max(1, usable)
+
+    def _shed_on_pressure(self) -> bool:
+        """Watermark load shedding: when the paged arena's free fraction
+        drops below the watermark, drop the newest lowest-priority queued
+        request (queued work that could not be admitted anyway)."""
+        if not self.page_size or self._sched.total_queued == 0:
+            return False
+        # pages the prefix cache holds are reclaimable, not pressure: evict
+        # LRU entries first, and shed only if the arena is still below the
+        # watermark (its pages pinned by live slots or a fault injector)
+        low = self._sched.config.page_low_watermark
+        while self._page_free_frac() < low and self._prefix is not None \
+                and self._prefix.evict_lru():
+            pass
+        if self._page_free_frac() >= low:
+            return False
+        # a queued request that outranks a live slot is preemption's job
+        # (_maybe_preempt runs next): shed only classes no live slot loses
+        # to, or the lone high-priority request would be dropped while
+        # low-priority slots pin the arena
+        live = [int(r.priority) for r in self._slot_req.values()]
+        victim = self._sched.pick_shed(max_priority=(min(live) + 1) if live else None)
+        if victim is None:
+            return False
+        self._sched.shed(victim)
+        self._shed(victim, SHED_PAGE_PRESSURE)
+        return True
+
+    def _maybe_preempt(self) -> bool:
+        """Page out the lowest-priority live slot when a strictly
+        higher-priority request waits and no slot is free (at most one
+        preemption per scheduler iteration)."""
+        if (self._free or self._admitting is not None or not self._slot_req
+                or self._sched.total_queued == 0):
+            return False
+        best = self._sched.peek_priority()
+        if best is None:
+            return False
+        victim = self._sched.pick_victim(self._slot_req.items(), best)
+        if victim is None:
+            return False
+        self._preempt(*victim)
+        return True
+
+    def _preempt(self, slot: int, req: Request):
+        """Suspend a live request: publish its KV pages to the prefix cache
+        (paged arena), release the slot, and requeue it at the front of its
+        class. The slot is parked in the decode step's buffers as a freed
+        one is; the request's generator stays where its last draw left it.
+        Re-admission replays prompt + generated through the prefix cache
+        (mostly hits) and samples nothing: its tokens are those of an
+        uninterrupted run."""
+        self._slot_req.pop(slot, None)
+        self._active[slot] = False
+        if self.page_size:
+            if self._prefix is not None and req.tokens:
+                # page out through the prefix cache: its entries hold the
+                # page references, so the resume maps them back as hits
+                # (and LRU eviction can still reclaim them under pressure)
+                self._prefix.insert(self._replay_seq(req), self._tables_host.rows[slot])
+            self._release_slot_pages(slot)
+        self._free.append(slot)
+        req.slot = None
+        req.preemptions += 1
+        req._resume = True
+        self.preemptions += 1
+        self._sched.requeue(req)
+
+    def _relieve_pressure(self, req: Request, exclude_slot: int) -> bool:
+        """A slot could not get pages: preempt a strictly lower-priority
+        victim (its pages come free for this one) if the scheduler allows.
+        False when no victim qualifies: the caller sheds ``req``."""
+        if self._sched is None:
+            return False
+        victim = self._sched.pick_victim(
+            ((s, r) for s, r in self._slot_req.items() if s != exclude_slot),
+            int(req.priority))
+        if victim is None:
+            return False
+        self._preempt(*victim)
+        return True
 
     # -- planning ------------------------------------------------------------
 
@@ -783,17 +991,39 @@ class ServingEngine:
 
     # -- admission -----------------------------------------------------------
 
+    def _pop_next(self) -> Optional[Request]:
+        """Next request to admit: the scheduler's WFQ / priority pick, or
+        the FIFO head. Skips requests that went terminal while queued."""
+        while True:
+            if self._sched is not None:
+                req = self._sched.next_request()
+            else:
+                req = self._queue.popleft() if self._queue else None
+            if req is None or not req.done:
+                return req
+
+    def _replay_seq(self, req: Request) -> np.ndarray:
+        """The sequence a preemption resume re-prefills: the prompt plus
+        every generated token but the last (whose K/V the next decode step
+        writes), exactly the state the slot held when it was paged out."""
+        if not req.tokens:
+            return req.prompt
+        return np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+
     def _advance_admission(self) -> bool:
         if self._admitting is None:
-            if not self._free or not self._queue:
+            if not self._free:
                 return False
-            req = self._queue.popleft()
+            req = self._pop_next()
+            if req is None:
+                return False
             slot = self._free.pop()
+            seq = self._replay_seq(req) if req._resume else req.prompt
             if self.page_size:
-                plan = self._paged_admit_plan(req, slot, req.prompt)
+                plan = self._paged_admit_plan(req, slot, seq)
             else:
-                plan = self._plan_chunks(req.prompt.size)
-            self._admitting = [req, slot, plan, 0]
+                plan = self._plan_chunks(seq.size)
+            self._admitting = [req, slot, plan, 0, seq]
         return self._ragged_advance() if self.page_size else self._flat_advance()
 
     def _flat_advance(self) -> bool:
@@ -801,13 +1031,16 @@ class ServingEngine:
         slot view (flat arena): queries at positions start .. start + C - 1
         attend the slot's whole prefix, so chunks continue exactly. The
         last chunk's last valid row samples the first token (the padding
-        rows of a bucketed final chunk give logits nobody reads)."""
-        req, slot, plan, idx = self._admitting
+        rows of a bucketed final chunk give logits nobody reads); a resume
+        samples nothing."""
+        req, slot, plan, idx, seq = self._admitting
         start, bucket = plan[idx]
-        seg = req.prompt[start:start + bucket]
+        seg = seq[start:start + bucket]
         chunk = np.zeros((1, bucket), np.int64)
         chunk[0, :seg.size] = seg
         dev = self.device
+        if self._faults is not None:
+            self._faults.before_prefill(self)
         view = slot_view(self._arena, slot, start)
         logits = self.model(torch.as_tensor(chunk, device=dev),
                             start + torch.arange(bucket, device=dev), cache=view,
@@ -819,6 +1052,9 @@ class ServingEngine:
             self._admitting[3] = idx + 1
             return True
         self._admitting = None
+        if req._resume:
+            self._resume_live(req, slot, seq)
+            return True
         row = logits[seg.size - 1][None]
         first = int(_sample(row, req.generator, self.temperature, self.top_k)[0])
         self._go_live(req, slot, first, time.perf_counter())
@@ -827,27 +1063,40 @@ class ServingEngine:
     def _ragged_advance(self) -> bool:
         """One packed ragged-prefill dispatch: the primary admission's next
         tail segment plus, while capacity remains, the whole tails of
-        further queued requests, packed token-block-aligned into the
-        smallest pack capacity that fits."""
-        req, slot, plan, idx = self._admitting
+        further queued requests (FIFO only: a scheduler's pick stays one
+        at a time, and a resume admits alone), packed token-block-aligned
+        into the smallest pack capacity that fits."""
+        req, slot, plan, idx, seq = self._admitting
         bt = self._ragged_bt
         cap_max = self._ragged_caps[-1]
         # ``idx`` is the next global position to prefill (0 = nothing
         # dispatched yet: start past the prefix hit of the admit plan; a
         # first dispatch always advances past position 0)
         cur = plan[0][0] if idx == 0 else idx
-        n = min(req.prompt.size - cur, cap_max)
+        n = min(seq.size - cur, cap_max)
+        if self._faults is not None:
+            self._faults.before_prefill(self)
         try:
             self._ensure_writable(req, slot, cur, cur + n - 1)
         except PagePressure:
-            self._abort_admission(time.perf_counter(), "shed", SHED_PAGE_EXHAUSTED)
-            return True
-        # packs: [request, slot, s0, s1, primary]. The primary may be
+            # the ladder of live-slot growth: page out a strictly
+            # lower-priority victim before shedding the admission
+            resolved = self._relieve_pressure(req, slot)
+            if resolved:
+                try:
+                    self._ensure_writable(req, slot, cur, cur + n - 1)
+                except PagePressure:
+                    resolved = False
+            if not resolved:
+                self._abort_admission(time.perf_counter(), "shed", SHED_PAGE_EXHAUSTED)
+                return True
+        # packs: [request, slot, s0, s1, primary, seq]. The primary may be
         # mid-tail (longer than the largest pack); co-admitted tails are
         # always whole, so every co-admit completes in this dispatch
-        packs = [[req, slot, cur, cur + n, True]]
+        packs = [[req, slot, cur, cur + n, True, seq]]
         used = -(-n // bt) * bt
-        while self._free and self._queue and used + bt <= cap_max:
+        while (self._sched is None and self._free and self._queue
+               and used + bt <= cap_max):
             nxt = self._queue[0]
             if used + -(-int(nxt.prompt.size) // bt) * bt > cap_max:
                 break
@@ -864,7 +1113,7 @@ class ServingEngine:
                 nxt.prefix_hit = 0
                 self._queue.appendleft(nxt)
                 break
-            packs.append([nxt, slot2, hit2, hit2 + n2, False])
+            packs.append([nxt, slot2, hit2, hit2 + n2, False, nxt.prompt])
             used += -(-n2 // bt) * bt
         rcap = next(c for c in self._ragged_caps if c >= used)
         ids = np.zeros((1, rcap), np.int64)
@@ -873,10 +1122,10 @@ class ServingEngine:
         hist = np.zeros((self.num_slots,), np.int32)
         last_rows = {}
         r = 0
-        for preq, psl, s0, s1, _ in packs:
+        for _, psl, s0, s1, _, pseq in packs:
             nseg = s1 - s0
             nb = -(-nseg // bt)
-            ids[0, r:r + nseg] = preq.prompt[s0:s1]
+            ids[0, r:r + nseg] = pseq[s0:s1]
             # pad rows of a pack's last block keep the slot id (the kernel
             # reads the block's first row to name its slot); pads are dead
             # through pos = -1
@@ -897,9 +1146,13 @@ class ServingEngine:
             slot_hist=torch.as_tensor(hist, device=dev),
         )[0]  # [rcap, V]
         self.prefill_dispatches += 1
-        fresh = sum(s1 - s0 for _, _, s0, s1, _ in packs)
+        fresh = sum(s1 - s0 for _, _, s0, s1, _, _ in packs)
         self.prefill_packed_tokens += fresh
-        done = [p for p in packs if not (p[4] and p[3] < p[0].prompt.size)]
+        # the packs that complete here and sample a first token: not a
+        # primary still mid-tail, and not a resume (which samples nothing,
+        # so its generator stays where the uninterrupted run's would)
+        done = [p for p in packs
+                if not (p[4] and p[3] < p[5].size) and not p[0]._resume]
         firsts = {}
         if done:
             rows = logits[[last_rows[p[1]] for p in done]]
@@ -911,9 +1164,9 @@ class ServingEngine:
                         for i, p in enumerate(done)]
             firsts = {p[1]: int(t) for p, t in zip(done, toks)}
         now = time.perf_counter()
-        for preq, psl, s0, s1, primary in packs:
+        for preq, psl, s0, s1, primary, pseq in packs:
             preq.prefill_dispatches += 1
-            if primary and s1 < preq.prompt.size:
+            if primary and s1 < pseq.size:
                 # mid-tail: the primary stays the admission and resumes at
                 # position s1 next iteration (it filled the whole pack, so
                 # it never coexists with co-admits)
@@ -921,6 +1174,10 @@ class ServingEngine:
                 continue
             if primary:
                 self._admitting = None
+            if preq._resume:
+                # its pages were published when it was paged out
+                self._resume_live(preq, psl, pseq)
+                continue
             self._insert_prefix(preq, psl)
             self._go_live(preq, psl, firsts[psl], now)
         return True
@@ -937,6 +1194,21 @@ class ServingEngine:
         self._ttft.append(now - req.submit_t)
         self._emit(req, first_tok, now)
 
+    def _resume_live(self, req: Request, slot: int, seq: np.ndarray):
+        """A preemption resume's replay is done: the slot continues where
+        it was paged out, feeding the last emitted token back at position
+        ``seq.size``; nothing is emitted. The wait since the page-out is
+        scheduling latency, not an inter-token gap: the ITL clock restarts,
+        so one preemption cannot fake an SLO breach."""
+        self._tokens[slot] = req.tokens[-1]
+        self._lengths[slot] = seq.size
+        req.slot = slot
+        self._slot_req[slot] = req
+        self._active[slot] = True
+        req._resume = False
+        req._last_token_t = 0.0
+        self.resumptions += 1
+
     # -- decode --------------------------------------------------------------
 
     def _next_write_pos(self, req: Request) -> int:
@@ -945,23 +1217,27 @@ class ServingEngine:
         return req.prompt.size + len(req.tokens) - 1
 
     def _grow_or_resolve(self, req: Request, slot: int, lo: int, hi: int) -> bool:
-        """Grow a live slot's pages for the next write range; under page
-        pressure with nothing to evict, shed ``req`` itself. True when the
-        slot is still live and writable."""
-        try:
-            self._ensure_writable(req, slot, lo, hi)
-            return True
-        except PagePressure:
-            req.shed_reason = SHED_PAGE_EXHAUSTED
-            self._terminate(req, time.perf_counter(), "shed", "shed")
-            return False
+        """Grow a live slot's pages for the next write range. Under page
+        pressure with nothing left to evict, preempt a strictly
+        lower-priority victim (its pages come free here) or, when none
+        qualifies, shed ``req`` itself. True when the slot is still live
+        and writable."""
+        while True:
+            try:
+                self._ensure_writable(req, slot, lo, hi)
+                return True
+            except PagePressure:
+                if self._relieve_pressure(req, slot):
+                    continue
+                self._shed(req, SHED_PAGE_EXHAUSTED)
+                return False
 
     def _burst_len(self) -> int:
         """``steps_per_call`` when a burst can neither delay an admission
         (none in flight, and the queue cannot be admitted) nor overshoot a
         request's token budget, else 1 (the reference's ``_burst_len``)."""
         k = self.steps_per_call
-        if k <= 1 or self._admitting is not None or (self._queue and self._free):
+        if k <= 1 or self._admitting is not None or (self._queued_depth() and self._free):
             return 1
         remaining = min(req.max_new_tokens - len(req.tokens)
                         for req in self._slot_req.values())
@@ -1017,10 +1293,14 @@ class ServingEngine:
         k = self._burst_len()
         if self.page_size:
             for slot, req in list(self._slot_req.items()):
+                if slot not in self._slot_req:
+                    continue  # shed or preempted while relieving another slot
                 pos = self._next_write_pos(req)
                 self._grow_or_resolve(req, slot, pos, pos + k - 1)
             if not self._slot_req:
                 return True  # every live slot was shed under page pressure
+        if self._faults is not None:
+            self._faults.before_decode(self)
         live = list(self._slot_req.items())
         self._load_decode_state()
         step = self._step_fn("decode")
@@ -1118,6 +1398,8 @@ class ServingEngine:
         k = self.spec_k
         drafts = np.zeros((self.num_slots, k), np.int64)
         for slot, req in list(self._slot_req.items()):
+            if slot not in self._slot_req:
+                continue  # shed or preempted while relieving another slot
             drafts[slot] = self._drafter.propose(self._draft_context(req), k)
             pos = self._next_write_pos(req)
             self._grow_or_resolve(req, slot, pos, pos + k)
@@ -1158,8 +1440,12 @@ class ServingEngine:
     def _emit(self, req: Request, token: int, now: float):
         req.tokens.append(token)
         self.generated_tokens += 1
+        if self._sched is not None:
+            # a quota meters generation, not submission
+            self._sched.note_tokens(req.tenant, 1)
         if req._last_token_t:
             self._itl.append(now - req._last_token_t)
+            self._itl_emitted += 1
         req._last_token_t = now
         if req.on_token is not None:
             try:
@@ -1184,7 +1470,7 @@ class ServingEngine:
         Safe from another thread while the loop steps: it reads host state
         only, and snapshots each sample deque before reading it."""
         out = {
-            "serving/queue_depth": len(self._queue),
+            "serving/queue_depth": self._queued_depth(),
             "serving/slot_occupancy": len(self._slot_req) / self.num_slots,
             "serving/requests_completed": self.requests_completed,
             "serving/requests_shed": self.requests_shed,
@@ -1197,12 +1483,18 @@ class ServingEngine:
             # arena_bytes to tell a quantized arena from a shrunk one
             "serving/kv_cache_bits": kv_cache_bits(self.kv_cache_dtype),
         }
-        if self.requests_shed or self.requests_cancelled:
+        # preemption needs a scheduler, so its count rides the scheduler's test
+        if self._sched is not None or self.requests_shed or self.requests_cancelled:
             out["serving/shed"] = self.requests_shed
             out["serving/cancelled"] = self.requests_cancelled
-            # no preemption without the multi-tenant scheduler
-            out["serving/preemptions"] = 0
-            out["serving/resumptions"] = 0
+            out["serving/preemptions"] = self.preemptions
+            out["serving/resumptions"] = self.resumptions
+        if self._sched is not None:
+            out.update(self._sched.metrics())
+        if self._controller is not None:
+            out["serving/itl_budget"] = round(self._controller.budget, 4)
+            out["serving/itl_slo_breaches"] = self._controller.breaches
+            out["serving/itl_budget_adjustments"] = self._controller.adjustments
         if self._draining:
             out["serving/draining"] = True
         if self.spec_k:

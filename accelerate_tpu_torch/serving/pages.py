@@ -205,6 +205,11 @@ class PrefixCache:
             self.allocator.release(p)
         return True
 
+    def clear(self):
+        """Drop every entry (releasing its page refs)."""
+        while self.evict_lru():
+            pass
+
     @property
     def hit_ratio(self) -> float:
         return self.hits / self.lookups if self.lookups else 0.0

@@ -21,8 +21,9 @@ between, and scales:
 
 The KV handoff endpoints (``/v1/kv/directory``, ``/v1/kv/export``,
 ``/v1/kv/import``) answer 404 until the port has KV tiers and handoff
-(ROADMAP queue 1 item 5), and ``faults=`` raises until fault injection
-(item 4).
+(ROADMAP queue 1 item 5). ``faults=`` takes a
+:class:`~.faults.FaultInjector` whose ``wrong_token`` drill corrupts the
+tokens on the wire (``corrupt_token``), not in the engine.
 
 Lifecycle: ``start()`` runs the engine's scheduler loop on a background
 thread; every device op stays on that one thread, and the HTTP handler
@@ -81,11 +82,9 @@ class ReplicaServer:
                  faults=None):
         import http.server
 
-        if faults is not None:
-            raise NotImplementedError(
-                "ReplicaServer(faults=...): fault injection belongs to a later "
-                "slice of the port (ROADMAP queue 1 item 4)"
-            )
+        # replica-side fault injection (wrong-token drills): consulted per
+        # emitted token through corrupt_token()
+        self._faults = faults
         self.engine = engine
         if name:
             engine.replica = str(name)
@@ -303,6 +302,7 @@ class ReplicaServer:
                 seed=int(body.get("seed") or 0),
                 tenant=str(body.get("tenant") or "default"),
                 priority=int(body.get("priority") or 0),
+                deadline_s=body.get("deadline_s"),
                 timeout_s=body.get("timeout_s"),
                 request_id=body.get("request_id"),
             )
@@ -346,8 +346,13 @@ class ReplicaServer:
                     return  # mid-stream drop: connection closes, no "done"
                 n = len(req.tokens)
                 while sent < n:
+                    token = int(req.tokens[sent])
+                    if self._faults is not None:
+                        # wrong-token drill: the engine computed the right
+                        # answer, the wire lies
+                        token = int(self._faults.corrupt_token(self.name, sent, token))
                     line = json.dumps({
-                        "event": "token", "i": sent, "token": int(req.tokens[sent]),
+                        "event": "token", "i": sent, "token": token,
                         "request_id": req.id, "replica": self.name,
                     })
                     handler.wfile.write((line + "\n").encode())

@@ -25,7 +25,7 @@ must hold warpgroup matrix multiplies (HGMMA) and TMA tile loads
 (UTMALDG), or the run fails; the four decode libraries (paged and
 dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
 cp.async copies (LDGSTS), and ptxas must report no spills in them.
-Then it drives ten
+Then it drives eleven
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -55,6 +55,15 @@ the patch, so their graphs replay the zeroed wrapper:
   8, whose tokens, decode steps, prefill dispatches and launches must
   equal the main path's, then the replica's concurrent wave once more
   at ``steps_per_call`` 4, beside the wave at 1 of the replica path;
+- multi-tenant scheduling: small_1b's paged bf16 engine under
+  ``scheduler=`` and ``faults=``, a batch tenant whose requests ask 1.5x
+  the arena's pages and an interactive tenant that preempts it, with a
+  page squeeze (a watermark shed), a poisoned request, a request with
+  ``timeout_s=0`` and the ITL controller; every request terminal,
+  preemption with its resumption, tokens teacher-forced against a
+  zeroed paged-decode control, no graph captured after warmup, no page
+  leaked; then the interactive requests alone and the preempted ones
+  uninterrupted (exact-match counts printed);
 - the replica: the paged engine behind the port's ``ReplicaServer`` on
   loopback HTTP, a sequential pass whose tokens and launches must equal
   the in-process engine's fed one request at a time, a concurrent wave
@@ -1996,6 +2005,296 @@ def burst_path(dev, card: str, model, prompts, main: dict, wave: dict):
     print(f"replica wave on {card} (replica path, this run): " + wave_text(wave))
 
 
+# the scheduled path's traffic: (requests, ~prompt tokens, new tokens) a tenant
+SCHED_BATCH = (6, 400, 64)
+SCHED_INTERACTIVE = (6, 40, 32)
+SCHED_OVERCOMMIT = 1.5      # the batch tenant's pages over the arena's
+SCHED_ITL_SLO_MS = 20.0     # the prefill-budget controller's ITL p99 SLO
+SCHED_BATCH_QUOTA = 256.0   # the batch tenant's tokens a quota window (1 s)
+SCHED_SQUEEZE = (4, 12, 2)  # decode step it fires at, pages it holds, steps it holds them
+SCHED_STORM_AT = 48         # the oldest batch request's tokens when the interactive submit
+SCHED_TIMEOUT_BATCH = 5     # the batch request submitted with timeout_s=0
+SCHED_POISON_INTERACTIVE = 2  # the interactive request whose on_token raises
+
+
+def latency_text(reqs, stamps) -> str:
+    """TTFT and ITL p50 / p99 of ``reqs`` from their token stamps (host
+    clock at each on_token call), in ms."""
+    import numpy as np
+
+    ttft = [1e3 * (stamps[r.id][0] - r.submit_t) for r in reqs if stamps.get(r.id)]
+    gaps = [1e3 * (b - a) for r in reqs
+            for a, b in zip(stamps.get(r.id, []), stamps.get(r.id, [])[1:])]
+    if not ttft or not gaps:
+        return "no tokens"
+    return (f"TTFT p50 {np.percentile(ttft, 50):.2f} / p99 {np.percentile(ttft, 99):.2f} ms, "
+            f"ITL p50 {np.percentile(gaps, 50):.3f} / p99 {np.percentile(gaps, 99):.3f} ms "
+            f"({len(ttft)} requests, {len(gaps)} gaps)")
+
+
+def scheduled_path(dev, card: str, model):
+    """Multi-tenant scheduling and fault injection on small_1b's paged bf16
+    engine (page 16, 8 slots): a batch tenant (priority 0, weight 1, a
+    token quota) whose requests ask SCHED_OVERCOMMIT times the pages the
+    arena holds, then an interactive tenant (priority 5, weight 4) once the
+    batch has taken every slot and page it can and its oldest request is
+    halfway, under the ITL controller, one page squeeze (while batch
+    requests still queue), one poisoned request and one request with
+    timeout_s=0. Gates: (a) every request terminal, preemptions >= 1 and
+    every preempted request that finished resumed; (b) every finished
+    token within TOP2_MARGIN of the teacher-forced plain forward, and the
+    same storm with paged_decode's output zeroed fails that check; (c) no
+    graph captured after warmup(), #4 launched step_count x layers and #6
+    prefill_dispatches x layers; (d) no page leaked once the prefix cache
+    is cleared; (e) the controller observed the run and itl_budget is
+    reported. The same interactive requests then run alone on an idle
+    engine of the same shape, and the preempted ones uninterrupted."""
+    import collections
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.serving import (
+        FaultInjector,
+        SchedulerConfig,
+        ServingEngine,
+        TenantConfig,
+    )
+    from accelerate_tpu_torch.serving.faults import poison_on_token
+    from accelerate_tpu_torch.utils import cuda_graphs
+
+    cfg = model.config
+    rng = np.random.RandomState(15)
+    (n_b, len_b, new_b), (n_i, len_i, new_i) = SCHED_BATCH, SCHED_INTERACTIVE
+    batch = [rng.randint(3, cfg.vocab_size, (len_b + int(rng.randint(-24, 25)),)).astype(np.int32)
+             for _ in range(n_b)]
+    inter = [rng.randint(3, cfg.vocab_size, (len_i + int(rng.randint(-8, 9)),)).astype(np.int32)
+             for _ in range(n_i)]
+    token_bytes = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    ask = sum(-(-(p.size + new_b) // PAGE) for p in batch)
+    usable = int(round(ask / SCHED_OVERCOMMIT))
+    eng_kw = dict(num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                  prefill_chunks=(128, 512), device=dev)
+    print(f"scheduled path: KV {cfg.num_layers} layers x 2 x {cfg.num_kv_heads} KV heads x "
+          f"{cfg.head_dim} x 2 B = {token_bytes / 1024:.0f} KiB a token, "
+          f"{token_bytes * PAGE / 2**20:.2f} MiB a page of {PAGE}; the batch tenant's {n_b} "
+          f"requests (prompts {[int(p.size) for p in batch]} + {new_b} new) ask {ask} pages, the "
+          f"arena holds {usable} + the parking page: {ask / usable:.2f}x; interactive "
+          f"{n_i} x (prompts {[int(p.size) for p in inter]} + {new_i} new)")
+
+    def sched():
+        return SchedulerConfig(
+            tenants={"batch": TenantConfig(weight=1.0, quota=SCHED_BATCH_QUOTA),
+                     "interactive": TenantConfig(weight=4.0)},
+            itl_slo_ms=SCHED_ITL_SLO_MS)
+
+    def storm():
+        """One seeded storm on a fresh, warmed-up engine. Returns the
+        engine, its requests (batch, then interactive), token stamps, the
+        launches and captures of the run, the budget trajectory and the
+        host seconds of each preemption and of each resume's prefill."""
+        at, pages, hold = SCHED_SQUEEZE
+        faults = FaultInjector(seed=0).squeeze_pages(at_step=at, pages=pages, hold_steps=hold)
+        engine = ServingEngine(model, scheduler=sched(), faults=faults, num_pages=usable + 1,
+                               **eng_kw)
+        engine.warmup()
+        torch.cuda.synchronize()
+        stamps = {}
+
+        def stamp(tok, req):
+            stamps.setdefault(req.id, []).append(time.perf_counter())
+
+        out = {"preempt_s": [], "resume_s": [], "evictions": 0, "captures": 0}
+        real_preempt, real_advance = engine._preempt, engine._ragged_advance
+        real_evict, real_capture = engine._prefix.evict_lru, cuda_graphs.capture
+
+        def preempt(slot, req):
+            t = time.perf_counter()
+            real_preempt(slot, req)
+            out["preempt_s"].append(time.perf_counter() - t)
+
+        def advance():
+            resume = engine._admitting[0]._resume
+            t = time.perf_counter()
+            done = real_advance()
+            if resume:
+                out["resume_s"].append(time.perf_counter() - t)
+            return done
+
+        def evict():
+            evicted = real_evict()
+            out["evictions"] += int(evicted)
+            return evicted
+
+        def capture(*args, **kw):
+            out["captures"] += 1
+            return real_capture(*args, **kw)
+
+        engine._preempt, engine._ragged_advance = preempt, advance
+        engine._prefix.evict_lru = evict
+        in_use0 = engine._allocator.in_use
+        traj = [(0, engine._controller.budget)]
+
+        def step():
+            engine.step()
+            if engine._controller.budget != traj[-1][1]:
+                traj.append((engine.step_count, engine._controller.budget))
+
+        kernels.reset_launch_counts()
+        with mock.patch.object(cuda_graphs, "capture", capture):
+            t0 = time.perf_counter()
+            breqs = [engine.submit(p, max_new_tokens=new_b, seed=i, tenant="batch", priority=0,
+                                   on_token=stamp,
+                                   timeout_s=0.0 if i == SCHED_TIMEOUT_BATCH else None)
+                     for i, p in enumerate(batch)]
+            # the batch takes every slot and page it can (none of it queued or
+            # admitting any more) and its oldest request is halfway
+            while (engine._queued_depth() or engine._admitting is not None
+                   or (engine._slot_req and max(len(r.tokens) for r in breqs) < SCHED_STORM_AT)):
+                step()
+            out["batch_live"] = len(engine._slot_req)
+            out["free_pages_at_storm"] = engine._allocator.free_count
+            ireqs = [engine.submit(p, max_new_tokens=new_i, seed=100 + i, tenant="interactive",
+                                   priority=5,
+                                   on_token=poison_on_token if i == SCHED_POISON_INTERACTIVE
+                                   else stamp)
+                     for i, p in enumerate(inter)]
+            while engine._pending():
+                step()
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = dict(kernels.launch_counts)
+        out["traj"] = traj
+        out["metrics"] = engine.metrics()
+        faults.release_all(engine)
+        engine._prefix.clear()
+        out["leaked"] = engine._allocator.in_use - in_use0
+        return engine, breqs, ireqs, stamps, out
+
+    def checked(reqs):
+        """(worst gap, exact, total) of the teacher-forced check over every
+        finished request's tokens."""
+        worst, exact, total = 0.0, 0, 0
+        for r in reqs:
+            if r.outcome == "finished":
+                g, e, t = teacher_forced(model, [r], len(r.tokens), dev)
+                worst, exact, total = max(worst, g), exact + e, total + t
+        return worst, exact, total
+
+    engine, breqs, ireqs, stamps, out = storm()
+    reqs = breqs + ireqs
+    m = out["metrics"]
+    # (a) every request terminal; preemption happened, and resumed
+    bad = [(r.id, r.outcome) for r in reqs
+           if not r.done or r.outcome not in ("finished", "shed", "cancelled")]
+    if bad:
+        fail(f"scheduled path: requests not terminal: {bad}")
+    preempted = [r for r in reqs if r.preemptions]
+    if engine.preemptions < 1:
+        fail("scheduled path: no preemption ran")
+    unresumed = [r.id for r in preempted if r.outcome == "finished" and r._resume]
+    resumed_need = sum(r.preemptions for r in preempted if r.outcome == "finished")
+    if unresumed or engine.resumptions < resumed_need:
+        fail(f"scheduled path: preempted requests {unresumed} finished without a resume "
+             f"({engine.resumptions} resumptions, {resumed_need} needed)")
+    if reqs[SCHED_TIMEOUT_BATCH].finish_reason != "timeout":
+        fail(f"scheduled path: the timeout_s=0 request ended {reqs[SCHED_TIMEOUT_BATCH].outcome}")
+    poisoned = ireqs[SCHED_POISON_INTERACTIVE]
+    if poisoned.finish_reason != "callback_error":
+        fail(f"scheduled path: the poisoned request ended {poisoned.finish_reason}")
+    # (b) finished tokens teacher-forced, against a zeroed-kernel control
+    worst, exact, total = checked(reqs)
+    if not math.isfinite(worst) or worst > TOP2_MARGIN:
+        fail(f"scheduled path: a generated token is {worst} logits below the plain forward's "
+             f"argmax (margin {TOP2_MARGIN})")
+    # (c) no capture after warmup; launches from this run's steps and dispatches
+    if out["captures"] or len(engine._graphs) != 1:
+        fail(f"scheduled path: {out['captures']} graph captures after warmup(), graphs "
+             f"{sorted(engine._graphs)}")
+    expect_launches("scheduled path", out["launches"], {
+        "paged_decode": engine.step_count * cfg.num_layers,
+        "ragged_prefill": engine.prefill_dispatches * cfg.num_layers})
+    # (d) no leak; (e) the controller observed the run
+    if out["leaked"]:
+        fail(f"scheduled path: {out['leaked']} pages still in use after the prefix cache "
+             "was cleared")
+    if engine._itl_observed < 1 or "serving/itl_budget" not in m:
+        fail("scheduled path: the ITL controller observed nothing or itl_budget is missing")
+    sheds = collections.Counter(r.shed_reason for r in reqs if r.outcome == "shed")
+    ends = collections.Counter((r.tenant, r.outcome) for r in reqs)
+    print(f"scheduled path: batch live at the storm {out['batch_live']}, "
+          f"{out['free_pages_at_storm']} pages free; {engine.step_count} decode steps, "
+          f"{engine.prefill_dispatches} prefill dispatches, {engine.preemptions} preemptions, "
+          f"{engine.resumptions} resumptions, sheds by reason {dict(sheds)}, outcomes "
+          f"{ {f'{t}/{o}': n for (t, o), n in sorted(ends.items())} }, {out['evictions']} "
+          f"prefix-cache LRU evictions, fault log {engine._faults.log}")
+    print(f"scheduled path: teacher-forced check: {exact}/{total} finished tokens are the plain "
+          f"argmax, worst gap {worst:.4f} (margin {TOP2_MARGIN}); no graph captured after "
+          f"warmup(); launches {out['launches']['paged_decode']} paged_decode = "
+          f"{engine.step_count} x {cfg.num_layers}, {out['launches']['ragged_prefill']} "
+          f"ragged_prefill = {engine.prefill_dispatches} x {cfg.num_layers}; no page leaked")
+    traj = out["traj"]
+    print(f"scheduled path: ITL budget (SLO {SCHED_ITL_SLO_MS} ms) at (decode step, budget): "
+          f"{[(s, round(b, 4)) for s, b in traj[:24]]}{' ...' if len(traj) > 24 else ''}, "
+          f"final {m['serving/itl_budget']}, {m['serving/itl_slo_breaches']} breaches, "
+          f"{m['serving/itl_budget_adjustments']} adjustments, engine ITL p99 (last 128) "
+          f"{m['serving/itl_recent_p99_ms']} ms")
+    ps, rs = out["preempt_s"], out["resume_s"]
+    print(f"scheduled path on {card}: host seconds of _preempt: {len(ps)} calls, mean "
+          f"{1e3 * np.mean(ps):.3f} ms, max {1e3 * max(ps):.3f} ms; of a resume's prefill "
+          f"dispatch: {len(rs)} calls, mean "
+          f"{1e3 * np.mean(rs) if rs else float('nan'):.3f} ms, max "
+          f"{1e3 * max(rs) if rs else float('nan'):.3f} ms; run wall {out['wall_s']:.3f} s")
+    print(f"scheduled path on {card}: interactive under the storm: "
+          f"{latency_text(ireqs, stamps)}; batch: {latency_text(breqs, stamps)}")
+    del engine
+
+    # the same interactive requests alone on an idle engine of the same shape
+    alone = ServingEngine(model, scheduler=sched(), num_pages=usable + 1, **eng_kw)
+    alone.warmup()
+    astamps = {}
+    areqs = [alone.submit(p, max_new_tokens=new_i, seed=100 + i, tenant="interactive",
+                          priority=5,
+                          on_token=lambda tok, req: astamps.setdefault(req.id, []).append(
+                              time.perf_counter()))
+             for i, p in enumerate(inter)]
+    alone.run()
+    print(f"scheduled path on {card}: interactive alone: {latency_text(areqs, astamps)}")
+    same = sum(a.tokens == r.tokens for a, r in zip(areqs, ireqs) if r.outcome == "finished")
+    print(f"scheduled path: {same}/{sum(r.outcome == 'finished' for r in ireqs)} finished "
+          "interactive requests have their tokens alone")
+    del alone
+
+    # the preempted requests uninterrupted: FIFO, pages for every slot
+    fifo = ServingEngine(model, **eng_kw)
+    fifo.warmup()
+    ureqs = [fifo.submit(r.prompt, max_new_tokens=r.max_new_tokens,
+                         seed=breqs.index(r) if r.tenant == "batch" else 100 + ireqs.index(r))
+             for r in preempted]
+    fifo.run()
+    fin = [(u, r) for u, r in zip(ureqs, preempted) if r.outcome == "finished"]
+    tok_same = sum(int(a == b) for u, r in fin for a, b in zip(u.tokens, r.tokens))
+    print(f"scheduled path: {sum(u.tokens == r.tokens for u, r in fin)}/{len(fin)} preempted "
+          f"and finished requests have exactly their uninterrupted run's tokens "
+          f"({tok_same}/{sum(len(r.tokens) for _, r in fin)} tokens; bf16, the replay's last "
+          "positions re-prefilled through #6 where a decode step wrote them)")
+    del fifo
+
+    # the control: the same storm with the paged decode output zeroed
+    with mock.patch.object(kernels, "paged_decode", zeroed(kernels.paged_decode)):
+        control, cb, ci, _, _ = storm()
+    del control
+    gap_c, exact_c, total_c = checked(cb + ci)
+    if not gap_c > TOP2_MARGIN:
+        fail(f"scheduled path control: with the paged decode output zeroed every finished "
+             f"token is within {TOP2_MARGIN} of the plain argmax (worst {gap_c}): the check is "
+             "blind")
+    print(f"scheduled path: control (paged decode output zeroed): {exact_c}/{total_c} exact, "
+          f"worst gap {gap_c:.4f}, fails the check")
+
+
 def profile_prefill(model, eng_kw, prompts, new_tokens: int, card: str):
     """The ragged prefill kernel's share of one served run of ``prompts``:
     torch.profiler's device-side events over the whole run, the kernel's
@@ -3360,6 +3659,8 @@ def main():
     # the burst path's launches stay off the kernels line too: they must
     # equal main path's, which are on it
     timed("burst path", burst_path, dev, card, model, serving["prompts"], main_run, wave)
+    # and so do the scheduled path's: its gates hold them to its own steps
+    timed("scheduled path", scheduled_path, dev, card, model)
     del serving, model
     gc.collect()
     torch.cuda.empty_cache()

@@ -17,8 +17,10 @@
 """
 
 import ast
+import json
 import subprocess
 import sys
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -269,23 +271,42 @@ def test_later_slices_raise():
             Accelerator(mixed_precision=mode, device="cpu")
     cfg = DecoderConfig.tiny()
     model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
-    for kw, what in (({"scheduler": object()}, "multi-tenant scheduler"),
-                     ({"faults": object()}, "fault injection"),
-                     ({"kv_tiers": object()}, "KV tiers"),
-                     ({"telemetry": object()}, "telemetry hooks")):
+    for kw, what in (({"kv_tiers": object()}, "KV tiers"),
+                     ({"telemetry": object()}, "telemetry hooks"),
+                     ({"param_placer": object()}, "dispatched"),
+                     ({"donate": True}, "buffer donation")):
         with pytest.raises(NotImplementedError, match=what):
             ServingEngine(model, max_cache_len=64, device="cpu", **kw)
+    # the multi-tenant scheduler and fault injection are this port's now
+    # (tests/test_torch_scheduled_serving.py), on both arenas
+    from accelerate_tpu_torch.serving import FaultInjector, SchedulerConfig
+
+    for page_size in (8, None):
+        eng = ServingEngine(model, max_cache_len=64, device="cpu", page_size=page_size,
+                            scheduler=SchedulerConfig(itl_slo_ms=50.0),
+                            faults=FaultInjector())
+        assert eng._sched is not None and eng._controller is not None
+    with pytest.raises(ValueError, match="SLO"):
+        ServingEngine(model, max_cache_len=64, device="cpu",
+                      scheduler=SchedulerConfig(itl_slo_ms=0.0))
     # the quantized paged arena and speculative verify are this port's now
     ServingEngine(model, max_cache_len=64, device="cpu", kv_cache_dtype="int8",
                   page_size=8, spec_draft_len=2)
-    # and so is the replica identity, with the server; its fault injection
-    # is a later slice
+    # and so is the replica identity, with the server and its fault injection
     eng = ServingEngine(model, max_cache_len=64, device="cpu", replica="r0",
                         steps_per_call=1)
     assert eng.replica == "r0" and eng.telemetry is None
     assert eng.submit(np.arange(3, 9), max_new_tokens=2).replica == "r0"
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        ReplicaServer(eng, faults=object())
+    server = ReplicaServer(eng, faults=FaultInjector().wrong_token(count=1)).start()
+    try:
+        body = json.dumps({"prompt": [5, 6, 7], "max_new_tokens": 2, "stream": True})
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{server.url}/v1/submit", data=body.encode()), timeout=60) as resp:
+            events = [json.loads(line) for line in resp.read().splitlines()]
+        assert events[-1]["outcome"] == "finished"
+        assert events[0]["token"] == events[-1]["tokens"][0] ^ 1  # the drill's one flip
+    finally:
+        server.close()
     # decode bursts are this port's now (tests/test_torch_bursts.py), and
     # so is build_train_step(steps_per_call=K) (tests/test_torch_training.py)
     assert ServingEngine(model, max_cache_len=64, device="cpu",

@@ -195,6 +195,48 @@ def test_replica_streams_the_reference_replicas_tokens(served, arena):
         server.close()
 
 
+@pytest.mark.parametrize("arena", sorted(ARENAS))
+def test_wrong_token_drill_matches_the_reference_replica(served, arena):
+    """``ReplicaServer(faults=...)`` with a ``wrong_token`` fault: the wire
+    carries ``token ^ 1`` from stream index 2 for 3 tokens, on both sides
+    alike, while the engine's tokens (the terminal event's) stay right.
+    The engines run under a scheduler, the body carrying tenant, priority
+    and deadline_s."""
+    from accelerate_tpu.serving import FaultInjector as JaxFaults
+    from accelerate_tpu.serving import SchedulerConfig as JaxSchedulerConfig
+    from accelerate_tpu_torch.serving import FaultInjector, SchedulerConfig
+
+    jmodel, params, model, prompts = served
+    jfaults = JaxFaults(seed=0).wrong_token(after_tokens=2, count=3)
+    faults = FaultInjector(seed=0).wrong_token(after_tokens=2, count=3)
+    jserver = JaxReplicaServer(
+        _jax_engine(jmodel, params, arena, scheduler=JaxSchedulerConfig()), name="r",
+        faults=jfaults).start()
+    server = ReplicaServer(_engine(model, arena, scheduler=SchedulerConfig()), name="r",
+                           faults=faults).start()
+    try:
+        for i, p in enumerate(prompts[:2]):
+            body = {"prompt": [int(t) for t in p], "max_new_tokens": 6, "seed": i,
+                    "tenant": "drill", "priority": 3, "deadline_s": 5.0, "stream": True}
+            jevents = _post(f"{jserver.url}/v1/submit", body)
+            events = _post(f"{server.url}/v1/submit", body)
+            toks = [e["token"] for e in events if e["event"] == "token"]
+            assert toks == [e["token"] for e in jevents if e["event"] == "token"]
+            true = events[-1]["tokens"]
+            assert events[-1]["outcome"] == "finished" and true == jevents[-1]["tokens"]
+            flipped = [j for j, (a, b) in enumerate(zip(toks, true)) if a != b]
+            assert all(toks[j] == true[j] ^ 1 for j in flipped)
+            assert flipped == ([2, 3, 4] if i == 0 else [])  # the count ran out
+        assert faults.log == jfaults.log
+        assert [k for _, k, _ in faults.log] == ["wrong_token"] * 3
+        m = server.engine.metrics()
+        assert m["serving/tenant_drill_queued"] == 0
+        assert m["serving/quota_drill_tokens_used"] == 12
+    finally:
+        jserver.close()
+        server.close()
+
+
 # ---------------------------------------------------------------------------
 # cancel, timeout, drain
 # ---------------------------------------------------------------------------
