@@ -52,6 +52,7 @@ from .models.decoder import DecoderLM
 from .utils.constants import (CUSTOM_STATE_PATTERN, DATALOADER_STATE_NAME, MODEL_NAME,
                               OPTIMIZER_NAME, RNG_STATE_NAME, SAFE_WEIGHTS_NAME,
                               SCHEDULER_NAME, WEIGHTS_NAME)
+from .utils.phases import phase
 from .utils.random import load_rng_state_dict, rng_state_dict
 from .utils.serialization import (flatten_pytree, load_flat_dict, materialize_entries,
                                   save_entries, save_pytree)
@@ -121,7 +122,18 @@ def save_accelerator_state(output_dir: str, models=(), optimizers=(), schedulers
                            dataloaders=(), custom_objects=(), step: int = 0,
                            safe_serialization: bool = True) -> str:
     """Write every prepared object's state into ``output_dir`` (the
-    reference's checkpointing.py:51). ``step`` is the Accelerator's."""
+    reference's checkpointing.py:51). ``step`` is the Accelerator's. The
+    write runs inside ``phase("checkpoint/save")``, as the reference's: a
+    span when a telemetry session records spans, and seconds in an armed
+    goodput ledger's checkpoint bucket."""
+    with phase("checkpoint/save"):
+        return _save_accelerator_state(output_dir, models, optimizers, schedulers,
+                                       dataloaders, custom_objects, step,
+                                       safe_serialization)
+
+
+def _save_accelerator_state(output_dir, models, optimizers, schedulers, dataloaders,
+                            custom_objects, step, safe_serialization) -> str:
     os.makedirs(output_dir, exist_ok=True)
     trainer_state = {"step": step, "engines": []}
     for i, (model, opt, sched) in enumerate(_engines(models, optimizers, schedulers)):
@@ -165,7 +177,15 @@ def load_accelerator_state(input_dir: str, models=(), optimizers=(), schedulers=
     """Load what :func:`save_accelerator_state` (or the reference's) wrote
     into the prepared objects, in place (the reference's
     checkpointing.py:164). Files a checkpoint lacks leave their object as
-    it is. Returns the saved ``step``, or None."""
+    it is. Returns the saved ``step``, or None. Runs inside
+    ``phase("checkpoint/restore")``, as the reference's."""
+    with phase("checkpoint/restore"):
+        return _load_accelerator_state(input_dir, models, optimizers, schedulers,
+                                       dataloaders, custom_objects)
+
+
+def _load_accelerator_state(input_dir, models, optimizers, schedulers, dataloaders,
+                            custom_objects) -> Optional[int]:
     trainer_state = {}
     ts_path = os.path.join(input_dir, "trainer_state.json")
     if os.path.exists(ts_path):

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the paged or the flat KV arena.
 
-Counterpart of ``accelerate_tpu/serving/engine.py``, without KV tiers
-and telemetry hooks. Many requests decode per device step against
+Counterpart of ``accelerate_tpu/serving/engine.py``, without KV tiers.
+Many requests decode per device step against
 one arena. On the paged arena (``page_size``, what users run with
 ``accelerate-tpu serve replica``) admissions ride the packed ragged
 prefill:
@@ -59,7 +59,15 @@ prefill:
   reloads them: no scheduling action captures a new graph;
 - **fault injection** (``faults=FaultInjector(...)``, ``faults.py``):
   page squeezes, storms and delays at the step boundaries and before
-  each decode and prefill dispatch.
+  each decode and prefill dispatch;
+- **telemetry** (``telemetry=TelemetrySession(...)``, or the process's
+  ``current_session()``; ``telemetry/``): the reference's hooks at the
+  reference's call sites feed the request tracer (one record per request,
+  the TTFT / ITL / queue-wait histograms), the per-tenant usage meters,
+  the session's step window and goodput ledger, and the flight ring. Each
+  hook runs on the host between steps, on values the step already read
+  back; none runs inside a captured graph or adds a device sync. With no
+  session every hook is one attribute check.
 
 On the flat arena (``page_size=None``, the reference's default;
 ``arena.py``) each slot is one batch row of a dense
@@ -83,8 +91,7 @@ HTTP handler threads of a replica server (``replica_server.py``) call
 counters, ``req.tokens``), and every device op stays on the loop thread.
 
 Everything else the reference engine offers (KV tiers and handoff,
-telemetry hooks, dispatched weights) is a later slice of the port and
-raises here.
+dispatched weights) is a later slice of the port and raises here.
 """
 
 from __future__ import annotations
@@ -175,6 +182,8 @@ class Request:
     _resume: bool = False
     prefix_hit: int = 0         # prompt tokens served from the prefix cache
     prefill_dispatches: int = 0  # prefill dispatches (packs or chunks) its prompt rode
+    pages_allocated: int = 0    # fresh pages this request consumed (forks incl.)
+    prefill_kernel: Optional[str] = None  # "ragged" (paged arena) or "dense" (flat)
     spec_proposed: int = 0      # draft tokens verified for it
     spec_accepted: int = 0      # of which accepted
 
@@ -214,12 +223,12 @@ class ServingEngine:
     :class:`~.scheduler.MultiTenantScheduler`) replaces the FIFO queue
     with the multi-tenant policy tier; ``faults`` (a
     :class:`~.faults.FaultInjector`) is consulted at each step and before
-    each dispatch. ``telemetry`` is a later slice and raises; it stays
-    None.
+    each dispatch. ``telemetry`` is a
+    :class:`~accelerate_tpu_torch.telemetry.TelemetrySession` (default: the
+    process's ``current_session()``, if any), attached by weak reference.
     """
 
     _LATER = {
-        "telemetry": "telemetry hooks",
         "kv_tiers": "hierarchical KV tiers",
         "param_placer": "dispatched (offloaded) weights",
         "donate": "buffer donation (the port updates in place)",
@@ -251,8 +260,6 @@ class ServingEngine:
         telemetry=None,
         **later,
     ):
-        if telemetry is not None:
-            later["telemetry"] = telemetry
         if later:
             names = ", ".join(f"{k} ({self._LATER.get(k, 'unknown option')})"
                               for k in sorted(later))
@@ -345,7 +352,6 @@ class ServingEngine:
         self._next_id = 0
         self._id_lock = threading.Lock()
         self.replica = str(replica) if replica else None
-        self.telemetry = None
         self._draining = False
 
         # metrics
@@ -366,6 +372,14 @@ class ServingEngine:
         self._itl: deque = deque(maxlen=2048)  # inter-token gaps, s
         self._itl_emitted = 0   # lifetime gap count; the controller only
         self._itl_observed = 0  # observes when these differ (fresh gaps)
+
+        if telemetry is None:
+            from ..telemetry import current_session
+
+            telemetry = current_session()
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.attach_serving(self)
 
     def _init_paged(self, cfg, page_size: int, num_pages, prefix_cache: bool,
                     prefix_max_entries):
@@ -466,6 +480,14 @@ class ServingEngine:
                       timeout_s=None if timeout_s is None else float(timeout_s),
                       replica=self.replica)
         req.submit_t = time.perf_counter()
+        tr = self._tracer()
+        if tr is not None:
+            # before the queue append: the loop thread admits from the
+            # queue, and admission must find the record already live
+            tr.on_submit(req)
+        usage = self._usage()
+        if usage is not None:
+            usage.note_submit(req.tenant)
         if self._draining:
             self._shed(req, SHED_DRAINING)
             return req
@@ -677,23 +699,51 @@ class ServingEngine:
                     self._terminate(req, now, "cancelled", "drain_timeout")
                 break
             self.step()
+        if self.telemetry is not None:
+            try:
+                self.telemetry.flush()
+            except Exception:
+                pass
         return {
             "completed": self.requests_completed,
             "shed": self.requests_shed,
             "cancelled": self.requests_cancelled,
         }
 
+    def _tracer(self):
+        """The session's request tracer, or None: the whole per-request
+        tracing layer costs one attribute check when telemetry is off."""
+        if self.telemetry is None:
+            return None
+        return getattr(self.telemetry, "requests", None)
+
+    def _usage(self):
+        """The session's per-tenant usage accountant, or None (the same
+        one-attribute-check contract as the tracer)."""
+        if self.telemetry is None:
+            return None
+        return getattr(self.telemetry, "usage", None)
+
+    def _flight_note(self, kind: str, **fields):
+        flight = getattr(self.telemetry, "flight", None)
+        if flight is not None:
+            flight.note(kind, **fields)
+
     def _flight_dump(self, reason: str):
-        """The reference dumps its telemetry session's flight recorder
-        here; the port has no telemetry session yet (ROADMAP queue 1 item
-        4), so there is nothing to dump."""
+        flight = getattr(self.telemetry, "flight", None)
+        if flight is not None:
+            try:
+                flight.dump(reason)
+            except Exception:
+                pass
 
     def flight_dump(self, reason: str) -> bool:
         """Capture a flight-recorder bundle now (``POST /v1/flight`` on a
         replica server lands here). Returns whether a flight recorder
-        exists to dump to: False until the port has telemetry."""
+        exists to dump to."""
+        has_flight = getattr(self.telemetry, "flight", None) is not None
         self._flight_dump(str(reason))
-        return False
+        return has_flight
 
     # -- terminal transitions ----------------------------------------------
 
@@ -704,7 +754,7 @@ class ServingEngine:
         self._slot_req.pop(slot, None)
         self._active[slot] = False
         if self.page_size:
-            self._release_slot_pages(slot)
+            self._release_slot_pages(slot, tenant=req.tenant)
         self._free.append(slot)
         req.slot = None
 
@@ -723,8 +773,14 @@ class ServingEngine:
             self.requests_shed += 1
         else:
             self.requests_cancelled += 1
-        # last: a handler thread that sees ``done`` sees the slot freed and
-        # the counters fed
+        usage = self._usage()
+        if usage is not None:
+            usage.note_outcome(req.tenant, outcome)
+        tr = self._tracer()
+        if tr is not None:
+            tr.on_finish(req, reason)
+        # last: a handler thread that sees ``done`` sees the slot freed,
+        # the counters fed and the record written
         req.done = True
 
     def _shed(self, req: Request, reason: str):
@@ -774,7 +830,7 @@ class ServingEngine:
         req, slot = self._admitting[0], self._admitting[1]
         self._admitting = None
         if self.page_size:
-            self._release_slot_pages(slot)
+            self._release_slot_pages(slot, tenant=req.tenant)
         self._free.append(slot)
         req.slot = None
         if outcome == "shed":
@@ -816,6 +872,8 @@ class ServingEngine:
             return False
         self._sched.shed(victim)
         self._shed(victim, SHED_PAGE_PRESSURE)
+        self._flight_note("request_shed", request_id=victim.id, reason=SHED_PAGE_PRESSURE,
+                          free_frac=round(self._page_free_frac(), 4))
         return True
 
     def _maybe_preempt(self) -> bool:
@@ -850,13 +908,21 @@ class ServingEngine:
                 # page references, so the resume maps them back as hits
                 # (and LRU eviction can still reclaim them under pressure)
                 self._prefix.insert(self._replay_seq(req), self._tables_host.rows[slot])
-            self._release_slot_pages(slot)
+            self._release_slot_pages(slot, tenant=req.tenant)
         self._free.append(slot)
         req.slot = None
         req.preemptions += 1
         req._resume = True
         self.preemptions += 1
+        usage = self._usage()
+        if usage is not None:
+            usage.note_preempt(req.tenant)
         self._sched.requeue(req)
+        tr = self._tracer()
+        if tr is not None:
+            tr.on_preempt(req)
+        self._flight_note("request_preempt", request_id=req.id, slot=slot,
+                          tokens=len(req.tokens))
 
     def _relieve_pressure(self, req: Request, exclude_slot: int) -> bool:
         """A slot could not get pages: preempt a strictly lower-priority
@@ -913,6 +979,7 @@ class ServingEngine:
         another slot still references it)."""
         th = self._tables_host
         ps = self.page_size
+        usage = self._usage()
         p_hi = hi_pos // ps
         while th.alloc_count[slot] <= p_hi:
             idx = th.alloc_count[slot]
@@ -920,6 +987,11 @@ class ServingEngine:
             th.rows[slot][idx] = page
             th.alloc_count[slot] = idx + 1
             set_table_entry(self._page_tables, slot, idx, page)
+            req.pages_allocated += 1
+            if usage is not None:
+                # growth: one more page held; a fork below is held-count
+                # neutral (the fresh page replaces the shared claim)
+                usage.note_pages(req.tenant, 1)
         for idx in range(lo_pos // ps, p_hi + 1):
             page = int(th.rows[slot][idx])
             if not self._allocator.shared(page):
@@ -929,6 +1001,7 @@ class ServingEngine:
             self._allocator.release(page)
             th.rows[slot][idx] = fresh
             set_table_entry(self._page_tables, slot, idx, fresh)
+            req.pages_allocated += 1
             self.page_forks += 1
 
     def _paged_admit_plan(self, req: Request, slot: int, seq: np.ndarray) -> list:
@@ -955,6 +1028,7 @@ class ServingEngine:
             if hit_len == 0:
                 entry = None
             self._prefix.record_hit(hit_len, entry)
+        usage = self._usage()
         if entry is not None:
             n_map = -(-hit_len // self.page_size)
             for i in range(n_map):
@@ -962,6 +1036,10 @@ class ServingEngine:
                 self._allocator.retain(page)
                 th.rows[slot][i] = page
             th.alloc_count[slot] = n_map
+            if usage is not None:
+                usage.note_pages(req.tenant, n_map)
+        if usage is not None and hit_len:
+            usage.note_prefix_hit(req.tenant, hit_len)
         req.prefix_hit = hit_len
         set_table_row(self._page_tables, slot, th.rows[slot])
         tail_plan = self._plan_chunks(seq.size - hit_len)
@@ -978,14 +1056,20 @@ class ServingEngine:
             return
         self._prefix.insert(req.prompt, self._tables_host.rows[slot])
 
-    def _release_slot_pages(self, slot: int):
+    def _release_slot_pages(self, slot: int, tenant: Optional[str] = None):
         """Drop the slot's page references (pages still retained by the
         prefix cache or another slot survive) and point its device table
         row back at the parking page, so a parked decode write can never
-        land in a page that was reallocated."""
+        land in a page that was reallocated. ``tenant`` is billed the
+        released pages in the usage meters."""
         th = self._tables_host
-        for page in th.slot_pages(slot):
+        pages = th.slot_pages(slot)
+        for page in pages:
             self._allocator.release(page)
+        if tenant is not None and pages:
+            usage = self._usage()
+            if usage is not None:
+                usage.note_pages(tenant, -len(pages))
         th.reset_slot(slot)
         set_table_row(self._page_tables, slot, th.rows[slot])
 
@@ -1024,6 +1108,12 @@ class ServingEngine:
             else:
                 plan = self._plan_chunks(seq.size)
             self._admitting = [req, slot, plan, 0, seq]
+            tr = self._tracer()
+            if tr is not None:
+                if req._resume:
+                    tr.on_resume(req, slot)
+                else:
+                    tr.on_admission(req, slot, time.perf_counter() - req.submit_t)
         return self._ragged_advance() if self.page_size else self._flat_advance()
 
     def _flat_advance(self) -> bool:
@@ -1041,6 +1131,7 @@ class ServingEngine:
         dev = self.device
         if self._faults is not None:
             self._faults.before_prefill(self)
+        t0 = time.perf_counter()
         view = slot_view(self._arena, slot, start)
         logits = self.model(torch.as_tensor(chunk, device=dev),
                             start + torch.arange(bucket, device=dev), cache=view,
@@ -1048,10 +1139,13 @@ class ServingEngine:
         write_slot(self._arena, view, slot)
         self.prefill_dispatches += 1
         req.prefill_dispatches += 1
+        self._note_prefill(req, slot, start, bucket, int(seg.size), t0,
+                           time.perf_counter() - t0, 1.0)
         if idx + 1 < len(plan):
             self._admitting[3] = idx + 1
             return True
         self._admitting = None
+        req.prefill_kernel = "dense"
         if req._resume:
             self._resume_live(req, slot, seq)
             return True
@@ -1089,6 +1183,8 @@ class ServingEngine:
                     resolved = False
             if not resolved:
                 self._abort_admission(time.perf_counter(), "shed", SHED_PAGE_EXHAUSTED)
+                self._flight_note("request_shed", request_id=req.id,
+                                  reason=SHED_PAGE_EXHAUSTED)
                 return True
         # packs: [request, slot, s0, s1, primary, seq]. The primary may be
         # mid-tail (longer than the largest pack); co-admitted tails are
@@ -1108,11 +1204,14 @@ class ServingEngine:
                 self._ensure_writable(nxt, slot2, hit2, hit2 + n2 - 1)
             except PagePressure:
                 # back out and requeue at the head: it re-admits alone
-                self._release_slot_pages(slot2)
+                self._release_slot_pages(slot2, nxt.tenant)
                 self._free.append(slot2)
                 nxt.prefix_hit = 0
                 self._queue.appendleft(nxt)
                 break
+            tr = self._tracer()
+            if tr is not None:
+                tr.on_admission(nxt, slot2, time.perf_counter() - nxt.submit_t)
             packs.append([nxt, slot2, hit2, hit2 + n2, False, nxt.prompt])
             used += -(-n2 // bt) * bt
         rcap = next(c for c in self._ragged_caps if c >= used)
@@ -1135,6 +1234,7 @@ class ServingEngine:
             last_rows[psl] = r + nseg - 1
             r += nb * bt
         dev = self.device
+        t0 = time.perf_counter()
         row_pos_t = torch.as_tensor(row_pos, device=dev)
         logits = self.model(
             torch.as_tensor(ids, device=dev),
@@ -1164,8 +1264,13 @@ class ServingEngine:
                         for i, p in enumerate(done)]
             firsts = {p[1]: int(t) for p, t in zip(done, toks)}
         now = time.perf_counter()
+        wall = now - t0
         for preq, psl, s0, s1, primary, pseq in packs:
             preq.prefill_dispatches += 1
+            # the shared dispatch wall is billed to each tenant in
+            # proportion to its live tokens in the pack
+            self._note_prefill(preq, psl, s0, s1 - s0, s1 - s0, t0, wall,
+                               (s1 - s0) / max(fresh, 1))
             if primary and s1 < pseq.size:
                 # mid-tail: the primary stays the admission and resumes at
                 # position s1 next iteration (it filled the whole pack, so
@@ -1174,6 +1279,7 @@ class ServingEngine:
                 continue
             if primary:
                 self._admitting = None
+            preq.prefill_kernel = "ragged"
             if preq._resume:
                 # its pages were published when it was paged out
                 self._resume_live(preq, psl, pseq)
@@ -1192,7 +1298,23 @@ class ServingEngine:
         self._active[slot] = True
         req.first_token_t = now
         self._ttft.append(now - req.submit_t)
+        tr = self._tracer()
+        if tr is not None:
+            tr.on_first_token(req, now - req.submit_t)
         self._emit(req, first_tok, now)
+
+    def _note_prefill(self, req: Request, slot: int, start: int, bucket: int,
+                      tokens: int, t0: float, wall: float, share: float):
+        """Telemetry of one prefill dispatch for ``req``: the tracer's chunk
+        record, and the usage meters' prefilled tokens (padding excluded)
+        and ``share`` of the dispatch wall."""
+        tr = self._tracer()
+        if tr is not None:
+            tr.on_prefill_chunk(req, slot, start, bucket, t0, wall)
+        usage = self._usage()
+        if usage is not None:
+            usage.note_prefill(req.tenant, tokens)
+            usage.note_compute(req.tenant, wall * 1e3 * share)
 
     def _resume_live(self, req: Request, slot: int, seq: np.ndarray):
         """A preemption resume's replay is done: the slot continues where
@@ -1230,6 +1352,8 @@ class ServingEngine:
                 if self._relieve_pressure(req, slot):
                     continue
                 self._shed(req, SHED_PAGE_EXHAUSTED)
+                self._flight_note("request_shed", request_id=req.id,
+                                  reason=SHED_PAGE_EXHAUSTED)
                 return False
 
     def _burst_len(self) -> int:
@@ -1319,6 +1443,7 @@ class ServingEngine:
         now = time.perf_counter()
         wall = now - t0
         self.step_count += k
+        self._usage_note_step(wall)
         for slot, _ in live:
             self._tokens[slot] = host[k - 1, slot]
             self._lengths[slot] += k
@@ -1334,6 +1459,8 @@ class ServingEngine:
         # delivered tokens only: an eos mid-burst drops the rest of its
         # slot's burst tokens, and tokens/s must not claim them
         self._step_samples.append((wall, emitted, k))
+        if self.telemetry is not None:
+            self.telemetry.on_step(self, wall, tokens=emitted, steps=k)
         return True
 
     def _draft_context(self, req: Request) -> np.ndarray:
@@ -1414,6 +1541,7 @@ class ServingEngine:
         now = time.perf_counter()
         wall = now - t0
         self.step_count += 1
+        self._usage_note_step(wall)
         emitted = 0
         for slot, req in live:
             matched = cand[slot, :k] == drafts[slot]
@@ -1435,7 +1563,20 @@ class ServingEngine:
                 if req.done:
                     break  # budget or eos inside the run: drop the rest
         self._step_samples.append((wall, emitted, 1))
+        if self.telemetry is not None:
+            self.telemetry.on_step(self, wall, tokens=emitted, steps=1)
         return True
+
+    def _usage_note_step(self, wall_s: float):
+        """Bill one batched decode / verify dispatch's wall evenly across
+        the live slots' tenants; called before emission (a request that
+        finishes in ``_emit`` leaves ``_slot_req`` but rode this step)."""
+        usage = self._usage()
+        if usage is None or not self._slot_req:
+            return
+        share = wall_s * 1e3 / len(self._slot_req)
+        for req in self._slot_req.values():
+            usage.note_compute(req.tenant, share)
 
     def _emit(self, req: Request, token: int, now: float):
         req.tokens.append(token)
@@ -1443,9 +1584,18 @@ class ServingEngine:
         if self._sched is not None:
             # a quota meters generation, not submission
             self._sched.note_tokens(req.tenant, 1)
+        usage = self._usage()
+        if usage is not None:
+            # per-tenant decode tokens sum exactly to generated_tokens:
+            # both count here and only here
+            usage.note_decode(req.tenant)
         if req._last_token_t:
-            self._itl.append(now - req._last_token_t)
+            gap = now - req._last_token_t
+            self._itl.append(gap)
             self._itl_emitted += 1
+            tr = self._tracer()
+            if tr is not None:
+                tr.on_token(req, gap, len(req.tokens) - 1)
         req._last_token_t = now
         if req.on_token is not None:
             try:

@@ -12,12 +12,15 @@ between, and scales:
   death signature a router re-queues on.
 - ``POST /v1/cancel``: ``{request_id}``; the engine frees the slot and
   pages at its next iteration.
-- ``GET /metrics``: the Prometheus scrape of the engine's gauges (through
-  a minimal session shim: the port has no telemetry session yet), which
-  is what a fleet collector polls for health and placement.
+- ``GET /metrics``: the Prometheus scrape (the engine's telemetry session
+  when one is attached: its gauges, SLO histograms with exemplars and
+  usage meters; else a minimal engine-gauges shim), which is what a fleet
+  collector polls for health and placement.
 - ``GET /v1/health``: a one-shot JSON health/identity document.
 - ``POST /v1/flight``: remote-triggered flight-recorder dump
-  (``{reason}``); ``{"ok": false}`` until the port has a flight recorder.
+  (``{reason}``); ``{"ok": true, ...}`` when the engine's session has a
+  flight recorder, whose bundle then lands in the session's trace dir,
+  ``{"ok": false, ...}`` when there is none.
 
 The KV handoff endpoints (``/v1/kv/directory``, ``/v1/kv/export``,
 ``/v1/kv/import``) answer 404 until the port has KV tiers and handoff
@@ -89,7 +92,11 @@ class ReplicaServer:
         if name:
             engine.replica = str(name)
         self.name = engine.replica or f"replica@{port}"
-        self._session = _EngineMetricsSession(engine)
+        # the engine's telemetry session when attached, else the shim
+        self._session = (
+            engine.telemetry if engine.telemetry is not None
+            else _EngineMetricsSession(engine)
+        )
         self._stop = False
         self._dead = False          # hard-fail switch (kill, a dead loop)
         self._error: Optional[BaseException] = None  # what killed the loop
@@ -140,10 +147,12 @@ class ReplicaServer:
         return self
 
     def _loop(self):
+        shim = self._session if isinstance(self._session, _EngineMetricsSession) else None
         try:
             while not self._stop:
                 busy = self.engine.step()
-                self._session._touch()
+                if shim is not None:
+                    shim._touch()
                 if self.engine._draining and not self.engine._pending():
                     # drain complete: every request reached its outcome and
                     # every stream's terminal event is writable

@@ -1,11 +1,13 @@
-"""Prometheus text exposition (version 0.0.4) of a telemetry session.
+"""Prometheus text exposition (version 0.0.4) of a telemetry session, and
+the scrape thread that serves it.
 
-An own copy of the reference's ``accelerate_tpu/telemetry/exporter.py``
-``prometheus_text`` and the helpers it calls. It renders a session's
-rolling gauges (``rollup()``), its freshness clock
+An own copy of the reference's ``accelerate_tpu/telemetry/exporter.py``:
+``prometheus_text`` and the helpers it calls, and ``ScrapeServer``. It
+renders a session's rolling gauges (``rollup()``), its freshness clock
 (``last_sample_unix_s``), its alert states (``alerts``) and its latency
-histograms (``hists``); the replica server serves it on ``/metrics``
-over the engine-gauge shim (``serving/replica_server.py``).
+histograms with their exemplars (``hists``); the replica server serves it
+on ``/metrics``, from the attached session or, with none, from an
+engine-gauge shim (``serving/replica_server.py``).
 
 Exposition hardening (dynamic keys carry tenant ids and executable
 names, which the process does not control): metric names are sanitized
@@ -18,7 +20,9 @@ amplify, a tenant-id explosion.
 from __future__ import annotations
 
 import re
+import threading
 import time
+from typing import Optional
 
 # exposition metric names allow [a-zA-Z_:][a-zA-Z0-9_:]*; the att_ prefix
 # guarantees the first character, the sub() the rest
@@ -166,3 +170,94 @@ def prometheus_text(session) -> str:
         except Exception:  # a racing histogram must not fail the scrape
             continue
     return "\n".join(lines) + "\n"
+
+
+class ScrapeServer:
+    """``/metrics`` scrape endpoint over the live session, on a daemon
+    thread. ``port=0`` binds an ephemeral port; a configured port that is
+    already in use **falls back to port 0** (the resolved port is logged
+    and exposed as ``.port``) — a stale scraper holding the port must
+    neither kill a training run nor silently cost the telemetry. Only an
+    unbindable host degrades to a warning with the endpoint disabled."""
+
+    def __init__(self, session, port: int = 0, host: str = "127.0.0.1"):
+        import http.server
+        import logging
+
+        self.session = session
+        self.server = None
+        self.port: Optional[int] = None
+        self.requested_port = port
+        self._thread: Optional[threading.Thread] = None
+        exporter = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            # a slow or wedged client only ever costs its own handler
+            # thread (ThreadingHTTPServer below), and that thread is
+            # reclaimed by the socket timeout — a stuck fleet poller must
+            # not block the on-call's manual curl, or accumulate threads
+            timeout = 10.0
+
+            def do_GET(self):  # noqa: N802 (stdlib casing)
+                if self.path not in ("/metrics", "/"):
+                    self.send_error(404)
+                    return
+                body = prometheus_text(exporter.session).encode()
+                self.send_response(200)
+                self.send_header(
+                    "Content-Type", "text/plain; version=0.0.4; charset=utf-8"
+                )
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):  # scrapes must not spam stderr
+                pass
+
+        log = logging.getLogger(__name__)
+        try:
+            self.server = http.server.ThreadingHTTPServer((host, port), Handler)
+        except OSError as first_err:
+            if port:
+                try:
+                    self.server = http.server.ThreadingHTTPServer(
+                        (host, 0), Handler
+                    )
+                    log.warning(
+                        "telemetry exporter could not bind %s:%s (%s); "
+                        "fell back to ephemeral port %s",
+                        host, port, first_err, self.server.server_address[1],
+                    )
+                except OSError as e:
+                    log.warning(
+                        "telemetry exporter could not bind %s (%s); scrape "
+                        "endpoint disabled", host, e,
+                    )
+                    return
+            else:
+                log.warning(
+                    "telemetry exporter could not bind %s:%s (%s); scrape "
+                    "endpoint disabled", host, port, first_err,
+                )
+                return
+        # concurrent scrapes must never serialize behind one slow client:
+        # each request gets its own daemon thread (explicit — the close()
+        # join must not wait out a client that never finishes reading)
+        self.server.daemon_threads = True
+        self.port = self.server.server_address[1]
+        self._thread = threading.Thread(
+            target=self.server.serve_forever, name="att-telemetry-exporter",
+            daemon=True,
+        )
+        self._thread.start()
+
+    def close(self):
+        """Shut the scrape thread down and join it: a wedged exporter
+        thread must never be what holds the process open at exit."""
+        if self.server is not None:
+            self.server.shutdown()
+            self.server.server_close()
+            self.server = None
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None

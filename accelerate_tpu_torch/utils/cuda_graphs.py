@@ -25,6 +25,13 @@ count nowhere.
 
 There is no fallback: a capture that fails raises, and a CPU device
 raises (the CPU runs the body itself).
+
+Every capture adds one to a process-wide counter
+(:func:`capture_counters`). A capture is the port's counterpart of the
+reference's compile, so the telemetry reads this counter where the
+reference reads its compile counters (the request records'
+``compiles_in_flight``, the flight bundle's ``compile_counters``): after
+``warmup()`` an engine captures nothing, and both read 0.
 """
 
 from __future__ import annotations
@@ -37,6 +44,16 @@ import torch
 from ..ops import kernels
 
 WARMUP_CALLS = 2
+
+# process-wide capture counters, under the reference's compile-counter
+# keys (``cache_hits`` stays 0: a graph is captured once per owner)
+_COUNTERS = {"count": 0, "seconds": 0.0, "cache_hits": 0}
+
+
+def capture_counters() -> dict:
+    """``{"count", "seconds", "cache_hits"}``: the graphs captured in this
+    process so far and their capture wall, warm-up included."""
+    return dict(_COUNTERS)
 
 
 def captures(device) -> bool:
@@ -68,8 +85,17 @@ def capture(body: Callable, device, restore: Sequence[torch.Tensor] = ()) -> Cap
     buffers) as a CUDA graph on ``device``. ``restore`` lists the buffers
     the body moves forward (a token fed back, positions advanced): each
     warm-up call is undone on them, so the first replay starts from the
-    state the caller left. Raises on a device that is not CUDA."""
-    device = torch.device(device)
+    state the caller left. Raises on a device that is not CUDA. Counts in
+    :func:`capture_counters`."""
+    step = _record(body, torch.device(device), restore)
+    _COUNTERS["count"] += 1
+    _COUNTERS["seconds"] += step.seconds
+    return step
+
+
+def _record(body: Callable, device, restore) -> CapturedStep:
+    """The capture itself: warm-up calls on a side stream, then one
+    captured call."""
     if device.type != "cuda":
         raise RuntimeError(
             f"a CUDA graph needs a CUDA device, got {device}: the CPU runs the step body itself"

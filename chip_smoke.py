@@ -62,8 +62,19 @@ the patch, so their graphs replay the zeroed wrapper:
   ``timeout_s=0`` and the ITL controller; every request terminal,
   preemption with its resumption, tokens teacher-forced against a
   zeroed paged-decode control, no graph captured after warmup, no page
-  leaked; then the interactive requests alone and the preempted ones
-  uninterrupted (exact-match counts printed);
+  leaked; the storm runs three times with a telemetry session and three
+  times without, in alternating pairs, the traced runs held to the same
+  gates and to the telemetry's (one request record per submission equal
+  to its request, no capture in flight, histogram counts the engine's
+  first tokens and gaps, per-tenant decode tokens the emitted ones), the
+  traced median tokens/s at least 0.70x the untraced, and one more
+  traced storm times every hook entry point; then the interactive
+  requests alone and the preempted ones uninterrupted (exact-match
+  counts printed);
+- the telemetry replica: a session-attached engine behind
+  ``ReplicaServer``, concurrent streams, ``/metrics`` carrying the
+  session's TTFT / ITL histograms and usage meters with the right
+  counts, and ``POST /v1/flight`` writing a bundle that parses;
 - the replica: the paged engine behind the port's ``ReplicaServer`` on
   loopback HTTP, a sequential pass whose tokens and launches must equal
   the in-process engine's fed one request at a time, a concurrent wave
@@ -87,7 +98,10 @@ the patch, so their graphs replay the zeroed wrapper:
   layer, and two controls (no optimizer state, no loader position) end
   elsewhere; then ``save_model`` shards the trained weights, and the
   export, read into a fresh model, greedily generates the trained
-  model's tokens;
+  model's tokens; a telemetry session around the last save and the
+  resume holds one ``checkpoint/save`` and one ``checkpoint/restore``
+  span, and its goodput ledger's checkpoint seconds equal the two calls'
+  walls within 5%;
 - generation: ``generate()`` on llama_7b with bf16, int8 and int4 KV
   caches, launch counts per call, every step's logits held against the
   plain forward (and a zeroed-kernel control), decode ms/token by
@@ -2015,6 +2029,8 @@ SCHED_SQUEEZE = (4, 12, 2)  # decode step it fires at, pages it holds, steps it 
 SCHED_STORM_AT = 48         # the oldest batch request's tokens when the interactive submit
 SCHED_TIMEOUT_BATCH = 5     # the batch request submitted with timeout_s=0
 SCHED_POISON_INTERACTIVE = 2  # the interactive request whose on_token raises
+SCHED_PAIRS = 3             # storms with and without a telemetry session, in pairs
+SCHED_TRACED_MIN_RATIO = 0.70  # traced / untraced tokens/s: the reference's witness
 
 
 def latency_text(reqs, stamps) -> str:
@@ -2047,9 +2063,21 @@ def scheduled_path(dev, card: str, model):
     graph captured after warmup(), #4 launched step_count x layers and #6
     prefill_dispatches x layers; (d) no page leaked once the prefix cache
     is cleared; (e) the controller observed the run and itl_budget is
-    reported. The same interactive requests then run alone on an idle
-    engine of the same shape, and the preempted ones uninterrupted."""
+    reported. The storm runs SCHED_PAIRS times with a telemetry session
+    attached and as often without, in alternating pairs; every run is held
+    to (a), (c), (d) and (e), the first traced one to (b) too, and each
+    traced run to the telemetry gates: one request record per submission
+    whose outcome, finish reason, tenant, token count and preemptions are
+    its Request's, ``compiles_in_flight`` 0 on every record, the TTFT and
+    ITL histogram counts the engine's first tokens and gaps, and each
+    tenant's ``decode_tokens`` its emitted tokens; the traced runs' median
+    tokens/s must hold SCHED_TRACED_MIN_RATIO of the untraced runs'. The
+    same interactive requests then run alone on an idle engine of the same
+    shape, and the preempted ones uninterrupted."""
     import collections
+    import os
+    import shutil
+    import tempfile
     from unittest import mock
 
     import numpy as np
@@ -2063,6 +2091,7 @@ def scheduled_path(dev, card: str, model):
         TenantConfig,
     )
     from accelerate_tpu_torch.serving.faults import poison_on_token
+    from accelerate_tpu_torch.telemetry import TelemetryConfig, TelemetrySession
     from accelerate_tpu_torch.utils import cuda_graphs
 
     cfg = model.config
@@ -2090,15 +2119,18 @@ def scheduled_path(dev, card: str, model):
                      "interactive": TenantConfig(weight=4.0)},
             itl_slo_ms=SCHED_ITL_SLO_MS)
 
-    def storm():
-        """One seeded storm on a fresh, warmed-up engine. Returns the
-        engine, its requests (batch, then interactive), token stamps, the
-        launches and captures of the run, the budget trajectory and the
-        host seconds of each preemption and of each resume's prefill."""
+    def storm(session=None):
+        """One seeded storm on a fresh, warmed-up engine, fed to
+        ``session`` when one is given. Returns the engine, its requests
+        (batch, then interactive), token stamps, the launches and captures
+        of the run, the budget trajectory and the host seconds of each
+        preemption and of each resume's prefill."""
         at, pages, hold = SCHED_SQUEEZE
         faults = FaultInjector(seed=0).squeeze_pages(at_step=at, pages=pages, hold_steps=hold)
         engine = ServingEngine(model, scheduler=sched(), faults=faults, num_pages=usable + 1,
-                               **eng_kw)
+                               telemetry=session, **eng_kw)
+        if engine.telemetry is not session:
+            fail("scheduled path: the engine attached another telemetry session")
         engine.warmup()
         torch.cuda.synchronize()
         stamps = {}
@@ -2183,45 +2215,187 @@ def scheduled_path(dev, card: str, model):
                 worst, exact, total = max(worst, g), exact + e, total + t
         return worst, exact, total
 
-    engine, breqs, ireqs, stamps, out = storm()
+    def gates(engine, breqs, ireqs, out, what):
+        """Gates (a), (c), (d) and (e) on one storm."""
+        reqs = breqs + ireqs
+        # (a) every request terminal; preemption happened, and resumed
+        bad = [(r.id, r.outcome) for r in reqs
+               if not r.done or r.outcome not in ("finished", "shed", "cancelled")]
+        if bad:
+            fail(f"{what}: requests not terminal: {bad}")
+        preempted = [r for r in reqs if r.preemptions]
+        if engine.preemptions < 1:
+            fail(f"{what}: no preemption ran")
+        unresumed = [r.id for r in preempted if r.outcome == "finished" and r._resume]
+        resumed_need = sum(r.preemptions for r in preempted if r.outcome == "finished")
+        if unresumed or engine.resumptions < resumed_need:
+            fail(f"{what}: preempted requests {unresumed} finished without a resume "
+                 f"({engine.resumptions} resumptions, {resumed_need} needed)")
+        if reqs[SCHED_TIMEOUT_BATCH].finish_reason != "timeout":
+            fail(f"{what}: the timeout_s=0 request ended {reqs[SCHED_TIMEOUT_BATCH].outcome}")
+        poisoned = ireqs[SCHED_POISON_INTERACTIVE]
+        if poisoned.finish_reason != "callback_error":
+            fail(f"{what}: the poisoned request ended {poisoned.finish_reason}")
+        # (c) no capture after warmup; launches from this run's steps and
+        # dispatches
+        if out["captures"] or len(engine._graphs) != 1:
+            fail(f"{what}: {out['captures']} graph captures after warmup(), graphs "
+                 f"{sorted(engine._graphs)}")
+        expect_launches(what, out["launches"], {
+            "paged_decode": engine.step_count * cfg.num_layers,
+            "ragged_prefill": engine.prefill_dispatches * cfg.num_layers})
+        # (d) no leak; (e) the controller observed the run
+        if out["leaked"]:
+            fail(f"{what}: {out['leaked']} pages still in use after the prefix cache "
+                 "was cleared")
+        if engine._itl_observed < 1 or "serving/itl_budget" not in out["metrics"]:
+            fail(f"{what}: the ITL controller observed nothing or itl_budget is missing")
+
+    def telemetry_gates(engine, reqs, session, trace_dir, what):
+        """The traced storm's records, histograms and usage against the
+        engine's own requests and counters."""
+        recs = [json.loads(line)
+                for line in open(os.path.join(trace_dir, "requests-host0.jsonl"))]
+        by_id = {r["request_id"]: r for r in recs}
+        if len(recs) != len(reqs) or sorted(by_id) != sorted(r.id for r in reqs):
+            fail(f"{what}: {len(recs)} request records for {len(reqs)} submissions")
+        for r in reqs:
+            rec = by_id[r.id]
+            got = (rec["outcome"], rec["finish_reason"], rec["tenant"], rec["tokens"],
+                   rec.get("preemptions", 0))
+            want = (r.outcome, r.finish_reason, r.tenant, len(r.tokens), r.preemptions)
+            if got != want:
+                fail(f"{what}: request {r.id}'s record says {got}, the request {want}")
+        inflight = [r["request_id"] for r in recs if r["compiles_in_flight"]]
+        if inflight:
+            fail(f"{what}: graphs captured while requests {inflight} were in flight")
+        if sum(r.get("preemptions", 0) for r in recs) != engine.preemptions:
+            fail(f"{what}: the records' preemptions differ from the engine's "
+                 f"{engine.preemptions}")
+        firsts = sum(r.first_token_t is not None for r in reqs)
+        counts = {k: h.count for k, h in session.hists.items()}
+        if (counts.get("serving/ttft"), counts.get("serving/itl")) != \
+                (firsts, engine._itl_emitted):
+            fail(f"{what}: histogram counts {counts} against {firsts} first tokens and "
+                 f"{engine._itl_emitted} gaps")
+        for tenant in ("batch", "interactive"):
+            emitted = sum(len(r.tokens) for r in reqs if r.tenant == tenant)
+            metered = session.usage.tenants[tenant].decode_tokens
+            if metered != emitted:
+                fail(f"{what}: usage/{tenant}/decode_tokens {metered}, emitted {emitted}")
+        return len(recs), counts
+
+    def attribute(session):
+        """Wrap the session's hook entry points (the step record, the
+        tracer's and the usage meters' methods) to sum their host seconds
+        and calls; returns the two counters."""
+        spent, calls = collections.Counter(), collections.Counter()
+
+        def wrap(obj, name, label):
+            real = getattr(obj, name)
+
+            def call(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return real(*args, **kw)
+                finally:
+                    spent[label] += time.perf_counter() - t
+                    calls[label] += 1
+            setattr(obj, name, call)
+
+        wrap(session, "on_step", "on_step")
+        for name in ("on_submit", "on_admission", "on_prefill_chunk", "on_preempt",
+                     "on_resume", "on_first_token", "on_token", "on_finish"):
+            wrap(session.requests, name, f"tracer.{name}")
+        for name in ("note_submit", "note_outcome", "note_preempt", "note_prefill",
+                     "note_decode", "note_prefix_hit", "note_compute", "note_pages"):
+            wrap(session.usage, name, f"usage.{name}")
+        return spent, calls
+
+    def run(traced: bool, attributed: bool = False):
+        """One storm, with a fresh session when ``traced`` (its hooks
+        timed when ``attributed``); returns the storm's results and,
+        traced, the telemetry gates' numbers."""
+        session = trace_dir = None
+        if traced:
+            trace_dir = tempfile.mkdtemp(prefix="telemetry-")
+            session = TelemetrySession(TelemetryConfig(trace_dir=trace_dir))
+            if attributed:
+                hook_s = attribute(session)
+        try:
+            engine, breqs, ireqs, stamps, out = storm(session)
+            what = f"scheduled path ({'traced' if traced else 'untraced'})"
+            gates(engine, breqs, ireqs, out, what)
+            if traced:
+                out["telemetry"] = telemetry_gates(engine, breqs + ireqs, session, trace_dir,
+                                                   what)
+                out["goodput"] = session.goodput.rollup_keys()
+            if attributed:
+                out["hooks"] = hook_s
+        finally:
+            if session is not None:
+                session.close()
+                shutil.rmtree(trace_dir, ignore_errors=True)
+        reqs = breqs + ireqs
+        out["tokens_per_s"] = sum(len(r.tokens) for r in reqs) / out["wall_s"]
+        out["step_ms_p50"] = out["metrics"]["serving/decode_step_ms_p50"]
+        gaps = [1e3 * (b - a) for r in ireqs
+                for a, b in zip(stamps.get(r.id, []), stamps.get(r.id, [])[1:])]
+        out["itl_ms"] = (float(np.percentile(gaps, 50)), float(np.percentile(gaps, 99)))
+        return engine, breqs, ireqs, stamps, out
+
+    runs = {False: [], True: []}
+    kept = None
+    for i in range(SCHED_PAIRS):
+        for traced in ((False, True) if i % 2 == 0 else (True, False)):
+            result = run(traced)
+            runs[traced].append(result[4])
+            if traced and kept is None:
+                kept = result
+            del result
+            gc.collect()
+    # one more traced storm with every hook entry point timed: where the
+    # traced storms' extra host time goes (the timers' own cost included)
+    attributed = run(True, attributed=True)[4]
+    gc.collect()
+    engine, breqs, ireqs, stamps, out = kept
+    del kept
     reqs = breqs + ireqs
     m = out["metrics"]
-    # (a) every request terminal; preemption happened, and resumed
-    bad = [(r.id, r.outcome) for r in reqs
-           if not r.done or r.outcome not in ("finished", "shed", "cancelled")]
-    if bad:
-        fail(f"scheduled path: requests not terminal: {bad}")
     preempted = [r for r in reqs if r.preemptions]
-    if engine.preemptions < 1:
-        fail("scheduled path: no preemption ran")
-    unresumed = [r.id for r in preempted if r.outcome == "finished" and r._resume]
-    resumed_need = sum(r.preemptions for r in preempted if r.outcome == "finished")
-    if unresumed or engine.resumptions < resumed_need:
-        fail(f"scheduled path: preempted requests {unresumed} finished without a resume "
-             f"({engine.resumptions} resumptions, {resumed_need} needed)")
-    if reqs[SCHED_TIMEOUT_BATCH].finish_reason != "timeout":
-        fail(f"scheduled path: the timeout_s=0 request ended {reqs[SCHED_TIMEOUT_BATCH].outcome}")
-    poisoned = ireqs[SCHED_POISON_INTERACTIVE]
-    if poisoned.finish_reason != "callback_error":
-        fail(f"scheduled path: the poisoned request ended {poisoned.finish_reason}")
     # (b) finished tokens teacher-forced, against a zeroed-kernel control
     worst, exact, total = checked(reqs)
     if not math.isfinite(worst) or worst > TOP2_MARGIN:
         fail(f"scheduled path: a generated token is {worst} logits below the plain forward's "
              f"argmax (margin {TOP2_MARGIN})")
-    # (c) no capture after warmup; launches from this run's steps and dispatches
-    if out["captures"] or len(engine._graphs) != 1:
-        fail(f"scheduled path: {out['captures']} graph captures after warmup(), graphs "
-             f"{sorted(engine._graphs)}")
-    expect_launches("scheduled path", out["launches"], {
-        "paged_decode": engine.step_count * cfg.num_layers,
-        "ragged_prefill": engine.prefill_dispatches * cfg.num_layers})
-    # (d) no leak; (e) the controller observed the run
-    if out["leaked"]:
-        fail(f"scheduled path: {out['leaked']} pages still in use after the prefix cache "
-             "was cleared")
-    if engine._itl_observed < 1 or "serving/itl_budget" not in m:
-        fail("scheduled path: the ITL controller observed nothing or itl_budget is missing")
+    med = {t: float(np.median([o["tokens_per_s"] for o in runs[t]])) for t in runs}
+    ratio = med[True] / med[False]
+    for traced in (False, True):
+        rows = runs[traced]
+        print(f"scheduled path on {card}: {'traced' if traced else 'untraced'} storms: "
+              f"tokens/s {[round(o['tokens_per_s'], 1) for o in rows]} (median "
+              f"{med[traced]:.1f}), decode ms/step p50 "
+              f"{[round(o['step_ms_p50'], 4) for o in rows]}, interactive ITL p50 / p99 ms "
+              f"{[(round(a, 3), round(b, 3)) for a, b in (o['itl_ms'] for o in rows)]}, "
+              f"run wall s {[round(o['wall_s'], 3) for o in rows]}")
+    n_recs, counts = out["telemetry"]
+    print(f"scheduled path: telemetry: {n_recs} request records = submissions, outcomes / "
+          f"reasons / tenants / tokens / preemptions equal the requests', compiles_in_flight 0 "
+          f"on every record, histogram counts {counts}, usage decode_tokens = emitted per "
+          f"tenant; goodput {out['goodput']}")
+    print(f"scheduled path on {card}: traced / untraced tokens/s (medians over "
+          f"{SCHED_PAIRS} pairs) {ratio:.4f}")
+    spent, calls = attributed["hooks"]
+    top = ", ".join(f"{k} {1e3 * v:.2f} ms / {calls[k]} = {1e6 * v / calls[k]:.1f} us"
+                    for k, v in spent.most_common(6))
+    walls = {t: float(np.median([o["wall_s"] for o in runs[t]])) for t in runs}
+    print(f"scheduled path on {card}: telemetry hooks in a timed traced storm: "
+          f"{1e3 * sum(spent.values()):.2f} ms of host time over {sum(calls.values())} calls "
+          f"(run wall {attributed['wall_s']:.3f} s; traced - untraced median wall "
+          f"{1e3 * (walls[True] - walls[False]):.2f} ms); top: {top}")
+    if not ratio >= SCHED_TRACED_MIN_RATIO:
+        fail(f"scheduled path: traced storms serve {ratio:.4f}x the untraced tokens/s "
+             f"(gate {SCHED_TRACED_MIN_RATIO})")
     sheds = collections.Counter(r.shed_reason for r in reqs if r.outcome == "shed")
     ends = collections.Counter((r.tenant, r.outcome) for r in reqs)
     print(f"scheduled path: batch live at the storm {out['batch_live']}, "
@@ -2293,6 +2467,98 @@ def scheduled_path(dev, card: str, model):
              "blind")
     print(f"scheduled path: control (paged decode output zeroed): {exact_c}/{total_c} exact, "
           f"worst gap {gap_c:.4f}, fails the check")
+
+
+def telemetry_replica_path(dev, card: str, model, prompts):
+    """A ReplicaServer whose small_1b paged bf16 engine has a telemetry
+    session serves ``prompts`` over loopback HTTP, concurrently. Gates:
+    every stream ends ``finished``; ``/metrics`` carries the session's
+    ``att_serving_ttft`` histogram with a count equal to the requests
+    finished (and its ``+Inf`` bucket), the ITL histogram with the engine's
+    gap count, and the usage meters; ``POST /v1/flight`` answers
+    ``ok: true`` and the bundle it wrote parses, names the reason and
+    holds the requests' finish events."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from accelerate_tpu_torch.serving import ReplicaServer
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+    from accelerate_tpu_torch.telemetry import TelemetryConfig, TelemetrySession
+
+    new_tokens = 16
+    trace_dir = tempfile.mkdtemp(prefix="telemetry-replica-")
+    session = TelemetrySession(TelemetryConfig(trace_dir=trace_dir))
+    server = None
+    try:
+        engine = ServingEngine(model, num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                               prefill_chunks=(128, 512), device=dev)
+        if engine.telemetry is not session:
+            fail("telemetry replica path: the engine did not pick up the current session")
+        engine.warmup()
+        torch.cuda.synchronize()
+        server = ReplicaServer(engine, name="chip-telemetry").start()
+        results = [None] * len(prompts)
+
+        def client(i):
+            body = {"prompt": [int(t) for t in prompts[i]], "max_new_tokens": new_tokens}
+            results[i] = http_stream(f"{server.url}/v1/submit", body)[0]
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(REPLICA_HTTP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for i, events in enumerate(results):
+            replica_stream_done(f"telemetry replica request {i}", events or [], new_tokens)
+        import urllib.request
+
+        with urllib.request.urlopen(f"{server.url}/metrics",
+                                    timeout=REPLICA_HTTP_TIMEOUT) as resp:
+            text = resp.read().decode()
+        lines = dict(line.rsplit(" ", 1) for line in text.splitlines()
+                     if line and not line.startswith("#") and " # " not in line)
+        n = len(prompts)
+        want = {"att_serving_ttft_seconds_count": n,
+                'att_serving_ttft_seconds_bucket{le="+Inf"}': n,
+                "att_serving_itl_seconds_count": engine._itl_emitted,
+                "att_usage_default_finished": n,
+                "att_usage_default_decode_tokens": n * new_tokens}
+        got = {k: int(float(lines[k])) if k in lines else None for k in want}
+        if got != want:
+            fail(f"telemetry replica path: /metrics reads {got}, expected {want}")
+        exemplars = sum(" # {request_id=" in line for line in text.splitlines())
+        answer = http_json(f"{server.url}/v1/flight", {"reason": "chip-probe"})
+        if answer != {"ok": True, "replica": "chip-telemetry", "reason": "chip-probe"}:
+            fail(f"telemetry replica path: POST /v1/flight answered {answer}")
+        bundles = sorted(glob.glob(os.path.join(trace_dir, "flightrec-host0-*.json")))
+        if not bundles:
+            fail("telemetry replica path: /v1/flight answered ok but wrote no bundle")
+        with open(bundles[-1]) as fh:
+            bundle = json.load(fh)
+        finishes = sum(e.get("kind") == "request_finish" for e in bundle["events"])
+        if bundle.get("reason") != "chip-probe" or finishes != n:
+            fail(f"telemetry replica path: the bundle says reason {bundle.get('reason')}, "
+                 f"{finishes} finish events for {n} requests")
+        mem = bundle.get("device_memory", {})
+        print(f"telemetry replica path on {card}: {n} concurrent streams of {new_tokens} "
+              f"tokens in {wall:.3f} s; /metrics: {got}, {exemplars} bucket lines with an "
+              f"exemplar, {len(text.splitlines())} lines; POST /v1/flight ok, bundle "
+              f"{os.path.basename(bundles[-1])} ({os.path.getsize(bundles[-1])} B, "
+              f"{len(bundle['events'])} ring events, compile counters "
+              f"{bundle.get('compile_counters')}, device memory in use "
+              f"{mem.get('sys/mem_bytes_in_use', 0) / 1e9:.3f} GB)")
+    finally:
+        if server is not None:
+            server.close()
+        session.close()
+        shutil.rmtree(trace_dir, ignore_errors=True)
 
 
 def profile_prefill(model, eng_kw, prompts, new_tokens: int, card: str):
@@ -2715,6 +2981,7 @@ CKPT_RESUMED = 2         # updates after the last save (run A) or the load (B)
 CKPT_LR_WARMUP, CKPT_LR_DECAY = 2, 10
 CKPT_PROMPT, CKPT_NEW = 128, 8
 CKPT_SHARD = "1GB"       # save_model's max_shard_size
+CKPT_GOODPUT_RTOL = 0.05  # goodput's checkpoint seconds against the calls' walls
 
 
 def dir_bytes(path, skip: tuple = ()) -> int:
@@ -2746,7 +3013,14 @@ def checkpoint_path(dev, card: str):
 
     Prints the free disk, each save's and load's seconds, GB and GB/s (to
     and from the page cache: nothing is synced to the disk) and the
-    checkpoint's and the export's sizes. Deletes what it wrote."""
+    checkpoint's and the export's sizes. Deletes what it wrote.
+
+    (d) A telemetry session is armed around run A's last ``save_state()``
+        and run B's ``load_state()``: its span file must hold one
+        ``checkpoint/save`` and one ``checkpoint/restore`` span, and its
+        goodput ledger's checkpoint seconds must equal the walls of the two
+        ``save_accelerator_state`` / ``load_accelerator_state`` calls
+        within CKPT_GOODPUT_RTOL."""
     import os
     import shutil
     import tempfile
@@ -2763,6 +3037,8 @@ def checkpoint_path(dev, card: str):
     from accelerate_tpu_torch.models.convert import from_reference, random_params
     from accelerate_tpu_torch.models.decoder import DecoderLM
     from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.telemetry import TelemetryConfig, TelemetrySession
+    from accelerate_tpu_torch.telemetry.spans import load_chrome_trace
     from accelerate_tpu_torch.utils.serialization import load_flat_dict
 
     cfg = DecoderConfig.small_1b()
@@ -2858,8 +3134,27 @@ def checkpoint_path(dev, card: str):
               f"{time.perf_counter() - t0:.1f} s")
         batches = forever(loader)
         checkpoints = os.path.join(work, "checkpoints")
+        # (d): the session and the walls of the checkpoint calls it sees
+        trace_dir = os.path.join(work, "telemetry")
+        session, walls = None, []
+        real_calls = (checkpointing.save_accelerator_state,
+                      checkpointing.load_accelerator_state)
+
+        def walled(fn):
+            def call(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    walls.append((fn.__name__, time.perf_counter() - t))
+            return call
+
         for i, updates in enumerate(CKPT_SAVES):
             train(run_a, batches, updates)
+            if i == len(CKPT_SAVES) - 1:
+                session = TelemetrySession(TelemetryConfig(trace_dir=trace_dir))
+                checkpointing.save_accelerator_state, checkpointing.load_accelerator_state = \
+                    (walled(f) for f in real_calls)
             path = timed_io(f"run A: save_state() {i}", acc.save_state, dir_bytes)
             kept = sorted(os.listdir(checkpoints))
             if kept != [f"checkpoint_{i}"]:
@@ -2876,6 +3171,22 @@ def checkpoint_path(dev, card: str):
         torch.cuda.empty_cache()
 
         record_b, draw_b, params_b, run_b = resume("run B")
+        checkpointing.save_accelerator_state, checkpointing.load_accelerator_state = real_calls
+        billed = session.goodput.totals()["checkpoint"]
+        session.close()
+        spans = [e["name"] for e in
+                 load_chrome_trace(os.path.join(trace_dir, "trace-host0.jsonl"))["traceEvents"]
+                 if e.get("cat") == "phase"]
+        called = sum(s for _, s in walls)
+        if spans != ["checkpoint/save", "checkpoint/restore"] or \
+                [n for n, _ in walls] != ["save_accelerator_state", "load_accelerator_state"]:
+            fail(f"checkpoint path: phase spans {spans} for the calls {walls}")
+        if not abs(billed - called) <= CKPT_GOODPUT_RTOL * called:
+            fail(f"checkpoint path: goodput bills {billed:.4f} s of checkpoint, the calls took "
+                 f"{called:.4f} s")
+        print(f"checkpoint path on {card}: telemetry: spans {spans}; goodput checkpoint "
+              f"{billed:.4f} s against the calls' {called:.4f} s "
+              f"({[(n, round(s, 4)) for n, s in walls]}; {billed / called - 1:+.2e} relative)")
         if record_b != record_a:
             fail(f"checkpoint path: resumed (loss, lr) {record_b} != run A's {record_a}")
         if not torch.equal(draw_b, draw_a):
@@ -3661,6 +3972,8 @@ def main():
     timed("burst path", burst_path, dev, card, model, serving["prompts"], main_run, wave)
     # and so do the scheduled path's: its gates hold them to its own steps
     timed("scheduled path", scheduled_path, dev, card, model)
+    timed("telemetry replica path", telemetry_replica_path, dev, card, model,
+          serving["prompts"])
     del serving, model
     gc.collect()
     torch.cuda.empty_cache()

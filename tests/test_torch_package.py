@@ -72,6 +72,8 @@ def test_import_leaves_jax_unloaded():
             "accelerate_tpu_torch.serving.replica_server, "
             "accelerate_tpu_torch.telemetry.exporter, "
             "accelerate_tpu_torch.telemetry.fleet, "
+            "accelerate_tpu_torch.telemetry.recorder, accelerate_tpu_torch.telemetry.usage, "
+            "accelerate_tpu_torch.telemetry.requests, accelerate_tpu_torch.utils.phases, "
             "accelerate_tpu_torch.commands.serve, accelerate_tpu_torch.big_modeling, "
             "accelerate_tpu_torch.utils.modeling, accelerate_tpu_torch.utils.serialization, "
             "accelerate_tpu_torch.utils.offload, accelerate_tpu_torch.runtime.native, "
@@ -272,7 +274,6 @@ def test_later_slices_raise():
     cfg = DecoderConfig.tiny()
     model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
     for kw, what in (({"kv_tiers": object()}, "KV tiers"),
-                     ({"telemetry": object()}, "telemetry hooks"),
                      ({"param_placer": object()}, "dispatched"),
                      ({"donate": True}, "buffer donation")):
         with pytest.raises(NotImplementedError, match=what):
@@ -289,6 +290,15 @@ def test_later_slices_raise():
     with pytest.raises(ValueError, match="SLO"):
         ServingEngine(model, max_cache_len=64, device="cpu",
                       scheduler=SchedulerConfig(itl_slo_ms=0.0))
+    # and so is the telemetry session (tests/test_torch_serving_telemetry.py)
+    from accelerate_tpu_torch.telemetry import TelemetryConfig, TelemetrySession
+
+    session = TelemetrySession(TelemetryConfig(flight_hooks=False))
+    try:
+        eng = ServingEngine(model, max_cache_len=64, device="cpu", telemetry=session)
+        assert eng.telemetry is session and eng._tracer() is session.requests
+    finally:
+        session.close()
     # the quantized paged arena and speculative verify are this port's now
     ServingEngine(model, max_cache_len=64, device="cpu", kv_cache_dtype="int8",
                   page_size=8, spec_draft_len=2)

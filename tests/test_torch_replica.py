@@ -541,7 +541,8 @@ def test_gauges_match_the_reference_engine(served, arena):
 def test_metrics_health_flight_endpoints(served):
     """``/metrics`` is Prometheus text carrying the load score, ``/v1/health``
     carries the reference's five keys, ``/v1/flight`` answers ok false
-    (no flight recorder yet) and the KV endpoints are 404."""
+    (no telemetry session, so no flight recorder) and the KV endpoints are
+    404."""
     _, _, model, prompts = served
     engine = _engine(model, "paged")
     server = ReplicaServer(engine, name="m").start()
