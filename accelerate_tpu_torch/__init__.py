@@ -29,9 +29,15 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   ``runtime/native.py`` + ``csrc/host_runtime.cpp`` (the load path's
   native helpers, built with g++)
 - ``utils/cuda_graphs.py`` (the decode and verify steps as CUDA graphs)
-- ``telemetry/exporter.py`` (``prometheus_text``), ``telemetry/fleet.py``
-  (``load_score``), ``commands/serve.py`` (``python -m
-  accelerate_tpu_torch.commands.serve replica``)
+- ``serving/tiers.py`` (host / disk / peer KV tiers under the prefix
+  cache), ``serving/router.py`` (``Router``, ``RouterServer``: placement,
+  affinity, failover and re-queue over replicas; no torch)
+- ``telemetry/`` (the serving session: histograms, request records,
+  spans, goodput, usage, the flight recorder, ``timeline.py``,
+  ``alerts.py``; ``exporter.py``'s ``prometheus_text``; ``fleet.py``'s
+  ``load_score`` and ``FleetCollector``), ``commands/serve.py``
+  (``python -m accelerate_tpu_torch.commands.serve replica`` and
+  ``router``)
 - ``accelerator.py``, ``optimizer.py``, ``scheduler.py``, ``state.py``,
   ``data.py``, ``utils/dataclasses.py`` (the training contract);
   ``checkpointing.py``, ``utils/random.py``, ``utils/other.py``,
@@ -43,30 +49,41 @@ raise unless the caller passes ``device="cpu"`` (the plain PyTorch
 versions of the kernels then run). Nothing here imports JAX.
 """
 
-from .accelerator import Accelerator
-from .checkpointing import (load_accelerator_state, load_custom_state, save_accelerator_state,
-                            save_custom_state, save_model_weights)
-from .data import DataLoader, skip_first_batches
-from .big_modeling import (
-    cpu_offload,
-    cpu_offload_with_hook,
-    disk_offload,
-    dispatch_model,
-    init_empty_weights,
-    load_and_quantize_model,
-    load_checkpoint_and_dispatch,
-)
-from .generation import generate, generate_dispatched
-from .models.configs import DecoderConfig
-from .models.decoder import DecoderLM
-from .optimizer import AcceleratedOptimizer
-from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
-from .serving.engine import ServingEngine, generate_batched
-from .state import AcceleratorState, GradientState
-from .utils.dataclasses import (GradientAccumulationPlugin, MixedPrecisionConfig,
-                                ProjectConfiguration)
-from .utils.quantization import QuantizationConfig
-from .utils.random import set_seed
+# every name resolves at first use (PEP 562): importing a torch-free
+# module of the package (the router, the KV tiers, the fleet collector)
+# must not import torch
+_EXPORTS = {
+    "Accelerator": "accelerator",
+    "load_accelerator_state": "checkpointing", "load_custom_state": "checkpointing",
+    "save_accelerator_state": "checkpointing", "save_custom_state": "checkpointing",
+    "save_model_weights": "checkpointing",
+    "DataLoader": "data", "skip_first_batches": "data",
+    "cpu_offload": "big_modeling", "cpu_offload_with_hook": "big_modeling",
+    "disk_offload": "big_modeling", "dispatch_model": "big_modeling",
+    "init_empty_weights": "big_modeling", "load_and_quantize_model": "big_modeling",
+    "load_checkpoint_and_dispatch": "big_modeling",
+    "generate": "generation", "generate_dispatched": "generation",
+    "DecoderConfig": "models.configs", "DecoderLM": "models.decoder",
+    "AcceleratedOptimizer": "optimizer",
+    "AcceleratedScheduler": "scheduler", "warmup_cosine_decay_schedule": "scheduler",
+    "ServingEngine": "serving.engine", "generate_batched": "serving.engine",
+    "AcceleratorState": "state", "GradientState": "state",
+    "GradientAccumulationPlugin": "utils.dataclasses",
+    "MixedPrecisionConfig": "utils.dataclasses", "ProjectConfiguration": "utils.dataclasses",
+    "QuantizationConfig": "utils.quantization", "set_seed": "utils.random",
+}
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(f".{module}", __name__), name)
+    globals()[name] = value
+    return value
+
 
 __all__ = [
     "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",

@@ -1,6 +1,6 @@
-"""``serve replica``: one engine process behind HTTP, the port's
-counterpart of the reference's ``accelerate-tpu serve replica``
-(``accelerate_tpu/commands/serve.py``).
+"""``serve replica`` and ``serve router``: one engine process behind HTTP,
+and the front door over several, the port's counterparts of the
+reference's ``accelerate-tpu serve`` roles (``accelerate_tpu/commands/serve.py``).
 
     python -m accelerate_tpu_torch.commands.serve replica --config small_1b \\
         --page-size 16 --num-slots 8 --max-cache-len 2048 --prefill-chunks 128,512
@@ -16,7 +16,16 @@ names another device (``--device cpu`` runs the kernels' plain versions).
 decode step runs as a CUDA graph captured before the port is bound, and
 the config must pass the decode kernels' gate, which is checked before a
 port is bound too: ``tiny`` (head_dim 16) serves only with
-``--device cpu``. The ``router`` role is a later slice of the port.
+``--device cpu``. ``--kv-host-entries`` / ``--kv-disk-entries`` /
+``--kv-disk-dir`` / ``--kv-peers`` put KV tiers under the prefix cache.
+
+    python -m accelerate_tpu_torch.commands.serve router \
+        --replica A=http://127.0.0.1:8901 --replica B=http://127.0.0.1:8902
+
+runs the router (``serving/router.py``, which imports neither torch nor
+numpy) and prints ``{"role", "port", "replicas", "canary", "log_dir"}``;
+the canary prober is a later slice, and ``--canary-interval`` above 0
+raises.
 """
 
 from __future__ import annotations
@@ -32,9 +41,36 @@ def register(parser):
     """Add the ``router`` and ``replica`` roles, with the reference's
     replica flags plus ``--device``, to ``parser``."""
     sub = parser.add_subparsers(dest="role")
-    router = sub.add_parser("router", help="the multi-replica router (a later slice "
-                                           "of the port)")
-    router.add_argument("rest", nargs=argparse.REMAINDER)
+    router = sub.add_parser(
+        "router", help="stdlib-HTTP/JSONL front door over N replicas (no torch; "
+                       "failover, re-queue, elastic membership)")
+    router.add_argument("--replica", action="append", default=[], metavar="[NAME=]URL",
+                        help="replica base URL (repeatable); more can join at runtime "
+                             "via POST /v1/register")
+    router.add_argument("--host", default="127.0.0.1")
+    router.add_argument("--port", type=int, default=8790)
+    router.add_argument("--max-inflight", type=int, default=64,
+                        help="bounded router queue; past it submits shed with "
+                             "shed_reason=router_queue_full")
+    router.add_argument("--max-retries", type=int, default=4)
+    router.add_argument("--backoff-base", type=float, default=0.05, metavar="S")
+    router.add_argument("--backoff-cap", type=float, default=2.0, metavar="S")
+    router.add_argument("--backoff-seed", type=int, default=0)
+    router.add_argument("--request-timeout", type=float, default=None, metavar="S")
+    router.add_argument("--poll-interval", type=float, default=0.25, metavar="S",
+                        help="replica health / placement scrape cadence")
+    router.add_argument("--no-affinity", action="store_true",
+                        help="disable session -> replica stickiness")
+    router.add_argument("--no-kv-migration", action="store_true",
+                        help="disable the KV handoff when a session moves off a "
+                             "draining replica")
+    router.add_argument("--log-dir", default=None, metavar="DIR",
+                        help="write router-requests.jsonl and router-decisions.jsonl here")
+    router.add_argument("--no-instrument", action="store_true",
+                        help="disable golden-signal histograms, hop stamps and the "
+                             "decision log")
+    router.add_argument("--canary-interval", type=float, default=0.0, metavar="S",
+                        help="the canary prober (a later slice: above 0 raises)")
 
     replica = sub.add_parser(
         "replica", help="one engine process behind HTTP (random weights from "
@@ -63,15 +99,19 @@ def register(parser):
     replica.add_argument("--kv-cache-dtype", default=None,
                          choices=["bf16", "int8", "int4"])
     replica.add_argument("--kv-host-entries", type=int, default=0,
-                         help="host-RAM KV tier (a later slice: nonzero raises)")
+                         help="host-RAM KV tier capacity in prefix entries (0 = "
+                              "tiering off; evictions drop)")
     replica.add_argument("--kv-disk-entries", type=int, default=0,
-                         help="disk KV tier (a later slice: nonzero raises)")
+                         help="disk KV tier capacity in prefix entries (needs "
+                              "--kv-disk-dir)")
     replica.add_argument("--kv-disk-dir", default=None, metavar="DIR",
-                         help="directory of the disk KV tier (a later slice)")
+                         help="directory for demoted KV blobs (durable across "
+                              "restarts; torn or corrupt blobs are rejected and deleted)")
     replica.add_argument("--kv-peers", action="append", default=[],
                          metavar="[NAME=]URL",
-                         help="peer replica of the fleet KV tier (a later slice: "
-                              "any raises)")
+                         help="peer replica of the fleet KV tier (repeatable): a "
+                              "local miss pulls a warm prefix over /v1/kv/export "
+                              "after checking the peer's /v1/kv/directory")
     replica.add_argument("--temperature", type=float, default=0.0)
     replica.add_argument("--top-k", type=int, default=None)
     replica.add_argument("--steps-per-call", type=int, default=1,
@@ -87,13 +127,66 @@ def register(parser):
 def serve_command(args) -> int:
     role = getattr(args, "role", None)
     if role == "router":
-        print("serve router is a later slice of the port (ROADMAP queue 1 item 5)",
-              file=sys.stderr)
-        return 1
+        return _serve_router(args)
     if role == "replica":
         return _serve_replica(args)
     print("usage: python -m accelerate_tpu_torch.commands.serve {router|replica} [--help]")
     return 1
+
+
+def _parse_replica_flags(values) -> list:
+    """``[NAME=]URL`` flags as ``(name, url)`` pairs (``r<i>`` unnamed)."""
+    pairs = []
+    for i, item in enumerate(values):
+        name, url = item.split("=", 1) if "=" in item else (f"r{i}", item)
+        pairs.append((name.strip(), url.strip()))
+    return pairs
+
+
+def build_router(args):
+    """The :class:`~..serving.router.Router` the ``router`` role serves,
+    started (its fleet collector polling). Imports no torch."""
+    from ..serving.router import Router, RouterConfig
+
+    if args.canary_interval and args.canary_interval > 0:
+        raise NotImplementedError(
+            "--canary-interval: the canary prober belongs to a later slice of the "
+            "port (ROADMAP queue 1 item 5(b))")
+    cfg = RouterConfig(
+        max_inflight=args.max_inflight, max_retries=args.max_retries,
+        backoff_base_s=args.backoff_base, backoff_cap_s=args.backoff_cap,
+        backoff_seed=args.backoff_seed, request_timeout_s=args.request_timeout,
+        poll_interval_s=args.poll_interval, affinity=not args.no_affinity,
+        migrate_session_kv=not args.no_kv_migration,
+        instrument=not args.no_instrument, log_dir=args.log_dir,
+    )
+    return Router(_parse_replica_flags(args.replica), config=cfg).start()
+
+
+def _serve_router(args) -> int:
+    import signal
+    import threading
+
+    from ..serving.router import RouterServer
+
+    router = build_router(args)
+    server = RouterServer(router, host=args.host, port=args.port)
+    print(json.dumps({"role": "router", "port": server.port,
+                      "replicas": len(args.replica), "canary": False,
+                      "log_dir": args.log_dir}), flush=True)
+    stop = threading.Event()
+    try:
+        signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
+    except ValueError:
+        pass  # not the main thread: the embedder owns signals
+    try:
+        stop.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+        router.close()
+    return 0
 
 
 def build_replica_engine(args):
@@ -110,12 +203,6 @@ def build_replica_engine(args):
 
     if args.config not in CONFIGS:
         raise SystemExit(f"unknown --config {args.config!r} (have: {', '.join(CONFIGS)})")
-    if args.kv_host_entries or args.kv_disk_entries or args.kv_peers or args.kv_disk_dir:
-        raise NotImplementedError(
-            "--kv-host-entries, --kv-disk-entries, --kv-disk-dir and --kv-peers: "
-            "hierarchical KV tiers belong to a later slice of the port "
-            "(ROADMAP queue 1 item 5)"
-        )
     cfg = getattr(DecoderConfig, args.config)(max_seq_len=int(args.max_seq_len))
     dev = resolve_device(args.device)
     page_size = int(args.page_size) or None
@@ -136,6 +223,21 @@ def build_replica_engine(args):
     model = DecoderLM(cfg, device=dev).load_params(
         random_params(cfg, seed=int(args.init_seed), device=dev))
     chunks = tuple(int(c) for c in str(args.prefill_chunks).split(",") if c.strip())
+    kv_tiers = None
+    host, disk = int(args.kv_host_entries or 0), int(args.kv_disk_entries or 0)
+    peers = _parse_replica_flags(args.kv_peers or [])
+    if host or disk or peers:
+        if not page_size:
+            raise ValueError("--kv-host-entries / --kv-disk-entries / --kv-peers need "
+                             "the paged arena (--page-size > 0)")
+        if disk and not args.kv_disk_dir:
+            raise ValueError("--kv-disk-entries needs --kv-disk-dir")
+        from ..serving.tiers import TierConfig
+
+        # demotion reaches disk and peers only through the host tier
+        kv_tiers = TierConfig(host_entries=max(host, 1 if (disk or peers) else 0),
+                              disk_entries=disk, disk_dir=args.kv_disk_dir,
+                              peers=tuple(peers))
     return ServingEngine(
         model,
         num_slots=int(args.num_slots),
@@ -148,6 +250,7 @@ def build_replica_engine(args):
         kv_cache_dtype=args.kv_cache_dtype,
         replica=args.name,
         device=dev,
+        kv_tiers=kv_tiers,
     )
 
 
@@ -180,7 +283,8 @@ def _serve_replica(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m accelerate_tpu_torch.commands.serve",
-        description="serve a replica of the PyTorch/CUDA port over HTTP",
+        description="serve a replica of the PyTorch/CUDA port over HTTP, or the "
+                    "router in front of several",
     )
     register(parser)
     args = parser.parse_args(argv)

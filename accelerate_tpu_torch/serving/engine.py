@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the paged or the flat KV arena.
 
-Counterpart of ``accelerate_tpu/serving/engine.py``, without KV tiers.
-Many requests decode per device step against
+Counterpart of ``accelerate_tpu/serving/engine.py``. Many requests decode
+per device step against
 one arena. On the paged arena (``page_size``, what users run with
 ``accelerate-tpu serve replica``) admissions ride the packed ragged
 prefill:
@@ -57,6 +57,21 @@ prefill:
   dispatches may run between decode steps. Preemption parks the slot in
   the captured step's fixed buffers, as a cancel does, and a resume
   reloads them: no scheduling action captures a new graph;
+- **hierarchical KV tiers** (``kv_tiers=TierConfig(...)``, ``tiers.py``;
+  paged arena): a prefix-cache eviction demotes the victim's pages (one
+  gather, one copy to the host) into host RAM, then disk blobs; an
+  admission whose prompt a tier (or a peer replica's directory) holds
+  deeper than the cache restores the pages into the arena in place,
+  ``restore_batch_pages`` a scheduler iteration, before it is planned as
+  a plain prefix hit: a restored hit gives the bits of a hit never
+  evicted;
+- **KV handoff** (``export_prefix_kv`` / ``import_prefix_kv`` /
+  ``kv_directory``, paged arena): a cached prefix's pages in the
+  reference's wire format (its leaf names, scan-stacked shapes and dtype
+  names; bf16 as raw 2-byte words), so the reference's replicas and the
+  port's accept each other's handoffs and disk blobs. Imports and
+  restores copy into the existing pages, whose addresses the captured
+  decode graphs hold;
 - **fault injection** (``faults=FaultInjector(...)``, ``faults.py``):
   page squeezes, storms and delays at the step boundaries and before
   each decode and prefill dispatch;
@@ -88,10 +103,12 @@ HTTP handler threads of a replica server (``replica_server.py``) call
 :meth:`ServingEngine.submit`, :meth:`Request.cancel` and
 :meth:`ServingEngine.metrics` while one loop thread runs
 :meth:`ServingEngine.step`: those touch host state only (the queue, flags,
-counters, ``req.tokens``), and every device op stays on the loop thread.
+counters, ``req.tokens``). The KV handoff calls (``kv_directory``,
+``export_prefix_kv``, ``import_prefix_kv``) read or write pages: the
+replica runs them and every ``step()`` under one lock.
 
-Everything else the reference engine offers (KV tiers and handoff,
-dispatched weights) is a later slice of the port and raises here.
+Everything else the reference engine offers (dispatched weights, buffer
+donation) is a later slice of the port and raises here.
 """
 
 from __future__ import annotations
@@ -119,9 +136,12 @@ from .pages import (
     PagedTables,
     PrefixCache,
     fork_page,
+    gather_pages,
     init_paged_arena,
+    install_pages,
     set_table_entry,
     set_table_row,
+    wire_leaf_specs,
 )
 from .scheduler import (
     SHED_DRAINING,
@@ -131,6 +151,7 @@ from .scheduler import (
     PrefillBudgetController,
     SchedulerConfig,
 )
+from .tiers import TierConfig, TieredStore, TierEntry, entry_nbytes, wire_dtype
 
 
 class PagePressure(RuntimeError):
@@ -180,12 +201,20 @@ class Request:
     # preempted and requeued: its re-admission replays prompt + tokens[:-1]
     # and samples nothing (the generator stays where the last step left it)
     _resume: bool = False
+    # a re-queued continuation's draws made on an earlier hop, taken
+    # before its first token is sampled
+    _owed_draws: int = 0
     prefix_hit: int = 0         # prompt tokens served from the prefix cache
     prefill_dispatches: int = 0  # prefill dispatches (packs or chunks) its prompt rode
     pages_allocated: int = 0    # fresh pages this request consumed (forks incl.)
     prefill_kernel: Optional[str] = None  # "ragged" (paged arena) or "dense" (flat)
     spec_proposed: int = 0      # draft tokens verified for it
     spec_accepted: int = 0      # of which accepted
+    # KV tiers: the tier a restore fed its prefix hit from (None: an HBM
+    # hit or cold), the restore's wall and the pages it installed
+    kv_restore_tier: Optional[str] = None
+    kv_restore_ms: float = 0.0
+    kv_restore_pages: int = 0
 
     def result(self) -> np.ndarray:
         """[prompt + generated] token ids."""
@@ -223,13 +252,14 @@ class ServingEngine:
     :class:`~.scheduler.MultiTenantScheduler`) replaces the FIFO queue
     with the multi-tenant policy tier; ``faults`` (a
     :class:`~.faults.FaultInjector`) is consulted at each step and before
-    each dispatch. ``telemetry`` is a
+    each dispatch. ``kv_tiers`` (paged arena; a
+    :class:`~.tiers.TierConfig`, or a built :class:`~.tiers.TieredStore`)
+    puts the host / disk / peer tiers under the prefix cache. ``telemetry`` is a
     :class:`~accelerate_tpu_torch.telemetry.TelemetrySession` (default: the
     process's ``current_session()``, if any), attached by weak reference.
     """
 
     _LATER = {
-        "kv_tiers": "hierarchical KV tiers",
         "param_placer": "dispatched (offloaded) weights",
         "donate": "buffer donation (the port updates in place)",
     }
@@ -258,6 +288,7 @@ class ServingEngine:
         scheduler=None,
         faults=None,
         telemetry=None,
+        kv_tiers=None,
         **later,
     ):
         if later:
@@ -297,13 +328,17 @@ class ServingEngine:
         self.steps_per_call = max(1, int(steps_per_call))
 
         self._prefix = None
+        self._tiers = None
+        self.replica = str(replica) if replica else None
         if not page_size:
+            if kv_tiers is not None:
+                raise ValueError("KV tiers need the paged arena; pass page_size=...")
             self.page_size = None
             self._arena = init_arena(model, self.num_slots, self.max_cache_len,
                                      self.kv_cache_dtype)
         else:
             self._init_paged(cfg, int(page_size), num_pages, prefix_cache,
-                             prefix_max_entries)
+                             prefix_max_entries, kv_tiers)
         self.arena_bytes = arena_nbytes(self._arena)
 
         # per-slot decode state. The host arrays are the scheduler's; before
@@ -351,7 +386,6 @@ class ServingEngine:
         # steps, so the counter moves under a lock
         self._next_id = 0
         self._id_lock = threading.Lock()
-        self.replica = str(replica) if replica else None
         self._draining = False
 
         # metrics
@@ -367,6 +401,18 @@ class ServingEngine:
         self.generated_tokens = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        self.prefill_chunks_skipped = 0
+        self.kv_pages_exported = 0
+        self.kv_pages_imported = 0
+        # committed admission hits per tier (hbm: a prefix hit with no
+        # restore behind it) and the restore counters
+        self.kv_tier_hits = {"hbm": 0, "host": 0, "disk": 0, "peer": 0}
+        self.kv_restore_batches = 0
+        self.kv_restore_batches_overlapped = 0
+        self.kv_restores = 0
+        self.kv_restores_aborted = 0
+        self._restore = None        # the restore in flight (_plan_restore)
+        self._restored_tier = None  # the tier feeding the plan being made
         self._step_samples: deque = deque(maxlen=512)  # (wall_s, tokens, steps)
         self._ttft: deque = deque(maxlen=2048)  # submit -> first token, s
         self._itl: deque = deque(maxlen=2048)  # inter-token gaps, s
@@ -382,9 +428,9 @@ class ServingEngine:
             telemetry.attach_serving(self)
 
     def _init_paged(self, cfg, page_size: int, num_pages, prefix_cache: bool,
-                    prefix_max_entries):
-        """The paged arena, its allocator, host tables, prefix cache and
-        the packed ragged prefill's capacities."""
+                    prefix_max_entries, kv_tiers):
+        """The paged arena, its allocator, host tables, KV tiers, prefix
+        cache and the packed ragged prefill's capacities."""
         self.page_size = page_size
         if self.page_size & (self.page_size - 1):
             raise ValueError(f"page_size must be a power of two, got {self.page_size}")
@@ -401,9 +447,24 @@ class ServingEngine:
             raise ValueError(f"num_pages ({self.num_pages}) must be >= 2")
         self._allocator = PageAllocator(self.num_pages, reserved=1)
         self._tables_host = PagedTables(self.num_slots, self.pages_per_slot, parking=0)
+        # a TierConfig builds the store, wired to the usage meters' tier
+        # byte-seconds and this replica's identity; a built TieredStore is
+        # taken as it is
+        if isinstance(kv_tiers, TierConfig):
+            kv_tiers = TieredStore(kv_tiers, page_size=self.page_size,
+                                   kv_cache_dtype=self.kv_cache_dtype,
+                                   replica=self.replica, on_bytes=self._note_tier_bytes)
+        elif kv_tiers is not None and kv_tiers.on_bytes is None:
+            kv_tiers.on_bytes = self._note_tier_bytes
+        self._tiers = kv_tiers
+        entries = int(prefix_max_entries or 512)
+        tier_entries = kv_tiers.config.entry_capacity() if kv_tiers is not None else 0
         self._prefix = (
-            PrefixCache(self._allocator, self.page_size,
-                        max_entries=int(prefix_max_entries or 512))
+            PrefixCache(self._allocator, self.page_size, max_entries=entries,
+                        # the ghost shadows measure headroom beyond the
+                        # total (HBM + host + disk) capacity
+                        ghost_base_entries=entries + tier_entries if tier_entries else None,
+                        on_evict=self._demote_entry if kv_tiers is not None else None)
             if prefix_cache else None
         )
         self._arena = init_paged_arena(cfg, self.num_pages, self.page_size, self.device,
@@ -423,7 +484,8 @@ class ServingEngine:
     def submit(self, prompt, *, max_new_tokens: int = 32, seed: int = 0,
                on_token: Optional[Callable] = None, tenant: str = "default",
                priority: int = 0, deadline_s: Optional[float] = None,
-               timeout_s: Optional[float] = None, request_id=None) -> Request:
+               timeout_s: Optional[float] = None, request_id=None,
+               resumed_tokens: int = 0) -> Request:
         """Queue one request; returns its live :class:`Request` handle.
         ``on_token(token_id, request)`` fires as each token is emitted;
         ``seed`` seeds the request's sampling generator (unused when
@@ -431,6 +493,10 @@ class ServingEngine:
         pages) if it has not finished that many seconds after submit.
         ``request_id`` (int or str) overrides the engine-assigned id; an
         external int id bumps the auto counter past itself.
+        ``resumed_tokens``: the prompt's last that many tokens are this
+        request's own output from an earlier hop (a router's re-queued
+        continuation), so the generator draws past them before it samples
+        the first token, which is then the uninterrupted run's.
 
         Without a scheduler the queue is FIFO and ``tenant``, ``priority``
         and ``deadline_s`` are only recorded. With one,
@@ -446,6 +512,9 @@ class ServingEngine:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if not 0 <= resumed_tokens < prompt.size:
+            raise ValueError(f"resumed_tokens must be in [0, {prompt.size}), "
+                             f"got {resumed_tokens}")
         cover = self._plan_cover(prompt.size)
         if self._sched is not None and self._sched.config.preemption:
             # a preemptible request must be re-admittable at any point of
@@ -479,6 +548,8 @@ class ServingEngine:
                       deadline_s=None if deadline_s is None else float(deadline_s),
                       timeout_s=None if timeout_s is None else float(timeout_s),
                       replica=self.replica)
+        if gen is not None:
+            req._owed_draws = int(resumed_tokens)
         req.submit_t = time.perf_counter()
         tr = self._tracer()
         if tr is not None:
@@ -829,6 +900,12 @@ class ServingEngine:
         ``reason`` as its ``shed_reason``)."""
         req, slot = self._admitting[0], self._admitting[1]
         self._admitting = None
+        if self._restore is not None:
+            # mid-restore: its pages were allocated but never published
+            for p in self._restore["pages"]:
+                self._allocator.release(p)
+            self._restore = None
+            self.kv_restores_aborted += 1
         if self.page_size:
             self._release_slot_pages(slot, tenant=req.tenant)
         self._free.append(slot)
@@ -907,7 +984,8 @@ class ServingEngine:
                 # page out through the prefix cache: its entries hold the
                 # page references, so the resume maps them back as hits
                 # (and LRU eviction can still reclaim them under pressure)
-                self._prefix.insert(self._replay_seq(req), self._tables_host.rows[slot])
+                self._prefix.insert(self._replay_seq(req), self._tables_host.rows[slot],
+                                    tenant=req.tenant)
             self._release_slot_pages(slot, tenant=req.tenant)
         self._free.append(slot)
         req.slot = None
@@ -1040,6 +1118,13 @@ class ServingEngine:
                 usage.note_pages(req.tenant, n_map)
         if usage is not None and hit_len:
             usage.note_prefix_hit(req.tenant, hit_len)
+        if hit_len:
+            # a hit right after a restore belongs to the tier that supplied
+            # its pages; every other committed hit was HBM-resident
+            self.kv_tier_hits[self._restored_tier or "hbm"] += 1
+            # the prefill chunks the cached prefix made unnecessary
+            self.prefill_chunks_skipped += cold_chunks - len(
+                self._plan_chunks(seq.size - hit_len))
         req.prefix_hit = hit_len
         set_table_row(self._page_tables, slot, th.rows[slot])
         tail_plan = self._plan_chunks(seq.size - hit_len)
@@ -1054,7 +1139,7 @@ class ServingEngine:
         n_pages = -(-req.prompt.size // self.page_size)
         if n_pages > self._tables_host.alloc_count[slot]:
             return
-        self._prefix.insert(req.prompt, self._tables_host.rows[slot])
+        self._prefix.insert(req.prompt, self._tables_host.rows[slot], tenant=req.tenant)
 
     def _release_slot_pages(self, slot: int, tenant: Optional[str] = None):
         """Drop the slot's page references (pages still retained by the
@@ -1073,6 +1158,233 @@ class ServingEngine:
         th.reset_slot(slot)
         set_table_row(self._page_tables, slot, th.rows[slot])
 
+    # -- hierarchical KV tiers (HBM -> host -> disk -> peers) ---------------
+
+    def _note_tier_bytes(self, tenant: str, tier: str, delta: int):
+        """The tier store's byte hook into the usage meters' tier
+        byte-seconds: every + has its -, so held bytes drain to 0. The disk
+        scan runs while the engine is built, before its session is
+        attached: nothing is metered then."""
+        usage = self._usage() if hasattr(self, "telemetry") else None
+        if usage is not None:
+            usage.note_tier_bytes(tenant, tier, delta)
+
+    def _demote_entry(self, entry):
+        """The prefix cache's ``on_evict`` hook: copy the victim's pages to
+        the host (one gather, one transfer) and offer them to the host
+        tier. An entry some tier already covers is skipped (a longer
+        demoted entry serves every shorter aligned prefix)."""
+        tiers = self._tiers
+        if tiers is None or entry.tokens is None or tiers.covers(entry.key):
+            return
+        specs = wire_leaf_specs(self._arena)
+        arrays = gather_pages(self._arena, entry.pages)
+        tokens = np.asarray(entry.tokens, np.int32)
+        tiers.put(TierEntry(
+            key=entry.key, token_len=entry.token_len, tokens=tokens,
+            n_pages=len(entry.pages), arrays=arrays, paths=[sp[0] for sp in specs],
+            nbytes=entry_nbytes(arrays, tokens), tenant=entry.tenant,
+            dtypes=[sp[3] for sp in specs],
+        ))
+
+    def _plan_restore(self, req: Request, seq: np.ndarray) -> Optional[dict]:
+        """Probe the tiers for a prefix of ``seq`` deeper than the prefix
+        cache's own and, on a hit the admit plan would commit to, allocate
+        its pages. Returns the restore :meth:`_advance_restore` drives, or
+        None (plan now). Page pressure aborts the restore: a restore never
+        sheds or preempts live work."""
+        tiers = self._tiers
+        if tiers is None or self._prefix is None or seq.size < 2:
+            return None
+        limit = seq.size - 1
+        hbm_len, _ = self._prefix.peek(seq, limit)
+        hit = tiers.probe(seq, limit, min_len=hbm_len)
+        if hit is None:
+            return None
+        if hit["tier"] == "peer":
+            try:
+                tokens, token_len, _, arrays = self._handoff_arrays(hit["handoff"])
+            except ValueError:
+                self.kv_restores_aborted += 1
+                return None
+        else:
+            tokens, token_len, arrays = hit["tokens"], hit["token_len"], hit["arrays"]
+        # _paged_admit_plan's commit rules, applied before paying for the
+        # restore: a hit the plan would shrink or decline installs nothing
+        cold_chunks = len(self._plan_chunks(seq.size))
+        hit_len = int(token_len)
+        while hit_len and hit_len + self._plan_cover(seq.size - hit_len) > self.max_cache_len:
+            hit_len = max(0, hit_len - self.page_size)
+        if hit_len and len(self._plan_chunks(seq.size - hit_len)) > cold_chunks:
+            hit_len = 0
+        if hit_len <= hbm_len:
+            return None
+        pages = []
+        try:
+            for _ in range(-(-hit_len // self.page_size)):
+                pages.append(self._alloc_page())
+        except PagePressure:
+            for p in pages:
+                self._allocator.release(p)
+            self.kv_restores_aborted += 1
+            return None
+        return {"tier": hit["tier"], "tokens": np.asarray(tokens[:hit_len], np.int32),
+                "arrays": arrays, "pages": pages, "next": 0, "t0": time.perf_counter()}
+
+    def _advance_restore(self):
+        """One restore batch: copy up to ``restore_batch_pages`` pages into
+        the arena in place (the decode step of the same iteration follows
+        on the same stream). After the last, the prefix joins the cache and
+        the admission is planned as a plain prefix hit, attributed to the
+        tier: a restored hit is a never-evicted hit, bit for bit."""
+        req, slot, _, _, seq = self._admitting
+        r = self._restore
+        end = min(r["next"] + max(1, int(self._tiers.config.restore_batch_pages)),
+                  len(r["pages"]))
+        install_pages(self._arena, [a[:, r["next"]:end] for a in r["arrays"]],
+                      r["pages"][r["next"]:end])
+        r["next"] = end
+        self.kv_restore_batches += 1
+        if self._slot_req:
+            self.kv_restore_batches_overlapped += 1
+        if end < len(r["pages"]):
+            return
+        # the cache entries take the page references
+        self._prefix.insert(r["tokens"], r["pages"], tenant=req.tenant)
+        for p in r["pages"]:
+            self._allocator.release(p)
+        if r["tier"] == "peer":
+            self.kv_pages_imported += len(r["pages"])
+        self.kv_restores += 1
+        req.kv_restore_tier = r["tier"]
+        req.kv_restore_pages = len(r["pages"])
+        req.kv_restore_ms = round((time.perf_counter() - r["t0"]) * 1e3, 3)
+        self._restore = None
+        self._restored_tier = r["tier"]
+        try:
+            self._admitting[2] = self._paged_admit_plan(req, slot, seq)
+        finally:
+            self._restored_tier = None
+
+    def kv_directory(self) -> dict:
+        """Digest directory of the prefixes this replica can export (what
+        ``GET /v1/kv/directory`` serves and peers' tier stores poll): each
+        prefix cache entry's content key (blake2b-16 of the int32 tokens),
+        hex, and its token length."""
+        prefixes = []
+        if self._prefix is not None:
+            prefixes = [{"digest": e.key.hex(), "token_len": int(e.token_len)}
+                        for e in list(self._prefix.entries.values())]
+        return {"version": 1, "replica": self.replica, "page_size": self.page_size or 0,
+                "kv_cache_dtype": self.kv_cache_dtype, "prefixes": prefixes}
+
+    # -- KV handoff (prefill -> decode replicas, session migration) ---------
+
+    def _require_handoff(self):
+        if not self.page_size or self._prefix is None:
+            raise ValueError("KV handoff needs the paged arena with the prefix cache "
+                             "(page_size=..., prefix_cache=True)")
+
+    def export_prefix_kv(self, tokens) -> Optional[dict]:
+        """The longest cached prefix of ``tokens`` as a KV handoff: its
+        pages' bytes as they sit in the arena (quantized payloads and
+        scales verbatim), in the reference's wire format, so the importer
+        admits the prefix as a local warm hit, bit for bit. None when
+        nothing is cached. The probe is ``peek``: an export skews no hit
+        gauge."""
+        import base64
+
+        self._require_handoff()
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if tokens.size < 1:
+            return None
+        hit_len, entry = self._prefix.peek(tokens)
+        if not hit_len:
+            return None
+        n_pages = -(-hit_len // self.page_size)
+        arrays = gather_pages(self._arena, entry.pages[:n_pages])
+        leaves = [{"path": path, "dtype": dname, "shape": list(arr.shape),
+                   "data": base64.b64encode(arr.tobytes()).decode("ascii")}
+                  for (path, _, _, dname), arr in zip(wire_leaf_specs(self._arena), arrays)]
+        self.kv_pages_exported += n_pages
+        return {"version": 1, "page_size": self.page_size,
+                "kv_cache_dtype": self.kv_cache_dtype, "token_len": int(hit_len),
+                "tokens": [int(t) for t in tokens[:hit_len]], "n_pages": n_pages,
+                "replica": self.replica, "leaves": leaves}
+
+    def _handoff_arrays(self, handoff: dict):
+        """Validate a KV handoff against this arena's wire identity
+        (version, page size, KV dtype, leaf paths, shapes and dtypes) and
+        decode its leaves. Returns ``(tokens, token_len, n_pages,
+        arrays)``; raises ValueError on any mismatch. The import endpoint
+        and the peer tier's restore share it: a pull can never install
+        what an import would reject."""
+        try:
+            return self._decode_handoff(handoff)
+        except (KeyError, TypeError) as exc:
+            # a body from the wire that lacks a field or has the wrong type
+            raise ValueError(f"malformed KV handoff: {exc!r}") from exc
+
+    def _decode_handoff(self, handoff: dict):
+        import base64
+
+        if handoff.get("version") != 1:
+            raise ValueError(f"unknown KV handoff version {handoff.get('version')!r}")
+        if int(handoff["page_size"]) != self.page_size:
+            raise ValueError(f"KV handoff page_size {handoff['page_size']} != engine "
+                             f"page_size {self.page_size}")
+        if (handoff.get("kv_cache_dtype") or "bf16") != self.kv_cache_dtype:
+            raise ValueError(f"KV handoff kv_cache_dtype {handoff.get('kv_cache_dtype')!r} "
+                             f"!= engine {self.kv_cache_dtype!r}")
+        tokens = np.asarray(handoff["tokens"], np.int32).reshape(-1)
+        token_len = int(handoff["token_len"])
+        n_pages = int(handoff["n_pages"])
+        if tokens.size != token_len or n_pages != -(-token_len // self.page_size):
+            raise ValueError("KV handoff token/page accounting is inconsistent")
+        specs = wire_leaf_specs(self._arena)
+        wire = handoff["leaves"]
+        if len(wire) != len(specs):
+            raise ValueError(f"KV handoff carries {len(wire)} K/V leaves, engine arena "
+                             f"has {len(specs)}: a different model or cache layout")
+        arrays = []
+        for (path, _, page_shape, dname), spec in zip(specs, wire):
+            expect = [page_shape[0], n_pages, *page_shape[1:]]
+            if spec["path"] != path or list(spec["shape"]) != expect or spec["dtype"] != dname:
+                raise ValueError(
+                    f"KV handoff leaf {spec['path']} ({spec['dtype']}{spec['shape']}) does "
+                    f"not match engine leaf {path} ({dname}, page-gathered {expect})")
+            arrays.append(np.frombuffer(base64.b64decode(spec["data"]),
+                                        wire_dtype(dname)).reshape(expect))
+        return tokens, token_len, n_pages, arrays
+
+    def import_prefix_kv(self, handoff: dict) -> int:
+        """Install a peer's KV handoff: allocate pages, copy the leaves into
+        them in place, register the prefix, so the next admission of those
+        tokens is a prefix hit as if this replica had prefilled them.
+        Returns the token length now cached (0 when page pressure blocked
+        the install: a handoff never sheds live work). Raises ValueError
+        on an incompatible handoff."""
+        self._require_handoff()
+        tokens, token_len, n_pages, arrays = self._handoff_arrays(handoff)
+        have, _ = self._prefix.peek(tokens)
+        if have >= token_len:
+            return have  # already cached at least this deep
+        pages = []
+        try:
+            for _ in range(n_pages):
+                pages.append(self._alloc_page())
+        except PagePressure:
+            for p in pages:
+                self._allocator.release(p)
+            return 0
+        install_pages(self._arena, arrays, pages)
+        self._prefix.insert(tokens, pages)
+        # the cache entries hold the references now: LRU may reclaim them
+        for p in pages:
+            self._allocator.release(p)
+        self.kv_pages_imported += n_pages
+        return token_len
+
     # -- admission -----------------------------------------------------------
 
     def _pop_next(self) -> Optional[Request]:
@@ -1085,6 +1397,16 @@ class ServingEngine:
                 req = self._queue.popleft() if self._queue else None
             if req is None or not req.done:
                 return req
+
+    def _draw_first(self, req: Request, row: torch.Tensor) -> int:
+        """The first token's draw from ``row`` [1, V]. A continuation first
+        spends the draws an earlier hop made: a draw takes as much of the
+        generator as its row's shape asks, whatever the values, so drawing
+        from zeros leaves the generator where those draws did."""
+        for _ in range(req._owed_draws):
+            _sample(torch.zeros_like(row), req.generator, self.temperature, self.top_k)
+        req._owed_draws = 0
+        return int(_sample(row, req.generator, self.temperature, self.top_k)[0])
 
     def _replay_seq(self, req: Request) -> np.ndarray:
         """The sequence a preemption resume re-prefills: the prompt plus
@@ -1104,7 +1426,12 @@ class ServingEngine:
             slot = self._free.pop()
             seq = self._replay_seq(req) if req._resume else req.prompt
             if self.page_size:
-                plan = self._paged_admit_plan(req, slot, seq)
+                # the tier probe comes first: a host / disk / peer hit
+                # deeper than the cache's stages a restore, and the plan
+                # waits (None) until its pages are installed
+                self._restore = self._plan_restore(req, seq)
+                plan = None if self._restore is not None else \
+                    self._paged_admit_plan(req, slot, seq)
             else:
                 plan = self._plan_chunks(seq.size)
             self._admitting = [req, slot, plan, 0, seq]
@@ -1114,6 +1441,11 @@ class ServingEngine:
                     tr.on_resume(req, slot)
                 else:
                     tr.on_admission(req, slot, time.perf_counter() - req.submit_t)
+        if self._admitting[2] is None:
+            # a restore in flight: one page batch a scheduler iteration,
+            # with the decode step after it in the same iteration
+            self._advance_restore()
+            return True
         return self._ragged_advance() if self.page_size else self._flat_advance()
 
     def _flat_advance(self) -> bool:
@@ -1149,8 +1481,7 @@ class ServingEngine:
         if req._resume:
             self._resume_live(req, slot, seq)
             return True
-        row = logits[seg.size - 1][None]
-        first = int(_sample(row, req.generator, self.temperature, self.top_k)[0])
+        first = self._draw_first(req, logits[seg.size - 1][None])
         self._go_live(req, slot, first, time.perf_counter())
         return True
 
@@ -1191,8 +1522,11 @@ class ServingEngine:
         # always whole, so every co-admit completes in this dispatch
         packs = [[req, slot, cur, cur + n, True, seq]]
         used = -(-n // bt) * bt
-        while (self._sched is None and self._free and self._queue
-               and used + bt <= cap_max):
+        # co-admission is FIFO only (a scheduler's pick stays one at a
+        # time) and off under KV tiers (a tier probe may stage a restore,
+        # which needs the admission to itself)
+        while (self._sched is None and self._tiers is None and self._free
+               and self._queue and used + bt <= cap_max):
             nxt = self._queue[0]
             if used + -(-int(nxt.prompt.size) // bt) * bt > cap_max:
                 break
@@ -1206,6 +1540,8 @@ class ServingEngine:
                 # back out and requeue at the head: it re-admits alone
                 self._release_slot_pages(slot2, nxt.tenant)
                 self._free.append(slot2)
+                if nxt.prefix_hit:
+                    self.kv_tier_hits["hbm"] -= 1
                 nxt.prefix_hit = 0
                 self._queue.appendleft(nxt)
                 break
@@ -1259,9 +1595,7 @@ class ServingEngine:
             if self.temperature == 0.0:
                 toks = _sample(rows, None, 0.0, None).tolist()
             else:
-                toks = [int(_sample(rows[i:i + 1], p[0].generator,
-                                    self.temperature, self.top_k)[0])
-                        for i, p in enumerate(done)]
+                toks = [self._draw_first(p[0], rows[i:i + 1]) for i, p in enumerate(done)]
             firsts = {p[1]: int(t) for p, t in zip(done, toks)}
         now = time.perf_counter()
         wall = now - t0
@@ -1678,9 +2012,30 @@ class ServingEngine:
             # once a regression clears (the reference's window)
             out["serving/itl_recent_p99_ms"] = round(
                 1e3 * float(np.percentile(itl[-128:], 99)), 3)
+        if self.kv_pages_exported or self.kv_pages_imported:
+            out["serving/kv_pages_exported"] = self.kv_pages_exported
+            out["serving/kv_pages_imported"] = self.kv_pages_imported
         if self._prefix is not None:
             out["serving/prefix_hit_ratio"] = self._prefix.hit_ratio
             out["serving/prefix_hit_tokens"] = self._prefix.hit_tokens
+            out["serving/prefix_entries"] = len(self._prefix.entries)
+            out["serving/prefill_chunks_skipped"] = self.prefill_chunks_skipped
+            if self._prefix.ghost is not None:
+                # the hit ratio the cache would have at 2x / 4x / 10x its
+                # capacity, and reuse-after-evict distances
+                out.update(self._prefix.ghost.gauges())
+        if self._tiers is not None:
+            out.update(self._tiers.gauges())
+            lookups = self._prefix.lookups if self._prefix is not None else 0
+            for tier, hits in self.kv_tier_hits.items():
+                out[f"serving/kv_tier_hits_{tier}"] = hits
+                out[f"serving/kv_tier_hit_ratio_{tier}"] = hits / lookups if lookups else 0.0
+            out["serving/kv_restores"] = self.kv_restores
+            out["serving/kv_restores_aborted"] = self.kv_restores_aborted
+            out["serving/kv_restore_batches"] = self.kv_restore_batches
+            out["serving/kv_restore_overlap_frac"] = (
+                self.kv_restore_batches_overlapped / self.kv_restore_batches
+                if self.kv_restore_batches else 0.0)
         # the placement signal a router ranks replicas by, with the raw
         # components it folds (telemetry/fleet.py)
         out["serving/num_slots"] = self.num_slots

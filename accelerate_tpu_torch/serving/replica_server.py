@@ -9,7 +9,8 @@ between, and scales:
   response is JSONL (``{"event": "token", ...}`` per emitted token, one
   terminal ``{"event": "done", ...}``), else a single JSON document. A
   connection that closes *without* the terminal event is the replica-
-  death signature a router re-queues on.
+  death signature a router re-queues on. A re-queued continuation
+  carries ``resumed_tokens`` (see :meth:`~.engine.ServingEngine.submit`).
 - ``POST /v1/cancel``: ``{request_id}``; the engine frees the slot and
   pages at its next iteration.
 - ``GET /metrics``: the Prometheus scrape (the engine's telemetry session
@@ -21,17 +22,24 @@ between, and scales:
   (``{reason}``); ``{"ok": true, ...}`` when the engine's session has a
   flight recorder, whose bundle then lands in the session's trace dir,
   ``{"ok": false, ...}`` when there is none.
+- ``GET /v1/kv/directory``: the digests of the prefixes this replica can
+  export (the peer tier's discovery contract).
+- ``POST /v1/kv/export``: ``{tokens}``; the longest cached prefix's KV
+  handoff (the reference's wire format), or 404 "prefix not cached".
+- ``POST /v1/kv/import``: a handoff body; ``{installed_tokens,
+  replica}``, or 409 when it does not fit this engine's arena.
 
-The KV handoff endpoints (``/v1/kv/directory``, ``/v1/kv/export``,
-``/v1/kv/import``) answer 404 until the port has KV tiers and handoff
-(ROADMAP queue 1 item 5). ``faults=`` takes a
+``faults=`` takes a
 :class:`~.faults.FaultInjector` whose ``wrong_token`` drill corrupts the
 tokens on the wire (``corrupt_token``), not in the engine.
 
 Lifecycle: ``start()`` runs the engine's scheduler loop on a background
-thread; every device op stays on that one thread, and the HTTP handler
-threads touch host state only (``submit``, ``Request.cancel``,
-``metrics``, ``req.tokens``). SIGTERM, with ``handle_signals=True``,
+thread; the HTTP handler threads touch host state only (``submit``,
+``Request.cancel``, ``metrics``, ``req.tokens``), except the three KV
+endpoints, which read or write the arena's pages: they and each
+``engine.step()`` hold one engine lock, so an export never reads pages a
+step is writing and an import lands between steps, on the same stream.
+SIGTERM, with ``handle_signals=True``,
 starts the drain: ``request_drain()`` (flag-only, signal-safe), in-flight
 requests finish and their streams complete, and
 ``serve_until_drained()`` returns. A draining replica still answers
@@ -101,6 +109,7 @@ class ReplicaServer:
         self._dead = False          # hard-fail switch (kill, a dead loop)
         self._error: Optional[BaseException] = None  # what killed the loop
         self._drained = threading.Event()
+        self._engine_lock = threading.Lock()   # loop thread vs KV endpoints
         self._live_lock = threading.Lock()
         self._live: dict = {}       # str(request_id) -> Request
         self._loop_thread: Optional[threading.Thread] = None
@@ -150,7 +159,8 @@ class ReplicaServer:
         shim = self._session if isinstance(self._session, _EngineMetricsSession) else None
         try:
             while not self._stop:
-                busy = self.engine.step()
+                with self._engine_lock:
+                    busy = self.engine.step()
                 if shim is not None:
                     shim._touch()
                 if self.engine._draining and not self.engine._pending():
@@ -263,8 +273,11 @@ class ReplicaServer:
                 "queue_depth": m.get("serving/queue_depth"),
                 "free_slots": m.get("serving/free_slots"),
             })
+        elif handler.path == "/v1/kv/directory":
+            with self._engine_lock:
+                directory = self.engine.kv_directory()
+            self._send_json(handler, directory)
         else:
-            # /v1/kv/directory included: KV tiers are a later slice
             handler.send_error(404)
 
     def _post(self, handler):
@@ -279,10 +292,13 @@ class ReplicaServer:
             self._handle_submit(handler, body)
         elif handler.path == "/v1/cancel":
             self._handle_cancel(handler, body)
+        elif handler.path == "/v1/kv/export":
+            self._handle_kv_export(handler, body)
+        elif handler.path == "/v1/kv/import":
+            self._handle_kv_import(handler, body)
         elif handler.path == "/v1/flight":
             self._handle_flight(handler, body)
         else:
-            # /v1/kv/export and /v1/kv/import included: a later slice
             handler.send_error(404)
 
     def _handle_flight(self, handler, body: dict):
@@ -314,6 +330,7 @@ class ReplicaServer:
                 deadline_s=body.get("deadline_s"),
                 timeout_s=body.get("timeout_s"),
                 request_id=body.get("request_id"),
+                resumed_tokens=int(body.get("resumed_tokens") or 0),
             )
         except ValueError as e:
             handler.send_error(400, str(e)[:200])
@@ -394,3 +411,28 @@ class ReplicaServer:
                             status=404)
             return
         self._send_json(handler, {"ok": req.cancel()})
+
+    # -- KV handoff ---------------------------------------------------------
+
+    def _handle_kv_export(self, handler, body: dict):
+        tokens = body.get("tokens") or []
+        try:
+            with self._engine_lock:
+                handoff = self.engine.export_prefix_kv([int(t) for t in tokens])
+        except ValueError as e:
+            handler.send_error(409, str(e)[:200])
+            return
+        if handoff is None:
+            self._send_json(handler, {"error": "prefix not cached"}, status=404)
+            return
+        self._send_json(handler, handoff)
+
+    def _handle_kv_import(self, handler, body: dict):
+        try:
+            with self._engine_lock:
+                installed = self.engine.import_prefix_kv(body)
+        except ValueError as e:
+            handler.send_error(409, str(e)[:200])
+            return
+        self._send_json(handler, {"installed_tokens": int(installed),
+                                  "replica": self.name})

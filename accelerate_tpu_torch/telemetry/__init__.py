@@ -27,7 +27,15 @@ as serving uses it::
   and outcome counts;
 - **flight recorder** (``recorder.py``): a bounded event ring and the
   debug bundle it dumps on an unhandled exception, on SIGTERM (which also
-  requests a serving drain) or on ``dump()``.
+  requests a serving drain) or on ``dump()``;
+- **timeline** (``timeline.py``): every rollup gauge sampled on a
+  background thread every ``timeline_interval_s`` (0: call
+  ``sample_timeline()`` yourself) into a multi-resolution ring, persisted
+  to ``timeline-host<i>.jsonl``; the exposition's
+  ``att_scrape_age_seconds`` is its freshness;
+- **alerts** (``alerts.py``): threshold and multi-window burn-rate rules
+  evaluated on each sample (``alerts-host<i>.jsonl``, the exposition's
+  ``att_alert_firing`` series, ``alerts/*`` rollup gauges).
 
 Where the reference asks JAX, the port asks torch: its compile counters
 become the CUDA graph capture counter (``utils/cuda_graphs``), device
@@ -51,16 +59,23 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .histograms import StreamingHistogram, percentile_keys  # noqa: F401 (public API)
-from .metrics import MetricsWindow, batch_token_count, flops_per_token_fn  # noqa: F401 (public API)
 from .spans import SpanRecorder, load_chrome_trace, span  # noqa: F401 (public API)
 
 _ACTIVE_SESSION: Optional["TelemetrySession"] = None
 
+
+def __getattr__(name):
+    # ``metrics.py`` needs numpy, which the router's box may not have: its
+    # public names load at first use (PEP 562)
+    if name in ("MetricsWindow", "batch_token_count", "flops_per_token_fn"):
+        from . import metrics
+
+        return getattr(metrics, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 # the reference's session parts the port does not build yet, and who owns
 # each (ROADMAP queue 1)
 UNPORTED = {
-    "timeline": "the ops plane, ROADMAP queue 1 item 4b(iii)",
-    "alerts": "the ops plane, ROADMAP queue 1 item 4b(iii)",
     "forensics": "no counterpart: the port's recompile is a graph capture, "
                  "which compiles_in_flight counts",
     "cost_registry": "per-executable roofline rows, ROADMAP queue 1 item 11",
@@ -82,9 +97,9 @@ class TelemetryConfig:
     ``trace_dir`` is where per-host artifacts land (span JSONL, request
     records, flight bundles, snapshots). When None, file-producing
     features stay off (histograms, usage and the flight ring still run).
-    The fields of parts the port does not build yet (the timeline, alerts,
-    forensics, cost registry, watchdog and profiler capture) keep their
-    defaults here; switching one of them on explicitly raises in
+    The fields of parts the port does not build yet (forensics, cost
+    registry, watchdog and profiler capture) keep their defaults here;
+    switching one of them on explicitly raises in
     :class:`TelemetrySession`.
     """
 
@@ -117,12 +132,14 @@ class TelemetryConfig:
     goodput: bool = True
     cost_registry: bool = True
     # the continuous ops plane
+    # the continuous ops plane: the sampler thread runs every
+    # timeline_interval_s; 0 starts no thread (call sample_timeline())
     timeline: bool = True
     timeline_interval_s: float = 1.0
-    timeline_tiers: Optional[tuple] = None
-    alerts: bool = True
-    alert_rules: Optional[list] = None
-    alert_itl_slo_ms: Optional[float] = None
+    timeline_tiers: Optional[tuple] = None  # ((interval_s, capacity), ...)
+    alerts: bool = True                     # evaluate rules per sample
+    alert_rules: Optional[list] = None      # default: alerts.default_ruleset()
+    alert_itl_slo_ms: Optional[float] = None  # ITL burn-rate rule SLO
     usage: bool = True                     # per-tenant usage accounting
     # flight recorder
     flight_recorder: bool = True
@@ -211,16 +228,8 @@ def _refuse_unported(config: TelemetryConfig):
         asked.append(("profile_steps", "capture_window"))
     if config.profile_trigger_itl_p99_ms is not None:
         asked.append(("profile_trigger_itl_p99_ms", "capture_window"))
-    if config.alert_rules is not None:
-        asked.append(("alert_rules", "alerts"))
-    if config.alert_itl_slo_ms is not None:
-        asked.append(("alert_itl_slo_ms", "alerts"))
-    if config.timeline_tiers is not None:
-        asked.append(("timeline_tiers", "timeline"))
     if config.flops_per_token is not None:
         asked.append(("flops_per_token", "training_telemetry"))
-    if config.timeline_interval_s not in (0, 0.0, 1.0):
-        asked.append((f"timeline_interval_s={config.timeline_interval_s}", "timeline"))
     if asked:
         raise NotImplementedError(
             "TelemetryConfig asks for parts the port does not build yet: "
@@ -262,6 +271,8 @@ class TelemetrySession:
         self.trace_dir = config.trace_dir
         if self.trace_dir:
             os.makedirs(self.trace_dir, exist_ok=True)
+        from .metrics import MetricsWindow
+
         self.window = MetricsWindow(config.window)
         self.unported = dict(UNPORTED)
         self._serving: list = []
@@ -325,12 +336,35 @@ class TelemetrySession:
             from .usage import UsageAccountant
 
             self.usage = UsageAccountant()
-        # the exposition's freshness clock: advanced by the reference's
-        # timeline sampler, which the port does not run yet (None: no age
-        # gauge, rather than one no sampler will ever advance)
+        # the ops plane: the sampled timeline and the alert rules evaluated
+        # on its cadence, built before the exporter (which renders the
+        # alert_firing series). The exposition's freshness clock advances
+        # on every sample: None until the first (no age gauge no sampler
+        # will ever advance)
         self.last_sample_unix_s = None
         self.timeline = None
         self.alerts = None
+        self._sampler = None
+        if config.timeline:
+            from .timeline import Timeline, TimelineSampler
+
+            self.timeline = Timeline(tiers=config.timeline_tiers)
+            if config.alerts:
+                from . import alerts as _alerts
+
+                rules = config.alert_rules
+                if rules is None:
+                    rules = _alerts.default_ruleset(itl_slo_ms=config.alert_itl_slo_ms)
+                apath = None
+                if self.trace_dir:
+                    apath = os.path.join(self.trace_dir,
+                                         f"alerts-host{self.process_index}.jsonl")
+                self.alerts = _alerts.AlertManager(
+                    self.timeline, rules, session=self, log_path=apath,
+                    exemplar_source=self._alert_exemplars)
+            if config.timeline_interval_s and config.timeline_interval_s > 0:
+                self._sampler = TimelineSampler(
+                    self.sample_timeline, config.timeline_interval_s).start()
         self.forensics = None
         self.costs = None
         self.watchdog = None
@@ -392,6 +426,30 @@ class TelemetrySession:
                 engine.request_drain()
             except Exception:
                 pass
+
+    def _alert_exemplars(self, key: str) -> list:
+        """Exemplar requests of the histogram behind an alert rule's key,
+        stamped on a firing edge's event: the log names culprit requests."""
+        from .alerts import exemplars_for_key
+
+        return exemplars_for_key(self.hists, key)
+
+    def sample_timeline(self, now: Optional[float] = None) -> dict:
+        """One timeline tick: a device-free rollup folded into the
+        timeline, the usage integrals brought current, one alert pass.
+        ``now`` overrides the sample's timestamp (deterministic tests);
+        the freshness clock reads the wall clock all the same."""
+        tl = self.timeline
+        if tl is None:
+            return {}
+        values = self.host_rollup()
+        t = tl.add_sample(values, now=now)
+        self.last_sample_unix_s = time.time()
+        if self.usage is not None:
+            self.usage.mark()
+        if self.alerts is not None:
+            self.alerts.evaluate(now=t)
+        return values
 
     # -- producers ---------------------------------------------------------
 
@@ -499,6 +557,8 @@ class TelemetrySession:
             out.update(self.goodput.rollup_keys())
         if self.usage is not None:
             out.update(self.usage.rollup_keys())
+        if self.alerts is not None:
+            out.update(self.alerts.rollup_keys())
         if self.config.device_memory:
             from .metrics import device_memory_stats
 
@@ -521,6 +581,8 @@ class TelemetrySession:
             out.update(self.goodput.rollup_keys())
         if self.usage is not None:
             out.update(self.usage.rollup_keys())
+        if self.alerts is not None:
+            out.update(self.alerts.rollup_keys())
         return out
 
     def flush(self) -> dict:
@@ -544,6 +606,9 @@ class TelemetrySession:
             if self.goodput is not None:
                 self.goodput.write_snapshot(os.path.join(
                     self.trace_dir, f"goodput-host{self.process_index}.json"))
+            if self.timeline is not None:
+                self.timeline.flush_jsonl(os.path.join(
+                    self.trace_dir, f"timeline-host{self.process_index}.jsonl"))
             if self.usage is not None:
                 self.usage.write_snapshot(os.path.join(
                     self.trace_dir, f"usage-host{self.process_index}.json"))
@@ -551,9 +616,10 @@ class TelemetrySession:
             pass
 
     def close(self):
-        """Detach the engines, stop the scrape thread, uninstall the flight
-        hooks, write the snapshots, drain the tracer (live requests become
-        ``evicted`` records) and disarm the spans and the ledger."""
+        """Detach the engines, stop the sampler and the scrape thread,
+        uninstall the flight hooks, write the snapshots, close the alert
+        log, drain the tracer (live requests become ``evicted`` records)
+        and disarm the spans and the ledger."""
         global _ACTIVE_SESSION
         if self._closed:
             return
@@ -562,11 +628,22 @@ class TelemetrySession:
             engine = ref()
             if engine is not None and getattr(engine, "telemetry", None) is self:
                 engine.telemetry = None  # a live server must not feed a closed session
+        if self._sampler is not None:
+            self._sampler.stop()
+        if self.timeline is not None and self.timeline.sample_count == 0:
+            # a session shorter than the sampling interval still leaves one
+            # sample behind
+            try:
+                self.sample_timeline()
+            except Exception:
+                pass
         if self.exporter is not None:
             self.exporter.close()
         if self.flight is not None:
             self.flight.uninstall_hooks()
         self._write_artifacts()
+        if self.alerts is not None:
+            self.alerts.close()
         if self.goodput is not None:
             from . import goodput as _goodput
 

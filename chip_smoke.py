@@ -25,7 +25,7 @@ must hold warpgroup matrix multiplies (HGMMA) and TMA tile loads
 (UTMALDG), or the run fails; the four decode libraries (paged and
 dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
 cp.async copies (LDGSTS), and ptxas must report no spills in them.
-Then it drives eleven
+Then it drives twelve
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -75,6 +75,21 @@ the patch, so their graphs replay the zeroed wrapper:
   ``ReplicaServer``, concurrent streams, ``/metrics`` carrying the
   session's TTFT / ITL histograms and usage meters with the right
   counts, and ``POST /v1/flight`` writing a bundle that parses;
+- the fleet: two small_1b ``ReplicaServer`` engines A and B on loopback
+  HTTP over one model, page 16: a bf16 handoff A -> B over
+  ``/v1/kv/export`` and ``/v1/kv/import`` (B's tokens and first-step
+  logits equal A's warm hits, B prefills only the tails), an int8
+  handoff (pages bit-equal, payloads and scales), a prefix demoted to
+  the host tier by another prompt and restored (tokens of a never-evicted
+  hit, pages back to baseline, no graph captured after warmup), a fresh
+  engine restoring from the disk blobs (a truncated copy rejected), a
+  peer pull through A's directory, then a ``RouterServer`` and its
+  ``FleetCollector`` over A and B: sessions held to their replica, A
+  drained (its sessions move to B with their KV), then killed with
+  streams in flight (re-queued onto B, each exactly its budget), A down
+  within one poll; the handoff's MB and MB/s, B's TTFT cold and after
+  the import, the restore batches' ms and the router's TTFT / ITL are
+  printed, its launches on their own line;
 - the replica: the paged engine behind the port's ``ReplicaServer`` on
   loopback HTTP, a sequential pass whose tokens and launches must equal
   the in-process engine's fed one request at a time, a concurrent wave
@@ -2561,6 +2576,503 @@ def telemetry_replica_path(dev, card: str, model, prompts):
         shutil.rmtree(trace_dir, ignore_errors=True)
 
 
+FLEET_PREFIX = 512      # tokens of the shared prefix the handoff moves (32 pages)
+FLEET_TAIL = 32         # each prompt's own tail after it
+FLEET_NEW = 16          # tokens generated a request in the handoff steps
+FLEET_TIER = (128, 16)  # the tier steps' prefix and tail (9 cache entries a prompt)
+FLEET_PREFIX_ENTRIES = 9  # the tier engine's prefix cache: one other prompt evicts the prefix
+FLEET_SESSIONS = 4      # router wave: sessions, requests a session, tokens a request
+FLEET_SESSION_REQS = 4
+FLEET_WAVE_NEW = 24
+FLEET_KILL_NEW = 1000   # the killed replica's in-flight streams: long enough to kill mid-stream
+
+
+def fleet_prompts(rng, vocab: int):
+    """The handoff steps' prompts: one shared prefix and its four tails."""
+    import numpy as np
+
+    shared = rng.randint(3, vocab, (FLEET_PREFIX,)).astype(np.int32)
+    return shared, [np.concatenate([shared, rng.randint(3, vocab, (FLEET_TAIL,))
+                                    .astype(np.int32)]) for _ in range(4)]
+
+
+def first_logits(model):
+    """A forward hook on ``model`` keeping the last row of every packed
+    prefill's logits (the row a lone request's first token is sampled
+    from): ``(rows, remove)``."""
+    rows = []
+
+    def hook(module, args, kwargs, out):
+        if kwargs.get("ragged_slots") is not None:
+            live = int((kwargs["cache_positions"][0] >= 0).sum().item())
+            rows.append(out[0, live - 1].float().clone())
+
+    handle = model.register_forward_hook(hook, with_kwargs=True)
+    return rows, handle.remove
+
+
+def serve_in_turn(engine, prompts, new_tokens: int):
+    """Each prompt submitted after the previous one finished: the requests."""
+    reqs = []
+    for p in prompts:
+        reqs.append(engine.submit(p, max_new_tokens=new_tokens))
+        engine.run()
+        if reqs[-1].outcome != "finished":
+            fail(f"fleet path: a request ended {reqs[-1].outcome}")
+    return reqs
+
+
+def wait_done(reqs, what: str):
+    """Poll requests a replica's loop thread serves until they finish."""
+    deadline = time.perf_counter() + REPLICA_HTTP_TIMEOUT
+    while not all(r.done for r in reqs):
+        if time.perf_counter() > deadline:
+            fail(f"fleet path: {what} did not finish")
+        time.sleep(0.002)
+    for r in reqs:
+        if r.outcome != "finished":
+            fail(f"fleet path: {what}: a request ended {r.outcome}")
+
+
+def never_evicted(model, prompt, hit_len: int, new_tokens: int, **eng_kw):
+    """The tokens of ``prompt`` admitted over a ``hit_len``-token prefix hit
+    whose pages were never evicted: a fresh tierless engine prefills the
+    whole prompt cold (as the evicting engine did), drops its cache entries
+    deeper than ``hit_len``, and serves the prompt again."""
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(model, **eng_kw)
+    serve_in_turn(eng, [prompt], 1)
+    for key, entry in list(eng._prefix.entries.items()):
+        if entry.token_len > hit_len:
+            eng._prefix.evict(key)
+    req = serve_in_turn(eng, [prompt], new_tokens)[0]
+    if req.prefix_hit != hit_len:
+        fail(f"fleet path: the never-evicted twin hit {req.prefix_hit}, not {hit_len}")
+    return list(req.tokens)
+
+
+def fleet_path(dev, card: str, model):
+    """KV tiers, the KV handoff and the router on small_1b (page 16, the
+    prefix cache, greedy), two in-process ReplicaServers A and B over one
+    model on loopback HTTP. Six steps, each failing the run on a miss:
+    (1) a bf16 handoff A -> B over ``/v1/kv/export`` and ``/v1/kv/import``:
+    B's tokens equal A's warm hits, its first-step logits bit for bit, its
+    prefill only the tails, #4 and #6 launched; (2) the same at int8 in
+    process: B's gathered pages equal A's bit for bit, payloads and scales;
+    (3) the host tier: a prefix evicted by other prompts, demoted, restored,
+    tokens equal a never-evicted hit, pages back to baseline, no graph
+    captured after warmup(); (4) the disk tier: a fresh engine over step 3's
+    blobs restores from one; a truncated copy is rejected and counted; (5)
+    the peer tier: an empty engine pulls the prefix through A's directory
+    and export; (6) a RouterServer over A and B with a FleetCollector: a
+    wave of sessions (affinity; held teacher-forced), A drained mid-wave
+    (its sessions move to B with their KV), then killed with streams in
+    flight (each continued on B after the tokens A delivered, exactly its
+    budget, and held teacher-forced as one sequence), marked down within
+    one poll. Returns the path's launches."""
+    import base64
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.serving import ReplicaServer
+    from accelerate_tpu_torch.serving.engine import Request, ServingEngine
+    from accelerate_tpu_torch.serving.pages import gather_pages
+    from accelerate_tpu_torch.serving.router import Router, RouterConfig, RouterServer
+    from accelerate_tpu_torch.serving.tiers import BLOB_SUFFIX, TierConfig, TieredStore
+    from accelerate_tpu_torch.telemetry.fleet import DOWN_STATES
+    from accelerate_tpu_torch.utils import cuda_graphs
+
+    cfg = model.config
+    rng = np.random.RandomState(17)
+    eng_kw = dict(num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                  prefill_chunks=(128, 512), device=dev)
+    tmp = tempfile.mkdtemp(prefix="fleet-path-")
+    servers, router, router_server = [], None, None
+    kernels.reset_launch_counts()
+
+    def since(mark):
+        return {k: n - mark[k] for k, n in kernels.launch_counts.items()}
+
+    try:
+        # (1) the bf16 handoff over HTTP
+        shared, prompts = fleet_prompts(rng, cfg.vocab_size)
+        cold_prompt = fleet_prompts(rng, cfg.vocab_size)[1][0]
+        eng_a, eng_b = ServingEngine(model, **eng_kw), ServingEngine(model, **eng_kw)
+        for eng in (eng_a, eng_b):
+            eng.warmup()
+        torch.cuda.synchronize()
+        serve_in_turn(eng_a, [shared], 1)
+        rows, unhook = first_logits(model)
+        try:
+            warm_a = serve_in_turn(eng_a, prompts, FLEET_NEW)
+            logits_a = list(rows)
+            rows.clear()
+            cold_b = serve_in_turn(eng_b, [cold_prompt], FLEET_NEW)[0]
+            rows.clear()
+            server_a = ReplicaServer(eng_a, name="A").start()
+            server_b = ReplicaServer(eng_b, name="B").start()
+            servers += [server_a, server_b]
+            t0 = time.perf_counter()
+            body = json.dumps({"tokens": [int(t) for t in shared]}).encode()
+            import urllib.request
+
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"{server_a.url}/v1/kv/export", data=body,
+                    headers={"Content-Type": "application/json"}),
+                    timeout=REPLICA_HTTP_TIMEOUT) as resp:
+                wire = resp.read()
+            export_ms = 1e3 * (time.perf_counter() - t0)
+            handoff = json.loads(wire)
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"{server_b.url}/v1/kv/import", data=wire,
+                    headers={"Content-Type": "application/json"}),
+                    timeout=REPLICA_HTTP_TIMEOUT) as resp:
+                installed = json.loads(resp.read())
+            import_ms = 1e3 * (time.perf_counter() - t0)
+            n_pages = FLEET_PREFIX // PAGE
+            if installed != {"installed_tokens": FLEET_PREFIX, "replica": "B"} or \
+                    handoff["n_pages"] != n_pages:
+                fail(f"fleet path: the handoff installed {installed}, {handoff['n_pages']} "
+                     f"pages, expected {FLEET_PREFIX} tokens in {n_pages} pages")
+            mark = dict(kernels.launch_counts)
+            packed0 = eng_b.prefill_packed_tokens
+            t_sub = time.perf_counter()
+            warm_b = [eng_b.submit(p, max_new_tokens=FLEET_NEW) for p in prompts[:1]]
+            wait_done(warm_b, "B's first imported hit")
+            ttft_import_ms = 1e3 * (warm_b[0].first_token_t - t_sub)
+            for p in prompts[1:]:
+                warm_b.append(eng_b.submit(p, max_new_tokens=FLEET_NEW))
+                wait_done(warm_b[-1:], "B's imported hits")
+            b_launches = since(mark)
+            logits_b = list(rows)
+        finally:
+            unhook()
+        if [r.tokens for r in warm_b] != [r.tokens for r in warm_a]:
+            fail("fleet path: B's tokens after the import differ from A's warm hits")
+        if len(logits_a) != 4 or len(logits_b) != 4 or \
+                not all(torch.equal(x, y) for x, y in zip(logits_a, logits_b)):
+            fail("fleet path: B's first-step logits differ from A's warm hits")
+        if any(r.prefix_hit != FLEET_PREFIX for r in warm_a + warm_b) or \
+                eng_b.prefill_packed_tokens - packed0 != 4 * FLEET_TAIL:
+            fail(f"fleet path: B prefilled {eng_b.prefill_packed_tokens - packed0} tokens "
+                 f"for 4 tails of {FLEET_TAIL}; hits {[r.prefix_hit for r in warm_b]}")
+        if not (b_launches["paged_decode"] and b_launches["ragged_prefill"]):
+            fail(f"fleet path: #4 / #6 not launched on B: {b_launches}")
+        mb = len(wire) / 1e6
+        print(f"fleet path (1) bf16 handoff on {card}: {FLEET_PREFIX} tokens, {n_pages} pages, "
+              f"{mb:.3f} MB of JSON ({sum(len(base64.b64decode(l['data'])) for l in handoff['leaves']) / 1e6:.3f} MB of pages); "
+              f"export {export_ms:.1f} ms ({mb / export_ms * 1e3:.1f} MB/s), import "
+              f"{import_ms:.1f} ms ({mb / import_ms * 1e3:.1f} MB/s); B's TTFT cold "
+              f"{1e3 * (cold_b.first_token_t - cold_b.submit_t):.2f} ms ({cold_b.prompt.size} "
+              f"tokens), after the import {ttft_import_ms:.2f} ms (prefix hit {FLEET_PREFIX}, "
+              f"tail {FLEET_TAIL}); 4 prompts' tokens and first-step logits equal A's warm "
+              f"hits; B launches {b_launches}")
+
+        # (2) the int8 handoff, in process
+        a8 = ServingEngine(model, kv_cache_dtype="int8", **eng_kw)
+        b8 = ServingEngine(model, kv_cache_dtype="int8", **eng_kw)
+        for eng in (a8, b8):
+            eng.warmup()
+        serve_in_turn(a8, [shared], 1)
+        warm_a8 = serve_in_turn(a8, prompts, FLEET_NEW)
+        h8 = json.loads(json.dumps(a8.export_prefix_kv(shared)))
+        if b8.import_prefix_kv(h8) != FLEET_PREFIX:
+            fail("fleet path: the int8 handoff was not installed")
+        _, ea = a8._prefix.peek(shared)
+        _, eb = b8._prefix.peek(shared)
+        pa, pb = gather_pages(a8._arena, ea.pages), gather_pages(b8._arena, eb.pages)
+        if len(pa) != 4 or not all(np.array_equal(x, y) for x, y in zip(pa, pb)):
+            fail("fleet path: B's int8 pages (payloads, scales) differ from A's")
+        mark = dict(kernels.launch_counts)
+        warm_b8 = serve_in_turn(b8, prompts, FLEET_NEW)
+        q_launches = since(mark)
+        if [r.tokens for r in warm_b8] != [r.tokens for r in warm_a8]:
+            fail("fleet path: int8 tokens after the import differ from A's warm hits")
+        if not (q_launches["paged_decode_quant"] and q_launches["ragged_prefill_quant"]):
+            fail(f"fleet path: the int8 entries of #4 / #6 were not launched: {q_launches}")
+        print(f"fleet path (2) int8 handoff: {len(json.dumps(h8)) / 1e6:.3f} MB of JSON, "
+              f"4 leaves ({', '.join(l['dtype'] for l in h8['leaves'])}) bit-equal after "
+              f"the import, tokens equal; launches {q_launches}")
+        del a8, b8, pa, pb, h8
+        gc.collect()
+
+        # (3) the host tier on one engine
+        tier_kw = dict(eng_kw, num_pages=257, prefix_max_entries=FLEET_PREFIX_ENTRIES)
+        disk = os.path.join(tmp, "kv")
+        n_pre, n_tail = FLEET_TIER
+        tier_prompt = rng.randint(3, cfg.vocab_size, (n_pre + n_tail,)).astype(np.int32)
+        other = rng.randint(3, cfg.vocab_size, (n_pre + n_tail,)).astype(np.int32)
+        eng_h = ServingEngine(model, kv_tiers=TierConfig(host_entries=4, disk_entries=64,
+                                                         disk_dir=disk), **tier_kw)
+        eng_h.warmup()
+        captured = cuda_graphs.capture_counters()["count"]
+        base_pages = eng_h._allocator.in_use
+        serve_in_turn(eng_h, [tier_prompt, other], 1)
+        if eng_h._tiers.demotions_host < 1:
+            fail("fleet path: other prompts did not demote the prefix")
+        # each restore batch's page installs, timed alone (the request's
+        # kv_restore_ms also holds the demotions its insert triggers)
+        from accelerate_tpu_torch.serving import engine as engine_mod
+
+        batch_ms, real_install = [], engine_mod.install_pages
+
+        def timed_install(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            real_install(*args)
+            torch.cuda.synchronize()
+            batch_ms.append(1e3 * (time.perf_counter() - t))
+
+        engine_mod.install_pages = timed_install
+        try:
+            restored = serve_in_turn(eng_h, [tier_prompt], FLEET_NEW)[0]
+        finally:
+            engine_mod.install_pages = real_install
+        if restored.kv_restore_tier != "host" or eng_h.kv_tier_hits["host"] < 1:
+            fail(f"fleet path: the prefix came from {restored.kv_restore_tier}, not host")
+        eng_h.drain()
+        eng_h._prefix.clear()
+        if eng_h._allocator.in_use != base_pages:
+            fail(f"fleet path: {eng_h._allocator.in_use} pages allocated after the drain, "
+                 f"{base_pages} before")
+        if cuda_graphs.capture_counters()["count"] != captured:
+            fail("fleet path: a graph was captured after the tier engine's warmup()")
+        twin = never_evicted(model, tier_prompt, restored.prefix_hit, FLEET_NEW, **tier_kw)
+        if restored.tokens != twin:
+            fail("fleet path: the host-restored tokens differ from a never-evicted hit")
+        print(f"fleet path (3) host tier: prefix hit {restored.prefix_hit} restored from host, "
+              f"{restored.kv_restore_pages} pages in {len(batch_ms)} batches of "
+              f"{eng_h._tiers.config.restore_batch_pages}: installs "
+              f"{', '.join(f'{ms:.3f}' for ms in batch_ms)} ms a batch; kv_restore_ms "
+              f"{restored.kv_restore_ms:.3f} (with the demotions the restored entries' "
+              f"insert set off); {eng_h._tiers.demotions_host} host, "
+              f"{eng_h._tiers.demotions_disk} disk demotions; tokens equal a never-evicted "
+              f"hit; pages back to {base_pages}; no capture after warmup()")
+        del eng_h
+        gc.collect()
+
+        # (4) the disk tier: a fresh engine over step 3's blobs
+        eng_d = ServingEngine(model, kv_tiers=TierConfig(host_entries=4, disk_entries=64,
+                                                         disk_dir=disk), **tier_kw)
+        if not eng_d._tiers.disk.entries:
+            fail("fleet path: the fresh engine found no blob of step 3's")
+        eng_d.warmup()
+        from_disk = serve_in_turn(eng_d, [tier_prompt], FLEET_NEW)[0]
+        if from_disk.kv_restore_tier != "disk":
+            fail(f"fleet path: the fresh engine restored from {from_disk.kv_restore_tier}")
+        if from_disk.tokens != never_evicted(model, tier_prompt, from_disk.prefix_hit,
+                                             FLEET_NEW, **tier_kw):
+            fail("fleet path: the disk-restored tokens differ from a never-evicted hit")
+        torn = os.path.join(tmp, "torn")
+        os.makedirs(torn)
+        blob = sorted(glob.glob(os.path.join(disk, "*" + BLOB_SUFFIX)))[0]
+        with open(blob, "rb") as src, open(os.path.join(torn, os.path.basename(blob)),
+                                            "wb") as dst:
+            dst.write(src.read()[: os.path.getsize(blob) // 2])
+        store = TieredStore(TierConfig(host_entries=1, disk_entries=4, disk_dir=torn),
+                            page_size=PAGE)
+        if store.disk_corrupt_dropped != 1 or store.disk.entries or os.listdir(torn):
+            fail("fleet path: a truncated blob was not rejected, counted and deleted")
+        print(f"fleet path (4) disk tier: a fresh engine found {len(eng_d._tiers.disk.entries)} "
+              f"blobs, restored prefix hit {from_disk.prefix_hit} from disk in "
+              f"{from_disk.kv_restore_ms:.3f} ms ({from_disk.kv_restore_pages} pages), tokens "
+              f"equal a never-evicted hit; a truncated copy rejected and counted")
+        del eng_d
+        gc.collect()
+
+        # (5) the peer tier: pull through A's directory and export
+        eng_p = ServingEngine(model, kv_tiers=TierConfig(host_entries=4, peers=(
+            ("A", server_a.url),)), **eng_kw)
+        eng_p.warmup()
+        pulled = serve_in_turn(eng_p, prompts[:1], FLEET_NEW)[0]
+        if pulled.kv_restore_tier != "peer" or eng_p.kv_tier_hits["peer"] < 1 or \
+                eng_p.kv_pages_imported != pulled.kv_restore_pages or \
+                pulled.kv_restore_pages != -(-pulled.prefix_hit // PAGE):
+            fail(f"fleet path: the peer pull gave tier {pulled.kv_restore_tier}, "
+                 f"{eng_p.kv_pages_imported} pages imported for a {pulled.prefix_hit}-token hit")
+        gap, _, _ = teacher_forced(model, [pulled], FLEET_NEW, dev)
+        if not math.isfinite(gap) or gap > TOP2_MARGIN:
+            fail(f"fleet path: a token after the peer pull is {gap} below the argmax")
+        print(f"fleet path (5) peer tier: pulled a {pulled.prefix_hit}-token prefix "
+              f"({eng_p.kv_pages_imported} pages) from A in {pulled.kv_restore_ms:.3f} ms; "
+              f"teacher-forced worst gap {gap:.4f}")
+        del eng_p
+        gc.collect()
+
+        # (6) the router over A and B. B's own requests are kept by id: a
+        # stream re-queued onto B is A's tokens up to the kill, then B's
+        # continuation of them
+        b_reqs, b_submit = {}, eng_b.submit
+
+        def kept_submit(*args, **kw):
+            req = b_submit(*args, **kw)
+            b_reqs[kw.get("request_id")] = req
+            return req
+
+        eng_b.submit = kept_submit
+        router = Router({"A": server_a.url, "B": server_b.url},
+                        config=RouterConfig(backoff_base_s=0.01, backoff_cap_s=0.05,
+                                            max_retries=6, poll_interval_s=0.1)).start()
+        router_server = RouterServer(router)
+        front = f"http://127.0.0.1:{router_server.port}"
+        router.collector.poll_once()
+        sessions = []
+        for s in range(FLEET_SESSIONS):
+            base = rng.randint(3, cfg.vocab_size, (256,)).astype(np.int32)
+            sessions.append([np.concatenate([base, rng.randint(3, cfg.vocab_size, (16 * (i + 1),))
+                                             .astype(np.int32)])
+                             for i in range(FLEET_SESSION_REQS)])
+        done = {}
+
+        progress = {}  # tokens each stream's client has received so far
+
+        def one(s, i, new_tokens, on_token=None):
+            body = {"prompt": [int(t) for t in sessions[s][i]], "max_new_tokens": new_tokens,
+                    "session": f"s{s}", "request_id": f"s{s}-{i}"}
+
+            def arrived(k):
+                progress[(s, i)] = k + 1
+                if on_token is not None:
+                    on_token(k)
+
+            events, sent, times = http_stream(f"{front}/v1/submit", body, arrived)
+            done[(s, i)] = (events, sent, times, new_tokens)
+
+        def wave(i, new_tokens, on_token=None, which=range(FLEET_SESSIONS)):
+            threads = [threading.Thread(target=one, args=(s, i, new_tokens, on_token),
+                                        daemon=True) for s in which]
+            for t in threads:
+                t.start()
+            return threads
+
+        def joined(threads, what):
+            for t in threads:
+                t.join(REPLICA_HTTP_TIMEOUT)
+            if any(t.is_alive() for t in threads):
+                fail(f"fleet path: {what}: a client hung")
+
+        t_wave = time.perf_counter()
+        # the first half of the sessions starts on the idle fleet; the rest
+        # once the collector ranks the other replica first under that load
+        half = FLEET_SESSIONS // 2
+        idle_first = router.collector.placement_view()[0]["replica"]
+        first = wave(0, FLEET_WAVE_NEW * 4, which=range(half))
+        deadline = time.perf_counter() + REPLICA_HTTP_TIMEOUT
+        while router.collector.placement_view()[0]["replica"] == idle_first:
+            if time.perf_counter() > deadline or all((s, 0) in done for s in range(half)):
+                fail("fleet path: the collector never ranked the other replica first under "
+                     "the first sessions' load")
+            time.sleep(0.01)
+        joined(first + wave(0, FLEET_WAVE_NEW * 4, which=range(half, FLEET_SESSIONS)),
+               "router wave 0")
+        joined(wave(1, FLEET_WAVE_NEW), "router wave 1")
+        placed = {s: [done[(s, i)][0][-1]["replica"] for i in range(2)]
+                  for s in range(FLEET_SESSIONS)}
+        if any(a != b for a, b in placed.values()):
+            fail(f"fleet path: a session's second request left its replica: {placed}")
+        on_a = [s for s, (r, _) in placed.items() if r == "A"]
+        if not on_a or len(on_a) == FLEET_SESSIONS:
+            fail(f"fleet path: the wave did not spread over both replicas: {placed}")
+        # request 2: long streams; once A's are flowing, drain A and send
+        # request 3, whose A sessions move to B with their KV
+        flowing = threading.Event()
+        long_threads = wave(2, FLEET_KILL_NEW, on_token=lambda k: k >= 8 and flowing.set())
+        if not flowing.wait(REPLICA_HTTP_TIMEOUT):
+            fail("fleet path: the long streams never started")
+        imported0 = eng_b.kv_pages_imported
+        server_a.request_drain()
+        deadline = time.perf_counter() + 30
+        while any(r["replica"] == "A" for r in router.collector.placement_view()):
+            if time.perf_counter() > deadline:
+                fail("fleet path: the collector never saw A drain")
+            time.sleep(0.02)
+        last_threads = wave(3, FLEET_WAVE_NEW)
+        # A dies once its sessions' KV has moved, its long streams still
+        # in flight: they re-queue onto B
+        deadline = time.perf_counter() + REPLICA_HTTP_TIMEOUT
+        while router.kv_migrations < len(on_a):
+            if time.perf_counter() > deadline:
+                fail(f"fleet path: {router.kv_migrations} KV migrations for {len(on_a)} "
+                     "sessions on the draining replica")
+            time.sleep(0.005)
+        in_flight = [s for s in on_a if (s, 2) not in done]
+        at_kill = {f"s{s}-2": progress.get((s, 2), 0) for s in in_flight}
+        server_a.kill()
+        joined(last_threads, "router wave 3")
+        moved = {s: done[(s, 3)][0][-1]["replica"] for s in on_a}
+        if set(moved.values()) != {"B"} or eng_b.kv_pages_imported <= imported0:
+            fail(f"fleet path: A's sessions went to {moved}, B imported "
+                 f"{eng_b.kv_pages_imported - imported0} pages")
+        joined(long_threads, "the killed replica's streams")
+        wall = time.perf_counter() - t_wave
+        router.collector.poll_once()
+        state = router.collector.replicas["A"].state
+        if state not in DOWN_STATES:
+            fail(f"fleet path: the collector reads A as {state} one poll after the kill")
+        reqs, splices = [], []
+        for (s, i), (events, _, _, new_tokens) in sorted(done.items()):
+            rid = f"s{s}-{i}"
+            toks = replica_stream_done(f"router request {rid}", events, new_tokens)
+            if events[-1]["request_id"] != rid:
+                fail(f"fleet path: stream {rid} finished as {events[-1]['request_id']}")
+            # every stream is held whole: a re-queued one too, as one sequence
+            reqs.append(Request(prompt=sessions[s][i], max_new_tokens=new_tokens, tokens=toks))
+            if not events[-1]["requeues"]:
+                continue
+            # re-queued: B continued after the k tokens A had delivered, so
+            # B's request is the prompt + those k, and its tokens the rest
+            cont, seen = b_reqs[rid], at_kill.get(rid, 0)
+            k = cont.prompt.size - sessions[s][i].size
+            resumed = np.concatenate([sessions[s][i], np.asarray(toks[:max(k, 0)], np.int32)])
+            if k < seen or not np.array_equal(cont.prompt, resumed) or \
+                    list(cont.tokens) != toks[k:]:
+                fail(f"fleet path: B's request {rid} is not the stream's continuation after "
+                     f"its first {k} tokens (its client had {seen} at the kill)")
+            splices.append((rid, seen, k))
+        if not in_flight or len(splices) < len(in_flight):
+            fail(f"fleet path: {len(in_flight)} streams in flight on A at the kill, "
+                 f"{len(splices)} re-queued")
+        worst = max(teacher_forced(model, [r], r.max_new_tokens, dev)[0] for r in reqs)
+        if not math.isfinite(worst) or worst > TOP2_MARGIN:
+            fail(f"fleet path: a routed token is {worst} logits below the plain argmax")
+        m = router.metrics()
+        print(f"fleet path (6) router: re-queued streams (id, tokens its client had at the "
+              f"kill, tokens A had delivered where B continued): {splices}")
+        ttfts = sorted((1e3 * (times[0] - sent), f"s{s}-{i}")
+                       for (s, i), (_, sent, times, _) in done.items())
+        print(f"fleet path (6) router: client TTFT per stream (ms, slowest last): "
+              f"{', '.join(f'{rid} {ms:.1f}' for ms, rid in ttfts)}")
+        print(f"fleet path (6) router on {card}: {len(done)} streams in {FLEET_SESSIONS} "
+              f"sessions over {wall:.3f} s, affinity held, sessions on A {on_a} moved to B "
+              f"with {router.kv_migrations} KV migrations ({eng_b.kv_pages_imported - imported0} "
+              f"pages), {len(splices)} streams re-queued after the kill (in flight on A: "
+              f"{len(in_flight)}), A {state} one poll after; router TTFT p50 / p99 "
+              f"{m['router/ttft_p50_ms']:.2f} / {m['router/ttft_p99_ms']:.2f} ms, ITL p50 / p99 "
+              f"{m['router/itl_p50_ms']:.3f} / {m['router/itl_p99_ms']:.3f} ms; collector "
+              f"{router.collector.polls} polls; teacher-forced worst gap {worst:.4f} "
+              f"(margin {TOP2_MARGIN})")
+        return dict(kernels.launch_counts)
+    finally:
+        if router_server is not None:
+            router_server.close()
+        if router is not None:
+            router.close()
+        for server in servers:
+            server.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def profile_prefill(model, eng_kw, prompts, new_tokens: int, card: str):
     """The ragged prefill kernel's share of one served run of ``prompts``:
     torch.profiler's device-side events over the whole run, the kernel's
@@ -3974,6 +4486,9 @@ def main():
     timed("scheduled path", scheduled_path, dev, card, model)
     timed("telemetry replica path", telemetry_replica_path, dev, card, model,
           serving["prompts"])
+    # the fleet path's launches stay off the kernels line too, as the replica's
+    fleet_launches = timed("fleet path", fleet_path, dev, card, model)
+    print(f"fleet path launches: {json.dumps(fleet_launches)}")
     del serving, model
     gc.collect()
     torch.cuda.empty_cache()

@@ -273,11 +273,19 @@ def test_later_slices_raise():
             Accelerator(mixed_precision=mode, device="cpu")
     cfg = DecoderConfig.tiny()
     model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
-    for kw, what in (({"kv_tiers": object()}, "KV tiers"),
-                     ({"param_placer": object()}, "dispatched"),
+    for kw, what in (({"param_placer": object()}, "dispatched"),
                      ({"donate": True}, "buffer donation")):
         with pytest.raises(NotImplementedError, match=what):
             ServingEngine(model, max_cache_len=64, device="cpu", **kw)
+    # KV tiers are this port's now (tests/test_torch_kv_tiers.py): on the
+    # paged arena they build the store; the flat arena has no prefix cache
+    from accelerate_tpu_torch.serving.tiers import TierConfig, TieredStore
+
+    eng = ServingEngine(model, max_cache_len=64, device="cpu", page_size=8,
+                        kv_tiers=TierConfig(host_entries=4))
+    assert isinstance(eng._tiers, TieredStore) and eng._prefix.on_evict is not None
+    with pytest.raises(ValueError, match="paged arena"):
+        ServingEngine(model, max_cache_len=64, device="cpu", kv_tiers=TierConfig())
     # the multi-tenant scheduler and fault injection are this port's now
     # (tests/test_torch_scheduled_serving.py), on both arenas
     from accelerate_tpu_torch.serving import FaultInjector, SchedulerConfig

@@ -541,8 +541,11 @@ def test_gauges_match_the_reference_engine(served, arena):
 def test_metrics_health_flight_endpoints(served):
     """``/metrics`` is Prometheus text carrying the load score, ``/v1/health``
     carries the reference's five keys, ``/v1/flight`` answers ok false
-    (no telemetry session, so no flight recorder) and the KV endpoints are
-    404."""
+    (no telemetry session, so no flight recorder), and the KV endpoints
+    answer with the reference's codes: the directory lists the served
+    prompt's prefixes, an export of it is a handoff that imports back, an
+    export of uncached tokens is 404 and an import that does not fit the
+    arena is 409."""
     _, _, model, prompts = served
     engine = _engine(model, "paged")
     server = ReplicaServer(engine, name="m").start()
@@ -564,14 +567,21 @@ def test_metrics_health_flight_endpoints(served):
         flight = _post(f"{server.url}/v1/flight", {"reason": "probe"})[0]
         assert flight == {"ok": False, "replica": "m", "reason": "probe"}
         assert not engine.flight_dump("probe")
-        for method, path in (("GET", "/v1/kv/directory"), ("POST", "/v1/kv/export"),
-                             ("POST", "/v1/kv/import")):
+        directory = json.loads(_get(f"{server.url}/v1/kv/directory"))
+        assert (directory["replica"], directory["page_size"]) == ("m", PAGE)
+        assert {row["token_len"] for row in directory["prefixes"]} == {4, 8, 12}
+        prompt = [int(t) for t in prompts[0]]
+        handoff = _post(f"{server.url}/v1/kv/export", {"tokens": prompt})[0]
+        assert (handoff["token_len"], handoff["n_pages"]) == (12, 3)
+        installed = _post(f"{server.url}/v1/kv/import", handoff)[0]
+        assert installed == {"installed_tokens": 12, "replica": "m"}
+        for path, body, code in (("/v1/kv/export", {"tokens": [1, 2, 3, 4, 5]}, 404),
+                                 ("/v1/kv/import", {}, 409),
+                                 ("/v1/kv/import", {"version": 1}, 409),
+                                 ("/v1/kv/import", {**handoff, "page_size": 8}, 409)):
             with pytest.raises(urllib.error.HTTPError) as err:
-                if method == "GET":
-                    _get(f"{server.url}{path}")
-                else:
-                    _post(f"{server.url}{path}", {})
-            assert err.value.code == 404
+                _post(f"{server.url}{path}", body)
+            assert err.value.code == code
     finally:
         server.close()
 
@@ -639,7 +649,9 @@ def test_cli_device_rules(monkeypatch):
     """Without ``--device`` the replica means CUDA and raises without it
     (before any model is built); on CUDA ``tiny`` fails the decode
     kernels' gate with an error that names the config and the gate; the
-    KV-tier flags and the router are later slices; `--steps-per-call` builds."""
+    KV-tier flags build the tiers (not on the flat arena, and the disk tier
+    not without its directory); `--steps-per-call` builds; the router role
+    builds a router, but not with the canary prober, a later slice."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_cli.build_replica_engine(_args("--config", "small_1b"))
@@ -648,12 +660,28 @@ def test_cli_device_rules(monkeypatch):
         with pytest.raises(ValueError, match=r"--config tiny cannot serve on cuda.*gate.*"
                                              r"head_dim 16"):
             serve_cli.build_replica_engine(_args("--config", "tiny", "--page-size", page))
-    with pytest.raises(NotImplementedError, match="KV tiers"):
-        serve_cli.build_replica_engine(_args("--device", "cpu", "--kv-host-entries", "4"))
+    tiered = serve_cli.build_replica_engine(_args("--device", "cpu", "--kv-host-entries", "4",
+                                                  "--kv-peers", "A=http://127.0.0.1:1"))
+    assert tiered._tiers.config.host_entries == 4
+    assert tiered._tiers.config.peers == (("A", "http://127.0.0.1:1"),)
+    with pytest.raises(ValueError, match="paged arena"):
+        serve_cli.build_replica_engine(_args("--device", "cpu", "--page-size", "0",
+                                             "--kv-host-entries", "4"))
+    with pytest.raises(ValueError, match="--kv-disk-dir"):
+        serve_cli.build_replica_engine(_args("--device", "cpu", "--kv-disk-entries", "4"))
     # decode bursts are this port's now
     assert serve_cli.build_replica_engine(
         _args("--device", "cpu", "--steps-per-call", "2")).steps_per_call == 2
-    assert serve_cli.main(["router"]) == 1
+    parser = argparse.ArgumentParser()
+    serve_cli.register(parser)
+    router = serve_cli.build_router(parser.parse_args(
+        ["router", "--replica", "A=http://127.0.0.1:1", "--poll-interval", "60"]))
+    try:
+        assert list(router._replicas) == ["A"] and router.config.poll_interval_s == 60
+    finally:
+        router.close()
+    with pytest.raises(NotImplementedError, match="canary"):
+        serve_cli.build_router(parser.parse_args(["router", "--canary-interval", "1"]))
 
 
 def test_loop_exception_is_reraised(served, monkeypatch):

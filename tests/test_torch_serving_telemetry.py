@@ -502,6 +502,25 @@ def test_checkpoint_phases_billed_to_goodput(tmp_path):
     ("flops_per_token", 1e9, "4b(ii)"),
 ])
 def test_unported_parts_raise_when_asked_for(field, value, owner):
+    """The parts still unported raise, naming their owner. The ops plane's
+    timeline and alerts (4b(iii)) are ported now: their fields build the
+    part as asked (the reference's behaviour) instead of raising."""
+    if owner == "4b(iii)":
+        session = TelemetrySession(TelemetryConfig(flight_hooks=False, **{field: value}))
+        try:
+            if field == "alert_rules":
+                assert session.alerts.rules == []
+            elif field == "alert_itl_slo_ms":
+                assert any(getattr(r, "slo", None) == value for r in session.alerts.rules)
+            elif field == "timeline_tiers":
+                assert (session.timeline.raw_interval_s, session.timeline.raw.maxlen,
+                        session.timeline.tiers) == (1.0, 8, [])
+            else:
+                assert session._sampler.interval_s == value
+        finally:
+            session.close()
+        assert current_session() is None
+        return
     with pytest.raises(NotImplementedError, match=owner.replace("(", r"\(").replace(")", r"\)")):
         TelemetrySession(TelemetryConfig(**{field: value}))
     assert current_session() is None
@@ -509,15 +528,17 @@ def test_unported_parts_raise_when_asked_for(field, value, owner):
 
 def test_defaults_build_nothing_unported_and_name_it():
     """Left at their defaults, the later parts are not built and
-    ``unported`` names each with its owner; every field of the reference's
-    config exists at the reference's default."""
+    ``unported`` names each with its owner, while the ported timeline and
+    alerts are built as the reference builds them; every field of the
+    reference's config exists at the reference's default."""
     import dataclasses
 
     session = TelemetrySession(TelemetryConfig())
     try:
-        assert set(session.unported) == {"timeline", "alerts", "forensics", "cost_registry",
-                                         "watchdog", "capture_window", "training_telemetry"}
-        assert session.timeline is session.alerts is session.costs is None
+        assert set(session.unported) == {"forensics", "cost_registry", "watchdog",
+                                         "capture_window", "training_telemetry"}
+        assert session.timeline is not None and session.alerts is not None
+        assert session.costs is None
         assert session.watchdog is session.capture is session.forensics is None
         assert session.recorder is None  # no trace_dir: no span file
     finally:
