@@ -18,14 +18,26 @@ the config must pass the decode kernels' gate, which is checked before a
 port is bound too: ``tiny`` (head_dim 16) serves only with
 ``--device cpu``. ``--kv-host-entries`` / ``--kv-disk-entries`` /
 ``--kv-disk-dir`` / ``--kv-peers`` put KV tiers under the prefix cache.
+``--invariant-prefill`` makes a prompt's tokens the same bits on every
+admission and replica (``ServingEngine(invariant_prefill=True)``), which a
+token-exact canary needs on CUDA. ``--telemetry-dir DIR`` attaches a
+telemetry session whose artifacts land in DIR (the request records a
+waterfall joins, the timeline, the alerts, the flight bundles ``POST
+/v1/flight`` dumps); ``/metrics`` then carries its histograms. (The
+reference's replica builds no session; an embedder attaches one.)
 
     python -m accelerate_tpu_torch.commands.serve router \
         --replica A=http://127.0.0.1:8901 --replica B=http://127.0.0.1:8902
 
 runs the router (``serving/router.py``, which imports neither torch nor
-numpy) and prints ``{"role", "port", "replicas", "canary", "log_dir"}``;
-the canary prober is a later slice, and ``--canary-interval`` above 0
-raises.
+numpy) and prints ``{"role", "port", "replicas", "canary", "log_dir"}``.
+``--canary-interval S`` attaches a canary prober (``telemetry/canary.py``)
+that sends the golden prompt (``--canary-prompt``, ``--canary-seed``,
+``--canary-max-new-tokens``) through the router every S seconds and holds
+each reply token for token to the first one it recorded; its ``canary/*``
+gauges join the router's ``/metrics``, its results
+``canary-results.jsonl`` under ``--log-dir``, and a failing probe dumps
+the flight recorder of the replica that served it.
 """
 
 from __future__ import annotations
@@ -65,12 +77,22 @@ def register(parser):
                         help="disable the KV handoff when a session moves off a "
                              "draining replica")
     router.add_argument("--log-dir", default=None, metavar="DIR",
-                        help="write router-requests.jsonl and router-decisions.jsonl here")
+                        help="write router-requests.jsonl (the latency waterfall's "
+                             "router half), router-decisions.jsonl and "
+                             "canary-results.jsonl here")
     router.add_argument("--no-instrument", action="store_true",
                         help="disable golden-signal histograms, hop stamps and the "
                              "decision log")
     router.add_argument("--canary-interval", type=float, default=0.0, metavar="S",
-                        help="the canary prober (a later slice: above 0 raises)")
+                        help="probe the fleet with a seeded golden prompt every S "
+                             "seconds, verifying token-exactness (0 = off); gauges "
+                             "land on /metrics as canary/*")
+    router.add_argument("--canary-prompt", default="1,2,3",
+                        help="comma-separated golden prompt token ids (the first "
+                             "finished probe records the golden output every later "
+                             "probe must reproduce)")
+    router.add_argument("--canary-max-new-tokens", type=int, default=8)
+    router.add_argument("--canary-seed", type=int, default=0)
 
     replica = sub.add_parser(
         "replica", help="one engine process behind HTTP (random weights from "
@@ -121,6 +143,15 @@ def register(parser):
                          help="random-weight seed (two replicas launched with "
                               "the same config and seed serve the same weights)")
     replica.add_argument("--max-seq-len", type=int, default=256)
+    replica.add_argument("--invariant-prefill", action="store_true",
+                         help="lay prefills out so a prompt's tokens are the same bits "
+                              "on every admission and replica (prefix hits round down "
+                              "to the prefill kernel's 64-position kv tile, packed tails "
+                              "start on one): what a token-exact canary needs on CUDA")
+    replica.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                         help="attach a telemetry session writing its artifacts "
+                              "(requests-host0.jsonl, timeline, alerts, flight "
+                              "bundles) here")
     parser.set_defaults(func=serve_command)
 
 
@@ -145,13 +176,10 @@ def _parse_replica_flags(values) -> list:
 
 def build_router(args):
     """The :class:`~..serving.router.Router` the ``router`` role serves,
-    started (its fleet collector polling). Imports no torch."""
+    started (its fleet collector polling), with a started canary prober
+    attached when ``--canary-interval`` is above 0. Imports no torch."""
     from ..serving.router import Router, RouterConfig
 
-    if args.canary_interval and args.canary_interval > 0:
-        raise NotImplementedError(
-            "--canary-interval: the canary prober belongs to a later slice of the "
-            "port (ROADMAP queue 1 item 5(b))")
     cfg = RouterConfig(
         max_inflight=args.max_inflight, max_retries=args.max_retries,
         backoff_base_s=args.backoff_base, backoff_cap_s=args.backoff_cap,
@@ -160,7 +188,21 @@ def build_router(args):
         migrate_session_kv=not args.no_kv_migration,
         instrument=not args.no_instrument, log_dir=args.log_dir,
     )
-    return Router(_parse_replica_flags(args.replica), config=cfg).start()
+    router = Router(_parse_replica_flags(args.replica), config=cfg).start()
+    if args.canary_interval and args.canary_interval > 0:
+        from ..telemetry.canary import CanaryProber, flight_via_router, via_router
+
+        prompt = [int(t) for t in str(args.canary_prompt).split(",") if t.strip()]
+        prober = CanaryProber(
+            via_router(router),
+            [{"prompt": prompt, "seed": int(args.canary_seed),
+              "max_new_tokens": int(args.canary_max_new_tokens)}],
+            interval_s=float(args.canary_interval),
+            log_dir=args.log_dir,
+            flight_fn=flight_via_router(router),
+        ).start()
+        router.attach_canary(prober)
+    return router
 
 
 def _serve_router(args) -> int:
@@ -172,7 +214,8 @@ def _serve_router(args) -> int:
     router = build_router(args)
     server = RouterServer(router, host=args.host, port=args.port)
     print(json.dumps({"role": "router", "port": server.port,
-                      "replicas": len(args.replica), "canary": False,
+                      "replicas": len(args.replica),
+                      "canary": router.canary is not None,
                       "log_dir": args.log_dir}), flush=True)
     stop = threading.Event()
     try:
@@ -251,12 +294,20 @@ def build_replica_engine(args):
         replica=args.name,
         device=dev,
         kv_tiers=kv_tiers,
+        invariant_prefill=bool(getattr(args, "invariant_prefill", False)),
     )
 
 
 def _serve_replica(args) -> int:
     from ..serving.replica_server import ReplicaServer
 
+    session = None
+    if getattr(args, "telemetry_dir", None):
+        from ..telemetry import TelemetryConfig, TelemetrySession
+
+        # SIGTERM stays the server's (drain, then exit): no flight hooks
+        session = TelemetrySession(TelemetryConfig(trace_dir=args.telemetry_dir,
+                                                   flight_hooks=False))
     engine = build_replica_engine(args)
     # the kernels' build and, on CUDA, the capture of the decode (or
     # verify) step's graph happen here, before a port is bound: no request
@@ -277,6 +328,8 @@ def _serve_replica(args) -> int:
         pass
     finally:
         server.close()
+        if session is not None:
+            session.close()
     return 0
 
 

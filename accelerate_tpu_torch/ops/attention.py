@@ -63,6 +63,10 @@ FLASH_KERNEL_HEAD_DIMS = (64, 128)
 FLASH_KERNEL_SEQ_MULTIPLE = 64
 # head dims the ragged prefill kernels take (one or two 64-column boxes)
 PREFILL_KERNEL_HEAD_DIMS = (64, 128)
+# the ragged prefill kernels' kv tile: a packed row walks its slot's arena
+# prefix in 64-position tiles from position 0, then the slot's fresh rows
+# in 64-row tiles of the pack, with an online softmax over the tiles
+PREFILL_KV_TILE = 64
 
 
 def mha_reference(

@@ -125,7 +125,8 @@ import torch
 from ..generation import _sample
 from ..models.decoder import resolve_device
 from ..ops import kernels
-from ..ops.attention import PREFILL_TOKEN_BLOCK
+from ..ops.attention import PREFILL_KV_TILE, PREFILL_TOKEN_BLOCK
+from ..telemetry.capacity import CapacityModel
 from ..telemetry.fleet import load_score
 from ..utils import cuda_graphs
 from ..utils.quantization import kv_cache_bits
@@ -254,7 +255,17 @@ class ServingEngine:
     :class:`~.faults.FaultInjector`) is consulted at each step and before
     each dispatch. ``kv_tiers`` (paged arena; a
     :class:`~.tiers.TierConfig`, or a built :class:`~.tiers.TieredStore`)
-    puts the host / disk / peer tiers under the prefix cache. ``telemetry`` is a
+    puts the host / disk / peer tiers under the prefix cache.
+    ``invariant_prefill=True`` (paged arena; a port option) lays every
+    prefill out so that each prompt row's attention walks the same
+    64-position kv tiles whatever its prefix hit and its pack neighbours:
+    prefix hits round down to a multiple of
+    :data:`~..ops.attention.PREFILL_KV_TILE` and each co-admitted tail starts
+    on a tile of the pack. A prompt's tokens are then the same bits on
+    every admission and every replica over the same weights, which the
+    canary's token-exact goldens need on CUDA, where the kernel's online
+    softmax rounds by tile; it costs up to 63 re-prefilled positions a
+    prefix hit and up to 63 pad rows a co-admitted tail. ``telemetry`` is a
     :class:`~accelerate_tpu_torch.telemetry.TelemetrySession` (default: the
     process's ``current_session()``, if any), attached by weak reference.
     """
@@ -289,6 +300,7 @@ class ServingEngine:
         faults=None,
         telemetry=None,
         kv_tiers=None,
+        invariant_prefill: bool = False,
         **later,
     ):
         if later:
@@ -330,9 +342,13 @@ class ServingEngine:
         self._prefix = None
         self._tiers = None
         self.replica = str(replica) if replica else None
+        # the prefix hits' and the packed tails' alignment (1: none)
+        self._prefill_align = PREFILL_KV_TILE if invariant_prefill else 1
         if not page_size:
             if kv_tiers is not None:
                 raise ValueError("KV tiers need the paged arena; pass page_size=...")
+            if invariant_prefill:
+                raise ValueError("invariant_prefill needs the paged arena; pass page_size=...")
             self.page_size = None
             self._arena = init_arena(model, self.num_slots, self.max_cache_len,
                                      self.kv_cache_dtype)
@@ -396,6 +412,8 @@ class ServingEngine:
         self.requests_completed = 0
         self.requests_shed = 0
         self.requests_cancelled = 0
+        self._capacity_model = CapacityModel()
+        self._capacity_lock = threading.Lock()  # metrics() runs on scrape threads too
         self.preemptions = 0
         self.resumptions = 0
         self.generated_tokens = 0
@@ -1094,11 +1112,13 @@ class ServingEngine:
         hit_len, entry = 0, None
         if self._prefix is not None:
             hit_len, entry = self._prefix.lookup(seq, limit=seq.size - 1)
+            align = self._prefill_align
+            hit_len -= hit_len % align
             # the tail plan must still fit the slot
             while hit_len and (
                 hit_len + self._plan_cover(seq.size - hit_len) > self.max_cache_len
             ):
-                hit_len = max(0, hit_len - self.page_size)
+                hit_len = max(0, hit_len - max(self.page_size, align))
             # a hit whose tail needs more prefill dispatches than the cold
             # plan is a TTFT loss, not a win: decline it
             if hit_len and len(self._plan_chunks(seq.size - hit_len)) > cold_chunks:
@@ -1522,13 +1542,19 @@ class ServingEngine:
         # always whole, so every co-admit completes in this dispatch
         packs = [[req, slot, cur, cur + n, True, seq]]
         used = -(-n // bt) * bt
+        align = self._prefill_align
+
+        def aligned(rows: int) -> int:
+            # where the next packed tail starts (a kv tile under invariant_prefill)
+            return -(-rows // align) * align
+
         # co-admission is FIFO only (a scheduler's pick stays one at a
         # time) and off under KV tiers (a tier probe may stage a restore,
         # which needs the admission to itself)
         while (self._sched is None and self._tiers is None and self._free
-               and self._queue and used + bt <= cap_max):
+               and self._queue and aligned(used) + bt <= cap_max):
             nxt = self._queue[0]
-            if used + -(-int(nxt.prompt.size) // bt) * bt > cap_max:
+            if aligned(used) + -(-int(nxt.prompt.size) // bt) * bt > cap_max:
                 break
             self._queue.popleft()
             slot2 = self._free.pop()
@@ -1549,7 +1575,7 @@ class ServingEngine:
             if tr is not None:
                 tr.on_admission(nxt, slot2, time.perf_counter() - nxt.submit_t)
             packs.append([nxt, slot2, hit2, hit2 + n2, False, nxt.prompt])
-            used += -(-n2 // bt) * bt
+            used = aligned(used) + -(-n2 // bt) * bt
         rcap = next(c for c in self._ragged_caps if c >= used)
         ids = np.zeros((1, rcap), np.int64)
         row_slot = np.full((rcap,), -1, np.int32)
@@ -1558,6 +1584,7 @@ class ServingEngine:
         last_rows = {}
         r = 0
         for _, psl, s0, s1, _, pseq in packs:
+            r = aligned(r)
             nseg = s1 - s0
             nb = -(-nseg // bt)
             ids[0, r:r + nseg] = pseq[s0:s1]
@@ -2001,6 +2028,10 @@ class ServingEngine:
             # per step: a burst's wall over its K steps
             out["serving/decode_step_ms_p50"] = 1e3 * float(
                 np.median([w / k for w, _, k in samples]))
+        # the denominator of the shed-rate burn alert and the arrival trend
+        # the autoscaler reads: every request that reached an outcome
+        out["serving/requests_terminal"] = (
+            self.requests_completed + self.requests_shed + self.requests_cancelled)
         ttft = list(self._ttft)
         if ttft:
             out["serving/ttft_ms_p50"] = 1e3 * float(np.median(ttft))
@@ -2049,8 +2080,15 @@ class ServingEngine:
             free_pages=out.get("serving/free_pages"),
             pages_total=self.num_pages if self.page_size else None,
             itl_recent_p99_ms=out.get("serving/itl_recent_p99_ms"),
+            itl_slo_ms=self._sched.config.itl_slo_ms if self._sched is not None else None,
             draining=self._draining,
         )
+        # sustainable rate and headroom (telemetry/capacity.py), the
+        # autoscaler's inputs. The roofline registry that would feed the
+        # model's exe/decode_step_* fallback is ROADMAP queue 1 item 11, so
+        # the measured step wall is the model's only roofline input.
+        with self._capacity_lock:
+            out.update(self._capacity_model.observe(out))
         return out
 
 

@@ -290,6 +290,8 @@ class Router:
             read_timeout_s=self.config.read_timeout_s,
         )
         self._faults = faults
+        self.canary = None          # optional attached CanaryProber
+        self.autoscaler = None      # optional attached Autoscaler
         self.collector = collector or FleetCollector(
             [(n, self._metrics_target(u)) for n, u in pairs],
             poll_interval_s=self.config.poll_interval_s,
@@ -368,6 +370,16 @@ class Router:
         return self
 
     def close(self):
+        if self.autoscaler is not None:
+            try:
+                self.autoscaler.close()
+            except Exception:
+                pass
+        if self.canary is not None:
+            try:
+                self.canary.close()
+            except Exception:
+                pass
         self.collector.close()
         with self._log_lock:
             for fh in (self._decisions_fh, self._requests_fh):
@@ -892,21 +904,31 @@ class Router:
         # exposed on /metrics, so the fleet collector exact-merges them)
         for name, hist in self.hists.items():
             out.update(percentile_keys(name, hist))
+        if self.canary is not None:
+            try:
+                out.update(self.canary.rollup_keys())
+            except Exception:
+                pass  # a sick prober must not fail the scrape
+        if self.autoscaler is not None:
+            try:
+                out.update(self.autoscaler.rollup_keys())
+            except Exception:
+                pass  # same contract as the prober
         return out
 
     def attach_canary(self, prober) -> "Router":
-        """The reference publishes an attached canary prober's gauges here;
-        the prober is not ported yet (ROADMAP queue 1 item 5(b))."""
-        raise NotImplementedError(
-            "Router.attach_canary: the canary prober belongs to a later slice "
-            "of the port (ROADMAP queue 1 item 5(b))")
+        """Publish an attached :class:`~..telemetry.canary.CanaryProber`'s
+        ``canary/*`` gauges through this router's ``/metrics`` (the
+        prober's lifecycle joins ``close()``)."""
+        self.canary = prober
+        return self
 
     def attach_autoscaler(self, autoscaler) -> "Router":
-        """The reference publishes an attached autoscaler's gauges here; the
-        autoscaler is not ported yet (ROADMAP queue 1 item 5(b))."""
-        raise NotImplementedError(
-            "Router.attach_autoscaler: the autoscaler belongs to a later slice "
-            "of the port (ROADMAP queue 1 item 5(b))")
+        """Publish an attached :class:`~.autoscaler.Autoscaler`'s
+        ``autoscale/*`` gauges through this router's ``/metrics`` (its
+        lifecycle joins ``close()``)."""
+        self.autoscaler = autoscaler
+        return self
 
 
 class _RouterMetricsSession:

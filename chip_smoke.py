@@ -25,7 +25,7 @@ must hold warpgroup matrix multiplies (HGMMA) and TMA tile loads
 (UTMALDG), or the run fails; the four decode libraries (paged and
 dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
 cp.async copies (LDGSTS), and ptxas must report no spills in them.
-Then it drives twelve
+Then it drives thirteen
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -90,6 +90,21 @@ the patch, so their graphs replay the zeroed wrapper:
   within one poll; the handoff's MB and MB/s, B's TTFT cold and after
   the import, the restore batches' ms and the router's TTFT / ITL are
   printed, its launches on their own line;
+- fleet operations: one seeded two-tenant workload (``FLEET_OPS_SPEC``)
+  replayed closed loop on an in-process small_1b engine with a telemetry
+  session (one schedule digest, a scorecard that conserves against
+  ``serving/requests_terminal``, tokens teacher-forced, #4 / #6 launches
+  from the engine's own steps and dispatches, no capture after warmup,
+  the capacity gauges), then open loop by ``loadtest run --url`` through
+  a router over two ``serve replica --invariant-prefill`` processes
+  (every waterfall summing to its client TTFT), canary goldens recorded
+  on an idle replica and passing on both under that load, a third
+  replica over ``--init-seed 1`` failing every golden, firing
+  ``canary_failing``, dumping its flight recorder and reconstructed as
+  an incident, a layout control, and the autoscaler spawning a
+  ``serve replica`` through a load ramp, gating, placing, then draining
+  and reaping it with its conservation ledger (``fleet_ops_path``; its
+  launches on their own line);
 - the replica: the paged engine behind the port's ``ReplicaServer`` on
   loopback HTTP, a sequential pass whose tokens and launches must equal
   the in-process engine's fed one request at a time, a concurrent wave
@@ -3073,6 +3088,546 @@ def fleet_path(dev, card: str, model):
         torch.cuda.empty_cache()
 
 
+# the fleet-ops path: one seeded workload (two tenants, chat sessions) that
+# the load generator replays in process and through the router
+FLEET_OPS_SPEC = dict(
+    name="fleet-ops", seed=20261018, vocab_size=32_000, prompt_cap=1536,
+    tenants=[
+        dict(name="chat", weight=3.0, priority=5, prompt_len={"uniform": [64, 512]},
+             max_new_tokens={"fixed": 64}, session_prob=0.5,
+             session_turns={"uniform": [2, 4]}, turn_growth={"uniform": [32, 128]}),
+        dict(name="batch", weight=1.0, priority=0, prompt_len={"uniform": [512, 1024]},
+             max_new_tokens={"choice": [128, 256]}),
+    ])
+FLEET_OPS_CLOSED = (8, 48)   # (a): closed-loop users, requests
+FLEET_OPS_OPEN = 64          # (b): open-loop Poisson requests through the router
+FLEET_OPS_LOAD = 0.5         # (b): offered tokens/s over the fleet's capacity gauge
+# every replica of the path: small_1b as chip_smoke serves it, with the
+# prefill laid out so a prompt's tokens are the same bits on every admission
+FLEET_OPS_REPLICA = ("--config", "small_1b", "--max-seq-len", str(MAX_CACHE),
+                     "--page-size", str(PAGE), "--num-slots", "8",
+                     "--max-cache-len", str(MAX_CACHE), "--prefill-chunks", "128,512",
+                     "--invariant-prefill")
+FLEET_OPS_GOLDENS = (24, 100, 333, 700)  # golden prompt lengths (16 new tokens, seed 0)
+FLEET_OPS_ITL_SLO_MS = 20.0  # (d): the ITL SLO the burn rule spends against
+# (d): the autoscaler's policy, its windows cut to a drill of about a minute
+FLEET_OPS_POLICY = dict(min_replicas=1, max_replicas=2, headroom_floor=0.5,
+                        scale_in_headroom=0.5, scale_in_margin=1.25, cooldown_s=5.0,
+                        confirm_evals=2, fast_s=4.0, slow_s=12.0, horizon_s=4.0)
+FLEET_OPS_RAMP = (300, 4.0, 40.0)  # (d): ramp requests, from / to requests per second
+
+
+FLEET_OPS_LAYOUT_PROMPTS = 12  # (c): the layout control's prompts (16 new tokens each)
+
+
+def layout_control(model, dev) -> dict:
+    """``{"plain": (over a hit, co-admitted), "invariant": (...)}``: how many
+    of ``FLEET_OPS_LAYOUT_PROMPTS`` prompts (24..700 tokens, greedy) change
+    a token when served over their own prefix hit, and when co-admitted
+    all at once, against the same prompt served cold and alone, on a fresh
+    engine with the reference's prefill layout and with
+    ``invariant_prefill``."""
+    import numpy as np
+
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+
+    rng = np.random.RandomState(29)
+    prompts = [rng.randint(3, model.config.vocab_size, (int(n),)).astype(np.int32)
+               for n in np.linspace(24, 700, FLEET_OPS_LAYOUT_PROMPTS)]
+    out = {}
+    for kind in ("plain", "invariant"):
+        eng = ServingEngine(model, num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                            prefill_chunks=(128, 512), device=dev,
+                            invariant_prefill=kind == "invariant")
+        eng.warmup()
+        cold = [list(r.tokens) for r in serve_in_turn(eng, prompts, 16)]
+        warm = [list(r.tokens) for r in serve_in_turn(eng, prompts, 16)]
+        eng._prefix.clear()
+        packed = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        eng.run()
+        out[kind] = (sum(a != b for a, b in zip(cold, warm)),
+                     sum(a != list(r.tokens) for a, r in zip(cold, packed)))
+        del eng
+    return out
+
+
+def start_replica(name: str, init_seed: int, telemetry_dir: str):
+    """``serve replica`` as a subprocess, as a user runs it: ``(process,
+    stderr file)``; :func:`replica_url` reads its startup line."""
+    import tempfile
+
+    err = tempfile.TemporaryFile(mode="w+")
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.serve", "replica",
+           *FLEET_OPS_REPLICA, "--init-seed", str(init_seed), "--name", name,
+           "--telemetry-dir", telemetry_dir, "--port", "0"]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True), err
+
+
+def replica_url(name: str, proc, err) -> str:
+    import threading
+
+    line = []
+    reader = threading.Thread(target=lambda: line.append(proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(timeout=REPLICA_START_TIMEOUT)
+    if not line or not line[0].strip():
+        err.seek(0)
+        fail(f"fleet_ops path: replica {name} printed no startup line: {err.read()[-2000:]}")
+    return json.loads(line[0])["url"]
+
+
+def stop_replica(name: str, proc, err, check: bool = True):
+    """SIGTERM (drain, then exit); exit code 0 unless ``check`` is off."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=REPLICA_EXIT_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            if check:
+                fail(f"fleet_ops path: replica {name} did not exit after SIGTERM")
+    if check and proc.returncode != 0:
+        err.seek(0)
+        fail(f"fleet_ops path: replica {name} exited {proc.returncode}: {err.read()[-2000:]}")
+    proc.stdout.close()
+    err.close()
+
+
+def fleet_ops_path(dev, card: str, model):
+    """Load generation, the SLO scorecard, the waterfall, the canary,
+    incidents and the autoscaler on small_1b (page 16, the prefix cache,
+    greedy). Four steps, each failing the run on a miss:
+    (a) in process: the seeded two-tenant workload replayed closed loop (8
+    users, 48 requests) on a ServingEngine with a telemetry session; one
+    schedule digest from two builds; the scorecard conserves against the
+    engine's ``serving/requests_terminal``; every finished request held
+    teacher-forced; #4 / #6 launched once a layer for each of the engine's
+    decode steps and prefill dispatches; no graph captured after warmup;
+    the capacity gauges at least the achieved rate.
+    (b) ``serve replica`` subprocesses A and B (and C, over ``--init-seed
+    1``) behind a RouterServer with its FleetCollector: goldens recorded on
+    idle A and probed alone at A and B, then ``loadtest run --url`` replays
+    the workload open loop at half the fleet's capacity gauge while a
+    canary prober sends the goldens through the router; every waterfall
+    sums to its client-observed TTFT; the scorecard conserves.
+    (c) the canary: every probe on A and B passed; probed straight at C,
+    every probe fails, ``canary_failing`` fires in a fleet collector, C
+    dumps its flight recorder, and ``reconstruct_incidents`` names the
+    rule, C, the failed probes and the dump, in time order; a layout
+    control (:func:`layout_control`) counts the prompts whose tokens a
+    prefix hit or a pack row changes, on the reference's prefill layout
+    and on ``invariant_prefill``'s (which must change none).
+    (d) the autoscaler over A alone: a ramp past A's capacity fires
+    ``itl_burn_rate``; it spawns ``serve replica`` on the card, gates it on
+    the goldens, registers it and sees it placeable and placed; the ramp
+    over, the operator step of the reference's drill (the breach cleared at
+    the rule, the surplus made actionable), and it drains, deregisters and
+    reaps the replica, its conservation ledger holding; ``autoscale
+    --once`` prints a hold. Returns (a)'s launches."""
+    import dataclasses
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.serving import loadgen
+    from accelerate_tpu_torch.serving.autoscaler import (
+        Autoscaler,
+        SubprocessSpawner,
+        direct_submit_fn,
+    )
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+    from accelerate_tpu_torch.serving.router import (
+        HttpTransport,
+        Router,
+        RouterConfig,
+        RouterServer,
+    )
+    from accelerate_tpu_torch.telemetry import TelemetryConfig, TelemetrySession
+    from accelerate_tpu_torch.telemetry import incidents as incident_mod
+    from accelerate_tpu_torch.telemetry import scorecard
+    from accelerate_tpu_torch.telemetry import waterfall as waterfall_mod
+    from accelerate_tpu_torch.telemetry.artifacts import read_jsonl
+    from accelerate_tpu_torch.telemetry.canary import CanaryProber, flight_via_router, via_router
+    from accelerate_tpu_torch.telemetry.capacity import (
+        CAPACITY_KEY,
+        HEADROOM_KEY,
+        AutoscalePolicy,
+        fleet_capacity,
+    )
+    from accelerate_tpu_torch.telemetry.fleet import (
+        PLACEABLE_STATES,
+        FleetCollector,
+        fleet_default_ruleset,
+    )
+    from accelerate_tpu_torch.utils import cuda_graphs
+
+    cfg = model.config
+    tmp = tempfile.mkdtemp(prefix="fleet-ops-")
+    dirs = {k: os.path.join(tmp, k) for k in ("a", "A", "B", "fleet", "log", "lt", "auto",
+                                              "once")}
+    spec = loadgen.WorkloadSpec(**FLEET_OPS_SPEC)
+    spec.save(os.path.join(tmp, "workload.json"))
+    # the replicas boot (weights, kernels from _build/, the decode graph)
+    # while step (a) runs in process
+    procs = {name: start_replica(name, seed, dirs["log" if name == "C" else name])
+             for name, seed in (("A", 0), ("B", 0), ("C", 1))}
+    t_boot = time.perf_counter()
+    routers, collectors, probers = [], [], []
+    try:
+        # (a) in process
+        users, n_closed = FLEET_OPS_CLOSED
+        closed = dataclasses.replace(spec, mode="closed", users=users, num_requests=n_closed)
+        digests = {loadgen.schedule_digest(loadgen.build_schedule(closed)) for _ in range(2)}
+        if len(digests) != 1:
+            fail(f"fleet_ops path (a): two builds of one spec gave digests {digests}")
+        session = TelemetrySession(TelemetryConfig(trace_dir=dirs["a"], flight_hooks=False,
+                                                   timeline_interval_s=0))
+        try:
+            engine = ServingEngine(model, num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                                   prefill_chunks=(128, 512), device=dev, telemetry=session)
+            engine.warmup()
+            torch.cuda.synchronize()
+            captured = cuda_graphs.capture_counters()["count"]
+            kept, submit = {}, engine.submit
+
+            def kept_submit(*args, **kw):
+                kept[kw.get("request_id")] = req = submit(*args, **kw)
+                return req
+
+            engine.submit = kept_submit
+            kernels.reset_launch_counts()
+            result = loadgen.run(closed, engine, time_scale=0.0, timeout_s=300)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launch_counts)
+            m = engine.metrics()
+            card_a = scorecard.build_scorecard(result, telemetry_dir=dirs["a"])
+        finally:
+            session.close()
+        counts = card_a["counts"]
+        terminal = counts["finished"] + counts["shed"] + counts["cancelled"]
+        if result.digest not in digests or not card_a["conserved"] or counts["in_flight"] or \
+                counts["finished"] != n_closed or terminal != m["serving/requests_terminal"]:
+            fail(f"fleet_ops path (a): digest {result.digest} of {digests}, counts {counts}, "
+                 f"engine requests_terminal {m['serving/requests_terminal']}")
+        expect_launches("fleet_ops path (a)", launches, {
+            "paged_decode": engine.step_count * cfg.num_layers,
+            "ragged_prefill": engine.prefill_dispatches * cfg.num_layers})
+        if cuda_graphs.capture_counters()["count"] != captured:
+            fail("fleet_ops path (a): a CUDA graph was captured after warmup()")
+        reqs = [r for r in kept.values() if r.outcome == "finished"]
+        worst = max(teacher_forced(model, [r], len(r.tokens), dev)[0] for r in reqs)
+        if len(reqs) < 4 or not math.isfinite(worst) or worst > TOP2_MARGIN:
+            fail(f"fleet_ops path (a): a replayed token is {worst} logits below the plain "
+                 f"argmax ({len(reqs)} requests held)")
+        if not m.get(CAPACITY_KEY) or m[CAPACITY_KEY] < m["serving/tokens_per_s"] * 0.999:
+            fail(f"fleet_ops path (a): capacity {m.get(CAPACITY_KEY)} against tokens/s "
+                 f"{m.get('serving/tokens_per_s')}")
+        print(f"fleet_ops path (a) in process on {card}: {n_closed} requests closed loop "
+              f"({users} users) in {result.wall_s:.3f} s, digest {result.digest}; "
+              f"{engine.step_count} decode steps, {engine.prefill_dispatches} prefill "
+              f"dispatches, launches equal; {len(reqs)} requests teacher-forced, worst gap "
+              f"{worst:.4f}; attainment {card_a['fleet']['slo_attainment_frac']:.3f}, goodput "
+              f"{card_a['fleet']['goodput_tokens_per_s']} tok/s, TTFT p50 / p99 "
+              f"{card_a['fleet'].get('ttft_p50_ms')} / {card_a['fleet'].get('ttft_p99_ms')} ms; "
+              f"engine tokens/s {m['serving/tokens_per_s']:.1f}, capacity "
+              f"{m[CAPACITY_KEY]} tok/s, headroom {m[HEADROOM_KEY]}, decode step p50 "
+              f"{m['serving/decode_step_ms_p50']:.3f} ms")
+
+        # (b) through the router
+        urls = {name: replica_url(name, *procs[name]) for name in procs}
+        print(f"fleet_ops path (b): replicas A, B, C up {time.perf_counter() - t_boot:.1f} s "
+              f"after their launch")
+        goldens = [{"prompt": [int(t) for t in np.random.RandomState(n).randint(
+            3, cfg.vocab_size, (n,))], "seed": 0, "max_new_tokens": 16}
+            for n in FLEET_OPS_GOLDENS]
+        recorder = CanaryProber(direct_submit_fn(urls["A"]), goldens)
+        for _ in goldens:
+            if recorder.probe_once()["reason"] != "recorded":
+                fail("fleet_ops path (b): a golden was not recorded on idle A")
+        goldens = [dict(g) for g in recorder.goldens]
+        alone = {}
+        for name in ("A", "B"):
+            prober = CanaryProber(direct_submit_fn(urls[name]), goldens)
+            alone[name] = [prober.probe_once()["passed"] for _ in range(2 * len(goldens))]
+        collector = FleetCollector([(n, urls[n] + "/metrics") for n in ("A", "B")],
+                                   poll_interval_s=0.25, log_dir=dirs["fleet"])
+        collectors.append(collector)
+        router = Router({n: urls[n] for n in ("A", "B")}, collector=collector,
+                        config=RouterConfig(poll_interval_s=0.25, log_dir=dirs["fleet"]))
+        routers.append(router)
+        router.start()
+        front = RouterServer(router)
+        routers.append(front)
+        collector.poll_once()
+        fleet = fleet_capacity(collector.fleet_gauges())
+        if fleet is None:
+            fail("fleet_ops path (b): the collector read no capacity gauge off A and B")
+        open_spec = dataclasses.replace(spec, mode="open", num_requests=FLEET_OPS_OPEN)
+        mean_new = np.mean([s.max_new_tokens for s in loadgen.build_schedule(open_spec)])
+        rate = FLEET_OPS_LOAD * fleet["capacity_tokens_per_s"] / mean_new
+        open_spec = dataclasses.replace(open_spec, arrival={"process": "poisson",
+                                                            "rate_rps": round(rate, 3)})
+        open_spec.save(os.path.join(tmp, "open.json"))
+        prober = CanaryProber(via_router(router), goldens, interval_s=0.5,
+                              log_dir=dirs["fleet"], flight_fn=flight_via_router(router))
+        probers.append(prober)
+        router.attach_canary(prober.start())
+        t0 = time.perf_counter()
+        lt = subprocess.run(
+            [sys.executable, "-m", "accelerate_tpu_torch.commands.loadtest", "run",
+             os.path.join(tmp, "open.json"), "--url", f"http://127.0.0.1:{front.port}",
+             "--out", dirs["lt"], "--json", "--timeout", "300"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lt_wall = time.perf_counter() - t0
+        prober.stop()
+        if lt.returncode != 0:
+            fail(f"fleet_ops path (b): loadtest run exited {lt.returncode}: {lt.stderr[-2000:]}")
+        card_b = json.loads(lt.stdout)
+        if not card_b["conserved"] or card_b["counts"]["finished"] != FLEET_OPS_OPEN:
+            shed = {(r["outcome"], r.get("shed_reason"), r.get("finish_reason"))
+                    for r in loadgen.load_offered(dirs["lt"]).records}
+            errors = {h.get("error") for r in waterfall_mod.load_router_requests(dirs["fleet"])
+                      for h in r.get("hops") or () if h.get("error")}
+            fail(f"fleet_ops path (b): scorecard counts {card_b['counts']}: {shed}; hop "
+                 f"errors {sorted(errors)[:6]}")
+        router_recs = waterfall_mod.load_router_requests(dirs["fleet"])
+        replica_recs = read_jsonl([dirs["A"], dirs["B"]], "requests-host*.jsonl")
+        rows = waterfall_mod.build_waterfalls(router_recs, replica_recs)
+        finished = {r["request_id"] for r in router_recs if r.get("outcome") == "finished"}
+        bad = [r["request_id"] for r in rows
+               if not r["joined"]
+               or abs(sum(r["stages"].values()) - r["e2e_ttft_ms"]) > 0.02
+               or abs(r["e2e_ttft_ms"] - r["client_ttft_ms"]) > 0.1]
+        if bad or len(rows) < len(finished) or len(finished) < FLEET_OPS_OPEN:
+            fail(f"fleet_ops path (b): {len(rows)} waterfalls for {len(finished)} finished "
+                 f"router requests; stages off the client TTFT: {bad[:8]}")
+        agg = waterfall_mod.summarize_waterfall(rows)
+        rm = router.metrics()
+        replica_gauges = {name: r.gauges for name, r in collector.replicas.items()}
+        fl = card_b["fleet"]
+        print(f"fleet_ops path (b) router on {card}: loadtest run --url, {FLEET_OPS_OPEN} "
+              f"requests open loop Poisson at {rate:.3f} rps ({FLEET_OPS_LOAD} x the fleet's "
+              f"{fleet['capacity_tokens_per_s']} tok/s capacity gauge / {mean_new:.1f} mean new "
+              f"tokens) in {card_b['wall_s']} s ({lt_wall:.1f} s with the CLI's start); "
+              f"attainment {fl['slo_attainment_frac']:.3f} (TTFT <= {card_b['slo']['ttft_ms']} "
+              f"ms, ITL <= {card_b['slo']['itl_ms']} ms), goodput {fl['goodput_tokens_per_s']} "
+              f"tok/s; client TTFT p50 / p99 {fl.get('ttft_p50_ms')} / {fl.get('ttft_p99_ms')} "
+              f"ms, ITL p50 / p99 {fl.get('itl_p50_ms')} / {fl.get('itl_p99_ms')} ms; router "
+              f"TTFT p50 / p99 {rm['router/ttft_p50_ms']:.2f} / {rm['router/ttft_p99_ms']:.2f} "
+              f"ms, ITL p50 / p99 {rm['router/itl_p50_ms']:.3f} / {rm['router/itl_p99_ms']:.3f} "
+              f"ms; replicas' own TTFT p50 "
+              + ", ".join(f"{n} {g.get('serving/ttft_ms_p50', float('nan')):.2f}"
+                          for n, g in sorted(replica_gauges.items()))
+              + " ms, ITL p50 "
+              + ", ".join(f"{n} {g.get('serving/itl_p50_ms', float('nan')):.3f}"
+                          for n, g in sorted(replica_gauges.items()))
+              + f" ms; {rm['router/requeues']} failed hops re-queued; {len(rows)} waterfalls "
+              f"sum to their client TTFT (stage shares "
+              + ", ".join(f"{k} {v['share']:.3f}" for k, v in agg["stages"].items()) + ")")
+
+        # (c) the canary
+        probe_ttft = [r["ttft_ms"] for r in prober.results if r.get("ttft_ms") is not None]
+        alone_fail = {n: v.count(False) for n, v in alone.items()}
+        if any(alone_fail.values()) or prober.probes_failed or prober.probes_passed < 1:
+            fail(f"fleet_ops path (c): goldens failed on correct replicas: alone {alone_fail} "
+                 f"of {2 * len(goldens)} each, through the router {prober.probes_failed} of "
+                 f"{prober.probes_sent}")
+        ctl = FleetCollector([("C", urls["C"] + "/metrics")], log_dir=dirs["log"])
+        collectors.append(ctl)
+
+        def dump_c(replica, info):
+            HttpTransport().post_json(urls["C"], "/v1/flight", {
+                "reason": "canary_failed", "request_id": info.get("request_id")})
+
+        control = CanaryProber(direct_submit_fn(urls["C"]), goldens, window=4,
+                               log_dir=dirs["log"], flight_fn=dump_c)
+        probers.append(control)
+        for _ in goldens:
+            res = control.probe_once()
+            ctl.poll_once()
+            ctl.timeline.add_sample(control.rollup_keys())
+            ctl.alerts.evaluate()
+            if res["passed"] or res["replica"] != "C":
+                fail(f"fleet_ops path (c): a golden passed on C (--init-seed 1): {res}")
+        control.close()
+        dumps = sorted(glob.glob(os.path.join(dirs["log"], "flightrec-host*-*.json")))
+        if "canary_failing" not in ctl.alerts.firing() or len(dumps) < len(goldens):
+            fail(f"fleet_ops path (c): firing {ctl.alerts.firing()}, {len(dumps)} flight dumps")
+        found = [i for i in incident_mod.reconstruct_incidents(dirs["log"])
+                 if i["rule"] == "canary_failing"]
+        events = found[0]["events"] if found else []
+        kinds = {(e["source"], e["kind"]) for e in events}
+        failed = [e for e in events if e["source"] == "canary"]
+        ts = [e["t_unix_s"] for e in events]
+        if not found or ts != sorted(ts) or not {("alert", "firing"), ("canary", "probe_failed"),
+                                                  ("flight", "dump")} <= kinds \
+                or not failed or any(e["replica"] != "C" for e in failed):
+            fail(f"fleet_ops path (c): the incident reads {kinds} ({len(found)} found)")
+        inc_cli = subprocess.run([sys.executable, "-m", "accelerate_tpu_torch.commands.incident",
+                                  "list", dirs["log"]], cwd=ROOT, capture_output=True,
+                                 text=True, timeout=120)
+        if inc_cli.returncode != 0 or "canary_failing" not in inc_cli.stdout:
+            fail(f"fleet_ops path (c): incident list: {inc_cli.stdout} {inc_cli.stderr}")
+        stop_replica("C", *procs.pop("C"))
+        # why the replicas run --invariant-prefill: prompts recorded cold and
+        # alone, then probed over their own prefix hit and co-admitted
+        # together, on an in-process engine laid out as the reference's
+        # and on one with invariant_prefill
+        del engine
+        layout = layout_control(model, dev)
+        if layout["invariant"] != (0, 0):
+            fail(f"fleet_ops path (c): an invariant_prefill engine changed a prompt's tokens: "
+                 f"{layout}")
+        print(f"fleet_ops path (c) canary: goldens of {list(FLEET_OPS_GOLDENS)} tokens recorded "
+              f"on idle A; failed alone {alone_fail} of {2 * len(goldens)} each, through the "
+              f"router under (b)'s traffic {prober.probes_failed} of {prober.probes_sent} "
+              f"(probe TTFT mean / max {np.mean(probe_ttft):.2f} / {max(probe_ttft):.2f} ms); "
+              f"C (--init-seed 1) failed {control.probes_failed} of {control.probes_sent}, "
+              f"canary_failing firing, {len(dumps)} flight dumps on C, incident "
+              f"#{found[0]['index']} with {len(events)} ordered events; layout control, "
+              f"{FLEET_OPS_LAYOUT_PROMPTS} prompts (over their own prefix hit, co-admitted), "
+              f"tokens changed: default layout {layout['plain']}, invariant_prefill "
+              f"{layout['invariant']}")
+
+        # (d) the autoscaler over A alone
+        for r in routers[::-1]:
+            r.close()
+        routers.clear()
+        stop_replica("B", *procs.pop("B"))
+        policy = AutoscalePolicy(**FLEET_OPS_POLICY)
+        auto_collector = FleetCollector(
+            [("A", urls["A"] + "/metrics")], poll_interval_s=0.25, log_dir=dirs["auto"],
+            rules=fleet_default_ruleset(itl_slo_ms=FLEET_OPS_ITL_SLO_MS,
+                                        itl_fast_s=policy.fast_s, itl_slow_s=policy.slow_s,
+                                        itl_for_s=1.0))
+        collectors.append(auto_collector)
+        router = Router({"A": urls["A"]}, collector=auto_collector,
+                        config=RouterConfig(poll_interval_s=0.25, log_dir=dirs["auto"]))
+        routers.append(router)
+        router.start()
+        autoscaler = Autoscaler(
+            router, policy=policy,
+            spawner=SubprocessSpawner(replica_args=FLEET_OPS_REPLICA + ("--init-seed", "0"),
+                                      startup_timeout_s=REPLICA_START_TIMEOUT),
+            goldens=goldens, canary_probes=len(goldens), log_dir=dirs["auto"],
+            interval_s=0.5, placeable_timeout_s=30.0, drain_timeout_s=60.0)
+        router.attach_autoscaler(autoscaler)
+        print(f"fleet_ops path (d) policy: {FLEET_OPS_POLICY}, itl_burn_rate SLO "
+              f"{FLEET_OPS_ITL_SLO_MS} ms (fast {policy.fast_s} s, slow {policy.slow_s} s, "
+              f"for 1.0 s), collector poll 0.25 s, evaluation every 0.5 s")
+        build = {f: os.path.getmtime(f) for f in glob.glob(str(kernels.BUILD_DIR / "*"))}
+        free_before = torch.cuda.mem_get_info()[0]
+        n_ramp, r_from, r_to = FLEET_OPS_RAMP
+        ramp = loadgen.WorkloadSpec(
+            name="fleet-ops-ramp", seed=FLEET_OPS_SPEC["seed"] + 1, mode="open",
+            num_requests=n_ramp, vocab_size=cfg.vocab_size, prompt_cap=1024,
+            arrival={"process": "ramp", "rate_rps": r_from, "rate_rps_to": r_to},
+            tenants=[loadgen.TenantSpec("ramp", prompt_len={"uniform": [256, 768]},
+                                        max_new_tokens={"fixed": 64})])
+        offered = {}
+        load = threading.Thread(target=lambda: offered.update(
+            result=loadgen.run(ramp, router, timeout_s=300.0)), daemon=True)
+        autoscaler.start()
+        t_ramp = time.perf_counter()
+        load.start()
+
+        def decision(action, deadline_s):
+            deadline = time.perf_counter() + deadline_s
+            while time.perf_counter() < deadline:
+                recs = [d for d in list(autoscaler.decisions) if d["action"] == action]
+                if recs:
+                    return recs[0]
+                time.sleep(0.1)
+            reasons = [d["reason"] for d in list(autoscaler.decisions)[-12:]]
+            gauges = {n: {k: r.gauges.get(k) for k in (
+                "serving/itl_recent_p99_ms", HEADROOM_KEY, CAPACITY_KEY, "serving/tokens_per_s",
+                "serving/requests_completed")} for n, r in auto_collector.replicas.items()}
+            fail(f"fleet_ops path (d): no {action} within {deadline_s} s; last decisions "
+                 f"{reasons}; burn {auto_collector.alerts.states_snapshot().get('itl_burn_rate')}; "
+                 f"replicas {gauges}")
+
+        out_rec = decision("scale_out", 120.0)
+        free_after = torch.cuda.mem_get_info()[0]
+        if out_rec.get("outcome") != "scaled_out" or "itl_burn_rate" not in out_rec["firing"] \
+                or not all(p["passed"] for p in out_rec["canary"]):
+            fail(f"fleet_ops path (d): the scale-out record reads {out_rec}")
+        name = out_rec["replica"]
+        if auto_collector.replicas[name].state not in PLACEABLE_STATES:
+            fail(f"fleet_ops path (d): {name} is {auto_collector.replicas[name].state}")
+        landed, deadline = 0, time.perf_counter() + 60
+        while not landed and time.perf_counter() < deadline:
+            landed += router.submit(goldens[0]["prompt"], max_new_tokens=8).replica == name
+        load.join(timeout=300.0)
+        counts = offered["result"].counts()
+        shed_reasons = sorted({r.get("shed_reason") for r in offered["result"].records
+                               if r.get("outcome") == "shed"})
+        if not landed or load.is_alive() or counts["finished"] + counts["shed"] != n_ramp:
+            fail(f"fleet_ops path (d): landed on {name}: {bool(landed)}, ramp {counts}")
+        t_quiet = time.perf_counter()
+        # the load has stopped, but two gauges the fleet reads do not decay
+        # on an idle replica (the reference's as the port's): A's recent
+        # ITL p99 keeps its ramp value, so the fleet's MAX keeps the burn
+        # firing, and its tokens/s keeps its busy value, so the projected
+        # load vetoes the scale-in. As in the reference's drill, the
+        # operator clears the breach at the rule and makes the surplus
+        # actionable; the autoscaler then scales in on its own cadence
+        for rule in auto_collector.alerts.rules:
+            if rule.name == "itl_burn_rate":
+                rule.slo = 1e9
+        autoscaler.policy.scale_in_headroom = -1.0
+        autoscaler.policy.scale_in_margin = 0.0
+        in_rec = decision("scale_in", 120.0)
+        handle_gone = name not in router._replicas and name not in autoscaler.owned
+        if in_rec.get("outcome") != "scaled_in" or not in_rec["ledger"]["conserved"] \
+                or not handle_gone or not autoscaler.conservation()["conserved"]:
+            fail(f"fleet_ops path (d): the scale-in record reads {in_rec}")
+        rebuilt = {f: os.path.getmtime(f) for f in glob.glob(str(kernels.BUILD_DIR / "*"))}
+        if rebuilt != build:
+            fail("fleet_ops path (d): the spawned replica rebuilt kernels in _build/")
+        once = subprocess.run([sys.executable, "-m", "accelerate_tpu_torch.commands.autoscale",
+                               "--once", "--replica", f"A={urls['A']}", "--log-dir",
+                               dirs["once"]], cwd=ROOT, capture_output=True, text=True,
+                              timeout=120)
+        if once.returncode != 0 or json.loads(once.stdout)["action"] != "hold":
+            fail(f"fleet_ops path (d): autoscale --once: {once.stdout} {once.stderr[-2000:]}")
+        st = out_rec["stages"]
+        print(f"fleet_ops path (d) autoscaler on {card}: ramp of {n_ramp} requests "
+              f"{r_from} -> {r_to} rps through the router; burn fired, scale-out at "
+              f"{out_rec['t_unix_s'] - t_ramp - time.time() + time.perf_counter():.1f} s into "
+              f"the ramp ({out_rec['reason']}); autoscale_reaction_s "
+              f"{out_rec['autoscale_reaction_s']} (decide_lag {st['decide_lag_s']}, spawn "
+              f"{st['spawn_s']}, canary {st['canary_s']}, register {st['register_s']}, "
+              f"placement {st['placement_s']} s); {name} passed {len(out_rec['canary'])} "
+              f"golden probes, placed and took routed traffic; free device memory "
+              f"{free_before / 1e9:.2f} GB before the spawn, {free_after / 1e9:.2f} GB after; "
+              f"_build/ untouched; ramp {counts} (shed: {shed_reasons}); the ramp over, the operator cleared the "
+              f"burn at the rule and set scale_in_headroom -1, scale_in_margin 0; scale-in "
+              f"{time.perf_counter() - t_quiet:.1f} s later "
+              f"({in_rec['reason']}; drain {in_rec['stages']['drain_s']} s, reap "
+              f"{in_rec['stages']['reap_s']} s); ledger {in_rec['ledger']['after']}; "
+              f"autoscale --once: {json.loads(once.stdout)['reason']}")
+        return launches
+    finally:
+        for p in probers:
+            p.close()
+        for r in routers[::-1]:
+            r.close()
+        for c in collectors:
+            c.close()
+        for name, (proc, err) in procs.items():
+            stop_replica(name, proc, err, check=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def profile_prefill(model, eng_kw, prompts, new_tokens: int, card: str):
     """The ragged prefill kernel's share of one served run of ``prompts``:
     torch.profiler's device-side events over the whole run, the kernel's
@@ -4489,6 +5044,9 @@ def main():
     # the fleet path's launches stay off the kernels line too, as the replica's
     fleet_launches = timed("fleet path", fleet_path, dev, card, model)
     print(f"fleet path launches: {json.dumps(fleet_launches)}")
+    # and so do the fleet-ops path's (its in-process engine's, step (a))
+    fleet_ops_launches = timed("fleet_ops path", fleet_ops_path, dev, card, model)
+    print(f"fleet_ops path launches: {json.dumps(fleet_ops_launches)}")
     del serving, model
     gc.collect()
     torch.cuda.empty_cache()

@@ -479,17 +479,19 @@ GAUGE_KEYS = ("serving/shed", "serving/cancelled", "serving/preemptions",
               "serving/resumptions", "serving/draining", "serving/itl_p50_ms",
               "serving/itl_p95_ms", "serving/itl_recent_p99_ms", "serving/page_size",
               "serving/num_slots", "serving/free_slots", "serving/free_pages",
-              "serving/load_score")
+              "serving/load_score", "serving/requests_terminal",
+              "serving/capacity_tokens_per_s", "serving/headroom_frac")
 INT_GAUGES = ("serving/queue_depth", "serving/free_slots", "serving/free_pages",
-              "serving/requests_completed", "serving/shed", "serving/cancelled")
+              "serving/requests_completed", "serving/shed", "serving/cancelled",
+              "serving/requests_terminal")
 
 
-def _own_load_score(m: dict) -> float:
+def _own_load_score(m: dict, itl_slo_ms=None) -> float:
     return load_score(
         queue_depth=m["serving/queue_depth"], num_slots=m["serving/num_slots"],
         slot_occupancy=m["serving/slot_occupancy"], free_pages=m.get("serving/free_pages"),
         pages_total=m.get("serving/pages_total"),
-        itl_recent_p99_ms=m.get("serving/itl_recent_p99_ms"),
+        itl_recent_p99_ms=m.get("serving/itl_recent_p99_ms"), itl_slo_ms=itl_slo_ms,
         draining=bool(m.get("serving/draining")))
 
 
@@ -536,6 +538,87 @@ def test_gauges_match_the_reference_engine(served, arena):
             assert m["serving/load_score"] == _own_load_score(m)
     assert tm["serving/cancelled"] == 2 and tm["serving/shed"] == 1
     assert tm["serving/draining"] is True
+    assert tm["serving/requests_terminal"] == 2 + 1 + tm["serving/requests_completed"]
+
+
+def _shed_script(eng):
+    """Submit past a two-deep queue (two shed), cancel one queued request,
+    step, drain with a late submit (shed "draining"), finish. Returns the
+    metrics after every step."""
+    prompts = [np.arange(3 + i, 9 + i) for i in range(5)]
+    reqs = [eng.submit(p, max_new_tokens=3, seed=i) for i, p in enumerate(prompts)]
+    snaps = [eng.metrics()]
+    reqs[1].cancel()
+    for _ in range(2):
+        eng.step()
+        snaps.append(eng.metrics())
+    eng.request_drain()
+    eng.submit(prompts[0], max_new_tokens=2)
+    while eng._pending():
+        eng.step()
+        snaps.append(eng.metrics())
+    snaps.append(eng.metrics())
+    return snaps
+
+
+@pytest.mark.parametrize("arena", sorted(ARENAS))
+def test_requests_terminal_and_shed_burn_match_the_reference(served, arena):
+    """A submit / shed / cancel / drain sequence under a scheduler that
+    sheds: ``serving/requests_terminal`` (completed + shed + cancelled) is
+    equal on both engines after every step, and the ``shed_burn_rate``
+    rule, which divides by it, walks the same states on each side's
+    timeline and alert manager under one fake clock and fires."""
+    from accelerate_tpu.serving import SchedulerConfig as JaxSchedulerConfig
+    from accelerate_tpu.telemetry import alerts as ref_alerts
+    from accelerate_tpu.telemetry import timeline as ref_timeline
+    from accelerate_tpu_torch.serving import SchedulerConfig
+    from accelerate_tpu_torch.telemetry import alerts as port_alerts
+    from accelerate_tpu_torch.telemetry import timeline as port_timeline
+
+    jmodel, params, model, _ = served
+    runs = []
+    for eng, alerts, timeline in (
+            (_jax_engine(jmodel, params, arena,
+                         scheduler=JaxSchedulerConfig(max_queue_depth=2)),
+             ref_alerts, ref_timeline),
+            (_engine(model, arena, scheduler=SchedulerConfig(max_queue_depth=2)),
+             port_alerts, port_timeline)):
+        snaps = _shed_script(eng)
+        tl = timeline.Timeline()
+        rules = [r for r in alerts.default_ruleset(shed_fast_s=4.0, shed_slow_s=40.0)
+                 if r.name == "shed_burn_rate"]
+        mgr = alerts.AlertManager(tl, rules, clock=lambda: 0.0)
+        states = []
+        for t, m in enumerate(snaps):
+            tl.add_sample(m, now=1000.0 + t)
+            mgr.evaluate(now=1000.0 + t)
+            states.append(mgr.states_snapshot()["shed_burn_rate"]["state"])
+        runs.append(([m["serving/requests_terminal"] for m in snaps], states))
+    assert runs[1] == runs[0]
+    terminal, states = runs[1]
+    assert terminal[-1] == 6 and "firing" in states
+
+
+@pytest.mark.parametrize("arena", sorted(ARENAS))
+def test_load_score_reads_the_schedulers_itl_slo(served, arena):
+    """Under a scheduler with ``itl_slo_ms=20`` both engines' load score
+    is the formula with the recent ITL p99 over 20 ms, not over the 100 ms
+    default."""
+    from accelerate_tpu.serving import SchedulerConfig as JaxSchedulerConfig
+    from accelerate_tpu_torch.serving import SchedulerConfig
+
+    jmodel, params, model, prompts = served
+    for eng in (_jax_engine(jmodel, params, arena,
+                            scheduler=JaxSchedulerConfig(itl_slo_ms=20.0)),
+                _engine(model, arena, scheduler=SchedulerConfig(itl_slo_ms=20.0))):
+        reqs = [eng.submit(p, max_new_tokens=6, seed=i) for i, p in enumerate(prompts)]
+        seen = 0
+        while not all(r.done for r in reqs):
+            eng.step()
+            m = eng.metrics()
+            assert m["serving/load_score"] == _own_load_score(m, itl_slo_ms=20.0)
+            seen += "serving/itl_recent_p99_ms" in m
+        assert seen and m["serving/load_score"] != _own_load_score(m)
 
 
 def test_metrics_health_flight_endpoints(served):
@@ -680,8 +763,16 @@ def test_cli_device_rules(monkeypatch):
         assert list(router._replicas) == ["A"] and router.config.poll_interval_s == 60
     finally:
         router.close()
-    with pytest.raises(NotImplementedError, match="canary"):
-        serve_cli.build_router(parser.parse_args(["router", "--canary-interval", "1"]))
+    # the canary is ported since: --canary-interval attaches a started prober
+    router = serve_cli.build_router(parser.parse_args(
+        ["router", "--replica", "A=http://127.0.0.1:1", "--poll-interval", "60",
+         "--canary-interval", "60", "--canary-prompt", "4,5", "--canary-seed", "2"]))
+    try:
+        assert router.canary is not None and router.canary._thread is not None
+        assert router.canary.goldens == [{"prompt": [4, 5], "seed": 2, "max_new_tokens": 8}]
+    finally:
+        router.close()
+    assert router.canary._thread is None
 
 
 def test_loop_exception_is_reraised(served, monkeypatch):

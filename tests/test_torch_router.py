@@ -625,11 +625,34 @@ class TestGoldenSignals:
         assert "att_router_requests_completed 1" in text
 
     def test_canary_and_autoscaler_are_later_slices(self):
-        router, _, _ = make_router()
-        with pytest.raises(NotImplementedError, match="5\\(b\\)"):
-            router.attach_canary(object())
-        with pytest.raises(NotImplementedError, match="5\\(b\\)"):
-            router.attach_autoscaler(object())
+        """Ported since (item 5(b)): both attach, publish their gauges in
+        the router's rollup as the reference's router does, and close with
+        it; a raising one does not fail the scrape."""
+
+        class Attached:
+            closed = 0
+
+            def __init__(self, gauges):
+                self.gauges = gauges
+
+            def rollup_keys(self):
+                if self.gauges is None:
+                    raise RuntimeError("sick")
+                return dict(self.gauges)
+
+            def close(self):
+                Attached.closed += 1
+
+        for mod in (port_router, ref_router):
+            router, _, _ = make_router(mod=mod)
+            assert router.attach_canary(Attached({"canary/probes_sent": 3})) is router
+            assert router.attach_autoscaler(Attached({"autoscale/evals": 2})) is router
+            m = router.metrics()
+            assert m["canary/probes_sent"] == 3 and m["autoscale/evals"] == 2
+            router.attach_canary(Attached(None))
+            assert "canary/probes_sent" not in router.metrics()
+            router.close()
+        assert Attached.closed == 4
 
 
 def _fake_replica(tokens):
@@ -978,12 +1001,24 @@ assert not [m for m in sys.modules if m.split(".")[0] in {blocked}]
     ("accelerate_tpu_torch.telemetry.fleet", ("torch", "numpy")),
     ("accelerate_tpu_torch.telemetry.timeline", ("torch", "numpy")),
     ("accelerate_tpu_torch.telemetry.alerts", ("torch", "numpy")),
+    ("accelerate_tpu_torch.telemetry.capacity", ("torch", "numpy")),
+    ("accelerate_tpu_torch.telemetry.scorecard", ("torch", "numpy")),
+    ("accelerate_tpu_torch.telemetry.waterfall", ("torch", "numpy")),
+    ("accelerate_tpu_torch.telemetry.incidents", ("torch", "numpy")),
+    ("accelerate_tpu_torch.telemetry.canary", ("torch", "numpy")),
+    ("accelerate_tpu_torch.serving.autoscaler", ("torch", "numpy")),
+    ("accelerate_tpu_torch.commands.loadtest", ("torch", "numpy")),
+    ("accelerate_tpu_torch.commands.autoscale", ("torch", "numpy")),
+    ("accelerate_tpu_torch.commands.incident", ("torch", "numpy")),
+    ("accelerate_tpu_torch.serving.loadgen", ("torch",)),
 ])
 def test_imports_without_the_accelerator_stack(module, blocked):
     """A router box has no accelerator stack: the router (and the CLI that
-    starts it) imports with torch and numpy blocked; the KV tiers, the
-    fleet collector, the timeline and the alerts with torch blocked (the
-    tiers are numpy bookkeeping)."""
+    starts it), the fleet collector, the timeline, the alerts, the capacity
+    model, the scorecard, the waterfall, incident reconstruction, the
+    canary, the autoscaler and the loadtest / autoscale / incident commands
+    import with torch and numpy blocked; the KV tiers and the load
+    generator with torch blocked (both keep numpy arrays)."""
     r = subprocess.run([sys.executable, "-c", BLOCKER.format(module=module,
                                                              blocked=set(blocked))],
                        cwd=ROOT, capture_output=True, text=True, timeout=120)
