@@ -39,7 +39,10 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   (``python -m accelerate_tpu_torch.commands.serve replica`` and
   ``router``)
 - ``accelerator.py``, ``optimizer.py``, ``scheduler.py``, ``state.py``,
-  ``data.py``, ``utils/dataclasses.py`` (the training contract);
+  ``data.py``, ``utils/dataclasses.py`` (the training contract: bf16 and
+  fp16 with the dynamic loss scale, remat, residual dropout),
+  ``utils/operations.py`` (gather / reduce / pad on one process),
+  ``tracking.py`` (trackers: JSONL, tensorboard, wandb, mlflow, ...);
   ``checkpointing.py``, ``utils/random.py``, ``utils/other.py``,
   ``utils/constants.py`` (``save_state`` / ``load_state`` /
   ``save_model`` in the reference's checkpoint format)
@@ -68,6 +71,8 @@ _EXPORTS = {
     "AcceleratedScheduler": "scheduler", "warmup_cosine_decay_schedule": "scheduler",
     "ServingEngine": "serving.engine", "generate_batched": "serving.engine",
     "AcceleratorState": "state", "GradientState": "state",
+    "LossScale": "accelerator",
+    "AutocastKwargs": "utils.dataclasses", "GradScalerKwargs": "utils.dataclasses",
     "GradientAccumulationPlugin": "utils.dataclasses",
     "MixedPrecisionConfig": "utils.dataclasses", "ProjectConfiguration": "utils.dataclasses",
     "QuantizationConfig": "utils.quantization", "set_seed": "utils.random",
@@ -87,8 +92,9 @@ def __getattr__(name):
 
 __all__ = [
     "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",
-    "DataLoader", "DecoderConfig", "DecoderLM", "GradientAccumulationPlugin",
-    "GradientState", "MixedPrecisionConfig", "ProjectConfiguration", "QuantizationConfig",
+    "AutocastKwargs", "DataLoader", "DecoderConfig", "DecoderLM",
+    "GradScalerKwargs", "GradientAccumulationPlugin", "GradientState", "LossScale",
+    "MixedPrecisionConfig", "ProjectConfiguration", "QuantizationConfig",
     "ServingEngine", "cpu_offload", "cpu_offload_with_hook", "disk_offload",
     "dispatch_model", "generate", "generate_batched", "generate_dispatched",
     "init_empty_weights", "load_accelerator_state", "load_and_quantize_model",

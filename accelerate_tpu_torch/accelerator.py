@@ -18,6 +18,22 @@ training slice. The user's loop is the reference's:
 or the fused step, ``step = accelerator.build_train_step()`` then
 ``metrics = step(batch)`` per update.
 
+fp16 (``mixed_precision="fp16"``, a ``GradScalerKwargs`` among
+``kwargs_handlers`` to tune it) trains with the reference's dynamic loss
+scale (:class:`LossScale`): each micro-batch's backward starts from loss
+x scale, its gradients are divided by the scale (and by the accumulation
+count) as soon as they exist and checked for inf / nan; at the update the
+flag is read on the host once, an update with a non-finite gradient is
+skipped (``optimizer_step_was_skipped``; the parameters, the optimizer's
+moments and the LR schedule stay where they were, the update counter
+advances, as the reference's engine counts it) and the scale follows the
+reference's rule.
+
+Telemetry and trackers are the reference's: ``Accelerator(log_with=
+"jsonl", telemetry=TelemetryConfig(...))``, ``init_trackers``, ``log``,
+``log_system_metrics`` after an update (the session's rollup through
+every tracker), ``prometheus_metrics`` and ``end_training``.
+
 A run resumes as the reference's does: ``Accelerator(project_config=
 ProjectConfiguration(project_dir, automatic_checkpoint_naming=True))``,
 ``save_state()`` every so often and ``load_state()`` in the new process
@@ -44,6 +60,7 @@ import gc
 import logging
 import os
 import shutil
+import time
 import uuid
 from typing import Callable, Iterable, Optional
 
@@ -56,7 +73,9 @@ from .data import skip_first_batches as _skip_first_batches
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
-from .utils.dataclasses import GradientAccumulationPlugin, ProjectConfiguration
+from .utils import operations
+from .utils.dataclasses import (AutocastKwargs, GradientAccumulationPlugin, GradScalerKwargs,
+                                ProjectConfiguration)
 
 logger = logging.getLogger(__name__)
 
@@ -76,6 +95,73 @@ def _clip_grads(params, max_norm: float, norm: torch.Tensor):
     for p in params:
         if p.grad is not None:
             p.grad.mul_(scale.to(p.grad.dtype))
+
+
+class LossScale:
+    """The reference's dynamic loss scale (``_make_scale_state``,
+    ``_scale_state_update``): ``scale`` (fp32) and ``growth_tracker``, the
+    finite updates in a row. After a finite update the tracker advances
+    and, reaching ``growth_interval``, resets while the scale grows by
+    ``growth_factor``; after a non-finite one the scale backs off by
+    ``backoff_factor`` but never below 1.0 (torch's ``GradScaler`` has no
+    floor) and the tracker resets."""
+
+    def __init__(self, kwargs: GradScalerKwargs):
+        self.kwargs = kwargs
+        self.scale = float(np.float32(kwargs.init_scale))
+        self.growth_tracker = 0
+
+    def update(self, finite: bool):
+        k = self.kwargs
+        if finite:
+            if self.growth_tracker + 1 >= k.growth_interval:
+                self.scale = float(np.float32(self.scale) * np.float32(k.growth_factor))
+                self.growth_tracker = 0
+            else:
+                self.growth_tracker += 1
+        else:
+            self.scale = max(float(np.float32(self.scale) * np.float32(k.backoff_factor)), 1.0)
+            self.growth_tracker = 0
+
+    def state_dict(self) -> dict:
+        return {"scale": self.scale, "growth_tracker": self.growth_tracker}
+
+    def load_state_dict(self, state: dict):
+        self.scale = float(np.float32(state["scale"]))
+        self.growth_tracker = int(state["growth_tracker"])
+
+
+def _unscale(grads, scale: float, inv: float = 1.0) -> torch.Tensor:
+    """Divide every gradient by ``scale`` (then multiply by ``inv``) in
+    place, as the reference's ``g / scale`` (``* inv_steps``); returns a
+    bool [1] device tensor, all of them finite."""
+    if not grads:
+        return torch.ones(1, dtype=torch.bool)
+    torch._foreach_div_(grads, scale)
+    if inv != 1.0:
+        torch._foreach_mul_(grads, inv)
+    found = torch.zeros(1, device=grads[0].device)
+    torch._amp_foreach_non_finite_check_and_unscale_(
+        grads, found, torch.ones(1, device=grads[0].device))
+    return found == 0
+
+
+def _scaled_backward(loss: torch.Tensor, params, scale: float, post) -> torch.Tensor:
+    """One micro-batch's backward from ``loss * scale`` into fresh
+    gradients, ``post(grads)`` applied to them (the unscale), then added
+    to what ``params`` had accumulated: the reference's per-micro-batch
+    ``acc + g``. Returns what ``post`` returns."""
+    stash = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    (loss.float() * scale).backward()
+    out = post([p.grad for p in params if p.grad is not None])
+    for p, acc in zip(params, stash):
+        if acc is not None and p.grad is not None:
+            p.grad = acc.add_(p.grad)
+        elif acc is not None:
+            p.grad = acc
+    return out
 
 
 def _call(model, batch):
@@ -145,16 +231,21 @@ class _RemovableHandle:
 
 
 class Accelerator:
-    """``mixed_precision`` "no" or "bf16" ("fp16"/"fp8" are later slices);
-    ``gradient_accumulation_steps`` (or a ``GradientAccumulationPlugin``);
-    ``project_dir`` / ``project_config`` (a ``ProjectConfiguration``):
-    where ``save_state`` writes; ``device=None`` means CUDA and raises
+    """``mixed_precision`` "no", "bf16" or "fp16" ("fp8" is a later
+    slice); ``gradient_accumulation_steps`` (or a
+    ``GradientAccumulationPlugin``); ``project_dir`` / ``project_config``
+    (a ``ProjectConfiguration``): where ``save_state`` writes;
+    ``kwargs_handlers``: a ``GradScalerKwargs`` (the fp16 loss scale's
+    rule) and an ``AutocastKwargs``; ``log_with``: trackers
+    (``tracking.py``); ``telemetry``: a ``TelemetryConfig``, True, or
+    None to read ``ATT_TELEMETRY``; ``device=None`` means CUDA and raises
     without it, ``device="cpu"`` runs the plain versions of the kernels."""
 
     def __init__(self, mixed_precision="no", gradient_accumulation_steps: int = 1,
                  gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
                  project_dir: Optional[str] = None,
                  project_config: Optional[ProjectConfiguration] = None,
+                 kwargs_handlers: Optional[list] = None, log_with=None, telemetry=None,
                  device=None):
         if gradient_accumulation_plugin is not None and gradient_accumulation_steps != 1:
             raise ValueError(
@@ -162,7 +253,24 @@ class Accelerator:
             )
         plugin = gradient_accumulation_plugin or GradientAccumulationPlugin(
             num_steps=gradient_accumulation_steps)
+        self.scaler_handler: Optional[GradScalerKwargs] = None
+        self.autocast_handler: Optional[AutocastKwargs] = None
+        for handler in kwargs_handlers or []:
+            if isinstance(handler, GradScalerKwargs):
+                self.scaler_handler = handler
+            elif isinstance(handler, AutocastKwargs):
+                self.autocast_handler = handler
+            else:
+                raise TypeError(f"kwargs_handlers takes GradScalerKwargs and AutocastKwargs, "
+                                f"got {handler!r}")
         self.state = AcceleratorState(mixed_precision, device)
+        if self.scaler_handler is not None:
+            self.state.precision.grad_scaler = self.scaler_handler
+        self.loss_scale: Optional[LossScale] = (
+            LossScale(self.state.precision.grad_scaler)
+            if self.state.precision.needs_loss_scaling else None)
+        self._finite: Optional[torch.Tensor] = None  # this window's gradients all finite
+        self._update_finite = True   # the decision of the window's first update
         self.gradient_state = GradientState(plugin)
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
@@ -174,6 +282,17 @@ class Accelerator:
         self._custom_objects: list = []
         self._save_model_state_pre_hook: dict = {}
         self._load_model_state_pre_hook: dict = {}
+        self.flag_tensor = None
+        from .tracking import filter_trackers
+
+        self.log_with = filter_trackers(log_with, self.logging_dir)
+        self.trackers: list = []
+        from .telemetry import TelemetrySession, resolve_config
+
+        tcfg = resolve_config(telemetry)
+        self.telemetry = TelemetrySession(tcfg, accelerator=self) if tcfg else None
+        self._pending_loss = None  # the last micro-batch's loss, for the step record
+        self._fused = False        # inside build_train_step's step: no per-call counting
 
     @property
     def device(self) -> torch.device:
@@ -199,6 +318,33 @@ class Accelerator:
     def save_iteration(self) -> int:
         """The index of the next automatically named checkpoint."""
         return self.project_configuration.iteration
+
+    @property
+    def optimizer_step_was_skipped(self) -> bool:
+        """True when the last update of a prepared optimizer was skipped
+        for non-finite fp16 gradients."""
+        return any(opt.step_was_skipped for opt in self._optimizers)
+
+    # what the telemetry session reads of its training owner (the
+    # reference TrainEngine's names)
+
+    @property
+    def step_count(self) -> int:
+        """Updates of the last prepared optimizer (skipped ones counted)."""
+        return self._optimizers[-1].step_count if self._optimizers else 0
+
+    @property
+    def scale_state(self) -> Optional[dict]:
+        """``{"scale", "growth_tracker"}`` of the fp16 loss scale, or None."""
+        return None if self.loss_scale is None else self.loss_scale.state_dict()
+
+    def last_step_skipped(self) -> bool:
+        return self.optimizer_step_was_skipped
+
+    @property
+    def model_config(self):
+        """The last prepared model's config (FLOPs per token), or None."""
+        return getattr(self._models[-1], "config", None) if self._models else None
 
     # -- prepare ---------------------------------------------------------
 
@@ -249,11 +395,27 @@ class Accelerator:
                 "which needs a model with set_param_cast() (DecoderLM)"
             )
         self._models.append(model)
+        if self.telemetry is not None:
+            import inspect
+
+            self.telemetry.attach_engine(self)
+            names = tuple(n for n, p in inspect.signature(model.forward).parameters.items()
+                          if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD))
+
+            def note_batch(module, args, kwargs):
+                # a training call's tokens go to the next step record (the
+                # fused step counts its own batches)
+                if (self.telemetry is not None and module.training
+                        and torch.is_grad_enabled() and not self._fused):
+                    self.telemetry.note_batch(args, kwargs, names)
+
+            model.register_forward_pre_hook(note_batch, with_kwargs=True)
         return model
 
     def prepare_optimizer(self, optimizer: torch.optim.Optimizer) -> AcceleratedOptimizer:
         wrapped = AcceleratedOptimizer(optimizer, self.gradient_state,
-                                       pre_step=self._clip_before_update)
+                                       pre_step=self._before_update,
+                                       post_step=self._after_update)
         self._optimizers.append(wrapped)
         return wrapped
 
@@ -275,8 +437,22 @@ class Accelerator:
 
     def backward(self, loss: torch.Tensor, **kwargs):
         """Add this micro-batch's gradient, divided by the accumulation
-        count, to the parameters' ``.grad``."""
-        (loss / self.gradient_state.num_steps).backward(**kwargs)
+        count, to the parameters' ``.grad``. Under fp16 the backward
+        starts from ``loss * scale`` into fresh gradients, which are
+        divided by the scale and the count, checked for inf / nan and
+        added to the accumulated ones."""
+        if self.telemetry is not None:
+            self._pending_loss = loss.detach()
+        n = self.gradient_state.num_steps
+        if self.loss_scale is None:
+            (loss / n).backward(**kwargs)
+            return
+        if kwargs:
+            raise TypeError(f"backward() under fp16 loss scaling takes no {sorted(kwargs)}")
+        params = [p for p in self._model_params() if p.requires_grad]
+        scale = self.loss_scale.scale
+        finite = _scaled_backward(loss, params, scale, lambda g: _unscale(g, scale, 1.0 / n))
+        self._finite = finite if self._finite is None else self._finite & finite
 
     @contextlib.contextmanager
     def accumulate(self, *models):
@@ -303,10 +479,56 @@ class Accelerator:
         params = list(parameters) if parameters is not None else self._model_params()
         return global_grad_norm(params)
 
-    def _clip_before_update(self, optimizer: AcceleratedOptimizer):
-        if self._clip_max_norm is not None:
+    def clip_grad_value_(self, parameters=None, clip_value: float = 1.0):
+        """Clamp every gradient entry to [-clip_value, clip_value] now, in
+        place (``torch.nn.utils.clip_grad_value_``; fp16 gradients are
+        already unscaled here). The reference raises: its update fuses the
+        gradient into one sharded program (ROADMAP queue 3)."""
+        params = list(parameters) if parameters is not None else self._model_params()
+        torch.nn.utils.clip_grad_value_(params, clip_value)
+
+    def _before_update(self, optimizer: AcceleratedOptimizer) -> bool:
+        """At a window's update: under fp16 read the finite flag (one host
+        read a window; every optimizer of the window shares it) and move
+        the loss scale; then the clip. Returns whether to apply."""
+        if self.loss_scale is not None and self._finite is not None:
+            self._update_finite = bool(self._finite.item())
+            self._finite = None
+            self.loss_scale.update(self._update_finite)
+        finite = self._update_finite if self.loss_scale is not None else True
+        if finite and self._clip_max_norm is not None:
             params = optimizer.parameters()
             _clip_grads(params, self._clip_max_norm, global_grad_norm(params))
+        return finite
+
+    def _after_update(self, optimizer: AcceleratedOptimizer):
+        if self.telemetry is not None and not self._fused:
+            self.telemetry.on_optimizer_step(self)
+
+    @contextlib.contextmanager
+    def no_sync(self, model=None):
+        """Hold ``sync_gradients`` False inside: the optimizer steps and
+        zero_grads there are skipped and the gradients keep summing (one
+        process has no reduction to hold back)."""
+        old = self.gradient_state.sync_gradients
+        self.gradient_state._set_sync_gradients(False)
+        try:
+            yield
+        finally:
+            self.gradient_state._set_sync_gradients(old)
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches=None):
+        """One process has no uneven inputs to join: a context that does
+        nothing, as the reference's on one device."""
+        yield
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler: Optional[AutocastKwargs] = None):
+        """The precision policy is applied where the model reads its
+        parameters (``set_param_cast``), so there is nothing to switch: a
+        context that does nothing, as the reference's."""
+        yield
 
     # -- the fused step --------------------------------------------------
 
@@ -344,30 +566,165 @@ class Accelerator:
             batch = send_to_device(batch, self.device)
             opt.optimizer.zero_grad(set_to_none=True)
             loss = torch.zeros((), device=self.device)
+            scale = None if self.loss_scale is None else self.loss_scale.scale
             for mb in _split(batch, micro):
                 out = loss_fn(model, mb) if loss_fn is not None else _call(model, mb)
                 mb_loss = _loss_of(out)
-                (mb_loss / micro).backward()
+                if scale is None:
+                    (mb_loss / micro).backward()
+                else:  # the reference's acc + g / micro over scaled gradients
+                    _scaled_backward(mb_loss, params, scale,
+                                     lambda g: torch._foreach_div_(g, micro) if g else None)
                 loss = loss + mb_loss.detach() / micro
+            finite = True
+            if scale is not None:
+                grads = [p.grad for p in params if p.grad is not None]
+                finite = bool(_unscale(grads, scale).item())  # one host read an update
+                self.loss_scale.update(finite)
             norm = global_grad_norm(params)
-            if self._clip_max_norm is not None:
+            if finite and self._clip_max_norm is not None:
                 _clip_grads(params, self._clip_max_norm, norm)
-            opt.update()
-            for sched in schedulers:
-                sched.scheduler.step()
+            opt.update(skip=not finite)
+            if finite:
+                for sched in schedulers:
+                    sched.scheduler.step()
             return {"loss": loss, "grad_norm": norm}
 
-        if k == 1:
-            return step
-
         def window(batches):
-            losses, metrics = [], None
+            losses, metrics, skipped = [], None, False
             for i in range(k):
                 metrics = step(_index(batches, i, k))
                 losses.append(metrics["loss"])
+                skipped |= opt.step_was_skipped
+            # a skip anywhere in the window shows, as the reference's
+            opt.step_was_skipped = skipped
             return {**metrics, "loss_mean": torch.stack(losses).mean()}
 
-        return window
+        run = step if k == 1 else window
+
+        def timed(batch):
+            tm = self.telemetry
+            if tm is None:
+                return run(batch)
+            from .telemetry.metrics import batch_token_count
+
+            t0 = time.perf_counter()
+            self._fused = True
+            try:
+                metrics = run(batch)
+            finally:
+                self._fused = False
+            tokens, samples, seq_len = batch_token_count(batch)
+            tm.on_step(self, time.perf_counter() - t0, tokens=tokens, samples=samples,
+                       seq_len=seq_len, steps=k, metrics=metrics)
+            return metrics
+
+        return timed
+
+    # -- one-process collectives (the reference's accelerator.py:2049-2097)
+
+    def gather(self, tensor):
+        return operations.gather(tensor)
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """``gather`` of tensors (``gather_object`` of anything else, or
+        with ``use_gather_object``). One process's loaders pad no batch,
+        so nothing is trimmed."""
+        try:
+            operations.recursively_apply(lambda x: x, input_data, error_on_other_type=True)
+            all_tensors = True
+        except TypeError:
+            all_tensors = False
+        if use_gather_object or not all_tensors:
+            return operations.gather_object(input_data)
+        return self.gather(input_data)
+
+    def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
+        return operations.reduce(tensor, reduction, scale)
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False):
+        return operations.pad_across_processes(tensor, dim=dim, pad_index=pad_index,
+                                               pad_first=pad_first)
+
+    def prepare_for_eval(self, batch, batch_dim: int = 0):
+        """An eval batch placed as the prepared loaders place theirs: on
+        the device. ``batch_dim`` is kept for the reference's signature
+        (one process shards nothing)."""
+        return send_to_device(batch, self.device)
+
+    def set_trigger(self):
+        """Raise the breakpoint flag that :meth:`check_trigger` reads."""
+        self.flag_tensor = True
+
+    def check_trigger(self) -> bool:
+        """True once after :meth:`set_trigger` (on any process: one here)."""
+        flags = operations.gather_object([1 if self.flag_tensor else 0])
+        if any(flags):
+            self.flag_tensor = False
+            return True
+        return False
+
+    # -- trackers and telemetry (the reference's accelerator.py:2113-2175)
+
+    def init_trackers(self, project_name: str, config: Optional[dict] = None,
+                      init_kwargs: Optional[dict] = None):
+        from .tracking import resolve_trackers
+
+        self.trackers = resolve_trackers(self.log_with, project_name, self.logging_dir,
+                                         init_kwargs or {})
+        if config is not None:
+            for tracker in self.trackers:
+                tracker.store_init_configuration(config)
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        for tracker in self.trackers:
+            if tracker.name == name:
+                return tracker.tracker if unwrap else tracker
+        from .tracking import GeneralTracker
+
+        return GeneralTracker(_blank=True)
+
+    def log(self, values: dict, step: Optional[int] = None,
+            log_kwargs: Optional[dict] = None):
+        log_kwargs = log_kwargs or {}
+        for tracker in self.trackers:
+            tracker.log(values, step=step, **log_kwargs.get(tracker.name, {}))
+
+    def _session(self):
+        if self.telemetry is None:
+            raise RuntimeError(
+                "telemetry is not enabled; pass telemetry=TelemetryConfig(...) "
+                "(or True) to Accelerator, or set ATT_TELEMETRY=1.")
+        return self.telemetry
+
+    def log_system_metrics(self, step: Optional[int] = None, extra: Optional[dict] = None,
+                           log_kwargs: Optional[dict] = None) -> dict:
+        """The telemetry rollup (step time, tokens/s, MFU, data wait,
+        memory, loss, grad norm, loss scale, ...) logged through every
+        tracker, and returned. Needs ``telemetry=``."""
+        values = self._session().rollup()
+        if extra:
+            values = {**values, **extra}
+        if values:
+            self.log(values, step=values.get("sys/step") if step is None else step,
+                     log_kwargs=log_kwargs)
+        return values
+
+    def prometheus_metrics(self) -> str:
+        """The live rollup and SLO histograms as Prometheus text
+        exposition, as the scrape thread serves them. Needs
+        ``telemetry=``."""
+        from .telemetry.exporter import prometheus_text
+
+        return prometheus_text(self._session())
+
+    def end_training(self):
+        """Close the telemetry session and finish every tracker."""
+        if self.telemetry is not None:
+            self.telemetry.close()
+        for tracker in self.trackers:
+            tracker.finish()
 
     # -- checkpoints (the reference's accelerator.py:2178-2300) ---------
 
@@ -450,7 +807,7 @@ class Accelerator:
             output_dir, models=self._models, optimizers=self._optimizers,
             schedulers=self._schedulers, dataloaders=self._dataloaders,
             custom_objects=self._custom_objects, step=self.step,
-            safe_serialization=safe_serialization)
+            safe_serialization=safe_serialization, loss_scale=self.loss_scale)
         config.iteration += 1
         return path
 
@@ -474,7 +831,7 @@ class Accelerator:
         override_step = load_accelerator_state(
             input_dir, models=self._models, optimizers=self._optimizers,
             schedulers=self._schedulers, dataloaders=self._dataloaders,
-            custom_objects=self._custom_objects)
+            custom_objects=self._custom_objects, loss_scale=self.loss_scale)
         if override_step is not None:
             self.step = override_step
 

@@ -11,9 +11,12 @@ resumes on the other:
                           ``2/count`` under a ``LambdaLR``)
   scheduler_<i>.bin       ``{"manual_steps": 0, "torch": <its state>}``
   dl_state_<i>.bin        ``{"batches_yielded", "iteration"}``
-  random_states_0.pkl     python, numpy, torch (+ CUDA) generators
+  random_states_0.pkl     python, numpy, torch (+ CUDA) generators and
+                          the keychain, the dropout stream's position
   custom_checkpoint_<i>.bin  objects given to ``register_for_checkpointing``
-  trainer_state.json      ``{"step", "engines": [{"step_count"}]}``
+  trainer_state.json      ``{"step", "engines": [{"step_count"}]}``, and
+                          under fp16 each engine's ``"scale"``:
+                          ``{"scale", "growth_tracker"}``
 
 Model ``i`` and the optimizer over its parameters are the reference's
 engine ``i``. Weights and moments are written a layer slice at a time
@@ -29,9 +32,9 @@ False`` writes pickles of numpy arrays (``.bin``) in place of
 safetensors, as the reference does.
 
 Not carried: the reference's per-rank manifests of a sharded save
-(``save_pytree_dist``; the port's ``load_flat_dict`` raises on them), a
-loss-scale entry in ``trainer_state.json`` (the port has no fp16 loss
-scaling) and the ``checkpoint/save`` / ``checkpoint/restore`` spans.
+(``save_pytree_dist``; the port's ``load_flat_dict`` raises on them). The
+port keeps one loss scale for all its engines (the Accelerator's): it
+writes it into every engine's entry and loads engine 0's.
 """
 
 from __future__ import annotations
@@ -120,20 +123,21 @@ def _reference_optimizer(opt, model) -> bool:
 
 def save_accelerator_state(output_dir: str, models=(), optimizers=(), schedulers=(),
                            dataloaders=(), custom_objects=(), step: int = 0,
-                           safe_serialization: bool = True) -> str:
+                           safe_serialization: bool = True, loss_scale=None) -> str:
     """Write every prepared object's state into ``output_dir`` (the
-    reference's checkpointing.py:51). ``step`` is the Accelerator's. The
+    reference's checkpointing.py:51). ``step`` is the Accelerator's,
+    ``loss_scale`` its fp16 loss scale (``accelerator.LossScale``) or None. The
     write runs inside ``phase("checkpoint/save")``, as the reference's: a
     span when a telemetry session records spans, and seconds in an armed
     goodput ledger's checkpoint bucket."""
     with phase("checkpoint/save"):
         return _save_accelerator_state(output_dir, models, optimizers, schedulers,
                                        dataloaders, custom_objects, step,
-                                       safe_serialization)
+                                       safe_serialization, loss_scale)
 
 
 def _save_accelerator_state(output_dir, models, optimizers, schedulers, dataloaders,
-                            custom_objects, step, safe_serialization) -> str:
+                            custom_objects, step, safe_serialization, loss_scale) -> str:
     os.makedirs(output_dir, exist_ok=True)
     trainer_state = {"step": step, "engines": []}
     for i, (model, opt, sched) in enumerate(_engines(models, optimizers, schedulers)):
@@ -145,7 +149,11 @@ def _save_accelerator_state(output_dir, models, optimizers, schedulers, dataload
                    safe_serialization)
         elif opt is not None:
             _pickle(opt.state_dict(), stem + ".bin")
-        trainer_state["engines"].append({"step_count": opt.step_count if opt else 0})
+        meta = {"step_count": opt.step_count if opt else 0}
+        if loss_scale is not None:
+            # floats, as the reference writes them
+            meta["scale"] = {k: float(v) for k, v in loss_scale.state_dict().items()}
+        trainer_state["engines"].append(meta)
     for i, sched in enumerate(schedulers):
         _pickle(sched.state_dict(), os.path.join(output_dir, f"{SCHEDULER_NAME}_{i}.bin"))
     for i, dl in enumerate(dataloaders):
@@ -173,25 +181,28 @@ def _load_optimizer(path: str, opt, model, sched):
 
 
 def load_accelerator_state(input_dir: str, models=(), optimizers=(), schedulers=(),
-                           dataloaders=(), custom_objects=()) -> Optional[int]:
+                           dataloaders=(), custom_objects=(), loss_scale=None) -> Optional[int]:
     """Load what :func:`save_accelerator_state` (or the reference's) wrote
     into the prepared objects, in place (the reference's
     checkpointing.py:164). Files a checkpoint lacks leave their object as
-    it is. Returns the saved ``step``, or None. Runs inside
+    it is; ``loss_scale`` takes engine 0's ``"scale"`` entry when there is
+    one. Returns the saved ``step``, or None. Runs inside
     ``phase("checkpoint/restore")``, as the reference's."""
     with phase("checkpoint/restore"):
         return _load_accelerator_state(input_dir, models, optimizers, schedulers,
-                                       dataloaders, custom_objects)
+                                       dataloaders, custom_objects, loss_scale)
 
 
 def _load_accelerator_state(input_dir, models, optimizers, schedulers, dataloaders,
-                            custom_objects) -> Optional[int]:
+                            custom_objects, loss_scale) -> Optional[int]:
     trainer_state = {}
     ts_path = os.path.join(input_dir, "trainer_state.json")
     if os.path.exists(ts_path):
         with open(ts_path) as f:
             trainer_state = json.load(f)
     metas = trainer_state.get("engines") or []
+    if loss_scale is not None and metas and "scale" in metas[0]:
+        loss_scale.load_state_dict(metas[0]["scale"])
     for i, (model, opt, sched) in enumerate(_engines(models, optimizers, schedulers)):
         path = _find(input_dir, f"{MODEL_NAME}_{i}")
         if path is None:

@@ -1,5 +1,13 @@
 // Flash-attention backward, dK and dV, for Hopper (sm_90a) on the tensor
-// cores, bf16 in and out.
+// cores, bf16 in and out (flash_bwd_dkv_launch) or fp16 in and out
+// (flash_bwd_dkv_f16_launch: the same kernel with the element type T a
+// template parameter, hopper.cuh Elem). In fp16 a dS past fp16's range
+// rounds to +-inf and reaches dK, where a loss scale's finite check sees
+// it. fp16 keeps 11 significant bits where bf16 keeps 8: one fp16 p in
+// the dV product lands within a fifth of the flash tolerance of the fp32
+// product (tests/test_torch_fp16_flash.py), so the fp16 entry takes p
+// once, as the reference's p.astype(do.dtype) in fp16, and skips the lo
+// product below: four products, not five.
 //
 // Replaces the TPU kernel `_dkv_kernel` (accelerate_tpu/ops/attention.py,
 // launched by `_flash_bwd_call`): for each kv row t of kv head kvh,
@@ -39,8 +47,8 @@
 //   plain version's summation order (ds_replay, flash_common.cuh), so that
 //   wgmma's other order does not round them one bf16 ulp apart. p stays
 //   fp32 in the dV product (the TPU kernel upcasts dO, so
-//   p.astype(do.dtype) is fp32): p is split into hi = bf16(p) and lo =
-//   bf16(p - hi), and dV takes both products, which carries p to ~16
+//   p.astype(do.dtype) is fp32): p is split into hi = T(p) and lo =
+//   T(p - hi), and dV takes both products, which carries p to ~16
 //   significant bits (a bf16 p alone misses the fp32 sum where many large
 //   p terms cancel in the early kv rows). Five products where the
 //   function needs four.
@@ -121,12 +129,12 @@ __device__ __forceinline__ void issue_q(uint8_t* smem, int j, const Walk& w,
   if (mk.q_seg) bulk_load(rows + 2 * BQ, mk.q_seg + (size_t)b * Sq + q0, ROW_BYTES, &full[s]);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const float* __restrict__ lse, const float* __restrict__ delta, Masks mk,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KVH, int Sq, int Skv,
+    T* __restrict__ dk, T* __restrict__ dv, int H, int KVH, int Sq, int Skv,
     int causal, float scale) {
   using L = Layout<D>;
   constexpr int NA = D / 2;   // dK / dV accumulator floats a thread
@@ -228,9 +236,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
       for (int kk = 0; kk < D / 16; ++kk) {
         const int koff = (kk / 4) * L::KV_BOX + (kk % 4) * 32;
         const int off = (kk / 4) * L::Q_BOX + (kk % 4) * 32;
-        wgmma_m64n64k16_ss(st, sw128_desc(k_wg + koff, 16, 1024), sw128_desc(qst + off, 16, 1024),
+        wgmma_m64n64k16_ss<T>(st, sw128_desc(k_wg + koff, 16, 1024), sw128_desc(qst + off, 16, 1024),
                            kk > 0);
-        wgmma_m64n64k16_ss(dpt, sw128_desc(v_wg + koff, 16, 1024),
+        wgmma_m64n64k16_ss<T>(dpt, sw128_desc(v_wg + koff, 16, 1024),
                            sw128_desc(dost + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -251,7 +259,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
         }
       }
 
-      // P^T (as hi + lo) as bf16 A fragments, and dS^T in fp32 in place of
+      // P^T (as hi + lo) as T A fragments, and dS^T in fp32 in place of
       // dP^T: k16 step kk is registers 8 kk .. 8 kk + 7, register i holds
       // query column 8 (i / 4) + 2 (lane % 4) + i % 2. The large dS
       // elements near a bf16 rounding boundary are flagged and replayed in
@@ -267,14 +275,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
           const float2 d2 = *reinterpret_cast<const float2*>(delta_s + col);
           const float p0 = exp2f(fmaf(st[i], scale_log2, -l2.x * LOG2E));  // masked: 0
           const float p1 = exp2f(fmaf(st[i + 1], scale_log2, -l2.y * LOG2E));
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-          const float2 hf = __bfloat1622float2(hi);
-          p_hi[kk][t] = *reinterpret_cast<const uint32_t*>(&hi);
-          p_lo[kk][t] = pack_bf16(p0 - hf.x, p1 - hf.y);
+          const uint32_t hi = pack<T>(p0, p1);
+          p_hi[kk][t] = hi;
+          if constexpr (!is_f16<T>)
+            p_lo[kk][t] = pack<T>(p0 - Elem<T>::lo(hi), p1 - Elem<T>::hi(hi));
           dpt[i] = p0 * (dpt[i] - d2.x) * scale;
           dpt[i + 1] = p1 * (dpt[i + 1] - d2.y) * scale;
-          if (replay_ds(p0, dpt[i])) near |= 1u << i;
-          if (replay_ds(p1, dpt[i + 1])) near |= 2u << i;
+          if (replay_ds<T>(p0, dpt[i])) near |= 1u << i;
+          if (replay_ds<T>(p1, dpt[i + 1])) near |= 2u << i;
         }
       while (__any_sync(0xffffffffu, near)) {
         const int i = __ffs(near) - 1;  // -1: nothing left on this lane
@@ -282,7 +290,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
         if (i >= 0) {
           near &= near - 1;
           const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-          ds = ds_replay<D>(qst, dost, L::Q_BOX, col, ks, vs, L::KV_BOX, r_lo + 8 * ((i / 2) % 2),
+          ds = ds_replay<D, T>(qst, dost, L::Q_BOX, col, ks, vs, L::KV_BOX, r_lo + 8 * ((i / 2) % 2),
                             lse_s[col], delta_s[col], scale);
         }
 #pragma unroll
@@ -294,18 +302,18 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
       for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
         for (int t = 0; t < 4; ++t)
-          dsa[kk][t] = pack_bf16(dpt[8 * kk + 2 * t], dpt[8 * kk + 2 * t + 1]);
+          dsa[kk][t] = pack<T>(dpt[8 * kk + 2 * t], dpt[8 * kk + 2 * t + 1]);
 
-      // dV += P^T dO (hi, then lo) and dK += dS^T Q over the tile's query
+      // dV += P^T dO (hi, then lo; fp16: p once) and dK += dS^T Q over the tile's query
       // rows in k16 steps of 16 rows (2048 bytes); the next 64 columns of
       // dO / Q are one box (Q_BOX bytes) further
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
         const uint64_t d_do = sw128_desc(dost + kk * 16 * 128, L::Q_BOX, 1024);
-        wgmma_rs_tb<D>(dv_acc, p_hi[kk], d_do);
-        wgmma_rs_tb<D>(dv_acc, p_lo[kk], d_do);
-        wgmma_rs_tb<D>(dk_acc, dsa[kk], sw128_desc(qst + kk * 16 * 128, L::Q_BOX, 1024));
+        wgmma_rs_tb<D, T>(dv_acc, p_hi[kk], d_do);
+        if constexpr (!is_f16<T>) wgmma_rs_tb<D, T>(dv_acc, p_lo[kk], d_do);
+        wgmma_rs_tb<D, T>(dk_acc, dsa[kk], sw128_desc(qst + kk * 16 * 128, L::Q_BOX, 1024));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -316,32 +324,56 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  store_acc<D>(dk + (size_t)bkv * Skv * D, dk_acc, krow, Skv, lane);
-  store_acc<D>(dv + (size_t)bkv * Skv * D, dv_acc, krow, Skv, lane);
+  store_acc<D, T>(dk + (size_t)bkv * Skv * D, dk_acc, krow, Skv, lane);
+  store_acc<D, T>(dv + (size_t)bkv * Skv * D, dv_acc, krow, Skv, lane);
 }
 
-template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                   const float* lse, const float* delta, Masks mk, bf16* dk, bf16* dv,
-                   int B, int H, int KVH, int Sq, int Skv, int causal, float scale,
-                   cudaStream_t stream) {
+template <int D, typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                   const float* delta, Masks mk, T* dk, T* dv, int B, int H, int KVH, int Sq,
+                   int Skv, int causal, float scale, cudaStream_t stream) {
   using L = Layout<D>;
   static bool smem_ok = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, L::ALLOC, smem_ok);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, T>, L::ALLOC, smem_ok);
   if (err != cudaSuccess) return err;
   // the bulk copies of the row vectors read 16-byte aligned runs
   if (reinterpret_cast<uintptr_t>(lse) % 16 || reinterpret_cast<uintptr_t>(delta) % 16 ||
       reinterpret_cast<uintptr_t>(mk.q_seg) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tdo, tk, tv;
-  if ((err = bf16_tile_map(&tq, q, D, Sq, B * H, BQ)) != cudaSuccess) return err;
-  if ((err = bf16_tile_map(&tdo, dout, D, Sq, B * H, BQ)) != cudaSuccess) return err;
-  if ((err = bf16_tile_map(&tk, k, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
-  if ((err = bf16_tile_map(&tv, v, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tq, q, D, Sq, B * H, BQ)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tdo, dout, D, Sq, B * H, BQ)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tk, k, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tv, v, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
   const dim3 grid((Skv + BK - 1) / BK, KVH, B);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, L::ALLOC, stream>>>(
+  flash_bwd_dkv_kernel<D, T><<<grid, THREADS, L::ALLOC, stream>>>(
       tq, tdo, tk, tv, lse, delta, mk, dk, dv, H, KVH, Sq, Skv, causal, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_typed(const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, const void* kv_mask, const void* q_seg,
+                 const void* kv_seg, void* dk, void* dv, int B, int H, int KVH, int Sq,
+                 int Skv, int D, int causal, float scale, void* stream) {
+  const Masks mk{static_cast<const int*>(kv_mask), static_cast<const int*>(q_seg),
+                 static_cast<const int*>(kv_seg)};
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dp = static_cast<const float*>(delta);
+  T* dkp = static_cast<T*>(dk);
+  T* dvp = static_cast<T*>(dv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch<128, T>(qp, kp, vp, dop, lp, dp, mk, dkp, dvp, B, H, KVH, Sq, Skv,
+                               causal, scale, st);
+  if (D == 64)
+    return (int)launch<64, T>(qp, kp, vp, dop, lp, dp, mk, dkp, dvp, B, H, KVH, Sq, Skv,
+                              causal, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -359,22 +391,17 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* kv_seg, void* dk, void* dv, int B, int H,
                                     int KVH, int Sq, int Skv, int D, int causal,
                                     float scale, void* stream) {
-  const Masks mk{static_cast<const int*>(kv_mask), static_cast<const int*>(q_seg),
-                 static_cast<const int*>(kv_seg)};
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dop = static_cast<const bf16*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  const float* dp = static_cast<const float*>(delta);
-  bf16* dkp = static_cast<bf16*>(dk);
-  bf16* dvp = static_cast<bf16*>(dv);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch<128>(qp, kp, vp, dop, lp, dp, mk, dkp, dvp, B, H, KVH, Sq, Skv,
-                            causal, scale, st);
-  if (D == 64)
-    return (int)launch<64>(qp, kp, vp, dop, lp, dp, mk, dkp, dvp, B, H, KVH, Sq, Skv,
-                           causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_typed<bf16>(q, k, v, dout, lse, delta, kv_mask, q_seg, kv_seg, dk, dv, B, H,
+                            KVH, Sq, Skv, D, causal, scale, stream);
+}
+
+// The same with q, k, v, dout, dk and dv fp16.
+extern "C" int flash_bwd_dkv_f16_launch(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* lse, const void* delta,
+                                        const void* kv_mask, const void* q_seg,
+                                        const void* kv_seg, void* dk, void* dv, int B, int H,
+                                        int KVH, int Sq, int Skv, int D, int causal,
+                                        float scale, void* stream) {
+  return launch_typed<__half>(q, k, v, dout, lse, delta, kv_mask, q_seg, kv_seg, dk, dv, B,
+                              H, KVH, Sq, Skv, D, causal, scale, stream);
 }

@@ -1,5 +1,9 @@
 // Flash-attention backward, dQ, for Hopper (sm_90a) on the tensor cores,
-// bf16 in and out.
+// bf16 in and out (flash_bwd_dq_launch) or fp16 in and out
+// (flash_bwd_dq_f16_launch: the same kernel with the element type T a
+// template parameter, hopper.cuh Elem). In fp16 a dS past fp16's range
+// rounds to +-inf and reaches dQ, where a loss scale's finite check sees
+// it.
 //
 // Replaces the TPU kernel `_dq_kernel` (accelerate_tpu/ops/attention.py,
 // launched by `_flash_bwd_call`): for each query row, with p = exp(s - lse)
@@ -85,12 +89,12 @@ struct Layout {
   static_assert(ALLOC <= 232448, "shared memory of one block");
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const float* __restrict__ lse, const float* __restrict__ delta, Masks mk,
-    bf16* __restrict__ dq, int H, int KVH, int Sq, int Skv, int causal, float scale) {
+    T* __restrict__ dq, int H, int KVH, int Sq, int Skv, int causal, float scale) {
   using L = Layout<D>;
   constexpr int NQ = D / 2;   // dQ accumulator floats a thread
   constexpr int NS = BK / 2;  // S / dP accumulator floats a thread
@@ -194,9 +198,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (kk / 4) * L::Q_BOX + (kk % 4) * 32;
         const int koff = (kk / 4) * L::KV_BOX + (kk % 4) * 32;
-        wgmma_m64n64k16_ss(sc, sw128_desc(q_wg + off, 16, 1024), sw128_desc(kst + koff, 16, 1024),
+        wgmma_m64n64k16_ss<T>(sc, sw128_desc(q_wg + off, 16, 1024), sw128_desc(kst + koff, 16, 1024),
                            kk > 0);
-        wgmma_m64n64k16_ss(dp, sw128_desc(do_wg + off, 16, 1024),
+        wgmma_m64n64k16_ss<T>(dp, sw128_desc(do_wg + off, 16, 1024),
                            sw128_desc(vst + koff, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -226,7 +230,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
         const int u = (i / 2) % 2;
         const float p = exp2f(fmaf(sc[i], scale_log2, -lse2[u]));  // masked: 0
         dp[i] = p * (dp[i] - dlt[u]) * scale;
-        if (replay_ds(p, dp[i])) near |= 1u << i;
+        if (replay_ds<T>(p, dp[i])) near |= 1u << i;
       }
       while (__any_sync(0xffffffffu, near)) {
         const int i = __ffs(near) - 1;  // -1: nothing left on this lane
@@ -234,7 +238,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
         if (i >= 0) {
           near &= near - 1;
           const bool u = (i / 2) % 2;  // a select, not an index: i is not constant here
-          ds = ds_replay<D>(qs, dos, L::Q_BOX, r_lo + 8 * u, kst, vst, L::KV_BOX,
+          ds = ds_replay<D, T>(qs, dos, L::Q_BOX, r_lo + 8 * u, kst, vst, L::KV_BOX,
                             8 * (i / 4) + 2 * (lane % 4) + i % 2, u ? lse_r[1] : lse_r[0],
                             u ? dlt[1] : dlt[0], scale);
         }
@@ -243,19 +247,19 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
           if (j == i) dp[j] = ds;
       }
 
-      // dS as bf16 A fragments: k16 step kk is registers 8 kk .. 8 kk + 7
+      // dS as T A fragments: k16 step kk is registers 8 kk .. 8 kk + 7
       uint32_t dsa[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int t = 0; t < 4; ++t) dsa[kk][t] = pack_bf16(dp[8 * kk + 2 * t], dp[8 * kk + 2 * t + 1]);
+        for (int t = 0; t < 4; ++t) dsa[kk][t] = pack<T>(dp[8 * kk + 2 * t], dp[8 * kk + 2 * t + 1]);
 
       // dQ += dS K over the tile's rows in k16 steps of 16 rows (2048
       // bytes); the next 64 columns of K are one box (KV_BOX bytes) further
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs_tb<D>(acc, dsa[kk], sw128_desc(kst + kk * 16 * 128, L::KV_BOX, 1024));
+        wgmma_rs_tb<D, T>(acc, dsa[kk], sw128_desc(kst + kk * 16 * 128, L::KV_BOX, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -264,29 +268,53 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  store_acc<D>(dq + (size_t)bh * Sq * D, acc, row, Sq, lane);
+  store_acc<D, T>(dq + (size_t)bh * Sq * D, acc, row, Sq, lane);
 }
 
-template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                   const float* lse, const float* delta, Masks mk, bf16* dq, int B, int H,
-                   int KVH, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+template <int D, typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                   const float* delta, Masks mk, T* dq, int B, int H, int KVH, int Sq,
+                   int Skv, int causal, float scale, cudaStream_t stream) {
   using L = Layout<D>;
   static bool smem_ok = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, L::ALLOC, smem_ok);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, T>, L::ALLOC, smem_ok);
   if (err != cudaSuccess) return err;
   // the bulk copies of the mask rows read 16-byte aligned runs
   if (reinterpret_cast<uintptr_t>(mk.kv_mask) % 16 || reinterpret_cast<uintptr_t>(mk.kv_seg) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tdo, tk, tv;
-  if ((err = bf16_tile_map(&tq, q, D, Sq, B * H, BQ)) != cudaSuccess) return err;
-  if ((err = bf16_tile_map(&tdo, dout, D, Sq, B * H, BQ)) != cudaSuccess) return err;
-  if ((err = bf16_tile_map(&tk, k, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
-  if ((err = bf16_tile_map(&tv, v, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tq, q, D, Sq, B * H, BQ)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tdo, dout, D, Sq, B * H, BQ)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tk, k, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tv, v, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, L::ALLOC, stream>>>(
+  flash_bwd_dq_kernel<D, T><<<grid, THREADS, L::ALLOC, stream>>>(
       tq, tdo, tk, tv, lse, delta, mk, dq, H, KVH, Sq, Skv, causal, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_typed(const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, const void* kv_mask, const void* q_seg,
+                 const void* kv_seg, void* dq, int B, int H, int KVH, int Sq, int Skv, int D,
+                 int causal, float scale, void* stream) {
+  const Masks mk{static_cast<const int*>(kv_mask), static_cast<const int*>(q_seg),
+                 static_cast<const int*>(kv_seg)};
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dp = static_cast<const float*>(delta);
+  T* out = static_cast<T*>(dq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch<128, T>(qp, kp, vp, dop, lp, dp, mk, out, B, H, KVH, Sq, Skv, causal,
+                               scale, st);
+  if (D == 64)
+    return (int)launch<64, T>(qp, kp, vp, dop, lp, dp, mk, out, B, H, KVH, Sq, Skv, causal,
+                              scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -304,21 +332,17 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                                    const void* kv_seg, void* dq, int B, int H, int KVH,
                                    int Sq, int Skv, int D, int causal, float scale,
                                    void* stream) {
-  const Masks mk{static_cast<const int*>(kv_mask), static_cast<const int*>(q_seg),
-                 static_cast<const int*>(kv_seg)};
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dop = static_cast<const bf16*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  const float* dp = static_cast<const float*>(delta);
-  bf16* out = static_cast<bf16*>(dq);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch<128>(qp, kp, vp, dop, lp, dp, mk, out, B, H, KVH, Sq, Skv, causal,
-                            scale, st);
-  if (D == 64)
-    return (int)launch<64>(qp, kp, vp, dop, lp, dp, mk, out, B, H, KVH, Sq, Skv, causal,
-                           scale, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_typed<bf16>(q, k, v, dout, lse, delta, kv_mask, q_seg, kv_seg, dq, B, H, KVH,
+                            Sq, Skv, D, causal, scale, stream);
+}
+
+// The same with q, k, v, dout and dq fp16.
+extern "C" int flash_bwd_dq_f16_launch(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       const void* kv_mask, const void* q_seg,
+                                       const void* kv_seg, void* dq, int B, int H, int KVH,
+                                       int Sq, int Skv, int D, int causal, float scale,
+                                       void* stream) {
+  return launch_typed<__half>(q, k, v, dout, lse, delta, kv_mask, q_seg, kv_seg, dq, B, H,
+                              KVH, Sq, Skv, D, causal, scale, stream);
 }

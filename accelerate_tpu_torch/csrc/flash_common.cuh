@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,25 +61,38 @@ __device__ __forceinline__ bool attended(bool causal, const Masks& mk, int row, 
 // (ds_replay), and rounds as the plain version does. Below REPLAY_MIN_P a
 // flipped dS moves dQ / dK by at most 2^-8 of a term that is itself under
 // 2^-8 of its row's probability mass.
+//
+// The fp16 entries round dS to fp16, which drops 13 of fp32's mantissa
+// bits where bf16 drops 16: the same window, as a share of the rounding
+// step (1/256 of it), is REPLAY_WINDOW / 8 ulps of the low 13 bits (dS in
+// fp16's normal range; a subnormal dS is too small to matter).
 constexpr int REPLAY_WINDOW = 256;
 constexpr float REPLAY_MIN_P = 1.f / 256;
 
+template <typename T = bf16>
 __device__ __forceinline__ bool replay_ds(float p, float ds) {
-  const int lo = (int)(__float_as_uint(ds) & 0xFFFFu);
-  return p >= REPLAY_MIN_P && abs(lo - 0x8000) < REPLAY_WINDOW;
+  if constexpr (hopper::is_f16<T>) {
+    const int lo = (int)(__float_as_uint(ds) & 0x1FFFu);
+    return p >= REPLAY_MIN_P && abs(lo - 0x1000) < REPLAY_WINDOW / 8;
+  } else {
+    const int lo = (int)(__float_as_uint(ds) & 0xFFFFu);
+    return p >= REPLAY_MIN_P && abs(lo - 0x8000) < REPLAY_WINDOW;
+  }
 }
 
-// 16-byte chunk c (bf16 elements 8 c .. 8 c + 7) of row r of a tile that
+// 16-byte chunk c (16-bit elements 8 c .. 8 c + 7) of row r of a tile that
 // TMA wrote in 64-column boxes of `box` bytes with the 128-byte swizzle
 __device__ __forceinline__ uint4 swizzled_chunk(const uint8_t* tile, int box, int r, int c) {
   return *reinterpret_cast<const uint4*>(tile + (c / 8) * box + r * 128 + ((c % 8) ^ (r % 8)) * 16);
 }
 
-// acc + x.lo y.lo, then + x.hi y.hi: two fp32 FMAs over a pair of bf16
+// acc + x.lo y.lo, then + x.hi y.hi: two fp32 FMAs over a pair of T
 // (the low half of a word is the lower d)
-__device__ __forceinline__ float fma_bf16x2(uint32_t x, uint32_t y, float acc) {
-  acc = fmaf(__uint_as_float(x << 16), __uint_as_float(y << 16), acc);
-  return fmaf(__uint_as_float(x & 0xFFFF0000u), __uint_as_float(y & 0xFFFF0000u), acc);
+template <typename T>
+__device__ __forceinline__ float fma_x2(uint32_t x, uint32_t y, float acc) {
+  using E = hopper::Elem<T>;
+  acc = fmaf(E::lo(x), E::lo(y), acc);
+  return fmaf(E::hi(x), E::hi(y), acc);
 }
 
 // dS of (query row qr of the Q / dO tiles, kv row kr of the K / V tiles)
@@ -90,7 +104,7 @@ __device__ __forceinline__ float fma_bf16x2(uint32_t x, uint32_t y, float acc) {
 // steps into one FMA). q_box / k_box are the box sizes of the query-side
 // and kv-side tiles. The loop is not unrolled: its loads would otherwise
 // be hoisted into registers the accumulators need.
-template <int D>
+template <int D, typename T = bf16>
 __device__ __forceinline__ float ds_replay(const uint8_t* q, const uint8_t* dout, int q_box, int qr,
                                            const uint8_t* k, const uint8_t* v, int k_box, int kr,
                                            float lse, float delta, float scale) {
@@ -99,14 +113,14 @@ __device__ __forceinline__ float ds_replay(const uint8_t* q, const uint8_t* dout
   for (int c = 0; c < D / 8; ++c) {
     const uint4 a = swizzled_chunk(q, q_box, qr, c), b = swizzled_chunk(k, k_box, kr, c);
     const uint4 x = swizzled_chunk(dout, q_box, qr, c), y = swizzled_chunk(v, k_box, kr, c);
-    s = fma_bf16x2(a.x, b.x, s);
-    dp = fma_bf16x2(x.x, y.x, dp);
-    s = fma_bf16x2(a.y, b.y, s);
-    dp = fma_bf16x2(x.y, y.y, dp);
-    s = fma_bf16x2(a.z, b.z, s);
-    dp = fma_bf16x2(x.z, y.z, dp);
-    s = fma_bf16x2(a.w, b.w, s);
-    dp = fma_bf16x2(x.w, y.w, dp);
+    s = fma_x2<T>(a.x, b.x, s);
+    dp = fma_x2<T>(x.x, y.x, dp);
+    s = fma_x2<T>(a.y, b.y, s);
+    dp = fma_x2<T>(x.y, y.y, dp);
+    s = fma_x2<T>(a.z, b.z, s);
+    dp = fma_x2<T>(x.z, y.z, dp);
+    s = fma_x2<T>(a.w, b.w, s);
+    dp = fma_x2<T>(x.w, y.w, dp);
   }
   const float p = expf(__fsub_rn(__fmul_rn(s, scale), lse));
   return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
@@ -140,19 +154,19 @@ __device__ __forceinline__ void load_kv_tile(uint8_t* st, const CUtensorMap* tk,
 
 // A thread's share of a [64 x D] fp32 wgmma accumulator (register i: row
 // (i / 2) % 2 of the thread's two, column 8 (i / 4) + 2 (lane % 4) + i % 2)
-// -> bf16 rows row[0] and row[1] of the row-major [rows, D] tensor at
-// `out`; rows at or past `rows` are not stored.
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[D / 2],
+// -> T (bf16 or fp16) rows row[0] and row[1] of the row-major [rows, D]
+// tensor at `out`; rows at or past `rows` are not stored.
+template <int D, typename T = bf16>
+__device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 2],
                                           const int (&row)[2], int rows, int lane) {
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     if (row[u] >= rows) continue;
-    bf16* dst = out + (size_t)row[u] * D + 2 * (lane % 4);
+    T* dst = out + (size_t)row[u] * D + 2 * (lane % 4);
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       const int i = 4 * c + 2 * u;
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) = __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      *reinterpret_cast<uint32_t*>(dst + 8 * c) = hopper::pack<T>(acc[i], acc[i + 1]);
     }
   }
 }

@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a) on the tensor cores, bf16 in
-// and out.
+// and out (flash_fwd_launch) or fp16 in and out (flash_fwd_f16_launch).
 //
 // Replaces the TPU kernel `_fwd_kernel` (accelerate_tpu/ops/attention.py,
 // launched by `_flash_fwd_call`): online-softmax attention of q [B, H, Sq, D]
@@ -32,7 +32,9 @@
 //   for this product (the transpose bit). O is rescaled by alpha first.
 // - Causal tiles wholly above the diagonal are skipped, as the TPU kernel
 //   skips them, and the heaviest query tiles are launched first.
-// - Rounding sites copy the TPU kernel's: p is rounded to bf16 before the
+// - fp16 is the same kernel with the element type T a template parameter
+//   (hopper.cuh Elem): fp16 tensor maps, `.f16` wgmmas, p packed to fp16.
+// - Rounding sites copy the TPU kernel's: p is rounded to T before the
 //   PV product, l sums the unrounded p, out = acc / l in fp32 then bf16. A
 //   masked score is -inf inside the kernel, so its p = exp2(-inf) is
 //   exactly 0; a row with no attended key (l == 0) gives out = 0 and lse =
@@ -77,10 +79,10 @@ struct Layout {
   static_assert(ALLOC <= 232448, "shared memory of one block");
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, Masks mk, bf16* __restrict__ out,
+    const __grid_constant__ CUtensorMap tv, Masks mk, T* __restrict__ out,
     float* __restrict__ lse, int H, int KVH, int Sq, int Skv, int causal, float scale_log2) {
   using L = Layout<D>;
   constexpr int NO = D / 2;  // O accumulator floats a thread
@@ -169,7 +171,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
       const int off = (kk % 4) * 32;
       const uint64_t da = sw128_desc(q_wg + (kk / 4) * L::Q_BOX + off, 16, 1024);
       const uint64_t db = sw128_desc(kst + (kk / 4) * L::KV_BOX + off, 16, 1024);
-      wgmma_m64n128k16_ss(sc, da, db, 1);
+      wgmma_m64n128k16_ss<T>(sc, da, db, 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -214,12 +216,12 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
 #pragma unroll
     for (int u = 0; u < 2; ++u) l[u] = l[u] * alpha[u] + sum[u];
 
-    // P as bf16 A fragments: k16 step kk is S registers 8 kk .. 8 kk + 7
+    // P as T A fragments: k16 step kk is S registers 8 kk .. 8 kk + 7
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int t = 0; t < 4; ++t) pa[kk][t] = pack_bf16(sc[8 * kk + 2 * t], sc[8 * kk + 2 * t + 1]);
+      for (int t = 0; t < 4; ++t) pa[kk][t] = pack<T>(sc[8 * kk + 2 * t], sc[8 * kk + 2 * t + 1]);
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] *= alpha[(i / 2) % 2];
 
@@ -228,7 +230,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_rs_tb<D>(o, pa[kk], sw128_desc(vst + kk * 16 * 128, L::KV_BOX, 1024));
+      wgmma_rs_tb<D, T>(o, pa[kk], sw128_desc(vst + kk * 16 * 128, L::KV_BOX, 1024));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -247,37 +249,55 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
   for (int u = 0; u < 2; ++u) {
     if (row[u] >= Sq) continue;
     const float safe_l = l[u] == 0.f ? 1.f : l[u];
-    bf16* dst = out + ((size_t)bh * Sq + row[u]) * D + 2 * (lane % 4);
+    T* dst = out + ((size_t)bh * Sq + row[u]) * D + 2 * (lane % 4);
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       const int i = 4 * c + 2 * u;
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) =
-          __floats2bfloat162_rn(o[i] / safe_l, o[i + 1] / safe_l);
+      *reinterpret_cast<uint32_t*>(dst + 8 * c) = pack<T>(o[i] / safe_l, o[i + 1] / safe_l);
     }
     if (lane % 4 == 0)
       lse[(size_t)bh * Sq + row[u]] = l[u] == 0.f ? NEG_INF : m[u] * LN2 + logf(safe_l);
   }
 }
 
-template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, Masks mk, bf16* out,
-                   float* lse, int B, int H, int KVH, int Sq, int Skv, int causal,
-                   float scale, cudaStream_t stream) {
+template <int D, typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, Masks mk, T* out, float* lse, int B,
+                   int H, int KVH, int Sq, int Skv, int causal, float scale,
+                   cudaStream_t stream) {
   using L = Layout<D>;
   static bool smem_ok = false;
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, L::ALLOC, smem_ok);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, T>, L::ALLOC, smem_ok);
   if (err != cudaSuccess) return err;
   // the bulk copies of the mask rows read 16-byte aligned runs
   if (reinterpret_cast<uintptr_t>(mk.kv_mask) % 16 || reinterpret_cast<uintptr_t>(mk.kv_seg) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if ((err = bf16_tile_map(&tq, q, D, Sq, B * H, BQ)) != cudaSuccess) return err;
-  if ((err = bf16_tile_map(&tk, k, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
-  if ((err = bf16_tile_map(&tv, v, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tq, q, D, Sq, B * H, BQ)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tk, k, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
+  if ((err = tile_map<T>(&tv, v, D, Skv, B * KVH, BK)) != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, L::ALLOC, stream>>>(tq, tk, tv, mk, out, lse, H, KVH,
-                                                          Sq, Skv, causal, scale * LOG2E);
+  flash_fwd_kernel<D, T><<<grid, THREADS, L::ALLOC, stream>>>(tq, tk, tv, mk, out, lse, H, KVH,
+                                                             Sq, Skv, causal, scale * LOG2E);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_typed(const void* q, const void* k, const void* v, const void* kv_mask,
+                 const void* q_seg, const void* kv_seg, void* out, void* lse, int B, int H,
+                 int KVH, int Sq, int Skv, int D, int causal, float scale, void* stream) {
+  const Masks mk{static_cast<const int*>(kv_mask), static_cast<const int*>(q_seg),
+                 static_cast<const int*>(kv_seg)};
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(out);
+  float* lp = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch<128, T>(qp, kp, vp, mk, op, lp, B, H, KVH, Sq, Skv, causal, scale, st);
+  if (D == 64)
+    return (int)launch<64, T>(qp, kp, vp, mk, op, lp, B, H, KVH, Sq, Skv, causal, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -294,17 +314,16 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* kv_seg, void* out, void* lse, int B, int H,
                                 int KVH, int Sq, int Skv, int D, int causal, float scale,
                                 void* stream) {
-  const Masks mk{static_cast<const int*>(kv_mask), static_cast<const int*>(q_seg),
-                 static_cast<const int*>(kv_seg)};
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(out);
-  float* lp = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch<128>(qp, kp, vp, mk, op, lp, B, H, KVH, Sq, Skv, causal, scale, st);
-  if (D == 64)
-    return (int)launch<64>(qp, kp, vp, mk, op, lp, B, H, KVH, Sq, Skv, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_typed<bf16>(q, k, v, kv_mask, q_seg, kv_seg, out, lse, B, H, KVH, Sq, Skv, D,
+                            causal, scale, stream);
+}
+
+// The same with q, k, v and out fp16.
+extern "C" int flash_fwd_f16_launch(const void* q, const void* k, const void* v,
+                                    const void* kv_mask, const void* q_seg,
+                                    const void* kv_seg, void* out, void* lse, int B, int H,
+                                    int KVH, int Sq, int Skv, int D, int causal, float scale,
+                                    void* stream) {
+  return launch_typed<__half>(q, k, v, kv_mask, q_seg, kv_seg, out, lse, B, H, KVH, Sq, Skv,
+                              D, causal, scale, stream);
 }

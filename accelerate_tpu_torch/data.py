@@ -18,18 +18,44 @@ loader's ``RandomSampler``. That order is torch's ``randperm``, not the
 reference's threefry permutation: unshuffled loaders give the
 reference's batches, shuffled ones another order. Sharding across
 processes and dispatch from one process belong to the multi-device slice.
+
+Each fetch from the wrapped loader and each move to the device is timed
+into the telemetry session's data-wait bucket (``note_data_wait``, the
+reference's data.py:44-56): the next step record's ``data_wait_s``.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from .state import GradientState
+from .telemetry import note_data_wait
+
+
+def _timed_next(iterator):
+    """Advance ``iterator``, the host's wait going to the data-wait bucket
+    (a ``None`` check when no session is active)."""
+    t0 = time.perf_counter()
+    try:
+        return next(iterator)
+    finally:
+        note_data_wait(time.perf_counter() - t0)
+
+
+def _timed_send(batch, device: torch.device):
+    """:func:`send_to_device`, timed into the same bucket: placement is
+    loader work too."""
+    t0 = time.perf_counter()
+    try:
+        return send_to_device(batch, device)
+    finally:
+        note_data_wait(time.perf_counter() - t0)
 
 
 def send_to_device(batch, device: torch.device):
@@ -194,19 +220,19 @@ class DataLoaderShard:
                     return
                 self._position += 1
             try:
-                nxt = next(it)
+                nxt = _timed_next(it)
             except StopIteration:
                 return
             while True:
                 cur = nxt
                 self._position += 1
                 try:
-                    nxt = next(it)
+                    nxt = _timed_next(it)
                 except StopIteration:
                     self.end_of_dataloader = True
-                    yield send_to_device(cur, self.device)
+                    yield _timed_send(cur, self.device)
                     return
-                yield send_to_device(cur, self.device)
+                yield _timed_send(cur, self.device)
         finally:
             self._in_epoch = False
             self._position = 0

@@ -7,9 +7,11 @@ the training step read, with torch dtypes. ``kv_cache_dtype`` takes
 the paged arena). Weight streaming needs no flag: big-model dispatch
 (``big_modeling.py``) streams every weight it places in host memory or
 on disk, so ``stream_layer_weights`` is accepted only as False, for a
-reference config to carry over. fp8, MoE, dropout and pipelining are
-accepted as fields and raise ``NotImplementedError`` until their slices
-are ported. The reference's ``decode_kernel`` /
+reference config to carry over. ``dtype`` takes float32, bfloat16 and
+float16 (fp16 training runs the flash kernels' fp16 entries). Residual
+dropout (``dropout_rate``) and the three remat policies are ported; fp8,
+MoE and pipelining are accepted as fields and raise
+``NotImplementedError`` until their slices are ported. The reference's ``decode_kernel`` /
 ``decode_kernel_block`` knobs are not carried: the Hopper decode kernels
 walk 64-token chunks, so there is no kv block to choose.
 """
@@ -42,10 +44,10 @@ class DecoderConfig:
     # runs the flash kernels (their plain versions on the CPU), "xla" the
     # plain attention, "auto" the kernels on CUDA where the shapes allow
     attention_impl: str = "auto"
-    # training: per-block activation checkpointing. "full" recomputes the
-    # whole block in backward; "save_attention" keeps the flash kernel's
-    # out and lse (and, unlike the reference, its q/k/v inputs: PERF.md);
-    # "save_dots" is a later slice
+    # training: per-block activation checkpointing (models/decoder.py).
+    # "full" recomputes the whole block in backward; "save_attention" keeps
+    # only the flash op's out and lse; "save_dots" keeps every projection
+    # matmul's output and re-runs the flash forward
     remat: bool = True
     remat_policy: str = "save_attention"
     # the reference rolls the blocks into one lax.scan; eager PyTorch runs
@@ -72,6 +74,8 @@ class DecoderConfig:
     # over, rejected in __post_init__ until ported
     use_fp8: bool = False
     moe_num_experts: int = 0
+    # residual dropout after the attention and after the MLP, in training
+    # mode only (models/decoder.py)
     dropout_rate: float = 0.0
     pipeline_stages: int = 1
 
@@ -108,11 +112,11 @@ class DecoderConfig:
                 "moe_num_experts: MoE blocks are a later slice of the port "
                 "(ROADMAP queue 1, other families)"
             )
-        if self.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "dropout_rate > 0: dropout belongs to a later slice of the port "
-                "(ROADMAP queue 1, training options); JAX's dropout bits cannot "
-                "be reproduced in torch, so it would be held by distribution"
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1), got {self.dropout_rate}")
+        if self.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+            raise ValueError(
+                f"dtype must be torch.float32, bfloat16 or float16, got {self.dtype}"
             )
         if self.stream_layer_weights:
             raise ValueError(
@@ -126,12 +130,7 @@ class DecoderConfig:
                 "pipeline_stages > 1: pipelining is multi-device, a later slice "
                 "of the port (ROADMAP queue 1, multi-device)"
             )
-        if self.remat_policy == "save_dots":
-            raise NotImplementedError(
-                "remat_policy='save_dots' belongs to a later slice of the port "
-                "(ROADMAP queue 1, training options)"
-            )
-        if self.remat_policy not in ("full", "save_attention"):
+        if self.remat_policy not in ("full", "save_attention", "save_dots"):
             raise ValueError(
                 f"remat_policy must be 'full', 'save_attention' or 'save_dots', "
                 f"got {self.remat_policy!r}"

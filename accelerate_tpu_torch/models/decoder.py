@@ -19,11 +19,27 @@ Training (``labels`` given, no cache): attention through
 ``attention_impl="flash"``, or ``"auto"`` on CUDA where shapes allow),
 then the final norm, the tied LM head and the fused chunked cross entropy
 (``ops/losses.py``), returning ``{"loss": ...}``. With ``config.remat``
-each block is checkpointed (``torch.utils.checkpoint``): ``"full"``
-recomputes the whole block, the flash forward included, in backward;
-``"save_attention"`` checkpoints the parts before and after the flash op
-separately, so its saved q, k, v, out and lse are reused and the forward
-kernel runs once.
+each block is checkpointed (``torch.utils.checkpoint``, the reference's
+``_remat_policy``): ``"full"`` recomputes the whole block, the flash
+forward included, in backward; ``"save_attention"`` keeps only the flash
+operator's out and lse (``save_only_these_names("flash_out",
+"flash_lse")``) and recomputes everything else, q, k and v included, so
+the forward kernel runs once (``ops/attention.FlashResiduals``: the
+checkpoint's forward and recompute contexts keep and replay the flash
+operator's two outputs, with no dispatch mode over the block);
+``"save_dots"`` keeps every projection matmul's output (``aten.mm`` /
+``aten.addmm``, as ``dots_with_no_batch_dims_saveable`` keeps the dots
+without batch dims) and recomputes the rest, the flash forward included:
+a selective-checkpoint policy over the block's operators.
+
+Residual dropout (``config.dropout_rate``) follows the attention and the
+MLP of every block, as the reference's, in training mode (``train()``,
+the module's default) and only on the cache-free forward. Its masks
+cannot be JAX's bits; they are drawn from a generator seeded with a hash
+of (the keychain's seed, the ``"dropout"`` stream's counter, the layer,
+the site): one key per training forward (``utils/random.next_key``), so
+each micro-batch and update draws its own masks, and the recompute of a
+checkpointed block draws the same ones again.
 
 ``DecoderAttention`` carries five cache branches. Caches are updated IN
 PLACE (the reference returns new arrays; the port writes into the
@@ -75,24 +91,27 @@ use. ``_use`` reads every weight through :func:`_resolve`.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention import (
+    FlashResiduals,
     decode_attention,
     decode_attention_reference,
     dot_product_attention,
-    flash_route,
     paged_decode_attention,
     ragged_prefill_attention,
 )
 from ..ops.layers import apply_rotary_embedding, rms_norm, rotary_embedding_tables, swiglu
 from ..ops.losses import fused_linear_cross_entropy
 from ..utils.quantization import dequantize_kv, kv_cache_bits, quantize_kv
+from ..utils.random import next_key
 from .configs import DecoderConfig
 
 
@@ -123,6 +142,54 @@ def _resolve(p) -> torch.Tensor:
     layer dequantized at use (``utils/quantization.QuantizedLayer``);
     both give their tensor through ``weight()``."""
     return p if isinstance(p, torch.Tensor) else p.weight()
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``save_dots``' selective-checkpoint policy: keep the projection
+    matmuls' outputs, recompute every other operator."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_contexts(policy: str):
+    """``torch.utils.checkpoint``'s ``context_fn`` of ``remat_policy``
+    (None for "full"): the forward and recompute contexts of one
+    checkpointed block."""
+    if policy == "save_attention":
+        def contexts():
+            kept = FlashResiduals()
+            return kept.recording(), kept.replaying()
+
+        return contexts
+    if policy == "save_dots":
+        return functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return None
+
+
+def _mask_seed(seed: int, count: int, layer: int, site: int) -> int:
+    """A 63-bit generator seed from a dropout mask's key: splitmix64 over
+    its four parts in turn."""
+    h = 0
+    for part in (seed, count, layer, site):
+        h = (h ^ (int(part) & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15 & 0xFFFFFFFFFFFFFFFF
+        h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9 & 0xFFFFFFFFFFFFFFFF
+        h = (h ^ (h >> 27)) * 0x94D049BB133111EB & 0xFFFFFFFFFFFFFFFF
+        h ^= h >> 31
+    return h >> 1
+
+
+def dropout(y: torch.Tensor, rate: float, key: tuple, site: int) -> torch.Tensor:
+    """The reference's ``nn.Dropout``: each entry kept with probability
+    ``1 - rate`` and divided by it, else 0. ``key`` is ``(seed, count,
+    layer)``; the mask is drawn from a fresh generator seeded with
+    :func:`_mask_seed` (Philox on CUDA), so the same key and site give
+    the same mask."""
+    gen = torch.Generator(device=y.device)
+    gen.manual_seed(_mask_seed(*key, site))
+    keep = torch.rand(y.shape, generator=gen, device=y.device) >= rate
+    return torch.where(keep, y / (1.0 - rate), torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 class StreamedWeight:
@@ -156,6 +223,9 @@ class _Module(nn.Module):
 
     # the Accelerator's compute dtype (set_param_cast), None without one
     param_cast: Optional[torch.dtype] = None
+    # during a training forward under a cast: id(parameter) -> its cast,
+    # made once for the whole model (DecoderLM.forward)
+    cast_of: Optional[dict] = None
     # host-tier weights to stage before this module runs (big-model
     # dispatch binds them: a block's own and its sublayers', or the
     # model's top-level ones)
@@ -166,10 +236,12 @@ class _Module(nn.Module):
 
     def _use(self, p, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """``p`` as the forward reads it: rounded to the mixed-precision
-        compute dtype if one is set, then to ``dtype`` if given."""
+        compute dtype if one is set (the training forward's one cast of
+        it, when there is one), then to ``dtype`` if given."""
         p = _resolve(p)
         if self.param_cast is not None:
-            p = p.to(self.param_cast)
+            cast = None if self.cast_of is None else self.cast_of.get(id(p))
+            p = p.to(self.param_cast) if cast is None else cast
         return p if dtype is None else p.to(dtype)
 
     def _stage(self):
@@ -419,35 +491,26 @@ class DecoderBlock(_Module):
     def _norm(self, x, w):
         return rms_norm(x, self._use(w), self.config.norm_eps)
 
-    def _mlp_half(self, x, attn_out):
-        """Residual of the attention output, then the MLP half."""
-        x = x + self.attn.project_out(attn_out)
-        return x + self.mlp(self._norm(x, self.ln_mlp))
+    def _body(self, x, sin, cos, kv_mask=None, drop=None, **cache_kw):
+        """The block: attention and MLP halves, each a residual, with the
+        residual dropout of ``drop`` (``(seed, count, layer)``) when given."""
+        y = self.attn(self._norm(x, self.ln_attn), sin, cos, kv_mask=kv_mask, **cache_kw)
+        if drop is not None:
+            y = dropout(y, self.config.dropout_rate, drop, 0)
+        x = x + y
+        y = self.mlp(self._norm(x, self.ln_mlp))
+        if drop is not None:
+            y = dropout(y, self.config.dropout_rate, drop, 1)
+        return x + y
 
-    def _pre_attention(self, x, sin, cos):
-        q, k, v = self.attn.qkv(self._norm(x, self.ln_attn), sin, cos)
-        return q.contiguous(), k.contiguous(), v.contiguous()
-
-    def _plain(self, x, sin, cos, kv_mask=None, **cache_kw):
-        x = x + self.attn(self._norm(x, self.ln_attn), sin, cos, kv_mask=kv_mask, **cache_kw)
-        return x + self.mlp(self._norm(x, self.ln_mlp))
-
-    def forward(self, x, sin, cos, kv_mask=None, **cache_kw):
+    def forward(self, x, sin, cos, kv_mask=None, drop=None, **cache_kw):
         cfg = self.config
         self._stage()
         if not (cfg.remat and torch.is_grad_enabled() and cache_kw.get("cache") is None):
-            return self._plain(x, sin, cos, kv_mask=kv_mask, **cache_kw)
-        s = x.shape[1]
-        flash = flash_route(cfg.attention_impl, x.device, s, s, cfg.head_dim)
-        if cfg.remat_policy == "full" or not flash:
-            # with no flash residuals to keep, save_attention is full remat,
-            # as the reference's save_only_these_names policy then saves nothing
-            return checkpoint(self._plain, x, sin, cos, kv_mask, use_reentrant=False)
-        # save_attention: recompute the parts around the flash op, whose
-        # autograd context keeps q, k, v, out and lse
-        q, k, v = checkpoint(self._pre_attention, x, sin, cos, use_reentrant=False)
-        out = self.attn.attend(q, k, v, kv_mask)
-        return checkpoint(self._mlp_half, x, out, use_reentrant=False)
+            return self._body(x, sin, cos, kv_mask, drop, **cache_kw)
+        contexts = _remat_contexts(cfg.remat_policy)
+        kw = {} if contexts is None else {"context_fn": contexts}
+        return checkpoint(self._body, x, sin, cos, kv_mask, drop, use_reentrant=False, **kw)
 
 
 class DecoderLM(_Module):
@@ -548,21 +611,43 @@ class DecoderLM(_Module):
                 "ragged_slots (packed ragged prefill) requires page_table and cache_positions"
             )
         self._stage()
-        # gather, then cast: the same values as casting the whole table first
-        x = self._use(_resolve(self.embedding)[input_ids.long()], cfg.dtype)
+        # a training forward under a mixed-precision cast rounds every
+        # parameter once, as the reference's _cast_params: a parameter read
+        # twice (the tied embedding, or a block's weights in a remat
+        # recompute) then sums its gradients in the compute dtype before
+        # the one cast back, where a loss scale's overflow shows as the
+        # reference's does. Kept until the next forward: the backward's
+        # recomputes read the same casts
+        cast_of = None
+        if self.param_cast is not None and torch.is_grad_enabled() and cache is None:
+            cast_of = {id(p): p.to(self.param_cast) for p in self.parameters()
+                       if p.is_floating_point()}
+        for m in self.modules():
+            if isinstance(m, _Module):
+                m.cast_of = cast_of
+        emb = _resolve(self.embedding)
+        if cast_of is not None:
+            x = self._use(emb)[input_ids.long()].to(cfg.dtype)
+        else:
+            # gather, then cast: the same values as casting the whole table first
+            x = self._use(emb[input_ids.long()], cfg.dtype)
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)
         sin, cos = rotary_embedding_tables(positions, cfg.head_dim,
                                            theta=cfg.rope_theta, dtype=cfg.dtype)
+        drop = None
+        if cfg.dropout_rate > 0.0 and self.training and cache is None:
+            drop = next_key("dropout")
         for i, block in enumerate(self.layers):
             x = block(
-                x, sin, cos, cache=None if cache is None else cache[i],
+                x, sin, cos, drop=None if drop is None else (*drop, i),
+                cache=None if cache is None else cache[i],
                 cache_positions=cache_positions, page_table=page_table,
                 ragged_slots=ragged_slots, slot_hist=slot_hist, decode=decode,
             )
         x = rms_norm(x, self._use(self.ln_final), cfg.norm_eps)
-        head = self._use(_resolve(self.embedding).t() if cfg.tie_embeddings else self.lm_head,
-                         cfg.dtype)
+        head = (self._use(emb, cfg.dtype).t() if cfg.tie_embeddings
+                else self._use(self.lm_head, cfg.dtype))
         if labels is not None:
             return {"loss": self._head_ce_loss(x, head, labels)}
         return (x @ head).float()

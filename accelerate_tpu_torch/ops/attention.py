@@ -25,12 +25,14 @@ Each kernel sits beside its plain version:
   ``ragged_prefill_quant`` (csrc/ragged_prefill.cu,
   ragged_prefill_quant.cu); plain version :func:`ragged_prefill_reference`
   (quantize-on-write: :func:`_quantize_block`).
-- :func:`flash_attention` (one ``torch.autograd.Function``),
-  :func:`flash_attention_with_lse` and :func:`flash_attention_bwd` ->
-  ``ops/kernels.flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv``
-  (csrc/flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu); plain versions
-  :func:`flash_fwd_reference`, :func:`flash_bwd_dq_reference` and
-  :func:`flash_bwd_dkv_reference`.
+- :func:`flash_attention` (one differentiable operator,
+  :func:`flash_fwd_op`), :func:`flash_attention_with_lse` and
+  :func:`flash_attention_bwd` -> ``ops/kernels.flash_fwd`` /
+  ``flash_bwd_dq`` / ``flash_bwd_dkv`` and their fp16 entries
+  (csrc/flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, bf16 and fp16);
+  plain versions :func:`flash_fwd_reference`, :func:`flash_bwd_dq_reference`
+  and :func:`flash_bwd_dkv_reference`, which compute in fp32 and round
+  where the kernels round, to the inputs' dtype (bf16 or fp16).
 - :func:`dot_product_attention` dispatches between the flash kernels and
   :func:`mha_reference`, as the reference's dispatcher does.
 
@@ -40,7 +42,9 @@ or raises. Nothing falls back from the device to the plain version.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -570,34 +574,115 @@ def _flash_blocks(q, k):
         )
 
 
-class FlashAttention(torch.autograd.Function):
-    """The flash kernels as one differentiable op, in place of the
-    reference's ``_flash_core`` custom VJP. The forward keeps q, k, v, out
-    and lse for the backward, so a block that recomputes everything but
-    this op (remat ``save_attention``) never re-runs the forward kernel."""
+# The flash forward as one operator, ``torch.ops.accelerate_tpu_torch.flash_fwd``
+# (the reference's ``_flash_core`` custom VJP): a name a selective-
+# checkpoint policy can pick out of a checkpointed block, which sees
+# operators, not Python functions (``save_dots``' policy, models/decoder.py,
+# sees it as one operator and recomputes it). Its implementation calls
+# ``kernels.flash_fwd``: the plain version on a CPU tensor, the bf16 or
+# fp16 kernel on a CUDA one. Its backward runs the dQ and dK/dV kernels
+# from q, k, v, out and lse.
+@torch.library.custom_op("accelerate_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_mask: Optional[torch.Tensor], q_seg: Optional[torch.Tensor],
+                 kv_seg: Optional[torch.Tensor], causal: bool,
+                 sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    from . import kernels
+
+    return kernels.flash_fwd(q, k, v, (kv_mask, q_seg, kv_seg), causal, sm_scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, kv_mask, q_seg, kv_seg, causal, sm_scale):
+    b, h, sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, kv_mask, q_seg, kv_seg, causal, sm_scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse, kv_mask, q_seg, kv_seg)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+
+
+def _flash_backward(ctx, do, dlse):
+    from . import kernels
+
+    q, k, v, out, lse, kv_mask, q_seg, kv_seg = ctx.saved_tensors
+    masks = (kv_mask, q_seg, kv_seg)
+    do = do.contiguous()
+    delta = flash_delta(out, do)
+    dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, masks, ctx.causal, ctx.sm_scale)
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, masks, ctx.causal, ctx.sm_scale)
+    return dq, dk, dv, None, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup_context)
+
+
+class _FlashReplay(torch.autograd.Function):
+    """The flash operator's node rebuilt in a recompute from the out and
+    lse its forward gave: the same saved tensors, the same backward, no
+    forward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, q_seg, kv_seg, causal, sm_scale):
-        from . import kernels
-
-        masks = (kv_mask, q_seg, kv_seg)
-        out, lse = kernels.flash_fwd(q, k, v, masks, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, out, lse, kv_mask, q_seg, kv_seg)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return out
+    def forward(ctx, q, k, v, kv_mask, q_seg, kv_seg, causal, sm_scale, out, lse):
+        _flash_setup_context(ctx, (q, k, v, kv_mask, q_seg, kv_seg, causal, sm_scale),
+                             (out, lse))
+        return out.clone()
 
     @staticmethod
     def backward(ctx, do):
-        from . import kernels
+        return (*_flash_backward(ctx, do, None), None, None)
 
-        q, k, v, out, lse, kv_mask, q_seg, kv_seg = ctx.saved_tensors
-        masks = (kv_mask, q_seg, kv_seg)
-        do = do.contiguous()
-        delta = flash_delta(out, do)
-        dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, masks, ctx.causal, ctx.sm_scale)
-        dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, masks, ctx.causal,
-                                       ctx.sm_scale)
-        return dq, dk, dv, None, None, None, None, None
+
+class FlashResiduals:
+    """What a checkpointed block keeps of its flash calls under remat
+    ``save_attention`` (the reference's ``save_only_these_names
+    ("flash_out", "flash_lse")``): ``recording()`` is the checkpoint's
+    forward context, in which each call of :func:`flash_attention` keeps
+    its out and lse; ``replaying()`` its recompute context, in which the
+    calls take them back in order instead of running the forward kernel.
+    Everything else of the block, q, k and v included, is recomputed.
+    A pair of plain context managers for ``torch.utils.checkpoint``'s
+    ``context_fn``, so no dispatch mode runs over the block's operators."""
+
+    _active = threading.local()
+
+    def __init__(self):
+        self.saved: list = []
+        self._next = 0
+
+    @contextlib.contextmanager
+    def _using(self, mode: str):
+        prev = getattr(self._active, "state", None)
+        self._active.state = (self, mode)
+        try:
+            yield
+        finally:
+            self._active.state = prev
+
+    def recording(self):
+        return self._using("record")
+
+    def replaying(self):
+        self._next = 0
+        return self._using("replay")
+
+    @classmethod
+    def call(cls, q, k, v, kv_mask, q_seg, kv_seg, causal: bool, sm_scale: float):
+        """The flash operator, kept or replayed when a block asks for it."""
+        state = getattr(cls._active, "state", None)
+        if state is None:
+            return flash_fwd_op(q, k, v, kv_mask, q_seg, kv_seg, causal, sm_scale)[0]
+        self, mode = state
+        if mode == "record":
+            out, lse = flash_fwd_op(q, k, v, kv_mask, q_seg, kv_seg, causal, sm_scale)
+            self.saved.append((out.detach(), lse.detach()))
+            return out
+        out, lse = self.saved[self._next]
+        self._next += 1
+        return _FlashReplay.apply(q, k, v, kv_mask, q_seg, kv_seg, causal, sm_scale, out, lse)
 
 
 def flash_attention(
@@ -616,7 +701,8 @@ def flash_attention(
     may be attended. ``q_segment_ids`` / ``kv_segment_ids`` [B, S]: tokens
     attend only within equal ids. Sequence lengths are multiples of 128,
     as the reference's block choice asks. CUDA tensors run the kernels
-    (bf16), CPU tensors their plain versions."""
+    (bf16 or fp16), CPU tensors their plain versions, through
+    :func:`flash_fwd_op`."""
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     h, kvh = q.shape[1], k.shape[1]
     if h % kvh:
@@ -625,8 +711,8 @@ def flash_attention(
         raise ValueError("q_segment_ids and kv_segment_ids must be given together")
     _flash_blocks(q, k)
     kvm, qs, ks = _int_masks(kv_mask, q_segment_ids, kv_segment_ids)
-    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                kvm, qs, ks, bool(causal), float(sm_scale))
+    return FlashResiduals.call(q.contiguous(), k.contiguous(), v.contiguous(), kvm, qs, ks,
+                               bool(causal), float(sm_scale))
 
 
 def flash_attention_with_lse(

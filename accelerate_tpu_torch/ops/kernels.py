@@ -12,7 +12,9 @@ The checked wrappers (:func:`paged_decode`, :func:`paged_decode_quant`,
 :func:`ragged_prefill`, :func:`ragged_prefill_quant`, :func:`flash_fwd`,
 :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`, :func:`dense_decode`,
 :func:`dense_decode_quant`) take CPU
-tensors to the plain PyTorch version in ``ops/attention.py``. For a CUDA
+tensors to the plain PyTorch version in ``ops/attention.py``. The three
+flash wrappers take bf16 or fp16: each dtype is its own entry point of the
+same source (``flash_fwd`` / ``flash_fwd_f16``, ...), counted apart. For a CUDA
 tensor they check device, dtype, shape and contiguity, allocate the
 output, launch the kernel and add one to :data:`launch_counts`, or raise.
 Nothing falls back from the device to the plain version.
@@ -74,6 +76,20 @@ KERNELS = {
     ),
     "flash_bwd_dkv": (
         "flash_bwd_dkv.cu", "flash_bwd_dkv_launch",
+        [_P] * 11 + [_I] * 7 + [_F, _P],
+    ),
+    # the fp16 entries: the same kernels with fp16 elements, in the same
+    # libraries as the bf16 ones
+    "flash_fwd_f16": (
+        "flash_fwd.cu", "flash_fwd_f16_launch",
+        [_P] * 8 + [_I] * 7 + [_F, _P],
+    ),
+    "flash_bwd_dq_f16": (
+        "flash_bwd_dq.cu", "flash_bwd_dq_f16_launch",
+        [_P] * 10 + [_I] * 7 + [_F, _P],
+    ),
+    "flash_bwd_dkv_f16": (
+        "flash_bwd_dkv.cu", "flash_bwd_dkv_f16_launch",
         [_P] * 11 + [_I] * 7 + [_F, _P],
     ),
     "dense_decode": (
@@ -154,7 +170,9 @@ def _source_digest(name: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_source_digest(name)}.so"
+    """The library of kernel ``name``'s source (kernels of one source
+    share it)."""
+    return BUILD_DIR / f"lib{Path(KERNELS[name][0]).stem}-{_source_digest(name)}.so"
 
 
 def nvcc_command(name: str, out: Path) -> list:
@@ -169,7 +187,8 @@ def nvcc_command(name: str, out: Path) -> list:
 def build(names=None) -> dict:
     """Compile the kernels that have no library yet, one ``nvcc`` process
     per source, all running at once. Returns ``{name: ptxas report}`` for
-    what was compiled. Raises with the compiler's output on failure."""
+    what was compiled (a source's report under each of its kernels).
+    Raises with the compiler's output on failure."""
     names = list(names or KERNELS)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -177,19 +196,22 @@ def build(names=None) -> dict:
         lib = library_path(name)
         if lib.exists():
             continue
+        if lib in procs:
+            procs[lib][0].append(name)
+            continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
+        procs[lib] = ([name], subprocess.Popen(
             nvcc_command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True,
-        ), tmp, lib)
+        ), tmp)
     reports, failed = {}, []
-    for name, (proc, tmp, lib) in procs.items():
+    for lib, (built, proc, tmp) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{out}")
+            failed.append(f"nvcc failed for {built[0]} (rc {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, lib)
-        reports[name] = out
+        reports.update({name: out for name in built})
     if failed:
         raise RuntimeError("\n".join(failed))
     return reports
@@ -548,9 +570,15 @@ def ragged_prefill_quant(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, pa
     return out, k_pay, k_scl, v_pay, v_scl
 
 
+# the flash kernels' element types -> the suffix of their entry points
+FLASH_DTYPES = {torch.bfloat16: "", torch.float16: "_f16"}
+
+
 def _flash_shapes(q, k, v, masks, name):
     """Check the flash kernels' shared inputs on a CUDA device; returns
-    ``(b, h, kvh, sq, skv, d)`` and the mask pointers (None when absent)."""
+    ``(b, h, kvh, sq, skv, d)``, the mask pointers (None when absent) and
+    the entry point's name (``name`` for bf16, ``name + "_f16"`` for
+    fp16)."""
     _require_cuda(q, name)
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -558,20 +586,20 @@ def _flash_shapes(q, k, v, masks, name):
         raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
     if d not in FLASH_KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the flash kernels take {FLASH_KERNEL_HEAD_DIMS}")
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in FLASH_DTYPES:
         raise TypeError(
-            f"{name}: the flash kernels take bf16 tensors, got {q.dtype} "
-            "(train with mixed_precision='bf16', or use attention_impl='xla')"
+            f"{name}: the flash kernels take bf16 or fp16 tensors, got {q.dtype} "
+            "(train with mixed_precision='bf16' or 'fp16', or use attention_impl='xla')"
         )
     if sq % FLASH_KERNEL_SEQ_MULTIPLE or skv % FLASH_KERNEL_SEQ_MULTIPLE:
         raise ValueError(
             f"sequence lengths ({sq}, {skv}) must be multiples of "
             f"{FLASH_KERNEL_SEQ_MULTIPLE} (the kernels' tile)"
         )
-    dev = q.device
-    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
-    _check(k, "k", torch.bfloat16, (b, kvh, skv, d), dev)
-    _check(v, "v", torch.bfloat16, (b, kvh, skv, d), dev)
+    dev, dt = q.device, q.dtype
+    _check(q, "q", dt, (b, h, sq, d), dev)
+    _check(k, "k", dt, (b, kvh, skv, d), dev)
+    _check(v, "v", dt, (b, kvh, skv, d), dev)
     kv_mask, q_seg, kv_seg = masks
     if (q_seg is None) != (kv_seg is None):
         raise ValueError("q_seg and kv_seg must be given together")
@@ -580,11 +608,12 @@ def _flash_shapes(q, k, v, masks, name):
         if t is not None:
             _check(t, what, torch.int32, (b, n), dev)
         ptrs.append(None if t is None else t.data_ptr())
-    return (b, h, kvh, sq, skv, d), ptrs
+    return (b, h, kvh, sq, skv, d), ptrs, name + FLASH_DTYPES[dt]
 
 
 def flash_fwd(q, k, v, masks, causal: bool, sm_scale: float):
-    """Flash forward: q [B, H, Sq, D], k/v [B, KVH, Skv, D] (bf16 on CUDA),
+    """Flash forward: q [B, H, Sq, D], k/v [B, KVH, Skv, D] (bf16 or fp16 on
+    CUDA: the ``flash_fwd`` or ``flash_fwd_f16`` entry),
     ``masks = (kv_mask [B, Skv], q_seg [B, Sq], kv_seg [B, Skv])`` int32 or
     None -> ``(out [B, H, Sq, D], lse [B, H, Sq] fp32)``. CPU tensors run
     the plain version."""
@@ -592,12 +621,12 @@ def flash_fwd(q, k, v, masks, causal: bool, sm_scale: float):
         from .attention import flash_fwd_reference
 
         return flash_fwd_reference(q, k, v, masks, causal, sm_scale)
-    (b, h, kvh, sq, skv, d), mp = _flash_shapes(q, k, v, masks, "flash_fwd")
+    (b, h, kvh, sq, skv, d), mp, entry = _flash_shapes(q, k, v, masks, "flash_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(
-        "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), *mp,
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), *mp,
         out.data_ptr(), lse.data_ptr(), b, h, kvh, sq, skv, d, int(causal),
         float(sm_scale), stream,
     )
@@ -607,7 +636,7 @@ def flash_fwd(q, k, v, masks, causal: bool, sm_scale: float):
 def _flash_bwd_inputs(q, do, lse, delta):
     b, h, sq, d = q.shape
     dev = q.device
-    _check(do, "do", torch.bfloat16, (b, h, sq, d), dev)
+    _check(do, "do", q.dtype, (b, h, sq, d), dev)
     _check(lse, "lse", torch.float32, (b, h, sq), dev)
     _check(delta, "delta", torch.float32, (b, h, sq), dev)
 
@@ -620,13 +649,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float):
         from .attention import flash_bwd_dq_reference
 
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, masks, causal, sm_scale)
-    shape, mp = _flash_shapes(q, k, v, masks, "flash_bwd_dq")
+    shape, mp, entry = _flash_shapes(q, k, v, masks, "flash_bwd_dq")
     _flash_bwd_inputs(q, do, lse, delta)
     b, h, kvh, sq, skv, d = shape
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(
-        "flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *mp, dq.data_ptr(), b, h, kvh, sq, skv, d,
         int(causal), float(sm_scale), stream,
     )
@@ -641,14 +670,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float)
         from .attention import flash_bwd_dkv_reference
 
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, masks, causal, sm_scale)
-    shape, mp = _flash_shapes(q, k, v, masks, "flash_bwd_dkv")
+    shape, mp, entry = _flash_shapes(q, k, v, masks, "flash_bwd_dkv")
     _flash_bwd_inputs(q, do, lse, delta)
     b, h, kvh, sq, skv, d = shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(
-        "flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *mp, dk.data_ptr(), dv.data_ptr(), b, h, kvh,
         sq, skv, d, int(causal), float(sm_scale), stream,
     )

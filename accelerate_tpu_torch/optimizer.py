@@ -5,9 +5,11 @@ around a ``torch.optim.Optimizer``. It keeps the reference's call-site
 contract: while gradients accumulate (``GradientState.sync_gradients``
 False) ``step()`` is skipped and ``zero_grad()`` is a no-op, so the
 ``.grad`` buffers keep summing the micro-batches; at a sync step the
-Accelerator's gradient clip runs, then the wrapped optimizer updates.
-``step_count`` counts the updates applied (not the micro-steps), as the
-reference's engine does; its checkpoint records it.
+Accelerator's ``pre_step`` runs (the fp16 finite check and the gradient
+clip), then the wrapped optimizer updates, unless the gradients were not
+all finite: then the update is skipped (``step_was_skipped``).
+``step_count`` counts the updates (not the micro-steps), skipped ones
+too, as the reference's engine does; its checkpoint records it.
 """
 
 from __future__ import annotations
@@ -21,20 +23,22 @@ from .state import GradientState
 
 class AcceleratedOptimizer(torch.optim.Optimizer):
     """A ``torch.optim.Optimizer`` (so LR schedulers accept it) whose
-    parameter groups are the wrapped optimizer's. ``pre_step`` (the Accelerator's
-    clip) runs just before each real update."""
+    parameter groups are the wrapped optimizer's. ``pre_step`` (the
+    Accelerator's) runs just before each update and returns whether to
+    apply it; ``post_step`` runs after it."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, gradient_state: GradientState,
-                 pre_step: Optional[Callable[["AcceleratedOptimizer"], None]] = None):
+                 pre_step: Optional[Callable[["AcceleratedOptimizer"], bool]] = None,
+                 post_step: Optional[Callable[["AcceleratedOptimizer"], None]] = None):
         # no super().__init__: the parameter groups are the wrapped
         # optimizer's own
         self.optimizer = optimizer
         self.gradient_state = gradient_state
         self._pre_step = pre_step
-        # True when the last update was skipped for non-finite fp16
-        # gradients; the port has no fp16 loss scaling yet (a later slice)
+        self._post_step = post_step
+        # True when the last update was skipped for non-finite fp16 gradients
         self.step_was_skipped = False
-        self.step_count = 0  # updates applied
+        self.step_count = 0  # updates, skipped ones counted
 
     @property
     def param_groups(self):
@@ -58,14 +62,18 @@ class AcceleratedOptimizer(torch.optim.Optimizer):
         the gradients left to sum)."""
         if not self.gradient_state.sync_gradients:
             return None
-        if self._pre_step is not None:
-            self._pre_step(self)
-        return self.update(closure)
+        apply = True if self._pre_step is None else self._pre_step(self)
+        return self.update(closure, skip=not apply)
 
-    def update(self, closure=None):
-        """One update of the wrapped optimizer, counted in ``step_count``."""
-        out = self.optimizer.step(closure)
+    def update(self, closure=None, skip: bool = False):
+        """One update of the wrapped optimizer, or none with ``skip`` (the
+        parameters and the optimizer's state stay as they are); counted
+        in ``step_count`` either way."""
+        self.step_was_skipped = bool(skip)
+        out = None if skip else self.optimizer.step(closure)
         self.step_count += 1
+        if self._post_step is not None:
+            self._post_step(self)
         return out
 
     def state_dict(self) -> dict:

@@ -162,12 +162,24 @@ class SpawnedReplica:
         return self.server is not None
 
 
+# intra-op threads of a spawned ``--device cpu`` replica (SubprocessSpawner)
+CPU_CHILD_THREADS = 1
+
+
 class SubprocessSpawner:
     """Spawn replicas via the existing ``serve replica`` CLI
     (``python -m accelerate_tpu_torch.commands.serve replica``) — the same
     launch path the multi-process drills use — and read
     the ``{"role": "replica", "url": ...}`` JSON handshake the replica
-    prints on stdout once its port is bound and its engine is warm."""
+    prints on stdout once its port is bound and its engine is warm.
+
+    A child on ``--device cpu`` shares its host's cores with the spawner
+    and its siblings, so it starts with ``CPU_CHILD_THREADS`` intra-op
+    threads (``OMP_NUM_THREADS``, unless ``env`` sets it): two processes
+    whose pools each claim every core stall each other's parallel
+    regions, about 60x per op on an 8-core host, long enough for the
+    router's 5 s connect timeout to shed the first request routed to the
+    child."""
 
     def __init__(self, *, replica_args=("--config", "small_1b"),
                  startup_timeout_s: float = 120.0, env: Optional[dict] = None,
@@ -176,6 +188,17 @@ class SubprocessSpawner:
         self.startup_timeout_s = float(startup_timeout_s)
         self.env = env
         self.python = python or sys.executable
+
+    def child_env(self) -> Optional[dict]:
+        """The child's environment: ``env`` (or this process's), with the
+        CPU child's thread count added."""
+        args = self.replica_args
+        on_cpu = any(a == "--device" and b == "cpu" for a, b in zip(args, args[1:]))
+        if not on_cpu:
+            return self.env
+        env = dict(os.environ if self.env is None else self.env)
+        env.setdefault("OMP_NUM_THREADS", str(CPU_CHILD_THREADS))
+        return env
 
     def command(self, name: str) -> list:
         return [
@@ -187,7 +210,7 @@ class SubprocessSpawner:
     def spawn(self, name: str) -> SpawnedReplica:
         proc = subprocess.Popen(
             self.command(name), stdout=subprocess.PIPE,
-            stderr=subprocess.DEVNULL, env=self.env, text=True,
+            stderr=subprocess.DEVNULL, env=self.child_env(), text=True,
         )
         try:
             handshake = self._read_handshake(proc)

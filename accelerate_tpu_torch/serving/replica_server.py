@@ -51,11 +51,17 @@ exception and ``serve_until_drained()`` then waits forever, the port's
 loop stores the exception, stops serving as a dead replica does (streams
 break off without their terminal event) and ``serve_until_drained()``
 re-raises it, so a replica whose kernel fails to launch exits non-zero
-instead of looking alive.
+instead of looking alive. And where the reference's KV endpoints queue on
+a plain lock that its busy loop re-takes the moment it lets go (a lock
+is not fair: the waiting handler thread has not woken yet), so that an
+import behind a stream of steps waited seconds, past a router's 5 s
+timeout, the port's loop yields the engine at its next step boundary to
+any endpoint that waits for it (``_engine_turn``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -110,6 +116,8 @@ class ReplicaServer:
         self._error: Optional[BaseException] = None  # what killed the loop
         self._drained = threading.Event()
         self._engine_lock = threading.Lock()   # loop thread vs KV endpoints
+        self._waiting = 0           # KV endpoints waiting for the engine lock
+        self._waiting_lock = threading.Lock()
         self._live_lock = threading.Lock()
         self._live: dict = {}       # str(request_id) -> Request
         self._loop_thread: Optional[threading.Thread] = None
@@ -161,6 +169,8 @@ class ReplicaServer:
             while not self._stop:
                 with self._engine_lock:
                     busy = self.engine.step()
+                while self._waiting and not self._stop:
+                    time.sleep(0.0005)  # an endpoint's turn (_engine_turn)
                 if shim is not None:
                     shim._touch()
                 if self.engine._draining and not self.engine._pending():
@@ -178,6 +188,20 @@ class ReplicaServer:
             self._error = exc
             self._dead = True
             self._drained.set()
+
+    @contextlib.contextmanager
+    def _engine_turn(self):
+        """Hold the engine lock for a KV endpoint, between two steps. The
+        loop thread waits at its step boundary while an endpoint is
+        counted here, so the endpoint gets the lock within one step."""
+        with self._waiting_lock:
+            self._waiting += 1
+        try:
+            with self._engine_lock:
+                yield
+        finally:
+            with self._waiting_lock:
+                self._waiting -= 1
 
     def serve_until_drained(self, timeout_s: Optional[float] = None) -> bool:
         """Block until a drain completes (the SIGTERM path's main-thread
@@ -274,7 +298,7 @@ class ReplicaServer:
                 "free_slots": m.get("serving/free_slots"),
             })
         elif handler.path == "/v1/kv/directory":
-            with self._engine_lock:
+            with self._engine_turn():
                 directory = self.engine.kv_directory()
             self._send_json(handler, directory)
         else:
@@ -417,7 +441,7 @@ class ReplicaServer:
     def _handle_kv_export(self, handler, body: dict):
         tokens = body.get("tokens") or []
         try:
-            with self._engine_lock:
+            with self._engine_turn():
                 handoff = self.engine.export_prefix_kv([int(t) for t in tokens])
         except ValueError as e:
             handler.send_error(409, str(e)[:200])
@@ -429,7 +453,7 @@ class ReplicaServer:
 
     def _handle_kv_import(self, handler, body: dict):
         try:
-            with self._engine_lock:
+            with self._engine_turn():
                 installed = self.engine.import_prefix_kv(body)
         except ValueError as e:
             handler.send_error(409, str(e)[:200])

@@ -1,7 +1,8 @@
 """Multi-replica serving router: placement, failover, re-queue.
 
 An own copy of the reference's ``accelerate_tpu/serving/router.py``, but
-for how a re-queued request continues (below). One
+for how a re-queued request continues (below) and how long a plain JSON
+call waits for its answer (:class:`HttpTransport`). One
 :class:`~.engine.ServingEngine` process serves one host's devices; a
 production deployment is N replica processes behind a front door. This
 module is that front door, and its headline property is **robustness**:
@@ -164,7 +165,16 @@ class RouterRequest:
 class HttpTransport:
     """The stdlib replica transport: JSONL streaming submit plus plain
     JSON POSTs (cancel, KV export/import). Injectable: the router's unit
-    tests script a fake; the drills run this one."""
+    tests script a fake; the drills run this one.
+
+    The port's own rule: a plain JSON call connects within the connect
+    timeout and then waits up to the read timeout for each read, where
+    the reference's waits for its answer only as long as it may take to
+    connect. A KV handoff answers once its replica has serialised or
+    installed tens of MB (two concurrent 512-token handoffs between
+    in-process replicas took 2.1-2.4 s on an H100's host), which a
+    loaded host stretches past a 5 s connect timeout; the router then
+    dropped a handoff that landed."""
 
     def __init__(self, *, connect_timeout_s: float = 5.0,
                  read_timeout_s: float = 60.0):
@@ -225,8 +235,14 @@ class HttpTransport:
         finally:
             conn.close()
 
-    def post_json(self, base_url: str, path: str, payload: dict) -> dict:
+    def _connected(self, base_url: str):
         conn = self._conn(base_url)
+        conn.connect()
+        conn.sock.settimeout(self.read_timeout_s)
+        return conn
+
+    def post_json(self, base_url: str, path: str, payload: dict) -> dict:
+        conn = self._connected(base_url)
         try:
             conn.request("POST", path, body=json.dumps(payload).encode(),
                          headers={"Content-Type": "application/json"})
@@ -242,7 +258,7 @@ class HttpTransport:
             conn.close()
 
     def get_json(self, base_url: str, path: str) -> dict:
-        conn = self._conn(base_url)
+        conn = self._connected(base_url)
         try:
             conn.request("GET", path)
             resp = conn.getresponse()

@@ -1,9 +1,8 @@
-"""The serving telemetry session: request records, SLO histograms, spans,
-goodput, per-tenant usage and the flight recorder, behind one object the
-engine feeds.
+"""The telemetry session: training step records, request records, SLO
+histograms, spans, goodput, per-tenant usage and the flight recorder,
+behind one object the accelerator and the engines feed.
 
-An own copy of the reference's ``accelerate_tpu/telemetry`` session, as far
-as serving uses it::
+An own copy of the reference's ``accelerate_tpu/telemetry`` session::
 
     from accelerate_tpu_torch.telemetry import TelemetryConfig, TelemetrySession
 
@@ -11,6 +10,19 @@ as serving uses it::
     engine = ServingEngine(model, page_size=16, telemetry=session)
     ...                      # or: no telemetry= and current_session() is used
     session.close()          # drains the tracer, writes the snapshots
+
+or, training, ``Accelerator(telemetry=TelemetryConfig(...), log_with="jsonl")``
+and ``accelerator.log_system_metrics()`` after each update:
+
+- **training steps**: one record per optimizer update (the eager loop's
+  ``on_optimizer_step``, the fused step's ``on_step``), with tokens from
+  the batches (``note_batch``), data wait from the loaders
+  (``note_data_wait``), FLOPs from the model config and the rollup's
+  ``sys/tokens_per_s``, ``sys/mfu_pct``, ``sys/loss``, ``sys/grad_norm``,
+  ``sys/loss_scale`` and ``sys/last_step_skipped``; with
+  ``metrics_jsonl`` one line per record in ``metrics-host<i>.jsonl``;
+- **profiler windows** (``recorder.CaptureWindow``): ``torch.profiler``
+  over steps N..M (``profile_steps``) or after an ITL p99 breach;
 
 - **request tracing** (``requests.py``): one JSONL record per request in
   ``requests-host<i>.jsonl`` (queue wait, prefill chunks, ITL series,
@@ -80,13 +92,20 @@ UNPORTED = {
                  "which compiles_in_flight counts",
     "cost_registry": "per-executable roofline rows, ROADMAP queue 1 item 11",
     "watchdog": "the heartbeat watchdog, ROADMAP queue 1 item 10",
-    "capture_window": "profiler capture windows, ROADMAP queue 1 item 4b",
-    "training_telemetry": "the training steps' records and MFU, ROADMAP queue 1 item 4b(ii)",
 }
 
 
 def current_session() -> Optional["TelemetrySession"]:
     return _ACTIVE_SESSION
+
+
+def note_data_wait(seconds: float):
+    """The data loaders' hook: host time spent producing or placing a
+    batch, billed to the next step record. A ``None`` check when no
+    session is active."""
+    s = _ACTIVE_SESSION
+    if s is not None:
+        s.note_data_wait(seconds)
 
 
 @dataclass
@@ -98,7 +117,7 @@ class TelemetryConfig:
     records, flight bundles, snapshots). When None, file-producing
     features stay off (histograms, usage and the flight ring still run).
     The fields of parts the port does not build yet (forensics, cost
-    registry, watchdog and profiler capture) keep their defaults here;
+    registry and watchdog) keep their defaults here;
     switching one of them on explicitly raises in
     :class:`TelemetrySession`.
     """
@@ -162,7 +181,7 @@ class TelemetryConfig:
         deadline; ATT_TELEMETRY_PORT starts the Prometheus scrape thread;
         ATT_TELEMETRY_PROFILE_STEPS="N:M" arms a capture window for steps
         N..M. Returns None when the env asks for nothing. (The watchdog
-        and the capture window then raise in the session: later items.)"""
+        then raises in the session: a later item.)"""
         flag = os.environ.get("ATT_TELEMETRY", "").strip().lower()
         wd = os.environ.get("ATT_TELEMETRY_WATCHDOG_S", "").strip()
         if flag in ("", "0", "false") and not wd:
@@ -224,12 +243,6 @@ def _refuse_unported(config: TelemetryConfig):
         asked.append(("watchdog=True", "watchdog"))
     if config.heartbeat_dir:
         asked.append(("heartbeat_dir", "watchdog"))
-    if config.profile_steps:
-        asked.append(("profile_steps", "capture_window"))
-    if config.profile_trigger_itl_p99_ms is not None:
-        asked.append(("profile_trigger_itl_p99_ms", "capture_window"))
-    if config.flops_per_token is not None:
-        asked.append(("flops_per_token", "training_telemetry"))
     if asked:
         raise NotImplementedError(
             "TelemetryConfig asks for parts the port does not build yet: "
@@ -252,23 +265,30 @@ _UNPROBED = object()
 
 
 class TelemetrySession:
-    """One live telemetry pipeline: serving engines feed it, ``rollup()``
-    and ``flush()`` drain it.
+    """One live telemetry pipeline: the accelerator's training steps and
+    serving engines feed it, ``rollup()`` and ``flush()`` drain it.
 
     Installed as the process-global session (``current_session()``), so an
     engine built without ``telemetry=`` attaches to it. A new session
-    closes the one it replaces.
+    closes the one it replaces. ``accelerator`` (the training owner) gives
+    a default ``trace_dir`` (``<logging_dir>/telemetry``) and the trackers
+    ``flush()`` logs through.
     """
 
-    def __init__(self, config: TelemetryConfig):
+    def __init__(self, config: TelemetryConfig, accelerator=None):
         global _ACTIVE_SESSION
         _refuse_unported(config)
         if _ACTIVE_SESSION is not None:
             # a replaced session must not leak its hooks / fds
             _ACTIVE_SESSION.close()
         self.config = config
+        self._accelerator = accelerator
         self.process_index = _process_index()
         self.trace_dir = config.trace_dir
+        if self.trace_dir is None and accelerator is not None:
+            logging_dir = getattr(accelerator, "logging_dir", None)
+            if logging_dir:
+                self.trace_dir = os.path.join(str(logging_dir), "telemetry")
         if self.trace_dir:
             os.makedirs(self.trace_dir, exist_ok=True)
         from .metrics import MetricsWindow
@@ -276,6 +296,13 @@ class TelemetrySession:
         self.window = MetricsWindow(config.window)
         self.unported = dict(UNPORTED)
         self._serving: list = []
+        self._engines: list = []       # training owners (attach_engine)
+        self._data_wait = 0.0
+        self._pend_tokens = 0
+        self._pend_samples = 0
+        self._pend_seq_len = None
+        self._last_opt_t: Optional[float] = None
+        self._flops_fn = None
         self._peak = _UNPROBED
         self._peak_bw = _UNPROBED
         self._closed = False
@@ -369,6 +396,15 @@ class TelemetrySession:
         self.costs = None
         self.watchdog = None
         self.capture = None
+        if config.profile_steps or config.profile_trigger_itl_p99_ms is not None:
+            pdir = config.profile_dir or (
+                os.path.join(self.trace_dir, "profile") if self.trace_dir else None)
+            if pdir:
+                from .recorder import CaptureWindow
+
+                start, stop = config.profile_steps or (None, None)
+                self.capture = CaptureWindow(pdir, start_step=start, stop_step=stop,
+                                             window_steps=config.profile_window_steps)
 
         self.exporter = None
         if config.exporter_port is not None:
@@ -379,6 +415,24 @@ class TelemetrySession:
         _ACTIVE_SESSION = self
 
     # -- setup helpers -----------------------------------------------------
+
+    def attach_engine(self, engine):
+        """Wire a training owner (the port's ``Accelerator``, which carries
+        the reference ``TrainEngine``'s ``step_count``, ``scale_state``,
+        ``last_step_skipped()`` and ``model_config``): its updates feed
+        the step records, its model config the FLOPs per token."""
+        engine.telemetry = self
+        if engine not in self._engines:
+            self._engines.append(engine)
+        if self.config.flops_per_token:
+            fpt = float(self.config.flops_per_token)
+            self._flops_fn = lambda seq_len: fpt
+        elif self._flops_fn is None:
+            from .metrics import flops_per_token_fn
+
+            cfg = getattr(engine, "model_config", None)
+            if cfg is not None:
+                self._flops_fn = flops_per_token_fn(cfg)
 
     def attach_serving(self, engine):
         """Wire a serving engine: its ``serving/`` gauges join every
@@ -453,26 +507,71 @@ class TelemetrySession:
 
     # -- producers ---------------------------------------------------------
 
-    def on_step(self, engine, wall_s: float, tokens=None, steps: int = 1):
-        """Record one completed decode or verify step (or one K-step burst,
-        ``steps=K``): the step window, the goodput ledger, the span file,
-        the flight ring. Host arithmetic on values the step already brought
-        to the host: no device sync. (The reference's record keys; a
-        serving step has no samples, sequence length or data wait.)"""
+    def note_data_wait(self, seconds: float):
+        self._data_wait += float(seconds)
+
+    def note_batch(self, args, kwargs, argnames: tuple = ()):
+        """Eager path: count the tokens of one model call (micro-steps
+        accumulate until the update drains them). ``argnames`` is the
+        model's positional parameter order, so ``model(input_ids,
+        labels)`` counts the same as the keyword form."""
+        from .metrics import batch_token_count
+
+        named = {argnames[i]: a for i, a in enumerate(args) if i < len(argnames)}
+        named.update(kwargs)
+        batch = named if named else (args[0] if len(args) == 1 else args)
+        tokens, samples, seq_len = batch_token_count(batch)
+        if tokens:
+            self._pend_tokens += tokens
+        if samples:
+            self._pend_samples += samples
+        if seq_len:
+            self._pend_seq_len = seq_len
+
+    def on_optimizer_step(self, engine):
+        """Eager-loop boundary: the record's wall is the time since the
+        previous boundary (data, forward, backward and update). The first
+        boundary only starts the clock."""
+        now = time.perf_counter()
+        wall = None if self._last_opt_t is None else now - self._last_opt_t
+        self._last_opt_t = now
+        tokens, self._pend_tokens = self._pend_tokens, 0
+        samples, self._pend_samples = self._pend_samples, 0
+        seq_len, self._pend_seq_len = self._pend_seq_len, None
+        if wall is None:
+            return
+        loss = getattr(engine, "_pending_loss", None)
+        self.on_step(engine, wall, tokens=tokens or None, samples=samples or None,
+                     seq_len=seq_len, metrics={"loss": loss} if loss is not None else None)
+
+    def on_step(self, engine, wall_s: float, tokens=None, samples=None, seq_len=None,
+                steps: int = 1, metrics: Optional[dict] = None):
+        """Record one completed step: a training update (or a fused
+        K-update call, ``steps=K``), or a decode or verify step (or a
+        K-step burst). Feeds the step window, the goodput ledger, the span
+        file, the flight ring and the capture window. Host arithmetic; a
+        loss or grad norm in ``metrics`` stays a device scalar until a
+        rollup reads it."""
         step = engine.step_count
+        data_wait, self._data_wait = self._data_wait, 0.0
         comp = self._drain_compile()
         if self.goodput is not None:
-            self.goodput.on_step(wall_s, compile_s=comp["compile_s"])
+            self.goodput.on_step(wall_s, compile_s=comp["compile_s"], data_wait_s=data_wait)
         rec = {
             "step": step,
             "wall_s": float(wall_s),
             "steps": int(steps),
-            "data_wait_s": 0.0,
+            "data_wait_s": data_wait,
             "tokens": tokens,
-            "samples": None,
-            "seq_len": None,
+            "samples": samples,
+            "seq_len": seq_len,
             **comp,
         }
+        if tokens and seq_len and self._flops_fn is not None:
+            rec["flops"] = tokens * self._flops_fn(seq_len)
+        if metrics:
+            rec["_loss"] = metrics.get("loss")
+            rec["_grad_norm"] = metrics.get("grad_norm")
         self.window.add(rec)
         if self.recorder is not None:
             # the reference's span name, which its serving engines emit too
@@ -483,9 +582,19 @@ class TelemetrySession:
         if self.flight is not None:
             self.flight.note("step", step=step, steps=steps,
                              wall_ms=round(wall_s * 1e3, 2), tokens=tokens)
+        if self.capture is not None:
+            thr = self.config.profile_trigger_itl_p99_ms
+            if thr is not None and not self.capture.active:
+                itl = self.hists.get("serving/itl")
+                # a few samples must accrue before a p99 means anything
+                if itl is not None and itl.count >= 16:
+                    p99 = itl.quantile(0.99)
+                    if p99 is not None and p99 * 1e3 > thr:
+                        self.capture.arm("itl_p99_slo")
+            self.capture.on_step(step)
         fe = self.config.flush_every
         if fe and len(self.window.records) and self.window.total_steps % fe == 0:
-            self.flush()
+            self.flush(step=step)
 
     def _drain_compile(self) -> dict:
         """Captures since the previous step record, under the reference's
@@ -502,15 +611,32 @@ class TelemetrySession:
 
     # -- consumers ---------------------------------------------------------
 
+    @staticmethod
+    def _resolve(value) -> Optional[float]:
+        """A host float of a metric (a device scalar is read here)."""
+        if value is None:
+            return None
+        try:
+            return float(value)
+        except (TypeError, ValueError, RuntimeError):
+            return None
+
     def _write_step_record(self, rec: dict):
         import json
 
         if self._metrics_fh is None or self._metrics_fh.closed:
             return
-        out = {k: v for k, v in rec.items() if v is not None}
+        out = {k: v for k, v in rec.items() if not k.startswith("_") and v is not None}
         out["time_unix_s"] = round(time.time(), 3)
         if rec.get("tokens") and rec.get("wall_s"):
             out["tokens_per_s"] = rec["tokens"] / rec["wall_s"]
+        peak = self.peak_flops()
+        if rec.get("flops") and rec.get("wall_s") and peak:
+            out["mfu_pct"] = 100.0 * rec["flops"] / rec["wall_s"] / peak
+        for key in ("loss", "grad_norm"):
+            value = self._resolve(rec.get("_" + key))
+            if value is not None:
+                out[key] = value
         self._metrics_fh.write_line(json.dumps(out))
 
     def peak_flops(self) -> Optional[float]:
@@ -540,13 +666,30 @@ class TelemetrySession:
             except Exception:  # a dying engine must not take the flush down
                 pass
 
+    def _training_gauges(self, out: dict):
+        """The last record's loss and grad norm, and each training owner's
+        loss scale and skipped flag (the reference's rollup keys)."""
+        last = self.window.last()
+        if last is not None:
+            for key in ("loss", "grad_norm"):
+                value = self._resolve(last.get("_" + key))
+                if value is not None:
+                    out["sys/" + key] = value
+        for engine in self._engines:
+            scale = getattr(engine, "scale_state", None)
+            if scale is not None:
+                out["sys/loss_scale"] = float(scale["scale"])
+                out["sys/last_step_skipped"] = bool(engine.last_step_skipped())
+
     def rollup(self) -> dict:
-        """Aggregate the rolling window plus the engine gauges into one
-        flat dict of scalars."""
+        """Aggregate the rolling window plus the training and engine
+        gauges into one flat dict of scalars (the ``log_system_metrics``
+        payload)."""
         out = self.window.rollup(peak=self.peak_flops())
         last = self.window.last()
         if last is not None:
             out["sys/step"] = last["step"]
+        self._training_gauges(out)
         # lifetime SLO histograms first, then the serving-engine gauges:
         # where the keys overlap (serving/itl_p50/_p95_ms) the engine's
         # recent-window view wins, as in the reference
@@ -585,14 +728,16 @@ class TelemetrySession:
             out.update(self.alerts.rollup_keys())
         return out
 
-    def flush(self) -> dict:
-        """Rollup, noted in the flight ring, and the goodput / usage
-        snapshots refreshed. Returns the values. (The reference also pushes
-        them through an accelerator's trackers: training telemetry, ROADMAP
-        queue 1 item 4b(ii).)"""
+    def flush(self, step: Optional[int] = None) -> dict:
+        """Rollup, logged through the accelerator's trackers when it has
+        some, noted in the flight ring, and the goodput / usage snapshots
+        refreshed. Returns the values."""
         values = self.rollup()
         if not values:
             return values
+        acc = self._accelerator
+        if acc is not None and getattr(acc, "trackers", None):
+            acc.log(values, step=values.get("sys/step") if step is None else step)
         if self.flight is not None:
             self.flight.note_snapshot(values)
         self._write_artifacts()
@@ -637,6 +782,8 @@ class TelemetrySession:
                 self.sample_timeline()
             except Exception:
                 pass
+        if self.capture is not None:
+            self.capture.close()
         if self.exporter is not None:
             self.exporter.close()
         if self.flight is not None:

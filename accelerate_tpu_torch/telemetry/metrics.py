@@ -2,14 +2,15 @@
 device-memory probe.
 
 An own copy of the part of the reference's
-``accelerate_tpu/telemetry/metrics.py`` a serving session uses:
-:class:`MetricsWindow` (same records, same ``sys/`` rollup keys),
+``accelerate_tpu/telemetry/metrics.py`` the training and serving sessions
+use: :class:`MetricsWindow` (same records, same ``sys/`` rollup keys; a
+training record covers one update, or K of a fused call),
 :func:`batch_token_count`, :func:`decoder_flops_per_token` and
 :func:`flops_per_token_fn`. Two places ask torch where the reference asks
 JAX: :func:`device_memory_stats` reads ``torch.cuda.memory_stats`` (``{}``
 on the CPU), and :func:`peak_flops` / :func:`peak_hbm_bw` know one card,
-the H100 (dense bf16 989 TFLOP/s, HBM3 3.35 TB/s), and return None for
-anything else: a rollup with no peak leaves its MFU key out rather than
+the H100 (dense bf16 and fp16 989 TFLOP/s, HBM3 3.35 TB/s), and return
+None for anything else: a rollup with no peak leaves its MFU key out rather than
 invent one. The reference's fp8 amax health probe belongs to a later item
 of the port (ROADMAP queue 1 item 9).
 """
@@ -44,8 +45,8 @@ def _card_peak(device_name: Optional[str], col: int) -> Optional[float]:
 
 
 def peak_flops(device_name: Optional[str] = None) -> Optional[float]:
-    """Peak dense bf16 FLOP/s of ``device_name`` (default: CUDA device 0);
-    None when the card is not one the port knows."""
+    """Peak dense bf16 / fp16 FLOP/s of ``device_name`` (default: CUDA
+    device 0); None when the card is not one the port knows."""
     return _card_peak(device_name, 0)
 
 
@@ -114,7 +115,8 @@ class MetricsWindow:
     record to count), ``steps`` (steps covered, default 1), ``tokens``,
     ``samples``, ``flops``, ``data_wait_s``, ``compile_events``,
     ``compile_s``, ``compile_cache_hits``. Unknown keys ride along
-    untouched.
+    untouched (the session keeps a record's loss and grad norm, device
+    scalars until a rollup reads them, under ``_``-keys).
     """
 
     def __init__(self, size: int = 32):

@@ -22,8 +22,13 @@ Triggers: an **unhandled exception** (``sys.excepthook`` chain),
 **SIGTERM** (dump, request a serving drain when the session asks for one,
 then chain to the previous handler so termination semantics are
 unchanged), or an explicit ``dump()`` call. The reference's watchdog
-trigger and its profiler ``CaptureWindow`` are later items of the port
-(ROADMAP queue 1 items 10 and 4b); a session configured for either raises.
+trigger is a later item of the port (ROADMAP queue 1 item 10); a session
+configured for it raises.
+
+:class:`CaptureWindow` is the reference's trigger-gated profiler window
+over ``torch.profiler`` in place of ``jax.profiler``: steps N..M of
+``TelemetryConfig.profile_steps``, or a window armed by an ITL p99 over
+``profile_trigger_itl_p99_ms``, each written as a Chrome trace.
 """
 
 from __future__ import annotations
@@ -235,3 +240,114 @@ class FlightRecorder:
                 # key on dump_count to decide the bundle is readable
                 self.dump_count = n
 
+
+
+class CaptureWindow:
+    """Trigger-gated ``torch.profiler`` window keyed on session step counts.
+
+    ``start_step``/``stop_step`` come from config; :meth:`arm` (an ITL SLO
+    breach) opens a window at the next step for ``window_steps`` steps.
+    One window at a time; ``max_auto_arms`` bounds trigger storms. Each
+    window is one ``torch.profiler.profile`` (CPU, and CUDA where it is
+    available) exported to ``out_dir/capture-<n>.json``. The start and
+    stop callables are injectable, so tests can drive the trigger logic
+    without a profiler."""
+
+    def __init__(self, out_dir: str, start_step: Optional[int] = None,
+                 stop_step: Optional[int] = None, window_steps: int = 16,
+                 max_auto_arms: int = 1, start_fn=None, stop_fn=None):
+        self.out_dir = out_dir
+        self.start_step = start_step
+        self.stop_step = stop_step
+        self.window_steps = max(1, int(window_steps))
+        self.max_auto_arms = max_auto_arms
+        self.active = False
+        self.captures = 0
+        self.reason: Optional[str] = None
+        self.paths: list = []
+        self._armed_reason: Optional[str] = None
+        self._armed_until: Optional[int] = None
+        self._auto_arms = 0
+        self._disabled = False
+        self._start_fn = start_fn
+        self._stop_fn = stop_fn
+        self._prof = None
+
+    def arm(self, reason: str = "trigger") -> bool:
+        """Open a capture window at the next step (no-op while one is
+        active or the auto-arm budget is spent)."""
+        if self._disabled or self.active or self._armed_reason is not None:
+            return False
+        if self._auto_arms >= self.max_auto_arms:
+            return False
+        self._auto_arms += 1
+        self._armed_reason = reason
+        return True
+
+    def _start(self, reason: str):
+        try:
+            if self._start_fn is not None:
+                self._start_fn(self.out_dir)
+            else:
+                import torch
+
+                os.makedirs(self.out_dir, exist_ok=True)
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                self._prof = torch.profiler.profile(activities=acts)
+                self._prof.__enter__()
+        except Exception as e:
+            # one failed start disables the window for the session: a
+            # config-steps window would otherwise retry on every step
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "profiler capture window disabled: the profiler did not start (%r)", e)
+            self._prof = None
+            self._armed_reason = None
+            self._armed_until = None
+            self._disabled = True
+            return
+        self.active = True
+        self.reason = reason
+
+    def _stop(self):
+        try:
+            if self._stop_fn is not None:
+                self._stop_fn()
+            elif self._prof is not None:
+                prof, self._prof = self._prof, None
+                prof.__exit__(None, None, None)
+                path = os.path.join(self.out_dir, f"capture-{self.captures}.json")
+                prof.export_chrome_trace(path)
+                self.paths.append(path)
+        except Exception:
+            pass
+        self.active = False
+        self.captures += 1
+
+    def on_step(self, step: int):
+        """Advance the window state machine; called once per recorded step."""
+        if self._disabled:
+            return
+        if self.active:
+            if (self._armed_until is not None and step >= self._armed_until) or (
+                self._armed_until is None
+                and self.stop_step is not None and step >= self.stop_step
+            ):
+                self._armed_until = None
+                self._stop()
+            return
+        if self._armed_reason is not None:
+            reason, self._armed_reason = self._armed_reason, None
+            self._armed_until = step + self.window_steps
+            self._start(reason)
+            return
+        if (self.start_step is not None and self.stop_step is not None
+                and self.start_step <= step < self.stop_step):
+            self._start("config_steps")
+
+    def close(self):
+        if self.active:
+            self._stop()

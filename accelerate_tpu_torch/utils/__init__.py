@@ -1,9 +1,9 @@
 """Configuration dataclasses of the port (``utils/dataclasses.py``) and
 ``set_seed`` (``utils/random.py``)."""
 
-from .dataclasses import (GradientAccumulationPlugin, MixedPrecisionConfig, PrecisionType,
-                          ProjectConfiguration)
+from .dataclasses import (AutocastKwargs, GradientAccumulationPlugin, GradScalerKwargs,
+                          MixedPrecisionConfig, PrecisionType, ProjectConfiguration)
 from .random import set_seed
 
-__all__ = ["GradientAccumulationPlugin", "MixedPrecisionConfig", "PrecisionType",
-           "ProjectConfiguration", "set_seed"]
+__all__ = ["AutocastKwargs", "GradScalerKwargs", "GradientAccumulationPlugin",
+           "MixedPrecisionConfig", "PrecisionType", "ProjectConfiguration", "set_seed"]

@@ -3,11 +3,14 @@
 Counterpart of ``accelerate_tpu/utils/random.py`` (``set_seed``,
 ``rng_state_dict``, ``load_rng_state_dict``). The reference's checkpoint
 entry is ``{"python", "numpy", "keychain", "torch"}``, where ``keychain``
-is its counter-based JAX key streams (``{"seed", "counters"}``). The port
-has no JAX streams: it writes a ``keychain`` of the last ``set_seed``
-with no counters, so the reference's loader (which indexes the entry)
-accepts the file, and it keeps a ``keychain`` it reads to write it back
-unchanged. Beside the CPU generator it saves every CUDA device's
+is its counter-based key streams (``{"seed", "counters"}``: the last
+``set_seed`` and the keys drawn from each named stream). The port keeps
+the same record: the ``"dropout"`` stream is the residual dropout's
+(:func:`next_key`, ``models/decoder.py``), one key per training forward,
+so a checkpoint carries the dropout stream's position with the other
+random states and a resumed run draws the masks the uninterrupted one
+would. A ``keychain`` read from the reference's file is kept and written
+back as read. Beside the CPU generator it saves every CUDA device's
 generator under ``torch_cuda``, which the reference ignores.
 """
 
@@ -36,6 +39,15 @@ def set_seed(seed: int, device_specific: bool = False, deterministic: bool = Fal
     if deterministic:
         torch.use_deterministic_algorithms(True)
     _keychain = {"seed": seed, "counters": {}}
+
+
+def next_key(stream: str) -> tuple:
+    """``(seed, counter)`` of stream ``stream``'s next key (the keychain's
+    seed, and how many keys the stream gave before this one); advances
+    the stream."""
+    count = int(_keychain["counters"].get(stream, 0))
+    _keychain["counters"][stream] = count + 1
+    return int(_keychain["seed"]), count
 
 
 def rng_state_dict() -> dict:

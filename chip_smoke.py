@@ -13,7 +13,8 @@ the ragged prefill kernel and its int8/int4 entry
 pack of 2-3 slots a 64-row tile at CAP 208, and a 1536-position arena
 prefix under a 512-row tail) at the serving path's shapes (small_1b:
 H=16, KVH=8, D=128, page 16), the flash forward, dQ and dK/dV kernels
-at the training path's (B 8, S 2048, causal) and in masked cases, the
+and their fp16 entries at the training path's (B 8, S 2048, causal) and
+in masked cases, the
 dense decode kernel and its int8/int4 entry at the flat engine's and
 generate()'s shapes, at Sq 4, and in seven edge cases of its split kv
 walk in bf16, int8 and int4 (position 0, 63/64/65, split edges +- 1,
@@ -21,11 +22,12 @@ Sq 16 at groups 2 and 1, L 1000, L 1001 with a row parked at 1000, rows
 at or past L). Each is timed beside its bound and one SDPA call (the
 median of seven reads, with their spread). The flash and the ragged
 prefill kernels run on the tensor cores: the SASS of each built library
-must hold warpgroup matrix multiplies (HGMMA) and TMA tile loads
-(UTMALDG), or the run fails; the four decode libraries (paged and
+(of each flash entry, its own instantiation's functions) must hold
+warpgroup matrix multiplies (HGMMA) and TMA tile loads (UTMALDG), or the
+run fails; the four decode libraries (paged and
 dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
 cp.async copies (LDGSTS), and ptxas must report no spills in them.
-Then it drives thirteen
+Then it drives fourteen
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -118,7 +120,19 @@ the patch, so their graphs replay the zeroed wrapper:
   weights, a few steps of the eager loop and of ``build_train_step``,
   launch counts of layers x micro-batches per step, a falling loss on a
   fixed batch, one step held against plain attention, throughput, MFU,
-  peak memory and a step profile;
+  peak memory and a step profile; the peak memory of each remat policy;
+- fp16 training (``train_fp16_path``): ``DecoderConfig(dtype=float16)``
+  under ``mixed_precision="fp16"`` through both entry points on the fp16
+  flash entries only, one step against plain fp16 attention with the
+  dQ-, dK- and dV-zeroed controls, a falling loss, the cost of the
+  unscale and finite check; an overflow walk from an init_scale of 2^40
+  whose skipped updates leave every parameter bitwise and whose scale
+  follows a host replay of the reference's rule; dropout 0.1 under no
+  remat and the three policies (one seed, one loss; each policy's
+  gradients against no remat's; peak memory, flash forward launches);
+  a telemetry session with a JSONL tracker (``sys/mfu_pct`` against the
+  phase's own reckoning, the loss scale and skipped flag, the
+  exposition, ``metrics.jsonl``);
 - checkpoints: small_1b trained as above over the port's shuffled
   ``DataLoader``, saved twice mid-epoch (``save_state`` with automatic
   naming, ``total_limit=1``) and resumed from the newest checkpoint by a
@@ -275,10 +289,27 @@ def check_close(name: str, got, want) -> float:
     return err
 
 
+# the flash kernels' element types as their template instantiations are
+# mangled: a flash library holds both, and each entry's SASS gate reads
+# its own functions only
+SASS_FUNCTIONS = {name + sfx: mangled for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                  for sfx, mangled in (("", "13__nv_bfloat16"), ("_f16", "6__half"))}
+
+
+def sass_of(text: str, fragment) -> str:
+    """The SASS of the functions of a ``cuobjdump -sass`` listing whose
+    (mangled) name holds ``fragment``; the whole listing without one."""
+    if fragment is None:
+        return text
+    parts = text.split("Function : ")
+    return "".join(p for p in parts[1:] if fragment in p.split("\n", 1)[0])
+
+
 def sass_gate(names, ops, what: str) -> dict:
     """Count each of ``ops`` in the SASS of each built library of
-    ``names``, read with the cuobjdump of nvcc's toolkit; fails unless
-    every one is present in each (the library does not ``what``)."""
+    ``names`` (of a flash entry, its own instantiation's functions:
+    ``SASS_FUNCTIONS``), read with the cuobjdump of nvcc's toolkit; fails
+    unless every one is present in each (the kernel does not ``what``)."""
     from accelerate_tpu_torch.ops import kernels
 
     tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
@@ -289,7 +320,8 @@ def sass_gate(names, ops, what: str) -> dict:
                              timeout=300)
         if res.returncode != 0:
             fail(f"cuobjdump -sass {lib.name} failed: {res.stderr.strip()[-500:]}")
-        counts[name] = {op: res.stdout.count(op) for op in ops}
+        text = sass_of(res.stdout, SASS_FUNCTIONS.get(name))
+        counts[name] = {op: text.count(op) for op in ops}
         print(f"{name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts[name].items()))
     for name, found in counts.items():
         if not all(found.values()):
@@ -870,11 +902,14 @@ def check_close_rel(name: str, got, want) -> float:
     return err
 
 
-def flash_inputs(gen, dev, b, s, causal=True, kv_mask=None, seg=None, d=D, skv=None):
+def flash_inputs(gen, dev, b, s, causal=True, kv_mask=None, seg=None, d=D, skv=None,
+                 dtype=None):
     import torch
 
+    dtype = dtype or torch.bfloat16
+
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     skv = skv or s
     q, k, v = rnd(b, H, s, d), rnd(b, KVH, skv, d), rnd(b, KVH, skv, d)
@@ -885,15 +920,15 @@ def flash_inputs(gen, dev, b, s, causal=True, kv_mask=None, seg=None, d=D, skv=N
                 scale=1.0 / math.sqrt(d))
 
 
-def flash_masked_cases(gen, dev):
-    """B 2, S 512: (a) causal, a kv_mask whose batch row 0 is fully masked
+def flash_masked_cases(gen, dev, dtype=None, seed_e: int = 2):
+    """B 2, S 512, in ``dtype`` (bf16 by default): (a) causal, a kv_mask whose batch row 0 is fully masked
     and whose row 1 is left-padded by 100 positions; (b) causal, three
     segments per row, of other lengths in each row; (c) the kv_mask of (a)
     without causal masking. Then the kernels' other shapes: (d) head_dim
     64, causal, Sq 256 over Skv 512 (top-left aligned); (e) head_dim 128,
     causal, Sq 192 over Skv 320: 64-multiples that are not 128-multiples,
     so they cut the kernels' 128-row tiles. (e) draws from its own
-    generator (seed 2), so the other cases' inputs do not move."""
+    generator (seed ``seed_e``), so the other cases' inputs do not move."""
     import torch
 
     s = 512
@@ -905,12 +940,15 @@ def flash_masked_cases(gen, dev):
     seg[0, 300:] = 2
     seg[1, 64:] = 1
     seg[1, 450:] = 2
-    return {"S 512, causal, kv_mask": flash_inputs(gen, dev, 2, s, kv_mask=kv_mask),
-            "S 512, causal, segments": flash_inputs(gen, dev, 2, s, seg=seg),
-            "S 512, full, kv_mask": flash_inputs(gen, dev, 2, s, causal=False, kv_mask=kv_mask),
-            "causal, D 64, Sq 256 < Skv 512": flash_inputs(gen, dev, 2, 256, d=64, skv=512),
+    kw = {"dtype": dtype}
+    return {"S 512, causal, kv_mask": flash_inputs(gen, dev, 2, s, kv_mask=kv_mask, **kw),
+            "S 512, causal, segments": flash_inputs(gen, dev, 2, s, seg=seg, **kw),
+            "S 512, full, kv_mask": flash_inputs(gen, dev, 2, s, causal=False, kv_mask=kv_mask,
+                                                 **kw),
+            "causal, D 64, Sq 256 < Skv 512": flash_inputs(gen, dev, 2, 256, d=64, skv=512,
+                                                           **kw),
             "causal, D 128, Sq 192 < Skv 320": flash_inputs(
-                torch.Generator(device=dev).manual_seed(2), dev, 2, 192, skv=320)}
+                torch.Generator(device=dev).manual_seed(seed_e), dev, 2, 192, skv=320, **kw)}
 
 
 def flash_attended_pairs(x) -> int:
@@ -928,11 +966,12 @@ def flash_attended_pairs(x) -> int:
     return int(per_b) * h
 
 
-def flash_phases(gen, dev):
+def flash_phases(gen, dev, dtype=None):
     """The flash forward, dQ and dK/dV kernels against their plain
     versions at the main path's shape (B 8, S 2048, H 16, KVH 8, D 128,
-    causal, bf16) and in the masked cases, each timed beside its bound
-    and SDPA. Returns the three kernel rows."""
+    causal) and in the masked cases, each timed beside its bound and SDPA
+    in the same dtype: bf16 (the default), or fp16 (the ``_f16`` entries,
+    their masked case (e) from seed 4). Returns the three kernel rows."""
     import torch
     import torch.nn.functional as F
 
@@ -941,6 +980,10 @@ def flash_phases(gen, dev):
         NEG_INF, flash_bwd_dkv_reference, flash_bwd_dq_reference, flash_delta,
         flash_fwd_reference,
     )
+
+    dtype = dtype or torch.bfloat16
+    sfx = kernels.FLASH_DTYPES[dtype]
+    tname = "bf16" if dtype == torch.bfloat16 else "fp16"
 
     def fwd_kernel(x):
         return kernels.flash_fwd(x["q"], x["k"], x["v"], x["masks"], x["causal"], x["scale"])
@@ -956,15 +999,17 @@ def flash_phases(gen, dev):
         """Hold all three kernels against the plain versions on one
         input; the backward's lse and delta come from the plain forward
         and are fed to both versions. Returns {kernel: max abs err}."""
-        out_k, lse_k = counted("flash_fwd", lambda: fwd_kernel(x))
+        tag = f"{tname}, {tag}"
+        out_k, lse_k = counted("flash_fwd" + sfx, lambda: fwd_kernel(x))
         out_p, lse_p = fwd_plain(x)
         errs = {"flash_fwd": check_close_rel(f"flash_fwd ({tag})", out_k, out_p)}
         lse_err = (lse_k - lse_p).abs().max().item()
         if not lse_err <= LSE_ATOL:
             fail(f"flash_fwd ({tag}) lse vs plain: max abs err {lse_err} > {LSE_ATOL}")
         x["lse"], x["delta"] = lse_p, flash_delta(out_p, x["do"])
-        dq_k = counted("flash_bwd_dq", lambda: kernels.flash_bwd_dq(*bwd_args(x)))
-        dk_k, dv_k = counted("flash_bwd_dkv", lambda: kernels.flash_bwd_dkv(*bwd_args(x)))
+        dq_k = counted("flash_bwd_dq" + sfx, lambda: kernels.flash_bwd_dq(*bwd_args(x)))
+        dk_k, dv_k = counted("flash_bwd_dkv" + sfx,
+                             lambda: kernels.flash_bwd_dkv(*bwd_args(x)))
         dq_p = flash_bwd_dq_reference(*bwd_args(x))
         dk_p, dv_p = flash_bwd_dkv_reference(*bwd_args(x))
         errs["flash_bwd_dq"] = check_close_rel(f"flash_bwd_dq ({tag})", dq_k, dq_p)
@@ -983,9 +1028,10 @@ def flash_phases(gen, dev):
               f"{int(empty.sum().item())} fully masked rows")
         return errs
 
-    x = flash_inputs(gen, dev, TRAIN_B, TRAIN_S)
+    x = flash_inputs(gen, dev, TRAIN_B, TRAIN_S, dtype=dtype)
     errs = check_case(x, f"B {TRAIN_B}, S {TRAIN_S}, causal")
-    for tag, case in flash_masked_cases(gen, dev).items():
+    cases = flash_masked_cases(gen, dev, dtype, seed_e=2 if dtype == torch.bfloat16 else 4)
+    for tag, case in cases.items():
         check_case(case, f"B 2, {tag}")
 
     ms = {"flash_fwd": cuda_time_ms(lambda: fwd_kernel(x), iters=10, warmup=2),
@@ -1023,12 +1069,12 @@ def flash_phases(gen, dev):
                             ("flash_bwd_dq", "flash_bwd_dq.cu", 440),
                             ("flash_bwd_dkv", "flash_bwd_dkv.cu", 488)):
         bound_ms, bound_by = bound(*work[name])
-        print(f"kernel {name}: B {TRAIN_B}, S {TRAIN_S}, H {H}, KVH {KVH}, D {D}, "
-              f"causal bf16, {pairs} attended pairs, max_abs_err {errs[name]:.3e} "
-              f"(tol {FLASH_ATOL}*rms + {KERNEL_RTOL}*|plain|), kernel {ms[name]:.4f} ms, "
-              f"plain {plain[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"library sdpa {library_text(library[name])}")
-        rows.append({"name": name, "route": "cuda",
+        print(f"kernel {name + sfx}: B {TRAIN_B}, S {TRAIN_S}, H {H}, KVH {KVH}, D {D}, "
+              f"causal {tname}, {pairs} attended pairs, max_abs_err {errs[name]:.3e} "
+              f"(tol {FLASH_ATOL}*rms + {KERNEL_RTOL}*|plain|), kernel "
+              f"{ms[name]:.4f} ms, plain {plain[name]:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), library sdpa {library_text(library[name])}")
+        rows.append({"name": name + sfx, "route": "cuda",
                      "source": f"accelerate_tpu_torch/csrc/{src}",
                      "replaces": f"accelerate_tpu/ops/attention.py:{line}",
                      "max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain[name],
@@ -3013,12 +3059,14 @@ def fleet_path(dev, card: str, model):
         last_threads = wave(3, FLEET_WAVE_NEW)
         # A dies once its sessions' KV has moved, its long streams still
         # in flight: they re-queue onto B
-        deadline = time.perf_counter() + REPLICA_HTTP_TIMEOUT
+        t_migrate = time.perf_counter()
+        deadline = t_migrate + REPLICA_HTTP_TIMEOUT
         while router.kv_migrations < len(on_a):
             if time.perf_counter() > deadline:
                 fail(f"fleet path: {router.kv_migrations} KV migrations for {len(on_a)} "
                      "sessions on the draining replica")
             time.sleep(0.005)
+        migrate_s = time.perf_counter() - t_migrate
         in_flight = [s for s in on_a if (s, 2) not in done]
         at_kill = {f"s{s}-2": progress.get((s, 2), 0) for s in in_flight}
         server_a.kill()
@@ -3069,7 +3117,7 @@ def fleet_path(dev, card: str, model):
         print(f"fleet path (6) router on {card}: {len(done)} streams in {FLEET_SESSIONS} "
               f"sessions over {wall:.3f} s, affinity held, sessions on A {on_a} moved to B "
               f"with {router.kv_migrations} KV migrations ({eng_b.kv_pages_imported - imported0} "
-              f"pages), {len(splices)} streams re-queued after the kill (in flight on A: "
+              f"pages, {migrate_s:.3f} s from request 3's submit), {len(splices)} streams re-queued after the kill (in flight on A: "
               f"{len(in_flight)}), A {state} one poll after; router TTFT p50 / p99 "
               f"{m['router/ttft_p50_ms']:.2f} / {m['router/ttft_p99_ms']:.2f} ms, ITL p50 / p99 "
               f"{m['router/itl_p50_ms']:.3f} / {m['router/itl_p99_ms']:.3f} ms; collector "
@@ -3795,8 +3843,10 @@ TRAIN_FUSED_MICRO = 2    # micro-batches per build_train_step update
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_NORM_RTOL = 1e-3
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_KERNELS_F16 = tuple(name + "_f16" for name in FLASH_KERNELS)
 # the kernels whose SASS must hold wgmma (HGMMA) and TMA tile loads (UTMALDG)
-TENSOR_CORE_KERNELS = FLASH_KERNELS + ("ragged_prefill", "ragged_prefill_quant")
+TENSOR_CORE_KERNELS = FLASH_KERNELS + FLASH_KERNELS_F16 + ("ragged_prefill",
+                                                           "ragged_prefill_quant")
 
 
 def train_path(dev, card: str):
@@ -3981,7 +4031,8 @@ def train_control(model, loss_and_norm, norm_plain):
 def remat_memory(cfg, dev, batch):
     """One forward + backward under each remat policy: the peak memory
     above the weights and the flash forward launches (save_attention
-    keeps the kernel's residuals, full re-runs it in backward)."""
+    keeps the flash operator's out and lse, full and save_dots re-run it
+    in backward)."""
     import dataclasses
 
     import torch
@@ -3991,7 +4042,7 @@ def remat_memory(cfg, dev, batch):
     from accelerate_tpu_torch.models.decoder import DecoderLM
     from accelerate_tpu_torch.ops import kernels
 
-    for policy in ("save_attention", "full"):
+    for policy in ("save_attention", "full", "save_dots"):
         config = dataclasses.replace(cfg, remat_policy=policy)
         model = DecoderLM(config, device=dev, param_dtype=torch.float32)
         model.load_params(random_params(config, seed=0, device=dev, dtype=torch.float32))
@@ -4034,6 +4085,383 @@ def profile_train(step, batch, card: str):
           f"{100 - 100 * busy_ms / wall_ms:.1f}%), {sum(r[1] for r in rows)} device ops")
     for ms, count, key in rows[:10]:
         print(f"  {ms:9.2f} ms  {count:5d} calls  {key[:90]}")
+
+
+# fp16 training (train_fp16_path): small_1b at full width with fp16
+# activations over fp32 masters, the reference's dynamic loss scale, the
+# fp16 entries of the three flash kernels. The plain-attention check keeps
+# the bf16 path's limits: fp16 rounds 8x finer than bf16 (2^-11 against
+# 2^-8), so the two fp16 runs should agree at least as closely
+FP16_OVERFLOW_B = 2            # batch of the forced-overflow walk
+FP16_OVERFLOW_SCALE = 2.0 ** 40  # an init_scale whose first updates overflow fp16
+FP16_OVERFLOW_MAX = 48         # updates the walk may take to reach a finite one
+FP16_OVERFLOW_GROWTH = 2       # growth_interval of that walk: growth shows in it
+FP16_DROPOUT = 0.1
+# remat with dropout: each policy's gradients against no remat's, as the
+# norm of the difference over the norm (the recompute repeats the ops and
+# the masks; a mask drawn afresh moves ~10% of every dropped activation)
+FP16_REMAT_GRAD_RTOL = 1e-3
+FP16_MFU_RTOL = 0.05           # sys/mfu_pct against the phase's own reckoning
+FP16_TELEMETRY_STEPS = 4
+
+
+def train_fp16_path(dev, card: str):
+    """fp16 training of small_1b at full width (``DecoderConfig(dtype=
+    float16)``, ``mixed_precision="fp16"``, remat ``save_attention``):
+    (b) the eager loop and ``build_train_step`` on the fp16 flash entries
+    (and no bf16 launch), loss and grad norm against plain fp16 attention
+    with the three zeroed controls, a forced overflow whose skipped
+    updates leave every parameter bitwise unchanged and whose scale walk
+    equals a host replay of the reference's rule, a falling loss; (c)
+    dropout 0.1 under no remat, ``full``, ``save_attention`` and
+    ``save_dots``: two runs from one seed equal bit for bit, each policy's
+    gradients against no remat's, peak memory and flash forward launches;
+    (d) telemetry through a JSONL tracker. Returns the fp16 entries'
+    launches of the main run (b)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.accelerator import _unscale, global_grad_norm
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+
+    cfg = DecoderConfig.small_1b(dtype=torch.float16)
+    b, s = TRAIN_B, TRAIN_S
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (b, s))
+    batch = {"input_ids": ids, "labels": ids}
+    on_dev = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    every = FLASH_KERNELS + FLASH_KERNELS_F16
+
+    def fresh(config=cfg, seed=0):
+        model = DecoderLM(config, device=dev, param_dtype=torch.float32)
+        return model.load_params(random_params(config, seed=seed, device=dev,
+                                               dtype=torch.float32))
+
+    def expect(before, per_kernel, what):
+        for name in every:
+            want = per_kernel if name in FLASH_KERNELS_F16 else 0
+            got = kernels.launch_counts[name] - before[name]
+            if got != want:
+                fail(f"{name}: {got} launches in {what}, expected {want}")
+
+    def loss_and_norm(model):
+        """One fp16 forward + backward on the fixed batch, no update. The
+        backward is the accelerator's, from loss x 65536 (the default
+        init scale): unscaled, an fp16 activation gradient of a mean over
+        16384 tokens underflows, differently in the two attentions."""
+        acc = Accelerator(mixed_precision="fp16")
+        acc.prepare(model)
+        model.zero_grad(set_to_none=True)
+        out = model(**on_dev)
+        acc.backward(out["loss"])
+        if not bool(acc._finite.item()):
+            fail("fp16 check step: a gradient is not finite at the default scale")
+        norm = global_grad_norm(model.parameters()).item()
+        model.zero_grad(set_to_none=True)
+        return out["loss"].item(), norm
+
+    # (b) the eager loop, then build_train_step
+    t0 = time.perf_counter()
+    model = fresh()
+    acc = Accelerator(mixed_precision="fp16")
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    model, opt, loader = acc.prepare(model, opt, [batch] * TRAIN_STEPS)
+    torch.cuda.synchronize()
+    print(f"train fp16 path: small_1b fp16 activations over fp32 masters seed 0, remat "
+          f"{cfg.remat_policy}, batch {b} x {s}, loss scale {acc.loss_scale.state_dict()}, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    kernels.reset_launch_counts()
+    losses, eager_ms, finite_ms = [], [], []
+    for mb in loader:
+        before = dict(kernels.launch_counts)
+        t0 = time.perf_counter()
+        with acc.accumulate(model):
+            loss = model(**mb)["loss"]
+            acc.backward(loss)
+            acc.clip_grad_norm_(max_norm=1.0)
+            torch.cuda.synchronize()
+            # what loss scaling adds to an update, timed alone: the
+            # unscale's pass over every gradient, the finite check and
+            # the flag's host read (here dividing by 1: values unchanged)
+            t1 = time.perf_counter()
+            _unscale([p.grad for p in model.parameters() if p.grad is not None], 1.0).item()
+            finite_ms.append((time.perf_counter() - t1) * 1e3)
+            opt.step()
+            opt.zero_grad()
+        losses.append(loss.item())
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        expect(before, cfg.num_layers, "one fp16 eager step (one micro-batch)")
+    step = acc.build_train_step(micro_steps=TRAIN_FUSED_MICRO)
+    fused_ms, norms = [], []
+    for _ in range(TRAIN_STEPS):
+        before = dict(kernels.launch_counts)
+        t0 = time.perf_counter()
+        m = step(batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        fused_ms.append((time.perf_counter() - t0) * 1e3)
+        expect(before, cfg.num_layers * TRAIN_FUSED_MICRO,
+               f"one fp16 build_train_step step ({TRAIN_FUSED_MICRO} micro-batches)")
+    torch.cuda.synchronize()
+    launches = {name: kernels.launch_counts[name] for name in FLASH_KERNELS_F16}
+    if not all(math.isfinite(x) for x in losses + norms) or acc.optimizer_step_was_skipped:
+        fail(f"fp16 training: losses {losses}, grad norms {norms}, last update skipped "
+             f"{acc.optimizer_step_was_skipped}")
+    step_ms = sorted(fused_ms[1:])[len(fused_ms[1:]) // 2]
+    flops_per_token = 6 * cfg.num_params + 6 * cfg.num_layers * s * cfg.embed_dim
+    mfu = b * s / (step_ms / 1e3) * flops_per_token / BF16_FLOPS_PER_S
+    print(f"train fp16 path on {card}: eager losses {[round(x, 5) for x in losses[:TRAIN_STEPS]]}, "
+          f"build_train_step losses {[round(x, 5) for x in losses[TRAIN_STEPS:]]}, grad norms "
+          f"{[round(x, 5) for x in norms]}, loss scale {acc.loss_scale.state_dict()}, "
+          f"launches {launches}; {b * s / (step_ms / 1e3):.1f} tokens/s, {step_ms:.1f} ms/step "
+          f"(build_train_step {[round(x, 1) for x in fused_ms]}, eager "
+          f"{[round(x, 1) for x in eager_ms]} ms), MFU {100 * mfu:.2f}% (989 TFLOP/s fp16); "
+          f"unscale + finite check + host read of the flag "
+          f"{[round(x, 2) for x in finite_ms]} ms an update (after a synchronize)")
+    print("train fp16 path: the profile of one fp16 build_train_step step "
+          f"({TRAIN_FUSED_MICRO} micro-batches), beside the bf16 one of the train path:")
+    profile_train(step, batch, card)
+
+    # the loss falls: constant lr on the one fixed batch
+    model.load_params(random_params(cfg, seed=0, device=dev, dtype=torch.float32))
+    acc = Accelerator(mixed_precision="fp16")
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    step = acc.build_train_step()
+    curve = [step(batch)["loss"].item() for _ in range(TRAIN_FALL_STEPS)]
+    if not all(math.isfinite(x) for x in curve) or not curve[-1] < curve[0]:
+        fail(f"fp16: the loss did not fall over {TRAIN_FALL_STEPS} steps: {curve}")
+    print(f"train fp16 path: {TRAIN_FALL_STEPS} steps at constant lr {TRAIN_LR} on one batch: "
+          f"loss {[round(x, 4) for x in curve]}, loss scale {acc.loss_scale.state_dict()}")
+
+    # against plain fp16 attention on the trained weights, and the controls
+    loss_f, norm_f = loss_and_norm(model)
+    plain = DecoderLM(dataclasses.replace(cfg, attention_impl="xla"), device=dev,
+                      param_dtype=torch.float32)
+    plain.load_state_dict(model.state_dict())
+    loss_x, norm_x = loss_and_norm(plain)
+    del plain
+    if not (math.isfinite(loss_f) and math.isfinite(norm_f)):
+        fail(f"fp16 flash step: loss {loss_f}, grad norm {norm_f}")
+    if abs(loss_f - loss_x) > TRAIN_LOSS_RTOL * abs(loss_x):
+        fail(f"fp16 flash loss {loss_f} vs plain attention {loss_x}: beyond {TRAIN_LOSS_RTOL}")
+    if abs(norm_f - norm_x) > TRAIN_GRAD_NORM_RTOL * abs(norm_x):
+        fail(f"fp16 flash grad norm {norm_f} vs plain attention {norm_x}: beyond "
+             f"{TRAIN_GRAD_NORM_RTOL} rel")
+    print(f"train fp16 path: one step vs plain fp16 attention: loss {loss_f:.6f} vs "
+          f"{loss_x:.6f} (rel {abs(loss_f - loss_x) / abs(loss_x):.2e}, tol {TRAIN_LOSS_RTOL}), "
+          f"grad norm {norm_f:.6f} vs {norm_x:.6f} (rel {abs(norm_f - norm_x) / abs(norm_x):.2e}, "
+          f"tol {TRAIN_GRAD_NORM_RTOL})")
+    before = dict(kernels.launch_counts)
+    train_control(model, loss_and_norm, norm_x)
+    if any(kernels.launch_counts[n] != before[n] for n in FLASH_KERNELS):
+        fail("fp16 controls launched a bf16 flash entry")
+    del model, opt, acc, step
+    torch.cuda.empty_cache()
+
+    fp16_overflow_walk(dev, cfg, batch)
+    fp16_dropout_remat(dev, cfg, on_dev)
+    fp16_telemetry(dev, cfg, batch, card)
+    return launches
+
+
+def fp16_overflow_walk(dev, cfg, batch):
+    """From an init_scale whose updates overflow fp16: every skipped
+    update leaves every parameter (and the optimizer's state) bitwise
+    where it was, the scale and growth tracker after each update equal a
+    host replay of the reference's rule over the observed skips, and the
+    walk reaches finite updates and grows the scale."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, GradScalerKwargs, LossScale
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+
+    mb = {k: torch.as_tensor(v[:FP16_OVERFLOW_B], device=dev) for k, v in batch.items()}
+    model = DecoderLM(cfg, device=dev, param_dtype=torch.float32)
+    model.load_params(random_params(cfg, seed=0, device=dev, dtype=torch.float32))
+    rule = GradScalerKwargs(init_scale=FP16_OVERFLOW_SCALE, growth_interval=FP16_OVERFLOW_GROWTH)
+    acc = Accelerator(mixed_precision="fp16", kwargs_handlers=[rule])
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR)
+    model, opt = acc.prepare(model, opt)
+    replay = LossScale(rule)
+    walk, applied = [], 0
+    for i in range(FP16_OVERFLOW_MAX):
+        snap = [p.detach().clone() for p in model.parameters()]
+        acc.backward(model(**mb)["loss"])
+        opt.step()
+        opt.zero_grad()
+        skipped = acc.optimizer_step_was_skipped
+        replay.update(not skipped)
+        same = all(torch.equal(p, q) for p, q in zip(model.parameters(), snap))
+        if skipped and not same:
+            fail(f"overflow walk: update {i} was skipped but a parameter moved")
+        if not skipped and same:
+            fail(f"overflow walk: update {i} was applied but no parameter moved")
+        if acc.loss_scale.state_dict() != replay.state_dict():
+            fail(f"overflow walk: scale {acc.loss_scale.state_dict()} after update {i}, the "
+                 f"reference's rule gives {replay.state_dict()}")
+        walk.append((int(skipped), acc.loss_scale.scale, acc.loss_scale.growth_tracker))
+        applied += not skipped
+        if applied >= 2 * FP16_OVERFLOW_GROWTH + 1:
+            break
+        del snap
+    skips = sum(w[0] for w in walk)
+    if not skips or walk[0][0] != 1:
+        fail(f"overflow walk: init_scale {FP16_OVERFLOW_SCALE} did not overflow: {walk}")
+    if applied < 2 * FP16_OVERFLOW_GROWTH + 1:
+        fail(f"overflow walk: no finite update within {FP16_OVERFLOW_MAX}: {walk}")
+    if not any(w[1] > v[1] for v, w in zip(walk, walk[1:])):
+        fail(f"overflow walk: the scale never grew after finite updates: {walk}")
+    print(f"train fp16 path: overflow walk from init_scale 2^{math.log2(FP16_OVERFLOW_SCALE):.0f} "
+          f"at batch {FP16_OVERFLOW_B} x {TRAIN_S}: {skips} skipped updates (parameters bitwise "
+          f"unchanged), then {applied} applied; (skipped, scale, growth tracker) per update "
+          f"{walk}, equal to the host replay of the reference's rule")
+    del model, opt, acc
+    torch.cuda.empty_cache()
+
+
+def fp16_dropout_remat(dev, cfg, on_dev):
+    """Dropout 0.1 in fp16 at B 8 x 2048 under no remat and each policy:
+    one forward + backward from one seed each (twice for save_attention:
+    equal bit for bit), gradients against no remat's, peak memory above
+    the weights and flash forward launches."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.utils.random import set_seed
+
+    base_grads, results = None, {}
+    for policy, runs in ((None, 1), ("full", 1), ("save_attention", 2), ("save_dots", 1)):
+        config = dataclasses.replace(cfg, dropout_rate=FP16_DROPOUT, remat=policy is not None,
+                                     remat_policy=policy or "full")
+        model = DecoderLM(config, device=dev, param_dtype=torch.float32)
+        model.load_params(random_params(config, seed=0, device=dev, dtype=torch.float32))
+        acc = Accelerator(mixed_precision="fp16")  # backward from loss x 65536
+        acc.prepare(model)
+        losses = []
+        for _ in range(runs):
+            model.zero_grad(set_to_none=True)
+            set_seed(0)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd = kernels.launch_counts["flash_fwd_f16"]
+            loss = model(**on_dev)["loss"]
+            acc.backward(loss)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            fwd = kernels.launch_counts["flash_fwd_f16"] - fwd
+            losses.append(loss.item())
+        if len(set(losses)) != 1:
+            fail(f"dropout {FP16_DROPOUT} remat {policy}: two runs from one seed gave losses "
+                 f"{losses}")
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        if base_grads is None:
+            base_grads, rel = grads, 0.0
+        else:
+            diff = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g - g0) for g, g0 in zip(grads, base_grads)]))
+            ref = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g0) for g0 in base_grads]))
+            rel = (diff / ref).item()
+            if not rel <= FP16_REMAT_GRAD_RTOL:
+                fail(f"dropout {FP16_DROPOUT} remat {policy}: gradients {rel:.2e} (relative "
+                     f"norm of the difference) from no remat's, beyond {FP16_REMAT_GRAD_RTOL}")
+        results[policy or "none"] = (losses[0], peak, fwd, rel)
+        print(f"remat {policy or 'none'} fp16, dropout {FP16_DROPOUT}: one forward + backward at "
+              f"batch {TRAIN_B} x {TRAIN_S}: loss {losses[0]:.6f} (runs from one seed: "
+              f"{len(losses)}, equal bit for bit), gradients {rel:.2e} from no remat's (tol "
+              f"{FP16_REMAT_GRAD_RTOL}), peak {peak / 1e9:.3f} GB above the weights, {fwd} "
+              f"flash_fwd_f16 launches")
+        del model, grads, acc
+        torch.cuda.empty_cache()
+    del base_grads
+    torch.cuda.empty_cache()
+    return results
+
+
+def fp16_telemetry(dev, cfg, batch, card: str):
+    """build_train_step in fp16 with a telemetry session and a JSONL
+    tracker, log_system_metrics after each update: sys/mfu_pct within
+    FP16_MFU_RTOL of this phase's own reckoning over the same steps, the
+    loss scale and skipped flag equal to the accelerator's, the series in
+    prometheus_metrics(), every metrics.jsonl line parsed."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.telemetry import TelemetryConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip_fp16_telemetry_")
+    try:
+        model = DecoderLM(cfg, device=dev, param_dtype=torch.float32)
+        model.load_params(random_params(cfg, seed=0, device=dev, dtype=torch.float32))
+        acc = Accelerator(mixed_precision="fp16", project_dir=tmp, log_with="jsonl",
+                          telemetry=TelemetryConfig(trace_dir=tmp, flight_hooks=False,
+                                                    timeline_interval_s=0,
+                                                    window=FP16_TELEMETRY_STEPS))
+        opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR)
+        model, opt = acc.prepare(model, opt)
+        acc.init_trackers("fp16", config={"lr": TRAIN_LR, "batch": TRAIN_B})
+        step = acc.build_train_step()
+        step(batch)  # warm-up, outside the window the rollup reads
+        walls, values = [], {}
+        for _ in range(FP16_TELEMETRY_STEPS):
+            t0 = time.perf_counter()
+            step(batch)
+            walls.append(time.perf_counter() - t0)
+            values = acc.log_system_metrics()
+        fpt = 6 * cfg.num_params + 6 * cfg.num_layers * TRAIN_S * cfg.embed_dim
+        own = 100.0 * TRAIN_B * TRAIN_S * fpt * FP16_TELEMETRY_STEPS / sum(walls) / BF16_FLOPS_PER_S
+        got = values.get("sys/mfu_pct")
+        if got is None or abs(got - own) > FP16_MFU_RTOL * own:
+            fail(f"telemetry: sys/mfu_pct {got} vs this phase's {own:.3f} (rel tol "
+                 f"{FP16_MFU_RTOL})")
+        want = (acc.loss_scale.scale, acc.optimizer_step_was_skipped)
+        if (values.get("sys/loss_scale"), values.get("sys/last_step_skipped")) != want:
+            fail(f"telemetry: sys/loss_scale {values.get('sys/loss_scale')}, "
+                 f"sys/last_step_skipped {values.get('sys/last_step_skipped')} vs the "
+                 f"accelerator's {want}")
+        text = acc.prometheus_metrics()
+        for series in ("sys_mfu_pct", "sys_loss_scale", "sys_tokens_per_s", "sys_loss"):
+            if series not in text:
+                fail(f"telemetry: prometheus_metrics() has no {series} series")
+        acc.end_training()
+        lines = open(f"{tmp}/fp16/metrics.jsonl").read().splitlines()
+        parsed = [_json.loads(line) for line in lines]
+        logged = [p for p in parsed if p.get("event") == "log"]
+        if len(logged) != FP16_TELEMETRY_STEPS or parsed[0].get("event") != "config":
+            fail(f"telemetry: metrics.jsonl holds {len(lines)} lines, {len(logged)} logs")
+        print(f"train fp16 telemetry on {card}: sys/mfu_pct {got:.3f} vs this phase's "
+              f"{own:.3f} over the same {FP16_TELEMETRY_STEPS} steps, sys/tokens_per_s "
+              f"{values.get('sys/tokens_per_s'):.1f}, sys/loss {values.get('sys/loss'):.5f}, "
+              f"sys/grad_norm {values.get('sys/grad_norm'):.5f}, sys/loss_scale "
+              f"{values['sys/loss_scale']}, sys/last_step_skipped "
+              f"{values['sys/last_step_skipped']}, sys/data_wait_frac "
+              f"{values.get('sys/data_wait_frac'):.4f}; {len(lines)} metrics.jsonl lines "
+              f"parsed; the exposition carries the series")
+        del model, opt, acc, step
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 # the checkpoint path (training-checkpoint slice): small_1b trained as the
@@ -5017,6 +5445,10 @@ def main():
             timed("paged decode quant kernel", paged_decode_quant_phase, gen_new, dev),
             *timed("ragged prefill kernels", prefill_phases, gen, gen_new, dev),
             *timed("flash kernels", flash_phases, gen, dev),
+            # the fp16 entries draw from their own generator: the bf16
+            # phases' inputs do not move
+            *timed("flash kernels fp16", flash_phases,
+                   torch.Generator(device=dev).manual_seed(3), dev, torch.float16),
             *timed("dense decode kernels", dense_decode_phases, gen, dev)]
     # each path is driven with the counts reset just before it and read
     # just after; a kernel's launches come from its own path (the dense
@@ -5051,6 +5483,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(timed("train path", train_path, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(timed("train fp16 path", train_fp16_path, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
     # its flash launches stay off the kernels line, as the replica's: the

@@ -188,6 +188,21 @@ def test_spawner_runs_the_ports_serve_replica():
         == list(REPLICA_ARGS)
 
 
+def test_spawner_gives_a_cpu_child_its_thread_share(monkeypatch):
+    """A ``--device cpu`` child starts with one intra-op thread
+    (OMP_NUM_THREADS), unless the env given sets it: two pools claiming
+    every core stall each other's parallel regions (the drill below
+    timed out its first routed request on them). A CUDA child's
+    environment is left as given."""
+    monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    env = SubprocessSpawner(replica_args=REPLICA_ARGS).child_env()
+    assert env["OMP_NUM_THREADS"] == "1" and env["PATH"] == os.environ["PATH"]
+    given = SubprocessSpawner(replica_args=REPLICA_ARGS, env={"OMP_NUM_THREADS": "4"})
+    assert given.child_env() == {"OMP_NUM_THREADS": "4"}
+    assert SubprocessSpawner().child_env() is None
+    assert SubprocessSpawner(env={"A": "1"}).child_env() == {"A": "1"}
+
+
 def test_burn_fired_subprocess_scale_out_then_drained_scale_in(model, tmp_path):
     """The reference's acceptance drill on the port: a seeded burst through
     the router breaches an ITL SLO the drill is sure to breach, the rule

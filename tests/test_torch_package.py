@@ -264,13 +264,16 @@ def test_nvcc_command_targets_sm90a(name, tmp_path):
 def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         DecoderConfig.tiny(moe_num_experts=4)
-    for kw in ({"dropout_rate": 0.1}, {"pipeline_stages": 2}, {"remat_policy": "save_dots"},
-               {"use_fp8": True}):
+    for kw in ({"pipeline_stages": 2}, {"use_fp8": True}):
         with pytest.raises(NotImplementedError, match="later slice"):
             DecoderConfig.tiny(**kw)
-    for mode in ("fp16", "fp8"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Accelerator(mixed_precision=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        Accelerator(mixed_precision="fp8", device="cpu")
+    # dropout, save_dots and fp16 training are this port's now
+    # (tests/test_torch_fp16_training.py, tests/test_torch_remat_dropout.py)
+    cfg = DecoderConfig.tiny(dropout_rate=0.1, remat_policy="save_dots", dtype=torch.float16)
+    assert (cfg.dropout_rate, cfg.remat_policy, cfg.dtype) == (0.1, "save_dots", torch.float16)
+    assert Accelerator(mixed_precision="fp16", device="cpu").state.precision.needs_loss_scaling
     cfg = DecoderConfig.tiny()
     model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
     for kw, what in (({"param_placer": object()}, "dispatched"),

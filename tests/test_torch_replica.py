@@ -866,3 +866,63 @@ def test_concurrent_submits_get_distinct_ids_and_finish(served):
     assert all(len(d["tokens"]) == 3 for d in done)
     assert len({d["request_id"] for d in done}) == 24
     assert engine.metrics()["serving/requests_completed"] == 24
+
+
+class _BusyEngine:
+    """An engine that always has work: each step holds the GIL for 3 ms,
+    then waits 1 ms as a device sync does. Enough of the engine's surface
+    for ``ReplicaServer``'s loop, drain and ``/v1/kv/directory``."""
+
+    replica = None
+    telemetry = None
+
+    def __init__(self):
+        self._draining = False
+        self.steps = 0
+
+    def step(self):
+        t = time.perf_counter()
+        while time.perf_counter() - t < 0.003:
+            pass
+        time.sleep(0.001)
+        self.steps += 1
+        return True
+
+    def _pending(self):
+        return not self._draining
+
+    def request_drain(self):
+        self._draining = True
+
+    def _flight_dump(self, reason):
+        return None
+
+    def metrics(self):
+        return {}
+
+    def kv_directory(self):
+        return {"version": 1, "prefixes": [], "steps": self.steps}
+
+
+def test_kv_endpoint_gets_the_engine_between_busy_steps():
+    """A KV endpoint waits at most about one step for the engine lock,
+    however busy the loop: the port's rule (module docstring of
+    ``replica_server``). On a plain lock the busy loop re-takes it before
+    the waiting handler wakes, and a call waited up to 12 s on the CPU,
+    past the router's 5 s timeout for a KV handoff. Eight calls each
+    answer within 2 s, and the loop steps between them."""
+    engine = _BusyEngine()
+    server = ReplicaServer(engine).start()
+    try:
+        _wait(lambda: engine.steps > 10, "the loop's first steps")
+        walls, steps = [], []
+        for _ in range(8):
+            time.sleep(0.05)
+            t = time.perf_counter()
+            doc = json.loads(_get(f"{server.url}/v1/kv/directory", timeout=30))
+            walls.append(time.perf_counter() - t)
+            steps.append(doc["steps"])
+    finally:
+        server.close()
+    assert max(walls) < 2.0, walls
+    assert all(b > a for a, b in zip(steps, steps[1:])), steps

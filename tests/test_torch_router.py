@@ -720,6 +720,53 @@ class TestRouterServerHttp:
             replica.server_close()
 
 
+def test_json_call_waits_past_the_connect_timeout_for_its_answer():
+    """A KV handoff's answer may come after the connect timeout (a replica
+    that installs tens of MB on a loaded host): the port's transport
+    connects within ``connect_timeout_s`` and then waits up to
+    ``read_timeout_s`` for each read (``HttpTransport``'s own rule).
+    The reference's gives up at the connect timeout, as the port's does
+    once the read timeout is short too."""
+    import http.server
+
+    class Slow(http.server.BaseHTTPRequestHandler):
+        def _answer(self):
+            time.sleep(0.6)
+            body = json.dumps({"installed_tokens": 16}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_POST(self):
+            self.rfile.read(int(self.headers.get("Content-Length") or 0))
+            self._answer()
+
+        def do_GET(self):
+            self._answer()
+
+        def log_message(self, *args):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Slow)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        port_t = port_router.HttpTransport(connect_timeout_s=0.2, read_timeout_s=30.0)
+        assert port_t.post_json(url, "/v1/kv/import", {"n_pages": 1}) == \
+            {"installed_tokens": 16}
+        assert port_t.get_json(url, "/v1/kv/directory") == {"installed_tokens": 16}
+        for transport in (ref_router.HttpTransport(connect_timeout_s=0.2, read_timeout_s=30.0),
+                          port_router.HttpTransport(connect_timeout_s=0.2,
+                                                    read_timeout_s=0.2)):
+            with pytest.raises(TimeoutError):
+                transport.post_json(url, "/v1/kv/import", {"n_pages": 1})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
 class TestRouterHealthIntegration:
     def test_failed_replica_unreachable_within_one_poll(self):
         router, fleet, _ = make_router()

@@ -501,10 +501,27 @@ def test_checkpoint_phases_billed_to_goodput(tmp_path):
     ("timeline_interval_s", 5.0, "4b(iii)"),
     ("flops_per_token", 1e9, "4b(ii)"),
 ])
-def test_unported_parts_raise_when_asked_for(field, value, owner):
+def test_unported_parts_raise_when_asked_for(field, value, owner, tmp_path):
     """The parts still unported raise, naming their owner. The ops plane's
-    timeline and alerts (4b(iii)) are ported now: their fields build the
+    timeline and alerts (4b(iii)), the profiler capture window (4b) and
+    the training telemetry (4b(ii)) are ported now: their fields build the
     part as asked (the reference's behaviour) instead of raising."""
+    if owner in ("item 4b", "4b(ii)"):
+        session = TelemetrySession(TelemetryConfig(flight_hooks=False, trace_dir=str(tmp_path),
+                                                   **{field: value}))
+        try:
+            if field == "flops_per_token":
+                session.attach_engine(type("Owner", (), {"model_config": None})())
+                assert session._flops_fn(2048) == value
+            else:
+                assert session.capture is not None
+                assert session.capture.out_dir == str(tmp_path / "profile")
+                assert (session.capture.start_step, session.capture.stop_step) == (
+                    tuple(value) if field == "profile_steps" else (None, None))
+        finally:
+            session.close()
+        assert current_session() is None
+        return
     if owner == "4b(iii)":
         session = TelemetrySession(TelemetryConfig(flight_hooks=False, **{field: value}))
         try:
@@ -535,8 +552,7 @@ def test_defaults_build_nothing_unported_and_name_it():
 
     session = TelemetrySession(TelemetryConfig())
     try:
-        assert set(session.unported) == {"forensics", "cost_registry", "watchdog",
-                                         "capture_window", "training_telemetry"}
+        assert set(session.unported) == {"forensics", "cost_registry", "watchdog"}
         assert session.timeline is not None and session.alerts is not None
         assert session.costs is None
         assert session.watchdog is session.capture is session.forensics is None
