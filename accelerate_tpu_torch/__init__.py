@@ -1,12 +1,14 @@
 """PyTorch/CUDA port of ``accelerate_tpu``: serving (paged and flat
-arenas, and one engine behind HTTP as a replica), KV-cache generation,
+arenas, and one engine behind HTTP as a replica), KV-cache generation
+(decoder-only and encoder-decoder),
 big-model dispatch (device / pinned-host / disk tiers, weight
 quantization on load) and the training step with its checkpoints.
 
 The JAX package (``accelerate_tpu``) stays the reference; this package is
 its counterpart for an NVIDIA H100. Module paths mirror the reference:
 
-- ``models/configs.py``, ``models/decoder.py``, ``models/convert.py``
+- ``models/configs.py``, ``models/decoder.py``, ``models/seq2seq.py``
+  (T5 family), ``models/encoder.py`` (BERT family), ``models/convert.py``
 - ``ops/layers.py``, ``ops/losses.py``, ``ops/attention.py`` (plain
   versions + kernel dispatch), ``ops/kernels.py`` (nvcc build, ctypes
   binding, checked wrappers with launch counters), ``csrc/*.cu`` (the
@@ -17,7 +19,8 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   drain, ``generate_batched``),
   ``serving/replica_server.py`` (``ReplicaServer``: the engine over
   stdlib HTTP), ``serving/drift.py`` (``kv_quant_drift``),
-  ``generation.py`` (``generate``, ``generate_dispatched``),
+  ``generation.py`` (``generate``, ``generate_dispatched``,
+  ``generate_seq2seq``, ``generate_seq2seq_dispatched``),
   ``utils/quantization.py`` (int8/int4/NF4 weights on load, int8/int4
   KV storage)
 - ``big_modeling.py`` (``load_checkpoint_and_dispatch``,
@@ -66,7 +69,10 @@ _EXPORTS = {
     "init_empty_weights": "big_modeling", "load_and_quantize_model": "big_modeling",
     "load_checkpoint_and_dispatch": "big_modeling",
     "generate": "generation", "generate_dispatched": "generation",
+    "generate_seq2seq": "generation", "generate_seq2seq_dispatched": "generation",
     "DecoderConfig": "models.configs", "DecoderLM": "models.decoder",
+    "EncoderConfig": "models.configs", "EncoderClassifier": "models.encoder",
+    "Seq2SeqConfig": "models.seq2seq", "Seq2SeqLM": "models.seq2seq",
     "AcceleratedOptimizer": "optimizer",
     "AcceleratedScheduler": "scheduler", "warmup_cosine_decay_schedule": "scheduler",
     "ServingEngine": "serving.engine", "generate_batched": "serving.engine",
@@ -93,10 +99,11 @@ def __getattr__(name):
 __all__ = [
     "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",
     "AutocastKwargs", "DataLoader", "DecoderConfig", "DecoderLM",
-    "GradScalerKwargs", "GradientAccumulationPlugin", "GradientState", "LossScale",
+    "EncoderClassifier", "EncoderConfig", "GradScalerKwargs", "GradientAccumulationPlugin", "GradientState", "LossScale",
     "MixedPrecisionConfig", "ProjectConfiguration", "QuantizationConfig",
-    "ServingEngine", "cpu_offload", "cpu_offload_with_hook", "disk_offload",
+    "Seq2SeqConfig", "Seq2SeqLM", "ServingEngine", "cpu_offload", "cpu_offload_with_hook", "disk_offload",
     "dispatch_model", "generate", "generate_batched", "generate_dispatched",
+    "generate_seq2seq", "generate_seq2seq_dispatched",
     "init_empty_weights", "load_accelerator_state", "load_and_quantize_model",
     "load_checkpoint_and_dispatch", "load_custom_state", "save_accelerator_state",
     "save_custom_state", "save_model_weights", "set_seed", "skip_first_batches",

@@ -383,7 +383,7 @@ class Accelerator:
         if bad:
             raise ValueError(
                 f"the model holds {bad} parameters; training keeps {want} master "
-                "weights (build DecoderLM with param_dtype=torch.float32)"
+                "weights (build the model with param_dtype=torch.float32)"
             )
         cast = self.state.precision.compute_dtype
         cast = None if cast == want else cast
@@ -392,7 +392,7 @@ class Accelerator:
         elif cast is not None:
             raise TypeError(
                 f"mixed_precision={self.mixed_precision!r} rounds parameters at use, "
-                "which needs a model with set_param_cast() (DecoderLM)"
+                "which needs a model with set_param_cast() (the port's models)"
             )
         self._models.append(model)
         if self.telemetry is not None:

@@ -8,12 +8,15 @@ device (:func:`init_empty_weights`), a device map over three tiers
 (``utils/modeling.infer_auto_device_map``), then each leaf read straight
 to its tier, quantized on the host first when a ``QuantizationConfig``
 asks for it (device-tier leaves only, as in the reference). The result
-is a :class:`DispatchedModel`, whose ``__call__`` returns logits and
-which :func:`generation.generate_dispatched` decodes.
+is a :class:`DispatchedModel`, whose ``__call__`` runs the model's
+forward and which :func:`generation.generate_dispatched` (a
+``DecoderLM``) or :func:`generation.generate_seq2seq_dispatched` (a
+``Seq2SeqLM``, the reference's ``encoder/layers/block/...`` and
+``decoder/layers/block/...`` stacks) decodes.
 
-How the tiers run (``models/decoder.py``): the dispatched model is a
-``DecoderLM`` built on the meta device whose weights are bound to what
-the tiers hold, layer by layer:
+How the tiers run (``models/decoder.py``): the dispatched model is the
+config's model (``models/convert.model_class``) built on the meta device
+whose weights are bound to what the tiers hold, layer by layer:
 
 - "device": rows of the stacked device tensors (views, no copy);
 - "cpu": pinned host tensors, copied before each block runs into one
@@ -44,9 +47,9 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from .models.configs import DecoderConfig
-from .models.convert import _reference_name, port_names, reference_layout, reference_leaves
-from .models.decoder import DecoderLM, StreamedWeight, resolve_device
+from .models.convert import (CONFIGS, block_of, locate, model_class, port_names,
+                             reference_layout, reference_leaves)
+from .models.decoder import StreamedWeight, resolve_device
 from .utils.modeling import (
     PhaseSeconds,
     _DiskWeight,
@@ -62,20 +65,23 @@ from .utils.serialization import flatten_pytree, load_flat_dict, unflatten_to_li
 DEVICE_MAP_MODES = ("auto", "balanced", "balanced_low_0", "sequential")
 
 
-def _config_of(definition) -> DecoderConfig:
-    """A ``DecoderConfig``, or the config of a model that carries one."""
-    return definition if isinstance(definition, DecoderConfig) else definition.config
+def _config_of(definition):
+    """A config (``DecoderConfig``, ``Seq2SeqConfig`` or
+    ``EncoderConfig``), or the config of a model that carries one."""
+    return definition if isinstance(definition, CONFIGS) else definition.config
 
 
 def init_empty_weights(definition, param_dtype: torch.dtype = torch.float32) -> dict:
-    """The reference's parameter tree of ``definition`` (a DecoderConfig,
-    or a model carrying one) as meta tensors: shapes and dtypes, no
-    memory. Nested dicts whose flattened names are the reference's
-    (``embedding``, ``layers/block/attn/wq`` stacked [L, E, H, D] under
-    ``scan_layers``, else ``layer_{i}/attn/wq``, ...); every leaf in
-    ``param_dtype``, fp32 as the reference initializes."""
+    """The reference's parameter tree of ``definition`` (a config, or a
+    model carrying one) as meta tensors: shapes and dtypes, no memory.
+    Nested dicts whose flattened names are the reference's (a decoder's
+    ``embedding``, ``layers/block/attn/wq`` stacked [L, E, H, D] under
+    ``scan_layers``, else ``layer_{i}/attn/wq``; a seq2seq model's
+    ``encoder/layers/block/...`` and ``decoder/layers/block/...``, ...);
+    every leaf in ``param_dtype``, fp32 as the reference initializes."""
     cfg = _config_of(definition)
-    params = dict(DecoderLM(cfg, device="meta", param_dtype=param_dtype).named_parameters())
+    params = dict(model_class(cfg)(cfg, device="meta", param_dtype=param_dtype)
+                  .named_parameters())
     return unflatten_to_like({
         ref: torch.empty(shape, dtype=params[names[0]].dtype, device="meta")
         for ref, (names, shape) in reference_layout(cfg, params).items()})
@@ -108,11 +114,12 @@ def _holds_disk(leaf) -> bool:
 
 class DispatchedModel:
     """A model whose weights sit on the tiers of ``device_map``; calling it
-    runs the forward and returns logits. ``params`` is the reference's
-    tree (nested, its flat names) of device tensors, pinned host tensors,
-    disk handles and QuantizedWeights. ``model`` is the ``DecoderLM``
-    bound to them (see the module docstring); ``phase_seconds`` holds the
-    load's phases when :func:`load_checkpoint_and_dispatch` made it."""
+    runs the forward (a ``DecoderLM``'s logits, a ``Seq2SeqLM``'s
+    ``{"logits"}``). ``params`` is the reference's tree (nested, its flat
+    names) of device tensors, pinned host tensors, disk handles and
+    QuantizedWeights. ``model`` is the port's model bound to them (see the
+    module docstring); ``phase_seconds`` holds the load's phases when
+    :func:`load_checkpoint_and_dispatch` made it."""
 
     def __init__(self, definition, params, device_map: Optional[Mapping[str, str]] = None,
                  device=None):
@@ -133,16 +140,16 @@ class DispatchedModel:
             self._buffers[key] = torch.empty(shape, dtype=dtype, device=self.device)
         return self._buffers[key]
 
-    def _bind(self, params) -> DecoderLM:
-        """A ``DecoderLM`` on the meta device whose weights are the tiers'
-        per-layer views of ``params``."""
+    def _bind(self, params):
+        """The config's model on the meta device whose weights are the
+        tiers' per-layer views of ``params``."""
         cfg = self.config
-        model = DecoderLM(cfg, device="meta")
+        model = model_class(cfg)(cfg, device="meta")
         model.device = self.device
         leaves = reference_leaves(params)
         streamed: dict = {}
         for name in port_names(cfg):
-            ref, i = _reference_name(name, cfg)
+            ref, i, _ = locate(name, cfg)
             leaf = leaves[ref]
             if isinstance(leaf, QuantizedWeight):
                 if leaf.qtype == "nf4" and self._code is None:
@@ -155,9 +162,8 @@ class DispatchedModel:
                 if host is not None and i is not None:
                     host = host[i]
                 shape = leaf.shape[1:] if i is not None else leaf.shape
-                kind = name.split(".", 2)[2] if name.startswith("layers.") else name
+                owner, kind = block_of(name, cfg)
                 value = StreamedWeight(host, self._buffer(kind, shape, leaf.dtype))
-                owner = ".".join(name.split(".")[:2]) if name.startswith("layers.") else ""
                 streamed.setdefault(owner, []).append(value)
             module_name, _, attr = name.rpartition(".")
             module = model.get_submodule(module_name)
@@ -184,12 +190,20 @@ class DispatchedModel:
             self.model = self._bind(self.params)
 
     @torch.no_grad()
-    def __call__(self, input_ids, positions=None, **kwargs) -> torch.Tensor:
-        """Logits [B, S, V] (fp32) of the forward over ``input_ids``; other
-        keyword arguments go to ``DecoderLM.forward``."""
+    def __call__(self, input_ids, *args, **kwargs):
+        """The model's forward over ``input_ids``: a ``DecoderLM``'s logits
+        [B, S, V] (fp32), a ``Seq2SeqLM``'s ``{"logits"}`` (with
+        ``decoder_input_ids`` / ``labels``, ``attention_mask``). Arrays and
+        tensors among the arguments move to the model's device."""
+        def on_device(v):
+            if isinstance(v, (torch.Tensor, np.ndarray)):
+                return torch.as_tensor(v, device=self.device)
+            return v
+
         with self._concrete():
-            ids = torch.as_tensor(input_ids, device=self.device)
-            return self.model(ids, positions, **kwargs)
+            return self.model(torch.as_tensor(input_ids, device=self.device),
+                              *map(on_device, args),
+                              **{k: on_device(v) for k, v in kwargs.items()})
 
     def materialize(self):
         """Every weight on the card (drops the offload tiers)."""

@@ -4,8 +4,10 @@ Counterpart of ``accelerate_tpu/checkpointing.py``. A checkpoint
 directory holds the reference's files, so a run saved by either side
 resumes on the other:
 
-  model_<i>.safetensors   the weights under ``params/``; a ``DecoderLM``'s
-                          in the reference's names and stacked layout
+  model_<i>.safetensors   the weights under ``params/``; a port model's
+                          (``DecoderLM``, ``Seq2SeqLM``,
+                          ``EncoderClassifier``) in the reference's names
+                          and layout
   optimizer_<i>.safetensors  a torch ``AdamW``'s state as ``optax.adamw``'s
                           (``0/count``, ``0/mu/...``, ``0/nu/...``, and
                           ``2/count`` under a ``LambdaLR``)
@@ -22,8 +24,8 @@ Model ``i`` and the optimizer over its parameters are the reference's
 engine ``i``. Weights and moments are written a layer slice at a time
 (``models/convert.reference_entries``), so the host never holds a
 stacked leaf twice; on load every tensor is copied into a tensor on the
-device of the parameter it belongs to. A module other than ``DecoderLM``
-is written under its own ``state_dict()`` names, and an AdamW over it
+device of the parameter it belongs to. A module other than the port's
+models is written under its own ``state_dict()`` names, and an AdamW over it
 under its parameter names: such a checkpoint has no reference
 counterpart. An optimizer that is not an ``AdamW`` over exactly its
 model's parameters is written as torch's own ``state_dict()`` in
@@ -49,9 +51,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .models.convert import (from_reference, optimizer_state_from_reference,
+from .models.convert import (from_reference, layout_config, optimizer_state_from_reference,
                              optimizer_state_to_reference, reference_entries)
-from .models.decoder import DecoderLM
 from .utils.constants import (CUSTOM_STATE_PATTERN, DATALOADER_STATE_NAME, MODEL_NAME,
                               OPTIMIZER_NAME, RNG_STATE_NAME, SAFE_WEIGHTS_NAME,
                               SCHEDULER_NAME, WEIGHTS_NAME)
@@ -67,10 +68,11 @@ PARAMS = "params/"
 
 def _model_entries(model) -> list:
     """``(key, shape, dtype, fetch)`` entries of a model's weights under
-    ``params/``: a ``DecoderLM``'s in the reference's layout, any other
+    ``params/``: a port model's in the reference's layout, any other
     module's (or tree's) under its own names."""
-    if isinstance(model, DecoderLM):
-        return reference_entries(dict(model.state_dict()), model.config, prefix=PARAMS)
+    config = layout_config(model)
+    if config is not None:
+        return reference_entries(dict(model.state_dict()), config, prefix=PARAMS)
     tree = model.state_dict() if isinstance(model, torch.nn.Module) else model
     return [(PARAMS + k, tuple(t.shape), t.dtype, (lambda t: lambda: t.detach())(t))
             for k, t in flatten_pytree(tree).items()]
@@ -211,8 +213,9 @@ def _load_accelerator_state(input_dir, models, optimizers, schedulers, dataloade
         params = {k[len(PARAMS):]: v for k, v in flat.items() if k.startswith(PARAMS)}
         if not params:  # the reference's files from before extra_state: flat IS params
             params = {k: v for k, v in flat.items() if not k.startswith("extra_state/")}
-        if isinstance(model, DecoderLM):
-            model.load_params(from_reference(params, model.config))
+        config = layout_config(model)
+        if config is not None:
+            model.load_params(from_reference(params, config))
         else:
             model.load_state_dict(params, strict=True)
         opt_path = _find(input_dir, f"{OPTIMIZER_NAME}_{i}")
@@ -254,8 +257,8 @@ def load_custom_state(obj, path: str, index: int = 0):
 def save_model_weights(model, save_directory: str, max_shard_size="10GB",
                        safe_serialization: bool = True):
     """Export a model's weights to ``save_directory`` as the reference's
-    ``save_model`` does: ``model.safetensors`` under ``params/`` (a
-    ``DecoderLM``'s in the reference's names and stacked layout, each leaf
+    ``save_model`` does: ``model.safetensors`` under ``params/`` (a port
+    model's in the reference's names and layout, each leaf
     in its own dtype), sharded as ``model-0000i-of-0000n.safetensors``
     with ``model.safetensors.index.json`` past ``max_shard_size``; or one
     pickle of numpy arrays, ``model.msgpack``, with

@@ -23,7 +23,16 @@ definition re-hits its compiled loops, and the port compiles nothing; a
 right-sized "definition" is here only the cache length handed to
 :meth:`DecoderLM.init_cache`. ``depipeline`` folds pipeline stages back
 into the layer scan, and the port has no pipelining yet (ROADMAP queue
-1). The seq2seq loops are a later slice.
+1).
+
+:func:`generate_seq2seq` is the encoder-decoder's (``models/seq2seq.py``):
+the source is encoded once, the prefill runs the start token through the
+decoder (writing its self-attention cache, freezing the cross-attention
+K/V and mask), then ``max_new_tokens - 1`` decode steps follow, each the
+replay of one CUDA graph (:func:`_seq2seq_body`: its token, position,
+self-attention cache and the frozen cross K/V are fixed device buffers).
+Its cache is ``max_cache_len`` wide, as the reference's (not right-sized);
+the dense decode kernel reads only each step's live positions.
 
 :func:`generate_dispatched` is :func:`generate` over a big-model
 ``DispatchedModel`` (``big_modeling.py``): its disk-tier weights are
@@ -165,3 +174,93 @@ def generate_dispatched(dispatched, input_ids, **kwargs):
     pinned once for the call. Takes :func:`generate`'s keyword arguments."""
     with dispatched._concrete():
         return generate(dispatched.model, input_ids, **kwargs)
+
+
+def _seq2seq_body(model, cache, tok: torch.Tensor, pos: torch.Tensor, greedy: bool):
+    """One decode step of :func:`generate_seq2seq` on device buffers, what
+    its CUDA graph captures: ``tok`` [B] through the decoder at position
+    ``pos`` [B] (int64) against the self-attention cache and the frozen
+    cross-attention K/V, the greedy argmax written back into ``tok``,
+    ``pos`` one further. Returns the logits [B, V]."""
+    logits = model.decode(tok[:, None], positions=pos[:, None], cache=cache,
+                          cache_positions=pos)[:, -1]
+    if greedy:
+        tok.copy_(torch.argmax(logits, dim=-1))
+    pos.add_(1)
+    return logits
+
+
+@torch.no_grad()
+def generate_seq2seq(
+    model,
+    input_ids,
+    *,
+    max_new_tokens: int = 32,
+    attention_mask=None,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    return_prefill_seconds: bool = False,
+):
+    """Encoder-decoder generation with ``model`` (a ``Seq2SeqLM``, on the
+    device it was built on): ``input_ids`` [B, T] sources (right-padded
+    rows masked by ``attention_mask`` [B, T]) -> [B, max_new_tokens]
+    generated ids (int64, without the start token). Greedy at
+    ``temperature=0``; otherwise drawn from ``generator``, and without one
+    from a fresh ``torch.Generator`` seeded with 0 (the reference's
+    ``PRNGKey(0)``). With ``return_prefill_seconds``, also the wall time of
+    the encoder and the prefill (the TTFT; the device is synchronised
+    before the clock stops)."""
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    cfg = model.config
+    dev = model.device
+    input_ids = torch.as_tensor(input_ids, device=dev).long()
+    b, t = input_ids.shape
+    if t > cfg.max_seq_len:
+        raise ValueError(f"source length {t} exceeds config.max_seq_len={cfg.max_seq_len}")
+    cap = cfg.max_cache_len or cfg.max_target_len
+    # positions written: the start token at prefill and max_new_tokens - 1
+    # decode appends (the last sampled token is returned, never fed back)
+    if max_new_tokens > cap:
+        raise ValueError(f"max_new_tokens ({max_new_tokens}) exceeds the decoder KV cache "
+                         f"capacity ({cap}); raise config.max_cache_len")
+    mask = None if attention_mask is None else torch.as_tensor(attention_mask, device=dev)
+    cache = model.init_cache(b, cap)
+    if temperature > 0.0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    t0 = time.perf_counter()
+    enc = model.encode(input_ids, mask)
+    start = torch.full((b, 1), cfg.decoder_start_token_id, dtype=torch.long, device=dev)
+    logits = model.decode(start, enc, mask, cache=cache)
+    tok = _sample(logits[:, -1], generator, temperature, top_k)
+    if return_prefill_seconds and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prefill_seconds = time.perf_counter() - t0
+
+    out = torch.empty((b, max_new_tokens), dtype=torch.long, device=dev)
+    out[:, 0] = tok
+    if max_new_tokens > 1:
+        pos = torch.ones((b,), dtype=torch.long, device=dev)
+        greedy = temperature == 0.0
+        step = functools.partial(_seq2seq_body, model, cache, tok, pos, greedy)
+        if cuda_graphs.captures(dev):
+            step = cuda_graphs.capture(step, dev, restore=(tok, pos)).replay
+        for i in range(1, max_new_tokens):
+            logits = step()
+            if not greedy:
+                tok.copy_(_sample(logits, generator, temperature, top_k))
+            out[:, i] = tok
+    if return_prefill_seconds:
+        return out, prefill_seconds
+    return out
+
+
+def generate_seq2seq_dispatched(dispatched, input_ids, **kwargs):
+    """:func:`generate_seq2seq` over a ``DispatchedModel`` of a
+    ``Seq2SeqLM``: its weights where they are (device, pinned host, disk,
+    quantized), disk-tier weights made pinned once for the call. Takes
+    :func:`generate_seq2seq`'s keyword arguments."""
+    with dispatched._concrete():
+        return generate_seq2seq(dispatched.model, input_ids, **kwargs)

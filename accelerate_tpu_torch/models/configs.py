@@ -1,4 +1,4 @@
-"""Decoder configuration and size presets.
+"""Decoder and encoder configurations and size presets.
 
 Counterpart of ``accelerate_tpu/models/configs.py``: the same field names
 and defaults for everything serving, generation, big-model dispatch and
@@ -14,6 +14,10 @@ MoE and pipelining are accepted as fields and raise
 ``NotImplementedError`` until their slices are ported. The reference's ``decode_kernel`` /
 ``decode_kernel_block`` knobs are not carried: the Hopper decode kernels
 walk 64-token chunks, so there is no kv block to choose.
+
+:class:`EncoderConfig` is the BERT family's (``models/encoder.py``); the
+T5 family's ``Seq2SeqConfig`` lives beside its model in
+``models/seq2seq.py``, as in the reference.
 """
 
 from __future__ import annotations
@@ -194,4 +198,63 @@ class DecoderConfig:
         kw.setdefault("mlp_dim", 11_008)
         kw.setdefault("max_seq_len", 4096)
         kw.setdefault("tie_embeddings", False)
+        return cls(**kw)
+
+
+@dataclass
+class EncoderConfig:
+    """BERT-family encoder config (the reference's, with torch dtypes).
+    ``use_fp8`` is accepted as a field and raises until fp8 is ported."""
+
+    vocab_size: int = 30_522
+    num_layers: int = 12
+    embed_dim: int = 768
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    max_seq_len: int = 512
+    type_vocab_size: int = 2
+    num_labels: int = 2
+    dropout_rate: float = 0.1
+    norm_eps: float = 1e-12
+    dtype: torch.dtype = torch.bfloat16
+    # per-block activation checkpointing of the whole block ("full")
+    remat: bool = False
+    use_fp8: bool = False
+    fp8_recipe: str = "current"
+    fp8_amax_history_len: int = 16
+
+    def __post_init__(self):
+        if self.fp8_recipe not in ("current", "delayed"):
+            raise ValueError(f"fp8_recipe must be 'current' or 'delayed', got {self.fp8_recipe!r}")
+        if self.use_fp8:
+            raise NotImplementedError(
+                "use_fp8: the fp8 projections are a later slice of the port "
+                "(ROADMAP queue 1, item 9)")
+        if self.embed_dim % self.num_heads:
+            raise ValueError(f"embed_dim ({self.embed_dim}) must be a multiple of "
+                             f"num_heads ({self.num_heads})")
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1), got {self.dropout_rate}")
+        if self.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+            raise ValueError(f"dtype must be torch.float32, bfloat16 or float16, got {self.dtype}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @classmethod
+    def tiny(cls, **kw):
+        """Test-size model."""
+        kw.setdefault("vocab_size", 256)
+        kw.setdefault("num_layers", 2)
+        kw.setdefault("embed_dim", 64)
+        kw.setdefault("num_heads", 4)
+        kw.setdefault("mlp_dim", 128)
+        kw.setdefault("max_seq_len", 64)
+        kw.setdefault("dtype", torch.float32)
+        return cls(**kw)
+
+    @classmethod
+    def bert_base(cls, **kw):
+        """The defaults: 12 layers, E 768, 12 heads (D 64), M 3072."""
         return cls(**kw)

@@ -248,12 +248,32 @@ class _Module(nn.Module):
         for w in self.streamed:
             w.stage()
 
+    def _remat(self, body, *args):
+        """``body(*args)``, checkpointed per the config's ``remat_policy``
+        (``torch.utils.checkpoint``; "full" where the config has none) when
+        ``config.remat`` is on and gradients are recorded: a block of a
+        training forward."""
+        cfg = self.config
+        if not (cfg.remat and torch.is_grad_enabled()):
+            return body(*args)
+        contexts = _remat_contexts(getattr(cfg, "remat_policy", "full"))
+        kw = {} if contexts is None else {"context_fn": contexts}
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
 
 class DecoderAttention(_Module):
-    def __init__(self, config: DecoderConfig, device, param_dtype):
+    """``causal=False`` (with a ``kv_mask``) is the bidirectional form the
+    seq2seq encoder reuses (``models/seq2seq.py``): the same projections
+    and RoPE, no cache. ``config`` may be a ``Seq2SeqConfig``: the cache
+    branches read their storage format from the cache's leaves, and the
+    one field that config lacks (the paged ragged prefill's
+    ``prefill_kernel_block``) through ``getattr``, as the reference's do."""
+
+    def __init__(self, config: DecoderConfig, device, param_dtype, causal: bool = True):
         super().__init__()
         e, h, kv, d = config.embed_dim, config.num_heads, config.num_kv_heads, config.head_dim
         self.config = config
+        self.causal = causal
         self.wq = self._param((e, h, d), device, param_dtype)
         self.wk = self._param((e, kv, d), device, param_dtype)
         self.wv = self._param((e, kv, d), device, param_dtype)
@@ -278,8 +298,9 @@ class DecoderAttention(_Module):
         return out @ self._use(self.wo, cfg.dtype).reshape(h * d, cfg.embed_dim)
 
     def attend(self, q, k, v, kv_mask=None):
-        """Cache-free causal attention (training, and the plain forward)."""
-        return dot_product_attention(q, k, v, causal=True, kv_mask=kv_mask,
+        """Cache-free attention (training, and the plain forward): causal,
+        or bidirectional over ``kv_mask`` for an encoder."""
+        return dot_product_attention(q, k, v, causal=self.causal, kv_mask=kv_mask,
                                      impl=self.config.attention_impl)
 
     def forward(self, x, sin, cos, kv_mask=None, cache=None, cache_positions=None,
@@ -406,7 +427,8 @@ class DecoderAttention(_Module):
         out, k_pay, k_scl, v_pay, v_scl = ragged_prefill_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), cache["k"], cache["v"],
             page_table=page_table, row_slot=ragged_slots, row_pos=row_pos,
-            slot_hist=slot_hist, token_block=self.config.prefill_kernel_block, **scale_kw,
+            slot_hist=slot_hist, token_block=getattr(self.config, "prefill_kernel_block", None),
+            **scale_kw,
         )
         # scatter payload (and scales) through the page table, in place.
         # Pad rows (-1) route to physical page 0, the parking page, whose
@@ -504,16 +526,66 @@ class DecoderBlock(_Module):
         return x + y
 
     def forward(self, x, sin, cos, kv_mask=None, drop=None, **cache_kw):
-        cfg = self.config
         self._stage()
-        if not (cfg.remat and torch.is_grad_enabled() and cache_kw.get("cache") is None):
+        if cache_kw.get("cache") is not None:
             return self._body(x, sin, cos, kv_mask, drop, **cache_kw)
-        contexts = _remat_contexts(cfg.remat_policy)
-        kw = {} if contexts is None else {"context_fn": contexts}
-        return checkpoint(self._body, x, sin, cos, kv_mask, drop, use_reentrant=False, **kw)
+        return self._remat(self._body, x, sin, cos, kv_mask, drop)
 
 
-class DecoderLM(_Module):
+class _Model(_Module):
+    """Base of the port's models (``DecoderLM``, ``Seq2SeqLM``,
+    ``EncoderClassifier``): the mixed-precision cast, the one cast of every
+    parameter a training forward makes, the embedding gather and weight
+    loading."""
+
+    def set_param_cast(self, dtype: Optional[torch.dtype]):
+        """Round every floating parameter to ``dtype`` at use (None: off).
+        The Accelerator sets its mixed-precision compute dtype here."""
+        for m in self.modules():
+            if isinstance(m, _Module):
+                m.param_cast = dtype
+        return self
+
+    def load_params(self, params: dict):
+        """Copy a weight dict (``models/convert.py``: numpy arrays or
+        tensors, keyed like ``state_dict()``) into the module, casting to
+        each parameter's dtype and device. Every weight must be given."""
+        state = {k: v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
+                 for k, v in params.items()}
+        self.load_state_dict(state, strict=True)
+        return self
+
+    def _arm_casts(self, cache_free: bool = True):
+        """Start a forward: under a mixed-precision cast, a training forward
+        (grad enabled, no cache) rounds every parameter once, as the
+        reference's _cast_params: a parameter read twice (a tied embedding,
+        or a block's weights in a remat recompute) then sums its gradients
+        in the compute dtype before the one cast back, where a loss scale's
+        overflow shows as the reference's does. Kept until the next
+        forward: the backward's recomputes read the same casts."""
+        cast_of = None
+        if self.param_cast is not None and torch.is_grad_enabled() and cache_free:
+            cast_of = {id(p): p.to(self.param_cast) for p in self.parameters()
+                       if p.is_floating_point()}
+        for m in self.modules():
+            if isinstance(m, _Module):
+                m.cast_of = cast_of
+
+    def _gather(self, table, ids: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Rows ``ids`` of an embedding table as the forward reads them
+        (:meth:`_use`), then in ``dtype`` if given: through the training
+        forward's cast of the whole table when there is one (its gradient
+        then sums in the compute dtype), else gathered and then cast (the
+        same values as casting the whole table first)."""
+        table = _resolve(table)
+        if self.cast_of is not None:
+            rows = self._use(table)[ids.long()]
+            return rows if dtype is None else rows.to(dtype)
+        return self._use(table[ids.long()], dtype)
+
+
+class DecoderLM(_Model):
     """Causal LM: ``forward(input_ids, positions, ...) -> logits`` fp32, or
     ``{"loss": ...}`` when ``labels`` are given (training).
 
@@ -547,14 +619,6 @@ class DecoderLM(_Module):
         if param_dtype is None:
             self.requires_grad_(False)
 
-    def set_param_cast(self, dtype: Optional[torch.dtype]):
-        """Round every floating parameter to ``dtype`` at use (None: off).
-        The Accelerator sets its mixed-precision compute dtype here."""
-        for m in self.modules():
-            if isinstance(m, _Module):
-                m.param_cast = dtype
-        return self
-
     def init_cache(self, batch: int, length: int, kv_cache_dtype: Optional[str] = None) -> list:
         """All-zeros dense KV cache for ``batch`` rows of ``length``
         positions: one dict per layer with ``"k"`` / ``"v"`` [B, KVH, L, D]
@@ -582,15 +646,6 @@ class DecoderLM(_Module):
 
         return [layer() for _ in range(cfg.num_layers)]
 
-    def load_params(self, params: dict):
-        """Copy a weight dict (``models/convert.py``: numpy arrays or
-        tensors, keyed like ``state_dict()``) into the module, casting to
-        each parameter's dtype and device. Every weight must be given."""
-        state = {k: v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
-                 for k, v in params.items()}
-        self.load_state_dict(state, strict=True)
-        return self
-
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 *, labels: Optional[torch.Tensor] = None, cache=None, cache_positions=None,
                 page_table=None, ragged_slots=None, slot_hist=None, decode: bool = False):
@@ -611,26 +666,9 @@ class DecoderLM(_Module):
                 "ragged_slots (packed ragged prefill) requires page_table and cache_positions"
             )
         self._stage()
-        # a training forward under a mixed-precision cast rounds every
-        # parameter once, as the reference's _cast_params: a parameter read
-        # twice (the tied embedding, or a block's weights in a remat
-        # recompute) then sums its gradients in the compute dtype before
-        # the one cast back, where a loss scale's overflow shows as the
-        # reference's does. Kept until the next forward: the backward's
-        # recomputes read the same casts
-        cast_of = None
-        if self.param_cast is not None and torch.is_grad_enabled() and cache is None:
-            cast_of = {id(p): p.to(self.param_cast) for p in self.parameters()
-                       if p.is_floating_point()}
-        for m in self.modules():
-            if isinstance(m, _Module):
-                m.cast_of = cast_of
+        self._arm_casts(cache_free=cache is None)
         emb = _resolve(self.embedding)
-        if cast_of is not None:
-            x = self._use(emb)[input_ids.long()].to(cfg.dtype)
-        else:
-            # gather, then cast: the same values as casting the whole table first
-            x = self._use(emb[input_ids.long()], cfg.dtype)
+        x = self._gather(emb, input_ids, cfg.dtype)
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)
         sin, cos = rotary_embedding_tables(positions, cfg.head_dim,

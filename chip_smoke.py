@@ -19,15 +19,20 @@ dense decode kernel and its int8/int4 entry at the flat engine's and
 generate()'s shapes, at Sq 4, and in seven edge cases of its split kv
 walk in bf16, int8 and int4 (position 0, 63/64/65, split edges +- 1,
 Sq 16 at groups 2 and 1, L 1000, L 1001 with a row parked at 1000, rows
-at or past L). Each is timed beside its bound and one SDPA call (the
+at or past L), and its D 64 instantiation at t5-base's decode (B 4,
+H = KVH = 12, L 1024, positions 1, 32 and 63 of a 64-token generation;
+position 0, 63/64/65, split edges +- 1 and B 1 as edge cases, on their
+own generators). Each is timed beside its bound and one SDPA call (the
 median of seven reads, with their spread). The flash and the ragged
 prefill kernels run on the tensor cores: the SASS of each built library
 (of each flash entry, its own instantiation's functions) must hold
 warpgroup matrix multiplies (HGMMA) and TMA tile loads (UTMALDG), or the
 run fails; the four decode libraries (paged and
 dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
-cp.async copies (LDGSTS), and ptxas must report no spills in them.
-Then it drives fourteen
+cp.async copies (LDGSTS), and ptxas must report no spills in them; the
+dense library's D 64 functions are gated on their own (HMMA and LDGSTS
+in its split kernels, no spill in them or their merge pass).
+Then it drives eighteen
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -162,7 +167,24 @@ the patch, so their graphs replay the zeroed wrapper:
   against the host-tier bytes over a measured pinned H2D rate, and a
   control whose streamer skips one layer's copies; (c) quantized on load
   (int8, NF4 + double quant), tokens identical to generate() on the
-  dequantized weights, packed bytes and the weight bytes a step reads.
+  dequantized weights, packed bytes and the weight bytes a step reads;
+- seq2seq (``seq2seq_path``): ``generate_seq2seq`` greedy on t5-base
+  (``Seq2SeqConfig()``: 12 + 12 layers, E 768, D 64) over B 4 sources of
+  512 tokens, two right-padded to 384 and 200, 64 new tokens: 12 x 63
+  dense decode launches (the D 64 instantiation) and no flash launch,
+  tokens teacher-forced against the uncached plain forward, TTFT
+  (encoder + prefill), ms/token and the decode step captured against
+  eager; ``seq2seq_dispatch``: the same weights written as the
+  reference's stacked checkpoint and dispatched with the decoder's MLP
+  leaves on the pinned-host tier (tokens equal bit for bit) and int8 on
+  load (teacher-forced);
+- seq2seq and encoder training (``seq2seq_train_path``,
+  ``encoder_train_path``): t5-base at B 8, source 512, target 128 and
+  bert-base at bench.py's row (B 64 x 128, dropout 0.1,
+  ``steps_per_call=10``), bf16 over fp32 masters through
+  ``build_train_step``: a finite (t5: falling) loss, no kernel launch
+  (attention at head_dim 64 is plain, as the reference routes it), step
+  ms, throughput, MFU and a profiled step.
 
 The decode profiles (paged bf16, flat, int8, verify; generate() at B 1
 bf16 and B 4 int8) read wall, device busy and idle share per step for
@@ -305,11 +327,13 @@ def sass_of(text: str, fragment) -> str:
     return "".join(p for p in parts[1:] if fragment in p.split("\n", 1)[0])
 
 
-def sass_gate(names, ops, what: str) -> dict:
+def sass_gate(names, ops, what: str, fragment=None, label: str = "") -> dict:
     """Count each of ``ops`` in the SASS of each built library of
     ``names`` (of a flash entry, its own instantiation's functions:
-    ``SASS_FUNCTIONS``), read with the cuobjdump of nvcc's toolkit; fails
-    unless every one is present in each (the kernel does not ``what``)."""
+    ``SASS_FUNCTIONS``; with ``fragment``, the functions whose mangled
+    name holds it, printed under the name plus ``label``), read with the
+    cuobjdump of nvcc's toolkit; fails unless every one is present in each
+    (the kernel does not ``what``)."""
     from accelerate_tpu_torch.ops import kernels
 
     tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
@@ -320,9 +344,10 @@ def sass_gate(names, ops, what: str) -> dict:
                              timeout=300)
         if res.returncode != 0:
             fail(f"cuobjdump -sass {lib.name} failed: {res.stderr.strip()[-500:]}")
-        text = sass_of(res.stdout, SASS_FUNCTIONS.get(name))
-        counts[name] = {op: text.count(op) for op in ops}
-        print(f"{name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts[name].items()))
+        text = sass_of(res.stdout, fragment or SASS_FUNCTIONS.get(name))
+        counts[name + label] = {op: text.count(op) for op in ops}
+        print(f"{name}{label} SASS: "
+              + ", ".join(f"{op} {n}" for op, n in counts[name + label].items()))
     for name, found in counts.items():
         if not all(found.values()):
             fail(f"{name} does not {what}: SASS counts {found}")
@@ -349,6 +374,31 @@ def decode_spill_gate(reports: dict):
         print(f"{name} ptxas: {len(spills) // 2} kernels, spill bytes {sum(spills)}")
         if not spills or any(spills):
             fail(f"{name}: ptxas reports spills (or no report): {spills}")
+
+
+# the dense decode kernel's D 64 instantiation (csrc/decode_common.cuh
+# launch_d<64, ...>: the split kernel at each row tile, and its merge pass),
+# as its template functions are mangled: t5-base's cached decode runs it
+D64_SPLIT, D64_FUNCTIONS = "split_kernelILi64E", ("split_kernelILi64E", "merge_kernelILi64E")
+
+
+def d64_spill_gate(reports: dict):
+    """Fail if ptxas reported a spill in a function of the dense decode
+    library's D 64 instantiation (``D64_FUNCTIONS``), or none was compiled;
+    prints the count and the spill bytes on a line of its own."""
+    import re
+
+    report = reports.get("dense_decode")
+    if report is None:
+        print("dense_decode (D 64): library reused from an earlier build, no ptxas report")
+        return
+    spills = []
+    for part in report.split("Compiling entry function")[1:]:
+        if any(f in part.split("\n", 1)[0] for f in D64_FUNCTIONS):
+            spills += [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", part)]
+    print(f"dense_decode (D 64) ptxas: {len(spills) // 2} kernels, spill bytes {sum(spills)}")
+    if not spills or any(spills):
+        fail(f"dense_decode (D 64): ptxas reports spills (or no D 64 function): {spills}")
 
 
 def bound(nbytes: float, flops: float):
@@ -1103,7 +1153,8 @@ def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
     from accelerate_tpu_torch.ops.attention import decode_attention, decode_attention_reference
     from accelerate_tpu_torch.utils.quantization import dequantize_kv, quantize_kv
 
-    scale = 1.0 / math.sqrt(D)
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
     name = "dense_decode_quant" if bits else "dense_decode"
     kw, k_lib, v_lib = {}, k, v
     if bits:
@@ -1132,12 +1183,12 @@ def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
     # attended positions
     b, h, sq, _ = q.shape
     kvh = k.shape[1]
-    row_bytes = {0: D * 2, 8: D + 4, 4: D // 2 + 4}[bits]
+    row_bytes = {0: d * 2, 8: d + 4, 4: d // 2 + 4}[bits]
     live = sum(min(int(p.max()) + 1, length) for p in pos)
     nbytes = 2 * q.numel() * 2 + live * kvh * row_bytes * 2 + pos.numel() * 4
     attended = sum(int(p) + 1 for p in pos.flatten().tolist())
-    bound_ms, bound_by = bound(nbytes, 4 * D * h * attended)
-    print(f"kernel {name} ({tag}): B {b}, H {h}, KVH {kvh}, Sq {sq}, L {length}, "
+    bound_ms, bound_by = bound(nbytes, 4 * d * h * attended)
+    print(f"kernel {name} ({tag}): B {b}, H {h}, KVH {kvh}, Sq {sq}, L {length}, D {d}, "
           f"max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
           f"({bound_by}), library sdpa {library_text(library)}"
@@ -4062,10 +4113,10 @@ def remat_memory(cfg, dev, batch):
         torch.cuda.empty_cache()
 
 
-def profile_train(step, batch, card: str):
+def profile_train(step, batch, card: str, what: str = "one build_train_step step"):
     """Where a training step's time goes: torch.profiler over one
-    build_train_step step. Prints the device-busy share of the wall and
-    the kernels with the most device time."""
+    build_train_step call (``what`` names it). Prints the device-busy
+    share of the wall and the kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4080,7 +4131,7 @@ def profile_train(step, batch, card: str):
     if not rows:
         print("train profile: the profiler recorded no device time (not measured)")
         return
-    print(f"train profile on {card}: one build_train_step step: wall {wall_ms:.1f} ms, "
+    print(f"train profile on {card}: {what}: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall, idle "
           f"{100 - 100 * busy_ms / wall_ms:.1f}%), {sum(r[1] for r in rows)} device ops")
     for ms, count, key in rows[:10]:
@@ -5363,6 +5414,380 @@ def dispatch_path(dev, card: str, gen: dict):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the T5 and BERT families: #5's D 64 instantiation, generate_seq2seq,
+# its dispatch, and the two families' training steps
+# ---------------------------------------------------------------------------
+
+T5_B, T5_SRC, T5_NEW = 4, 512, 64  # seq2seq_path: batch, source length, new tokens
+T5_PADDED = (384, 200)  # rows 2 and 3 right-padded to these source lengths
+T5_CASE_SEED, T5_EDGE_SEED, T5_DATA_SEED = 9, 8, 10  # their own generators
+# edge cases of the D 64 split walk at t5-base's decode arena (H = KVH =
+# 12, L 1024): (tag, the last query position of each batch row as a
+# function of the split length E in tokens); Sq 1
+T5_EDGES = [
+    ("t5 a: pos 0, 63/64/65, split edges +-1, parked at L - 1",
+     lambda e, n: [0, 63, 64, 65, e - 1, e, e + 1, n - 1]),
+    ("t5 b: B 1", lambda e, n: [T5_NEW - 1]),
+]
+T5_TRAIN = (8, 512, 128, 6)  # seq2seq_train_path: batch, source, target, steps
+BERT_TRAIN = (64, 128, 10, 20)  # encoder_train_path: batch, seq, steps_per_call, steps
+
+
+def t5_decode_phase(dev):
+    """The dense decode kernel's D 64 instantiation at t5-base's decode
+    shape (B 4, H = KVH = 12, group 1, D 64, L 1024, bf16) against the
+    plain version: checked at positions 1 and 32 of a 64-token generation
+    and timed at its last, 63 (beside its bound and SDPA over the same
+    K/V); then T5_EDGES on their own generator. Returns its kernel row."""
+    import torch
+
+    from accelerate_tpu_torch.models.seq2seq import Seq2SeqConfig
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.ops.attention import decode_attention, decode_attention_reference
+
+    cfg = Seq2SeqConfig()
+    h, kvh, d, length = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.max_cache_len
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator(device=dev).manual_seed(T5_CASE_SEED)
+
+    def rnd(g, *shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(gen, T5_B, h, 1, d), rnd(gen, T5_B, kvh, length, d), rnd(gen, T5_B, kvh, length, d)
+    errs = []
+    for p in (1, T5_NEW // 2):
+        pos = torch.full((T5_B, 1), p, dtype=torch.int32, device=dev)
+        got = counted("dense_decode", lambda: decode_attention(q, k, v, q_positions=pos))
+        errs.append(check_close(f"dense_decode (D 64, t5-base, position {p})", got,
+                                decode_attention_reference(q, k, v, pos, scale)))
+    row = dense_case(gen, dev, "D 64: t5-base decode, B 4, position 63", q, k, v,
+                     torch.full((T5_B, 1), T5_NEW - 1, dtype=torch.int32, device=dev))
+    errs.append(row["max_abs_err"])
+    g_edge = torch.Generator(device=dev).manual_seed(T5_EDGE_SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tag, lasts_of in T5_EDGES:
+        b = len(lasts_of(0, length))
+        per_split, _ = kernels.decode_split_plan(b, kvh, length, sms)
+        e = per_split * kernels.DECODE_TILE
+        pos = torch.tensor(lasts_of(e, length), dtype=torch.int32, device=dev)[:, None]
+        qe, ke, ve = rnd(g_edge, b, h, 1, d), rnd(g_edge, b, kvh, length, d), rnd(g_edge, b, kvh, length, d)
+        got = counted("dense_decode", lambda: decode_attention(qe, ke, ve, q_positions=pos))
+        err = check_close(f"dense_decode (D 64, edge case {tag})", got,
+                          decode_attention_reference(qe, ke, ve, pos, scale))
+        errs.append(err)
+        print(f"kernel dense_decode (D 64) edge case {tag} (split {e} tokens, B {b}, "
+              f"positions {pos[:, 0].tolist()}): max_abs_err {err:.3e} "
+              f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|)")
+    row["max_abs_err"] = max(errs)
+    return dict(name="dense_decode (D 64)", route="cuda",
+                source="accelerate_tpu_torch/csrc/dense_decode.cu",
+                replaces="accelerate_tpu/ops/attention.py:977", **row)
+
+
+def t5_sources(dev):
+    """t5-base's source batch: T5_B rows of T5_SRC tokens from their own
+    generator, rows 2 and 3 right-padded to T5_PADDED by the mask."""
+    import torch
+
+    from accelerate_tpu_torch.models.seq2seq import Seq2SeqConfig
+
+    gen = torch.Generator(device=dev).manual_seed(T5_DATA_SEED)
+    src = torch.randint(3, Seq2SeqConfig().vocab_size, (T5_B, T5_SRC), generator=gen,
+                        device=dev)
+    lengths = torch.tensor([T5_SRC, T5_SRC, *T5_PADDED], device=dev)
+    mask = (torch.arange(T5_SRC, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    return src, mask
+
+
+def seq2seq_gaps(model, src, mask, tokens):
+    """``(worst gap, exact count)`` of generated ``tokens`` [B, new] under
+    the uncached plain forward (``Seq2SeqLM.forward``) on the decoder input
+    they grew: the start token, then the tokens."""
+    import torch
+
+    start = torch.full_like(tokens[:, :1], model.config.decoder_start_token_id)
+    with torch.no_grad():
+        logits = model(src, decoder_input_ids=torch.cat([start, tokens[:, :-1]], dim=1),
+                       attention_mask=mask)["logits"]
+    return token_gaps(logits, tokens)
+
+
+def seq2seq_path(dev, card: str):
+    """``generate_seq2seq`` greedy on t5-base at full width (random bf16
+    weights from seed 0 made on the card): B 4 sources of 512 tokens, two
+    right-padded to 384 and 200, 64 new tokens. The counts are reset just
+    before the measured call and read after it: the dense decode kernel
+    (its D 64 instantiation) 12 layers x 63 steps, no flash launch (T5's
+    head_dim 64 keeps attention on the plain path, as the reference's
+    gate does). Tokens teacher-forced against the uncached plain forward
+    within TOP2_MARGIN. Prints the TTFT (encoder + prefill), ms/token, and
+    the decode step's wall captured (as generate_seq2seq replays it) and
+    run eagerly on the same buffers. Returns ``(launches, state)`` for the
+    dispatch phase."""
+    import functools
+
+    import torch
+
+    from accelerate_tpu_torch import Seq2SeqConfig, Seq2SeqLM, generate_seq2seq
+    from accelerate_tpu_torch.generation import _seq2seq_body
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.utils import cuda_graphs
+
+    cfg = Seq2SeqConfig()
+    weights = random_params(cfg, seed=0, device=dev)
+    model = Seq2SeqLM(cfg, device=dev).load_params(weights)
+    src, mask = t5_sources(dev)
+    # a warm-up call: cuBLAS handles, the kernel's load, the first capture
+    generate_seq2seq(model, src, max_new_tokens=2, attention_mask=mask)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, ttft = generate_seq2seq(model, src, max_new_tokens=T5_NEW, attention_mask=mask,
+                                    return_prefill_seconds=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in kernels.launch_counts.items() if n}
+    want = {"dense_decode": cfg.num_decoder_layers * (T5_NEW - 1)}
+    print(f"seq2seq path launches: {json.dumps(launches)}")
+    if launches != want:
+        fail(f"seq2seq path launched {launches}, expected {want} (no flash kernel at D 64)")
+    gap, exact = seq2seq_gaps(model, src, mask, tokens)
+    print(f"seq2seq path (t5-base, B {T5_B}, source {T5_SRC} with rows padded to "
+          f"{list(T5_PADDED)}, {T5_NEW} new): teacher-forced worst gap {gap:.4f} "
+          f"(limit {TOP2_MARGIN}), {exact}/{tokens.numel()} argmax")
+    if gap > TOP2_MARGIN:
+        fail(f"seq2seq path tokens sit {gap} logits below the plain forward's argmax")
+
+    # the decode step on its own: the same body eagerly and captured, on
+    # the buffers a fresh prefill leaves, over the same positions
+    cache = model.init_cache(T5_B)
+    with torch.no_grad():
+        enc = model.encode(src, mask)
+        start = torch.full((T5_B, 1), cfg.decoder_start_token_id, dtype=torch.long, device=dev)
+        tok = model.decode(start, enc, mask, cache=cache)[:, -1].argmax(-1)
+    pos = torch.ones((T5_B,), dtype=torch.long, device=dev)
+    tok0, pos0 = tok.clone(), pos.clone()
+    body = functools.partial(torch.no_grad()(_seq2seq_body), model, cache, tok, pos, True)
+    steps = T5_NEW - 1
+
+    def per_step_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    eager_ms = per_step_ms(body)
+    tok.copy_(tok0)
+    pos.copy_(pos0)
+    replay = cuda_graphs.capture(body, dev, restore=(tok, pos)).replay
+    captured_ms = per_step_ms(replay)
+    decode_ms = (wall - ttft) * 1e3 / steps
+    print(f"seq2seq path: TTFT (encoder + prefill) {ttft * 1e3:.2f} ms, "
+          f"{decode_ms:.3f} ms/token over the call's {steps} decode steps (its capture "
+          f"included); the decode step alone: captured {captured_ms:.3f} ms, eager "
+          f"{eager_ms:.3f} ms, captured / eager {captured_ms / eager_ms:.3f}x; {card}")
+    kernels.reset_launch_counts()
+    return launches, {"cfg": cfg, "weights": weights, "src": src, "mask": mask,
+                      "tokens": tokens}
+
+
+def seq2seq_dispatch(dev, card: str, s2s: dict):
+    """``generate_seq2seq_dispatched`` on t5-base from a checkpoint this
+    run writes (seq2seq_path's weights as the reference's stacked bf16
+    checkpoint, in a temporary directory): (a) the decoder's MLP leaves
+    (half its block bytes; the reference's stacked layout places leaf
+    kinds, not layer indices) on the pinned-host tier, streamed a layer at
+    a time: tokens equal to seq2seq_path's bit for bit; (b) int8 on load:
+    tokens teacher-forced against the int8 model's own uncached forward
+    within TOP2_MARGIN. Each call with the counts reset before it: 12 x 63
+    dense decode launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch import (QuantizationConfig, generate_seq2seq_dispatched,
+                                      load_checkpoint_and_dispatch)
+    from accelerate_tpu_torch.models.convert import export_reference_checkpoint
+    from accelerate_tpu_torch.ops import kernels
+
+    cfg, src, mask = s2s["cfg"], s2s["src"], s2s["mask"]
+    tmp = tempfile.mkdtemp(prefix="seq2seq-dispatch-")
+    try:
+        ckpt = f"{tmp}/model.safetensors"
+        t = time.perf_counter()
+        export_reference_checkpoint(s2s["weights"], cfg, ckpt)
+        print(f"seq2seq dispatch: checkpoint written in {time.perf_counter() - t:.2f} s "
+              f"({sum(w.numel() * 2 for w in s2s['weights'].values()) / 1e9:.3f} GB bf16)")
+        want = {"dense_decode": cfg.num_decoder_layers * (T5_NEW - 1)}
+        for tag, kw in (("host-tier decoder MLPs", dict(device_map={
+                            "": "device", "decoder/layers/block/mlp": "cpu"})),
+                        ("int8 on load", dict(quantization_config=QuantizationConfig(
+                            load_in_8bit=True)))):
+            t = time.perf_counter()
+            m = load_checkpoint_and_dispatch(cfg, ckpt, device=dev, **kw)
+            load_s = time.perf_counter() - t
+            generate_seq2seq_dispatched(m, src, max_new_tokens=2, attention_mask=mask)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            tokens, ttft = generate_seq2seq_dispatched(m, src, max_new_tokens=T5_NEW,
+                                                       attention_mask=mask,
+                                                       return_prefill_seconds=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {k: n for k, n in kernels.launch_counts.items() if n}
+            if launches != want:
+                fail(f"seq2seq dispatch ({tag}) launched {launches}, expected {want}")
+            if kw.get("quantization_config") is None:
+                streamed = sum(len(b.streamed) for b in m.model.decoder)
+                same = torch.equal(tokens, s2s["tokens"])
+                print(f"seq2seq dispatch ({tag}): {streamed} host-tier weights streamed, "
+                      f"load {load_s:.2f} s, TTFT {ttft * 1e3:.2f} ms, "
+                      f"{(wall - ttft) * 1e3 / (T5_NEW - 1):.3f} ms/token, tokens equal to "
+                      f"seq2seq_path's: {same}; {card}")
+                if not streamed or not same:
+                    fail(f"seq2seq dispatch ({tag}): streamed {streamed}, tokens equal {same}")
+            else:
+                gap, exact = seq2seq_gaps(m.model, src, mask, tokens)
+                print(f"seq2seq dispatch ({tag}): load {load_s:.2f} s (phases "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in m.phase_seconds.items())
+                      + f"), TTFT {ttft * 1e3:.2f} ms, "
+                      f"{(wall - ttft) * 1e3 / (T5_NEW - 1):.3f} ms/token, teacher-forced "
+                      f"worst gap {gap:.4f} (limit {TOP2_MARGIN}), {exact}/{tokens.numel()} "
+                      f"argmax; {card}")
+                if gap > TOP2_MARGIN:
+                    fail(f"seq2seq dispatch ({tag}) tokens sit {gap} logits below the argmax")
+            del m
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels.reset_launch_counts()
+
+
+def t5_train_flops(cfg, b: int, src: int, tgt: int) -> float:
+    """Model FLOPs of one t5 training step (forward + backward = 3x the
+    forward; remat's recompute not counted): the matmuls of each token
+    through its stack (encoder: self-attention and MLP; decoder:
+    self-attention, the cross-attention's q and o, MLP, the LM head; the
+    cross K/V over the source in every decoder layer) and the attention
+    products (bidirectional over the source, causal over the target, the
+    cross-attention's target x source)."""
+    e, m, v = cfg.embed_dim, cfg.mlp_dim, cfg.vocab_size
+    enc = cfg.num_layers * (2 * (4 * e * e + 3 * e * m) * src + 4 * src * src * e)
+    dec = cfg.num_decoder_layers * (2 * (6 * e * e + 3 * e * m) * tgt + 2 * 2 * e * e * src
+                                    + 2 * tgt * tgt * e + 4 * tgt * src * e)
+    return 3.0 * b * (enc + dec + 2 * e * v * tgt)
+
+
+def seq2seq_train_path(dev, card: str):
+    """t5-base trained through ``Accelerator(mixed_precision="bf16")`` and
+    ``build_train_step`` over fp32 master weights: B 8, source 512,
+    target 128 (labels with two -100 tails, decoder inputs their
+    shift_right), T5_TRAIN steps on one fixed batch. The loss must be
+    finite and fall; no kernel launches (attention is plain at D 64).
+    Prints step ms, tokens/s (source + target) and MFU against 989
+    TFLOP/s."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Seq2SeqConfig, Seq2SeqLM
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.ops import kernels
+
+    b, s_src, s_tgt, n = T5_TRAIN
+    cfg = Seq2SeqConfig()
+    torch.cuda.reset_peak_memory_stats()
+    model = Seq2SeqLM(cfg, device=dev, param_dtype=torch.float32).load_params(
+        random_params(cfg, seed=1, device=dev, dtype=torch.float32))
+    acc = Accelerator(mixed_precision="bf16")
+    model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=TRAIN_LR))
+    step = acc.build_train_step()
+    gen = torch.Generator(device=dev).manual_seed(T5_DATA_SEED + 1)
+    batch = {"input_ids": torch.randint(3, cfg.vocab_size, (b, s_src), generator=gen, device=dev),
+             "labels": torch.randint(3, cfg.vocab_size, (b, s_tgt), generator=gen, device=dev),
+             "attention_mask": torch.ones((b, s_src), dtype=torch.int32, device=dev)}
+    batch["labels"][:2, -16:] = -100
+    batch["attention_mask"][2:4, 384:] = 0
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(batch)["loss"].item())
+        times.append(time.perf_counter() - t)
+    launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    if launches:
+        fail(f"seq2seq train path launched {launches}: attention at D 64 is plain")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"seq2seq train path losses {losses} are not finite and falling")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    flops = t5_train_flops(cfg, b, s_src, s_tgt)
+    print(f"seq2seq train path (t5-base, B {b}, source {s_src}, target {s_tgt}, bf16, remat "
+          f"{cfg.remat_policy}): losses {[round(x, 4) for x in losses]}, step "
+          f"{step_s * 1e3:.1f} ms (median of {n - 1} after the first; first "
+          f"{times[0] * 1e3:.1f} ms), {b * (s_src + s_tgt) / step_s:.0f} tokens/s, MFU "
+          f"{100 * flops / step_s / BF16_FLOPS_PER_S:.2f}% ({flops / 1e12:.3f} TFLOP a step, "
+          f"model FLOPs without remat's recompute); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}")
+    profile_train(step, batch, card, "one t5-base build_train_step step")
+    kernels.reset_launch_counts()
+
+
+def encoder_train_path(dev, card: str):
+    """bert-base at bench.py's row: ``Accelerator(mixed_precision="bf16")``,
+    B 64 x 128, dropout 0.1 active, AdamW 2e-5, ``build_train_step(
+    steps_per_call=10)`` for 20 steps (two calls: the first warms up, the
+    second is timed). The loss must be finite; no kernel launches. Prints
+    samples/s and MFU counted as bench.py counts them: 6 x the
+    non-embedding parameters plus 12 x layers x seq x embed (the
+    bidirectional attention term), per token."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, EncoderClassifier, EncoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.ops import kernels
+
+    b, s, k, n = BERT_TRAIN
+    cfg = EncoderConfig.bert_base()
+    torch.cuda.reset_peak_memory_stats()
+    model = EncoderClassifier(cfg, device=dev, param_dtype=torch.float32).load_params(
+        random_params(cfg, seed=2, device=dev, dtype=torch.float32))
+    acc = Accelerator(mixed_precision="bf16")
+    model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=2e-5))
+    step = acc.build_train_step(steps_per_call=k)
+    gen = torch.Generator(device=dev).manual_seed(T5_DATA_SEED + 2)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (k, b, s), generator=gen, device=dev),
+             "attention_mask": torch.ones((k, b, s), dtype=torch.int32, device=dev),
+             "labels": torch.randint(0, cfg.num_labels, (k, b), generator=gen, device=dev)}
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(n // k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(batch)["loss_mean"].item())
+        times.append(time.perf_counter() - t)
+    launches = {key: v for key, v in kernels.launch_counts.items() if v}
+    if launches:
+        fail(f"encoder train path launched {launches}: attention at D 64 is plain")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"encoder train path losses {losses} are not finite")
+    n_matmul = sum(p.numel() for name, p in model.named_parameters()
+                   if "embedding" not in name)
+    per_sample = (6 * n_matmul + 12 * cfg.num_layers * s * cfg.embed_dim) * s
+    samples_s = b * k / times[-1]
+    print(f"encoder train path (bert-base, B {b} x {s}, bf16, dropout {cfg.dropout_rate}, "
+          f"steps_per_call {k}): loss means {[round(x, 4) for x in losses]}, "
+          f"{times[-1] * 1e3 / k:.2f} ms a step in the timed call (first call "
+          f"{times[0] * 1e3 / k:.2f}), {samples_s:.1f} samples/s, MFU "
+          f"{100 * samples_s * per_sample / BF16_FLOPS_PER_S:.2f}%; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}")
+    profile_train(step, batch, card, f"one bert-base build_train_step call of {k} steps")
+    kernels.reset_launch_counts()
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -5429,7 +5854,10 @@ def main():
                 print(f"  {name}: {line.strip()}")
     sass_gate(TENSOR_CORE_KERNELS, ("HGMMA", "UTMALDG"), "run on the tensor cores through TMA")
     sass_gate(DECODE_KERNELS, ("HMMA", "LDGSTS"), "run mma.sync over cp.async tiles")
+    sass_gate(["dense_decode"], ("HMMA", "LDGSTS"), "run mma.sync over cp.async tiles at D 64",
+              fragment=D64_SPLIT, label=" (D 64)")
     decode_spill_gate(reports)
+    d64_spill_gate(reports)
     phase_s["build and SASS gates"] = time.perf_counter() - t0
 
     dev = torch.device("cuda")
@@ -5449,7 +5877,9 @@ def main():
             # phases' inputs do not move
             *timed("flash kernels fp16", flash_phases,
                    torch.Generator(device=dev).manual_seed(3), dev, torch.float16),
-            *timed("dense decode kernels", dense_decode_phases, gen, dev)]
+            *timed("dense decode kernels", dense_decode_phases, gen, dev),
+            # its own generators: no earlier phase's inputs move
+            timed("dense decode D 64 kernel", t5_decode_phase, dev)]
     # each path is driven with the counts reset just before it and read
     # just after; a kernel's launches come from its own path (the dense
     # decode kernel's from generate() and the flat engine together, the
@@ -5499,6 +5929,21 @@ def main():
     # the checkpoint from it
     dispatch_launches = timed("dispatch path", dispatch_path, dev, card, gen)
     del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the T5 family's paths: the "dense_decode (D 64)" row's launches are
+    # seq2seq_path's alone (the dispatch phase holds its own to the same
+    # count); the training paths launch no kernel
+    s2s_launches, s2s = timed("seq2seq_path", seq2seq_path, dev, card)
+    launches["dense_decode (D 64)"] = s2s_launches["dense_decode"]
+    timed("seq2seq_dispatch", seq2seq_dispatch, dev, card, s2s)
+    del s2s
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("seq2seq_train_path", seq2seq_train_path, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("encoder_train_path", encoder_train_path, dev, card)
     launches["dense_decode"] += flat_launches + dispatch_launches["dense_decode"]
     launches["flash_fwd"] += dispatch_launches["flash_fwd"]
     for row in rows:
