@@ -13,8 +13,22 @@
 // position; q [B, H, Sq, D] folds each kv head's query group and the Sq
 // rows into R = group * Sq rows (row r: query head h * group + r / Sq,
 // query token r % Sq, as the reference's `_fold_q_heads`). The output is
-// sum_kvp p v / sum_kvp p with p = exp(s - max s) rounded to bf16 before
-// the PV product, as the reference's `p.astype(v.dtype)`.
+// sum_kvp p v / sum_kvp p with p = exp(s - max s) rounded to the element
+// type before the PV product, as the reference's `p.astype(v.dtype)`.
+//
+// Element types. q, the K/V rows (or the dequantized tiles) and out are
+// bf16 or fp16, a template parameter T of every kernel below (hopper.cuh
+// Elem<T>): each entry point has a bf16 and an fp16 instantiation, as the
+// reference's kernels keep the model's dtype (`out_shape` q.dtype). Both
+// types are 2 bytes, so the ring, the swizzle and the ldmatrix fragments
+// are the same; the products are mma.sync's .bf16 or .f16 form, scores,
+// sums and the merge are fp32 in both. Where fp16 rounds a value, it
+// cannot overflow its 65504: p = 2^(s - m) with m the running max lies in
+// [0, 1]; a dequantized K/V value is payload * scale with |payload| <=
+// qmax and scale = amax / qmax of a row whose amax was an fp16 value, so
+// it is at most amax to a rounding and rounds to at most 65504 (fp16
+// turns to inf only at 65520); the output is a convex combination of V
+// rows, at most max |v|.
 //
 // Bound: bytes. A call reads every live K/V row once (bf16: 2 D bytes a
 // row; int8: D + 4; int4: D / 2 + 4, payload and scale) and does 4 D flops
@@ -32,7 +46,7 @@
 //   log2 units, -inf where the row attended nothing in the split), the
 //   sum l and the unnormalised accumulator [R, D]. A second launch, the
 //   merge pass, combines them: out = sum_i acc_i 2^(m_i - M) / sum_i l_i
-//   2^(m_i - M), M = max_i m_i, rounded once to bf16. A partial with m_i =
+//   2^(m_i - M), M = max_i m_i, rounded once to T. A partial with m_i =
 //   -inf weighs exactly 0; every row attends position 0, so M is finite.
 // - Loads in flight. A ring of STAGES 64-token tiles per block, filled by
 //   16-byte cp.async copies (commit / wait groups): while the warps work
@@ -42,11 +56,11 @@
 //   Rows are XOR-swizzled at 16-byte granularity (chunk c of row t at
 //   chunk c ^ (t % 8)), so ldmatrix reads them without bank conflicts.
 //   The quantized entry stages payload rows and scales raw; each warp then
-//   dequantizes the rows its products read into the swizzled bf16 tile,
-//   __float2bfloat16_rn(payload * scale) once (dequantize_kv's rounding
-//   site), and syncs with itself (__syncwarp) before its products.
-// - Products on the tensor cores with mma.sync.m16n8k16 (bf16 in, fp32
-//   sums). The R rows, padded to 16 a row tile (RT tiles, 1, 2 or 4), are
+//   dequantizes the rows its products read into the swizzled T tile,
+//   payload * scale rounded once to T (dequantize_kv's rounding site, to
+//   q's dtype), and syncs with itself (__syncwarp) before its products.
+// - Products on the tensor cores with mma.sync.m16n8k16 (bf16 or fp16
+//   in, fp32 sums). The R rows, padded to 16 a row tile (RT tiles, 1, 2 or 4), are
 //   the A operand of S = Q K^T (Q fragments held in registers), K
 //   fragments come through ldmatrix, V fragments through ldmatrix.trans.
 //   The block's 4 warps split each tile: warp w takes row tile w / TS and
@@ -124,20 +138,38 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "memory");
 }
 
-// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, fp32 sums. Thread t (g = t /
-// 4, c = t % 4) holds A rows g and g + 8 at k 2c, 2c + 1 (a0, a1) and 2c +
-// 8, 2c + 9 (a2, a3); B at k 2c.. (b0) and 2c + 8.. (b1), column g; D
-// rows g (d0, d1) and g + 8 (d2, d3) at columns 2c, 2c + 1.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// D[16 x 8] += A[16 x 16] B[16 x 8], T (bf16 or fp16) in, fp32 sums.
+// Thread t (g = t / 4, c = t % 4) holds A rows g and g + 8 at k 2c, 2c + 1
+// (a0, a1) and 2c + 8, 2c + 9 (a2, a3); B at k 2c.. (b0) and 2c + 8..
+// (b1), column g; D rows g (d0, d1) and g + 8 (d2, d3) at columns 2c,
+// 2c + 1.
+#define DECODE_MMA_M16N8K16(TY)                                                    \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "           \
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n" \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                     \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+
+template <typename T>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  if constexpr (hopper::is_f16<T>) {
+    DECODE_MMA_M16N8K16("f16");
+  } else {
+    DECODE_MMA_M16N8K16("bf16");
+  }
 }
 
-// byte offset of 16-byte chunk c of row t in a swizzled tile of D bf16 columns
+// one float rounded to T (to nearest even)
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (hopper::is_f16<T>) {
+    return __float2half_rn(x);
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// byte offset of 16-byte chunk c of row t in a swizzled tile of D 16-bit columns
 template <int D>
 __device__ __forceinline__ int swz(int t, int c) {
   return t * (D * 2) + ((c ^ (t & 7)) << 4);
@@ -199,7 +231,7 @@ struct DenseRows {
   __host__ __device__ __forceinline__ int pos_limit() const { return length - 1; }
 };
 
-// What the kv rows hold: bf16 K/V rows [rows, D] (bits 0), or int8
+// What the kv rows hold: T (bf16 or fp16) K/V rows [rows, D] (bits 0), or int8
 // payload rows [rows, D] (bits 8) / [rows, D / 2] (bits 4, two values a
 // byte, the even head_dim index in the low nibble) beside fp32 scales
 // [rows].
@@ -215,9 +247,9 @@ struct KvRows {
 
 template <int D, int RT, bool QUANT>
 struct Layout {
-  static constexpr int ROW = D * 2;             // bytes of a bf16 row
-  static constexpr int KV_TILE = TILE * ROW;    // one bf16 K (or V) tile
-  // one ring stage: the bf16 K and V tiles, or (quantized) the raw K and V
+  static constexpr int ROW = D * 2;             // bytes of a 16-bit row
+  static constexpr int KV_TILE = TILE * ROW;    // one 16-bit K (or V) tile
+  // one ring stage: the 16-bit K and V tiles, or (quantized) the raw K and V
   // payload rows (room for int8's D bytes a row) and their scales
   static constexpr int STAGE = QUANT ? 2 * TILE * D + 2 * TILE * 4 : 2 * KV_TILE;
   static constexpr int RING = STAGES * STAGE;
@@ -238,9 +270,9 @@ __device__ __forceinline__ void issue_tile(uint8_t* st, const KvRows& kv, const 
                                            int p0) {
   const int tid = threadIdx.x;
   if constexpr (!QUANT) {
-    constexpr int CH = D / 8;  // 16-byte chunks of a row
-    const bf16* kp = static_cast<const bf16*>(kv.k);
-    const bf16* vp = static_cast<const bf16*>(kv.v);
+    constexpr int CH = D / 8;  // 16-byte chunks of a row (of 16-bit values)
+    const uint16_t* kp = static_cast<const uint16_t*>(kv.k);
+    const uint16_t* vp = static_cast<const uint16_t*>(kv.v);
     for (int e = tid; e < TILE * CH; e += NT) {
       const int t = e / CH, c = e % CH;
       const size_t row = rw.row(h, p0 + t);
@@ -283,10 +315,10 @@ __device__ __forceinline__ float byte_value(uint32_t word, int i, float bias) {
 }
 
 // a warp's dequantize of rows [t0, t0 + n) of a staged raw tile into the
-// swizzled bf16 K and V tiles: payload * scale in fp32, rounded once to
-// bf16 (the rows its products read; warps that share rows write the same
+// swizzled T K and V tiles: payload * scale in fp32, rounded once to T
+// (the rows its products read; warps that share rows write the same
 // values)
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void dequant_rows(const uint8_t* raw, uint8_t* deq, int bits, int t0,
                                              int n, int lane) {
   constexpr int CH = D / 8;
@@ -305,15 +337,15 @@ __device__ __forceinline__ void dequant_rows(const uint8_t* raw, uint8_t* deq, i
       const uint32_t lo = b4 & 0x0F0F0F0Fu, hi = (b4 >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
       for (int i = 0; i < 4; ++i)  // byte i: values 2i (low nibble), 2i + 1
-        w[i] = hopper::pack_bf16(byte_value(lo, i, 8.f) * s, byte_value(hi, i, 8.f) * s);
+        w[i] = hopper::pack<T>(byte_value(lo, i, 8.f) * s, byte_value(hi, i, 8.f) * s);
     } else {
       // byte x ^ 0x80 is x + 128 as an unsigned byte
       const uint2 b8 = *reinterpret_cast<const uint2*>(row + 8 * c);
       const uint32_t x[2] = {b8.x ^ 0x80808080u, b8.y ^ 0x80808080u};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        w[i] = hopper::pack_bf16(byte_value(x[i / 2], 2 * (i % 2), 128.f) * s,
-                                 byte_value(x[i / 2], 2 * (i % 2) + 1, 128.f) * s);
+        w[i] = hopper::pack<T>(byte_value(x[i / 2], 2 * (i % 2), 128.f) * s,
+                               byte_value(x[i / 2], 2 * (i % 2) + 1, 128.f) * s);
     }
     *reinterpret_cast<uint4*>(deq + kv * TILE * D * 2 + swz<D>(r, c)) =
         make_uint4(w[0], w[1], w[2], w[3]);
@@ -324,8 +356,8 @@ __device__ __forceinline__ void dequant_rows(const uint8_t* raw, uint8_t* deq, i
 
 // Workspace of a call, fp32: m [B, KVH, NS, R] (log2 units), l [B, KVH, NS,
 // R], then acc [B, KVH, NS, R, D].
-template <int D, int RT, bool QUANT, class Rows>
-__global__ void __launch_bounds__(NT) split_kernel(const bf16* __restrict__ q, KvRows kv,
+template <int D, int RT, bool QUANT, class Rows, typename T>
+__global__ void __launch_bounds__(NT) split_kernel(const T* __restrict__ q, KvRows kv,
                                                    Rows rw, const int* __restrict__ pos,
                                                    float* __restrict__ ws, int kvh, int group,
                                                    int sq, int tiles_per_split, int n_splits,
@@ -349,7 +381,7 @@ __global__ void __launch_bounds__(NT) split_kernel(const bf16* __restrict__ q, K
   // the split's page ids and the kv head's query rows, in flight while
   // the slot's positions are read
   rw.begin(ids, b, t0 * TILE, tiles_per_split * TILE);
-  const bf16* qsrc = q + ((size_t)b * kvh + h) * rows * D;
+  const T* qsrc = q + ((size_t)b * kvh + h) * rows * D;
   for (int e = tid; e < RT * 16 * (D / 8); e += NT) {
     const int r = e / (D / 8), c = e % (D / 8);
     if (r < rows)
@@ -407,7 +439,7 @@ __global__ void __launch_bounds__(NT) split_kernel(const bf16* __restrict__ q, K
     const int tok0 = sl * W;  // the slice's first token in the tile
     const uint8_t* kt = ring + (j % STAGES) * L::STAGE;
     if constexpr (QUANT) {
-      dequant_rows<D>(kt, smem + L::DEQ_OFF, kv.bits, tok0, W, lane);
+      dequant_rows<D, T>(kt, smem + L::DEQ_OFF, kv.bits, tok0, W, lane);
       __syncwarp();
       kt = smem + L::DEQ_OFF;
     }
@@ -426,8 +458,8 @@ __global__ void __launch_bounds__(NT) split_kernel(const bf16* __restrict__ q, K
         uint32_t kb[4];
         const int t = tok0 + 16 * jp + (lane / 16) * 8 + lane % 8;
         ldmatrix_x4(kb, kt + swz<D>(t, 2 * kk + (lane / 8) % 2));
-        mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+        mma<T>(s[2 * jp], qf[kk], kb[0], kb[1]);
+        mma<T>(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
       }
     }
 
@@ -473,22 +505,22 @@ __global__ void __launch_bounds__(NT) split_kernel(const bf16* __restrict__ q, K
       o[n][3] *= alpha[1];
     }
 
-    // O += P V: P rounded to bf16 as the A operand, k16 step kt2 is S's n8
+    // O += P V: P rounded to T as the A operand, k16 step kt2 is S's n8
     // tiles 2 kt2 and 2 kt2 + 1
 #pragma unroll
     for (int kt2 = 0; kt2 < W / 16; ++kt2) {
       uint32_t pa[4];
-      pa[0] = hopper::pack_bf16(s[2 * kt2][0], s[2 * kt2][1]);
-      pa[1] = hopper::pack_bf16(s[2 * kt2][2], s[2 * kt2][3]);
-      pa[2] = hopper::pack_bf16(s[2 * kt2 + 1][0], s[2 * kt2 + 1][1]);
-      pa[3] = hopper::pack_bf16(s[2 * kt2 + 1][2], s[2 * kt2 + 1][3]);
+      pa[0] = hopper::pack<T>(s[2 * kt2][0], s[2 * kt2][1]);
+      pa[1] = hopper::pack<T>(s[2 * kt2][2], s[2 * kt2][3]);
+      pa[2] = hopper::pack<T>(s[2 * kt2 + 1][0], s[2 * kt2 + 1][1]);
+      pa[3] = hopper::pack<T>(s[2 * kt2 + 1][2], s[2 * kt2 + 1][3]);
       const int t = tok0 + 16 * kt2 + ((lane / 8) % 2) * 8 + lane % 8;
 #pragma unroll
       for (int p2 = 0; p2 < D / 16; ++p2) {
         uint32_t vb[4];
         ldmatrix_x4_trans(vb, vt + swz<D>(t, 2 * p2 + lane / 16));
-        mma_bf16(o[2 * p2], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * p2 + 1], pa, vb[2], vb[3]);
+        mma<T>(o[2 * p2], pa, vb[0], vb[1]);
+        mma<T>(o[2 * p2 + 1], pa, vb[2], vb[3]);
       }
     }
   }
@@ -548,14 +580,14 @@ __global__ void __launch_bounds__(NT) split_kernel(const bf16* __restrict__ q, K
 
 // Row r of (slot b, kv head h) from the partials of the slot's live
 // splits, one block of D threads a row (thread d owns column d), rounded
-// once to bf16; a row with l == 0 writes 0 (never on the paths: every row
+// once to T; a row with l == 0 writes 0 (never on the paths: every row
 // attends position 0). The live splits are counted from the max position
 // bounded by `pos_limit`, as the split kernel counts the splits it writes:
 // the workspace holds nothing else.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(D) merge_kernel(const float* __restrict__ ws,
                                                   const int* __restrict__ pos,
-                                                  bf16* __restrict__ out, int kvh, int group,
+                                                  T* __restrict__ out, int kvh, int group,
                                                   int sq, int tiles_per_split, int n_splits,
                                                   int pos_limit) {
   __shared__ float warp_max[D / 32];
@@ -589,35 +621,36 @@ __global__ void __launch_bounds__(D) merge_kernel(const float* __restrict__ ws,
       den += ws_l[(size_t)i * rows] * w;
     }
   }
-  out[(((size_t)b * kvh + h) * rows + r) * D + d] = __float2bfloat16(den == 0.f ? 0.f : num / den);
+  out[(((size_t)b * kvh + h) * rows + r) * D + d] = from_float<T>(den == 0.f ? 0.f : num / den);
 }
 
 // ---- launch -------------------------------------------------------------
 
-template <int D, int RT, bool QUANT, class Rows>
-cudaError_t launch_rt(const bf16* q, const KvRows& kv, const Rows& rw, const int* pos,
-                      float* ws, bf16* out, int b, int kvh, int group, int sq,
+template <int D, int RT, bool QUANT, class Rows, typename T>
+cudaError_t launch_rt(const T* q, const KvRows& kv, const Rows& rw, const int* pos,
+                      float* ws, T* out, int b, int kvh, int group, int sq,
                       int tiles_per_split, int n_splits, float scale, cudaStream_t stream) {
   using L = Layout<D, RT, QUANT>;
   static bool smem_ok = false;
   if (!smem_ok) {
     const cudaError_t err = cudaFuncSetAttribute(
-        split_kernel<D, RT, QUANT, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+        split_kernel<D, RT, QUANT, Rows, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::BYTES);
     if (err != cudaSuccess) return err;
     smem_ok = true;
   }
-  split_kernel<D, RT, QUANT, Rows><<<dim3(b, kvh, n_splits), NT, L::BYTES, stream>>>(
+  split_kernel<D, RT, QUANT, Rows, T><<<dim3(b, kvh, n_splits), NT, L::BYTES, stream>>>(
       q, kv, rw, pos, ws, kvh, group, sq, tiles_per_split, n_splits, scale * LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_kernel<D><<<dim3(b, kvh, group * sq), D, 0, stream>>>(
+  merge_kernel<D, T><<<dim3(b, kvh, group * sq), D, 0, stream>>>(
       ws, pos, out, kvh, group, sq, tiles_per_split, n_splits, rw.pos_limit());
   return cudaGetLastError();
 }
 
-template <int D, bool QUANT, class Rows>
-cudaError_t launch_d(const bf16* q, const KvRows& kv, const Rows& rw, const int* pos, float* ws,
-                     bf16* out, int b, int kvh, int group, int sq, int tiles_per_split,
+template <int D, bool QUANT, class Rows, typename T>
+cudaError_t launch_d(const T* q, const KvRows& kv, const Rows& rw, const int* pos, float* ws,
+                     T* out, int b, int kvh, int group, int sq, int tiles_per_split,
                      int n_splits, float scale, cudaStream_t stream) {
   const int rows = group * sq;
   if (rows <= 16)
@@ -630,13 +663,14 @@ cudaError_t launch_d(const bf16* q, const KvRows& kv, const Rows& rw, const int*
                                 n_splits, scale, stream);
 }
 
-// Launch the split kernel and the merge pass on `stream`. D 64 or 128, R =
+// Launch the split kernel and the merge pass on `stream`, T bf16 or fp16
+// (q and out; the K/V rows too unless QUANT). D 64 or 128, R =
 // group * sq in 1..64, paged: tiles_per_split * 64 / ps + 2 <= MAX_IDS
 // (the wrapper checks all of it and sizes the workspace: B * KVH *
 // n_splits * R * (D + 2) floats).
-template <bool QUANT, class Rows>
-cudaError_t launch(const bf16* q, const KvRows& kv, const Rows& rw, const int* pos, float* ws,
-                   bf16* out, int b, int kvh, int group, int sq, int d, int tiles_per_split,
+template <bool QUANT, class Rows, typename T>
+cudaError_t launch(const T* q, const KvRows& kv, const Rows& rw, const int* pos, float* ws,
+                   T* out, int b, int kvh, int group, int sq, int d, int tiles_per_split,
                    int n_splits, float scale, cudaStream_t stream) {
   const int rows = group * sq;
   if (rows < 1 || rows > MAX_ROWS || tiles_per_split < 1 || n_splits < 1)

@@ -1,8 +1,10 @@
-// Dense-arena decode attention for Hopper (sm_90a), bf16 KV.
+// Dense-arena decode attention for Hopper (sm_90a), bf16 KV
+// (dense_decode_launch) or fp16 KV (dense_decode_f16_launch).
 //
 // Replaces the TPU kernel `_dense_decode_kernel_call`
-// (accelerate_tpu/ops/attention.py:977) through its bf16 body
-// `_decode_kernel_body` (:804): decode attention over a dense
+// (accelerate_tpu/ops/attention.py:977) through its 16-bit body
+// `_decode_kernel_body` (:804), in the model's dtype (bf16 or fp16; the
+// output is q's dtype, :1016): decode attention over a dense
 // [B, KVH, L, D] cache (generate()'s single-stream cache, the flat serving
 // engine's slot arena), walking each batch row's live positions
 // 0 .. max(pos[b]) and masking kv position <= the query row's position.
@@ -23,6 +25,23 @@
 // whole row.
 #include "decode_common.cuh"
 
+namespace {
+
+template <typename T>
+int launch_dense(const void* q, const void* k, const void* v, const void* pos, void* out,
+                 void* workspace, int b, int kvh, int group, int sq, int length, int d,
+                 int tiles_per_split, int n_splits, float scale, void* stream) {
+  if (length < 1) return (int)cudaErrorInvalidValue;
+  const decode::DenseRows rows{kvh, length, 0};
+  const decode::KvRows kv{k, v, nullptr, nullptr, 0};
+  return (int)decode::launch<false>(
+      static_cast<const T*>(q), kv, rows, static_cast<const int*>(pos),
+      static_cast<float*>(workspace), static_cast<T*>(out), b, kvh, group, sq, d,
+      tiles_per_split, n_splits, scale, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
 // q [B, H, Sq, D], k / v [B, KVH, L, D] (bf16, contiguous, 16-byte
 // aligned); pos [B, Sq] int32; out [B, H, Sq, D] written; workspace
 // B * KVH * n_splits * R * (D + 2) floats. D 64 or 128, R = group * Sq <=
@@ -33,11 +52,16 @@ extern "C" int dense_decode_launch(const void* q, const void* k, const void* v, 
                                    void* out, void* workspace, int b, int kvh, int group, int sq,
                                    int length, int d, int tiles_per_split, int n_splits,
                                    float scale, void* stream) {
-  if (length < 1) return (int)cudaErrorInvalidValue;
-  const decode::DenseRows rows{kvh, length, 0};
-  const decode::KvRows kv{k, v, nullptr, nullptr, 0};
-  return (int)decode::launch<false>(
-      static_cast<const decode::bf16*>(q), kv, rows, static_cast<const int*>(pos),
-      static_cast<float*>(workspace), static_cast<decode::bf16*>(out), b, kvh, group, sq, d,
-      tiles_per_split, n_splits, scale, static_cast<cudaStream_t>(stream));
+  return launch_dense<decode::bf16>(q, k, v, pos, out, workspace, b, kvh, group, sq, length, d,
+                                    tiles_per_split, n_splits, scale, stream);
+}
+
+// The same with q, k, v and out fp16.
+extern "C" int dense_decode_f16_launch(const void* q, const void* k, const void* v,
+                                       const void* pos, void* out, void* workspace, int b,
+                                       int kvh, int group, int sq, int length, int d,
+                                       int tiles_per_split, int n_splits, float scale,
+                                       void* stream) {
+  return launch_dense<__half>(q, k, v, pos, out, workspace, b, kvh, group, sq, length, d,
+                              tiles_per_split, n_splits, scale, stream);
 }

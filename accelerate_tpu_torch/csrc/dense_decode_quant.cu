@@ -1,4 +1,6 @@
-// Dense-arena decode attention for Hopper (sm_90a), int8 / int4 KV.
+// Dense-arena decode attention for Hopper (sm_90a), int8 / int4 KV, with q
+// and out bf16 (dense_decode_quant_launch) or fp16
+// (dense_decode_quant_f16_launch).
 //
 // Replaces the TPU kernel `_dense_decode_kernel_call`
 // (accelerate_tpu/ops/attention.py:977) through its quantized entry
@@ -18,11 +20,30 @@
 // `DenseRows` (see dense_decode.cu), with each ring stage holding the
 // tile's raw payload rows (16-byte cp.async copies) and scales (4-byte
 // copies, one a position: L need not be a multiple of 4); each warp then
-// dequantizes the rows its products read into the swizzled bf16 K/V
-// tiles, __float2bfloat16_rn(payload * scale) once, which is
-// dequantize_kv's rounding site, so the kernel attends exactly the bf16
-// values the plain version attends.
+// dequantizes the rows its products read into the swizzled K/V tiles of
+// q's type, payload * scale rounded once to it, which is dequantize_kv's
+// rounding site, so the kernel attends exactly the values the plain
+// version attends.
 #include "decode_common.cuh"
+
+namespace {
+
+template <typename T>
+int launch_dense_quant(const void* q, const void* k, const void* v, const void* k_scale,
+                       const void* v_scale, const void* pos, void* out, void* workspace, int b,
+                       int kvh, int group, int sq, int length, int d, int bits,
+                       int tiles_per_split, int n_splits, float scale, void* stream) {
+  if (length < 1 || (bits != 8 && bits != 4)) return (int)cudaErrorInvalidValue;
+  const decode::DenseRows rows{kvh, length, 0};
+  const decode::KvRows kv{k, v, static_cast<const float*>(k_scale),
+                          static_cast<const float*>(v_scale), bits};
+  return (int)decode::launch<true>(
+      static_cast<const T*>(q), kv, rows, static_cast<const int*>(pos),
+      static_cast<float*>(workspace), static_cast<T*>(out), b, kvh, group, sq, d,
+      tiles_per_split, n_splits, scale, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
 
 // As dense_decode_launch, with int8 payloads [B, KVH, L, D or D / 2]
 // (16-byte aligned), fp32 scales [B, KVH, L, 1] and `bits` 8 or 4.
@@ -32,12 +53,19 @@ extern "C" int dense_decode_quant_launch(const void* q, const void* k, const voi
                                          int kvh, int group, int sq, int length, int d, int bits,
                                          int tiles_per_split, int n_splits, float scale,
                                          void* stream) {
-  if (length < 1 || (bits != 8 && bits != 4)) return (int)cudaErrorInvalidValue;
-  const decode::DenseRows rows{kvh, length, 0};
-  const decode::KvRows kv{k, v, static_cast<const float*>(k_scale),
-                          static_cast<const float*>(v_scale), bits};
-  return (int)decode::launch<true>(
-      static_cast<const decode::bf16*>(q), kv, rows, static_cast<const int*>(pos),
-      static_cast<float*>(workspace), static_cast<decode::bf16*>(out), b, kvh, group, sq, d,
-      tiles_per_split, n_splits, scale, static_cast<cudaStream_t>(stream));
+  return launch_dense_quant<decode::bf16>(q, k, v, k_scale, v_scale, pos, out, workspace, b,
+                                          kvh, group, sq, length, d, bits, tiles_per_split,
+                                          n_splits, scale, stream);
+}
+
+// The same with q and out fp16 (the payloads dequantized to fp16).
+extern "C" int dense_decode_quant_f16_launch(const void* q, const void* k, const void* v,
+                                             const void* k_scale, const void* v_scale,
+                                             const void* pos, void* out, void* workspace, int b,
+                                             int kvh, int group, int sq, int length, int d,
+                                             int bits, int tiles_per_split, int n_splits,
+                                             float scale, void* stream) {
+  return launch_dense_quant<__half>(q, k, v, k_scale, v_scale, pos, out, workspace, b, kvh,
+                                    group, sq, length, d, bits, tiles_per_split, n_splits,
+                                    scale, stream);
 }

@@ -185,13 +185,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// two floats -> one register of two bf16 (round to nearest even), the
-// first in the low half: the element of the lower k index
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
+// two floats -> one register of two T (round to nearest even), the first
+// in the low half: the element of the lower k index
 template <typename T>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return Elem<T>::pack(lo, hi);
@@ -364,11 +359,6 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int cols, int ro
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-inline cudaError_t bf16_tile_map(CUtensorMap* map, const void* base, int cols, int rows,
-                                 int mats, int box_rows) {
-  return tile_map<__nv_bfloat16>(map, base, cols, rows, mats, box_rows);
 }
 
 }  // namespace hopper

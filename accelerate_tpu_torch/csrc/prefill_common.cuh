@@ -1,7 +1,16 @@
 // The packed ragged prefill attention kernel for Hopper (sm_90a) on the
-// tensor cores, shared by the bf16 entry (ragged_prefill.cu) and the
+// tensor cores, shared by the 16-bit entry (ragged_prefill.cu) and the
 // int8 / int4 entry (ragged_prefill_quant.cu), which differ only in how
-// an arena kv tile reaches shared memory.
+// an arena kv tile reaches shared memory. Each is instantiated for bf16
+// and for fp16 (the element type T of q, the fresh K/V, the 16-bit pages
+// and out: hopper.cuh Elem<T>, its TMA type and its .bf16 / .f16
+// wgmmas), as the reference's kernel keeps the model's dtype (`out_shape`
+// q.dtype); scores and sums are fp32 in both. Where fp16 rounds a value
+// it cannot overflow its 65504: P lies in [0, 1]; a dequantized arena or
+// fresh value is payload * scale with scale = amax / qmax of a row whose
+// amax is an fp16 value, so it rounds to at most amax's neighbourhood
+// (fp16 turns to inf only at 65520); out is a convex combination of V
+// rows.
 //
 // Semantics (the TPU kernel's `_prefill_kernel_body`,
 // accelerate_tpu/ops/attention.py): packed row r of slot s = row_slot[r]
@@ -32,16 +41,16 @@
 //   a lane, so no consumer waits on a global load. Q once, by TMA
 //   with the 128-byte swizzle in 64-column boxes (hopper.cuh); fresh K/V
 //   tiles by TMA from the packed [KVH, CAP, D] tensors (rows past CAP read
-//   as zeros). A bf16 arena tile is one TMA box per page-row run: pages of
+//   as zeros). A 16-bit arena tile is one TMA box per page-row run: pages of
 //   ps rows (ps a multiple of 8 dividing 64, or a multiple of 64) stack
 //   into the layout one 64-row box would give, since every box starts on a
 //   1024-byte swizzle atom. A quantized arena tile is staged unswizzled
 //   (bulk copies of each page run's payload rows and fp32 scales), then
-//   every consumer thread dequantizes its share into the swizzled bf16 tile and
+//   every consumer thread dequantizes its share into the swizzled T tile and
 //   fences the stores for the async proxy before the tensor cores read it.
 // - Products: S = Q K^T as m64n64k16 wgmmas from shared memory (K-major),
 //   masks and online softmax in registers in log2 units, then O += P V with
-//   P rounded to bf16 in registers as the A operand and V MN-major (as in
+//   P rounded to T in registers as the A operand and V MN-major (as in
 //   flash_fwd.cu). Masked scores are -inf, so their p is exactly 0; a row
 //   that attended nothing (l == 0) writes exactly 0.
 #pragma once
@@ -62,7 +71,7 @@ using flash::NEG_INF;
 constexpr int TILE = 64;    // packed rows a block owns; kv rows a tile
 constexpr int BOX = TILE * 128;  // bytes of one 64-column box of a tile
 
-// How the arena's K/V reach shared memory: bf16 pages through their TMA
+// How the arena's K/V reach shared memory: 16-bit pages through their TMA
 // maps, or int8 payload pages [NP, KVH, ps, pd] with fp32 scale pages
 // [NP, KVH, ps, 1] (bits 8: pd = D; bits 4: pd = D / 2, two values a
 // byte, the even index in the low nibble).
@@ -89,7 +98,7 @@ struct Layout {
   // its staged payload rows)
   static constexpr int STAGES = QUANT ? 3 : 4;
   static constexpr int BOXES = D / 64;
-  static constexpr int KV_BYTES = BOXES * BOX;  // one [64, D] bf16 tile
+  static constexpr int KV_BYTES = BOXES * BOX;  // one [64, D] 16-bit tile
   static constexpr int Q_BYTES = 2 * KV_BYTES;  // two warpgroups' heads
   // quantized: K and V payload rows (at most D bytes each), then scales
   static constexpr int RAW_BYTES = QUANT ? 2 * TILE * D + 2 * TILE * 4 : 0;
@@ -194,13 +203,13 @@ __device__ __forceinline__ void produce(uint8_t* st, uint64_t* bar, const Job& j
 }
 
 // Each of `threads` consumer threads' share of dequantizing a staged arena tile into the
-// swizzled bf16 K and V tiles: payload * scale in fp32, rounded once to
-// bf16 (dequantize_kv's expression, as decode::dequant_rows), 16 bytes of
-// bf16 a step; then the fence that hands the stores to the async proxy.
-template <int D>
+// swizzled T K and V tiles: payload * scale in fp32, rounded once to T
+// (dequantize_kv's expression, as decode::dequant_rows), 16 bytes of T a
+// step; then the fence that hands the stores to the async proxy.
+template <int D, typename T>
 __device__ __forceinline__ void dequant_tile(uint8_t* kst, int bits, int threads) {
   constexpr int KV_BYTES = (D / 64) * BOX;
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks of a bf16 row
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks of a 16-bit row
   const int pd = bits == 4 ? D / 2 : D;
   const uint8_t* raw = kst + 2 * KV_BYTES;
   const float* scl = reinterpret_cast<const float*>(raw + 2 * TILE * D);
@@ -218,14 +227,14 @@ __device__ __forceinline__ void dequant_tile(uint8_t* kst, int bits, int threads
         const int byte = (int)((b4 >> (8 * i)) & 0xFFu);
         const int lo = (int)(int8_t)(uint8_t)(byte << 4) >> 4;  // sign-extend
         const int hi = (int)(int8_t)(uint8_t)byte >> 4;          // arithmetic
-        w[i] = hopper::pack_bf16((float)lo * s, (float)hi * s);
+        w[i] = hopper::pack<T>((float)lo * s, (float)hi * s);
       }
     } else {
       const uint2 b8 = *reinterpret_cast<const uint2*>(row + 8 * c);
       const int8_t* v = reinterpret_cast<const int8_t*>(&b8);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = hopper::pack_bf16((float)v[2 * i] * s,
-                                                          (float)v[2 * i + 1] * s);
+      for (int i = 0; i < 4; ++i) w[i] = hopper::pack<T>((float)v[2 * i] * s,
+                                                         (float)v[2 * i + 1] * s);
     }
     uint8_t* dst = kst + kv * KV_BYTES + (c / 8) * BOX + r * 128 + ((c % 8) ^ (r % 8)) * 16;
     *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
@@ -233,11 +242,11 @@ __device__ __forceinline__ void dequant_tile(uint8_t* kst, int bits, int threads
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <int D, bool QUANT>
+template <int D, bool QUANT, typename T>
 __global__ void __launch_bounds__(2 * 128 + 32, 1) prefill_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tkn,
     const __grid_constant__ CUtensorMap tvn, const __grid_constant__ CUtensorMap tkp,
-    const __grid_constant__ CUtensorMap tvp, QuantPages qp, Pack pk, bf16* __restrict__ out,
+    const __grid_constant__ CUtensorMap tvp, QuantPages qp, Pack pk, T* __restrict__ out,
     int H, int group, float scale_log2) {
   using L = Layout<D, QUANT>;
   constexpr int STAGES = L::STAGES;
@@ -373,7 +382,7 @@ __global__ void __launch_bounds__(2 * 128 + 32, 1) prefill_kernel(
     hopper::mbar_wait(&full[s], (j / STAGES) & 1);
     if constexpr (QUANT) {
       if (!jb.fresh) {  // uniform across the consumers
-        dequant_tile<D>(kst, qp.bits, consumers);
+        dequant_tile<D, T>(kst, qp.bits, consumers);
         asm volatile("bar.sync 1, %0;\n" ::"r"(consumers) : "memory");
       }
     }
@@ -388,7 +397,7 @@ __global__ void __launch_bounds__(2 * 128 + 32, 1) prefill_kernel(
       const int off = (kk % 4) * 32;
       const uint64_t da = hopper::sw128_desc(q_wg + (kk / 4) * BOX + off, 16, 1024);
       const uint64_t db = hopper::sw128_desc(kst + (kk / 4) * BOX + off, 16, 1024);
-      hopper::wgmma_m64n64k16_ss(sc, da, db, 1);
+      hopper::wgmma_m64n64k16_ss<T>(sc, da, db, 1);
     }
     hopper::wgmma_commit();
     // while the product runs: the keys of this thread's 16 columns (column
@@ -430,13 +439,13 @@ __global__ void __launch_bounds__(2 * 128 + 32, 1) prefill_kernel(
 #pragma unroll
     for (int u = 0; u < 2; ++u) l[u] = l[u] * alpha[u] + sum[u];
 
-    // P as bf16 A fragments: k16 step kk is S registers 8 kk .. 8 kk + 7
+    // P as T A fragments: k16 step kk is S registers 8 kk .. 8 kk + 7
     uint32_t pa[TILE / 16][4];
 #pragma unroll
     for (int kk = 0; kk < TILE / 16; ++kk)
 #pragma unroll
       for (int t = 0; t < 4; ++t)
-        pa[kk][t] = hopper::pack_bf16(sc[8 * kk + 2 * t], sc[8 * kk + 2 * t + 1]);
+        pa[kk][t] = hopper::pack<T>(sc[8 * kk + 2 * t], sc[8 * kk + 2 * t + 1]);
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] *= alpha[(i / 2) % 2];
 
@@ -445,7 +454,8 @@ __global__ void __launch_bounds__(2 * 128 + 32, 1) prefill_kernel(
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TILE / 16; ++kk)
-      hopper::wgmma_rs_tb<D>(o, pa[kk], hopper::sw128_desc(vst + kk * 16 * 128, BOX, 1024));
+      hopper::wgmma_rs_tb<D, T>(o, pa[kk],
+                                hopper::sw128_desc(vst + kk * 16 * 128, BOX, 1024));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o);
@@ -466,12 +476,12 @@ __global__ void __launch_bounds__(2 * 128 + 32, 1) prefill_kernel(
     const int row = r0 + rl[u];
     if (row >= pk.cap) continue;
     const float safe_l = l[u] == 0.f ? 1.f : l[u];
-    bf16* dst = out + ((size_t)head * pk.cap + row) * D + 2 * (lane % 4);
+    T* dst = out + ((size_t)head * pk.cap + row) * D + 2 * (lane % 4);
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       const int i = 4 * c + 2 * u;
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) =
-          __floats2bfloat162_rn(o[i] / safe_l, o[i + 1] / safe_l);
+      *reinterpret_cast<uint32_t*>(dst + 8 * c) =
+          hopper::pack<T>(o[i] / safe_l, o[i + 1] / safe_l);
     }
   }
 }
@@ -483,34 +493,34 @@ constexpr int PAGE_MATS_BOUND = 1 << 24;
 
 // Launch the attention kernel: maps built, shared memory opted into, grid
 // (CAP tiles, KVH, pairs of the group's heads), one warpgroup per head.
-template <int D, bool QUANT>
-cudaError_t launch(const bf16* q, const bf16* k_fresh, const bf16* v_fresh, const bf16* k_pages,
-                   const bf16* v_pages, const QuantPages& qp, const Pack& pk, bf16* out, int H,
+template <int D, bool QUANT, typename T>
+cudaError_t launch(const T* q, const T* k_fresh, const T* v_fresh, const T* k_pages,
+                   const T* v_pages, const QuantPages& qp, const Pack& pk, T* out, int H,
                    int group, float scale, cudaStream_t stream) {
   using L = Layout<D, QUANT>;
   static bool smem_ok = false;
-  cudaError_t err = flash::allow_smem(prefill_kernel<D, QUANT>, L::ALLOC, smem_ok);
+  cudaError_t err = flash::allow_smem(prefill_kernel<D, QUANT, T>, L::ALLOC, smem_ok);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tkn, tvn, tkp, tvp;
   memset(&tkp, 0, sizeof(tkp));
   memset(&tvp, 0, sizeof(tvp));
-  if ((err = hopper::bf16_tile_map(&tq, q, D, pk.cap, H, TILE)) != cudaSuccess) return err;
-  if ((err = hopper::bf16_tile_map(&tkn, k_fresh, D, pk.cap, pk.kvh, TILE)) != cudaSuccess)
+  if ((err = hopper::tile_map<T>(&tq, q, D, pk.cap, H, TILE)) != cudaSuccess) return err;
+  if ((err = hopper::tile_map<T>(&tkn, k_fresh, D, pk.cap, pk.kvh, TILE)) != cudaSuccess)
     return err;
-  if ((err = hopper::bf16_tile_map(&tvn, v_fresh, D, pk.cap, pk.kvh, TILE)) != cudaSuccess)
+  if ((err = hopper::tile_map<T>(&tvn, v_fresh, D, pk.cap, pk.kvh, TILE)) != cudaSuccess)
     return err;
   if constexpr (!QUANT) {
     const int box_rows = pk.ps < TILE ? pk.ps : TILE;
-    if ((err = hopper::bf16_tile_map(&tkp, k_pages, D, pk.ps, PAGE_MATS_BOUND, box_rows)) !=
+    if ((err = hopper::tile_map<T>(&tkp, k_pages, D, pk.ps, PAGE_MATS_BOUND, box_rows)) !=
         cudaSuccess)
       return err;
-    if ((err = hopper::bf16_tile_map(&tvp, v_pages, D, pk.ps, PAGE_MATS_BOUND, box_rows)) !=
+    if ((err = hopper::tile_map<T>(&tvp, v_pages, D, pk.ps, PAGE_MATS_BOUND, box_rows)) !=
         cudaSuccess)
       return err;
   }
   const int nwg = group == 1 ? 1 : 2;
   const dim3 grid((pk.cap + TILE - 1) / TILE, pk.kvh, (group + nwg - 1) / nwg);
-  prefill_kernel<D, QUANT><<<grid, 128 * nwg + 32, L::ALLOC, stream>>>(
+  prefill_kernel<D, QUANT, T><<<grid, 128 * nwg + 32, L::ALLOC, stream>>>(
       tq, tkn, tvn, tkp, tvp, qp, pk, out, H, group, scale * flash::LOG2E);
   return cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Packed ragged prefill attention over a quantized paged KV arena for
 // Hopper (sm_90a) on the tensor cores, int8 / int4 KV, with
-// quantize-on-write.
+// quantize-on-write; q, the fresh K/V and out bf16
+// (ragged_prefill_quant_launch) or fp16 (ragged_prefill_quant_f16_launch).
 //
 // Replaces the TPU kernel `_ragged_prefill_kernel_call` via
 // `_prefill_quant_kernel_entry` and its `_quantize_block`
@@ -22,16 +23,17 @@
 // - The quantize pass quantizes each packed row of each kv head once:
 //   one warp per row (attend::quant_rows, the `_quantize_block`
 //   expression: IEEE division by the scale, rintf, the clamp), writing
-//   the payload and scale the caller scatters and the dequantized bf16
-//   rows (qf * scale rounded once) into a [2, KVH, CAP, D] workspace. The
+//   the payload and scale the caller scatters and the dequantized rows
+//   (qf * scale rounded once to q's type) into a [2, KVH, CAP, D]
+//   workspace of that type. The
 //   build has no fast math: the quantize step needs div.rn and rintf, or
 //   payloads stop being bit-exact against the plain version. (The
 //   CUDA-core kernel this replaces re-quantized every earlier fresh chunk
 //   in every block: O(CAP^2 / 8) quantize work where O(CAP) is enough.)
 // - The attention kernel (prefill_common.cuh) reads the workspace as its
 //   fresh K/V by TMA; its arena tiles are staged as payload and scale
-//   rows and dequantized by the block's threads into the swizzled bf16
-//   tile that the tensor cores read.
+//   rows and dequantized by the block's threads into the swizzled tile of
+//   q's type that the tensor cores read.
 #include "attend_common.cuh"
 #include "prefill_common.cuh"
 
@@ -40,13 +42,14 @@ namespace {
 constexpr int QUANT_ROWS = attend::NWARPS;  // packed rows a quantize block takes
 
 // Grid (ceil(CAP / QUANT_ROWS), KVH): K then V of QUANT_ROWS packed rows
-// of one kv head, one warp a row.
+// of one kv head, one warp a row; T bf16 or fp16.
+template <typename T>
 __global__ void __launch_bounds__(attend::NT)
-quantize_pass(const __nv_bfloat16* __restrict__ k_new,  // [1, KVH, CAP, D]
-              const __nv_bfloat16* __restrict__ v_new,
+quantize_pass(const T* __restrict__ k_new,  // [1, KVH, CAP, D]
+              const T* __restrict__ v_new,
               int8_t* __restrict__ k_pay, float* __restrict__ k_scl,  // [CAP, KVH, pd|1]
               int8_t* __restrict__ v_pay, float* __restrict__ v_scl,
-              __nv_bfloat16* __restrict__ ws,  // [2, KVH, CAP, D]: dequantized K, V
+              T* __restrict__ ws,  // [2, KVH, CAP, D]: dequantized K, V
               int kvh, int cap, int d, int bits) {
   const int row0 = blockIdx.x * QUANT_ROWS;
   const int h = blockIdx.y;
@@ -62,6 +65,44 @@ quantize_pass(const __nv_bfloat16* __restrict__ k_new,  // [1, KVH, CAP, D]
       ws + plane + first * d, ntok, d, bits, [&](int t) { return v_new + (first + t) * d; },
       [&](int t) { return v_pay + ((size_t)(row0 + t) * kvh + h) * pd; },
       [&](int t) { return v_scl + (size_t)(row0 + t) * kvh + h; });
+}
+
+template <typename T>
+int launch_ragged_quant(const void* q, const void* k_new, const void* v_new,
+                        const void* k_pages, const void* v_pages, const void* k_scale,
+                        const void* v_scale, const void* page_table, const void* row_slot,
+                        const void* row_pos, const void* slot_hist, void* out, void* k_pay,
+                        void* k_scl, void* v_pay, void* v_scl, void* ws, int kvh, int group,
+                        int cap, int d, int ps, int p_per_slot, int bits, float scale,
+                        void* stream) {
+  if (!prefill::page_size_ok(ps) || (bits != 8 && bits != 4)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  T* wk = static_cast<T*>(ws);
+  T* wv = wk + (size_t)kvh * cap * d;
+  const dim3 qgrid((cap + QUANT_ROWS - 1) / QUANT_ROWS, kvh);
+  quantize_pass<T><<<qgrid, attend::NT, 0, st>>>(
+      static_cast<const T*>(k_new), static_cast<const T*>(v_new),
+      static_cast<int8_t*>(k_pay), static_cast<float*>(k_scl), static_cast<int8_t*>(v_pay),
+      static_cast<float*>(v_scl), wk, kvh, cap, d, bits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const prefill::Pack pk{static_cast<const int*>(page_table), static_cast<const int*>(row_slot),
+                         static_cast<const int*>(row_pos), static_cast<const int*>(slot_hist),
+                         cap, kvh, ps, p_per_slot};
+  const prefill::QuantPages qp{static_cast<const int8_t*>(k_pages),
+                               static_cast<const int8_t*>(v_pages),
+                               static_cast<const float*>(k_scale),
+                               static_cast<const float*>(v_scale), bits};
+  const T* q_ = static_cast<const T*>(q);
+  T* op = static_cast<T*>(out);
+  const int h = kvh * group;
+  if (d == 128)
+    return (int)prefill::launch<128, true, T>(q_, wk, wv, nullptr, nullptr, qp, pk, op, h,
+                                              group, scale, st);
+  if (d == 64)
+    return (int)prefill::launch<64, true, T>(q_, wk, wv, nullptr, nullptr, qp, pk, op, h,
+                                             group, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -81,33 +122,22 @@ extern "C" int ragged_prefill_quant_launch(
     void* k_pay, void* k_scl, void* v_pay, void* v_scl, void* ws, int kvh, int group,
     int cap, int d, int ps, int p_per_slot, int bt, int bits, float scale, void* stream) {
   (void)bt;
-  if (!prefill::page_size_ok(ps) || (bits != 8 && bits != 4)) return (int)cudaErrorInvalidValue;
-  using prefill::bf16;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bf16* wk = static_cast<bf16*>(ws);
-  bf16* wv = wk + (size_t)kvh * cap * d;
-  const dim3 qgrid((cap + QUANT_ROWS - 1) / QUANT_ROWS, kvh);
-  quantize_pass<<<qgrid, attend::NT, 0, st>>>(
-      static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
-      static_cast<int8_t*>(k_pay), static_cast<float*>(k_scl), static_cast<int8_t*>(v_pay),
-      static_cast<float*>(v_scl), wk, kvh, cap, d, bits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const prefill::Pack pk{static_cast<const int*>(page_table), static_cast<const int*>(row_slot),
-                         static_cast<const int*>(row_pos), static_cast<const int*>(slot_hist),
-                         cap, kvh, ps, p_per_slot};
-  const prefill::QuantPages qp{static_cast<const int8_t*>(k_pages),
-                               static_cast<const int8_t*>(v_pages),
-                               static_cast<const float*>(k_scale),
-                               static_cast<const float*>(v_scale), bits};
-  const bf16* q_ = static_cast<const bf16*>(q);
-  bf16* op = static_cast<bf16*>(out);
-  const int h = kvh * group;
-  if (d == 128)
-    return (int)prefill::launch<128, true>(q_, wk, wv, nullptr, nullptr, qp, pk, op, h, group,
-                                           scale, st);
-  if (d == 64)
-    return (int)prefill::launch<64, true>(q_, wk, wv, nullptr, nullptr, qp, pk, op, h, group,
-                                          scale, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_ragged_quant<prefill::bf16>(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale,
+                                            page_table, row_slot, row_pos, slot_hist, out, k_pay,
+                                            k_scl, v_pay, v_scl, ws, kvh, group, cap, d, ps,
+                                            p_per_slot, bits, scale, stream);
+}
+
+// The same with q, k_new, v_new, out and the workspace fp16.
+extern "C" int ragged_prefill_quant_f16_launch(
+    const void* q, const void* k_new, const void* v_new, const void* k_pages,
+    const void* v_pages, const void* k_scale, const void* v_scale, const void* page_table,
+    const void* row_slot, const void* row_pos, const void* slot_hist, void* out,
+    void* k_pay, void* k_scl, void* v_pay, void* v_scl, void* ws, int kvh, int group,
+    int cap, int d, int ps, int p_per_slot, int bt, int bits, float scale, void* stream) {
+  (void)bt;
+  return launch_ragged_quant<__half>(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale,
+                                     page_table, row_slot, row_pos, slot_hist, out, k_pay, k_scl,
+                                     v_pay, v_scl, ws, kvh, group, cap, d, ps, p_per_slot, bits,
+                                     scale, stream);
 }

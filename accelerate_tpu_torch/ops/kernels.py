@@ -12,9 +12,11 @@ The checked wrappers (:func:`paged_decode`, :func:`paged_decode_quant`,
 :func:`ragged_prefill`, :func:`ragged_prefill_quant`, :func:`flash_fwd`,
 :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`, :func:`dense_decode`,
 :func:`dense_decode_quant`) take CPU
-tensors to the plain PyTorch version in ``ops/attention.py``. The three
-flash wrappers take bf16 or fp16: each dtype is its own entry point of the
-same source (``flash_fwd`` / ``flash_fwd_f16``, ...), counted apart. For a CUDA
+tensors to the plain PyTorch version in ``ops/attention.py``. Every
+wrapper takes bf16 or fp16 (q's dtype; the K/V tensors that are not int8
+payloads must match it): each dtype is its own entry point of the same
+source (``paged_decode`` / ``paged_decode_f16``, ``flash_fwd`` /
+``flash_fwd_f16``, ...: :data:`KERNEL_DTYPES`), counted apart. For a CUDA
 tensor they check device, dtype, shape and contiguity, allocate the
 output, launch the kernel and add one to :data:`launch_counts`, or raise.
 Nothing falls back from the device to the plain version.
@@ -109,6 +111,14 @@ KERNELS = {
         [_P] * 17 + [_I] * 8 + [_F, _P],
     ),
 }
+# the serving kernels' fp16 entries: the same kernels with fp16 q, K/V
+# and out, in the same libraries as their bf16 entries
+KERNELS.update({
+    name + "_f16": (src, entry.replace("_launch", "_f16_launch"), argtypes)
+    for name, (src, entry, argtypes) in list(KERNELS.items())
+    if name in ("paged_decode", "paged_decode_quant", "dense_decode", "dense_decode_quant",
+                "ragged_prefill", "ragged_prefill_quant")
+})
 
 # launches per kernel since the last reset_launch_counts(); a wrapper adds
 # one exactly where it launches its kernel, never on the plain path
@@ -261,6 +271,30 @@ def _check(t: torch.Tensor, what: str, dtype, shape, device):
         raise ValueError(f"{what} must be contiguous")
 
 
+# the kernels' element types -> the suffix of their entry points
+KERNEL_DTYPES = {torch.bfloat16: "", torch.float16: "_f16"}
+
+
+def _entry(name: str, q: torch.Tensor, *same) -> str:
+    """The entry point of kernel ``name`` for q's dtype (bf16: ``name``,
+    fp16: ``name + "_f16"``); raises TypeError for any other dtype, or
+    when a ``(what, tensor)`` of ``same`` has another dtype than q."""
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"{name}: the kernels take bf16 or fp16 tensors, got {q.dtype} "
+            "(serve a bf16 or fp16 model; fp32 runs only on the CPU)"
+        )
+    for what, t in same:
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {what} is {t.dtype}, q is {q.dtype}: one dtype for both")
+    return name + KERNEL_DTYPES[q.dtype]
+
+
+def _stream(dev) -> int:
+    """The handle of ``dev``'s current CUDA stream, which every launch uses."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _require_cuda(t: torch.Tensor, name: str):
     if t.device.type != "cuda":
         raise RuntimeError(
@@ -386,9 +420,10 @@ def _decode_plan(q, kvh: int, capacity: int, d: int):
 
 
 def paged_decode(q, k_pages, v_pages, page_table, pos, sm_scale: float):
-    """Paged decode attention: q [B, H, Sq, D] bf16, k/v pages
-    [NP, KVH, ps, D] bf16, page_table [B, P] int32, pos [B, Sq] int32 ->
-    out [B, H, Sq, D]. CPU tensors run the plain version."""
+    """Paged decode attention: q [B, H, Sq, D] and k/v pages [NP, KVH, ps,
+    D], bf16 (``paged_decode``) or fp16 (``paged_decode_f16``), page_table
+    [B, P] int32, pos [B, Sq] int32 -> out [B, H, Sq, D]. CPU tensors run
+    the plain version."""
     if q.device.type == "cpu":
         from .attention import paged_decode_reference
 
@@ -398,18 +433,19 @@ def paged_decode(q, k_pages, v_pages, page_table, pos, sm_scale: float):
     num_pages, kvh, ps, _ = k_pages.shape
     p_per_slot = page_table.shape[1]
     group = _decode_kernel_check(h, sq, d, kvh, ps)
-    dev = q.device
-    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
-    _check(k_pages, "k_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
-    _check(v_pages, "v_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
+    name = _entry("paged_decode", q, ("k_pages", k_pages), ("v_pages", v_pages))
+    dev, dt = q.device, q.dtype
+    _check(q, "q", dt, (b, h, sq, d), dev)
+    _check(k_pages, "k_pages", dt, (num_pages, kvh, ps, d), dev)
+    _check(v_pages, "v_pages", dt, (num_pages, kvh, ps, d), dev)
     _check(page_table, "page_table", torch.int32, (b, p_per_slot), dev)
     _check(pos, "pos", torch.int32, (b, sq), dev)
     _check_aligned(("q", q), ("k_pages", k_pages), ("v_pages", v_pages))
     per_split, n_splits, workspace = _decode_plan(q, kvh, p_per_slot * ps, d)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     _launch(
-        "paged_decode", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), workspace.data_ptr(),
         b, kvh, group, sq, d, ps, p_per_slot, per_split, n_splits, float(sm_scale), stream,
     )
@@ -419,7 +455,8 @@ def paged_decode(q, k_pages, v_pages, page_table, pos, sm_scale: float):
 def ragged_prefill(q, k_new, v_new, k_pages, v_pages, page_table, row_slot,
                    row_pos, slot_hist, sm_scale: float, bt: int):
     """Packed ragged prefill: q [1, H, CAP, D], k_new/v_new [1, KVH, CAP, D],
-    pages [NP, KVH, ps, D] (all bf16), page_table [S, P], row_slot/row_pos
+    pages [NP, KVH, ps, D] (all bf16: ``ragged_prefill``, or all fp16:
+    ``ragged_prefill_f16``), page_table [S, P], row_slot/row_pos
     [CAP], slot_hist [S] (int32) -> ``(out, k_payload, None, v_payload,
     None)`` with payloads token-major [CAP, KVH, D]. CPU tensors run the
     plain version."""
@@ -434,12 +471,14 @@ def ragged_prefill(q, k_new, v_new, k_pages, v_pages, page_table, row_slot,
     h, cap, d, kvh, ps, group = _prefill_kernel_check(q, k_pages, bt)
     num_pages = k_pages.shape[0]
     n_slots, p_per_slot = page_table.shape
-    dev = q.device
-    _check(q, "q", torch.bfloat16, (1, h, cap, d), dev)
-    _check(k_new, "k_new", torch.bfloat16, (1, kvh, cap, d), dev)
-    _check(v_new, "v_new", torch.bfloat16, (1, kvh, cap, d), dev)
-    _check(k_pages, "k_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
-    _check(v_pages, "v_pages", torch.bfloat16, (num_pages, kvh, ps, d), dev)
+    name = _entry("ragged_prefill", q, ("k_new", k_new), ("v_new", v_new),
+                  ("k_pages", k_pages), ("v_pages", v_pages))
+    dev, dt = q.device, q.dtype
+    _check(q, "q", dt, (1, h, cap, d), dev)
+    _check(k_new, "k_new", dt, (1, kvh, cap, d), dev)
+    _check(v_new, "v_new", dt, (1, kvh, cap, d), dev)
+    _check(k_pages, "k_pages", dt, (num_pages, kvh, ps, d), dev)
+    _check(v_pages, "v_pages", dt, (num_pages, kvh, ps, d), dev)
     _check(page_table, "page_table", torch.int32, (n_slots, p_per_slot), dev)
     _check(row_slot, "row_slot", torch.int32, (cap,), dev)
     _check(row_pos, "row_pos", torch.int32, (cap,), dev)
@@ -447,9 +486,9 @@ def ragged_prefill(q, k_new, v_new, k_pages, v_pages, page_table, row_slot,
     _check_aligned(("q", q), ("k_new", k_new), ("v_new", v_new), ("k_pages", k_pages),
                    ("v_pages", v_pages))
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     _launch(
-        "ragged_prefill", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        name, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         row_slot.data_ptr(), row_pos.data_ptr(), slot_hist.data_ptr(),
         out.data_ptr(), kvh, group, cap, d, ps, p_per_slot, bt,
@@ -485,7 +524,9 @@ def _quant_pages_check(k_pages, v_pages, k_scale, v_scale, d: int, bits: int, de
 
 def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, page_table, pos,
                        sm_scale: float, bits: int):
-    """Paged decode attention over a quantized arena: q [B, H, Sq, D] bf16,
+    """Paged decode attention over a quantized arena: q [B, H, Sq, D] bf16
+    (``paged_decode_quant``) or fp16 (``paged_decode_quant_f16``: the pages
+    dequantized to fp16),
     int8 payload pages [NP, KVH, ps, D] (``bits`` 8) or [NP, KVH, ps, D / 2]
     (``bits`` 4, two values a byte), fp32 scale pages [NP, KVH, ps, 1],
     page_table [B, P] int32, pos [B, Sq] int32 -> out [B, H, Sq, D]. CPU
@@ -501,17 +542,18 @@ def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, page_table, pos,
     _, kvh, ps, _ = k_pages.shape
     p_per_slot = page_table.shape[1]
     group = _decode_kernel_check(h, sq, d, kvh, ps)
+    name = _entry("paged_decode_quant", q)
     dev = q.device
-    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
+    _check(q, "q", q.dtype, (b, h, sq, d), dev)
     _quant_pages_check(k_pages, v_pages, k_scale, v_scale, d, bits, dev)
     _check(page_table, "page_table", torch.int32, (b, p_per_slot), dev)
     _check(pos, "pos", torch.int32, (b, sq), dev)
     _check_aligned(("q", q), ("k_scale pages", k_scale), ("v_scale pages", v_scale))
     per_split, n_splits, workspace = _decode_plan(q, kvh, p_per_slot * ps, d)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     _launch(
-        "paged_decode_quant", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
         out.data_ptr(), workspace.data_ptr(), b, kvh, group, sq, d, ps, p_per_slot, bits,
         per_split, n_splits, float(sm_scale), stream,
@@ -522,7 +564,8 @@ def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, page_table, pos,
 def ragged_prefill_quant(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, page_table,
                          row_slot, row_pos, slot_hist, sm_scale: float, bt: int, bits: int):
     """Packed ragged prefill over a quantized arena, quantize-on-write
-    fused: q [1, H, CAP, D], k_new/v_new [1, KVH, CAP, D] (bf16), int8
+    fused: q [1, H, CAP, D], k_new/v_new [1, KVH, CAP, D] (bf16:
+    ``ragged_prefill_quant``, or fp16: ``ragged_prefill_quant_f16``), int8
     payload pages [NP, KVH, ps, D or D / 2] with fp32 scale pages
     [NP, KVH, ps, 1], page_table [S, P], row_slot/row_pos [CAP], slot_hist
     [S] (int32) -> ``(out [1, H, CAP, D], k_payload [CAP, KVH, pd] int8,
@@ -540,10 +583,11 @@ def ragged_prefill_quant(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, pa
     _require_cuda(q, "ragged_prefill_quant")
     h, cap, d, kvh, ps, group = _prefill_kernel_check(q, k_pages, bt)
     n_slots, p_per_slot = page_table.shape
-    dev = q.device
-    _check(q, "q", torch.bfloat16, (1, h, cap, d), dev)
-    _check(k_new, "k_new", torch.bfloat16, (1, kvh, cap, d), dev)
-    _check(v_new, "v_new", torch.bfloat16, (1, kvh, cap, d), dev)
+    name = _entry("ragged_prefill_quant", q, ("k_new", k_new), ("v_new", v_new))
+    dev, dt = q.device, q.dtype
+    _check(q, "q", dt, (1, h, cap, d), dev)
+    _check(k_new, "k_new", dt, (1, kvh, cap, d), dev)
+    _check(v_new, "v_new", dt, (1, kvh, cap, d), dev)
     _, kvh, ps = _quant_pages_check(k_pages, v_pages, k_scale, v_scale, d, bits, dev)
     _check(page_table, "page_table", torch.int32, (n_slots, p_per_slot), dev)
     _check(row_slot, "row_slot", torch.int32, (cap,), dev)
@@ -556,11 +600,12 @@ def ragged_prefill_quant(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, pa
     v_pay = torch.empty_like(k_pay)
     k_scl = torch.empty((cap, kvh, 1), dtype=torch.float32, device=dev)
     v_scl = torch.empty_like(k_scl)
-    # the quantize pass's dequantized fresh K and V, read by the attention
-    workspace = torch.empty((2, kvh, cap, d), dtype=torch.bfloat16, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the quantize pass's dequantized fresh K and V (q's dtype), read by
+    # the attention
+    workspace = torch.empty((2, kvh, cap, d), dtype=dt, device=dev)
+    stream = _stream(dev)
     _launch(
-        "ragged_prefill_quant", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        name, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         page_table.data_ptr(), row_slot.data_ptr(), row_pos.data_ptr(), slot_hist.data_ptr(),
         out.data_ptr(), k_pay.data_ptr(), k_scl.data_ptr(), v_pay.data_ptr(),
@@ -568,10 +613,6 @@ def ragged_prefill_quant(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, pa
         bits, float(sm_scale), stream,
     )
     return out, k_pay, k_scl, v_pay, v_scl
-
-
-# the flash kernels' element types -> the suffix of their entry points
-FLASH_DTYPES = {torch.bfloat16: "", torch.float16: "_f16"}
 
 
 def _flash_shapes(q, k, v, masks, name):
@@ -586,7 +627,7 @@ def _flash_shapes(q, k, v, masks, name):
         raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
     if d not in FLASH_KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the flash kernels take {FLASH_KERNEL_HEAD_DIMS}")
-    if q.dtype not in FLASH_DTYPES:
+    if q.dtype not in KERNEL_DTYPES:
         raise TypeError(
             f"{name}: the flash kernels take bf16 or fp16 tensors, got {q.dtype} "
             "(train with mixed_precision='bf16' or 'fp16', or use attention_impl='xla')"
@@ -608,7 +649,7 @@ def _flash_shapes(q, k, v, masks, name):
         if t is not None:
             _check(t, what, torch.int32, (b, n), dev)
         ptrs.append(None if t is None else t.data_ptr())
-    return (b, h, kvh, sq, skv, d), ptrs, name + FLASH_DTYPES[dt]
+    return (b, h, kvh, sq, skv, d), ptrs, name + KERNEL_DTYPES[dt]
 
 
 def flash_fwd(q, k, v, masks, causal: bool, sm_scale: float):
@@ -624,7 +665,7 @@ def flash_fwd(q, k, v, masks, causal: bool, sm_scale: float):
     (b, h, kvh, sq, skv, d), mp, entry = _flash_shapes(q, k, v, masks, "flash_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _stream(q.device)
     _launch(
         entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), *mp,
         out.data_ptr(), lse.data_ptr(), b, h, kvh, sq, skv, d, int(causal),
@@ -653,7 +694,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float):
     _flash_bwd_inputs(q, do, lse, delta)
     b, h, kvh, sq, skv, d = shape
     dq = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _stream(q.device)
     _launch(
         entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *mp, dq.data_ptr(), b, h, kvh, sq, skv, d,
@@ -675,7 +716,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float)
     b, h, kvh, sq, skv, d = shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _stream(q.device)
     _launch(
         entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *mp, dk.data_ptr(), dv.data_ptr(), b, h, kvh,
@@ -684,19 +725,22 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, masks, causal: bool, sm_scale: float)
     return dk, dv
 
 
-def _dense_decode_shapes(q, k, pos, name):
+def _dense_decode_shapes(q, k, pos, name, *same):
     """Check what both dense decode kernels share on a CUDA device
     (:func:`_decode_rows_check`'s shapes, a cache of one position or
-    more); returns ``(b, kvh, group, sq, length, d)``."""
+    more, q bf16 or fp16 and each ``(what, tensor)`` of ``same`` in q's
+    dtype); returns ``(b, kvh, group, sq, length, d)`` and the entry
+    point's name."""
     _require_cuda(q, name)
     b, h, sq, d = q.shape
     kvh, length = k.shape[1], k.shape[2]
     group = _decode_rows_check(h, sq, d, kvh, "dense decode")
     if length < 1:
         raise ValueError("dense decode needs a cache of at least one position")
-    _check(q, "q", torch.bfloat16, (b, h, sq, d), q.device)
+    entry = _entry(name, q, *same)
+    _check(q, "q", q.dtype, (b, h, sq, d), q.device)
     _check(pos, "pos", torch.int32, (b, sq), q.device)
-    return b, kvh, group, sq, length, d
+    return (b, kvh, group, sq, length, d), entry
 
 
 def _check_aligned(*named):
@@ -706,24 +750,26 @@ def _check_aligned(*named):
 
 
 def dense_decode(q, k, v, pos, sm_scale: float):
-    """Decode attention over a dense cache: q [B, H, Sq, D] bf16, k/v
-    [B, KVH, L, D] bf16, pos [B, Sq] int32 -> out [B, H, Sq, D]; query row
+    """Decode attention over a dense cache: q [B, H, Sq, D] and k/v
+    [B, KVH, L, D], bf16 (``dense_decode``) or fp16 (``dense_decode_f16``),
+    pos [B, Sq] int32 -> out [B, H, Sq, D]; query row
     t of batch row b attends kv positions <= pos[b, t]. CPU tensors run
     the plain version."""
     if q.device.type == "cpu":
         from .attention import decode_attention_reference
 
         return decode_attention_reference(q, k, v, pos, sm_scale)
-    b, kvh, group, sq, length, d = _dense_decode_shapes(q, k, pos, "dense_decode")
+    (b, kvh, group, sq, length, d), name = _dense_decode_shapes(
+        q, k, pos, "dense_decode", ("k", k), ("v", v))
     dev = q.device
-    _check(k, "k", torch.bfloat16, (b, kvh, length, d), dev)
-    _check(v, "v", torch.bfloat16, (b, kvh, length, d), dev)
+    _check(k, "k", q.dtype, (b, kvh, length, d), dev)
+    _check(v, "v", q.dtype, (b, kvh, length, d), dev)
     _check_aligned(("q", q), ("k", k), ("v", v))
     per_split, n_splits, workspace = _decode_plan(q, kvh, length, d)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     _launch(
-        "dense_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        name, q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         out.data_ptr(), workspace.data_ptr(), b, kvh, group, sq, length, d, per_split,
         n_splits, float(sm_scale), stream,
     )
@@ -731,7 +777,9 @@ def dense_decode(q, k, v, pos, sm_scale: float):
 
 
 def dense_decode_quant(q, k, v, k_scale, v_scale, pos, sm_scale: float, bits: int):
-    """Decode attention over a dense quantized cache: q [B, H, Sq, D] bf16,
+    """Decode attention over a dense quantized cache: q [B, H, Sq, D] bf16
+    (``dense_decode_quant``) or fp16 (``dense_decode_quant_f16``: the
+    payloads dequantized to fp16),
     k/v int8 payloads [B, KVH, L, D] (``bits`` 8) or [B, KVH, L, D / 2]
     (``bits`` 4, two values a byte), k_scale/v_scale [B, KVH, L, 1] fp32,
     pos [B, Sq] int32 -> out [B, H, Sq, D]. CPU tensors run the plain
@@ -742,7 +790,8 @@ def dense_decode_quant(q, k, v, k_scale, v_scale, pos, sm_scale: float, bits: in
 
         return decode_attention_reference(q, k, v, pos, sm_scale, k_scale=k_scale,
                                           v_scale=v_scale, kv_quant_bits=bits)
-    b, kvh, group, sq, length, d = _dense_decode_shapes(q, k, pos, "dense_decode_quant")
+    (b, kvh, group, sq, length, d), name = _dense_decode_shapes(q, k, pos,
+                                                                "dense_decode_quant")
     pd = d // 2 if bits == 4 else d
     dev = q.device
     _check(k, "k payload", torch.int8, (b, kvh, length, pd), dev)
@@ -752,9 +801,9 @@ def dense_decode_quant(q, k, v, k_scale, v_scale, pos, sm_scale: float, bits: in
     _check_aligned(("q", q), ("k payload", k), ("v payload", v))
     per_split, n_splits, workspace = _decode_plan(q, kvh, length, d)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     _launch(
-        "dense_decode_quant", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(),
         workspace.data_ptr(), b, kvh, group, sq, length, d, bits, per_split, n_splits,
         float(sm_scale), stream,

@@ -107,8 +107,16 @@ counters, ``req.tokens``). The KV handoff calls (``kv_directory``,
 ``export_prefix_kv``, ``import_prefix_kv``) read or write pages: the
 replica runs them and every ``step()`` under one lock.
 
-Everything else the reference engine offers (dispatched weights, buffer
-donation) is a later slice of the port and raises here.
+A dispatched model (``big_modeling.DispatchedModel``: weights on the
+card, in pinned host memory, on disk, or quantized on load) is served
+through :meth:`ServingEngine.from_dispatched`, the reference's
+counterpart: the engine runs the dispatched model's own tier binding, so
+host-tier weights stream into the model's per-kind device buffers inside
+every step (inside its CUDA graph too, as ``generate_dispatched``'s
+decode step captures them), and holds the binding's disk-tier weights
+pinned until :meth:`ServingEngine.close`. The reference's in-graph
+``param_placer`` option has no counterpart here and raises, naming
+``from_dispatched``; so does buffer donation (the port updates in place).
 """
 
 from __future__ import annotations
@@ -271,7 +279,8 @@ class ServingEngine:
     """
 
     _LATER = {
-        "param_placer": "dispatched (offloaded) weights",
+        "param_placer": "an in-graph weight placer; serve a DispatchedModel with "
+                        "ServingEngine.from_dispatched",
         "donate": "buffer donation (the port updates in place)",
     }
 
@@ -307,8 +316,7 @@ class ServingEngine:
             names = ", ".join(f"{k} ({self._LATER.get(k, 'unknown option')})"
                               for k in sorted(later))
             raise NotImplementedError(
-                f"ServingEngine options {names} belong to later slices of "
-                "the port (ROADMAP queue 1)"
+                f"ServingEngine options {names} are not the port's"
             )
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -444,6 +452,44 @@ class ServingEngine:
         self.telemetry = telemetry
         if telemetry is not None:
             telemetry.attach_serving(self)
+        self._binding = None  # a dispatched model's tier binding (from_dispatched)
+
+    @classmethod
+    def from_dispatched(cls, dispatched, **kwargs) -> "ServingEngine":
+        """An engine over a ``DispatchedModel`` (``big_modeling``): the
+        serving counterpart of ``generation.generate_dispatched``. The
+        model's weights stay where the device map put them (device rows,
+        pinned host tensors streamed per layer, quantized layer views);
+        disk-tier weights are loaded into pinned host memory once, here,
+        and stay pinned for the engine's life. The decode and verify
+        graphs capture the streamed weights' host-to-device copies, as
+        generate()'s decode graph does. Call :meth:`close` when done to
+        release that binding. ``kwargs`` are the constructor's
+        (``device`` defaults to the dispatched model's)."""
+        kwargs.setdefault("device", dispatched.device)
+        binding = dispatched._concrete()
+        binding.__enter__()
+        try:
+            engine = cls(dispatched.model, **kwargs)
+        except BaseException as exc:
+            binding.__exit__(type(exc), exc, exc.__traceback__)
+            raise
+        engine._binding = binding
+        return engine
+
+    def close(self):
+        """Release a dispatched model's binding (:meth:`from_dispatched`):
+        its disk-tier weights leave pinned memory, and the engine drops
+        its model, arena and captured graphs, so it serves no more. A
+        no-op on an engine built from a model."""
+        if self._binding is None:
+            return
+        if self._slot_req or self._queued_depth() or self._admitting is not None:
+            raise RuntimeError("close() needs an idle engine: drain or run it first")
+        binding, self._binding = self._binding, None
+        self._graphs.clear()
+        self.model = self._arena = None
+        binding.__exit__(None, None, None)
 
     def _init_paged(self, cfg, page_size: int, num_pages, prefix_cache: bool,
                     prefix_max_entries, kv_tiers):
@@ -514,7 +560,10 @@ class ServingEngine:
         ``resumed_tokens``: the prompt's last that many tokens are this
         request's own output from an earlier hop (a router's re-queued
         continuation), so the generator draws past them before it samples
-        the first token, which is then the uninterrupted run's.
+        the first token, which is then the uninterrupted run's. A
+        continuation whose last resumed token is the engine's
+        ``eos_token_id`` returns finished ("eos") at once: its stream
+        already ended there.
 
         Without a scheduler the queue is FIFO and ``tenant``, ``priority``
         and ``deadline_s`` are only recorded. With one,
@@ -577,6 +626,13 @@ class ServingEngine:
         usage = self._usage()
         if usage is not None:
             usage.note_submit(req.tenant)
+        if (resumed_tokens and self.eos_token_id is not None
+                and int(prompt[-1]) == self.eos_token_id):
+            # a continuation whose earlier hop already emitted the eos (its
+            # stream broke before the done event): the request is over, so
+            # it finishes here, drawing nothing and taking no slot
+            self._finish(req, req.submit_t, "eos")
+            return req
         if self._draining:
             self._shed(req, SHED_DRAINING)
             return req
@@ -703,12 +759,14 @@ class ServingEngine:
     # -- warmup ----------------------------------------------------------------
 
     def _kernel_names(self) -> tuple:
-        """The kernels this engine's arena and ``kv_cache_dtype`` launch on
-        a CUDA device (``ops/kernels.py`` names)."""
+        """The kernels this engine's arena, ``kv_cache_dtype`` and model
+        dtype (bf16 or fp16 entries) launch on a CUDA device
+        (``ops/kernels.py`` names)."""
         quant = "_quant" if kv_cache_bits(self.kv_cache_dtype) < 16 else ""
+        sfx = kernels.KERNEL_DTYPES.get(self.model.config.dtype, "")
         if self.page_size:
-            return (f"paged_decode{quant}", f"ragged_prefill{quant}")
-        return (f"dense_decode{quant}",)
+            return (f"paged_decode{quant}{sfx}", f"ragged_prefill{quant}{sfx}")
+        return (f"dense_decode{quant}{sfx}",)
 
     def warmup(self):
         """The port's counterpart of the reference's warmup, which compiles

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the nine hand-written kernels of ``accelerate_tpu_torch/csrc``
+Builds the nine hand-written kernel sources of ``accelerate_tpu_torch/csrc``
 with nvcc for sm_90a and holds each against its plain PyTorch version:
 the paged decode kernel and its int8/int4 entry (Sq 1 and the verify
 step's Sq 5, plus six edge cases of its split kv walk in bf16, int8 and
@@ -22,17 +22,21 @@ Sq 16 at groups 2 and 1, L 1000, L 1001 with a row parked at 1000, rows
 at or past L), and its D 64 instantiation at t5-base's decode (B 4,
 H = KVH = 12, L 1024, positions 1, 32 and 63 of a 64-token generation;
 position 0, 63/64/65, split edges +- 1 and B 1 as edge cases, on their
-own generators). Each is timed beside its bound and one SDPA call (the
+own generators). The fp16 entries of the paged decode, ragged prefill
+and dense decode kernels and of their int8/int4 entries (each source's
+second instantiation, ``*_f16``) are held against their plain versions
+at the same shapes and cases, on generators of their own, D 64 included.
+Each is timed beside its bound and one SDPA call in its own dtype (the
 median of seven reads, with their spread). The flash and the ragged
-prefill kernels run on the tensor cores: the SASS of each built library
-(of each flash entry, its own instantiation's functions) must hold
-warpgroup matrix multiplies (HGMMA) and TMA tile loads (UTMALDG), or the
-run fails; the four decode libraries (paged and
-dense, bf16 and int8/int4) must hold mma.sync products (HMMA) and
-cp.async copies (LDGSTS), and ptxas must report no spills in them; the
-dense library's D 64 functions are gated on their own (HMMA and LDGSTS
-in its split kernels, no spill in them or their merge pass).
-Then it drives eighteen
+prefill kernels run on the tensor cores: the SASS of each entry's own
+instantiation's functions (bf16 and fp16) must hold warpgroup matrix
+multiplies (HGMMA) and TMA tile loads (UTMALDG), or the run fails; the
+eight decode entries (paged and dense, 16-bit and int8/int4, bf16 and
+fp16) must hold mma.sync products (HMMA) and cp.async copies (LDGSTS),
+and ptxas must report no spills in their functions; the dense library's
+D 64 functions are gated on their own, in each element type (HMMA and
+LDGSTS in its split kernels, no spill in them or their merge pass).
+Then it drives nineteen
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -58,6 +62,11 @@ the patch, so their graphs replay the zeroed wrapper:
 - speculative verify: ``spec_draft_len=4`` on the bf16 and the int8
   paged arena, one paged decode launch per layer per verify step,
   tokens checked teacher-forced, timed beside the run without spec;
+- fp16 serving (``fp16_serve_path``): small_1b built in fp16 and served
+  paged, flat, paged int8 and int4, flat int8 and with spec K 4, on the
+  fp16 entries only (no bf16 serving entry may launch), tokens gated as
+  the bf16 paths', zeroed-kernel controls failing, TTFT / step / tokens/s
+  beside the bf16 paged run's;
 - decode bursts: the main path's requests at ``steps_per_call`` 4 and
   8, whose tokens, decode steps, prefill dispatches and launches must
   equal the main path's, then the replica's concurrent wave once more
@@ -168,6 +177,8 @@ the patch, so their graphs replay the zeroed wrapper:
   control whose streamer skips one layer's copies; (c) quantized on load
   (int8, NF4 + double quant), tokens identical to generate() on the
   dequantized weights, packed bytes and the weight bytes a step reads;
+  (a), (b) and (c)'s int8 load also served by the paged engine through
+  ``ServingEngine.from_dispatched``, (b)'s tokens equal to (a)'s;
 - seq2seq (``seq2seq_path``): ``generate_seq2seq`` greedy on t5-base
   (``Seq2SeqConfig()``: 12 + 12 layers, E 768, D 64) over B 4 sources of
   512 tokens, two right-padded to 384 and 200, 64 new tokens: 12 x 63
@@ -205,6 +216,7 @@ plain versions are exact fp32 references.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -311,40 +323,61 @@ def check_close(name: str, got, want) -> float:
     return err
 
 
-# the flash kernels' element types as their template instantiations are
-# mangled: a flash library holds both, and each entry's SASS gate reads
-# its own functions only
-SASS_FUNCTIONS = {name + sfx: mangled for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-                  for sfx, mangled in (("", "13__nv_bfloat16"), ("_f16", "6__half"))}
+# the kernels' element types as their template instantiations are mangled
+# (by entry-point suffix): a library holds both its bf16 and its fp16
+# entry, and each entry's SASS and spill gates read its own functions only
+DTYPE_MANGLED = {"": "13__nv_bfloat16", "_f16": "6__half"}
+SASS_FUNCTIONS = {name + sfx: mangled
+                  for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
+                               "paged_decode_quant", "dense_decode", "dense_decode_quant",
+                               "ragged_prefill", "ragged_prefill_quant")
+                  for sfx, mangled in DTYPE_MANGLED.items()}
+
+
+def name_holds(name: str, fragment) -> bool:
+    """Whether a mangled function name holds ``fragment`` (a string, or a
+    tuple of strings it must all hold)."""
+    return all(f in name for f in ((fragment,) if isinstance(fragment, str) else fragment))
 
 
 def sass_of(text: str, fragment) -> str:
     """The SASS of the functions of a ``cuobjdump -sass`` listing whose
-    (mangled) name holds ``fragment``; the whole listing without one."""
+    (mangled) name holds ``fragment`` (``name_holds``); the whole listing
+    without one."""
     if fragment is None:
         return text
     parts = text.split("Function : ")
-    return "".join(p for p in parts[1:] if fragment in p.split("\n", 1)[0])
+    return "".join(p for p in parts[1:] if name_holds(p.split("\n", 1)[0], fragment))
+
+
+@functools.lru_cache(maxsize=None)
+def sass_listing(lib: Path) -> str:
+    """The ``cuobjdump -sass`` listing of a built library, with the
+    cuobjdump of nvcc's toolkit, read once (the bf16 and fp16 entries of
+    a source share its library)."""
+    from accelerate_tpu_torch.ops import kernels
+
+    tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {lib.name} failed: {res.stderr.strip()[-500:]}")
+    return res.stdout
 
 
 def sass_gate(names, ops, what: str, fragment=None, label: str = "") -> dict:
     """Count each of ``ops`` in the SASS of each built library of
-    ``names`` (of a flash entry, its own instantiation's functions:
+    ``names`` (of each entry, its own instantiation's functions:
     ``SASS_FUNCTIONS``; with ``fragment``, the functions whose mangled
-    name holds it, printed under the name plus ``label``), read with the
-    cuobjdump of nvcc's toolkit; fails unless every one is present in each
-    (the kernel does not ``what``)."""
+    name holds it, printed under the name plus ``label``), read from its
+    ``sass_listing``; fails unless every one is present in each (the
+    kernel does not ``what``)."""
     from accelerate_tpu_torch.ops import kernels
 
-    tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
     counts = {}
     for name in names:
-        lib = kernels.library_path(name)
-        res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
-                             timeout=300)
-        if res.returncode != 0:
-            fail(f"cuobjdump -sass {lib.name} failed: {res.stderr.strip()[-500:]}")
-        text = sass_of(res.stdout, fragment or SASS_FUNCTIONS.get(name))
+        text = sass_of(sass_listing(kernels.library_path(name)),
+                       fragment or SASS_FUNCTIONS.get(name))
         counts[name + label] = {op: text.count(op) for op in ops}
         print(f"{name}{label} SASS: "
               + ", ".join(f"{op} {n}" for op, n in counts[name + label].items()))
@@ -354,26 +387,39 @@ def sass_gate(names, ops, what: str, fragment=None, label: str = "") -> dict:
     return counts
 
 
-# the decode kernels' four libraries (csrc/decode_common.cuh: paged and
-# dense, each bf16 and int8/int4) run their products on mma.sync (HMMA in
-# SASS) over tiles staged by cp.async (LDGSTS)
+# the decode kernels' entries (csrc/decode_common.cuh: paged and dense,
+# each 16-bit and int8/int4, in bf16 and in fp16) run their products on
+# mma.sync (HMMA in SASS) over tiles staged by cp.async (LDGSTS)
 DECODE_KERNELS = ("paged_decode", "paged_decode_quant", "dense_decode", "dense_decode_quant")
+DECODE_KERNELS_F16 = tuple(name + "_f16" for name in DECODE_KERNELS)
+
+
+def spill_gate(reports: dict, name: str, fragments, label: str = ""):
+    """Fail if ptxas reported a spill in a function of kernel ``name``'s
+    library whose mangled name holds one of ``fragments`` (``name_holds``),
+    or no such function was compiled (``reports``: ``kernels.build()``'s
+    ptxas output of what this run compiled); prints the count and the
+    spill bytes under the name plus ``label``."""
+    import re
+
+    report = reports.get(name)
+    if report is None:
+        print(f"{name}{label}: library reused from an earlier build, no ptxas report")
+        return
+    spills = []
+    for part in report.split("Compiling entry function")[1:]:
+        if any(name_holds(part.split("\n", 1)[0], f) for f in fragments):
+            spills += [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", part)]
+    print(f"{name}{label} ptxas: {len(spills) // 2} kernels, spill bytes {sum(spills)}")
+    if not spills or any(spills):
+        fail(f"{name}{label}: ptxas reports spills (or no such function): {spills}")
 
 
 def decode_spill_gate(reports: dict):
-    """Fail if ptxas reported a spill in any decode library
-    (``reports``: ``kernels.build()``'s ptxas output of what this run
-    compiled)."""
-    import re
-
-    for name in DECODE_KERNELS:
-        if name not in reports:
-            print(f"{name}: library reused from an earlier build, no ptxas report in this run")
-            continue
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", reports[name])]
-        print(f"{name} ptxas: {len(spills) // 2} kernels, spill bytes {sum(spills)}")
-        if not spills or any(spills):
-            fail(f"{name}: ptxas reports spills (or no report): {spills}")
+    """Fail if ptxas reported a spill in any decode entry's own functions
+    (each entry's instantiation: ``SASS_FUNCTIONS``)."""
+    for name in DECODE_KERNELS + DECODE_KERNELS_F16:
+        spill_gate(reports, name, (SASS_FUNCTIONS[name],))
 
 
 # the dense decode kernel's D 64 instantiation (csrc/decode_common.cuh
@@ -384,21 +430,21 @@ D64_SPLIT, D64_FUNCTIONS = "split_kernelILi64E", ("split_kernelILi64E", "merge_k
 
 def d64_spill_gate(reports: dict):
     """Fail if ptxas reported a spill in a function of the dense decode
-    library's D 64 instantiation (``D64_FUNCTIONS``), or none was compiled;
-    prints the count and the spill bytes on a line of its own."""
-    import re
+    library's D 64 instantiation (``D64_FUNCTIONS``) of either entry, bf16
+    and fp16, or none was compiled."""
+    for sfx, mangled in DTYPE_MANGLED.items():
+        spill_gate(reports, "dense_decode" + sfx, [(f, mangled) for f in D64_FUNCTIONS],
+                   " (D 64)")
 
-    report = reports.get("dense_decode")
-    if report is None:
-        print("dense_decode (D 64): library reused from an earlier build, no ptxas report")
-        return
-    spills = []
-    for part in report.split("Compiling entry function")[1:]:
-        if any(f in part.split("\n", 1)[0] for f in D64_FUNCTIONS):
-            spills += [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", part)]
-    print(f"dense_decode (D 64) ptxas: {len(spills) // 2} kernels, spill bytes {sum(spills)}")
-    if not spills or any(spills):
-        fail(f"dense_decode (D 64): ptxas reports spills (or no D 64 function): {spills}")
+
+def dtype_suffix(dtype) -> str:
+    """The entry-point suffix of a kernel's element type (None: bf16):
+    "" or "_f16"."""
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+
+    return kernels.KERNEL_DTYPES[dtype or torch.bfloat16]
 
 
 def bound(nbytes: float, flops: float):
@@ -489,16 +535,16 @@ def counted(name: str, fn):
     return out
 
 
-def paged_inputs(gen, dev, sq: int):
-    """q [9, H, sq, D] and bf16 K/V pages of ``paged_case(dev, sq)``,
-    drawn from ``gen`` in that order. Returns ``(q, k_pages, v_pages,
-    table, pos)``."""
+def paged_inputs(gen, dev, sq: int, dtype=None):
+    """q [9, H, sq, D] and K/V pages of ``paged_case(dev, sq)`` in
+    ``dtype`` (None: bf16), drawn from ``gen`` in that order. Returns
+    ``(q, k_pages, v_pages, table, pos)``."""
     import torch
 
     table, pos, num_pages = paged_case(dev, sq)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype or torch.bfloat16)
 
     q = rnd(pos.shape[0], H, sq, D)
     return q, rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D), table, pos
@@ -526,10 +572,10 @@ DECODE_EDGES = [
 ]
 
 
-def decode_edge_inputs(dev):
+def decode_edge_inputs(dev, dtype=None):
     """The DECODE_EDGES cases: ``[(tag, E, q, k_pages, v_pages, table,
-    pos)]`` with bf16 pages, live slots on shuffled pages, from one
-    generator seeded DECODE_EDGE_SEED."""
+    pos)]`` with pages in ``dtype`` (None: bf16), live slots on shuffled
+    pages, from one generator seeded DECODE_EDGE_SEED."""
     import torch
 
     from accelerate_tpu_torch.ops import kernels
@@ -556,7 +602,7 @@ def decode_edge_inputs(dev):
             pos[s] = (last - sq + 1 + torch.arange(sq)).clamp(min=0)
 
         def rnd(*shape):
-            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            return torch.randn(shape, generator=gen, device=dev).to(dtype or torch.bfloat16)
 
         q = rnd(b, heads, sq, D)
         cases.append((tag, e, q, rnd(num_pages, KVH, ps, D), rnd(num_pages, KVH, ps, D),
@@ -564,43 +610,48 @@ def decode_edge_inputs(dev):
     return cases
 
 
-def decode_edge_checks(dev, bits_list) -> float:
-    """Hold the paged decode kernel (``bits`` 0: bf16; 8 / 4: its quantized
-    entry on pages quantized by the port's quantize_kv) against its plain
+def decode_edge_checks(dev, bits_list, dtype=None) -> float:
+    """Hold the paged decode kernel (``bits`` 0: 16-bit pages; 8 / 4: its
+    quantized entry on pages quantized by the port's quantize_kv), in
+    ``dtype`` (None: bf16; fp16: the ``_f16`` entries), against its plain
     version on every DECODE_EDGES case. Returns the max abs error."""
     from accelerate_tpu_torch.ops.attention import paged_decode_attention, paged_decode_reference
     from accelerate_tpu_torch.utils.quantization import quantize_kv
 
     worst = 0.0
-    for tag, e, q, k_pages, v_pages, table, pos in decode_edge_inputs(dev):
+    for tag, e, q, k_pages, v_pages, table, pos in decode_edge_inputs(dev, dtype):
         errs = []
         for bits in bits_list:
             kw, kp, vp = {}, k_pages, v_pages
             if bits:
                 (kp, ks), (vp, vs) = quantize_kv(k_pages, bits), quantize_kv(v_pages, bits)
                 kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
-            name = "paged_decode_quant" if bits else "paged_decode"
+            name = ("paged_decode_quant" if bits else "paged_decode") + dtype_suffix(dtype)
             got = counted(name, lambda: paged_decode_attention(
                 q, kp, vp, page_table=table, q_positions=pos, **kw))
             want = paged_decode_reference(q, kp, vp, table, pos, 1.0 / math.sqrt(D), **kw)
-            errs.append(check_close(f"{name} ({entry(bits)}, edge case {tag})", got, want))
+            errs.append(check_close(f"{name} ({entry(bits, dtype)}, edge case {tag})", got,
+                                    want))
         worst = max(worst, *errs)
-        print(f"kernel paged_decode edge case {tag} (split {e} tokens, H {q.shape[1]}, "
-              f"page {k_pages.shape[2]}, slots' last positions {pos[:, -1].tolist()}): "
-              + ", ".join(f"{entry(bits)} max_abs_err {err:.3e}"
+        print(f"kernel paged_decode{dtype_suffix(dtype)} edge case {tag} (split {e} tokens, "
+              f"H {q.shape[1]}, page {k_pages.shape[2]}, slots' last positions "
+              f"{pos[:, -1].tolist()}): "
+              + ", ".join(f"{entry(bits, dtype)} max_abs_err {err:.3e}"
                           for bits, err in zip(bits_list, errs))
               + f" (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|)")
     return worst
 
 
-def decode_phase(gen, dev, gen_spec):
+def decode_phase(gen, dev, gen_spec, dtype=None):
     """Paged decode: 8 live slots of mixed length + one parked slot, at Sq
     1 (a decode step; inputs from ``gen``) and Sq K + 1 (a verify step;
-    inputs from ``gen_spec``)."""
+    inputs from ``gen_spec``), in ``dtype`` (None: bf16; fp16: the
+    ``paged_decode_f16`` entry, SDPA in fp16 too)."""
     from accelerate_tpu_torch.ops.attention import paged_decode_attention, paged_decode_reference
 
-    q, k_pages, v_pages, table, pos1 = paged_inputs(gen, dev, 1)
-    spec = paged_inputs(gen_spec, dev, SPEC_K + 1)
+    kname = "paged_decode" + dtype_suffix(dtype)
+    q, k_pages, v_pages, table, pos1 = paged_inputs(gen, dev, 1, dtype)
+    spec = paged_inputs(gen_spec, dev, SPEC_K + 1, dtype)
     scale = 1.0 / math.sqrt(D)
 
     def run_kernel(q=q, k_pages=k_pages, v_pages=v_pages, table=table, pos=pos1):
@@ -610,11 +661,11 @@ def decode_phase(gen, dev, gen_spec):
         return paged_decode_reference(q, k_pages, v_pages, table, pos, scale)
 
     b = pos1.shape[0]
-    err = check_close("paged_decode", counted("paged_decode", run_kernel), run_plain())
-    err_spec = check_close(f"paged_decode (Sq {SPEC_K + 1})",
-                           counted("paged_decode", lambda: run_kernel(*spec)),
+    err = check_close(kname, counted(kname, run_kernel), run_plain())
+    err_spec = check_close(f"{kname} (Sq {SPEC_K + 1})",
+                           counted(kname, lambda: run_kernel(*spec)),
                            run_plain(*spec))
-    err_edges = decode_edge_checks(dev, (0,))
+    err_edges = decode_edge_checks(dev, (0,), dtype)
     ms = cuda_time_ms(run_kernel)
     plain_ms = cuda_time_ms(run_plain)
     spec_ms = cuda_time_ms(lambda: run_kernel(*spec))
@@ -626,7 +677,7 @@ def decode_phase(gen, dev, gen_spec):
     spec_library = paged_library_ms(*spec)
     bound_ms, bound_by = bound(*paged_work(table, pos1, D * 2))
     spec_bound_ms, _ = bound(*paged_work(spec[3], spec[4], D * 2))
-    print(f"kernel paged_decode: slots {b} (lengths {PAGED_LENGTHS} + parked), "
+    print(f"kernel {kname}: slots {b} (lengths {PAGED_LENGTHS} + parked), "
           f"max_abs_err {err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}), "
           f"library sdpa {library_text(library)}; kernel without the parked slot "
@@ -635,23 +686,27 @@ def decode_phase(gen, dev, gen_spec):
           f"{spec_bound_ms * 1e3:.2f} us, library sdpa {library_text(spec_library)}; kernel / "
           f"sdpa {ms / library[0]:.3f}x (Sq 1), {spec_ms / spec_library[0]:.3f}x (Sq "
           f"{SPEC_K + 1})")
-    return {"name": "paged_decode", "route": "cuda",
+    return {"name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/csrc/paged_decode.cu",
             "replaces": "accelerate_tpu/ops/attention.py:926",
             "max_abs_err": max(err, err_spec, err_edges), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library[0]}
 
 
-def paged_decode_quant_phase(gen, dev):
+def paged_decode_quant_phase(gen, dev, dtype=None):
     """The paged decode kernel's int8 / int4 entry at the paged-serving
-    shape (payloads from the port's quantize_kv), Sq 1 and Sq K + 1.
-    Returns the kernel's row (int8 at Sq 1 timed; errors over all cases)."""
+    shape (payloads from the port's quantize_kv), Sq 1 and Sq K + 1, with
+    q in ``dtype`` (None: bf16; fp16: the ``paged_decode_quant_f16``
+    entry, dequantizing to fp16). Returns the kernel's row (int8 at Sq 1
+    timed; errors over all cases)."""
     import torch
 
     from accelerate_tpu_torch.ops.attention import paged_decode_attention, paged_decode_reference
     from accelerate_tpu_torch.utils.quantization import dequantize_kv, quantize_kv
 
-    q_spec, k_pages, v_pages, table, pos = paged_inputs(gen, dev, SPEC_K + 1)
+    dt = dtype or torch.bfloat16
+    kname = "paged_decode_quant" + dtype_suffix(dtype)
+    q_spec, k_pages, v_pages, table, pos = paged_inputs(gen, dev, SPEC_K + 1, dtype)
     q, pos1 = q_spec[:, :, :1].contiguous(), pos[:, :1].contiguous()  # Sq 1: the first row
     b = pos.shape[0]
     scale = 1.0 / math.sqrt(D)
@@ -666,22 +721,21 @@ def paged_decode_quant_phase(gen, dev):
         def run_plain(q=q, pos=pos1):
             return paged_decode_reference(q, kq, vq, table, pos, scale, **kw)
 
-        errs.append(check_close(f"paged_decode_quant (int{bits})",
-                                counted("paged_decode_quant", run_kernel), run_plain()))
-        errs.append(check_close(f"paged_decode_quant (int{bits}, Sq {SPEC_K + 1})",
-                                counted("paged_decode_quant",
-                                        lambda: run_kernel(q_spec, pos)),
+        errs.append(check_close(f"{kname} (int{bits})", counted(kname, run_kernel),
+                                run_plain()))
+        errs.append(check_close(f"{kname} (int{bits}, Sq {SPEC_K + 1})",
+                                counted(kname, lambda: run_kernel(q_spec, pos)),
                                 run_plain(q_spec, pos)))
         ms, plain_ms = cuda_time_ms(run_kernel), cuda_time_ms(run_plain)
         spec_ms = cuda_time_ms(lambda: run_kernel(q_spec, pos))
-        k_deq = dequantize_kv(kq, ks, bits, torch.bfloat16)
-        v_deq = dequantize_kv(vq, vs, bits, torch.bfloat16)
+        k_deq = dequantize_kv(kq, ks, bits, dt)
+        v_deq = dequantize_kv(vq, vs, bits, dt)
         library = paged_library_ms(q, k_deq, v_deq, table, pos1)
         spec_library = paged_library_ms(q_spec, k_deq, v_deq, table, pos)
         row_bytes = (D // 2 if bits == 4 else D) + 4
         bound_ms, bound_by = bound(*paged_work(table, pos1, row_bytes))
         spec_bound_ms, _ = bound(*paged_work(table, pos, row_bytes))
-        print(f"kernel paged_decode_quant (int{bits}): slots {b}, Sq 1, max_abs_err "
+        print(f"kernel {kname} (int{bits}): slots {b}, Sq 1, max_abs_err "
               f"{errs[-2]:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}), library "
               f"sdpa {library_text(library)} (on K/V gathered and dequantized beforehand: "
@@ -691,8 +745,8 @@ def paged_decode_quant_phase(gen, dev):
               f"{ms / library[0]:.3f}x (Sq 1), {spec_ms / spec_library[0]:.3f}x (Sq {SPEC_K + 1})")
         rows[bits] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": library[0]}
-    errs.append(decode_edge_checks(dev, (8, 4)))
-    return dict(name="paged_decode_quant", route="cuda",
+    errs.append(decode_edge_checks(dev, (8, 4), dtype))
+    return dict(name=kname, route="cuda",
                 source="accelerate_tpu_torch/csrc/paged_decode_quant.cu",
                 replaces="accelerate_tpu/ops/attention.py:889", max_abs_err=max(errs),
                 **rows[8])
@@ -752,13 +806,14 @@ def prefill_case(dev, packs=PREFILL_PACKS, cap=PREFILL_CAP, pad_block=True):
     return {k: t.to(dev) for k, t in rows.items()}, next_page
 
 
-def prefill_inputs(gen, dev, cap, num_pages):
-    """q [1, H, cap, D], k_new / v_new [1, KVH, cap, D] and bf16 K/V pages
-    [num_pages, KVH, PAGE, D], drawn from ``gen`` in that order."""
+def prefill_inputs(gen, dev, cap, num_pages, dtype=None):
+    """q [1, H, cap, D], k_new / v_new [1, KVH, cap, D] and K/V pages
+    [num_pages, KVH, PAGE, D] in ``dtype`` (None: bf16), drawn from
+    ``gen`` in that order."""
     import torch
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype or torch.bfloat16)
 
     return (rnd(1, H, cap, D), rnd(1, KVH, cap, D), rnd(1, KVH, cap, D),
             rnd(num_pages, KVH, PAGE, D), rnd(num_pages, KVH, PAGE, D))
@@ -831,24 +886,23 @@ def prefill_check(name: str, got, want, rows, quant: bool) -> float:
 
 
 def prefill_entry(name: str, dev, inputs, rows, packs, bits: int = 0, timed: bool = True):
-    """One entry of the ragged prefill kernel (``bits`` 0: bf16; 8 / 4:
-    quantized, the arena pages quantized by the port's quantize_kv) on one
+    """One entry of the ragged prefill kernel (``bits`` 0: 16-bit pages; 8
+    / 4: quantized, the arena pages quantized by the port's quantize_kv),
+    in the inputs' dtype (bf16, or fp16: the ``_f16`` entries), on one
     pack: checked by ``prefill_check`` and, when ``timed``, timed beside
     its plain version, SDPA (on K/V dequantized beforehand when quantized)
     and its bound. Returns the phase's numbers."""
-    import torch
-
     from accelerate_tpu_torch.ops.attention import ragged_prefill_attention, ragged_prefill_reference
     from accelerate_tpu_torch.utils.quantization import dequantize_kv, quantize_kv
 
     q, k_new, v_new, k_pages, v_pages = inputs
-    kernel = "ragged_prefill_quant" if bits else "ragged_prefill"
+    kernel = ("ragged_prefill_quant" if bits else "ragged_prefill") + dtype_suffix(q.dtype)
     kw, k_lib, v_lib = {}, k_pages, v_pages
     if bits:
         (k_pages, ks), (v_pages, vs) = quantize_kv(k_pages, bits), quantize_kv(v_pages, bits)
         kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
-        k_lib = dequantize_kv(k_pages, ks, bits, torch.bfloat16)
-        v_lib = dequantize_kv(v_pages, vs, bits, torch.bfloat16)
+        k_lib = dequantize_kv(k_pages, ks, bits, q.dtype)
+        v_lib = dequantize_kv(v_pages, vs, bits, q.dtype)
 
     def run_kernel():
         return ragged_prefill_attention(q, k_new, v_new, k_pages, v_pages, **rows, **kw)
@@ -870,36 +924,42 @@ def prefill_entry(name: str, dev, inputs, rows, packs, bits: int = 0, timed: boo
             "library": prefill_library_ms(q, k_new, v_new, k_lib, v_lib, rows, packs)}
 
 
-def entry(bits: int) -> str:
-    return f"int{bits}" if bits else "bf16"
-
-
-def prefill_phases(gen, gen_quant, dev):
-    """The ragged prefill kernel's three entries (bf16 with inputs from
-    ``gen``, int8 and int4 on one input from ``gen_quant``) at
-    PREFILL_PACKS and a pad block, then at PREFILL_CASES; (a) checked, the
-    others timed too. Returns the bf16 and the quantized kernel rows (int8
-    at PREFILL_PACKS timed; errors over every case and entry)."""
+def entry(bits: int, dtype=None) -> str:
+    """A kernel case's label: its KV's bits, or its 16-bit type."""
     import torch
 
+    return f"int{bits}" if bits else ("fp16" if dtype == torch.float16 else "bf16")
+
+
+def prefill_phases(gen, gen_quant, dev, dtype=None):
+    """The ragged prefill kernel's three entries (16-bit with inputs from
+    ``gen``, int8 and int4 on one input from ``gen_quant``) at
+    PREFILL_PACKS and a pad block, then at PREFILL_CASES, in ``dtype``
+    (None: bf16; fp16: the ``_f16`` entries); (a) checked, the others
+    timed too. Returns the 16-bit and the quantized kernel rows (int8 at
+    PREFILL_PACKS timed; errors over every case and entry)."""
+    import torch
+
+    sfx = dtype_suffix(dtype)
     rows, num_pages = prefill_case(dev)
-    main = {0: prefill_inputs(gen, dev, PREFILL_CAP, num_pages)}
-    main[8] = main[4] = prefill_inputs(gen_quant, dev, PREFILL_CAP, num_pages)
-    res = {(bits, "main"): prefill_entry(f"ragged_prefill ({entry(bits)})", dev, main[bits],
-                                         rows, PREFILL_PACKS, bits) for bits in (0, 8, 4)}
+    main = {0: prefill_inputs(gen, dev, PREFILL_CAP, num_pages, dtype)}
+    main[8] = main[4] = prefill_inputs(gen_quant, dev, PREFILL_CAP, num_pages, dtype)
+    res = {(bits, "main"): prefill_entry(f"ragged_prefill{sfx} ({entry(bits, dtype)})", dev,
+                                         main[bits], rows, PREFILL_PACKS, bits)
+           for bits in (0, 8, 4)}
     for tag, (cap, packs, pad_block, seed) in PREFILL_CASES.items():
         case_rows, case_pages = prefill_case(dev, packs, cap, pad_block)
         inputs = prefill_inputs(torch.Generator(device=dev).manual_seed(seed), dev, cap,
-                                case_pages)
+                                case_pages, dtype)
         for bits in (0, 8, 4):
-            res[bits, tag] = prefill_entry(f"ragged_prefill ({entry(bits)}, {tag})", dev,
-                                           inputs, case_rows, packs, bits,
+            res[bits, tag] = prefill_entry(f"ragged_prefill{sfx} ({entry(bits, dtype)}, {tag})",
+                                           dev, inputs, case_rows, packs, bits,
                                            timed=tag.startswith("b"))
     for (bits, tag), r in res.items():
         what = f"cap {PREFILL_CAP}, packs (slot, hist, tail) {PREFILL_PACKS} + pad block" \
             if tag == "main" else tag
-        line = (f"kernel {'ragged_prefill_quant' if bits else 'ragged_prefill'} "
-                f"({entry(bits)}, {what}): out max_abs_err "
+        line = (f"kernel {'ragged_prefill_quant' if bits else 'ragged_prefill'}{sfx} "
+                f"({entry(bits, dtype)}, {what}): out max_abs_err "
                 f"{r['max_abs_err']:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|)"
                 + (", payloads and scales bit-exact" if bits else ""))
         if "ms" in r:
@@ -913,7 +973,7 @@ def prefill_phases(gen, gen_quant, dev):
     for name, bits, line in (("ragged_prefill", 0, 1469), ("ragged_prefill_quant", 8, 1458)):
         r = res[bits, "main"]
         errs = [v["max_abs_err"] for (b, _), v in res.items() if bool(b) == bool(bits)]
-        out.append({"name": name, "route": "cuda",
+        out.append({"name": name + sfx, "route": "cuda",
                     "source": f"accelerate_tpu_torch/csrc/{name}.cu",
                     "replaces": f"accelerate_tpu/ops/attention.py:{line}",
                     "max_abs_err": max(errs), "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1032,7 +1092,7 @@ def flash_phases(gen, dev, dtype=None):
     )
 
     dtype = dtype or torch.bfloat16
-    sfx = kernels.FLASH_DTYPES[dtype]
+    sfx = kernels.KERNEL_DTYPES[dtype]
     tname = "bf16" if dtype == torch.bfloat16 else "fp16"
 
     def fwd_kernel(x):
@@ -1142,7 +1202,8 @@ GEN_HEADS, GEN_CACHE, GEN_POS = 32, 768, 575
 
 def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
     """Hold the dense decode kernel (``bits`` 0) or its quantized entry
-    (``bits`` 8 / 4, payloads from the port's quantize_kv) against the
+    (``bits`` 8 / 4, payloads from the port's quantize_kv), in q's dtype
+    (bf16, or fp16: the ``_f16`` entries), against the
     plain version on one input, and time kernel, plain version and SDPA
     over the same arena with the boolean mask (quantized: on K/V
     dequantized beforehand, so SDPA's time leaves the dequant out).
@@ -1155,13 +1216,13 @@ def dense_case(gen, dev, tag, q, k, v, pos, bits=0):
 
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    name = "dense_decode_quant" if bits else "dense_decode"
+    name = ("dense_decode_quant" if bits else "dense_decode") + dtype_suffix(q.dtype)
     kw, k_lib, v_lib = {}, k, v
     if bits:
         (k, ks), (v, vs) = quantize_kv(k, bits), quantize_kv(v, bits)
         kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
-        k_lib = dequantize_kv(k, ks, bits, torch.bfloat16)
-        v_lib = dequantize_kv(v, vs, bits, torch.bfloat16)
+        k_lib = dequantize_kv(k, ks, bits, q.dtype)
+        v_lib = dequantize_kv(v, vs, bits, q.dtype)
 
     def run_kernel():
         return decode_attention(q, k, v, q_positions=pos, **kw)
@@ -1221,9 +1282,10 @@ DENSE_EDGES = [
 ]
 
 
-def dense_edge_inputs(dev):
-    """The DENSE_EDGES cases: ``[(tag, E, q, k, v, pos)]`` with bf16 K/V
-    [B, KVH, L, D], from one generator seeded DENSE_EDGE_SEED."""
+def dense_edge_inputs(dev, dtype=None):
+    """The DENSE_EDGES cases: ``[(tag, E, q, k, v, pos)]`` with K/V
+    [B, KVH, L, D] in ``dtype`` (None: bf16), from one generator seeded
+    DENSE_EDGE_SEED."""
     import torch
 
     from accelerate_tpu_torch.ops import kernels
@@ -1239,55 +1301,62 @@ def dense_edge_inputs(dev):
         pos = (lasts[:, None] - sq + 1 + torch.arange(sq, dtype=torch.int32)).clamp(min=0)
 
         def rnd(*shape):
-            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            return torch.randn(shape, generator=gen, device=dev).to(dtype or torch.bfloat16)
 
         cases.append((tag, e, rnd(b, heads, sq, D), rnd(b, KVH, length, D),
                       rnd(b, KVH, length, D), pos.to(dev)))
     return cases
 
 
-def dense_edge_checks(dev) -> dict:
-    """Hold the dense decode kernel (bf16) and its quantized entry (int8,
-    int4 on K/V quantized by the port's quantize_kv) against the plain
-    version on every DENSE_EDGES case. Returns the max abs error of each
-    ``bits`` (0, 8, 4)."""
+def dense_edge_checks(dev, dtype=None) -> dict:
+    """Hold the dense decode kernel (16-bit K/V) and its quantized entry
+    (int8, int4 on K/V quantized by the port's quantize_kv), in ``dtype``
+    (None: bf16; fp16: the ``_f16`` entries), against the plain version on
+    every DENSE_EDGES case. Returns the max abs error of each ``bits`` (0,
+    8, 4)."""
     from accelerate_tpu_torch.ops.attention import decode_attention, decode_attention_reference
     from accelerate_tpu_torch.utils.quantization import quantize_kv
 
+    sfx = dtype_suffix(dtype)
     worst = {0: 0.0, 8: 0.0, 4: 0.0}
-    for tag, e, q, k, v, pos in dense_edge_inputs(dev):
+    for tag, e, q, k, v, pos in dense_edge_inputs(dev, dtype):
         errs = {}
         for bits in worst:
             kw, kq, vq = {}, k, v
             if bits:
                 (kq, ks), (vq, vs) = quantize_kv(k, bits), quantize_kv(v, bits)
                 kw = dict(k_scale=ks, v_scale=vs, kv_quant_bits=bits)
-            name = "dense_decode_quant" if bits else "dense_decode"
+            name = ("dense_decode_quant" if bits else "dense_decode") + sfx
             got = counted(name, lambda: decode_attention(q, kq, vq, q_positions=pos, **kw))
             want = decode_attention_reference(q, kq, vq, pos, 1.0 / math.sqrt(D), **kw)
-            errs[bits] = check_close(f"{name} ({entry(bits)}, edge case {tag})", got, want)
+            errs[bits] = check_close(f"{name} ({entry(bits, dtype)}, edge case {tag})", got,
+                                     want)
             worst[bits] = max(worst[bits], errs[bits])
-        print(f"kernel dense_decode edge case {tag} (split {e} tokens, H {q.shape[1]}, "
+        print(f"kernel dense_decode{sfx} edge case {tag} (split {e} tokens, H {q.shape[1]}, "
               f"Sq {q.shape[2]}, L {k.shape[2]}, rows' last positions {pos[:, -1].tolist()}): "
-              + ", ".join(f"{entry(bits)} max_abs_err {err:.3e}" for bits, err in errs.items())
+              + ", ".join(f"{entry(bits, dtype)} max_abs_err {err:.3e}"
+                          for bits, err in errs.items())
               + f" (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|)")
     return worst
 
 
-def dense_decode_phases(gen, dev):
+def dense_decode_phases(gen, dev, dtype=None):
     """The dense decode kernel and its int8 / int4 entry at the paths'
     shapes: (a) the flat engine's decode step on small_1b (B 9 = 8 live
     slots of lengths 17..1500 + one parked at 2047, H 16, KVH 8, L 2048);
     (b) generate()'s decode step on llama_7b (B 1 and B 4, H = KVH = 32,
     L 768, position 575); (c) Sq 4 with per-row positions on (a)'s arena;
     (d) int8 and int4 at (a); then the DENSE_EDGES cases (their own
-    inputs). Returns the two kernel rows."""
+    inputs). In ``dtype`` (None: bf16; fp16: the ``_f16`` entries).
+    Returns the two kernel rows."""
     import torch
 
     from accelerate_tpu_torch.ops.attention import decode_attention
 
+    sfx = dtype_suffix(dtype)
+
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype or torch.bfloat16)
 
     b = len(FLAT_LENGTHS) + 1
     pos_a = torch.tensor([n - 1 for n in FLAT_LENGTHS] + [MAX_CACHE - 1],
@@ -1296,7 +1365,7 @@ def dense_decode_phases(gen, dev):
     flat = dense_case(gen, dev, "a: small_1b flat arena, 8 live + parked", q_a, k_a, v_a, pos_a)
     live_ms = cuda_time_ms(lambda: decode_attention(
         q_a[:-1], k_a[:-1], v_a[:-1], q_positions=pos_a[:-1]))
-    print(f"kernel dense_decode (a) without the parked slot: {live_ms:.4f} ms")
+    print(f"kernel dense_decode{sfx} (a) without the parked slot: {live_ms:.4f} ms")
     errs = [flat["max_abs_err"]]
     for gb in (1, 4):
         pos_b = torch.full((gb, 1), GEN_POS, dtype=torch.int32, device=dev)
@@ -1309,17 +1378,52 @@ def dense_decode_phases(gen, dev):
                            pos_c)["max_abs_err"])
     quant = {bits: dense_case(gen, dev, f"d: int{bits}, arena of (a)", q_a, k_a, v_a, pos_a,
                               bits=bits) for bits in (8, 4)}
-    edges = dense_edge_checks(dev)
-    rows = [dict(name="dense_decode", route="cuda",
+    edges = dense_edge_checks(dev, dtype)
+    rows = [dict(name="dense_decode" + sfx, route="cuda",
                  source="accelerate_tpu_torch/csrc/dense_decode.cu",
                  replaces="accelerate_tpu/ops/attention.py:977", **flat)]
     rows[0]["max_abs_err"] = max(*errs, edges[0])
-    rows.append(dict(name="dense_decode_quant", route="cuda",
+    rows.append(dict(name="dense_decode_quant" + sfx, route="cuda",
                      source="accelerate_tpu_torch/csrc/dense_decode_quant.cu",
                      replaces="accelerate_tpu/ops/attention.py:898", **quant[8]))
     rows[1]["max_abs_err"] = max(quant[8]["max_abs_err"], quant[4]["max_abs_err"], edges[8],
                                  edges[4])
     return rows
+
+
+# the fp16 serving entries' kernel phases draw from generators of their
+# own (so no bf16 phase's inputs move): the paged decode's Sq 1 and Sq 5,
+# its quantized entry, the ragged prefill's 16-bit and quantized inputs,
+# the dense decode's
+F16_KERNEL_SEEDS = (21, 22, 23, 24, 25, 26)
+
+
+def serving_kernel_phases_f16(dev):
+    """The fp16 entries of the paged decode (#4), ragged prefill (#6) and
+    dense decode (#5) kernels at the bf16 phases' own shapes, cases and
+    tolerance, each against its plain version and timed beside its bound
+    (the bf16 row's: both types move 2 bytes a value), its plain version
+    and SDPA in fp16: #4 at Sq 1 and 5 and its six edge cases, int8 and
+    int4; #6 at PREFILL_PACKS and both PREFILL_CASES, int8 and int4 with
+    payloads and scales bit for bit; #5 at the flat arena, generate()'s
+    shapes, Sq 4, its edge cases, int8 and int4, and its D 64
+    instantiation at t5-base's decode (its error joins the
+    ``dense_decode_f16`` row, whose launches come from the flat fp16
+    run). Returns the six fp16 rows."""
+    import torch
+
+    f16 = torch.float16
+    g = [torch.Generator(device=dev).manual_seed(seed) for seed in F16_KERNEL_SEEDS]
+    rows = [decode_phase(g[0], dev, g[1], f16), paged_decode_quant_phase(g[2], dev, f16),
+            *prefill_phases(g[3], g[4], dev, f16)]
+    dense = dense_decode_phases(g[5], dev, f16)
+    d64 = t5_decode_phase(dev, f16)
+    dense[0]["max_abs_err"] = max(dense[0]["max_abs_err"], d64["max_abs_err"])
+    print(f"kernel dense_decode_f16 (D 64): t5-base decode B 4, position 63: kernel "
+          f"{d64['ms']:.4f} ms, plain {d64['plain_ms']:.4f} ms, bound {d64['bound_ms'] * 1e3:.3f} "
+          f"us ({d64['bound_by']}), library sdpa fp16 {d64['library_ms']:.4f} ms, max_abs_err "
+          f"{d64['max_abs_err']:.3e} over its cases (joins the dense_decode_f16 row)")
+    return rows + dense
 
 
 # CUPTI reports launch-queue stalls as events of this name; they are no
@@ -1764,6 +1868,130 @@ def spec_path(dev, card: str, model, prompt):
         if kv == "bf16":
             profile_decode(model, {**eng_kw, "spec_draft_len": SPEC_K}, prompt, card,
                            label="spec profile")
+
+
+# the serving kernels' entries: the bf16 ones an fp16 model must never
+# launch, and their fp16 counterparts
+SERVING_KERNELS = ("paged_decode", "paged_decode_quant", "ragged_prefill", "ragged_prefill_quant",
+                   "dense_decode", "dense_decode_quant")
+
+
+def fp16_serve_path(dev, card: str, prompts, prompt, paged: dict) -> dict:
+    """Serve ``DecoderConfig.small_1b(dtype=float16)`` at full width and
+    depth (random weights from seed 0, made on the card) with the main
+    path's engine settings and requests (9 x 32 tokens), greedy, in six
+    runs: (1) paged with an fp16 cache; (2) flat (``page_size=None``);
+    (3) paged int8, paged int4, then flat int8; (4) speculative verify, K
+    4, on the paged fp16 cache (spec_path's repeated-pattern prompts, so
+    the drafter proposes: each verify step reads #4 at Sq 5). Each run's
+    engine is warmed up (``serve_counted``; a warm-up wave comes before
+    the first run), then served with the counts reset just before and read
+    just after: exactly the fp16 entries its arena needs launch, one per layer
+    a decode or verify step and a prefill dispatch, and no bf16 serving
+    entry. Tokens are gated as the bf16 paths' are: the cache-free plain
+    forward (fp16 KV) or the teacher-forced quantized single-stream replay
+    with plain kernels (int8 / int4), within TOP2_MARGIN of its argmax;
+    zeroed-kernel controls (paged, flat, paged int8) must fail that gate.
+    TTFT p50, decode ms/step p50 and tokens/s print beside the bf16 paged
+    run's of this call (``paged``). Returns the fp16 entries' launches:
+    #4 / #6 from the paged and spec runs, their quantized entries from the
+    paged int8 and int4 runs, #5 from the flat run and its quantized entry
+    from the flat int8 run."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+
+    cfg = DecoderConfig.small_1b(dtype=torch.float16)
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device=dev).load_params(random_params(cfg, seed=0, device=dev))
+    torch.cuda.synchronize()
+    print(f"fp16 serve path: small_1b in fp16 ({cfg.num_layers} layers, E {cfg.embed_dim}, "
+          f"H {cfg.num_heads}, KVH {cfg.num_kv_heads}, D {cfg.head_dim}), random weights "
+          f"seed 0, built in {time.perf_counter() - t0:.1f} s")
+    new_tokens = 32
+    base = dict(num_slots=8, page_size=PAGE, max_cache_len=MAX_CACHE,
+                prefill_chunks=(128, 512), device=dev)
+    spec_prompts = [np.concatenate([prompt(8 + 8 * i), np.tile(prompt(16), 4 + i)])
+                    for i in range(8)]
+    runs = (("paged fp16", {}, prompts), ("flat fp16", {"page_size": None}, prompts),
+            ("paged int8", {"kv_cache_dtype": "int8"}, prompts),
+            ("paged int4", {"kv_cache_dtype": "int4"}, prompts),
+            ("flat int8", {"kv_cache_dtype": "int8", "page_size": None}, prompts),
+            (f"spec K {SPEC_K} fp16", {"spec_draft_len": SPEC_K}, spec_prompts))
+    launches = {name + "_f16": 0 for name in SERVING_KERNELS}
+    controls = {"paged fp16": "paged_decode_f16", "flat fp16": "dense_decode_f16",
+                "paged int8": "paged_decode_quant_f16"}
+
+    def gate(reqs, kv):
+        if kv in ("int8", "int4"):
+            return quant_replay(model, reqs, kv, new_tokens, dev) + (
+                f"the {kv} single-stream replay with plain kernels",)
+        return teacher_forced(model, reqs, new_tokens, dev) + ("the cache-free plain forward",)
+
+    for label, kw, reqs_prompts in runs:
+        eng_kw = {**base, **kw}
+        kv = kw.get("kv_cache_dtype", "bf16")
+        quant = "_quant" if kv != "bf16" else ""
+        decode = ("paged_decode" if eng_kw["page_size"] else "dense_decode") + quant + "_f16"
+        if label == runs[0][0]:
+            # the fp16 GEMMs' first calls (cuBLAS handles, the allocator):
+            # a warm-up wave before the first measured run, as main_path's
+            serve_counted(model, reqs_prompts[:2], 4, **eng_kw)
+        engine, reqs, wall, got = serve_counted(model, reqs_prompts, new_tokens, **eng_kw)
+        steps, dispatches = engine.step_count, engine.prefill_dispatches
+        want = {decode: steps * cfg.num_layers}
+        if eng_kw["page_size"]:
+            want["ragged_prefill" + quant + "_f16"] = dispatches * cfg.num_layers
+        expect_launches(f"fp16 serve path ({label})", got, want)
+        bf16 = {k: got.get(k, 0) for k in SERVING_KERNELS if got.get(k, 0)}
+        if bf16:
+            fail(f"fp16 serve path ({label}): bf16 serving entries launched: {bf16}")
+        for name, n in want.items():
+            launches[name] += n
+        m = engine.metrics()
+        if kw.get("spec_draft_len") and not m["serving/spec_proposed"] > 0:
+            fail(f"fp16 serve path ({label}): the drafter proposed nothing")
+        del engine
+        gap, exact, total, against = gate(reqs, kv)
+        if not math.isfinite(gap) or gap > TOP2_MARGIN:
+            fail(f"fp16 serve path ({label}): a token is {gap} logits below the argmax of "
+                 f"{against} (margin {TOP2_MARGIN})")
+        tps = m["serving/generated_tokens"] / wall
+        spec = (f"; proposed {m['serving/spec_proposed']}, accepted "
+                f"{m['serving/spec_accepted']}" if kw.get("spec_draft_len") else "")
+        print(f"fp16 serve path ({label}): {len(reqs)} requests x {new_tokens} tokens, "
+              f"{steps} {'verify' if kw.get('spec_draft_len') else 'decode'} steps, "
+              f"{dispatches} prefill dispatches, launches {want}, no bf16 entry{spec}; vs "
+              f"{against}: {exact}/{total} tokens its argmax, worst gap {gap:.4f} (margin "
+              f"{TOP2_MARGIN})")
+        print(f"fp16 serve path ({label}) on {card}: {tps:.1f} tokens/s over {wall:.3f} s, "
+              f"TTFT p50 {m['serving/ttft_ms_p50']:.2f} ms, decode "
+              f"{m['serving/decode_step_ms_p50']:.3f} ms/step (p50), arena "
+              f"{m['serving/arena_bytes'] / 1e9:.4f} GB; bf16 paged run of this call: "
+              f"{paged['tokens_per_s']:.1f} tokens/s, TTFT p50 {paged['ttft_ms_p50']:.2f} ms, "
+              f"decode {paged['step_ms_p50']:.3f} ms/step")
+        if label in controls:
+            name = controls[label]
+            wrapper = name.removesuffix("_f16")  # the wrapper routes by dtype
+            with mock.patch.object(kernels, wrapper, zeroed(getattr(kernels, wrapper))):
+                control, creqs, _, _ = serve_counted(model, reqs_prompts, new_tokens, **eng_kw)
+            del control
+            cgap, cexact, _, _ = gate(creqs, kv)
+            if not cgap > TOP2_MARGIN:
+                fail(f"fp16 serve path control ({label}, {name} output zeroed): every token "
+                     f"is within {TOP2_MARGIN} of the argmax (worst {cgap}): the gate is blind")
+            print(f"fp16 serve path control ({label}, {name} output zeroed): {cexact}/{total} "
+                  f"tokens the argmax, worst gap {cgap:.4f}: fails the gate")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3896,8 +4124,8 @@ TRAIN_GRAD_NORM_RTOL = 1e-3
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 FLASH_KERNELS_F16 = tuple(name + "_f16" for name in FLASH_KERNELS)
 # the kernels whose SASS must hold wgmma (HGMMA) and TMA tile loads (UTMALDG)
-TENSOR_CORE_KERNELS = FLASH_KERNELS + FLASH_KERNELS_F16 + ("ragged_prefill",
-                                                           "ragged_prefill_quant")
+TENSOR_CORE_KERNELS = FLASH_KERNELS + FLASH_KERNELS_F16 + tuple(
+    name + sfx for name in ("ragged_prefill", "ragged_prefill_quant") for sfx in DTYPE_MANGLED)
 
 
 def train_path(dev, card: str):
@@ -5187,6 +5415,15 @@ def dispatch_path(dev, card: str, gen: dict):
         ``dequantize_params`` of the same packed leaves; packed bytes,
         load phases, ms/token and the weight bytes a step reads.
 
+    Each of (a), (b) and (c)'s int8 load is also served by the paged
+    engine through ``ServingEngine.from_dispatched`` (2 requests x 8 new
+    tokens, prompts of 512; one paged decode launch per layer a step and
+    one ragged prefill launch per layer a dispatch): (a)'s tokens within
+    TOP2_MARGIN of the cache-free plain forward of the same weights, (b)'s
+    equal to (a)'s engine's bit for bit (the same weights, streamed), (c)'s
+    within TOP2_MARGIN of the plain forward over the same quantized
+    weights; ms/step beside (b)'s host-tier H2D bound.
+
     Returns the path's launches of the flash forward and dense decode
     kernels."""
     import os
@@ -5198,6 +5435,7 @@ def dispatch_path(dev, card: str, gen: dict):
 
     from accelerate_tpu_torch import (QuantizationConfig, generate, generate_dispatched,
                                       init_empty_weights, load_checkpoint_and_dispatch)
+    from accelerate_tpu_torch.serving.engine import ServingEngine
     from accelerate_tpu_torch.models.convert import export_reference_checkpoint, from_reference
     from accelerate_tpu_torch.models.decoder import DecoderLM, StreamedWeight
     from accelerate_tpu_torch.ops import kernels
@@ -5274,6 +5512,47 @@ def dispatch_path(dev, card: str, gen: dict):
         def phases_text(m):
             return ", ".join(f"{k} {v:.2f} s" for k, v in m.phase_seconds.items())
 
+        # the engine's requests: the path's prompt and its rotation by one
+        engine_prompts = [prompt[0].cpu().numpy(), torch.roll(prompt[0], 1).cpu().numpy()]
+
+        def serve(m, label):
+            """The paged engine over ``m`` through from_dispatched: warmed
+            up (its kernels built, its decode graph captured over the
+            streamed weights), then the 2 requests with the counts reset
+            just before and read just after. Returns (tokens, metrics)."""
+            engine = ServingEngine.from_dispatched(m, num_slots=2, page_size=PAGE,
+                                                   max_cache_len=2 * p_len,
+                                                   prefill_chunks=(128, 512))
+            try:
+                engine.warmup()
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                reqs = [engine.submit(p, max_new_tokens=DISPATCH_NEW, seed=i)
+                        for i, p in enumerate(engine_prompts)]
+                engine.run()
+                torch.cuda.synchronize()
+                got = dict(kernels.launch_counts)
+                expect_launches(f"dispatch {label} engine", got, {
+                    "paged_decode": engine.step_count * cfg.num_layers,
+                    "ragged_prefill": engine.prefill_dispatches * cfg.num_layers})
+                if any(r.outcome != "finished" or len(r.tokens) != DISPATCH_NEW for r in reqs):
+                    fail(f"dispatch {label} engine: a request did not finish its budget")
+                metrics = engine.metrics()
+            finally:
+                engine.close()
+            gap, exact, total = teacher_forced(m, reqs, DISPATCH_NEW, dev)
+            if not math.isfinite(gap) or gap > TOP2_MARGIN:
+                fail(f"dispatch {label} engine: a token is {gap} logits below the argmax of "
+                     f"the plain forward over the same weights (margin {TOP2_MARGIN})")
+            print(f"dispatch {label} engine on {card}: from_dispatched, paged, 2 requests x "
+                  f"{DISPATCH_NEW} tokens (prompts of {p_len}), {metrics['serving/decode_steps']} "
+                  f"decode steps, launches { {k: n for k, n in got.items() if n} }; vs the "
+                  f"cache-free plain forward: {exact}/{total} tokens its argmax, worst gap "
+                  f"{gap:.4f} (margin {TOP2_MARGIN}); TTFT p50 "
+                  f"{metrics['serving/ttft_ms_p50']:.1f} ms, decode "
+                  f"{metrics['serving/decode_step_ms_p50']:.3f} ms/step (p50)")
+            return [list(r.tokens) for r in reqs], metrics
+
         # (a) all on the card
         t0 = time.perf_counter()
         m = load_checkpoint_and_dispatch(cfg, ckpt, device_map="auto", dtype=torch.bfloat16)
@@ -5296,6 +5575,7 @@ def dispatch_path(dev, card: str, gen: dict):
               f"{phases_text(m)}; the read is from a warm page cache: this run just wrote "
               f"the file) + prefill {prefill_s * 1e3:.1f} ms; decode {all_ms:.3f} ms/token; "
               f"a call allocates {transient / 1e9:.3f} GB beyond the weights")
+        engine_tokens, _ = serve(m, "(a)")
         del m
         gc.collect()
         torch.cuda.empty_cache()
@@ -5371,6 +5651,13 @@ def dispatch_path(dev, card: str, gen: dict):
         print(f"dispatch (b) control (layer {DISPATCH_CONTROL_LAYER}'s host-tier copies "
               f"skipped): {int((control == want).sum())}/{want.numel()} tokens equal (a)'s: "
               "fails the check")
+        tier_tokens, tier_metrics = serve(m, "(b)")
+        if tier_tokens != engine_tokens:
+            fail(f"dispatch (b) engine: tokens {tier_tokens} differ from (a)'s engine's "
+                 f"{engine_tokens} over the same weights")
+        print(f"dispatch (b) engine on {card}: tokens equal (a)'s engine's; decode "
+              f"{tier_metrics['serving/decode_step_ms_p50']:.3f} ms/step (p50, 2 slots) "
+              f"against the host-tier H2D bound {bound_ms:.3f} ms/step")
         del m
         gc.collect()
         torch.cuda.empty_cache()
@@ -5399,6 +5686,8 @@ def dispatch_path(dev, card: str, gen: dict):
             if not torch.equal(got, want_q):
                 fail(f"dispatch (c) {label}: tokens {got.tolist()} differ from generate() on "
                      f"the dequantized weights {want_q.tolist()}")
+            if qc.load_in_8bit:
+                serve(m, "(c) int8")
             print(f"dispatch (c) on {card}: {label}: {DISPATCH_NEW} tokens identical to "
                   f"generate() on a DecoderLM of the dequantized packed leaves "
                   f"({int((got == want).sum())}/{want.numel()} equal to bf16's); packed "
@@ -5434,12 +5723,13 @@ T5_TRAIN = (8, 512, 128, 6)  # seq2seq_train_path: batch, source, target, steps
 BERT_TRAIN = (64, 128, 10, 20)  # encoder_train_path: batch, seq, steps_per_call, steps
 
 
-def t5_decode_phase(dev):
+def t5_decode_phase(dev, dtype=None):
     """The dense decode kernel's D 64 instantiation at t5-base's decode
-    shape (B 4, H = KVH = 12, group 1, D 64, L 1024, bf16) against the
-    plain version: checked at positions 1 and 32 of a 64-token generation
-    and timed at its last, 63 (beside its bound and SDPA over the same
-    K/V); then T5_EDGES on their own generator. Returns its kernel row."""
+    shape (B 4, H = KVH = 12, group 1, D 64, L 1024, in ``dtype``: None
+    bf16, or fp16 through ``dense_decode_f16``) against the plain version:
+    checked at positions 1 and 32 of a 64-token generation and timed at its
+    last, 63 (beside its bound and SDPA over the same K/V); then T5_EDGES
+    on their own generator. Returns its kernel row."""
     import torch
 
     from accelerate_tpu_torch.models.seq2seq import Seq2SeqConfig
@@ -5451,15 +5741,17 @@ def t5_decode_phase(dev):
     scale = 1.0 / math.sqrt(d)
     gen = torch.Generator(device=dev).manual_seed(T5_CASE_SEED)
 
+    kname = "dense_decode" + dtype_suffix(dtype)
+
     def rnd(g, *shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device=dev).to(dtype or torch.bfloat16)
 
     q, k, v = rnd(gen, T5_B, h, 1, d), rnd(gen, T5_B, kvh, length, d), rnd(gen, T5_B, kvh, length, d)
     errs = []
     for p in (1, T5_NEW // 2):
         pos = torch.full((T5_B, 1), p, dtype=torch.int32, device=dev)
-        got = counted("dense_decode", lambda: decode_attention(q, k, v, q_positions=pos))
-        errs.append(check_close(f"dense_decode (D 64, t5-base, position {p})", got,
+        got = counted(kname, lambda: decode_attention(q, k, v, q_positions=pos))
+        errs.append(check_close(f"{kname} (D 64, t5-base, position {p})", got,
                                 decode_attention_reference(q, k, v, pos, scale)))
     row = dense_case(gen, dev, "D 64: t5-base decode, B 4, position 63", q, k, v,
                      torch.full((T5_B, 1), T5_NEW - 1, dtype=torch.int32, device=dev))
@@ -5472,15 +5764,15 @@ def t5_decode_phase(dev):
         e = per_split * kernels.DECODE_TILE
         pos = torch.tensor(lasts_of(e, length), dtype=torch.int32, device=dev)[:, None]
         qe, ke, ve = rnd(g_edge, b, h, 1, d), rnd(g_edge, b, kvh, length, d), rnd(g_edge, b, kvh, length, d)
-        got = counted("dense_decode", lambda: decode_attention(qe, ke, ve, q_positions=pos))
-        err = check_close(f"dense_decode (D 64, edge case {tag})", got,
+        got = counted(kname, lambda: decode_attention(qe, ke, ve, q_positions=pos))
+        err = check_close(f"{kname} (D 64, edge case {tag})", got,
                           decode_attention_reference(qe, ke, ve, pos, scale))
         errs.append(err)
-        print(f"kernel dense_decode (D 64) edge case {tag} (split {e} tokens, B {b}, "
+        print(f"kernel {kname} (D 64) edge case {tag} (split {e} tokens, B {b}, "
               f"positions {pos[:, 0].tolist()}): max_abs_err {err:.3e} "
               f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|)")
     row["max_abs_err"] = max(errs)
-    return dict(name="dense_decode (D 64)", route="cuda",
+    return dict(name=f"{kname} (D 64)", route="cuda",
                 source="accelerate_tpu_torch/csrc/dense_decode.cu",
                 replaces="accelerate_tpu/ops/attention.py:977", **row)
 
@@ -5853,9 +6145,12 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     sass_gate(TENSOR_CORE_KERNELS, ("HGMMA", "UTMALDG"), "run on the tensor cores through TMA")
-    sass_gate(DECODE_KERNELS, ("HMMA", "LDGSTS"), "run mma.sync over cp.async tiles")
-    sass_gate(["dense_decode"], ("HMMA", "LDGSTS"), "run mma.sync over cp.async tiles at D 64",
-              fragment=D64_SPLIT, label=" (D 64)")
+    sass_gate(DECODE_KERNELS + DECODE_KERNELS_F16, ("HMMA", "LDGSTS"),
+              "run mma.sync over cp.async tiles")
+    for sfx, mangled in DTYPE_MANGLED.items():
+        sass_gate(["dense_decode" + sfx], ("HMMA", "LDGSTS"),
+                  "run mma.sync over cp.async tiles at D 64", fragment=(D64_SPLIT, mangled),
+                  label=" (D 64)")
     decode_spill_gate(reports)
     d64_spill_gate(reports)
     phase_s["build and SASS gates"] = time.perf_counter() - t0
@@ -5879,7 +6174,9 @@ def main():
                    torch.Generator(device=dev).manual_seed(3), dev, torch.float16),
             *timed("dense decode kernels", dense_decode_phases, gen, dev),
             # its own generators: no earlier phase's inputs move
-            timed("dense decode D 64 kernel", t5_decode_phase, dev)]
+            timed("dense decode D 64 kernel", t5_decode_phase, dev),
+            # the fp16 serving entries, on generators of their own too
+            *timed("serving kernels fp16", serving_kernel_phases_f16, dev)]
     # each path is driven with the counts reset just before it and read
     # just after; a kernel's launches come from its own path (the dense
     # decode kernel's from generate() and the flat engine together, the
@@ -5891,6 +6188,9 @@ def main():
     launches.update(timed("quant path", lambda: quant_path(dev, card, model, **serving)))
     timed("drift", drift_phase, model, serving["prompts"], card)
     timed("spec path", spec_path, dev, card, model, serving["prompt"])
+    # the fp16 serving entries' launches: their own model's runs
+    launches.update(timed("fp16 serve path", fp16_serve_path, dev, card, serving["prompts"],
+                          serving["prompt"], serving["paged"]))
     # the replica's launches stay off the kernels line: its rows keep the
     # launches of their own paths
     replica_launches, wave = timed("replica path", replica_path, dev, card, model,

@@ -11,9 +11,8 @@
   p split into hi + lo (tests/test_torch_flash.py).
 - The wrappers' dtype routing: bf16 and fp16 name their own entry point
   (``flash_fwd`` / ``flash_fwd_f16``, ...), fp32 raises; the serving
-  kernels (#4-#6) take bf16 only and raise on fp16 (a divergence from the
-  reference, which would serve an fp16 model through them: ROADMAP queue
-  3). Checked on meta tensors with the CUDA gate lifted: the checks run
+  kernels (#4-#6) route fp16 to their own fp16 entries and raise on fp32.
+  Checked on meta tensors with the CUDA gate lifted: the checks run
   before any launch.
 
 Inputs are made with numpy from a seed, rounded to fp16, and handed to
@@ -184,22 +183,41 @@ def test_flash_wrappers_route_each_dtype_to_its_entry(no_cuda_gate):
         kernels._flash_shapes(q16, kbf, kbf, masks, "flash_fwd")
 
 
-def test_serving_kernels_take_bf16_only(no_cuda_gate):
+def test_serving_kernels_take_bf16_only(no_cuda_gate, monkeypatch):
     """The paged decode (#4), dense decode (#5) and ragged prefill (#6)
-    kernels raise on fp16 inputs: their fp16 entries are not ported
-    (ROADMAP queue 2), where the reference would serve an fp16 model."""
+    wrappers route fp16 inputs to their fp16 entries (``paged_decode_f16``,
+    ``dense_decode_f16``, ``ragged_prefill_f16``), as the reference serves
+    an fp16 model through its kernels, and raise on fp32: the serving
+    kernels take bf16 or fp16 only (tests/test_torch_fp16_serving.py
+    covers every entry). The launch is recorded, not made."""
+    launched = []
+    monkeypatch.setattr(kernels, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(kernels, "_stream", lambda dev: 0)
+    monkeypatch.setattr(kernels, "_launch", lambda name, *args: launched.append(name))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     b, h, kvh, d, ps, pages = 2, 4, 2, 128, 16, 8
     table = _meta(b, 4, dtype=torch.int32)
-    with pytest.raises(TypeError, match="bfloat16"):
-        kernels.paged_decode(_meta(b, h, 1, d), _meta(pages, kvh, ps, d),
-                             _meta(pages, kvh, ps, d), table, _meta(b, 1, dtype=torch.int32),
-                             0.1)
-    with pytest.raises(TypeError, match="bfloat16"):
-        kernels.dense_decode(_meta(b, h, 1, d), _meta(b, kvh, 256, d), _meta(b, kvh, 256, d),
-                             _meta(b, 1, dtype=torch.int32), 0.1)
     cap = 64
-    with pytest.raises(TypeError, match="bfloat16"):
-        kernels.ragged_prefill(_meta(1, h, cap, d), _meta(1, kvh, cap, d), _meta(1, kvh, cap, d),
-                               _meta(pages, kvh, ps, d), _meta(pages, kvh, ps, d), table,
-                               _meta(cap, dtype=torch.int32), _meta(cap, dtype=torch.int32),
-                               _meta(b, dtype=torch.int32), 0.1, 8)
+
+    def calls(dt):
+        return (
+            lambda: kernels.paged_decode(
+                _meta(b, h, 1, d, dtype=dt), _meta(pages, kvh, ps, d, dtype=dt),
+                _meta(pages, kvh, ps, d, dtype=dt), table, _meta(b, 1, dtype=torch.int32), 0.1),
+            lambda: kernels.dense_decode(
+                _meta(b, h, 1, d, dtype=dt), _meta(b, kvh, 256, d, dtype=dt),
+                _meta(b, kvh, 256, d, dtype=dt), _meta(b, 1, dtype=torch.int32), 0.1),
+            lambda: kernels.ragged_prefill(
+                _meta(1, h, cap, d, dtype=dt), _meta(1, kvh, cap, d, dtype=dt),
+                _meta(1, kvh, cap, d, dtype=dt), _meta(pages, kvh, ps, d, dtype=dt),
+                _meta(pages, kvh, ps, d, dtype=dt), table, _meta(cap, dtype=torch.int32),
+                _meta(cap, dtype=torch.int32), _meta(b, dtype=torch.int32), 0.1, 8),
+        )
+
+    for call in calls(torch.float16):
+        call()
+    assert launched == ["paged_decode_f16", "dense_decode_f16", "ragged_prefill_f16"]
+    for call in calls(torch.float32):
+        with pytest.raises(TypeError, match="bf16 or fp16"):
+            call()
+    assert len(launched) == 3

@@ -859,6 +859,29 @@ class TestKvHandoff:
             flat.export_prefix_kv(prompts[0])
 
 
+def _eos_stream(model, prompt):
+    """An eos id the greedy run of ``prompt`` reaches: its uninterrupted
+    tokens from a fresh engine without one, cut at the first token (from
+    the third on) that has not appeared before it. Returns ``(tokens up
+    to and with the eos, the eos's index, the eos)``."""
+    ref = _refs(model, [prompt], 24, [5])[0]
+    j = next(i for i in range(2, len(ref)) if ref[i] not in ref[:i])
+    return ref[:j + 1], j, ref[j]
+
+
+class _BreakAfterTokenRouter(Router):
+    """The port's router whose fault hook is consulted once more after a
+    token event has been delivered, as the event of the next index: an
+    armed ``drop_stream`` at ``after_tokens = i + 1`` breaks the stream
+    right after token ``i`` reached the client, before the next event
+    (the done event, when token ``i`` was the last)."""
+
+    def _on_event(self, req, replica, hop, event, on_token, resumed):
+        super()._on_event(req, replica, hop, event, on_token, resumed)
+        if self._faults is not None and event.get("event") == "token":
+            self._faults.on_stream_event(replica, int(event.get("i", 0)) + 1)
+
+
 def _kill_drill(model, prompts, seeds, **kw):
     """Two port replicas behind the port's router; once tokens flow, the
     replica serving kills mid-stream. Returns the router's requests, the
@@ -948,6 +971,61 @@ class TestKillDrillTwoReplicas:
             assert ref[:k] + list(req.tokens) == ref, k
         with pytest.raises(ValueError, match="resumed_tokens"):
             _engine(model, **kw).submit(p, max_new_tokens=2, resumed_tokens=p.size)
+
+    def test_continuation_that_ends_in_its_eos_finishes_at_submit(self, served):
+        """Resumed tokens whose last is the engine's eos: the request
+        finishes at once with "eos", draws nothing and takes no slot; a
+        continuation that has not reached its eos decodes on."""
+        model, prompts = served
+        p = prompts[0]
+        ref, j, eos = _eos_stream(model, p)
+        for arena in ({}, {"page_size": None}):
+            eng = _engine(model, eos_token_id=eos, **arena)
+            req = eng.submit(np.concatenate([p, np.asarray(ref)]), max_new_tokens=24 - len(ref),
+                             seed=5, resumed_tokens=len(ref))
+            assert req.done and (req.outcome, req.finish_reason, req.tokens) == \
+                ("finished", "eos", [])
+            assert not eng.step() and eng.step_count == 0 and eng.prefill_dispatches == 0
+            assert eng.metrics()["serving/requests_completed"] == 1
+            assert len(eng._free) == eng.num_slots
+            # one token short of the eos: the continuation decodes it
+            req = eng.submit(np.concatenate([p, np.asarray(ref[:j])]),
+                             max_new_tokens=24 - j, seed=5, resumed_tokens=j)
+            eng.run()
+            assert (req.finish_reason, ref[:j] + list(req.tokens)) == ("eos", ref)
+
+    def test_stream_broken_after_its_eos_token_ends_at_the_eos(self, served):
+        """Two port replicas with an eos id behind the port's router; the
+        first hop's stream breaks right after its eos token event, before
+        its done event (an injected ``drop_stream`` raised from
+        ``faults.on_stream_event`` once the eos token was delivered). The
+        re-queued continuation finishes on the survivor at the eos: the
+        client's stream is the uninterrupted run's, eos last."""
+        model, prompts = served
+        p = prompts[0]
+        ref, j, eos = _eos_stream(model, p)
+        ea, eb = (_engine(model, n, eos_token_id=eos) for n in ("A", "B"))
+        a, b = ReplicaServer(ea, name="A").start(), ReplicaServer(eb, name="B").start()
+        faults = FaultInjector(seed=0).drop_stream(after_tokens=j + 1, count=1)
+        router = _BreakAfterTokenRouter(
+            {"A": a.url, "B": b.url}, faults=faults,
+            config=RouterConfig(backoff_base_s=0.01, backoff_cap_s=0.05, max_retries=4,
+                                poll_interval_s=0.1, migrate_session_kv=False))
+        router.collector.poll_once()
+        try:
+            seen = []
+            req = router.submit([int(t) for t in p], max_new_tokens=24, seed=5,
+                                on_token=lambda t, r: seen.append(t))
+            assert [kind for _, kind, _ in faults.log] == ["drop_stream"]
+            assert (req.outcome, req.finish_reason) == ("finished", "eos")
+            assert req.tokens == seen == ref and seen[-1] == eos
+            assert len(req.hops) == 2 and "error" in req.hops[0]
+            survivor = ea if req.replica == "A" else eb
+            assert survivor.generated_tokens == 0 and survivor.step_count == 0
+        finally:
+            router.close()
+            a.close()
+            b.close()
 
     def test_session_kv_follows_migration_between_real_engines(self, served):
         """A session's first request lands on A; A drains; the session's next

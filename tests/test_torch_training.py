@@ -8,12 +8,17 @@
 - the losses (``softmax_cross_entropy``, ``fused_linear_cross_entropy``)
   and ``warmup_cosine_decay_schedule`` against their JAX / optax
   counterparts;
-- AdamW steps through the port's ``Accelerator`` (the eager loop with two
-  accumulation steps and clipping, then ``build_train_step``) against the
-  JAX ``Accelerator`` with ``optax.adamw`` on the same data, every
-  hyperparameter given explicitly on both sides;
+- the ``Accelerator``'s accumulation window, its loader's end, bf16
+  rounding at use and its refusal of low-precision masters;
 - the remat policies (off, "full", "save_attention") give the same
   gradients, and "save_attention" runs the flash forward once per layer.
+
+AdamW steps against the JAX ``Accelerator`` are in
+tests/test_torch_training_accelerator.py (the eager loop and
+``build_train_step``) and tests/test_torch_training_window.py
+(``steps_per_call=2``), split from this file so that pytest's
+``--dist loadfile`` spreads them over workers; they share this file's
+helpers.
 
 Inputs are numpy arrays from a seed; both sides run in fp32. Tolerances
 are stated where they are used.
@@ -27,14 +32,10 @@ import jax.numpy as jnp
 import optax
 import torch
 
-from accelerate_tpu import Accelerator as JaxAccelerator
-from accelerate_tpu import GradientAccumulationPlugin as JaxAccumulation
-from accelerate_tpu import Model
 from accelerate_tpu.models import DecoderConfig as JaxConfig
 from accelerate_tpu.models import DecoderLM as JaxLM
 from accelerate_tpu.ops import losses as ref_losses
 from accelerate_tpu.parallel.sharding import unbox_params
-from accelerate_tpu.state import AcceleratorState as JaxState
 from accelerate_tpu_torch import Accelerator, warmup_cosine_decay_schedule
 from accelerate_tpu_torch.models.configs import DecoderConfig
 from accelerate_tpu_torch.models.convert import from_reference, to_reference
@@ -233,90 +234,6 @@ def _data():
     return np.random.RandomState(5).randint(0, 256, (EAGER_MICRO, 8, SEQ)).astype(np.int32)
 
 
-@pytest.fixture(scope="module")
-def jax_training():
-    """The JAX Accelerator: eager loop (accumulate / backward / clip / step)
-    for 5 updates of 2 micro-batches, then 2 fused steps of 2 micro-batches;
-    optax.adamw with a warmup-cosine schedule. Returns (initial params,
-    per-micro-step losses, fused (loss, grad_norm), final params)."""
-    JaxState._reset_state(reset_partial_state=True)
-    acc = JaxAccelerator(gradient_accumulation_plugin=JaxAccumulation(num_steps=2))
-    jcfg = JaxConfig.tiny(num_kv_heads=2, max_seq_len=SEQ, attention_impl="flash")
-    definition = JaxLM(jcfg, mesh=acc.mesh)
-    variables = definition.init_variables(jax.random.PRNGKey(1), batch_size=8, seq_len=SEQ)
-    p0 = jax.tree_util.tree_map(np.asarray, unbox_params(variables["params"])[0])
-    schedule = optax.warmup_cosine_decay_schedule(0.0, LR, 2, 10)
-    model, opt = acc.prepare(Model(definition, variables), optax.adamw(
-        schedule, b1=BETAS[0], b2=BETAS[1], eps=EPS, weight_decay=WD))
-    ids = _data()
-    eager = []
-    for i in range(EAGER_MICRO):
-        with acc.accumulate(model):
-            out = model(input_ids=ids[i], labels=ids[i])
-            acc.backward(out["loss"])
-            acc.clip_grad_norm_(max_norm=CLIP)
-            opt.step()
-            opt.zero_grad()
-        eager.append(float(out["loss"]))
-    step = acc.build_train_step(micro_steps=2)
-    fused = []
-    for i in range(FUSED_STEPS):
-        batch = ids[2 * i: 2 * i + 2].reshape(16, SEQ)
-        m = step({"input_ids": batch, "labels": batch})
-        fused.append((float(m["loss"]), float(m["grad_norm"])))
-    final = jax.tree_util.tree_map(np.asarray, unbox_params(acc.unwrap_model(model).params)[0])
-    JaxState._reset_state(reset_partial_state=True)
-    return p0, eager, fused, final
-
-
-def test_accelerator_tracks_reference(jax_training):
-    """The same 7 AdamW updates through the port's Accelerator. Tolerances:
-    losses 1e-5 relative; grad norms 1e-4 relative; parameters 2e-5
-    absolute, against a movement of ~1.3e-2 over the 7 updates (observed
-    <= 3.2e-6). Adam divides each gradient entry by its running rms, which
-    turns fp32 summation noise in small entries into update noise of up
-    to lr * 1e-3, hence the absolute bound on the parameters."""
-    p0, want_eager, want_fused, want_final = jax_training
-    cfg = _cfg()
-    acc = Accelerator(gradient_accumulation_steps=2, device="cpu")
-    model = DecoderLM(cfg, device="cpu", param_dtype=torch.float32).load_params(
-        from_reference(p0, cfg, dtype=torch.float32))
-    opt = torch.optim.AdamW(model.parameters(), lr=LR, betas=BETAS, eps=EPS, weight_decay=WD)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, warmup_cosine_decay_schedule(0.0, LR, 2, 10))
-    ids = _data()
-    loader = [{"input_ids": ids[i], "labels": ids[i]} for i in range(EAGER_MICRO)]
-    model, opt, sched, loader = acc.prepare(model, opt, sched, loader)
-    eager, syncs = [], []
-    for batch in loader:
-        with acc.accumulate(model):
-            loss = model(**batch)["loss"]
-            acc.backward(loss)
-            acc.clip_grad_norm_(max_norm=CLIP)
-            opt.step()
-            sched.step()
-            opt.zero_grad()
-        eager.append(loss.item())
-        syncs.append(acc.sync_gradients)
-    assert syncs == [False, True] * 5
-    np.testing.assert_allclose(eager, want_eager, rtol=1e-5)
-    step = acc.build_train_step(micro_steps=2)
-    for i in range(FUSED_STEPS):
-        batch = ids[2 * i: 2 * i + 2].reshape(16, SEQ)
-        m = step({"input_ids": batch, "labels": batch})
-        np.testing.assert_allclose(m["loss"].item(), want_fused[i][0], rtol=1e-5)
-        np.testing.assert_allclose(m["grad_norm"].item(), want_fused[i][1], rtol=1e-4)
-    assert sched.get_last_lr()[0] == pytest.approx(
-        LR * warmup_cosine_decay_schedule(0.0, LR, 2, 10)(7), rel=1e-12)
-    got = to_reference(dict(acc.unwrap_model(model).state_dict()), cfg)
-    for (path, w), (_, g) in zip(_leaves(want_final), _leaves(got)):
-        np.testing.assert_allclose(g, w, atol=2e-5, rtol=0,
-                                   err_msg=f"param {jax.tree_util.keystr(path)}")
-    moved = max(np.abs(np.asarray(w) - np.asarray(w0)).max()
-                for (_, w), (_, w0) in zip(_leaves(want_final), _leaves(p0)))
-    assert moved > 5e-3  # the comparison is not of untouched weights
-
-
 def test_optimizer_skips_while_accumulating():
     """step() and zero_grad() do nothing until the window closes; the
     scheduler advances only with a real update."""
@@ -383,73 +300,3 @@ def test_prepare_refuses_low_precision_masters():
     serving_layout = DecoderLM(DecoderConfig.tiny(dtype=torch.bfloat16), device="cpu")
     with pytest.raises(ValueError, match="master"):
         acc.prepare(serving_layout)
-
-
-WINDOW = 2  # updates per build_train_step(steps_per_call=...) call
-
-
-def _window_batches():
-    """Two calls of a steps_per_call=2 window: [call][update] batches of
-    16 x SEQ, each cut into 2 micro-batches of 8."""
-    ids = np.random.RandomState(6).randint(0, 256, (2, WINDOW, 16, SEQ)).astype(np.int32)
-    return [{"input_ids": ids[c], "labels": ids[c]} for c in range(2)]
-
-
-@pytest.fixture(scope="module")
-def jax_window():
-    """The JAX Accelerator's build_train_step(micro_steps=2,
-    steps_per_call=2) for two calls (four AdamW updates, clip and a
-    warmup-cosine schedule). Returns (initial params, per-call metrics
-    (loss, loss_mean, grad_norm), final params)."""
-    JaxState._reset_state(reset_partial_state=True)
-    acc = JaxAccelerator()
-    jcfg = JaxConfig.tiny(num_kv_heads=2, max_seq_len=SEQ, attention_impl="flash")
-    definition = JaxLM(jcfg, mesh=acc.mesh)
-    variables = definition.init_variables(jax.random.PRNGKey(2), batch_size=8, seq_len=SEQ)
-    p0 = jax.tree_util.tree_map(np.asarray, unbox_params(variables["params"])[0])
-    schedule = optax.warmup_cosine_decay_schedule(0.0, LR, 2, 10)
-    model, opt = acc.prepare(Model(definition, variables), optax.adamw(
-        schedule, b1=BETAS[0], b2=BETAS[1], eps=EPS, weight_decay=WD))
-    acc.clip_grad_norm_(max_norm=CLIP)
-    step = acc.build_train_step(micro_steps=2, steps_per_call=WINDOW)
-    metrics = []
-    for batch in _window_batches():
-        m = step(batch)
-        metrics.append((float(m["loss"]), float(m["loss_mean"]), float(m["grad_norm"])))
-    final = jax.tree_util.tree_map(np.asarray, unbox_params(acc.unwrap_model(model).params)[0])
-    JaxState._reset_state(reset_partial_state=True)
-    return p0, metrics, final
-
-
-def test_train_step_window_tracks_reference(jax_window):
-    """``build_train_step(steps_per_call=2)``: batch leaves carry a leading
-    [2] axis and one call runs two full updates (each its own 2-way
-    micro-batch split, clip and scheduler step), returning the last
-    update's loss and grad_norm plus ``loss_mean``, against the JAX
-    Accelerator's fused window. Tolerances as
-    ``test_accelerator_tracks_reference``: losses 1e-5 relative, grad
-    norms 1e-4 relative, parameters 2e-5 absolute."""
-    p0, want, want_final = jax_window
-    cfg = _cfg()
-    acc = Accelerator(device="cpu")
-    model = DecoderLM(cfg, device="cpu", param_dtype=torch.float32).load_params(
-        from_reference(p0, cfg, dtype=torch.float32))
-    opt = torch.optim.AdamW(model.parameters(), lr=LR, betas=BETAS, eps=EPS, weight_decay=WD)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, warmup_cosine_decay_schedule(0.0, LR, 2, 10))
-    model, opt, sched = acc.prepare(model, opt, sched)
-    acc.clip_grad_norm_(max_norm=CLIP)
-    step = acc.build_train_step(micro_steps=2, steps_per_call=WINDOW)
-    for batch, (loss, loss_mean, norm) in zip(_window_batches(), want):
-        m = step(batch)
-        np.testing.assert_allclose(m["loss"].item(), loss, rtol=1e-5)
-        np.testing.assert_allclose(m["loss_mean"].item(), loss_mean, rtol=1e-5)
-        np.testing.assert_allclose(m["grad_norm"].item(), norm, rtol=1e-4)
-    assert sched.get_last_lr()[0] == pytest.approx(
-        LR * warmup_cosine_decay_schedule(0.0, LR, 2, 10)(2 * WINDOW), rel=1e-12)
-    got = to_reference(dict(acc.unwrap_model(model).state_dict()), cfg)
-    for (path, w), (_, g) in zip(_leaves(want_final), _leaves(got)):
-        np.testing.assert_allclose(g, w, atol=2e-5, rtol=0,
-                                   err_msg=f"param {jax.tree_util.keystr(path)}")
-    with pytest.raises(ValueError, match=r"leading \[2\] axis"):
-        step({k: v[0] for k, v in _window_batches()[0].items()})
