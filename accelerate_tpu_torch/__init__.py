@@ -7,8 +7,9 @@ quantization on load) and the training step with its checkpoints.
 The JAX package (``accelerate_tpu``) stays the reference; this package is
 its counterpart for an NVIDIA H100. Module paths mirror the reference:
 
-- ``models/configs.py``, ``models/decoder.py``, ``models/seq2seq.py``
-  (T5 family), ``models/encoder.py`` (BERT family), ``models/convert.py``
+- ``models/configs.py``, ``models/decoder.py``, ``models/moe.py`` (MoE
+  blocks), ``models/seq2seq.py`` (T5 family), ``models/encoder.py`` (BERT
+  family), ``models/vision.py`` (ResNet), ``models/convert.py``
 - ``ops/layers.py``, ``ops/losses.py``, ``ops/attention.py`` (plain
   versions + kernel dispatch), ``ops/kernels.py`` (nvcc build, ctypes
   binding, checked wrappers with launch counters), ``csrc/*.cu`` (the
@@ -73,6 +74,7 @@ _EXPORTS = {
     "DecoderConfig": "models.configs", "DecoderLM": "models.decoder",
     "EncoderConfig": "models.configs", "EncoderClassifier": "models.encoder",
     "Seq2SeqConfig": "models.seq2seq", "Seq2SeqLM": "models.seq2seq",
+    "ResNet": "models.vision", "VisionConfig": "models.configs",
     "AcceleratedOptimizer": "optimizer",
     "AcceleratedScheduler": "scheduler", "warmup_cosine_decay_schedule": "scheduler",
     "ServingEngine": "serving.engine", "generate_batched": "serving.engine",
@@ -100,12 +102,12 @@ __all__ = [
     "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",
     "AutocastKwargs", "DataLoader", "DecoderConfig", "DecoderLM",
     "EncoderClassifier", "EncoderConfig", "GradScalerKwargs", "GradientAccumulationPlugin", "GradientState", "LossScale",
-    "MixedPrecisionConfig", "ProjectConfiguration", "QuantizationConfig",
+    "MixedPrecisionConfig", "ProjectConfiguration", "QuantizationConfig", "ResNet",
     "Seq2SeqConfig", "Seq2SeqLM", "ServingEngine", "cpu_offload", "cpu_offload_with_hook", "disk_offload",
     "dispatch_model", "generate", "generate_batched", "generate_dispatched",
     "generate_seq2seq", "generate_seq2seq_dispatched",
     "init_empty_weights", "load_accelerator_state", "load_and_quantize_model",
     "load_checkpoint_and_dispatch", "load_custom_state", "save_accelerator_state",
     "save_custom_state", "save_model_weights", "set_seed", "skip_first_batches",
-    "warmup_cosine_decay_schedule",
+    "VisionConfig", "warmup_cosine_decay_schedule",
 ]

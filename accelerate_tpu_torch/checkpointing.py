@@ -6,11 +6,15 @@ resumes on the other:
 
   model_<i>.safetensors   the weights under ``params/``; a port model's
                           (``DecoderLM``, ``Seq2SeqLM``,
-                          ``EncoderClassifier``) in the reference's names
-                          and layout
+                          ``EncoderClassifier``, ``ResNet``) in the
+                          reference's names and layout, a ResNet's
+                          BatchNorm statistics under
+                          ``extra_state/batch_stats/``
   optimizer_<i>.safetensors  a torch ``AdamW``'s state as ``optax.adamw``'s
                           (``0/count``, ``0/mu/...``, ``0/nu/...``, and
-                          ``2/count`` under a ``LambdaLR``)
+                          ``2/count`` under a ``LambdaLR``), or a torch
+                          ``SGD``'s as ``optax.sgd``'s (``0/trace/...``,
+                          ``1/count``)
   scheduler_<i>.bin       ``{"manual_steps": 0, "torch": <its state>}``
   dl_state_<i>.bin        ``{"batches_yielded", "iteration"}``
   random_states_0.pkl     python, numpy, torch (+ CUDA) generators and
@@ -27,11 +31,11 @@ stacked leaf twice; on load every tensor is copied into a tensor on the
 device of the parameter it belongs to. A module other than the port's
 models is written under its own ``state_dict()`` names, and an AdamW over it
 under its parameter names: such a checkpoint has no reference
-counterpart. An optimizer that is not an ``AdamW`` over exactly its
-model's parameters is written as torch's own ``state_dict()`` in
-``optimizer_<i>.bin``, which only the port reads. ``safe_serialization=
-False`` writes pickles of numpy arrays (``.bin``) in place of
-safetensors, as the reference does.
+counterpart. An optimizer that is not an ``AdamW`` (or an undampened
+``SGD`` over a port model) over exactly its model's parameters is written
+as torch's own ``state_dict()`` in ``optimizer_<i>.bin``, which only the
+port reads. ``safe_serialization=False`` writes pickles of numpy arrays
+(``.bin``) in place of safetensors, as the reference does.
 
 Not carried: the reference's per-rank manifests of a sharded save
 (``save_pytree_dist``; the port's ``load_flat_dict`` raises on them). The
@@ -51,8 +55,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .models.convert import (from_reference, layout_config, optimizer_state_from_reference,
-                             optimizer_state_to_reference, reference_entries)
+from .models.convert import (from_reference, layout_config,
+                             optimizer_state_from_reference, optimizer_state_to_reference,
+                             reference_entries, sgd_has_optax_state)
 from .utils.constants import (CUSTOM_STATE_PATTERN, DATALOADER_STATE_NAME, MODEL_NAME,
                               OPTIMIZER_NAME, RNG_STATE_NAME, SAFE_WEIGHTS_NAME,
                               SCHEDULER_NAME, WEIGHTS_NAME)
@@ -64,15 +69,19 @@ from .utils.serialization import (flatten_pytree, load_flat_dict, materialize_en
 logger = logging.getLogger(__name__)
 
 PARAMS = "params/"
+EXTRA_STATE = "extra_state/"
 
 
-def _model_entries(model) -> list:
+def _model_entries(model, buffer_prefix: str = EXTRA_STATE) -> list:
     """``(key, shape, dtype, fetch)`` entries of a model's weights under
-    ``params/``: a port model's in the reference's layout, any other
-    module's (or tree's) under its own names."""
+    ``params/``: a port model's in the reference's layout (its buffers, a
+    ResNet's ``batch_stats/...``, under ``buffer_prefix``: the engine's
+    ``extra_state/`` in a checkpoint, top-level in ``save_model``'s
+    export), any other module's (or tree's) under its own names."""
     config = layout_config(model)
     if config is not None:
-        return reference_entries(dict(model.state_dict()), config, prefix=PARAMS)
+        return reference_entries(dict(model.state_dict()), config, prefix=PARAMS,
+                                 buffer_prefix=buffer_prefix)
     tree = model.state_dict() if isinstance(model, torch.nn.Module) else model
     return [(PARAMS + k, tuple(t.shape), t.dtype, (lambda t: lambda: t.detach())(t))
             for k, t in flatten_pytree(tree).items()]
@@ -117,10 +126,15 @@ def _engines(models, optimizers, schedulers) -> list:
 
 
 def _reference_optimizer(opt, model) -> bool:
-    """True when ``opt`` is an AdamW over exactly ``model``'s parameters:
-    its state has optax.adamw's form."""
-    return (isinstance(opt.optimizer, torch.optim.AdamW)
-            and _param_ids(opt.parameters()) == _param_ids(model.parameters()))
+    """True when ``opt`` is over exactly ``model``'s parameters and is an
+    AdamW (optax.adamw's form), or an SGD over a port model whose momentum
+    is optax.sgd's trace (as the reference's ResNet trains); any other SGD
+    (over another module, or dampened) keeps torch's own state_dict()."""
+    inner = opt.optimizer
+    ours = isinstance(inner, torch.optim.AdamW) or (
+        isinstance(inner, torch.optim.SGD) and layout_config(model) is not None
+        and sgd_has_optax_state(inner))
+    return ours and _param_ids(opt.parameters()) == _param_ids(model.parameters())
 
 
 def save_accelerator_state(output_dir: str, models=(), optimizers=(), schedulers=(),
@@ -212,9 +226,12 @@ def _load_accelerator_state(input_dir, models, optimizers, schedulers, dataloade
         flat = load_flat_dict(path)
         params = {k[len(PARAMS):]: v for k, v in flat.items() if k.startswith(PARAMS)}
         if not params:  # the reference's files from before extra_state: flat IS params
-            params = {k: v for k, v in flat.items() if not k.startswith("extra_state/")}
+            params = {k: v for k, v in flat.items() if not k.startswith(EXTRA_STATE)}
         config = layout_config(model)
         if config is not None:
+            # a port model's buffers (a ResNet's batch_stats/...) sit under extra_state/
+            params.update({k[len(EXTRA_STATE):]: v for k, v in flat.items()
+                           if k.startswith(EXTRA_STATE)})
             model.load_params(from_reference(params, config))
         else:
             model.load_state_dict(params, strict=True)
@@ -259,7 +276,8 @@ def save_model_weights(model, save_directory: str, max_shard_size="10GB",
     """Export a model's weights to ``save_directory`` as the reference's
     ``save_model`` does: ``model.safetensors`` under ``params/`` (a port
     model's in the reference's names and layout, each leaf
-    in its own dtype), sharded as ``model-0000i-of-0000n.safetensors``
+    in its own dtype; a ResNet's BatchNorm statistics under
+    ``batch_stats/``), sharded as ``model-0000i-of-0000n.safetensors``
     with ``model.safetensors.index.json`` past ``max_shard_size``; or one
     pickle of numpy arrays, ``model.msgpack``, with
     ``safe_serialization=False`` (the reference's name for it)."""
@@ -267,7 +285,7 @@ def save_model_weights(model, save_directory: str, max_shard_size="10GB",
         logger.error("Provided path (%s) should be a directory, not a file", save_directory)
         return None
     os.makedirs(save_directory, exist_ok=True)
-    entries = _model_entries(model)
+    entries = _model_entries(model, buffer_prefix="")
     if safe_serialization:
         return save_entries(entries, os.path.join(save_directory, SAFE_WEIGHTS_NAME),
                             _parse_size(max_shard_size))

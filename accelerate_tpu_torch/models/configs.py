@@ -1,4 +1,4 @@
-"""Decoder and encoder configurations and size presets.
+"""Decoder, encoder and vision configurations and size presets.
 
 Counterpart of ``accelerate_tpu/models/configs.py``: the same field names
 and defaults for everything serving, generation, big-model dispatch and
@@ -9,13 +9,15 @@ the paged arena). Weight streaming needs no flag: big-model dispatch
 on disk, so ``stream_layer_weights`` is accepted only as False, for a
 reference config to carry over. ``dtype`` takes float32, bfloat16 and
 float16 (fp16 training runs the flash kernels' fp16 entries). Residual
-dropout (``dropout_rate``) and the three remat policies are ported; fp8,
-MoE and pipelining are accepted as fields and raise
-``NotImplementedError`` until their slices are ported. The reference's ``decode_kernel`` /
+dropout (``dropout_rate``), the three remat policies and MoE blocks
+(``moe_num_experts`` >= 2, ``models/moe.py``) are ported; fp8 and
+pipelining are accepted as fields and raise ``NotImplementedError``
+until their slices are ported. The reference's ``decode_kernel`` /
 ``decode_kernel_block`` knobs are not carried: the Hopper decode kernels
 walk 64-token chunks, so there is no kv block to choose.
 
-:class:`EncoderConfig` is the BERT family's (``models/encoder.py``); the
+:class:`EncoderConfig` is the BERT family's (``models/encoder.py``),
+:class:`VisionConfig` the ResNet family's (``models/vision.py``); the
 T5 family's ``Seq2SeqConfig`` lives beside its model in
 ``models/seq2seq.py``, as in the reference.
 """
@@ -74,10 +76,16 @@ class DecoderConfig:
     # dispatch streams whatever it places off the card, so True is
     # rejected in __post_init__
     stream_layer_weights: bool = False
-    # later slices of the port: accepted so a reference config carries
+    # a later slice of the port: accepted so a reference config carries
     # over, rejected in __post_init__ until ported
     use_fp8: bool = False
+    # mixture-of-experts FFN (models/moe.py): 0 is the dense MLP; top-k
+    # routing per batch row with capacity k * factor * tokens / experts
+    # and the Switch load-balancing loss, weighted into the training loss
     moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 0.01
     # residual dropout after the attention and after the MLP, in training
     # mode only (models/decoder.py)
     dropout_rate: float = 0.0
@@ -111,10 +119,12 @@ class DecoderConfig:
                 "use_fp8: the fp8 projections are a later slice of the port "
                 "(ROADMAP queue 1, training step)"
             )
-        if self.moe_num_experts > 1:
-            raise NotImplementedError(
-                "moe_num_experts: MoE blocks are a later slice of the port "
-                "(ROADMAP queue 1, other families)"
+        if self.moe_num_experts == 1:
+            raise ValueError("moe_num_experts must be 0 (dense) or >= 2")
+        if self.moe_num_experts > 1 and not (1 <= self.moe_top_k <= self.moe_num_experts):
+            raise ValueError(
+                f"moe_top_k={self.moe_top_k} must be in [1, moe_num_experts="
+                f"{self.moe_num_experts}]"
             )
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {self.dropout_rate}")
@@ -158,7 +168,12 @@ class DecoderConfig:
             self.embed_dim, self.num_heads, self.num_kv_heads,
             self.head_dim, self.mlp_dim, self.vocab_size,
         )
-        per_layer = e * h * d + 2 * e * kv * d + h * d * e + 3 * e * m + 2 * e
+        if self.moe_num_experts > 1:
+            # per-expert gate / up / down banks and the router
+            mlp = self.moe_num_experts * 3 * e * m + e * self.moe_num_experts
+        else:
+            mlp = 3 * e * m
+        per_layer = e * h * d + 2 * e * kv * d + h * d * e + mlp + 2 * e
         head = 0 if self.tie_embeddings else e * v
         return self.num_layers * per_layer + v * e + head + e
 
@@ -257,4 +272,57 @@ class EncoderConfig:
     @classmethod
     def bert_base(cls, **kw):
         """The defaults: 12 layers, E 768, 12 heads (D 64), M 3072."""
+        return cls(**kw)
+
+
+@dataclass
+class VisionConfig:
+    """ResNet-family config (the reference's, with torch dtypes): NHWC
+    images, ``dtype`` activations with fp32 BatchNorm statistics.
+    ``bn_momentum`` is flax's (the running average keeps ``momentum`` of
+    itself), not torch's."""
+
+    stage_sizes: tuple = (3, 4, 6, 3)  # ResNet-50
+    num_filters: int = 64
+    num_classes: int = 1000
+    block: str = "bottleneck"  # "bottleneck" (50/101/152) or "basic" (18/34)
+    image_size: int = 224
+    bn_momentum: float = 0.9
+    bn_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    stem: str = "imagenet"  # "imagenet" = 7x7/2 + maxpool; "cifar" = 3x3/1
+
+    def __post_init__(self):
+        if self.block not in ("bottleneck", "basic"):
+            raise ValueError(f"block must be 'bottleneck' or 'basic', got {self.block!r}")
+        if self.stem not in ("imagenet", "cifar"):
+            raise ValueError(f"stem must be 'imagenet' or 'cifar', got {self.stem!r}")
+        if self.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+            raise ValueError(f"dtype must be torch.float32, bfloat16 or float16, got {self.dtype}")
+
+    @classmethod
+    def tiny(cls, **kw):
+        """Test-size model."""
+        kw.setdefault("stage_sizes", (1, 1))
+        kw.setdefault("num_filters", 8)
+        kw.setdefault("num_classes", 10)
+        kw.setdefault("block", "basic")
+        kw.setdefault("image_size", 32)
+        kw.setdefault("stem", "cifar")
+        kw.setdefault("dtype", torch.float32)
+        return cls(**kw)
+
+    @classmethod
+    def resnet18(cls, **kw):
+        kw.setdefault("stage_sizes", (2, 2, 2, 2))
+        kw.setdefault("block", "basic")
+        return cls(**kw)
+
+    @classmethod
+    def resnet50(cls, **kw):
+        return cls(**kw)
+
+    @classmethod
+    def resnet101(cls, **kw):
+        kw.setdefault("stage_sizes", (3, 4, 23, 3))
         return cls(**kw)

@@ -502,13 +502,23 @@ class DecoderMLP(_Module):
 
 
 class DecoderBlock(_Module):
+    """Attention and MLP halves, each a residual. ``forward`` gives ``(x,
+    aux)``: ``aux`` is the router's load-balancing loss when
+    ``config.moe_num_experts`` > 1 (the MLP is then ``moe_mlp``,
+    ``models/moe.py``), else 0.0."""
+
     def __init__(self, config: DecoderConfig, device, param_dtype, norm_dtype):
         super().__init__()
         self.config = config
         self.ln_attn = nn.Parameter(torch.ones(config.embed_dim, device=device, dtype=norm_dtype))
         self.ln_mlp = nn.Parameter(torch.ones(config.embed_dim, device=device, dtype=norm_dtype))
         self.attn = DecoderAttention(config, device, param_dtype)
-        self.mlp = DecoderMLP(config, device, param_dtype)
+        if config.moe_num_experts > 1:
+            from .moe import MoeMLP
+
+            self.moe_mlp = MoeMLP(config, device, param_dtype)
+        else:
+            self.mlp = DecoderMLP(config, device, param_dtype)
 
     def _norm(self, x, w):
         return rms_norm(x, self._use(w), self.config.norm_eps)
@@ -520,10 +530,11 @@ class DecoderBlock(_Module):
         if drop is not None:
             y = dropout(y, self.config.dropout_rate, drop, 0)
         x = x + y
-        y = self.mlp(self._norm(x, self.ln_mlp))
+        h = self._norm(x, self.ln_mlp)
+        y, aux = self.moe_mlp(h) if self.config.moe_num_experts > 1 else (self.mlp(h), 0.0)
         if drop is not None:
             y = dropout(y, self.config.dropout_rate, drop, 1)
-        return x + y
+        return x + y, aux
 
     def forward(self, x, sin, cos, kv_mask=None, drop=None, **cache_kw):
         self._stage()
@@ -587,7 +598,9 @@ class _Model(_Module):
 
 class DecoderLM(_Model):
     """Causal LM: ``forward(input_ids, positions, ...) -> logits`` fp32, or
-    ``{"loss": ...}`` when ``labels`` are given (training).
+    ``{"loss": ...}`` when ``labels`` are given (training); an MoE model's
+    training forward gives ``{"loss": lm + aux, "lm_loss", "aux_loss"}``,
+    ``aux = moe_aux_loss_weight * (sum over layers) / num_layers``.
 
     ``cache`` is a list over layers of cache dicts, mutated in place: the
     paged arena (``serving/pages.init_paged_arena``) or a dense cache
@@ -676,18 +689,24 @@ class DecoderLM(_Model):
         drop = None
         if cfg.dropout_rate > 0.0 and self.training and cache is None:
             drop = next_key("dropout")
+        moe_aux = 0.0  # router load balance, summed over layers
         for i, block in enumerate(self.layers):
-            x = block(
+            x, block_aux = block(
                 x, sin, cos, drop=None if drop is None else (*drop, i),
                 cache=None if cache is None else cache[i],
                 cache_positions=cache_positions, page_table=page_table,
                 ragged_slots=ragged_slots, slot_hist=slot_hist, decode=decode,
             )
+            moe_aux = moe_aux + block_aux
         x = rms_norm(x, self._use(self.ln_final), cfg.norm_eps)
         head = (self._use(emb, cfg.dtype).t() if cfg.tie_embeddings
                 else self._use(self.lm_head, cfg.dtype))
         if labels is not None:
-            return {"loss": self._head_ce_loss(x, head, labels)}
+            loss = self._head_ce_loss(x, head, labels)
+            if cfg.moe_num_experts > 1:
+                aux = cfg.moe_aux_loss_weight * moe_aux / cfg.num_layers
+                return {"loss": loss + aux, "lm_loss": loss, "aux_loss": aux}
+            return {"loss": loss}
         return (x @ head).float()
 
     def _head_ce_loss(self, x, head, labels):

@@ -36,7 +36,7 @@ fp16) must hold mma.sync products (HMMA) and cp.async copies (LDGSTS),
 and ptxas must report no spills in their functions; the dense library's
 D 64 functions are gated on their own, in each element type (HMMA and
 LDGSTS in its split kernels, no spill in them or their merge pass).
-Then it drives nineteen
+Then it drives twenty-three
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -196,6 +196,28 @@ the patch, so their graphs replay the zeroed wrapper:
   ``build_train_step``: a finite (t5: falling) loss, no kernel launch
   (attention at head_dim 64 is plain, as the reference routes it), step
   ms, throughput, MFU and a profiled step.
+- MoE serving (``moe_serve_path``): small_1b with 8 experts, top-2
+  (4.70B parameters, 9.39 GB bf16) on the paged arena, the flat arena,
+  int8 KV and spec K 4, #4 / #5 / #6 only on their entries; each run
+  recorded again eager (its tokens equal to the served run's) and
+  replayed with the plain kernels in the run's own routing groups and
+  expert choices, every read row within TOP2_MARGIN of the replay's
+  argmax; a control with each layer's most chosen expert's w_down
+  zeroed fails that gate; tokens/s, TTFT and ms/step beside the dense
+  paged run, the step's weight-read bound, the token-slots prefill
+  drops; ``moe_generate_path``: its generate() at B 4 x 512 (#1 in the
+  prefill, #5 a step), held alike, ms/token captured and eager;
+- MoE training (``moe_train_path``): that model at 8 of its 16 layers,
+  B 8 x 2048, bf16 over fp32 masters, AdamW through
+  ``build_train_step``: the flash kernels per layer a step, a finite
+  aux_loss, a falling loss, one step against plain attention in the
+  flash step's expert choices with the dQ-, dK- and dV-zeroed controls
+  beyond, tokens/s and MFU on the FLOPs a token uses;
+- ResNet training (``resnet_train_path``): ResNet-50 at bench.py's row
+  (B 64, 224^2, SGD 0.1 momentum 0.9, 12 steps as
+  ``build_train_step(steps_per_call=4)``), bf16 channels_last on cuDNN:
+  a falling loss, every BatchNorm statistic moved, finite eval logits,
+  samples/s and MFU on the convolutions' FLOPs.
 
 The decode profiles (paged bf16, flat, int8, verify; generate() at B 1
 bf16 and B 4 int8) read wall, device busy and idle share per step for
@@ -220,6 +242,7 @@ import functools
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -4271,7 +4294,7 @@ def train_path(dev, card: str):
     return launches
 
 
-def train_control(model, loss_and_norm, norm_plain):
+def train_control(model, loss_and_norm, norm_plain, label: str = "train path"):
     """The grad-norm check against plain attention must see a broken
     backward in each kernel: the same step with dQ zeroed after the dQ
     kernel, and with dK or dV zeroed after the dK/dV kernel (a gradient
@@ -4302,7 +4325,7 @@ def train_control(model, loss_and_norm, norm_plain):
             fail(f"control: with {what} zeroed the grad norm {norm_c} is within "
                  f"{TRAIN_GRAD_NORM_RTOL} rel of plain attention's {norm_plain}: the check "
                  "is blind")
-        print(f"train path: control, {what} zeroed in the flash backward: grad norm "
+        print(f"{label}: control, {what} zeroed in the flash backward: grad norm "
               f"{norm_c:.6f} vs plain {norm_plain:.6f} (rel {rel:.2e}, beyond tol "
               f"{TRAIN_GRAD_NORM_RTOL})")
 
@@ -6080,6 +6103,684 @@ def encoder_train_path(dev, card: str):
     kernels.reset_launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# MoE decoders and the ResNet classifier
+# ---------------------------------------------------------------------------
+
+# small_1b with 8 experts, top-2 (4.70B parameters): the MoE serving and
+# generate() paths at full width and depth, the training path at 8 of its
+# 16 layers (2.38B parameters: ~38 GB of fp32 masters, gradients and AdamW
+# moments, beside the activations of B 8 x 2048)
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+MOE_TRAIN_LAYERS = 8
+MOE_TRAIN_STEPS = 3       # build_train_step steps timed (the first warms up)
+MOE_FALL_STEPS = 6        # constant-lr steps on one fixed batch
+MOE_GEN = (4, 512, 16, 48)  # generate(): batch, prompt, base and extra new tokens
+MOE_GEN_REPEATS = 5       # timed (short, long) generate() pairs a mode
+# resnet_train_path: bench.py's _resnet_bench row (ResNet-50, B 64, 224^2,
+# SGD 0.1 momentum 0.9, 12 steps as build_train_step(steps_per_call=4))
+RESNET_TRAIN = (64, 224, 4, 12)
+
+
+def moe_model(dev, num_layers=None, param_dtype=None):
+    """small_1b with MOE_EXPERTS experts, top-MOE_TOP_K, random weights from
+    seed 0 made on the card: bf16 (serving) or ``param_dtype`` masters.
+
+    One departure from the reference's init: every expert bank is scaled
+    by sqrt(MOE_EXPERTS), to the std of a dense MLP's (fan-in the bank's
+    own d or m). At the reference's fan-in (E * d) random experts add
+    ~1 / sqrt(E) of a dense MLP to the residual, so little beside the
+    attention that the serving gate's zeroed-expert control cannot be told
+    from the real run."""
+    import torch
+
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+
+    kw = dict(moe_num_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K)
+    if num_layers is not None:
+        kw["num_layers"] = num_layers
+    cfg = DecoderConfig.small_1b(**kw)
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device=dev, param_dtype=param_dtype)
+    params = random_params(cfg, seed=0, device=dev, dtype=param_dtype)
+    for name, w in params.items():
+        if ".moe_mlp.w_" in name:
+            w.mul_(MOE_EXPERTS ** 0.5)
+    model.load_params(params)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def live_rows(args, kw, parked):
+    """[B, S] bool: the rows of one model call whose logits a run reads:
+    the packed ragged prefill's real rows (position >= 0), a decode or
+    verify step's live slots (not parked at ``parked``), a flat prefill
+    chunk's prompt rows (its pads are token 0, which these prompts never
+    hold), every row of any other call."""
+    import torch
+
+    ids = args[0]
+    pos = kw.get("cache_positions")
+    if kw.get("ragged_slots") is not None:
+        return (pos >= 0).reshape(ids.shape)
+    if pos is not None:
+        pos = pos[:, None] if pos.dim() == 1 else pos
+        return torch.ones_like(ids, dtype=torch.bool) if parked is None else pos != parked
+    if kw.get("decode"):
+        return ids != 0
+    return torch.ones_like(ids, dtype=torch.bool)
+
+
+class moe_record:
+    """Record a run of an MoE model, its steps eager (no CUDA graph, so
+    each step calls the model): every call's input ids, the argmax of its
+    logits and its live rows (``live_rows``), every MoE layer's expert
+    choices in call order, and the token-slots the prefill calls drop
+    (real rows only)."""
+
+    def __init__(self, model, parked=None):
+        self.model, self.parked = model, parked
+        self.calls, self.choices = [], []
+        self.prefill_slots = [0, 0]  # dropped, total
+
+    def __enter__(self):
+        from unittest import mock
+
+        from accelerate_tpu_torch.models import moe
+        from accelerate_tpu_torch.utils import cuda_graphs
+
+        real_forward, real_route = self.model.forward, moe._route
+        live = []
+
+        def forward(*args, **kw):
+            rows = live_rows(args, kw, self.parked)
+            # a prefill: packed ragged, a flat chunk or a whole prompt (a
+            # verify step has positions and no ragged rows)
+            prefill = (kw.get("ragged_slots") is not None
+                       or kw.get("cache_positions") is None)
+            live.append((rows, prefill))
+            try:
+                logits = real_forward(*args, **kw)
+            finally:
+                live.pop()
+            self.calls.append((args[0].clone(), logits.argmax(-1), rows))
+            return logits
+
+        def route(probs, top_k, capacity):
+            out = real_route(probs, top_k, capacity)
+            self.choices.append(out[1].clone())
+            rows, prefill = live[-1]
+            if prefill:
+                keep = out[3] & rows.reshape(out[3].shape[:2])[..., None]
+                self.prefill_slots[0] += int(rows.sum()) * top_k - int(keep.sum())
+                self.prefill_slots[1] += int(rows.sum()) * top_k
+            return out
+
+        self.patches = [mock.patch.object(self.model, "forward", forward),
+                        mock.patch.object(moe, "_route", route),
+                        mock.patch.object(cuda_graphs, "captures", lambda device: False)]
+        for p in self.patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.stop()
+
+    def drop_share(self) -> float:
+        return self.prefill_slots[0] / max(self.prefill_slots[1], 1)
+
+
+def plain_kernels():
+    """Every kernel wrapper of the serving and generate() paths patched to
+    its plain PyTorch version (on CUDA tensors too)."""
+    import contextlib
+    from unittest import mock
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.ops.attention import (decode_attention_reference,
+                                                    flash_fwd_reference,
+                                                    paged_decode_reference,
+                                                    ragged_prefill_reference)
+
+    def paged_quant(q, kp, vp, ks, vs, table, pos, scale, bits):
+        return paged_decode_reference(q, kp, vp, table, pos, scale, k_scale=ks, v_scale=vs,
+                                      kv_quant_bits=bits)
+
+    def prefill(q, kn, vn, kp, vp, table, slot, pos, hist, scale, bt):
+        return ragged_prefill_reference(q, kn, vn, kp, vp, table, slot, pos, hist, scale)
+
+    def prefill_quant(q, kn, vn, kp, vp, ks, vs, table, slot, pos, hist, scale, bt, bits):
+        return ragged_prefill_reference(q, kn, vn, kp, vp, table, slot, pos, hist, scale,
+                                        k_scale=ks, v_scale=vs, kv_quant_bits=bits)
+
+    def dense_quant(q, k, v, ks, vs, pos, scale, bits):
+        return decode_attention_reference(q, k, v, pos, scale, k_scale=ks, v_scale=vs,
+                                          kv_quant_bits=bits)
+
+    plain = {"paged_decode": paged_decode_reference, "paged_decode_quant": paged_quant,
+             "ragged_prefill": prefill, "ragged_prefill_quant": prefill_quant,
+             "dense_decode": decode_attention_reference, "dense_decode_quant": dense_quant,
+             "flash_fwd": flash_fwd_reference}
+    stack = contextlib.ExitStack()
+    for name, fn in plain.items():
+        stack.enter_context(mock.patch.object(kernels, name, fn))
+    return stack
+
+
+def moe_replay(model, rec: moe_record, run, what: str):
+    """Replay a recorded run over ``model`` through ``run()`` (the same
+    engine or generate() call, eager) with the plain kernels, routed in
+    the recorded run's own groups and held to its expert choices: the
+    i-th model call must be fed the recorded call's ids, its plain logits
+    are read against the recorded argmax on the live rows, and it hands
+    the run a one-hot of the recorded argmax so every decision (tokens,
+    drafts, admission) repeats the recorded run's. Its steps run eager, as
+    the recorded run's. ``(worst gap, exact,
+    total, flipped, choices)``: how many logits a recorded token sits
+    below the plain argmax, the exact count, and how many of the read
+    rows' expert choices the plain route would make otherwise if left
+    free."""
+    from unittest import mock
+
+    import torch
+
+    from accelerate_tpu_torch.models import moe
+
+    state = {"call": 0, "choice": 0, "worst": 0.0, "exact": 0, "total": 0, "flipped": 0,
+             "choices": 0}
+    real_forward, real_top_k = model.forward, moe._top_k
+
+    def forward(*args, **kw):
+        i = state["call"]
+        if i >= len(rec.calls):
+            fail(f"{what}: the replay makes more model calls than the run ({len(rec.calls)})")
+        ids, want, rows = rec.calls[i]
+        if args[0].shape != ids.shape or not torch.equal(args[0], ids):
+            fail(f"{what}: replay call {i} is fed other ids than the run's")
+        state["call"] += 1
+        state["rows"] = rows
+        logits = real_forward(*args, **kw)
+        gap = (logits.max(-1).values - logits.gather(-1, want[..., None])[..., 0])[rows]
+        if gap.numel():
+            state["worst"] = max(state["worst"], gap.max().item())
+        state["exact"] += int((gap == 0).sum())
+        state["total"] += gap.numel()
+        return torch.zeros_like(logits).scatter_(-1, want[..., None], 1.0)
+
+    def top_k(probs, k):
+        j = state["choice"]
+        forced = rec.choices[j]
+        state["choice"] += 1
+        _, free = real_top_k(probs, k)
+        if free.shape != forced.shape:
+            fail(f"{what}: replay routing {j} has groups {tuple(free.shape)}, the run's "
+                 f"{tuple(forced.shape)}")
+        rows = state["rows"].reshape(free.shape[:2])
+        state["flipped"] += int(((free != forced).any(-1) & rows).sum())
+        state["choices"] += int(rows.sum())
+        return probs.gather(-1, forced), forced
+
+    with plain_kernels(), mock.patch.object(model, "forward", forward), \
+            mock.patch.object(moe, "_top_k", top_k), mock_captures(False), torch.no_grad():
+        run()
+    if state["call"] != len(rec.calls) or state["choice"] != len(rec.choices):
+        fail(f"{what}: the replay made {state['call']} calls and {state['choice']} routings, "
+             f"the run {len(rec.calls)} and {len(rec.choices)}")
+    return (state["worst"], state["exact"], state["total"], state["flipped"],
+            state["choices"])
+
+
+def moe_serve_path(dev, card: str, prompts, paged: dict):
+    """Serve small_1b with 8 experts, top-2, at full width and depth (16
+    layers, 4.70B parameters, random bf16 weights from seed 0) over the
+    main path's requests: the paged engine (page 16), the flat engine,
+    the int8 paged arena and spec K 4. Each run is measured as served
+    (steps as CUDA graph replays) with the counts reset before it; #4, #5
+    and #6 launch on their entries only. Each is run again eager and
+    recorded (its tokens must be the measured run's), then replayed with
+    the plain kernels in the run's own routing groups and expert choices
+    (``moe_replay``): every token within TOP2_MARGIN of the plain argmax.
+    A control run with one expert's w_down bank zeroed in every layer
+    (each layer's most chosen), replayed on the real weights, must fail
+    that gate."""
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+
+    model, built = moe_model(dev)
+    cfg = model.config
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"moe serve path: small_1b with {cfg.moe_num_experts} experts, top-{cfg.moe_top_k} "
+          f"({cfg.num_layers} layers, E {cfg.embed_dim}, M {cfg.mlp_dim}, "
+          f"{cfg.num_params / 1e9:.3f}B params, {weight_bytes / 1e9:.3f} GB bf16), random "
+          f"weights seed 0, built in {built:.1f} s")
+    new_tokens = 32
+    base = dict(num_slots=8, max_cache_len=MAX_CACHE, prefill_chunks=(128, 512), device=dev)
+    runs = (("paged", dict(page_size=PAGE), ("paged_decode", "ragged_prefill")),
+            ("flat", dict(page_size=None), ("dense_decode", None)),
+            ("paged int8", dict(page_size=PAGE, kv_cache_dtype="int8"),
+             ("paged_decode_quant", "ragged_prefill_quant")),
+            (f"spec K {SPEC_K}", dict(page_size=PAGE, spec_draft_len=SPEC_K),
+             ("paged_decode", "ragged_prefill")))
+    warm = ServingEngine(model, **base, page_size=PAGE)
+    warm.generate_batched([prompts[1], prompts[3]], max_new_tokens=4)
+    del warm
+    parked = MAX_CACHE - 1
+    launches_all, first = {}, None
+
+    def recorded(kw, new=new_tokens):
+        with moe_record(model, parked) as rec:
+            eng = ServingEngine(model, **base, **kw)
+            reqs = [eng.submit(p, max_new_tokens=new, seed=i) for i, p in enumerate(prompts)]
+            eng.run()
+        return rec, [list(r.tokens) for r in reqs]
+
+    def replay(rec, kw, what):
+        def run():
+            eng = ServingEngine(model, **base, **kw)
+            for i, p in enumerate(prompts):
+                eng.submit(p, max_new_tokens=new_tokens, seed=i)
+            eng.run()
+        return moe_replay(model, rec, run, what)
+
+    for name, kw, (decode, prefill) in runs:
+        engine, reqs, wall, launches = serve_counted(model, prompts, new_tokens, **base, **kw)
+        steps, dispatches = engine.step_count, engine.prefill_dispatches
+        want = {decode: steps * cfg.num_layers}
+        if prefill:
+            want[prefill] = dispatches * cfg.num_layers
+        expect_launches(f"moe serve path ({name})", launches, want)
+        launches_all[name] = {k: n for k, n in launches.items() if n}
+        m = engine.metrics()
+        del engine
+        rec, tokens = recorded(kw)
+        if tokens != [list(r.tokens) for r in reqs]:
+            diff = sum(a != b for x, y in zip(tokens, (r.tokens for r in reqs))
+                       for a, b in zip(x, y))
+            fail(f"moe serve path ({name}): the eager recorded run's tokens differ from the "
+                 f"served run's in {diff} places")
+        gap, exact, total, flipped, choices = replay(rec, kw, f"moe serve path ({name})")
+        if not math.isfinite(gap) or gap > TOP2_MARGIN:
+            fail(f"moe serve path ({name}): a token is {gap} logits below the plain replay's "
+                 f"argmax (margin {TOP2_MARGIN})")
+        tps = m["serving/generated_tokens"] / wall
+        if first is None:
+            first = (rec, kw)
+        print(f"moe serve path ({name}): {len(reqs)} requests x {new_tokens} tokens, {steps} "
+              f"{'verify' if 'spec' in name else 'decode'} steps, {dispatches} prefill "
+              f"dispatches, launches {launches_all[name]}; vs the plain replay in the run's "
+              f"groups and expert choices: {exact}/{total} read rows its argmax, worst gap "
+              f"{gap:.4f} (margin {TOP2_MARGIN}); the plain route left free would choose "
+              f"otherwise at {flipped} of {choices} token-layer routings; prefill drops "
+              f"{100 * rec.drop_share():.2f}% of real token-slots "
+              f"({rec.prefill_slots[0]} of {rec.prefill_slots[1]})")
+        print(f"moe serve path ({name}) on {card}: {tps:.1f} tokens/s over {wall:.3f} s, TTFT "
+              f"p50 {m['serving/ttft_ms_p50']:.2f} ms, decode "
+              f"{m['serving/decode_step_ms_p50']:.3f} ms/step (p50); dense small_1b paged (same "
+              f"call): {paged['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+              f"{paged['ttft_ms_p50']:.2f} ms, {paged['step_ms_p50']:.3f} ms/step; weight-read "
+              f"bound of a step {1e3 * weight_bytes / HBM_BYTES_PER_S:.3f} ms (every expert "
+              f"bank read once a step: {weight_bytes / 1e9:.3f} GB over 3.35 TB/s)")
+
+    # the control: one expert bank zeroed in every layer (each layer's
+    # most chosen expert in the first run: random weights route most
+    # tokens to few experts), its run replayed on the real weights
+    rec, kw = first
+    layers = cfg.num_layers
+    counts = [torch.zeros(cfg.moe_num_experts, dtype=torch.long, device=dev)
+              for _ in range(layers)]
+    for j, idx in enumerate(rec.choices):
+        counts[j % layers] += torch.bincount(idx.flatten(), minlength=cfg.moe_num_experts)
+    experts = [int(c.argmax()) for c in counts]
+    banks = [blk.moe_mlp.w_down for blk in model.layers]
+    saved = [w[e].clone() for w, e in zip(banks, experts)]
+    for w, e in zip(banks, experts):
+        w[e].zero_()
+    try:
+        control, _ = recorded(kw)
+    finally:
+        for w, e, s in zip(banks, experts, saved):
+            w[e].copy_(s)
+    gap_c, exact_c, total_c, _, _ = replay(control, kw, "moe serve path control")
+    if not gap_c > TOP2_MARGIN:
+        fail(f"moe serve path control: with one expert's w_down zeroed in every layer every "
+             f"read row is within {TOP2_MARGIN} of the plain replay's argmax (worst {gap_c}): "
+             "the gate is blind")
+    print(f"moe serve path control (paged, the w_down bank of each layer's most chosen expert "
+          f"{experts} zeroed): {exact_c}/{total_c} read rows the plain argmax, worst gap "
+          f"{gap_c:.4f}: fails the gate")
+    kernels.reset_launch_counts()
+    return model, launches_all
+
+
+def moe_generate_path(dev, card: str, model):
+    """generate() on the MoE small_1b at B 4 x 512 with its captured
+    decode step: the prefill's flash forward (#1) once per layer, the
+    dense decode (#5) once per layer a step. Its tokens are the eager
+    recorded run's, and within TOP2_MARGIN of a plain replay in
+    generate()'s groups (each prompt row one group; each [B, 1] decode
+    row its own) and expert choices. Prints ms/token captured and eager
+    (differential: the extra tokens of a longer call over their count, the
+    median of MOE_GEN_REPEATS such pairs)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import generate
+    from accelerate_tpu_torch.ops import kernels
+
+    cfg = model.config
+    b, s, base_new, extra = MOE_GEN
+    ids = torch.as_tensor(np.random.RandomState(5).randint(3, cfg.vocab_size, (b, s)),
+                          device=dev)
+    new = base_new + extra
+    generate(model, ids[:, :64], max_new_tokens=4)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = generate(model, ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in kernels.launch_counts.items() if n}
+    expect_launches("moe generate path", launches, {
+        "flash_fwd": cfg.num_layers, "dense_decode": cfg.num_layers * (new - 1)})
+    with moe_record(model) as rec:
+        eager = generate(model, ids, max_new_tokens=new)
+    if not torch.equal(eager, out):
+        fail("moe generate path: the eager recorded run's tokens differ from the captured run's")
+    gap, exact, total, flipped, choices = moe_replay(
+        model, rec, lambda: generate(model, ids, max_new_tokens=new), "moe generate path")
+    if not math.isfinite(gap) or gap > TOP2_MARGIN:
+        fail(f"moe generate path: a token is {gap} logits below the plain replay's argmax "
+             f"(margin {TOP2_MARGIN})")
+
+    def ms_per_token(captured: bool):
+        """The median, over MOE_GEN_REPEATS pairs of calls (short, long;
+        warmed up once), of the long call's extra wall over its extra
+        tokens, and (min, max) of the pairs."""
+        diffs = []
+        with mock_captures(captured):
+            generate(model, ids, max_new_tokens=new)
+            for _ in range(MOE_GEN_REPEATS):
+                walls = []
+                for n in (base_new, new):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    generate(model, ids, max_new_tokens=n)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                diffs.append(1e3 * (walls[1] - walls[0]) / extra)
+        return statistics.median(diffs), (min(diffs), max(diffs))
+
+    (captured_ms, captured_spread), (eager_ms, eager_spread) = (ms_per_token(True),
+                                                                ms_per_token(False))
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"moe generate path: B {b} x {s} prompt, {new} new tokens, launches {launches}; vs "
+          f"the plain replay in generate()'s groups and expert choices: {exact}/{total} rows "
+          f"its argmax, worst gap {gap:.4f} (margin {TOP2_MARGIN}); free plain routing would "
+          f"choose otherwise at {flipped} of {choices} token-layer routings")
+    print(f"moe generate path on {card}: {captured_ms:.3f} ms/token with the decode step "
+          f"captured (pairs {captured_spread[0]:.3f}-{captured_spread[1]:.3f}), "
+          f"{eager_ms:.3f} ms/token eager (pairs {eager_spread[0]:.3f}-{eager_spread[1]:.3f}); "
+          f"each the median of {MOE_GEN_REPEATS} differentials over {extra} tokens; "
+          f"weight-read bound {1e3 * weight_bytes / HBM_BYTES_PER_S:.3f} ms/token")
+    kernels.reset_launch_counts()
+    return launches
+
+
+@contextlib.contextmanager
+def mock_captures(on: bool):
+    """``cuda_graphs.captures`` forced off (``on`` False): the steps run
+    eager."""
+    from unittest import mock
+
+    from accelerate_tpu_torch.utils import cuda_graphs
+
+    if on:
+        yield
+        return
+    with mock.patch.object(cuda_graphs, "captures", lambda device: False):
+        yield
+
+
+def moe_flops_per_token(cfg, s: int) -> float:
+    """Training FLOPs a token uses (6 x the parameters it reads: attention,
+    the router, its k experts' banks, the tied LM head; plus the causal
+    attention term of the dense path's formula)."""
+    e, m = cfg.embed_dim, cfg.mlp_dim
+    idle = (cfg.moe_num_experts - cfg.moe_top_k) * 3 * e * m * cfg.num_layers
+    return 6 * (cfg.num_params - idle) + 6 * cfg.num_layers * s * e
+
+
+def moe_train_path(dev, card: str):
+    """Train the MoE small_1b at full width, MOE_TRAIN_LAYERS of its 16
+    layers, at B TRAIN_B x TRAIN_S: bf16 over fp32 masters, remat
+    save_attention, AdamW through build_train_step. Gates: the flash
+    kernels once per layer a step (forward) and in backward, a finite
+    aux_loss, a falling loss on one fixed batch, one step within
+    TRAIN_LOSS_RTOL / TRAIN_GRAD_NORM_RTOL of plain attention (both held to
+    the flash run's expert choices), with the dQ-, dK- and dV-zeroed
+    controls beyond. Returns the flash kernels' launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.accelerator import global_grad_norm
+    from accelerate_tpu_torch.models import moe
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+
+    b, s = TRAIN_B, TRAIN_S
+    model, built = moe_model(dev, MOE_TRAIN_LAYERS, torch.float32)
+    cfg = model.config
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (b, s))
+    batch = {"input_ids": torch.as_tensor(ids, device=dev),
+             "labels": torch.as_tensor(ids, device=dev)}
+    print(f"moe train path: small_1b with {cfg.moe_num_experts} experts, top-{cfg.moe_top_k}, "
+          f"{cfg.num_layers} of 16 layers (depth cut to fit fp32 masters, gradients and AdamW "
+          f"moments), {cfg.num_params / 1e9:.3f}B params, batch {b} x {s}, bf16, remat "
+          f"{cfg.remat_policy}, built in {built:.1f} s")
+    acc = Accelerator(mixed_precision="bf16")
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    step = acc.build_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(batch)["loss"].item())
+        times.append(time.perf_counter() - t0)
+    launches = {name: kernels.launch_counts[name] for name in FLASH_KERNELS}
+    for name in FLASH_KERNELS:
+        if launches[name] != MOE_TRAIN_STEPS * cfg.num_layers:
+            fail(f"moe train path: {name} launched {launches[name]} times in "
+                 f"{MOE_TRAIN_STEPS} steps of {cfg.num_layers} layers")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        out = model(**batch)
+    if not all(math.isfinite(out[k].item()) for k in out) or not math.isfinite(losses[-1]):
+        fail(f"moe train path: non-finite losses {losses}, {out}")
+    step_ms = 1e3 * sorted(times[1:])[len(times[1:]) // 2]
+    tokens_per_s = b * s / (step_ms / 1e3)
+    fpt = moe_flops_per_token(cfg, s)
+    slots = cfg.moe_top_k * cfg.moe_capacity_factor
+    print(f"moe train path: build_train_step losses {[round(x, 5) for x in losses]}, "
+          f"lm_loss {out['lm_loss'].item():.5f}, aux_loss {out['aux_loss'].item():.6f}, "
+          f"launches {launches}, peak memory {peak_gb:.2f} GB")
+    print(f"moe train path on {card}: {tokens_per_s:.1f} tokens/s, {step_ms:.1f} ms/step "
+          f"(median of steady steps {[round(1e3 * t, 1) for t in times]}), MFU "
+          f"{100 * tokens_per_s * fpt / BF16_FLOPS_PER_S:.2f}% ({fpt / 1e9:.3f} GFLOP/token: "
+          f"attention, the router and {cfg.moe_top_k} experts' MLP; the slot-table form runs "
+          f"{slots:g} expert slots a token, {cfg.moe_top_k} of them counted)")
+
+    # the first run's AdamW moments (19 GB) go before the next run's come:
+    # its step's closures hold them in reference cycles until a collection
+    del acc, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    acc = Accelerator(mixed_precision="bf16")
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    step = acc.build_train_step()
+    curve = [step(batch)["loss"].item() for _ in range(MOE_FALL_STEPS)]
+    if not all(math.isfinite(x) for x in curve) or not curve[-1] < curve[0]:
+        fail(f"moe train path: the loss did not fall over {MOE_FALL_STEPS} steps: {curve}")
+    print(f"moe train path: {MOE_FALL_STEPS} steps at constant lr {TRAIN_LR} on one batch: "
+          f"loss {[round(x, 4) for x in curve]}")
+    del acc, opt, step, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    choices = []
+
+    def loss_and_norm(m, forced=None):
+        """One forward + backward on the fixed batch: the loss and the
+        gradient norm; ``forced`` replays recorded expert choices."""
+        from unittest import mock
+
+        real = moe._top_k
+        it = iter(forced or ())
+
+        def top_k(probs, k):
+            if forced is None:
+                vals, idx = real(probs, k)
+                choices.append(idx.clone())
+                return vals, idx
+            idx = next(it)
+            return probs.gather(-1, idx), idx
+
+        Accelerator(mixed_precision="bf16").prepare(m)
+        m.zero_grad(set_to_none=True)
+        with mock.patch.object(moe, "_top_k", top_k):
+            o = m(**batch)
+            o["loss"].backward()
+        norm = global_grad_norm(m.parameters()).item()
+        m.zero_grad(set_to_none=True)
+        return o["loss"].item(), norm
+
+    loss_f, norm_f = loss_and_norm(model)
+    recorded = list(choices)
+    plain = DecoderLM(dataclasses.replace(cfg, attention_impl="xla"), device=dev,
+                      param_dtype=torch.float32)
+    plain.load_state_dict(model.state_dict())
+    loss_x, norm_x = loss_and_norm(plain, recorded)
+    del plain
+    if abs(loss_f - loss_x) > TRAIN_LOSS_RTOL * abs(loss_x):
+        fail(f"moe train path: flash loss {loss_f} vs plain attention {loss_x}: beyond "
+             f"{TRAIN_LOSS_RTOL} rel")
+    if abs(norm_f - norm_x) > TRAIN_GRAD_NORM_RTOL * abs(norm_x):
+        fail(f"moe train path: flash grad norm {norm_f} vs plain attention {norm_x}: beyond "
+             f"{TRAIN_GRAD_NORM_RTOL} rel")
+    print(f"moe train path: one step vs plain attention in the flash step's expert choices: "
+          f"loss {loss_f:.6f} vs {loss_x:.6f} (rel {abs(loss_f - loss_x) / abs(loss_x):.2e}, "
+          f"tol {TRAIN_LOSS_RTOL}), grad norm {norm_f:.6f} vs {norm_x:.6f} (rel "
+          f"{abs(norm_f - norm_x) / abs(norm_x):.2e}, tol {TRAIN_GRAD_NORM_RTOL})")
+    train_control(model, lambda m: loss_and_norm(m, recorded), norm_x, "moe train path")
+    del model
+    kernels.reset_launch_counts()
+    return launches
+
+
+def conv_flops(model, images) -> float:
+    """Forward FLOPs of one image through ``model``'s convolutions and
+    classifier, counted from the shapes a forward sees (2 x multiply-adds)."""
+    import torch
+
+    from accelerate_tpu_torch.models.vision import Conv, Dense
+
+    total = [0]
+
+    def hook(mod, args, out):
+        if isinstance(mod, Conv):
+            o, i, kh, kw = mod.kernel.shape
+            total[0] += 2 * out.shape[2] * out.shape[3] * o * i * kh * kw
+        else:
+            total[0] += 2 * mod.kernel.numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv, Dense))]
+    with torch.no_grad():
+        model(images[:1])
+    for h in handles:
+        h.remove()
+    return float(total[0])
+
+
+def resnet_train_path(dev, card: str):
+    """ResNet-50 as bench.py's _resnet_bench trains it: B 64 at 224^2,
+    ``Accelerator(mixed_precision="bf16")`` over fp32 masters, SGD 0.1
+    with momentum 0.9, 12 steps as ``build_train_step(steps_per_call=4)``
+    (three calls; the first warms up) on one synthetic batch made on the
+    card from a seed. Gates: finite losses that fall over the repeated
+    batch, BatchNorm statistics moved by training, finite eval logits,
+    no kernel launch (convolutions are cuDNN's). Prints samples/s and MFU
+    from the conv FLOPs counted from the shapes (x 3 for the backward)."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import ResNet, VisionConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.ops import kernels
+
+    b, size, k, steps = RESNET_TRAIN
+    cfg = VisionConfig.resnet50(image_size=size)
+    torch.cuda.reset_peak_memory_stats()
+    model = ResNet(cfg, device=dev, param_dtype=torch.float32).load_params(
+        random_params(cfg, seed=0, device=dev, dtype=torch.float32))
+    acc = Accelerator(mixed_precision="bf16")
+    model, opt = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.randn((b, size, size, 3), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.num_classes, (b,), generator=gen, device=dev)
+    batch = {"images": images.expand(k, *images.shape), "labels": labels.expand(k, b)}
+    step = acc.build_train_step(
+        loss_fn=lambda m, mb: m(mb["images"], mb["labels"], train=True)["loss"],
+        steps_per_call=k)
+    stats = {n: t.clone() for n, t in model.named_buffers()}
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps // k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch)
+        losses.append((out["loss_mean"].item(), out["loss"].item()))
+        times.append(time.perf_counter() - t0)
+    launches = {key: v for key, v in kernels.launch_counts.items() if v}
+    if launches:
+        fail(f"resnet train path launched {launches}: its convolutions are cuDNN's")
+    flat = [x for pair in losses for x in pair]
+    if not all(math.isfinite(x) for x in flat) or not losses[-1][1] < losses[0][0]:
+        fail(f"resnet train path: the loss did not fall over the repeated batch: {losses}")
+    moved = sum(not torch.equal(t, stats[n]) for n, t in model.named_buffers())
+    if moved != len(stats):
+        fail(f"resnet train path: {len(stats) - moved} of {len(stats)} BatchNorm statistics "
+             "did not move in training")
+    with torch.no_grad():
+        logits = model(images[:8])["logits"]
+    if not torch.isfinite(logits).all():
+        fail("resnet train path: eval logits are not finite")
+    flops = 3 * conv_flops(model, images)
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    samples_s = b * k / steady
+    print(f"resnet train path (ResNet-50, B {b} x {size}^2, bf16 over fp32 masters, SGD 0.1 "
+          f"momentum 0.9, steps_per_call {k}, {steps} steps): (loss mean, last loss) per call "
+          f"{[(round(m, 4), round(x, 4)) for m, x in losses]}, {moved} BatchNorm statistics "
+          f"moved, eval logits finite; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"resnet train path on {card}: {samples_s:.1f} samples/s, {1e3 * steady / k:.2f} ms "
+          f"a step (calls {[round(1e3 * t / k, 2) for t in times]} ms a step), MFU "
+          f"{100 * samples_s * flops / BF16_FLOPS_PER_S:.2f}% ({flops / 1e9:.3f} GFLOP a sample: "
+          f"3 x the convolutions' and classifier's forward)")
+    profile_train(step, batch, card, f"one ResNet-50 build_train_step call of {k} steps")
+    kernels.reset_launch_counts()
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -6191,6 +6892,16 @@ def main():
     # the fp16 serving entries' launches: their own model's runs
     launches.update(timed("fp16 serve path", fp16_serve_path, dev, card, serving["prompts"],
                           serving["prompt"], serving["paged"]))
+    # the MoE paths' launches stay off the kernels line, as the replica's:
+    # they print on lines of their own, each run's from its own reset
+    moe, moe_launches = timed("moe serve path", moe_serve_path, dev, card, serving["prompts"],
+                              serving["paged"])
+    print(f"moe serve path launches: {json.dumps(moe_launches)}")
+    moe_gen_launches = timed("moe generate path", moe_generate_path, dev, card, moe)
+    print(f"moe generate path launches: {json.dumps(moe_gen_launches)}")
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
     # the replica's launches stay off the kernels line: its rows keep the
     # launches of their own paths
     replica_launches, wave = timed("replica path", replica_path, dev, card, model,
@@ -6216,6 +6927,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(timed("train fp16 path", train_fp16_path, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train_launches = timed("moe train path", moe_train_path, dev, card)
+    print(f"moe train path launches: {json.dumps(moe_train_launches)}")
     gc.collect()
     torch.cuda.empty_cache()
     # its flash launches stay off the kernels line, as the replica's: the
@@ -6244,6 +6959,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     timed("encoder_train_path", encoder_train_path, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("resnet train path", resnet_train_path, dev, card)
     launches["dense_decode"] += flat_launches + dispatch_launches["dense_decode"]
     launches["flash_fwd"] += dispatch_launches["flash_fwd"]
     for row in rows:

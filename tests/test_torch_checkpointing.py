@@ -455,7 +455,7 @@ def test_fresh_optimizer_state_is_optax_init():
     assert int(flat["0/count"]) == 0 and "2/count" not in flat
     assert all(not v.any() for k, v in flat.items() if k != "0/count")
     with pytest.raises(TypeError, match="AdamW"):
-        optimizer_state_to_reference(torch.optim.SGD(model.parameters(), lr=0.1), model)
+        optimizer_state_to_reference(torch.optim.Adagrad(model.parameters(), lr=0.1), model)
 
 
 def test_rng_state_keeps_the_reference_keychain(tmp_path):
