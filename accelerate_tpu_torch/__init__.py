@@ -45,7 +45,13 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
 - ``accelerator.py``, ``optimizer.py``, ``scheduler.py``, ``state.py``,
   ``data.py``, ``utils/dataclasses.py`` (the training contract: bf16 and
   fp16 with the dynamic loss scale, remat, residual dropout),
-  ``utils/operations.py`` (gather / reduce / pad on one process),
+  ``utils/operations.py`` (the tree helpers; gather / reduce / pad /
+  broadcast on one process), ``state.py``'s ``PartialState`` (the
+  process singleton), ``logging.py`` (``get_logger``),
+  ``utils/memory.py`` (``find_executable_batch_size``),
+  ``utils/profiler.py`` (``Accelerator.profile``), ``utils/tqdm.py``,
+  ``runtime/prefetch.py`` (the loader's host prefetch ring, on
+  ``csrc/host_runtime.cpp``),
   ``tracking.py`` (trackers: JSONL, tensorboard, wandb, mlflow, ...);
   ``checkpointing.py``, ``utils/random.py``, ``utils/other.py``,
   ``utils/constants.py`` (``save_state`` / ``load_state`` /
@@ -78,7 +84,10 @@ _EXPORTS = {
     "AcceleratedOptimizer": "optimizer",
     "AcceleratedScheduler": "scheduler", "warmup_cosine_decay_schedule": "scheduler",
     "ServingEngine": "serving.engine", "generate_batched": "serving.engine",
-    "AcceleratorState": "state", "GradientState": "state",
+    "AcceleratorState": "state", "GradientState": "state", "PartialState": "state",
+    "get_logger": "logging", "find_executable_batch_size": "utils.memory",
+    "DataLoaderConfiguration": "utils.dataclasses", "DistributedType": "utils.dataclasses",
+    "ProfileKwargs": "utils.dataclasses",
     "LossScale": "accelerator",
     "AutocastKwargs": "utils.dataclasses", "GradScalerKwargs": "utils.dataclasses",
     "GradientAccumulationPlugin": "utils.dataclasses",
@@ -100,7 +109,9 @@ def __getattr__(name):
 
 __all__ = [
     "AcceleratedOptimizer", "AcceleratedScheduler", "Accelerator", "AcceleratorState",
-    "AutocastKwargs", "DataLoader", "DecoderConfig", "DecoderLM",
+    "AutocastKwargs", "DataLoader", "DataLoaderConfiguration", "DecoderConfig", "DecoderLM",
+    "DistributedType", "PartialState", "ProfileKwargs", "find_executable_batch_size",
+    "get_logger",
     "EncoderClassifier", "EncoderConfig", "GradScalerKwargs", "GradientAccumulationPlugin", "GradientState", "LossScale",
     "MixedPrecisionConfig", "ProjectConfiguration", "QuantizationConfig", "ResNet",
     "Seq2SeqConfig", "Seq2SeqLM", "ServingEngine", "cpu_offload", "cpu_offload_with_hook", "disk_offload",

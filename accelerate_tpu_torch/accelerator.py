@@ -51,6 +51,12 @@ the compute dtype where it reads it (``DecoderLM.set_param_cast``).
 norm, and the clip ``min(1, max_norm / (norm + 1e-6))`` is applied to the
 whole accumulated gradient just before the update, as the reference's
 update function does.
+
+The process API is the reference's (accelerator.py:1746-1843), over the
+process's ``PartialState``: ``is_main_process``, ``process_index``,
+``wait_for_everyone``, ``main_process_first``, the ``on_*process``
+decorators, ``split_between_processes``, ``print``; ``profile()`` opens
+a ``torch.profiler`` region (``utils/profiler.py``).
 """
 
 from __future__ import annotations
@@ -68,13 +74,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from .data import prepare_data_loader, send_to_device
+from .data import prepare_data_loader
 from .data import skip_first_batches as _skip_first_batches
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils import operations
-from .utils.dataclasses import (AutocastKwargs, GradientAccumulationPlugin, GradScalerKwargs,
+from .utils.operations import send_to_device
+from .utils.dataclasses import (AutocastKwargs, DataLoaderConfiguration,
+                                GradientAccumulationPlugin, GradScalerKwargs, ProfileKwargs,
                                 ProjectConfiguration)
 
 logger = logging.getLogger(__name__)
@@ -236,17 +244,23 @@ class Accelerator:
     ``GradientAccumulationPlugin``); ``project_dir`` / ``project_config``
     (a ``ProjectConfiguration``): where ``save_state`` writes;
     ``kwargs_handlers``: a ``GradScalerKwargs`` (the fp16 loss scale's
-    rule) and an ``AutocastKwargs``; ``log_with``: trackers
-    (``tracking.py``); ``telemetry``: a ``TelemetryConfig``, True, or
-    None to read ``ATT_TELEMETRY``; ``device=None`` means CUDA and raises
-    without it, ``device="cpu"`` runs the plain versions of the kernels."""
+    rule), an ``AutocastKwargs`` and a ``ProfileKwargs`` (what
+    ``profile()`` records); ``dataloader_config``: a
+    ``DataLoaderConfiguration`` (its ``prefetch_depth`` is what one
+    process reads; ``split_batches`` sets its field); ``log_with``:
+    trackers (``tracking.py``); ``telemetry``: a ``TelemetryConfig``,
+    True, or None to read ``ATT_TELEMETRY``; ``device=None`` means the
+    process's card and raises without CUDA, ``device="cpu"`` (or the
+    reference's ``cpu=True``) runs the plain versions of the kernels."""
 
     def __init__(self, mixed_precision="no", gradient_accumulation_steps: int = 1,
                  gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
                  project_dir: Optional[str] = None,
                  project_config: Optional[ProjectConfiguration] = None,
                  kwargs_handlers: Optional[list] = None, log_with=None, telemetry=None,
-                 device=None):
+                 device=None, cpu: bool = False,
+                 dataloader_config: Optional[DataLoaderConfiguration] = None,
+                 split_batches: bool = False):
         if gradient_accumulation_plugin is not None and gradient_accumulation_steps != 1:
             raise ValueError(
                 "pass gradient_accumulation_steps or gradient_accumulation_plugin, not both"
@@ -255,15 +269,22 @@ class Accelerator:
             num_steps=gradient_accumulation_steps)
         self.scaler_handler: Optional[GradScalerKwargs] = None
         self.autocast_handler: Optional[AutocastKwargs] = None
+        self.profile_handler: Optional[ProfileKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, GradScalerKwargs):
                 self.scaler_handler = handler
             elif isinstance(handler, AutocastKwargs):
                 self.autocast_handler = handler
+            elif isinstance(handler, ProfileKwargs):
+                self.profile_handler = handler
             else:
-                raise TypeError(f"kwargs_handlers takes GradScalerKwargs and AutocastKwargs, "
-                                f"got {handler!r}")
-        self.state = AcceleratorState(mixed_precision, device)
+                raise TypeError(f"kwargs_handlers takes GradScalerKwargs, AutocastKwargs and "
+                                f"ProfileKwargs, got {handler!r}")
+        if cpu and device is not None and torch.device(device).type != "cpu":
+            raise ValueError(f"cpu=True and device={device!r} disagree")
+        self.state = AcceleratorState(mixed_precision, device, cpu=cpu)
+        self.dataloader_config = dataloader_config or DataLoaderConfiguration(
+            split_batches=split_batches)
         if self.scaler_handler is not None:
             self.state.precision.grad_scaler = self.scaler_handler
         self.loss_scale: Optional[LossScale] = (
@@ -297,6 +318,74 @@ class Accelerator:
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    # -- the process API (the reference's accelerator.py:1746-1843) ------
+
+    @property
+    def distributed_type(self):
+        return self.state.distributed_type
+
+    @property
+    def num_processes(self) -> int:
+        return self.state.num_processes
+
+    @property
+    def process_index(self) -> int:
+        return self.state.process_index
+
+    @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    def on_main_process(self, function):
+        return self.state.on_main_process(function)
+
+    def on_local_main_process(self, function):
+        return self.state.on_local_main_process(function)
+
+    def on_process(self, function=None, process_index=None):
+        return self.state.on_process(function, process_index)
+
+    def on_last_process(self, function):
+        return self.state.on_last_process(function)
+
+    def wait_for_everyone(self):
+        self.state.wait_for_everyone()
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        with self.state.main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.state.local_main_process_first():
+            yield
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state.split_between_processes(inputs, apply_padding=apply_padding)
+
+    def print(self, *args, **kwargs):
+        self.state.print(*args, **kwargs)
+
+    def profile(self, profile_handler: Optional[ProfileKwargs] = None):
+        """A ``torch.profiler`` region (``utils/profiler.ProfileContext``)
+        from ``profile_handler``, the accelerator's ``ProfileKwargs`` or
+        the defaults; its trace is named for this process's index."""
+        handler = profile_handler or self.profile_handler or ProfileKwargs()
+        return handler.build(suffix=str(self.process_index))
 
     @property
     def mixed_precision(self) -> str:
@@ -425,7 +514,8 @@ class Accelerator:
         return wrapped
 
     def prepare_data_loader(self, loader):
-        prepared = prepare_data_loader(loader, self.device, self.gradient_state)
+        prepared = prepare_data_loader(loader, self.device, self.gradient_state,
+                                       prefetch_depth=self.dataloader_config.prefetch_depth)
         self._dataloaders.append(prepared)
         return prepared
 
@@ -563,7 +653,17 @@ class Accelerator:
         params = opt.parameters()
 
         def step(batch):
-            batch = send_to_device(batch, self.device)
+            try:
+                return update(batch)
+            except BaseException:
+                # a step that raised (out of memory, say) leaves no copy of
+                # the weights behind: the next step starts where this one did
+                if hasattr(model, "release_casts"):
+                    model.release_casts()
+                raise
+
+        def update(batch):
+            batch = send_to_device(batch, self.device, non_blocking=True)
             opt.optimizer.zero_grad(set_to_none=True)
             loss = torch.zeros((), device=self.device)
             scale = None if self.loss_scale is None else self.loss_scale.scale
@@ -651,7 +751,7 @@ class Accelerator:
         """An eval batch placed as the prepared loaders place theirs: on
         the device. ``batch_dim`` is kept for the reference's signature
         (one process shards nothing)."""
-        return send_to_device(batch, self.device)
+        return send_to_device(batch, self.device, non_blocking=True)
 
     def set_trigger(self):
         """Raise the breakpoint flag that :meth:`check_trigger` reads."""

@@ -1,6 +1,7 @@
-// host_runtime — the host-side helpers of the port's checkpoint load path.
+// host_runtime — the host-side helpers of the port's checkpoint load path
+// and of its data loader's prefetch ring.
 //
-// The port's own copy of an entry point of the reference's
+// The port's own copy of entry points of the reference's
 // csrc/att_runtime.cpp, built with g++ at first use and bound with ctypes
 // (accelerate_tpu_torch/runtime/native.py). A ctypes call releases the
 // interpreter lock, so it runs beside the loader's other threads.
@@ -18,6 +19,20 @@
 //     layers < group size), and splitting its columns keeps every core busy
 //     and each item's rows in cache.
 //
+//   host_parallel_memcpy — count (dst, src, size) copies spread over
+//     num_threads native threads: the prefetch producer's assembly of a
+//     batch's fields into a ring slot.
+//
+//   host_ring_* — a ring of `slots` fixed-size byte buffers between one
+//     producer and one consumer (runtime/prefetch.py's RingBuffer). The
+//     producer takes the next slot with acquire_fill (blocking while the
+//     consumer still holds it), writes it through slot_ptr and hands it
+//     over with commit_fill; the consumer takes slots in the same order
+//     with acquire_read (blocking until one is committed) and gives each
+//     back with release_read. close() wakes both sides: acquire_fill then
+//     returns -1, and acquire_read returns -1 once no committed slot is
+//     left. Each slot's storage is 64-byte aligned.
+//
 // The reference's parallel pread (att_parallel_read) serves its per-rank
 // distributed checkpoint reader, which the port does not carry yet.
 //
@@ -25,8 +40,11 @@
 
 #include <atomic>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -188,5 +206,127 @@ int host_quantize_group(const unsigned char *src, int src_dtype, uint64_t k, uin
   parallel_for(static_cast<int>(groups * chunks), num_threads, quant_item, &ctx);
   return 0;
 }
+
+// Copy sizes[i] bytes from srcs[i] to dsts[i] for every i < count, on up
+// to num_threads threads.
+void host_parallel_memcpy(unsigned char **dsts, const unsigned char **srcs,
+                          const uint64_t *sizes, int count, int num_threads) {
+  struct Ctx {
+    unsigned char **dst;
+    const unsigned char **src;
+    const uint64_t *sz;
+  } ctx{dsts, srcs, sizes};
+  parallel_for(
+      count, num_threads,
+      [](int i, void *p) {
+        auto *c = static_cast<Ctx *>(p);
+        std::memcpy(c->dst[i], c->src[i], c->sz[i]);
+      },
+      &ctx);
+}
+
+}  // extern "C"
+
+namespace {
+
+struct Ring {
+  int slots = 0;
+  uint64_t slot_bytes = 0;
+  std::vector<unsigned char *> storage;
+  std::vector<int> state;  // 0 free, 1 filling, 2 ready, 3 reading
+  int fill_cursor = 0;
+  int read_cursor = 0;
+  bool closed = false;
+  std::mutex mu;
+  std::condition_variable cv;
+};
+
+}  // namespace
+
+extern "C" {
+
+// A ring of `slots` buffers of `slot_bytes` bytes each, or null when the
+// arguments are out of range or the memory cannot be had.
+void *host_ring_create(int slots, uint64_t slot_bytes) {
+  if (slots < 1 || slot_bytes < 1) return nullptr;
+  auto *r = new Ring();
+  r->slots = slots;
+  r->slot_bytes = slot_bytes;
+  const uint64_t rounded = (slot_bytes + 63) / 64 * 64;
+  for (int i = 0; i < slots; ++i) {
+    void *p = std::aligned_alloc(64, rounded);
+    if (p == nullptr) {
+      for (unsigned char *q : r->storage) std::free(q);
+      delete r;
+      return nullptr;
+    }
+    r->storage.push_back(static_cast<unsigned char *>(p));
+  }
+  r->state.assign(slots, 0);
+  return r;
+}
+
+void host_ring_destroy(void *ring) {
+  auto *r = static_cast<Ring *>(ring);
+  for (unsigned char *p : r->storage) std::free(p);
+  delete r;
+}
+
+void host_ring_close(void *ring) {
+  auto *r = static_cast<Ring *>(ring);
+  {
+    std::lock_guard<std::mutex> lk(r->mu);
+    r->closed = true;
+  }
+  r->cv.notify_all();
+}
+
+// The next slot to fill, or -1 once the ring is closed.
+int host_ring_acquire_fill(void *ring) {
+  auto *r = static_cast<Ring *>(ring);
+  std::unique_lock<std::mutex> lk(r->mu);
+  const int slot = r->fill_cursor;
+  r->cv.wait(lk, [&] { return r->closed || r->state[slot] == 0; });
+  if (r->closed) return -1;
+  r->state[slot] = 1;
+  r->fill_cursor = (slot + 1) % r->slots;
+  return slot;
+}
+
+void host_ring_commit_fill(void *ring, int slot) {
+  auto *r = static_cast<Ring *>(ring);
+  {
+    std::lock_guard<std::mutex> lk(r->mu);
+    r->state[slot] = 2;
+  }
+  r->cv.notify_all();
+}
+
+// The next committed slot, or -1 once the ring is closed with none left.
+int host_ring_acquire_read(void *ring) {
+  auto *r = static_cast<Ring *>(ring);
+  std::unique_lock<std::mutex> lk(r->mu);
+  const int slot = r->read_cursor;
+  r->cv.wait(lk, [&] { return r->closed || r->state[slot] == 2; });
+  if (r->state[slot] != 2) return -1;
+  r->state[slot] = 3;
+  r->read_cursor = (slot + 1) % r->slots;
+  return slot;
+}
+
+void host_ring_release_read(void *ring, int slot) {
+  auto *r = static_cast<Ring *>(ring);
+  {
+    std::lock_guard<std::mutex> lk(r->mu);
+    r->state[slot] = 0;
+  }
+  r->cv.notify_all();
+}
+
+unsigned char *host_ring_slot_ptr(void *ring, int slot) {
+  return static_cast<Ring *>(ring)->storage[slot];
+}
+
+uint64_t host_ring_slot_bytes(void *ring) { return static_cast<Ring *>(ring)->slot_bytes; }
 
 }  // extern "C"

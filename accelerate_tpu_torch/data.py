@@ -22,6 +22,14 @@ processes and dispatch from one process belong to the multi-device slice.
 Each fetch from the wrapped loader and each move to the device is timed
 into the telemetry session's data-wait bucket (``note_data_wait``, the
 reference's data.py:44-56): the next step record's ``data_wait_s``.
+
+``prefetch_depth`` > 1 (``DataLoaderConfiguration.prefetch_depth``)
+wraps each pass's iterator in ``runtime/prefetch.HostPrefetcher``: a
+producer thread assembles that many batches ahead into the native host
+ring while the card computes (the reference's data.py:453-500). The
+lookahead, the positions and the skips work on its batches as on the
+loader's, and the prefetcher is closed when the pass ends or is
+abandoned.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from .state import GradientState
 from .telemetry import note_data_wait
+from .utils.operations import send_to_device
 
 
 def _timed_next(iterator):
@@ -49,27 +58,14 @@ def _timed_next(iterator):
 
 
 def _timed_send(batch, device: torch.device):
-    """:func:`send_to_device`, timed into the same bucket: placement is
-    loader work too."""
+    """``batch`` on ``device``, copied non-blocking
+    (``utils/operations.send_to_device``), timed into the same bucket:
+    placement is loader work too."""
     t0 = time.perf_counter()
     try:
-        return send_to_device(batch, device)
+        return send_to_device(batch, device, non_blocking=True)
     finally:
         note_data_wait(time.perf_counter() - t0)
-
-
-def send_to_device(batch, device: torch.device):
-    """``batch`` with every tensor (and numpy array) on ``device``; dicts,
-    lists and tuples keep their structure, other values pass through."""
-    if isinstance(batch, torch.Tensor):
-        return batch.to(device, non_blocking=True)
-    if isinstance(batch, np.ndarray):
-        return torch.from_numpy(batch).to(device, non_blocking=True)
-    if isinstance(batch, dict):
-        return type(batch)((k, send_to_device(v, device)) for k, v in batch.items())
-    if isinstance(batch, (list, tuple)):
-        return type(batch)(send_to_device(v, device) for v in batch)
-    return batch
 
 
 def default_collate(samples: list):
@@ -159,11 +155,13 @@ class DataLoaderShard:
     names) and advances ``iteration`` when it ends."""
 
     def __init__(self, loader, device: torch.device,
-                 gradient_state: Optional[GradientState] = None, skip_batches: int = 0):
+                 gradient_state: Optional[GradientState] = None, skip_batches: int = 0,
+                 prefetch_depth: int = 0):
         self.loader = loader
         self.device = device
         self.gradient_state = gradient_state
         self.skip_batches = skip_batches
+        self.prefetch_depth = prefetch_depth
         self.end_of_dataloader = False
         self.iteration = 0
         self._position = 0  # batches of this pass taken, skipped ones included
@@ -211,8 +209,14 @@ class DataLoaderShard:
         self.set_epoch(self.iteration)
         self._position = 0
         self._in_epoch = True
+        prefetcher = None
         try:
             it = iter(self.loader)
+            if self.prefetch_depth > 1:
+                from .runtime.prefetch import HostPrefetcher
+
+                prefetcher = HostPrefetcher(it, depth=self.prefetch_depth)
+                it = iter(prefetcher)
             for _ in range(skip):
                 try:
                     next(it)
@@ -234,6 +238,10 @@ class DataLoaderShard:
                     return
                 yield _timed_send(cur, self.device)
         finally:
+            if prefetcher is not None:
+                # wakes and ends the producer thread, also when the
+                # consumer leaves the epoch early
+                prefetcher.close()
             self._in_epoch = False
             self._position = 0
             self.iteration += 1
@@ -269,8 +277,10 @@ def _with_seedable_sampler(loader):
 
 
 def prepare_data_loader(loader, device: torch.device,
-                        gradient_state: Optional[GradientState] = None) -> DataLoaderShard:
-    return DataLoaderShard(_with_seedable_sampler(loader), device, gradient_state)
+                        gradient_state: Optional[GradientState] = None,
+                        prefetch_depth: int = 0) -> DataLoaderShard:
+    return DataLoaderShard(_with_seedable_sampler(loader), device, gradient_state,
+                           prefetch_depth=prefetch_depth)
 
 
 class _SkipBatches:

@@ -573,14 +573,23 @@ class _Model(_Module):
         or a block's weights in a remat recompute) then sums its gradients
         in the compute dtype before the one cast back, where a loss scale's
         overflow shows as the reference's does. Kept until the next
-        forward: the backward's recomputes read the same casts."""
-        cast_of = None
+        forward: the backward's recomputes read the same casts. The last
+        forward's casts go before the new ones are made, so two sets are
+        never held at once."""
+        self.release_casts()
         if self.param_cast is not None and torch.is_grad_enabled() and cache_free:
             cast_of = {id(p): p.to(self.param_cast) for p in self.parameters()
                        if p.is_floating_point()}
+            for m in self.modules():
+                if isinstance(m, _Module):
+                    m.cast_of = cast_of
+
+    def release_casts(self):
+        """Drop the training forward's parameter casts (one compute-dtype
+        copy of the weights): what a step that raised leaves behind."""
         for m in self.modules():
             if isinstance(m, _Module):
-                m.cast_of = cast_of
+                m.cast_of = None
 
     def _gather(self, table, ids: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:

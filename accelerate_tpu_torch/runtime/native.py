@@ -1,6 +1,9 @@
 """ctypes bindings for ``csrc/host_runtime.cpp``, built with g++ at first use.
 
-Counterpart of the load-path half of ``accelerate_tpu/runtime/native.py``.
+Counterpart of ``accelerate_tpu/runtime/native.py`` for the load path's
+quantizer and the data loader's prefetch ring (``host_ring_*``, bound
+here and driven by ``runtime/prefetch.RingBuffer``) with its parallel
+copy (:func:`parallel_memcpy`).
 The library has a plain C interface, so one ``g++ -O3 -shared -fPIC
 -pthread`` builds it, and a ctypes call releases the interpreter lock.
 It is built into ``accelerate_tpu_torch/_build/`` under a name keyed by
@@ -83,8 +86,42 @@ def _get_lib():
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.host_quantize_group.argtypes = [vp, i, u64, u64, u64, i, i, vp, vp, i]
             lib.host_quantize_group.restype = i
+            pp = ctypes.POINTER(ctypes.c_void_p)
+            lib.host_parallel_memcpy.argtypes = [pp, pp, ctypes.POINTER(u64), i, i]
+            lib.host_parallel_memcpy.restype = None
+            for name, argtypes, restype in (
+                    ("host_ring_create", [i, u64], vp),
+                    ("host_ring_destroy", [vp], None),
+                    ("host_ring_close", [vp], None),
+                    ("host_ring_acquire_fill", [vp], i),
+                    ("host_ring_commit_fill", [vp, i], None),
+                    ("host_ring_acquire_read", [vp], i),
+                    ("host_ring_release_read", [vp, i], None),
+                    ("host_ring_slot_ptr", [vp, i], vp),
+                    ("host_ring_slot_bytes", [vp], u64)):
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
             _lib = lib
         return _lib
+
+
+def parallel_memcpy(copies, num_threads: int = 4) -> None:
+    """Run ``copies``, a sequence of ``(dst address, src address, bytes)``,
+    on up to ``num_threads`` native threads (``host_parallel_memcpy``).
+    The caller keeps every buffer alive and its bytes in range."""
+    copies = list(copies)
+    if not copies:
+        return
+    n = len(copies)
+    dsts = (ctypes.c_void_p * n)(*(c[0] for c in copies))
+    srcs = (ctypes.c_void_p * n)(*(c[1] for c in copies))
+    sizes = (ctypes.c_uint64 * n)(*(c[2] for c in copies))
+    _get_lib().host_parallel_memcpy(dsts, srcs, sizes, n, num_threads)
+
+
+def ring_lib():
+    """The built library, for ``runtime/prefetch.RingBuffer``."""
+    return _get_lib()
 
 
 def native_quantize_supported(shape, group: int, bits: int, dtype: torch.dtype) -> bool:

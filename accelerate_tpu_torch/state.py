@@ -1,28 +1,250 @@
-"""Accelerator and gradient-accumulation state on one device.
+"""The process, the accelerator and gradient-accumulation state.
 
-Counterpart of ``accelerate_tpu/state.py`` (``AcceleratorState``,
-``GradientState``) for the single-device training slice. The reference
-keeps both as process-wide singletons; here the ``Accelerator`` owns one
-of each and hands them to the objects it prepares.
+Counterpart of ``accelerate_tpu/state.py`` (``PartialState``,
+``AcceleratorState``, ``GradientState``). ``PartialState`` is the
+reference's process singleton: every instance shares one dict, which
+holds who this process is (``process_index``, ``num_processes``,
+``local_process_index``: ``torch.distributed``'s rank and world when it
+is initialized, else 0 and 1, and ``ACCELERATE_TPU_LOCAL_PROCESS_ID`` or
+``LOCAL_RANK``), its device (one card a process: ``cuda:<local index>``)
+and the coordination primitives. It knows nothing of precision.
+
+The reference's ``AcceleratorState`` is a singleton too, which refuses a
+second, conflicting precision. Here each ``Accelerator`` owns its own
+(and its own ``GradientState``): a process may hold accelerators of
+different precisions at once. Its topology is the ``PartialState``'s.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import builtins
+import os
+import time
+from contextlib import contextmanager
+from functools import wraps
+from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from .models.decoder import resolve_device
-from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionConfig
+from .utils.dataclasses import (DistributedType, GradientAccumulationPlugin,
+                                MixedPrecisionConfig)
+
+LOCAL_PROCESS_ID_ENV = "ACCELERATE_TPU_LOCAL_PROCESS_ID"
+
+
+def _distributed():
+    """``torch.distributed`` when a process group is up, else None."""
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def current_topology() -> tuple:
+    """``(process_index, local_process_index, num_processes)``: the
+    ``PartialState``'s when one exists, else read from
+    ``torch.distributed`` and the environment without creating a state
+    (which raises where there is no CUDA). For the callers that must work
+    before any state exists: ``get_logger``, ``tqdm``."""
+    shared = PartialState._shared_state
+    if "distributed_type" in shared:
+        return shared["process_index"], shared["local_process_index"], shared["num_processes"]
+    dist = _distributed()
+    index, count = (dist.get_rank(), dist.get_world_size()) if dist else (0, 1)
+    return index, _local_process_index(), count
+
+
+def _local_process_index() -> int:
+    return int(os.environ.get(LOCAL_PROCESS_ID_ENV, os.environ.get("LOCAL_RANK", 0)))
+
+
+class PartialState:
+    """The process singleton (the reference's ``PartialState``). Without
+    CUDA it raises unless built with ``cpu=True``; once built, every
+    ``PartialState()`` is that one, whatever its arguments."""
+
+    _shared_state: dict = {}
+
+    def __init__(self, cpu: bool = False, **kwargs):
+        self.__dict__ = self._shared_state
+        if self.initialized:
+            return
+        dist = _distributed()
+        num_processes = dist.get_world_size() if dist else 1
+        process_index = dist.get_rank() if dist else 0
+        local = _local_process_index()
+        if cpu:
+            device = torch.device("cpu")
+        elif not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass cpu=True to run on the CPU")
+        else:
+            device = torch.device("cuda", local % torch.cuda.device_count())
+        # set as one update: a state that raised above leaves nothing behind
+        self.__dict__.update(
+            num_processes=num_processes, process_index=process_index,
+            local_process_index=local, device=device,
+            backend=dist.get_backend() if dist else None,
+            distributed_type=(DistributedType.MULTI_HOST if num_processes > 1
+                              else DistributedType.NO))
+
+    # -- lifecycle ---------------------------------------------------------
+
+    @property
+    def initialized(self) -> bool:
+        return "distributed_type" in self.__dict__
+
+    @classmethod
+    def _reset_state(cls):
+        cls._shared_state.clear()
+
+    # -- topology ----------------------------------------------------------
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.local_process_index == 0
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.process_index == self.num_processes - 1
+
+    # -- coordination ------------------------------------------------------
+
+    def wait_for_everyone(self):
+        """Every process waits here for the others: a
+        ``torch.distributed`` barrier, or nothing on one process."""
+        if self.num_processes > 1:
+            _distributed().barrier()
+
+    @contextmanager
+    def main_process_first(self):
+        """The main process runs the body first, the others after it."""
+        if not self.is_main_process:
+            self.wait_for_everyone()
+        yield
+        if self.is_main_process:
+            self.wait_for_everyone()
+
+    @contextmanager
+    def local_main_process_first(self):
+        if not self.is_local_main_process:
+            self.wait_for_everyone()
+        yield
+        if self.is_local_main_process:
+            self.wait_for_everyone()
+
+    def _only_if(self, test: Callable[[], bool], function: Callable):
+        @wraps(function)
+        def wrapper(*args, **kwargs):
+            if test():
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    def on_main_process(self, function: Callable = None):
+        """Decorator: ``function`` runs on the main process only."""
+        return self._only_if(lambda: self.is_main_process, function)
+
+    def on_local_main_process(self, function: Callable = None):
+        return self._only_if(lambda: self.is_local_main_process, function)
+
+    def on_last_process(self, function: Callable):
+        return self._only_if(lambda: self.is_last_process, function)
+
+    def on_process(self, function: Callable = None, process_index: int = None):
+        if function is None:
+            return lambda f: self.on_process(f, process_index)
+        return self._only_if(lambda: self.process_index == process_index, function)
+
+    def on_local_process(self, function: Callable = None, local_process_index: int = None):
+        if function is None:
+            return lambda f: self.on_local_process(f, local_process_index)
+        return self._only_if(lambda: self.local_process_index == local_process_index,
+                             function)
+
+    @contextmanager
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        """This process's contiguous share of a list, tuple, dict (of equal
+        length values), numpy array or tensor; the first ``len % n``
+        processes take one item more. With ``apply_padding`` a shorter
+        share repeats its last item up to the longest's length, so every
+        share has one length (before a gather)."""
+        if self.num_processes == 1:
+            yield inputs
+            return
+        length = len(inputs)
+        if isinstance(inputs, dict):
+            length = len(inputs[list(inputs.keys())[0]])
+            if not all(len(v) == length for v in inputs.values()):
+                raise ValueError("All dict values must have the same length")
+        per_process, extras = divmod(length, self.num_processes)
+        start = self.process_index * per_process + min(self.process_index, extras)
+        end = start + per_process + (1 if self.process_index < extras else 0)
+        whole = per_process + (1 if extras > 0 else 0)
+
+        def split(obj):
+            if isinstance(obj, dict):
+                return {k: split(v) for k, v in obj.items()}
+            result = obj[start:end]
+            if not apply_padding:
+                return result
+            if isinstance(result, (torch.Tensor, np.ndarray)):
+                missing = whole - result.shape[0]
+                if missing > 0:
+                    if result.shape[0] == 0:
+                        raise IndexError("an empty share has no last item to pad with")
+                    last = result[-1:]
+                    result = (torch.cat([result] + [last] * missing)
+                              if isinstance(result, torch.Tensor)
+                              else np.concatenate([result] + [last] * missing, axis=0))
+                return result
+            return list(result) + [result[-1]] * (whole - len(result))
+
+        yield split(inputs)
+
+    # -- telemetry heartbeat ----------------------------------------------
+
+    def publish_heartbeat(self, step: int):
+        """Record this process's training progress in the shared dict:
+        ``(step, time.monotonic())``, read through any ``PartialState()``."""
+        self.__dict__["telemetry_heartbeat"] = (int(step), time.monotonic())
+
+    @property
+    def heartbeat(self):
+        """``(step, monotonic time)`` of the last heartbeat, or None."""
+        return self.__dict__.get("telemetry_heartbeat")
+
+    def print(self, *args, **kwargs):
+        """``print`` on the local main process only."""
+        if self.is_local_main_process:
+            builtins.print(*args, **kwargs)
+
+    def __repr__(self):
+        return (f"Distributed environment: {self.distributed_type}\n"
+                f"Num processes: {self.num_processes}\n"
+                f"Process index: {self.process_index}\n"
+                f"Local process index: {self.local_process_index}\n"
+                f"Device: {self.device}\n"
+                f"Backend: {self.backend}\n")
 
 
 class AcceleratorState:
-    """The device (``None`` means CUDA and raises without it; pass
-    ``device="cpu"`` for the plain versions) and the precision policy."""
+    """The device and the precision policy, over the process's
+    ``PartialState`` (whose topology and coordination it hands on:
+    ``process_index``, ``wait_for_everyone``, ...). ``device=None`` means
+    the process's card and raises without CUDA; ``device="cpu"`` (or
+    ``cpu=True``) runs the plain versions of the kernels."""
 
     def __init__(self, mixed_precision: Union[str, MixedPrecisionConfig] = "no",
-                 device=None):
-        self.device: torch.device = resolve_device(device)
+                 device=None, cpu: bool = False):
+        self.device: torch.device = resolve_device("cpu" if cpu else device)
+        self._partial = PartialState(cpu=self.device.type == "cpu")
+        if device is None and not cpu and self._partial.device.type == "cuda":
+            self.device = self._partial.device  # the card with its index
         self.precision = (mixed_precision if isinstance(mixed_precision, MixedPrecisionConfig)
                           else MixedPrecisionConfig(mode=mixed_precision))
 
@@ -30,9 +252,17 @@ class AcceleratorState:
     def mixed_precision(self) -> str:
         return self.precision.mode.value
 
+    def __getattr__(self, name):
+        # topology and coordination are the PartialState's
+        if name == "_partial" or name.startswith("__"):
+            raise AttributeError(name)
+        return getattr(self._partial, name)
+
     def __repr__(self):
         return (f"AcceleratorState(device={self.device}, "
-                f"mixed_precision={self.mixed_precision!r})")
+                f"mixed_precision={self.mixed_precision!r}, "
+                f"distributed_type={self.distributed_type}, "
+                f"num_processes={self.num_processes})")
 
 
 class GradientState:

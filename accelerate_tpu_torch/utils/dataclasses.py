@@ -1,11 +1,13 @@
 """The training step's configuration: mixed precision, loss scaling,
-gradient accumulation and the project's checkpoint layout.
+gradient accumulation, the data loader, the profiler and the project's
+checkpoint layout.
 
 Counterpart of the parts of ``accelerate_tpu/utils/dataclasses.py`` that
-the single-device training slice reads (``PrecisionType``,
+the single-process slice reads (``DistributedType``, ``PrecisionType``,
 ``MixedPrecisionConfig``, ``GradScalerKwargs``, ``AutocastKwargs``,
-``GradientAccumulationPlugin``, ``ProjectConfiguration``), with torch
-dtypes. fp8 is a later slice and raises.
+``ProfileKwargs``, ``GradientAccumulationPlugin``,
+``DataLoaderConfiguration``, ``ProjectConfiguration``), with torch dtypes
+and ``torch.profiler``. fp8 is a later slice and raises.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import copy
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -57,6 +59,22 @@ class GradScalerKwargs(KwargsHandler):
     enabled: bool = True
 
 
+class DistributedType(str, Enum):
+    """The run's topology, the reference's members: ``NO`` is one process
+    on one card (or on the CPU), ``MULTI_HOST`` several processes under
+    ``torch.distributed``. ``TPU`` and ``CPU_SIM`` (one process driving
+    several devices) have no counterpart in a one-process-per-card port
+    and are never set."""
+
+    NO = "NO"
+    TPU = "TPU"
+    MULTI_HOST = "MULTI_HOST"
+    CPU_SIM = "CPU_SIM"
+
+    def __str__(self):
+        return self.value
+
+
 class PrecisionType(str, Enum):
     NO = "no"
     BF16 = "bf16"
@@ -92,6 +110,56 @@ class MixedPrecisionConfig:
     @property
     def needs_loss_scaling(self) -> bool:
         return self.mode == PrecisionType.FP16 and self.grad_scaler.enabled
+
+
+@dataclass
+class ProfileKwargs(KwargsHandler):
+    """``torch.profiler`` around a region (``Accelerator.profile``).
+    ``activities``: a list of "cpu" and "cuda" (both when None);
+    ``schedule_option``: the keywords of ``torch.profiler.schedule``
+    (``wait``, ``warmup``, ``active``, ``repeat``, ``skip_first``; the
+    region then calls ``step()`` each step); ``on_trace_ready(ctx)`` runs
+    once the region ends and its trace is written; ``record_shapes``,
+    ``profile_memory``, ``with_stack`` and ``with_flops`` are
+    ``torch.profiler.profile``'s; the Chrome trace goes to
+    ``output_trace_dir`` (a fresh temporary directory when None)."""
+
+    activities: Optional[list] = None
+    schedule_option: Optional[dict] = None
+    on_trace_ready: Optional[Callable] = None
+    record_shapes: bool = False
+    profile_memory: bool = False
+    with_stack: bool = False
+    with_flops: bool = False
+    output_trace_dir: Optional[str] = None
+
+    def build(self, suffix: str = "0"):
+        from .profiler import ProfileContext
+
+        return ProfileContext(self, suffix=suffix)
+
+
+@dataclass
+class DataLoaderConfiguration:
+    """How ``Accelerator.prepare`` wraps a data loader. ``prefetch_depth``
+    > 1 runs a producer thread that assembles that many batches ahead
+    into the native host ring (``runtime/prefetch.py``).
+    ``split_batches``, ``dispatch_batches`` and ``even_batches`` shard a
+    loader across processes; on one process they change nothing, as in
+    the reference. ``use_seedable_sampler``, ``non_blocking`` and
+    ``use_stateful_dataloader`` are kept for the reference's signature:
+    ``prepare`` always rebuilds a shuffled torch loader's sampler so its
+    order depends only on (seed, epoch), the loader's copies to the card
+    are issued non-blocking, and every prepared loader has
+    ``state_dict``."""
+
+    split_batches: bool = False
+    dispatch_batches: Optional[bool] = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = True
+    non_blocking: bool = False
+    use_stateful_dataloader: bool = False
+    prefetch_depth: int = 0
 
 
 @dataclass

@@ -36,7 +36,7 @@ fp16) must hold mma.sync products (HMMA) and cp.async copies (LDGSTS),
 and ptxas must report no spills in their functions; the dense library's
 D 64 functions are gated on their own, in each element type (HMMA and
 LDGSTS in its split kernels, no spill in them or their merge pass).
-Then it drives twenty-three
+Then it drives twenty-four
 paths at full width, each with the launch counters reset just before
 each run and read just after. Every decode step, verify step and decode
 burst of those paths runs as the replay of a CUDA graph
@@ -160,9 +160,10 @@ the patch, so their graphs replay the zeroed wrapper:
   resume holds one ``checkpoint/save`` and one ``checkpoint/restore``
   span, and its goodput ledger's checkpoint seconds equal the two calls'
   walls within 5%;
-- generation: ``generate()`` on llama_7b with bf16, int8 and int4 KV
-  caches, launch counts per call, every step's logits held against the
-  plain forward (and a zeroed-kernel control), decode ms/token by
+- generation: ``generate()`` on llama_7b (8 of its 32 layers: the depth
+  cut to give the run's time back) with bf16, int8 and int4 KV caches,
+  launch counts per call, every step's logits held against the plain
+  forward (and a zeroed-kernel control), decode ms/token by
   differential timing beside the weight-read bound, with the decode step
   captured (as generate() runs it) and uncaptured, and a decode-step
   profile of both;
@@ -217,7 +218,18 @@ the patch, so their graphs replay the zeroed wrapper:
   (B 64, 224^2, SGD 0.1 momentum 0.9, 12 steps as
   ``build_train_step(steps_per_call=4)``), bf16 channels_last on cuDNN:
   a falling loss, every BatchNorm statistic moved, finite eval logits,
-  samples/s and MFU on the convolutions' FLOPs.
+  samples/s and MFU on the convolutions' FLOPs;
+- the single-process surface (``accelerate_surface_path``): small_1b at
+  B 8 x 2048 under ``PartialState`` and the Accelerator's process API
+  on the card; ``find_executable_batch_size`` from B 128 against the
+  card's own out-of-memory error, the allocated memory back within 64
+  MiB after each failed try and a control that keeps the failed try's
+  exception failing that gate; ``Accelerator.profile`` around two fused
+  steps, the Chrome trace's #1-#3 kernel events equal to the launch
+  counters; 16 steps over a prepared ``DataLoader`` with
+  ``prefetch_depth=3``, every batch equal on the card to the loader's
+  without prefetch, ``end_of_dataloader`` on the last only, no producer
+  thread left after the epoch or an early break.
 
 The decode profiles (paged bf16, flat, int8, verify; generate() at B 1
 bf16 and B 4 int8) read wall, device busy and idle share per step for
@@ -5069,7 +5081,12 @@ def checkpoint_path(dev, card: str):
 
 # the generate path (generation slice): llama_7b at full width, random
 # weights from seed 0, prompts of 512 tokens (a 128-multiple, so the
-# whole-prompt prefill takes the flash forward kernel)
+# whole-prompt prefill takes the flash forward kernel). Its depth is cut to
+# GEN_LAYERS of the 32 layers (the dispatch path reuses the model): the two
+# paths took 188 s of a 930 s run at 32 (NVIDIA H100 80GB HBM3, 700 W).
+# Every gate and control holds at any depth; the per-token times and the
+# weight-read bound scale with it
+GEN_LAYERS = 8
 GEN_PROMPT = 512
 GEN_RUNS = (("bf16", 1, 64), ("int8", 4, 64), ("int4", 1, 32))  # (KV, batch, new)
 GEN_BASE, GEN_EXTRA = 16, 48  # differential timing: both lengths right-size to L 768
@@ -5133,11 +5150,12 @@ def set_kv_cache_dtype(model, kv: str):
 
 
 def generate_path(dev, card: str):
-    """generate() on llama_7b at full width: bf16 KV at B 1, int8 KV at B 4
-    and int4 KV at B 1, each call with the counts reset before it and
-    read after it (32 flash forward launches for the prefill, 32 x
-    (new - 1) dense decode launches). Tokens and each step's logits are
-    held against the cache-free plain forward (bf16) or against the same
+    """generate() on llama_7b at full width, GEN_LAYERS of its 32 layers:
+    bf16 KV at B 1, int8 KV at B 4 and int4 KV at B 1, each call with the
+    counts reset before it and read after it (a flash forward launch per
+    layer for the prefill, layers x (new - 1) dense decode launches).
+    Tokens and each step's logits are held against the cache-free plain
+    forward (bf16) or against the same
     quantized run with the quantized kernel patched to its plain version;
     the bf16 check must fail with the decode kernel's output zeroed.
     Returns the dense decode kernels' launches on this path, and the model
@@ -5155,13 +5173,13 @@ def generate_path(dev, card: str):
     from accelerate_tpu_torch.ops.attention import decode_attention_reference
     from accelerate_tpu_torch.utils import cuda_graphs
 
-    cfg = DecoderConfig.llama_7b()
+    cfg = DecoderConfig.llama_7b(num_layers=GEN_LAYERS)
     t0 = time.perf_counter()
     model = DecoderLM(cfg, device=dev)
     model.load_params(random_params(cfg, seed=0, device=dev))
     torch.cuda.synchronize()
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"generate path: llama_7b ({cfg.num_layers} layers, E {cfg.embed_dim}, H "
+    print(f"generate path: llama_7b ({cfg.num_layers} of 32 layers, E {cfg.embed_dim}, H "
           f"{cfg.num_heads}, KVH {cfg.num_kv_heads}, D {cfg.head_dim}, M {cfg.mlp_dim}, vocab "
           f"{cfg.vocab_size}, untied head, {cfg.num_params / 1e9:.3f}B params, "
           f"{weight_bytes / 1e9:.2f} GB bf16), random weights seed 0, built in "
@@ -5349,7 +5367,7 @@ def profile_generate(model, ids, card: str, kv: str, steps: int = PROFILE_STEPS)
 
 DISPATCH_NEW = 8        # new tokens of each checked dispatched call
 DISPATCH_EXTRA = 16     # extra tokens of the differential ms/token calls
-DISPATCH_SHARD = 4 << 30  # the checkpoint's shard size
+DISPATCH_SHARD = 1 << 30  # the checkpoint's shard size: several shards and an index at 8 layers
 DISPATCH_CONTROL_LAYER = 5  # the layer whose host-tier copies the control skips
 H2D_PROBE_BYTES = 1 << 30
 
@@ -5390,7 +5408,7 @@ def step_weight_bytes(params, cfg) -> int:
     """Weight bytes one B-1 decode step reads: each layer reads its own
     row of a stacked leaf (int4: the byte row it shares with its pair)
     and the whole scale of a quantized leaf (a stacked leaf's scale rows
-    are shared by all layers: K = 32 layers < group 128), the
+    are shared by all layers: K = layers < group 128), the
     head its whole matrix, the embedding one row."""
     from accelerate_tpu_torch.models.convert import reference_leaves
     from accelerate_tpu_torch.utils.quantization import QuantizedWeight
@@ -5414,14 +5432,15 @@ def step_weight_bytes(params, cfg) -> int:
 
 
 def dispatch_path(dev, card: str, gen: dict):
-    """Big-model dispatch of llama_7b at full width and depth on one card:
+    """Big-model dispatch of llama_7b at full width (generate_path's
+    GEN_LAYERS of its 32 layers) on one card:
     generate_path's random weights (seed 0) are streamed from the card to
     a checkpoint in the reference's format (stacked flat keys, bf16,
     sharded with an index) in a temporary directory, then loaded by
     ``load_checkpoint_and_dispatch`` and decoded by
     ``generate_dispatched`` in three cases, each call with the launch
-    counts reset before it and read after it (32 flash forward launches,
-    32 x (new - 1) dense decode):
+    counts reset before it and read after it (a flash forward launch per
+    layer, layers x (new - 1) dense decode):
 
     (a) every weight on the card ("auto"): tokens identical to
         ``generate()`` on the in-memory model; TTFT from the load's start
@@ -5485,7 +5504,8 @@ def dispatch_path(dev, card: str, gen: dict):
 
         def counted(fn, *args, check=True, new=DISPATCH_NEW, **kw):
             """One call with the counts reset before and read after; the
-            launches must be 32 flash forward + 32 x (new - 1) dense decode."""
+            launches must be a flash forward a layer + layers x (new - 1) dense
+            decode."""
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             out = fn(*args, **kw)
@@ -6781,6 +6801,320 @@ def resnet_train_path(dev, card: str):
     kernels.reset_launch_counts()
 
 
+# accelerate_surface_path: the single-process Accelerate surface on small_1b
+SURFACE_FINDER_START = 128    # (b): the finder's first batch size (x TRAIN_S tokens)
+SURFACE_LEAK_BYTES = 64 << 20  # (b): memory a failed try may leave allocated
+SURFACE_PROFILE_STEPS = 2     # (c): fused steps inside the profiled region
+SURFACE_LOADER_STEPS = 16     # (d): training steps over the prefetching loader
+SURFACE_PREFETCH_DEPTH = 3
+SURFACE_BREAK_AT = 3          # (d): the early break's batches
+
+
+class _StopControl(Exception):
+    """Ends the finder's control run after its first failed try."""
+
+
+def flash_events(trace: dict) -> dict:
+    """Device kernel events of a Chrome trace, counted by the port's kernel
+    name: a kernel symbol ``<name>_kernel<...>`` whose ``<name>`` (with
+    ``_f16`` for a ``__half`` instantiation) is in ``kernels.KERNELS``.
+    cuBLAS, cuDNN and PyTorch's own kernels do not count."""
+    import re
+
+    from accelerate_tpu_torch.ops import kernels
+
+    counts = {}
+    for e in trace.get("traceEvents", []):
+        if str(e.get("cat", "")).lower() != "kernel":
+            continue
+        # demangled ("void flash_fwd_kernel<128, __nv_bfloat16>(...)") or
+        # mangled ("_Z16flash_fwd_kernelILi128E13__nv_bfloat16E...")
+        m = re.search(r"([A-Za-z_]\w*?)_kernel(?:<|I|\(|$)", e.get("name", ""))
+        if not m:
+            continue
+        name = re.sub(r"^_Z\d+", "", m.group(1)) + ("_f16" if "__half" in e["name"] else "")
+        if name in kernels.KERNELS:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def accelerate_surface_path(dev, card: str):
+    """The single-process Accelerate surface on small_1b at full width,
+    B TRAIN_B x TRAIN_S, bf16 over fp32 masters, AdamW: (a) the process API
+    on the card; (b) ``find_executable_batch_size`` from B
+    SURFACE_FINDER_START against the card's own out-of-memory errors, the
+    allocated memory back within SURFACE_LEAK_BYTES of its value before
+    each failed try, and a control that keeps the failed try's exception
+    and must fail that gate; (c) ``Accelerator.profile`` around two fused
+    steps inside ``annotate("train_step")``: the trace's #1-#3 kernel
+    events equal to the launch counters of that window; (d) a prepared
+    ``DataLoader`` with ``prefetch_depth`` 3 for 16 steps, each batch
+    equal on the card to the same loader's without prefetch,
+    ``end_of_dataloader`` on the last batch only, the producer thread
+    gone after the epoch and after an early break. Returns the flash
+    kernels' launches over the phase."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (Accelerator, DataLoader, DataLoaderConfiguration,
+                                      DistributedType, PartialState, ProfileKwargs,
+                                      find_executable_batch_size)
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.runtime.prefetch import HostPrefetcher
+    from accelerate_tpu_torch.utils.profiler import annotate
+
+    b, s = TRAIN_B, TRAIN_S
+    kernels.reset_launch_counts()
+
+    # (a) the process API on the card
+    state = PartialState()
+    acc = Accelerator(mixed_precision="bf16",
+                      dataloader_config=DataLoaderConfiguration(
+                          prefetch_depth=SURFACE_PREFETCH_DEPTH),
+                      kwargs_handlers=[ProfileKwargs(activities=["cpu", "cuda"])])
+    want_dev = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    for who, obj in (("PartialState", state), ("Accelerator", acc)):
+        got = (obj.device, obj.distributed_type, obj.num_processes, obj.process_index,
+               obj.is_main_process, obj.is_last_process)
+        if got != (want_dev, DistributedType.NO, 1, 0, True, True):
+            fail(f"surface (a): {who} reads {got} on one card")
+    x = torch.arange(5 * 3, device=dev, dtype=torch.float32).view(5, 3)
+    with acc.split_between_processes(x) as share:
+        if share is not x:
+            fail("surface (a): one process's share is not the whole tensor")
+    saved = (state.process_index, state.num_processes)
+    try:  # process 1 of 2 (the singleton's topology set by hand): rows 3..4, padded
+        state.process_index, state.num_processes = 1, 2
+        with state.split_between_processes(x, apply_padding=True) as share:
+            want = torch.cat([x[3:5], x[4:5]])
+            if share.device != x.device or not torch.equal(share, want):
+                fail(f"surface (a): process 1 of 2's padded share {share.tolist()} is not "
+                     f"{want.tolist()}")
+    finally:
+        state.process_index, state.num_processes = saved
+    acc.wait_for_everyone()
+    print(f"surface (a): PartialState and Accelerator on {state.device}, "
+          f"{state.distributed_type}, {state.num_processes} process; split_between_processes "
+          "on a CUDA tensor: the whole on one process, rows 3..4 + row 4 on process 1 of 2")
+
+    cfg = DecoderConfig.small_1b()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device=dev, param_dtype=torch.float32)
+    model.load_params(random_params(cfg, seed=0, device=dev, dtype=torch.float32))
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    step = acc.build_train_step()
+    rng = np.random.RandomState(0)
+    torch.cuda.synchronize()
+    print(f"surface: small_1b, fp32 masters seed 0, bf16 compute, AdamW, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) the batch-size finder against the card's own out-of-memory error.
+    # cuBLAS takes a workspace from the caching allocator at a thread's
+    # first call (the forward's thread and autograd's backward thread each
+    # hold one) and keeps it for the process: a matmul with its backward
+    # first, so "before the first try" holds both
+    m0 = torch.cuda.memory_allocated()
+    w = torch.ones(256, 256, device=dev, requires_grad=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.nn.functional.linear(w.to(dtype), w.to(dtype)).float().sum().backward()
+    del w
+    torch.cuda.synchronize()
+    first_use = torch.cuda.memory_allocated() - m0
+    messages = []  # the first line of each failed try's error
+
+    def finder_run(keep=None):
+        """Tries as (batch size, memory allocated at its start, error type
+        or None, loss)."""
+        tries = []
+
+        def train_at(batch_size):
+            tries.append([batch_size, torch.cuda.memory_allocated(), None, None])
+            if keep is not None and len(tries) > 1:
+                raise _StopControl()
+            ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch_size, s)), device=dev)
+            try:
+                loss = step({"input_ids": ids, "labels": ids})["loss"].item()
+            except Exception as err:
+                tries[-1][2] = type(err).__name__
+                messages.append(str(err).splitlines()[0][:160])
+                model.zero_grad(set_to_none=True)  # a backward cut short leaves some
+                if keep is not None:
+                    keep.append(err)  # the control: the failed try's frames stay alive
+                raise
+            tries[-1][3] = loss
+            return batch_size, loss
+
+        finder = find_executable_batch_size(train_at, starting_batch_size=SURFACE_FINDER_START)
+        try:
+            return finder(), tries
+        except _StopControl:
+            return None, tries
+
+    t0 = time.perf_counter()
+    (survivor, loss), tries = finder_run()
+    finder_s = time.perf_counter() - t0
+    failed = [t for t in tries if t[2] is not None]
+    if not any(t[2] == "OutOfMemoryError" for t in failed):
+        fail(f"surface (b): no try met torch.cuda.OutOfMemoryError: {tries}")
+    if not math.isfinite(loss) or survivor != tries[-1][0] or tries[-1][2] is not None:
+        fail(f"surface (b): survivor {survivor}, loss {loss}, tries {tries}")
+    leaks = [tries[i + 1][1] - t[1] for i, t in enumerate(tries) if t[2] is not None]
+    if any(abs(d) > SURFACE_LEAK_BYTES for d in leaks):
+        fail(f"surface (b): memory after a failed try moved {leaks} bytes from its value "
+             f"before it (gate {SURFACE_LEAK_BYTES})")
+    print(f"surface (b) on {card}: find_executable_batch_size from B "
+          f"{SURFACE_FINDER_START} x {s}: tried "
+          f"{[(t[0], t[2] or f'loss {t[3]:.5f}') for t in tries]}, survivor B {survivor} "
+          f"(loss {loss:.5f}) in {finder_s:.1f} s; memory allocated after each failed try "
+          f"minus before it {[round(d / 2**20, 3) for d in leaks]} MiB (gate "
+          f"{SURFACE_LEAK_BYTES >> 20} MiB; cuBLAS's first use in both threads held "
+          f"{first_use / 2**20:.3f} MiB before the first try); the card said: "
+          f"{messages[0]!r}")
+    # the control keeps the failed try's exception: the gate must see it
+    kept = []
+    _, ctl = finder_run(keep=kept)
+    ctl_leak = ctl[1][1] - ctl[0][1]
+    if not (ctl[0][2] and ctl_leak > SURFACE_LEAK_BYTES):
+        fail(f"surface (b) control: keeping the failed try's exception left "
+             f"{ctl_leak / 2**20:.1f} MiB, within the gate: the gate is blind ({ctl})")
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    back = torch.cuda.memory_allocated() - ctl[0][1]
+    print(f"surface (b) control: the failed try's exception kept alive: memory after it "
+          f"{ctl_leak / 2**30:.3f} GiB above before it ({ctl[0][2]} at B {ctl[0][0]}): fails "
+          f"the gate; once dropped, {back / 2**20:.3f} MiB")
+    if back > SURFACE_LEAK_BYTES:  # below: the survivor's gradients went with the try
+        fail(f"surface (b) control: {back} bytes still held once the exception was dropped")
+
+    # (c) Accelerator.profile around two fused steps
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)), device=dev)
+    batch = {"input_ids": ids, "labels": ids}
+    step(batch)
+    torch.cuda.synchronize()
+    trace_dir = tempfile.mkdtemp(prefix="surface-profile-")
+    try:
+        acc.profile_handler.output_trace_dir = trace_dir
+        before = {n: kernels.launch_counts[n] for n in FLASH_KERNELS}
+        t0 = time.perf_counter()
+        with acc.profile() as prof:
+            with annotate("train_step"):
+                for _ in range(SURFACE_PROFILE_STEPS):
+                    step(batch)
+                torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+        counted = {n: kernels.launch_counts[n] - before[n] for n in FLASH_KERNELS}
+        size = os.path.getsize(prof.trace_path)
+        with open(prof.trace_path) as f:
+            trace = _json.load(f)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    events = flash_events(trace)
+    seen = {n: events.get(n, 0) for n in FLASH_KERNELS}
+    if seen != counted or not all(counted.values()):
+        cats = sorted({str(e.get("cat")) for e in trace["traceEvents"]})
+        flashy = sorted({e.get("name", "")[:120] for e in trace["traceEvents"]
+                         if "flash" in e.get("name", "")})[:6]
+        fail(f"surface (c): the trace's kernel events {events} differ from the launch "
+             f"counters {counted} (categories {cats}; names holding 'flash': {flashy})")
+    spans = [e for e in trace["traceEvents"] if e.get("name") == "train_step"]
+    if not spans:
+        fail("surface (c): the trace holds no train_step annotation")
+    sample = next((str(e.get("cat")) + ": " + e["name"][:90] for e in trace["traceEvents"]
+                   if "flash_fwd" in e.get("name", "")
+                   and str(e.get("cat", "")).lower() == "kernel"), None)
+    print(f"surface (c) on {card}: Accelerator.profile over {SURFACE_PROFILE_STEPS} fused "
+          f"steps at B {b} x {s}: trace_0.json {size / 1e6:.1f} MB, "
+          f"{len(trace['traceEvents'])} events, {len(spans)} train_step range(s); flash "
+          f"kernel events {seen} == launch counters {counted} (#1's event: {sample!r}); "
+          f"{prof_s:.1f} s")
+
+    # (d) the prefetching loader against the same loader without prefetch
+    class Rows:
+        def __init__(self, n, seed):
+            self.ids = np.random.RandomState(seed).randint(0, cfg.vocab_size, (n, s))
+
+        def __len__(self):
+            return len(self.ids)
+
+        def __getitem__(self, i):
+            return {"input_ids": self.ids[i], "labels": self.ids[i]}
+
+    rows = Rows(SURFACE_LOADER_STEPS * b, seed=1)
+    plain = Accelerator(mixed_precision="bf16").prepare(
+        DataLoader(rows, batch_size=b, shuffle=True, seed=2))
+    want, plain_wait = [], []  # the plain loader's batches, and its host wait for each
+    it = iter(plain)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            want.append(next(it))
+        except StopIteration:
+            break
+        plain_wait.append(time.perf_counter() - t0)
+    fetched = acc.prepare(DataLoader(rows, batch_size=b, shuffle=True, seed=2))
+
+    def producers():
+        return [t for t in threading.enumerate() if t.name == HostPrefetcher.THREAD_NAME]
+
+    ends, sums, losses, waits = [], [], [], []
+    t0 = time.perf_counter()
+    body_end = t0
+    for i, bt in enumerate(fetched):
+        waits.append(time.perf_counter() - body_end)  # the host's wait for batch i
+        ends.append(acc.gradient_state.end_of_dataloader)
+        w = want[i]
+        same = all(bt[k].device == acc.device and torch.equal(bt[k], w[k]) for k in w)
+        sums.append((int(bt["input_ids"].sum()), int(w["input_ids"].sum())))
+        if not same:
+            fail(f"surface (d): batch {i} differs from the loader's without prefetch "
+                 f"(checksums {sums[-1]})")
+        losses.append(step(bt)["loss"].item())
+        body_end = time.perf_counter()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    if len(ends) != SURFACE_LOADER_STEPS or ends != [False] * (len(ends) - 1) + [True]:
+        fail(f"surface (d): end_of_dataloader {ends}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"surface (d): losses {losses}")
+    after_loop = producers()
+    for i, _ in enumerate(fetched):
+        if i + 1 == SURFACE_BREAK_AT:
+            break
+    after_break = producers()
+    if after_loop or after_break:
+        fail(f"surface (d): producer threads alive after the epoch {after_loop} or the "
+             f"break {after_break}")
+    print(f"surface (d) on {card}: {len(losses)} steps at B {b} x {s} over a DataLoader with "
+          f"prefetch_depth {SURFACE_PREFETCH_DEPTH}: every batch equal on the card to the "
+          f"loader's without prefetch (input_ids sums {sums[:3]}...), end_of_dataloader on the "
+          f"last only, losses {[round(x, 4) for x in losses[:4]]}...{round(losses[-1], 4)}, "
+          f"{loop_s:.1f} s ({1e3 * loop_s / len(losses):.1f} ms/step with the producer and "
+          f"the checks); host wait for a batch (median of batches 1..15) "
+          f"{1e3 * statistics.median(waits[1:]):.3f} ms with prefetch, "
+          f"{1e3 * statistics.median(plain_wait[1:]):.3f} ms from the loader without "
+          f"(first batch {1e3 * waits[0]:.1f} / {1e3 * plain_wait[0]:.1f} ms); no producer "
+          f"thread after the epoch or a break at batch {SURFACE_BREAK_AT}")
+    launches = {n: kernels.launch_counts[n] for n in FLASH_KERNELS}
+    if not all(launches.values()):
+        fail(f"surface: a flash kernel was not launched on this path: {launches}")
+    del model, opt, step, acc, plain, fetched, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -6931,6 +7265,12 @@ def main():
     torch.cuda.empty_cache()
     moe_train_launches = timed("moe train path", moe_train_path, dev, card)
     print(f"moe train path launches: {json.dumps(moe_train_launches)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # its flash launches stay off the kernels line, as the MoE paths': they
+    # print on a line of their own, from the phase's own reset
+    surface_launches = timed("accelerate_surface_path", accelerate_surface_path, dev, card)
+    print(f"accelerate_surface_path launches: {json.dumps(surface_launches)}")
     gc.collect()
     torch.cuda.empty_cache()
     # its flash launches stay off the kernels line, as the replica's: the

@@ -78,7 +78,10 @@ def test_import_leaves_jax_unloaded():
             "accelerate_tpu_torch.utils.modeling, accelerate_tpu_torch.utils.serialization, "
             "accelerate_tpu_torch.utils.offload, accelerate_tpu_torch.runtime.native, "
             "accelerate_tpu_torch.checkpointing, accelerate_tpu_torch.utils.random, "
-            "accelerate_tpu_torch.utils.other, accelerate_tpu_torch.utils.constants; "
+            "accelerate_tpu_torch.utils.other, accelerate_tpu_torch.utils.constants, "
+            "accelerate_tpu_torch.logging, accelerate_tpu_torch.utils.memory, "
+            "accelerate_tpu_torch.utils.profiler, accelerate_tpu_torch.utils.tqdm, "
+            "accelerate_tpu_torch.runtime.prefetch; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad")
@@ -167,6 +170,21 @@ def test_training_entry_points_raise_without_cuda(no_cuda):
         Accelerator(project_dir="checkpoints-not-made")
     acc = Accelerator(device="cpu")
     assert acc.device == torch.device("cpu") and acc.mixed_precision == "no"
+    # the process singleton: CUDA unless the caller asks for the CPU
+    from accelerate_tpu_torch import PartialState
+
+    PartialState._reset_state()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PartialState()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Accelerator()  # also once a CPU state exists below
+        assert PartialState(cpu=True).device == torch.device("cpu")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Accelerator()
+        assert Accelerator(cpu=True).device == torch.device("cpu")
+    finally:
+        PartialState._reset_state()
 
 
 def test_engine_rejects_model_on_other_device():
