@@ -43,8 +43,9 @@ its counterpart for an NVIDIA H100. Module paths mirror the reference:
   (``python -m accelerate_tpu_torch.commands.serve replica`` and
   ``router``)
 - ``accelerator.py``, ``optimizer.py``, ``scheduler.py``, ``state.py``,
-  ``data.py``, ``utils/dataclasses.py`` (the training contract: bf16 and
-  fp16 with the dynamic loss scale, remat, residual dropout),
+  ``data.py``, ``utils/dataclasses.py`` (the training contract: bf16,
+  fp16 with the dynamic loss scale, fp8 with ``ops/fp8.py``'s current and
+  delayed scaling, remat, residual dropout),
   ``utils/operations.py`` (the tree helpers; gather / reduce / pad /
   broadcast on one process), ``state.py``'s ``PartialState`` (the
   process singleton), ``logging.py`` (``get_logger``),
@@ -93,6 +94,9 @@ _EXPORTS = {
     "GradientAccumulationPlugin": "utils.dataclasses",
     "MixedPrecisionConfig": "utils.dataclasses", "ProjectConfiguration": "utils.dataclasses",
     "QuantizationConfig": "utils.quantization", "set_seed": "utils.random",
+    # for custom loops that bypass the Accelerator's updates: the delayed
+    # fp8 window only advances when this runs once per optimizer step
+    "roll_amax_histories": "ops.fp8",
 }
 
 
@@ -118,7 +122,8 @@ __all__ = [
     "dispatch_model", "generate", "generate_batched", "generate_dispatched",
     "generate_seq2seq", "generate_seq2seq_dispatched",
     "init_empty_weights", "load_accelerator_state", "load_and_quantize_model",
-    "load_checkpoint_and_dispatch", "load_custom_state", "save_accelerator_state",
+    "load_checkpoint_and_dispatch", "load_custom_state", "roll_amax_histories",
+    "save_accelerator_state",
     "save_custom_state", "save_model_weights", "set_seed", "skip_first_batches",
     "VisionConfig", "warmup_cosine_decay_schedule",
 ]

@@ -52,6 +52,15 @@ norm, and the clip ``min(1, max_norm / (norm + 1e-6))`` is applied to the
 whole accumulated gradient just before the update, as the reference's
 update function does.
 
+fp8 (``mixed_precision="fp8"``) is the reference's: bf16 compute over
+fp32 masters, and ``prepare`` turns on the model config's ``use_fp8``, so
+every projection runs the fp8 recipe (``ops/fp8.py``: ``torch._scaled_mm``
+on the card). A model built with ``fp8_recipe="delayed"`` holds amax
+histories (``fp8_histories()``); they advance once per optimizer update,
+after the eager loop's ``optimizer.step()`` and in ``build_train_step``'s
+update without a ``loss_fn``: a user ``loss_fn``'s forwards read the
+histories and record nothing, as the reference's discard their writes.
+
 The process API is the reference's (accelerator.py:1746-1843), over the
 process's ``PartialState``: ``is_main_process``, ``process_index``,
 ``wait_for_everyone``, ``main_process_first``, the ``on_*process``
@@ -68,6 +77,7 @@ import os
 import shutil
 import time
 import uuid
+import warnings
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -75,6 +85,7 @@ import torch
 from torch import nn
 
 from .data import prepare_data_loader
+from .ops import fp8
 from .data import skip_first_batches as _skip_first_batches
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
@@ -229,6 +240,54 @@ def _checkpoint_index(folder: str) -> int:
     return int(tail) if tail.isdigit() else -1
 
 
+_fp8_tensor_cores_warned = False
+
+
+def _device_has_fp8_tensor_cores(device) -> bool:
+    """fp8 tensor cores arrive with compute capability 8.9 (Ada) and 9.0
+    (Hopper)."""
+    device = torch.device(device)
+    return device.type == "cuda" and torch.cuda.get_device_capability(device) >= (8, 9)
+
+
+def _warn_fp8_without_tensor_cores_once(device) -> None:
+    """One notice when mixed_precision='fp8' lands where no fp8 tensor core
+    is (the reference's ``_warn_fp8_without_mxu_once``): the recipe stays
+    numerically the same, but the products run their plain version on the
+    CPU and raise on an older card."""
+    global _fp8_tensor_cores_warned
+    if _fp8_tensor_cores_warned or _device_has_fp8_tensor_cores(device):
+        return
+    _fp8_tensor_cores_warned = True
+    device = torch.device(device)
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+    warnings.warn(
+        f"mixed_precision='fp8' on {kind!r}: it has no fp8 tensor cores (compute "
+        "capability 8.9 or later), so the fp8 products run their plain version "
+        "(fp32 matmuls over fp8-rounded operands, slower than bf16) on the CPU and "
+        "raise in torch._scaled_mm on an older card. Use mixed_precision='bf16' "
+        "here if you want throughput.",
+        stacklevel=3,
+    )
+
+
+def _enable_fp8(model) -> None:
+    """Turn on ``config.use_fp8`` of a model whose config has the knob (a
+    copy of the config, set on every module that shares it, as the
+    reference's ``_enable_fp8`` copies the definition); other models pass
+    through. A model built without the delayed recipe's histories then
+    runs current scaling."""
+    import dataclasses
+
+    cfg = getattr(model, "config", None)
+    if cfg is None or not hasattr(cfg, "use_fp8") or cfg.use_fp8:
+        return
+    new = dataclasses.replace(cfg, use_fp8=True)
+    for m in model.modules():
+        if getattr(m, "config", None) is cfg:
+            m.config = new
+
+
 class _RemovableHandle:
     def __init__(self, registry: dict, key):
         self.registry = registry
@@ -239,8 +298,8 @@ class _RemovableHandle:
 
 
 class Accelerator:
-    """``mixed_precision`` "no", "bf16" or "fp16" ("fp8" is a later
-    slice); ``gradient_accumulation_steps`` (or a
+    """``mixed_precision`` "no", "bf16", "fp16" or "fp8";
+    ``gradient_accumulation_steps`` (or a
     ``GradientAccumulationPlugin``); ``project_dir`` / ``project_config``
     (a ``ProjectConfiguration``): where ``save_state`` writes;
     ``kwargs_handlers``: a ``GradScalerKwargs`` (the fp16 loss scale's
@@ -283,6 +342,8 @@ class Accelerator:
         if cpu and device is not None and torch.device(device).type != "cpu":
             raise ValueError(f"cpu=True and device={device!r} disagree")
         self.state = AcceleratorState(mixed_precision, device, cpu=cpu)
+        if self.state.mixed_precision == "fp8":
+            _warn_fp8_without_tensor_cores_once(self.state.device)
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(
             split_batches=split_batches)
         if self.scaler_handler is not None:
@@ -314,6 +375,7 @@ class Accelerator:
         self.telemetry = TelemetrySession(tcfg, accelerator=self) if tcfg else None
         self._pending_loss = None  # the last micro-batch's loss, for the step record
         self._fused = False        # inside build_train_step's step: no per-call counting
+        self._fused_update = False  # inside build_train_step's update: it rolls the histories
 
     @property
     def device(self) -> torch.device:
@@ -431,6 +493,15 @@ class Accelerator:
         return self.optimizer_step_was_skipped
 
     @property
+    def extra_state(self) -> dict:
+        """The reference TrainEngine's mutable collections: ``{"fp8_stats":
+        {buffer name: [2, H]}}`` of the last prepared model's amax
+        histories (what telemetry's ``fp8_amax_health`` reads), or {}."""
+        model = self._models[-1] if self._models else None
+        hists = model.fp8_histories() if hasattr(model, "fp8_histories") else {}
+        return {"fp8_stats": hists} if hists else {}
+
+    @property
     def model_config(self):
         """The last prepared model's config (FLOPs per token), or None."""
         return getattr(self._models[-1], "config", None) if self._models else None
@@ -466,6 +537,8 @@ class Accelerator:
         master dtype (fp32)."""
         model.to(self.device)
         model.requires_grad_(True)
+        if self.mixed_precision == "fp8":
+            _enable_fp8(model)
         want = self.state.precision.param_dtype
         bad = sorted({str(p.dtype) for p in model.parameters()
                       if p.is_floating_point() and p.dtype != want})
@@ -592,8 +665,19 @@ class Accelerator:
         return finite
 
     def _after_update(self, optimizer: AcceleratedOptimizer):
+        if not self._fused_update:
+            self._roll_fp8(optimizer)
         if self.telemetry is not None and not self._fused:
             self.telemetry.on_optimizer_step(self)
+
+    def _roll_fp8(self, optimizer: AcceleratedOptimizer):
+        """Advance the amax histories of the models ``optimizer`` updates one
+        step (the reference's ``_roll_fp8_stats``): micro-steps between two
+        updates shared the current slot."""
+        ids = {id(p) for p in optimizer.parameters()}
+        for model in self._models:
+            if hasattr(model, "fp8_histories") and any(id(p) in ids for p in model.parameters()):
+                fp8.roll_amax_histories(model)
 
     @contextlib.contextmanager
     def no_sync(self, model=None):
@@ -631,7 +715,10 @@ class Accelerator:
         losses are averaged; ``grad_norm`` is the averaged gradient's global
         norm before the clip; the clip (if ``clip_grad_norm_`` set one), the
         optimizer update and the LR schedulers follow. ``loss_fn(model,
-        micro_batch)`` replaces the model call when given.
+        micro_batch)`` replaces the model call when given; its forwards
+        read the delayed fp8 recipe's amax histories and record nothing, and
+        the update does not roll them (the reference's user-loss path has
+        no handle on the collection).
 
         ``steps_per_call=K`` (the reference's fused window): every batch
         leaf carries a leading [K] axis, and one call runs K full updates,
@@ -667,15 +754,22 @@ class Accelerator:
             opt.optimizer.zero_grad(set_to_none=True)
             loss = torch.zeros((), device=self.device)
             scale = None if self.loss_scale is None else self.loss_scale.scale
-            for mb in _split(batch, micro):
-                out = loss_fn(model, mb) if loss_fn is not None else _call(model, mb)
-                mb_loss = _loss_of(out)
-                if scale is None:
-                    (mb_loss / micro).backward()
-                else:  # the reference's acc + g / micro over scaled gradients
-                    _scaled_backward(mb_loss, params, scale,
-                                     lambda g: torch._foreach_div_(g, micro) if g else None)
-                loss = loss + mb_loss.detach() / micro
+            record = getattr(model, "fp8_record", None)
+            if loss_fn is not None and record is not None:
+                model.fp8_record = False
+            try:
+                for mb in _split(batch, micro):
+                    out = loss_fn(model, mb) if loss_fn is not None else _call(model, mb)
+                    mb_loss = _loss_of(out)
+                    if scale is None:
+                        (mb_loss / micro).backward()
+                    else:  # the reference's acc + g / micro over scaled gradients
+                        _scaled_backward(mb_loss, params, scale,
+                                         lambda g: torch._foreach_div_(g, micro) if g else None)
+                    loss = loss + mb_loss.detach() / micro
+            finally:
+                if record is not None:
+                    model.fp8_record = record
             finite = True
             if scale is not None:
                 grads = [p.grad for p in params if p.grad is not None]
@@ -684,7 +778,13 @@ class Accelerator:
             norm = global_grad_norm(params)
             if finite and self._clip_max_norm is not None:
                 _clip_grads(params, self._clip_max_norm, norm)
-            opt.update(skip=not finite)
+            self._fused_update = True
+            try:
+                opt.update(skip=not finite)
+            finally:
+                self._fused_update = False
+            if loss_fn is None:
+                self._roll_fp8(opt)
             if finite:
                 for sched in schedulers:
                     sched.scheduler.step()

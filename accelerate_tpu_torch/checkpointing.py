@@ -9,7 +9,10 @@ resumes on the other:
                           ``EncoderClassifier``, ``ResNet``) in the
                           reference's names and layout, a ResNet's
                           BatchNorm statistics under
-                          ``extra_state/batch_stats/``
+                          ``extra_state/batch_stats/``, a delayed fp8
+                          model's amax histories under
+                          ``extra_state/fp8_stats/`` (kept, with one
+                          warning, where a checkpoint lacks them)
   optimizer_<i>.safetensors  a torch ``AdamW``'s state as ``optax.adamw``'s
                           (``0/count``, ``0/mu/...``, ``0/nu/...``, and
                           ``2/count`` under a ``LambdaLR``), or a torch
@@ -50,12 +53,13 @@ import json
 import logging
 import os
 import pickle
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .models.convert import (from_reference, layout_config,
+from .models.convert import (from_reference, layout_config, locate,
                              optimizer_state_from_reference, optimizer_state_to_reference,
                              reference_entries, sgd_has_optax_state)
 from .utils.constants import (CUSTOM_STATE_PATTERN, DATALOADER_STATE_NAME, MODEL_NAME,
@@ -229,10 +233,13 @@ def _load_accelerator_state(input_dir, models, optimizers, schedulers, dataloade
             params = {k: v for k, v in flat.items() if not k.startswith(EXTRA_STATE)}
         config = layout_config(model)
         if config is not None:
-            # a port model's buffers (a ResNet's batch_stats/...) sit under extra_state/
+            # a port model's buffers (a ResNet's batch_stats/..., the fp8
+            # amax histories' fp8_stats/...) sit under extra_state/
             params.update({k[len(EXTRA_STATE):]: v for k, v in flat.items()
                            if k.startswith(EXTRA_STATE)})
-            model.load_params(from_reference(params, config))
+            weights = from_reference(params, config)
+            _warn_kept(sorted(set(model.fp8_histories()) - set(weights)), config)
+            model.load_params(weights)
         else:
             model.load_state_dict(params, strict=True)
         opt_path = _find(input_dir, f"{OPTIMIZER_NAME}_{i}")
@@ -255,6 +262,19 @@ def _load_accelerator_state(input_dir, models, optimizers, schedulers, dataloade
     if os.path.exists(rng_path):
         load_rng_state_dict(_unpickle(rng_path))
     return trainer_state.get("step")
+
+
+def _warn_kept(names: list, config):
+    """One warning for the amax histories a checkpoint lacks (an older
+    checkpoint, or one saved before the delayed recipe was on): they keep
+    their current values, as the reference's ``missing="keep"`` restore of
+    its extra state does."""
+    if names:
+        warnings.warn(
+            f"{len(names)} state entries absent from the checkpoint kept their current "
+            f"(fresh) values, e.g. {locate(names[0], config)[0]!r}: expected when "
+            "resuming a checkpoint saved without these fp8 amax histories",
+            stacklevel=4)
 
 
 def save_custom_state(obj, path: str, index: int = 0, save_on_each_node: bool = False):

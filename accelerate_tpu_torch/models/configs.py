@@ -10,9 +10,10 @@ on disk, so ``stream_layer_weights`` is accepted only as False, for a
 reference config to carry over. ``dtype`` takes float32, bfloat16 and
 float16 (fp16 training runs the flash kernels' fp16 entries). Residual
 dropout (``dropout_rate``), the three remat policies and MoE blocks
-(``moe_num_experts`` >= 2, ``models/moe.py``) are ported; fp8 and
-pipelining are accepted as fields and raise ``NotImplementedError``
-until their slices are ported. The reference's ``decode_kernel`` /
+(``moe_num_experts`` >= 2, ``models/moe.py``) and the fp8 projections
+(``use_fp8``, ``fp8_recipe``, ``fp8_amax_history_len``; ``ops/fp8.py``)
+are ported; pipelining is accepted as a field and raises
+``NotImplementedError`` until its slice is ported. The reference's ``decode_kernel`` /
 ``decode_kernel_block`` knobs are not carried: the Hopper decode kernels
 walk 64-token chunks, so there is no kv block to choose.
 
@@ -76,9 +77,14 @@ class DecoderConfig:
     # dispatch streams whatever it places off the card, so True is
     # rejected in __post_init__
     stream_layer_weights: bool = False
-    # a later slice of the port: accepted so a reference config carries
-    # over, rejected in __post_init__ until ported
+    # fp8 recipe (ops/fp8.py): every projection (QKV/O and the MLP) runs
+    # e4m3 forward / e5m2 backward. Turned on by Accelerator(
+    # mixed_precision="fp8"). ``fp8_recipe``: "current" (each operand's
+    # amax every call) or "delayed" (scales from an amax history of
+    # ``fp8_amax_history_len`` steps, per-layer buffers of the model)
     use_fp8: bool = False
+    fp8_recipe: str = "current"
+    fp8_amax_history_len: int = 16
     # mixture-of-experts FFN (models/moe.py): 0 is the dense MLP; top-k
     # routing per batch row with capacity k * factor * tokens / experts
     # and the Switch load-balancing loss, weighted into the training loss
@@ -114,10 +120,9 @@ class DecoderConfig:
                 f"int4 KV packing pairs head_dim values into bytes; head_dim "
                 f"must be even, got {self.head_dim}"
             )
-        if self.use_fp8:
-            raise NotImplementedError(
-                "use_fp8: the fp8 projections are a later slice of the port "
-                "(ROADMAP queue 1, training step)"
+        if self.fp8_recipe not in ("current", "delayed"):
+            raise ValueError(
+                f"fp8_recipe must be 'current' or 'delayed', got {self.fp8_recipe!r}"
             )
         if self.moe_num_experts == 1:
             raise ValueError("moe_num_experts must be 0 (dense) or >= 2")
@@ -218,8 +223,8 @@ class DecoderConfig:
 
 @dataclass
 class EncoderConfig:
-    """BERT-family encoder config (the reference's, with torch dtypes).
-    ``use_fp8`` is accepted as a field and raises until fp8 is ported."""
+    """BERT-family encoder config (the reference's, with torch dtypes):
+    the fp8 knobs are the decoder's."""
 
     vocab_size: int = 30_522
     num_layers: int = 12
@@ -241,10 +246,6 @@ class EncoderConfig:
     def __post_init__(self):
         if self.fp8_recipe not in ("current", "delayed"):
             raise ValueError(f"fp8_recipe must be 'current' or 'delayed', got {self.fp8_recipe!r}")
-        if self.use_fp8:
-            raise NotImplementedError(
-                "use_fp8: the fp8 projections are a later slice of the port "
-                "(ROADMAP queue 1, item 9)")
         if self.embed_dim % self.num_heads:
             raise ValueError(f"embed_dim ({self.embed_dim}) must be a multiple of "
                              f"num_heads ({self.num_heads})")

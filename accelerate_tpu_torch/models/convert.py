@@ -34,6 +34,13 @@ reference names:
   here are ``batch_stats/...``. Conv kernels are OIHW in the port and
   HWIO in the reference; every conversion transposes them.
 
+A transformer built with the delayed fp8 recipe (``use_fp8`` and
+``fp8_recipe="delayed"``) holds its blocks' amax histories as buffers
+(``layers.{i}.attn.wq_fp8`` ... ``mlp.down``, BERT's ``layers.{i}.mlp_in``
+...): the reference's ``fp8_stats`` collection, laid out as its
+parameters (``fp8_stats/layers/block/attn/wq_fp8`` [L, 2, H], or
+``fp8_stats/layer_{i}/...`` unrolled); a tree may leave them out.
+
 :func:`from_reference` takes the reference's tree, nested or flat (its
 checkpoint keys) and returns per-layer views without copying: rows of a
 stacked tensor (of a memory-mapped checkpoint too), or
@@ -58,6 +65,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from ..ops import fp8
 from ..utils.serialization import flatten_pytree, save_entries, unflatten_to_like
 from .configs import DecoderConfig, EncoderConfig, VisionConfig
 from .seq2seq import Seq2SeqConfig
@@ -80,6 +88,20 @@ _ENCODER_TOP = ("word_embedding", "position_embedding", "type_embedding", "ln_em
 CONFIGS = (DecoderConfig, Seq2SeqConfig, EncoderConfig, VisionConfig)
 # the ResNet family's BatchNorm running averages: buffers, not parameters
 BATCH_STATS = "batch_stats/"
+# the delayed fp8 recipe's amax histories (ops/fp8.py): buffers of the
+# transformer families' blocks, the reference's "fp8_stats" collection,
+# laid out as its parameters are (stacked [L, 2, H] or per layer_{i})
+FP8_STATS = "fp8_stats/"
+_ATTN_HIST = fp8.ATTENTION_HISTORIES
+_MLP_HIST = tuple("mlp." + n for n in fp8.MLP_HISTORIES)
+
+
+def _histories(config, *groups) -> tuple:
+    """The block's history buffer names (``prefix.name``), where ``config``
+    asks for delayed fp8; none otherwise."""
+    if not fp8.delayed(config):
+        return ()
+    return tuple(f"{p}.{n}" if p else n for p, names in groups for n in names)
 
 
 class _Draws:
@@ -122,8 +144,9 @@ class _Family:
 
     def is_buffer(self, port_name: str) -> bool:
         """A buffer, not a parameter: optimizer moments have none, and a
-        tree may leave it out."""
-        return False
+        tree may leave it out. The transformer families' are the fp8 amax
+        histories."""
+        return port_name.rsplit(".", 1)[-1] in fp8.HISTORY_NAMES
 
     def ref_name(self, port_name: str) -> str:
         """The reference's flat name of a weight outside the stacks."""
@@ -172,7 +195,10 @@ class _DecoderFamily(_Family):
         return DecoderLM
 
     def stacks(self, config) -> list:
-        block = _MOE_BLOCK if config.moe_num_experts > 1 else _DECODER_BLOCK
+        moe = config.moe_num_experts > 1
+        # an MoE block's experts run no fp8 (the reference's moe.py has none)
+        block = (_MOE_BLOCK if moe else _DECODER_BLOCK) + _histories(
+            config, ("attn", _ATTN_HIST), ("", () if moe else _MLP_HIST))
         return [("layers", "layers/block" if config.scan_layers else None, config.num_layers,
                  block)]
 
@@ -201,9 +227,12 @@ class _Seq2SeqFamily(_Family):
         return Seq2SeqLM
 
     def stacks(self, config) -> list:
-        return [("encoder", "encoder/layers/block", config.num_layers, _DECODER_BLOCK),
+        enc = _histories(config, ("attn", _ATTN_HIST), ("", _MLP_HIST))
+        dec = _histories(config, ("self_attn", _ATTN_HIST), ("cross_attn", _ATTN_HIST),
+                         ("", _MLP_HIST))
+        return [("encoder", "encoder/layers/block", config.num_layers, _DECODER_BLOCK + enc),
                 ("decoder", "decoder/layers/block", config.num_decoder_layers,
-                 _SEQ2SEQ_DECODER_BLOCK)]
+                 _SEQ2SEQ_DECODER_BLOCK + dec)]
 
     def names(self, config, blocks: list) -> list:
         head = [] if config.tie_embeddings else ["lm_head"]
@@ -236,7 +265,8 @@ class _EncoderFamily(_Family):
         return EncoderClassifier
 
     def stacks(self, config) -> list:
-        return [("layers", None, config.num_layers, _ENCODER_BLOCK)]
+        return [("layers", None, config.num_layers, _ENCODER_BLOCK + _histories(
+            config, ("", _ATTN_HIST + fp8.ENCODER_MLP_HISTORIES)))]
 
     def names(self, config, blocks: list) -> list:
         return list(_ENCODER_TOP) + blocks
@@ -381,9 +411,11 @@ def locate(port_name: str, config):
         if port_name.startswith(prefix + "."):
             _, i, name = port_name.split(".", 2)
             path = name.replace(".", "/")
+            # a block's buffers are its fp8 histories: the fp8_stats collection
+            stats = FP8_STATS if family.is_buffer(port_name) else ""
             if ref_prefix is None:
-                return f"layer_{i}/{path}", None, None
-            return f"{ref_prefix}/{path}", int(i), layers
+                return f"{stats}layer_{i}/{path}", None, None
+            return f"{stats}{ref_prefix}/{path}", int(i), layers
     return family.ref_name(port_name), None, None
 
 

@@ -32,6 +32,18 @@ operator's two outputs, with no dispatch mode over the block);
 without batch dims) and recomputes the rest, the flash forward included:
 a selective-checkpoint policy over the block's operators.
 
+With ``config.use_fp8`` every projection (QKV, O and the MLP's three)
+runs the fp8 recipe (``ops/fp8.py``: ``torch._scaled_mm`` on the card),
+on every path: training, the five cache branches and the captured decode
+steps (an MoE block's experts stay plain, as the reference's). A model
+built with ``fp8_recipe="delayed"`` holds each projection's amax history
+as a [2, H] fp32 buffer under the reference's name (``attn.wq_fp8`` ...
+``attn.wo_fp8``, ``mlp.gate`` / ``up`` / ``down``; :meth:`_Model.
+fp8_histories`): a cache-free forward reads them and, training, records
+its amaxes (:meth:`_Model._arm_fp8`); a cached forward (generation,
+serving) has none and runs current scaling, as the reference's apply of
+``{"params": ...}`` alone.
+
 Residual dropout (``config.dropout_rate``) follows the attention and the
 MLP of every block, as the reference's, in training mode (``train()``,
 the module's default) and only on the cache-free forward. Its masks
@@ -108,6 +120,7 @@ from ..ops.attention import (
     paged_decode_attention,
     ragged_prefill_attention,
 )
+from ..ops import fp8
 from ..ops.layers import apply_rotary_embedding, rms_norm, rotary_embedding_tables, swiglu
 from ..ops.losses import fused_linear_cross_entropy
 from ..utils.quantization import dequantize_kv, kv_cache_bits, quantize_kv
@@ -144,7 +157,8 @@ def _resolve(p) -> torch.Tensor:
     return p if isinstance(p, torch.Tensor) else p.weight()
 
 
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten._scaled_mm.default)  # the fp8 projections' (ops/fp8.py)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -230,6 +244,9 @@ class _Module(nn.Module):
     # dispatch binds them: a block's own and its sublayers', or the
     # model's top-level ones)
     streamed: tuple = ()
+    # the delayed fp8 recipe's view of the forward in progress
+    # (ops/fp8.Fp8Forward), set by _Model._arm_fp8; None: no histories
+    fp8_forward = None
 
     def _param(self, shape, device, dtype):
         return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
@@ -278,21 +295,30 @@ class DecoderAttention(_Module):
         self.wk = self._param((e, kv, d), device, param_dtype)
         self.wv = self._param((e, kv, d), device, param_dtype)
         self.wo = self._param((h, d, e), device, param_dtype)
+        fp8.register_histories(self, fp8.ATTENTION_HISTORIES, config, device)
 
     def qkv(self, x, sin, cos):
         """Projections and RoPE: x [B, S, E] -> q [B, H, S, D], k/v
-        [B, KVH, S, D] (views of the projections, not contiguous)."""
+        [B, KVH, S, D] (views of the projections, not contiguous); through
+        the fp8 recipe (``ops/fp8.fp8_attn_proj``) under ``use_fp8``."""
         cfg = self.config
         e, h, kv, d, dt = cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.dtype
         b, s = x.shape[0], x.shape[1]
-        q = (x @ self._use(self.wq, dt).reshape(e, h * d)).reshape(b, s, h, d).transpose(1, 2)
-        k = (x @ self._use(self.wk, dt).reshape(e, kv * d)).reshape(b, s, kv, d).transpose(1, 2)
-        v = (x @ self._use(self.wv, dt).reshape(e, kv * d)).reshape(b, s, kv, d).transpose(1, 2)
+        if cfg.use_fp8:
+            q = fp8.fp8_attn_proj(self, "wq_fp8", x, self._use(self.wq, dt), h, d, cfg)
+            k = fp8.fp8_attn_proj(self, "wk_fp8", x, self._use(self.wk, dt), kv, d, cfg)
+            v = fp8.fp8_attn_proj(self, "wv_fp8", x, self._use(self.wv, dt), kv, d, cfg)
+        else:
+            q = (x @ self._use(self.wq, dt).reshape(e, h * d)).reshape(b, s, h, d).transpose(1, 2)
+            k = (x @ self._use(self.wk, dt).reshape(e, kv * d)).reshape(b, s, kv, d).transpose(1, 2)
+            v = (x @ self._use(self.wv, dt).reshape(e, kv * d)).reshape(b, s, kv, d).transpose(1, 2)
         return apply_rotary_embedding(q, sin, cos), apply_rotary_embedding(k, sin, cos), v
 
     def project_out(self, out):
         """Attention output [B, H, S, D] -> [B, S, E]."""
         cfg = self.config
+        if cfg.use_fp8:
+            return fp8.fp8_attn_out(self, "wo_fp8", out, self._use(self.wo, cfg.dtype), cfg)
         b, h, s, d = out.shape
         out = out.transpose(1, 2).reshape(b, s, h * d)
         return out @ self._use(self.wo, cfg.dtype).reshape(h * d, cfg.embed_dim)
@@ -493,9 +519,16 @@ class DecoderMLP(_Module):
         self.w_gate = self._param((e, m), device, param_dtype)
         self.w_up = self._param((e, m), device, param_dtype)
         self.w_down = self._param((m, e), device, param_dtype)
+        fp8.register_histories(self, fp8.MLP_HISTORIES, config, device)
 
     def forward(self, x):
-        dt = self.config.dtype
+        cfg = self.config
+        dt = cfg.dtype
+        if cfg.use_fp8:
+            gate = fp8.module_fp8_dot(self, "gate", x, self._use(self.w_gate, dt), cfg)
+            up = fp8.module_fp8_dot(self, "up", x, self._use(self.w_up, dt), cfg)
+            return fp8.module_fp8_dot(self, "down", swiglu(gate, up),
+                                      self._use(self.w_down, dt), cfg)
         gate = x @ self._use(self.w_gate, dt)
         up = x @ self._use(self.w_up, dt)
         return swiglu(gate, up) @ self._use(self.w_down, dt)
@@ -557,14 +590,46 @@ class _Model(_Module):
                 m.param_cast = dtype
         return self
 
+    # False while the Accelerator runs a user loss_fn: its forwards read
+    # the amax histories and record nothing (the reference discards them)
+    fp8_record: bool = True
+
     def load_params(self, params: dict):
         """Copy a weight dict (``models/convert.py``: numpy arrays or
         tensors, keyed like ``state_dict()``) into the module, casting to
-        each parameter's dtype and device. Every weight must be given."""
+        each parameter's dtype and device. Every weight must be given; an
+        fp8 amax history the dict lacks keeps its value (state, not a
+        weight: the reference's parameter tree has none)."""
         state = {k: v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
                  for k, v in params.items()}
+        for name, hist in self.fp8_histories().items():
+            state.setdefault(name, hist)
         self.load_state_dict(state, strict=True)
         return self
+
+    def fp8_histories(self) -> dict:
+        """The delayed fp8 recipe's amax histories, ``{buffer name: [2, H]
+        fp32}`` (empty without ``use_fp8`` and ``fp8_recipe="delayed"`` at
+        build time): the reference's ``fp8_stats`` collection."""
+        if not fp8.delayed(self.config):
+            return {}
+        return {name: buf for name, buf in self.named_buffers()
+                if name.rsplit(".", 1)[-1] in fp8.HISTORY_NAMES}
+
+    def _arm_fp8(self, cache_free: bool = True):
+        """Open a forward's view of the amax histories (delayed fp8 only):
+        a cache-free forward reads them, and records its amaxes when it
+        trains (grad enabled, ``train()`` mode, no user loss_fn running); a
+        cached forward (generation, serving) has none and runs current
+        scaling, as the reference's apply of ``{"params": ...}`` alone."""
+        if not fp8.delayed(self.config):
+            return
+        fwd = None
+        if cache_free:
+            fwd = fp8.Fp8Forward(self.fp8_record and self.training and torch.is_grad_enabled())
+        for m in self.modules():
+            if isinstance(m, _Module):
+                m.fp8_forward = fwd
 
     def _arm_casts(self, cache_free: bool = True):
         """Start a forward: under a mixed-precision cast, a training forward
@@ -689,6 +754,7 @@ class DecoderLM(_Model):
             )
         self._stage()
         self._arm_casts(cache_free=cache is None)
+        self._arm_fp8(cache_free=cache is None)
         emb = _resolve(self.embedding)
         x = self._gather(emb, input_ids, cfg.dtype)
         if positions is None:

@@ -15,6 +15,11 @@ padding folded into its bias (``ops/attention.dot_product_attention``):
 the reference takes its flash kernel only where head_dim is a multiple of
 128, and so does the port, so no kernel runs on this model's path.
 
+With ``config.use_fp8`` the QKV / O projections and ``w_in`` / ``w_out``
+run the fp8 recipe (``ops/fp8.py``), the delayed recipe's histories under
+the reference's names (``wq_fp8`` ... ``wo_fp8``, ``mlp_in``,
+``mlp_out``).
+
 The reference's ``_embed_gather`` is a custom VJP for sharded meshes whose
 gradient is the one-hot contraction, the same sum as the gather's own
 backward, so the port gathers with plain indexing. Residual dropout
@@ -34,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import fp8
 from ..ops.attention import dot_product_attention
 from ..ops.losses import softmax_cross_entropy
 from ..utils.random import next_key
@@ -69,25 +75,35 @@ class EncoderBlock(_Module):
         self.b_in = nn.Parameter(torch.zeros(m, device=device, dtype=param_dtype))
         self.w_out = self._param((m, e), device, param_dtype)
         self.b_out = nn.Parameter(torch.zeros(e, device=device, dtype=param_dtype))
+        fp8.register_histories(self, fp8.ATTENTION_HISTORIES + fp8.ENCODER_MLP_HISTORIES,
+                               config, device)
 
     def _body(self, x, kv_mask, drop):
         cfg = self.config
         dt, e, h, d = cfg.dtype, cfg.embed_dim, cfg.num_heads, cfg.head_dim
         b, s = x.shape[0], x.shape[1]
 
-        def heads(w):
+        def heads(w, name):
+            if cfg.use_fp8:
+                return fp8.fp8_attn_proj(self, name, x, self._use(w, dt), h, d, cfg)
             return (x @ self._use(w, dt).reshape(e, h * d)).reshape(b, s, h, d).transpose(1, 2)
 
-        attn = dot_product_attention(heads(self.wq), heads(self.wk), heads(self.wv),
-                                     causal=False, kv_mask=kv_mask)
-        attn = attn.transpose(1, 2).reshape(b, s, h * d) @ self._use(self.wo, dt).reshape(h * d, e)
+        attn = dot_product_attention(heads(self.wq, "wq_fp8"), heads(self.wk, "wk_fp8"),
+                                     heads(self.wv, "wv_fp8"), causal=False, kv_mask=kv_mask)
+        if cfg.use_fp8:
+            attn = fp8.fp8_attn_out(self, "wo_fp8", attn, self._use(self.wo, dt), cfg)
+        else:
+            attn = (attn.transpose(1, 2).reshape(b, s, h * d)
+                    @ self._use(self.wo, dt).reshape(h * d, e))
         if drop is not None:
             attn = dropout(attn, cfg.dropout_rate, drop, 0)
         x = _layer_norm(x + attn, self._use(self.ln1_scale), self._use(self.ln1_bias),
                         cfg.norm_eps)
-        hidden = F.gelu(x @ self._use(self.w_in, dt) + self._use(self.b_in, dt),
-                        approximate="tanh")
-        out = hidden @ self._use(self.w_out, dt) + self._use(self.b_out, dt)
+        # module_fp8_dot is the plain product without use_fp8
+        hidden = F.gelu(fp8.module_fp8_dot(self, "mlp_in", x, self._use(self.w_in, dt), cfg)
+                        + self._use(self.b_in, dt), approximate="tanh")
+        out = (fp8.module_fp8_dot(self, "mlp_out", hidden, self._use(self.w_out, dt), cfg)
+               + self._use(self.b_out, dt))
         if drop is not None:
             out = dropout(out, cfg.dropout_rate, drop, 1)
         return _layer_norm(x + out, self._use(self.ln2_scale), self._use(self.ln2_bias),
@@ -156,6 +172,7 @@ class EncoderClassifier(_Model):
         s = input_ids.shape[1]
         self._stage()
         self._arm_casts()
+        self._arm_fp8()
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         # summed in the parameters' dtype at use, then cast, as the reference

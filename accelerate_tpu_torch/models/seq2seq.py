@@ -33,6 +33,11 @@ position, the dense decode read; the cross K/V read from the cache). The
 cache stores the compute dtype only: the reference's seq2seq cache has no
 quantized form (its config has no ``kv_cache_dtype``).
 
+With ``config.use_fp8`` every projection, the cross-attention's too,
+runs the fp8 recipe (``ops/fp8.py``); the delayed recipe's histories are
+read and recorded by ``forward`` only: ``encode`` and ``decode`` are the
+inference calls and run current scaling, as the reference's generation.
+
 Training (``forward`` with ``labels``) runs the fused chunked LM-head
 cross entropy over the decoder's hidden states, labels aligned 1:1 with
 decoder positions, -100 ignored; the decoder inputs default to
@@ -52,6 +57,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops import fp8
 from ..ops.attention import dot_product_attention
 from ..ops.layers import rms_norm, rotary_embedding_tables
 from ..ops.losses import fused_linear_cross_entropy
@@ -71,9 +77,10 @@ from .decoder import (
 class Seq2SeqConfig:
     """T5-family encoder-decoder config: the reference's field names and
     defaults, with torch dtypes. The defaults are t5-base: 12 + 12 layers,
-    E 768, 12 heads of D 64, M 2048, vocab 32128. fp8 and pipelining are
-    accepted as fields, so a reference config carries over, and raise
-    ``NotImplementedError`` until their slices are ported."""
+    E 768, 12 heads of D 64, M 2048, vocab 32128. The fp8 knobs are the
+    decoder's (``ops/fp8.py``); pipelining is accepted as a field, so a
+    reference config carries over, and raises ``NotImplementedError``
+    until its slice is ported."""
 
     vocab_size: int = 32_128
     num_layers: int = 12  # encoder depth
@@ -129,10 +136,6 @@ class Seq2SeqConfig:
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"num_heads ({self.num_heads}) must be a multiple of "
                              f"num_kv_heads ({self.num_kv_heads})")
-        if self.use_fp8:
-            raise NotImplementedError(
-                "use_fp8: the fp8 projections are a later slice of the port "
-                "(ROADMAP queue 1, item 9)")
         if self.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline_stages > 1: pipelining the decoder tower is multi-device, a "
@@ -198,21 +201,25 @@ class CrossAttention(_Module):
         self.wk = self._param((e, kv, d), device, param_dtype)
         self.wv = self._param((e, kv, d), device, param_dtype)
         self.wo = self._param((h, d, e), device, param_dtype)
+        fp8.register_histories(self, fp8.ATTENTION_HISTORIES, config, device)
 
-    def _project(self, x, w, heads):
+    def _project(self, x, w, heads, name: str):
         cfg = self.config
+        if cfg.use_fp8:
+            return fp8.fp8_attn_proj(self, name, x, self._use(w, cfg.dtype), heads,
+                                     cfg.head_dim, cfg)
         b, s = x.shape[0], x.shape[1]
         w = self._use(w, cfg.dtype).reshape(cfg.embed_dim, heads * cfg.head_dim)
         return (x @ w).reshape(b, s, heads, cfg.head_dim).transpose(1, 2)
 
     def forward(self, x, enc=None, enc_mask=None, cache=None, freeze: bool = False):
         cfg = self.config
-        q = self._project(x, self.wq, cfg.num_heads)
+        q = self._project(x, self.wq, cfg.num_heads, "wq_fp8")
         if cache is None or freeze:
             if enc is None:
                 raise ValueError("cross-attention needs the encoder output")
-            k = self._project(enc, self.wk, cfg.num_kv_heads)
-            v = self._project(enc, self.wv, cfg.num_kv_heads)
+            k = self._project(enc, self.wk, cfg.num_kv_heads, "wk_fp8")
+            v = self._project(enc, self.wv, cfg.num_kv_heads, "wv_fp8")
             mask = enc_mask
         if cache is not None:
             if freeze:
@@ -228,6 +235,8 @@ class CrossAttention(_Module):
             k, v, mask = cache["k"], cache["v"], cache["mask"]
         out = dot_product_attention(q, k, v, causal=False, kv_mask=mask,
                                     impl=cfg.attention_impl)
+        if cfg.use_fp8:
+            return fp8.fp8_attn_out(self, "wo_fp8", out, self._use(self.wo, cfg.dtype), cfg)
         b, h, s, d = out.shape
         out = out.transpose(1, 2).reshape(b, s, h * d)
         return out @ self._use(self.wo, cfg.dtype).reshape(h * d, cfg.embed_dim)
@@ -393,6 +402,7 @@ class Seq2SeqLM(_Model):
         encoder states."""
         self._stage()
         self._arm_casts()
+        self._arm_fp8(cache_free=False)  # an inference call, as the reference's generation
         return self._encode(input_ids, attention_mask, None)
 
     def decode(self, decoder_input_ids: torch.Tensor, encoder_states=None, attention_mask=None,
@@ -411,6 +421,7 @@ class Seq2SeqLM(_Model):
             raise ValueError("decode needs the encoder states (a prefill or an uncached call)")
         self._stage()
         self._arm_casts(cache_free=cache is None)
+        self._arm_fp8(cache_free=False)
         x = self._decoder_hidden(decoder_input_ids, encoder_states, attention_mask, positions,
                                  cache=cache, cache_positions=cache_positions)
         return (x @ self._head()).float()
@@ -425,6 +436,7 @@ class Seq2SeqLM(_Model):
             decoder_input_ids = shift_right(labels, cfg.decoder_start_token_id)
         self._stage()
         self._arm_casts()
+        self._arm_fp8()
         drop = None
         if cfg.dropout_rate > 0.0 and self.training:
             drop = next_key("dropout")

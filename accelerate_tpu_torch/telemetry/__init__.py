@@ -668,7 +668,8 @@ class TelemetrySession:
 
     def _training_gauges(self, out: dict):
         """The last record's loss and grad norm, and each training owner's
-        loss scale and skipped flag (the reference's rollup keys)."""
+        loss scale, skipped flag and fp8 amax health (the reference's
+        rollup keys)."""
         last = self.window.last()
         if last is not None:
             for key in ("loss", "grad_norm"):
@@ -680,6 +681,11 @@ class TelemetrySession:
             if scale is not None:
                 out["sys/loss_scale"] = float(scale["scale"])
                 out["sys/last_step_skipped"] = bool(engine.last_step_skipped())
+            extra = getattr(engine, "extra_state", None)
+            if isinstance(extra, dict) and "fp8_stats" in extra:
+                from .metrics import fp8_amax_health
+
+                out.update(fp8_amax_health(extra["fp8_stats"]))
 
     def rollup(self) -> dict:
         """Aggregate the rolling window plus the training and engine

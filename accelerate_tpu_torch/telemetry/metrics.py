@@ -11,8 +11,8 @@ JAX: :func:`device_memory_stats` reads ``torch.cuda.memory_stats`` (``{}``
 on the CPU), and :func:`peak_flops` / :func:`peak_hbm_bw` know one card,
 the H100 (dense bf16 and fp16 989 TFLOP/s, HBM3 3.35 TB/s), and return
 None for anything else: a rollup with no peak leaves its MFU key out rather than
-invent one. The reference's fp8 amax health probe belongs to a later item
-of the port (ROADMAP queue 1 item 9).
+invent one. :func:`fp8_amax_health` is the reference's delayed-fp8 probe
+over a model's amax histories.
 """
 
 from __future__ import annotations
@@ -224,3 +224,32 @@ def device_memory_stats(per_device: bool = False, devices=None) -> dict:
     if deltas:
         out["sys/mem_peak_delta_bytes"] = max(deltas)
     return out
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [leaf for node in tree for leaf in _tree_leaves(node)]
+    return [tree]
+
+
+def fp8_amax_health(stats_tree) -> dict:
+    """Delayed-fp8 amax-history health, the reference's: the max amax in
+    any history and the fraction of histories whose last completed slot is
+    zero (a stale slot after warmup means some projection never records).
+    Slot 0 is the step in progress, zeroed at every update's roll, so slot
+    1 is the youngest full one. ``stats_tree``: a dict / list of [..., 2,
+    H] tensors or arrays (a model's ``fp8_histories()``, or the
+    reference's stacked ``fp8_stats``); one host copy of a few KB."""
+    leaves = [leaf for leaf in _tree_leaves(stats_tree) if getattr(leaf, "ndim", 0) >= 2]
+    if not leaves:
+        return {}
+    host = [np.asarray(leaf.detach().cpu() if hasattr(leaf, "detach") else leaf, np.float32)
+            for leaf in leaves]
+    slot = 1 if all(h.shape[-1] > 1 for h in host) else 0
+    done = np.concatenate([h[..., slot].reshape(-1) for h in host])
+    return {
+        "sys/fp8_amax_max": float(max(h.max() for h in host)),
+        "sys/fp8_amax_stale_frac": float(np.mean(done == 0.0)),
+    }

@@ -7,7 +7,8 @@ the single-process slice reads (``DistributedType``, ``PrecisionType``,
 ``MixedPrecisionConfig``, ``GradScalerKwargs``, ``AutocastKwargs``,
 ``ProfileKwargs``, ``GradientAccumulationPlugin``,
 ``DataLoaderConfiguration``, ``ProjectConfiguration``), with torch dtypes
-and ``torch.profiler``. fp8 is a later slice and raises.
+and ``torch.profiler``. fp8 is the reference's policy: bf16 compute over
+fp32 masters, with the projections through ``ops/fp8.py``.
 """
 
 from __future__ import annotations
@@ -89,7 +90,9 @@ class MixedPrecisionConfig:
     ``compute_dtype``: what every floating parameter is rounded to at use
     (activations follow the model config's dtype); ``param_dtype``: the
     master weights the optimizer updates; ``grad_scaler``: the loss
-    scale's rule, used under fp16 (``needs_loss_scaling``)."""
+    scale's rule, used under fp16 (``needs_loss_scaling``). fp8 computes
+    in bf16 (the projections' fp8 operands are the models' ``use_fp8``,
+    which ``Accelerator.prepare`` turns on)."""
 
     mode: PrecisionType = PrecisionType.NO
     compute_dtype: Optional[torch.dtype] = None
@@ -98,12 +101,8 @@ class MixedPrecisionConfig:
 
     def __post_init__(self):
         self.mode = PrecisionType(self.mode)
-        if self.mode == PrecisionType.FP8:
-            raise NotImplementedError(
-                "mixed_precision='fp8' is a later slice of the port (ROADMAP queue 1, fp8)"
-            )
-        c = {PrecisionType.BF16: torch.bfloat16,
-             PrecisionType.FP16: torch.float16}.get(self.mode, torch.float32)
+        c = {PrecisionType.BF16: torch.bfloat16, PrecisionType.FP16: torch.float16,
+             PrecisionType.FP8: torch.bfloat16}.get(self.mode, torch.float32)
         self.compute_dtype = self.compute_dtype or c
         self.param_dtype = self.param_dtype or torch.float32
 

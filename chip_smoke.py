@@ -147,6 +147,22 @@ the patch, so their graphs replay the zeroed wrapper:
   a telemetry session with a JSONL tracker (``sys/mfu_pct`` against the
   phase's own reckoning, the loss scale and skipped flag, the
   exposition, ``metrics.jsonl``);
+- fp8 training and inference (``train_fp8_path``): the fp8 products
+  (``ops/fp8.py``: ``torch._scaled_mm`` on the fp8 tensor cores, no TPU
+  kernel) of small_1b's four projection shapes at 16384 tokens, forward
+  and both backward products, against their plain version (within 2^-7
+  of the output's largest |entry|), the quantizers bit-equal to the
+  CPU's, each timed beside bf16 ``torch.matmul`` and its fp8 bound;
+  ``mixed_precision="fp8"`` on small_1b: 8 current-scaling steps with a
+  falling loss, 448 products and 16 launches of each flash kernel a
+  step, the first step within 1% (loss) and 10% (grad norm) of the bf16
+  control on the same weights, throughput, MFU and a profile; the
+  delayed recipe over two micro-batches an update (every history one
+  slot on, ``fp8_amax_health``'s ``stale_frac`` 0, user ``loss_fn``
+  updates leaving the histories); generate() on an fp8 model captured
+  and uncaptured with equal tokens, its teacher-forced logits within
+  0.25 of the largest |logit| of the bf16 model's; a delayed
+  ``save_state`` / ``load_state`` resume at 2 layers bit for bit;
 - checkpoints: small_1b trained as above over the port's shuffled
   ``DataLoader``, saved twice mid-epoch (``save_state`` with automatic
   naming, ``total_limit=1``) and resumed from the newest checkpoint by a
@@ -7115,6 +7131,333 @@ def accelerate_surface_path(dev, card: str):
     return launches
 
 
+# fp8 training and inference (train_fp8_path): small_1b at full width with
+# the projections through ops/fp8.py (torch._scaled_mm on the fp8 tensor
+# cores), attention on the flash kernels in bf16.
+# (a) the products against their plain version (fp32 matmul of the same
+# fp8 operands, scaled, rounded to bf16 once): both round one fp32 sum to
+# bf16, so they may part by one bf16 step of an entry (2^-8 relative) plus
+# the sums' order; the limit is 2^-7 of the output's largest |entry|
+FP8_PRODUCT_RTOL = 2.0 ** -7
+FP8_TOKENS = 16384  # TRAIN_B x TRAIN_S: the training step's tokens a product
+FP8_SHAPES = ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048))  # (K, N)
+FP8_FLOPS_PER_S = 1979e12  # the H100's dense fp8 tensor-core peak
+# (b) current scaling: steps on one fixed batch at constant lr, and the
+# first step's gap to the bf16 control on the same weights and batch. The
+# e4m3 forward operands round each value by up to 2^-4 relative and the
+# e5m2 gradients by 2^-3, about evenly up and down: the loss of a mean
+# over 16384 tokens should move far less than 1%, the grad norm (a sum of
+# squares, where rounding noise adds) by a few %
+FP8_STEPS = 8
+FP8_LOSS_GAP = 1e-2
+FP8_GRAD_NORM_GAP = 0.1
+# products a block runs in one step: 7 projections, forward, again in the
+# save_attention recompute, and their two backward products
+FP8_PRODUCTS_PER_LAYER = 7 * 4
+# (c) delayed scaling: history length, updates of two micro-batches
+FP8_HISTORY = 16
+FP8_DELAYED_STEPS = 4
+# (d) generate(): prompt, new tokens; the teacher-forced logits' gap to the
+# bf16 model on the same weights, over the largest |logit|: two e4m3
+# steps (2^-3) at most
+FP8_GEN = (2, 512, 16)
+FP8_LOGIT_GAP = 0.25
+# (e) the delayed resume: layers, updates before and after the save
+FP8_RESUME = (2, 2, 2)
+
+
+def fp8_products(dev, card: str):
+    """(a): each projection's three products at the training step's shapes
+    on the card against the plain version, the quantizers bit for bit
+    against the CPU's, and each product's time beside bf16 torch.matmul."""
+    import torch
+
+    from accelerate_tpu_torch.ops import fp8
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    m = FP8_TOKENS
+    for k, n in FP8_SHAPES:
+        a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        b = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        g = (torch.randn(m, n, generator=gen, device=dev) * 1e-4).to(torch.bfloat16)
+        qs = {}
+        for name, x, dt, fmax in (("a", a, fp8.E4M3, fp8.E4M3_MAX),
+                                  ("b", b, fp8.E4M3, fp8.E4M3_MAX),
+                                  ("g", g, fp8.E5M2, fp8.E5M2_MAX)):
+            q, s = fp8.quantize_fp8(x, dt, fmax)
+            q_cpu, s_cpu = fp8.quantize_fp8(x.cpu(), dt, fmax)
+            if not (torch.equal(fp8.amax_of(x).cpu(), fp8.amax_of(x.cpu()))
+                    and torch.equal(s.cpu(), s_cpu)
+                    and torch.equal(q.view(torch.uint8).cpu(), q_cpu.view(torch.uint8))):
+                fail(f"fp8 quantizer of {name} [{tuple(x.shape)}]: the card's amax, scale or "
+                     "bytes differ from the CPU's")
+            qs[name] = (q, s)
+        (qa, sa), (qb, sb), (qg, sg) = qs["a"], qs["b"], qs["g"]
+        cases = (("forward a @ b", qa, qb, sa, sb, a, b),
+                 ("da = g @ b^T", qg, qb.t(), sg, sb, g, b.t()),
+                 ("db = a^T @ g", qa.t(), qg, sa, sg, a.t(), g))
+        for what, qx, qy, sx, sy, x, y in cases:
+            got = fp8.scaled_mm(qx, qy, sx, sy, torch.bfloat16)
+            want = fp8.scaled_product_reference(qx, qy, sx, sy, torch.bfloat16)
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            if not (math.isfinite(err) and err <= FP8_PRODUCT_RTOL * top):
+                fail(f"fp8 product {what} at K {k}, N {n}: max abs err {err} vs plain, "
+                     f"beyond {FP8_PRODUCT_RTOL} x {top}")
+            mm, kk, nn = qx.shape[0], qx.shape[1], qy.shape[1]
+            ms = cuda_time_ms(lambda: fp8.scaled_mm(qx, qy, sx, sy, torch.bfloat16))
+            plain_ms = cuda_time_ms(lambda: fp8.scaled_product_reference(
+                qx, qy, sx, sy, torch.bfloat16), iters=5)
+            bf16_ms = cuda_time_ms(lambda: torch.matmul(x, y))
+            flops = 2 * mm * kk * nn
+            # fp8 operands read once, the bf16 output written once; fp8 peak
+            t_bytes = (mm * kk + kk * nn + 2 * mm * nn) / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / FP8_FLOPS_PER_S * 1e3
+            bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+            print(f"fp8 product on {card}: {what} [{mm}, {kk}] @ [{kk}, {nn}] (the "
+                  f"{k}->{n} projection): {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; "
+                  f"_scaled_mm with its layout copies), plain {plain_ms:.4f} ms, bf16 "
+                  f"torch.matmul {bf16_ms:.4f} ms ({flops / bf16_ms / 1e9:.1f} TFLOP/s), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}, fp8 peak 1979 TFLOP/s), max abs err "
+                  f"{err:.3e} (limit {FP8_PRODUCT_RTOL * top:.3e})")
+        quant_ms = cuda_time_ms(lambda: fp8.quantize_fp8(a))
+        print(f"fp8 quantize on {card}: e4m3 of a [{m}, {k}] bf16 (amax, scale, bytes) "
+              f"{quant_ms:.4f} ms, bound {bound(2 * m * k + m * k, 0)[0]:.4f} ms (bytes)")
+        del a, b, g, qs, cases, qa, qb, qg
+    torch.cuda.empty_cache()
+
+
+def fp8_histories_stacked(model):
+    import torch
+
+    return torch.stack(list(model.fp8_histories().values()))
+
+
+def train_fp8_path(dev, card: str):
+    """mixed_precision="fp8" on small_1b at full width: (a) the products,
+    (b) current scaling, (c) delayed scaling, (d) generate() on an fp8
+    model, (e) a delayed resume. Returns the flash kernels' launches of
+    (b) and the dense decode kernel's of (d)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.accelerator import global_grad_norm
+    from accelerate_tpu_torch.generation import generate
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import fp8, kernels
+    from accelerate_tpu_torch.telemetry.metrics import fp8_amax_health
+
+    t_phase = time.perf_counter()
+    fp8_products(dev, card)
+    cfg = DecoderConfig.small_1b()
+    b, s = TRAIN_B, TRAIN_S
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (b, s))
+    batch = {k: torch.as_tensor(ids, device=dev) for k in ("input_ids", "labels")}
+
+    def fresh(config, seed=0):
+        model = DecoderLM(config, device=dev, param_dtype=torch.float32)
+        return model.load_params(random_params(config, seed=seed, device=dev,
+                                               dtype=torch.float32))
+
+    def loss_and_norm(model, precision):
+        acc = Accelerator(mixed_precision=precision)
+        acc.prepare(model)
+        model.zero_grad(set_to_none=True)
+        out = model(**batch)
+        out["loss"].backward()
+        norm = global_grad_norm(model.parameters()).item()
+        model.zero_grad(set_to_none=True)
+        return out["loss"].item(), norm
+
+    # (b) current scaling, against the bf16 control on the same weights
+    model = fresh(cfg)
+    loss_b, norm_b = loss_and_norm(model, "bf16")
+    model.set_param_cast(None)
+    acc = Accelerator(mixed_precision="fp8")
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    if not (model.config.use_fp8 and model.config.fp8_recipe == "current"):
+        fail(f"Accelerator(mixed_precision='fp8') left use_fp8={model.config.use_fp8}")
+    loss_8, norm_8 = loss_and_norm(model, "fp8")
+    if not (abs(loss_8 - loss_b) <= FP8_LOSS_GAP * abs(loss_b)
+            and abs(norm_8 - norm_b) <= FP8_GRAD_NORM_GAP * abs(norm_b)):
+        fail(f"fp8 first step: loss {loss_8} / grad norm {norm_8} vs bf16 {loss_b} / {norm_b}: "
+             f"beyond {FP8_LOSS_GAP} / {FP8_GRAD_NORM_GAP} relative")
+    print(f"train fp8 path: first step on the seed weights, fp8 (current) vs bf16: loss "
+          f"{loss_8:.6f} vs {loss_b:.6f} (rel {abs(loss_8 - loss_b) / abs(loss_b):.2e}, gap "
+          f"{FP8_LOSS_GAP}), grad norm {norm_8:.6f} vs {norm_b:.6f} (rel "
+          f"{abs(norm_8 - norm_b) / abs(norm_b):.2e}, gap {FP8_GRAD_NORM_GAP})")
+    step = acc.build_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_ms, products = [], [], []
+    for _ in range(FP8_STEPS):
+        before = dict(kernels.launch_counts)
+        fp8.reset_product_count()
+        t0 = time.perf_counter()
+        losses.append(step(batch)["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        products.append(fp8.product_count)
+        for name in FLASH_KERNELS:
+            got = kernels.launch_counts[name] - before[name]
+            if got != cfg.num_layers:
+                fail(f"{name}: {got} launches in one fp8 step, expected {cfg.num_layers}")
+    launches = {name: kernels.launch_counts[name] for name in FLASH_KERNELS}
+    want_products = FP8_PRODUCTS_PER_LAYER * cfg.num_layers
+    if set(products) != {want_products}:
+        fail(f"fp8 products a step {products}, expected {want_products}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"fp8 loss did not fall over {FP8_STEPS} steps at lr {TRAIN_LR}: {losses}")
+    ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tokens_per_s = b * s / (ms / 1e3)
+    flops_per_token = 6 * cfg.num_params + 6 * cfg.num_layers * s * cfg.embed_dim
+    mfu = tokens_per_s * flops_per_token / BF16_FLOPS_PER_S
+    print(f"train fp8 path on {card}: current scaling, {FP8_STEPS} build_train_step steps on "
+          f"one batch at lr {TRAIN_LR}: loss {[round(x, 4) for x in losses]}; "
+          f"{tokens_per_s:.1f} tokens/s, {ms:.1f} ms/step (median of steady steps "
+          f"{[round(x, 1) for x in step_ms]}), MFU {100 * mfu:.2f}% over 989 TFLOP/s bf16, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {launches}, "
+          f"{want_products} torch._scaled_mm products a step")
+    profile_train(step, batch, card, "one fp8 (current) build_train_step step")
+    del model, opt, acc, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) delayed scaling, two micro-batches an update
+    dcfg = DecoderConfig.small_1b(use_fp8=True, fp8_recipe="delayed",
+                                  fp8_amax_history_len=FP8_HISTORY)
+    model = fresh(dcfg)
+    acc = Accelerator(mixed_precision="fp8", gradient_accumulation_steps=2)
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    if len(model.fp8_histories()) != 7 * dcfg.num_layers:
+        fail(f"{len(model.fp8_histories())} amax histories, expected {7 * dcfg.num_layers}")
+    step = acc.build_train_step()
+    delayed_losses, delayed_ms = [], []
+    for i in range(FP8_DELAYED_STEPS):
+        prev = fp8_histories_stacked(model)
+        t0 = time.perf_counter()
+        delayed_losses.append(step(batch)["loss"].item())
+        delayed_ms.append((time.perf_counter() - t0) * 1e3)
+        now = fp8_histories_stacked(model)
+        if (now[..., 0].any() or not torch.equal(now[..., 2:], prev[..., 1:-1])
+                or not (now[..., 1] > 0).all()):
+            fail(f"delayed update {i}: the histories did not advance one slot "
+                 "(slot 0 zero, slot 1 this update's amaxes, the rest shifted)")
+    health = fp8_amax_health(acc.extra_state["fp8_stats"])
+    if not (health["sys/fp8_amax_stale_frac"] == 0.0 and health["sys/fp8_amax_max"] > 0):
+        fail(f"fp8_amax_health after {FP8_DELAYED_STEPS} updates: {health}")
+    kept = fp8_histories_stacked(model)
+    user_step = acc.build_train_step(loss_fn=lambda m, mb: m(**mb)["loss"])
+    user_losses = [user_step(batch)["loss"].item() for _ in range(2)]
+    if not torch.equal(fp8_histories_stacked(model), kept):
+        fail("the user loss_fn steps moved the amax histories")
+    if not all(math.isfinite(x) for x in delayed_losses + user_losses):
+        fail(f"delayed fp8 losses {delayed_losses} {user_losses}")
+    print(f"train fp8 path on {card}: delayed scaling (history {FP8_HISTORY}, 2 micro-batches "
+          f"an update): losses {[round(x, 4) for x in delayed_losses]}, "
+          f"{[round(x, 1) for x in delayed_ms]} ms/update, each update one slot on (slot 0 zero "
+          f"after the roll); fp8_amax_health {health}; 2 user loss_fn updates (losses "
+          f"{[round(x, 4) for x in user_losses]}) left the histories as they were")
+    del model, opt, acc, step, user_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) generate() on an fp8 model, captured and uncaptured
+    gb, gs, new = FP8_GEN
+    weights = random_params(cfg, seed=0, device=dev)
+    model8 = DecoderLM(DecoderConfig.small_1b(use_fp8=True), device=dev).load_params(weights)
+    model16 = DecoderLM(cfg, device=dev).load_params(weights)
+    prompt = torch.as_tensor(np.random.RandomState(1).randint(3, cfg.vocab_size, (gb, gs)),
+                             device=dev)
+    generate(model8, prompt[:, :128], max_new_tokens=4)  # warm-up, not counted
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    captured = generate(model8, prompt, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_launches = {"dense_decode": kernels.launch_counts["dense_decode"],
+                    "flash_fwd": kernels.launch_counts["flash_fwd"]}
+    with mock_captures(False):
+        uncaptured = generate(model8, prompt, max_new_tokens=new)
+    if not torch.equal(captured, uncaptured):
+        fail("fp8 generate(): the captured decode step's tokens differ from the uncaptured")
+    if gen_launches["dense_decode"] < 1:
+        fail("fp8 generate() launched no dense decode kernel")
+    with torch.no_grad():
+        l8 = model8(captured)[:, gs - 1:-1]
+        l16 = model16(captured)[:, gs - 1:-1]
+    gap = ((l8 - l16).abs().max() / l16.abs().max()).item()
+    rms_gap = ((l8 - l16).float().norm() / l16.float().norm()).item()
+    if not gap < FP8_LOGIT_GAP:
+        fail(f"fp8 generate(): teacher-forced logits {gap} of the largest from the bf16 "
+             f"model's, beyond {FP8_LOGIT_GAP}")
+    agree = (l8.argmax(-1) == l16.argmax(-1)).float().mean().item()
+    print(f"train fp8 path: generate() on the fp8 small_1b (B {gb}, prompt {gs}, {new} new "
+          f"tokens): captured == uncaptured tokens; teacher-forced logits vs the bf16 model "
+          f"on the same weights: max gap {gap:.4f} of the largest |logit| (margin "
+          f"{FP8_LOGIT_GAP}), rms gap {rms_gap:.4f} of the logits' rms, greedy argmax "
+          f"agreeing at {100 * agree:.1f}% of positions; "
+          f"launches {gen_launches}")
+    del model8, model16, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) a delayed save_state / load_state resume, bit for bit
+    layers, before_save, after = FP8_RESUME
+    rcfg = DecoderConfig.small_1b(num_layers=layers, use_fp8=True, fp8_recipe="delayed",
+                                  fp8_amax_history_len=FP8_HISTORY)
+    rng = np.random.RandomState(5)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                zip(("input_ids", "labels"), [rng.randint(0, cfg.vocab_size, (b, s))] * 2)}
+               for _ in range(before_save + after)]
+
+    def run(seed, load=None, save=None, first=0):
+        acc = Accelerator(mixed_precision="fp8")
+        model = fresh(rcfg, seed)
+        opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=1e-4)
+        model, opt = acc.prepare(model, opt)
+        if load is not None:
+            acc.load_state(load)
+        step = acc.build_train_step()
+        losses = []
+        for i in range(first, len(batches)):
+            losses.append(step(batches[i])["loss"].item())
+            if save is not None and i + 1 == before_save:
+                acc.save_state(save)
+        return losses[-after:], model
+
+    folder = tempfile.mkdtemp()
+    try:
+        want, saver = run(0, save=folder)
+        got, resumed = run(1, load=folder, first=before_save)
+        same = all(torch.equal(p, q) for p, q in zip(saver.state_dict().values(),
+                                                     resumed.state_dict().values()))
+        if got != want or not same:
+            fail(f"delayed fp8 resume: losses {got} vs {want}, weights and histories "
+                 f"{'equal' if same else 'differ'}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"train fp8 path: delayed resume at {layers} layers: {after} updates after "
+          f"load_state bit for bit (losses {want}, every weight and amax history equal); "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    del saver, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["dense_decode"] = gen_launches["dense_decode"]
+    launches["flash_fwd"] += gen_launches["flash_fwd"]
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -7263,6 +7606,12 @@ def main():
     launches.update(timed("train fp16 path", train_fp16_path, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
+    # its flash launches add to the training path's rows, its dense decode
+    # launches (generate() on the fp8 model) to the dense decode row
+    fp8_launches = timed("train fp8 path", train_fp8_path, dev, card)
+    print(f"train fp8 path launches: {json.dumps(fp8_launches)}")
+    gc.collect()
+    torch.cuda.empty_cache()
     moe_train_launches = timed("moe train path", moe_train_path, dev, card)
     print(f"moe train path launches: {json.dumps(moe_train_launches)}")
     gc.collect()
@@ -7304,6 +7653,8 @@ def main():
     timed("resnet train path", resnet_train_path, dev, card)
     launches["dense_decode"] += flat_launches + dispatch_launches["dense_decode"]
     launches["flash_fwd"] += dispatch_launches["flash_fwd"]
+    for name, n in fp8_launches.items():
+        launches[name] += n
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] < 1:

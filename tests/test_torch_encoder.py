@@ -11,7 +11,8 @@ on the CPU.
 - ``convert.py`` both ways bit for bit (unrolled ``layer_{i}`` names);
 - a reference ``save_state`` resumed in the port and the port's resumed
   in the reference;
-- the rules: fp8 and a mesh raise, no CUDA raises without ``device="cpu"``;
+- the rules: a mesh raises, no CUDA raises without ``device="cpu"``, an fp8
+  config builds and runs;
   dropout masks replay under ``set_seed``.
 
 Inputs are numpy arrays from a seed; both sides run in fp32 at
@@ -213,8 +214,11 @@ def test_checkpoints_cross_load_and_resume(reference, tmp_path, monkeypatch):
 
 
 def test_unported_parts_and_devices_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        EncoderConfig.tiny(use_fp8=True)
+    # fp8 is this port's now (tests/test_torch_fp8_models.py): the config builds and runs
+    cfg = EncoderConfig.tiny(use_fp8=True, dropout_rate=0.0)
+    model = EncoderClassifier(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
+    with torch.no_grad():
+        assert torch.isfinite(model(torch.arange(3, 11)[None])["logits"]).all()
     with pytest.raises(NotImplementedError, match="pipeline parallelism"):
         EncoderClassifier(EncoderConfig.tiny(), device="cpu", mesh={"stage": 2, "data": 4})
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -283,11 +283,19 @@ def test_later_slices_raise():
     # MoE blocks are this port's now (tests/test_torch_moe.py): the config builds
     cfg = DecoderConfig(moe_num_experts=8, moe_top_k=2)
     assert (cfg.moe_num_experts, cfg.moe_top_k) == (8, 2)
-    for kw in ({"pipeline_stages": 2}, {"use_fp8": True}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            DecoderConfig.tiny(**kw)
     with pytest.raises(NotImplementedError, match="later slice"):
-        Accelerator(mixed_precision="fp8", device="cpu")
+        DecoderConfig.tiny(pipeline_stages=2)
+    # fp8 is this port's now (tests/test_torch_fp8.py, tests/test_torch_fp8_models.py):
+    # the config builds and runs, and the Accelerator takes mixed_precision="fp8"
+    cfg = DecoderConfig.tiny(use_fp8=True, fp8_recipe="delayed")
+    model = DecoderLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
+    assert len(model.fp8_histories()) == 7 * cfg.num_layers
+    with torch.no_grad():
+        assert torch.isfinite(model(torch.arange(8)[None])).all()
+    with pytest.raises(ValueError, match="fp8_recipe"):
+        DecoderConfig.tiny(use_fp8=True, fp8_recipe="hybrid")
+    assert Accelerator(mixed_precision="fp8", device="cpu").state.precision.compute_dtype \
+        == torch.bfloat16
     # dropout, save_dots and fp16 training are this port's now
     # (tests/test_torch_fp16_training.py, tests/test_torch_remat_dropout.py)
     cfg = DecoderConfig.tiny(dropout_rate=0.1, remat_policy="save_dots", dtype=torch.float16)

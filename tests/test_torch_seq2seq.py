@@ -11,7 +11,8 @@
   and the port's ``random_params`` -> tree -> port);
 - a reference ``save_state`` resumed in the port and the port's resumed
   in the reference;
-- the rules: fp8 and pipelining raise naming their items, no CUDA raises
+- the rules: pipelining raises naming its item, an fp8 config builds and
+  runs, no CUDA raises
   without ``device="cpu"``; dropout masks replay under ``set_seed``.
 
 Inputs are numpy arrays from a seed; both sides run in fp32 at
@@ -266,11 +267,23 @@ def test_checkpoints_cross_load_and_resume(reference, tmp_path, monkeypatch):
 # -- rules ------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("field,item", [({"use_fp8": True}, "item 9"),
-                                        ({"pipeline_stages": 2}, "item 10")])
+# the id this case had beside the fp8 case (now test_fp8_config_builds_and_runs)
+@pytest.mark.parametrize("field,item", [({"pipeline_stages": 2}, "item 10")],
+                         ids=["field1-item 10"])
 def test_unported_fields_raise_naming_their_item(field, item):
     with pytest.raises(NotImplementedError, match=item):
         Seq2SeqConfig.tiny(**field)
+
+
+def test_fp8_config_builds_and_runs():
+    """fp8 is this port's now (tests/test_torch_fp8_models.py): an fp8 T5
+    builds, holds its delayed histories and runs."""
+    cfg = Seq2SeqConfig.tiny(use_fp8=True, fp8_recipe="delayed")
+    model = Seq2SeqLM(cfg, device="cpu").load_params(random_params(cfg, device="cpu"))
+    assert len(model.fp8_histories()) == 7 * cfg.num_layers + 11 * cfg.num_decoder_layers
+    src = torch.arange(3, 11)[None]
+    with torch.no_grad():
+        assert torch.isfinite(model(src, labels=src)["loss"])
 
 
 def test_entry_points_need_cuda_or_cpu(monkeypatch):
