@@ -92,28 +92,66 @@ from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils import operations
 from .utils.operations import send_to_device
-from .utils.dataclasses import (AutocastKwargs, DataLoaderConfiguration,
-                                GradientAccumulationPlugin, GradScalerKwargs, ProfileKwargs,
-                                ProjectConfiguration)
+from .utils.dataclasses import (NEXT_PART, AutocastKwargs, DataLoaderConfiguration,
+                                GradientAccumulationPlugin, GradScalerKwargs,
+                                InitProcessGroupKwargs, ProfileKwargs, ProjectConfiguration,
+                                ShardingConfig, ShardingStrategy)
 
 logger = logging.getLogger(__name__)
 
 
 def global_grad_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every gradient's squared entries, fp32 (optax's
-    ``global_norm``); parameters without a gradient count as zero."""
-    norms = [torch.linalg.vector_norm(p.grad.float()) for p in params if p.grad is not None]
+    ``global_norm``), the same on every rank: a sharded gradient's shards
+    (``parallel/sharding``) count once, their squared norm summed over
+    the ``shard`` group in one all-reduce; parameters without a gradient
+    count as zero."""
+    import torch.distributed as dist
+
+    from .parallel.sharding import is_sharded, local_grad
+
+    norms, shards, group = [], [], None
+    for p in params:
+        g = local_grad(p)
+        if g is None:
+            continue
+        norm = torch.linalg.vector_norm(g.float())
+        if is_sharded(p.grad):
+            shards.append(norm)
+            group = p.grad.device_mesh.get_group("shard")
+        else:
+            norms.append(norm)
+    if shards:
+        sq = torch.linalg.vector_norm(torch.stack(shards)) ** 2
+        dist.all_reduce(sq, group=group)
+        norms.append(torch.sqrt(sq))
     if not norms:
         return torch.zeros(())
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def _clip_grads(params, max_norm: float, norm: torch.Tensor):
-    """Scale every gradient by ``min(1, max_norm / (norm + 1e-6))``."""
+    """Scale every gradient by ``min(1, max_norm / (norm + 1e-6))`` (a
+    sharded one shard by shard)."""
+    from .parallel.sharding import local_grad
+
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     for p in params:
-        if p.grad is not None:
-            p.grad.mul_(scale.to(p.grad.dtype))
+        g = local_grad(p)
+        if g is not None:
+            g.mul_(scale.to(g.dtype))
+
+
+def _agree(finite: bool, device) -> bool:
+    """Every rank's finite flag AND-ed: one all-reduce of the flag, so no
+    rank skips an update alone (the flag itself on one process)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return finite
+    flag = torch.tensor([0.0 if finite else 1.0], device=device)
+    dist.all_reduce(flag)
+    return bool(flag.item() == 0.0)
 
 
 class LossScale:
@@ -170,11 +208,13 @@ def _scaled_backward(loss: torch.Tensor, params, scale: float, post) -> torch.Te
     gradients, ``post(grads)`` applied to them (the unscale), then added
     to what ``params`` had accumulated: the reference's per-micro-batch
     ``acc + g``. Returns what ``post`` returns."""
+    from .parallel.sharding import local_grad
+
     stash = [p.grad for p in params]
     for p in params:
         p.grad = None
     (loss.float() * scale).backward()
-    out = post([p.grad for p in params if p.grad is not None])
+    out = post([local_grad(p) for p in params if p.grad is not None])
     for p, acc in zip(params, stash):
         if acc is not None and p.grad is not None:
             p.grad = acc.add_(p.grad)
@@ -319,7 +359,8 @@ class Accelerator:
                  kwargs_handlers: Optional[list] = None, log_with=None, telemetry=None,
                  device=None, cpu: bool = False,
                  dataloader_config: Optional[DataLoaderConfiguration] = None,
-                 split_batches: bool = False):
+                 split_batches: bool = False,
+                 sharding_config: Optional[ShardingConfig] = None):
         if gradient_accumulation_plugin is not None and gradient_accumulation_steps != 1:
             raise ValueError(
                 "pass gradient_accumulation_steps or gradient_accumulation_plugin, not both"
@@ -329,6 +370,7 @@ class Accelerator:
         self.scaler_handler: Optional[GradScalerKwargs] = None
         self.autocast_handler: Optional[AutocastKwargs] = None
         self.profile_handler: Optional[ProfileKwargs] = None
+        self.init_handler: Optional[InitProcessGroupKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, GradScalerKwargs):
                 self.scaler_handler = handler
@@ -336,12 +378,31 @@ class Accelerator:
                 self.autocast_handler = handler
             elif isinstance(handler, ProfileKwargs):
                 self.profile_handler = handler
+            elif isinstance(handler, InitProcessGroupKwargs):
+                self.init_handler = handler
             else:
-                raise TypeError(f"kwargs_handlers takes GradScalerKwargs, AutocastKwargs and "
-                                f"ProfileKwargs, got {handler!r}")
+                raise TypeError(f"kwargs_handlers takes GradScalerKwargs, AutocastKwargs, "
+                                f"ProfileKwargs and InitProcessGroupKwargs, got {handler!r}")
         if cpu and device is not None and torch.device(device).type != "cpu":
             raise ValueError(f"cpu=True and device={device!r} disagree")
-        self.state = AcceleratorState(mixed_precision, device, cpu=cpu)
+        if sharding_config is not None and sharding_config.unsupported():
+            raise NotImplementedError(
+                f"ShardingConfig {', '.join(sharding_config.unsupported())}: {NEXT_PART}")
+        self.state = AcceleratorState(mixed_precision, device, cpu=cpu,
+                                      sharding_config=sharding_config,
+                                      process_group_kwargs=self.init_handler)
+        from .parallel.sharding import resolve_strategy
+
+        self.sharding_strategy = resolve_strategy(self.state.sharding_config, self.state.mesh)
+        if self.state.mesh is None and self.sharding_strategy != ShardingStrategy.DP:
+            raise RuntimeError(
+                f"strategy {self.sharding_strategy} shards over a device mesh, which needs a "
+                "process group: launch with RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT "
+                "(a world of one too) or with launchers.debug_launcher")
+        if self.state.mixed_precision == "fp8" and self.state.num_processes > 1:
+            raise NotImplementedError(
+                "mixed_precision='fp8' on more than one process: the delayed recipe's amax "
+                f"is a max over every rank's, a max-all-reduce of each history ({NEXT_PART})")
         if self.state.mixed_precision == "fp8":
             _warn_fp8_without_tensor_cores_once(self.state.device)
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(
@@ -376,10 +437,26 @@ class Accelerator:
         self._pending_loss = None  # the last micro-batch's loss, for the step record
         self._fused = False        # inside build_train_step's step: no per-call counting
         self._fused_update = False  # inside build_train_step's update: it rolls the histories
+        # id(parameter before sharding) -> the parameter prepare_model left in
+        # its place (FSDP2 replaces each with a sharded one)
+        self._param_map: dict = {}
+        # ids of the replicated parameters clip_grad_norm_ reduced in this
+        # window: the update does not reduce them again
+        self._reduced: set = set()
 
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` over the process group (``parallel/mesh.py``),
+        or None on one process without a group."""
+        return self.state.mesh
+
+    @property
+    def sharding_config(self) -> ShardingConfig:
+        return self.state.sharding_config
 
     # -- the process API (the reference's accelerator.py:1746-1843) ------
 
@@ -556,6 +633,8 @@ class Accelerator:
                 f"mixed_precision={self.mixed_precision!r} rounds parameters at use, "
                 "which needs a model with set_param_cast() (the port's models)"
             )
+        if self.mesh is not None:
+            self._shard(model)
         self._models.append(model)
         if self.telemetry is not None:
             import inspect
@@ -574,7 +653,63 @@ class Accelerator:
             model.register_forward_pre_hook(note_batch, with_kwargs=True)
         return model
 
+    def _shard(self, model: nn.Module):
+        """Give a port model the mesh (its loss then averages over the
+        global batch; a decoder rings over a ``sequence`` axis) and lay its
+        parameters out by the strategy (``parallel/sharding.py``), noting
+        which new parameter replaces which for the optimizers prepared
+        next."""
+        from .parallel.sharding import apply_sharding
+
+        if hasattr(model, "set_mesh") and getattr(model, "mesh", None) is None:
+            model.set_mesh(self.mesh)
+        before = dict(model.named_parameters())
+        apply_sharding(model, self.mesh, self.sharding_config)
+        after = dict(model.named_parameters())
+        for name, p in before.items():
+            self._param_map[id(p)] = after.get(name, p)
+
+    def _rebind(self, optimizer: torch.optim.Optimizer):
+        """Point ``optimizer``'s groups (and any state) at the parameters
+        that sharding put in place of the ones it was built over."""
+        if not self._param_map:
+            return
+        for group in optimizer.param_groups:
+            group["params"] = [self._param_map.get(id(p), p) for p in group["params"]]
+        state = optimizer.state
+        for old in list(state):
+            new = self._param_map.get(id(old), old)
+            if new is not old:
+                state[new] = state.pop(old)
+
+    def _sync_fsdp(self, sync: bool):
+        """Whether the sharded models reduce their gradients in the coming
+        backward (FSDP2's ``set_requires_gradient_sync``): off inside
+        ``no_sync`` and between an accumulation window's micro-batches."""
+        for model in self._models:
+            if hasattr(model, "set_requires_gradient_sync"):
+                model.set_requires_gradient_sync(sync)
+
+    def _reduce_replicated(self, params, window_ends: bool = True):
+        """Average the replicated parameters' gradients over the ranks, once
+        a window (DP's all-reduce; FSDP's parameters below
+        ``min_weight_size_to_shard``). ``clip_grad_norm_`` reduces them
+        early (``window_ends`` False) for the global norm; the update then
+        reduces only those it did not."""
+        if self.mesh is None or self.num_processes == 1:
+            return
+        from .parallel.sharding import reduce_replicated
+
+        params = list(params)
+        todo = [p for p in params if p.grad is not None and id(p) not in self._reduced]
+        reduce_replicated(todo)
+        if window_ends:
+            self._reduced.difference_update(map(id, params))
+        else:
+            self._reduced.update(map(id, todo))
+
     def prepare_optimizer(self, optimizer: torch.optim.Optimizer) -> AcceleratedOptimizer:
+        self._rebind(optimizer)
         wrapped = AcceleratedOptimizer(optimizer, self.gradient_state,
                                        pre_step=self._before_update,
                                        post_step=self._after_update)
@@ -588,7 +723,8 @@ class Accelerator:
 
     def prepare_data_loader(self, loader):
         prepared = prepare_data_loader(loader, self.device, self.gradient_state,
-                                       prefetch_depth=self.dataloader_config.prefetch_depth)
+                                       prefetch_depth=self.dataloader_config.prefetch_depth,
+                                       mesh=self.mesh, config=self.dataloader_config)
         self._dataloaders.append(prepared)
         return prepared
 
@@ -606,6 +742,7 @@ class Accelerator:
         added to the accumulated ones."""
         if self.telemetry is not None:
             self._pending_loss = loss.detach()
+        self._reduced.clear()  # new local gradients join the reduced ones
         n = self.gradient_state.num_steps
         if self.loss_scale is None:
             (loss / n).backward(**kwargs)
@@ -628,6 +765,7 @@ class Accelerator:
         else:
             self.step += 1
             gs._set_sync_gradients(self.step % gs.num_steps == 0 or gs.sync_each_batch)
+        self._sync_fsdp(gs.sync_gradients or self.loss_scale is not None)
         yield
 
     def _model_params(self):
@@ -640,6 +778,10 @@ class Accelerator:
             raise ValueError("only L2 gradient clipping is supported")
         self._clip_max_norm = float(max_norm)
         params = list(parameters) if parameters is not None else self._model_params()
+        if self.sync_gradients:
+            # the window's gradients are whole: reduce the replicated ones
+            # now, so the norm is the global one (the update skips them)
+            self._reduce_replicated(params, window_ends=False)
         return global_grad_norm(params)
 
     def clip_grad_value_(self, parameters=None, clip_value: float = 1.0):
@@ -654,8 +796,9 @@ class Accelerator:
         """At a window's update: under fp16 read the finite flag (one host
         read a window; every optimizer of the window shares it) and move
         the loss scale; then the clip. Returns whether to apply."""
+        self._reduce_replicated(optimizer.parameters())
         if self.loss_scale is not None and self._finite is not None:
-            self._update_finite = bool(self._finite.item())
+            self._update_finite = _agree(bool(self._finite.item()), self.device)
             self._finite = None
             self.loss_scale.update(self._update_finite)
         finite = self._update_finite if self.loss_scale is not None else True
@@ -682,14 +825,18 @@ class Accelerator:
     @contextlib.contextmanager
     def no_sync(self, model=None):
         """Hold ``sync_gradients`` False inside: the optimizer steps and
-        zero_grads there are skipped and the gradients keep summing (one
-        process has no reduction to hold back)."""
+        zero_grads there are skipped and the gradients keep summing, each
+        rank's own: a sharded model's backward reduces nothing there (the
+        first backward after it reduces what was summed), and replicated
+        gradients are reduced once, at the update."""
         old = self.gradient_state.sync_gradients
         self.gradient_state._set_sync_gradients(False)
+        self._sync_fsdp(self.loss_scale is not None)
         try:
             yield
         finally:
             self.gradient_state._set_sync_gradients(old)
+            self._sync_fsdp(True)
 
     @contextlib.contextmanager
     def join_uneven_inputs(self, joinables, even_batches=None):
@@ -710,10 +857,13 @@ class Accelerator:
                          micro_steps: Optional[int] = None,
                          steps_per_call: Optional[int] = None):
         """``step(batch) -> {"loss", "grad_norm"}``: one optimizer update.
-        The batch is cut into ``micro_steps`` (default: the accumulation
-        count) contiguous micro-batches along dim 0; their gradients and
-        losses are averaged; ``grad_norm`` is the averaged gradient's global
-        norm before the clip; the clip (if ``clip_grad_norm_`` set one), the
+        The batch (this rank's part of the global one) is cut into
+        ``micro_steps`` (default: the accumulation count) contiguous
+        micro-batches along dim 0; their gradients and losses are averaged
+        (a sharded model reduces its gradients once, in the last
+        micro-batch's backward; replicated ones are reduced after it);
+        ``grad_norm`` is the averaged gradient's global norm before the
+        clip, over every shard; the clip (if ``clip_grad_norm_`` set one), the
         optimizer update and the LR schedulers follow. ``loss_fn(model,
         micro_batch)`` replaces the model call when given; its forwards
         read the delayed fp8 recipe's amax histories and record nothing, and
@@ -752,13 +902,19 @@ class Accelerator:
         def update(batch):
             batch = send_to_device(batch, self.device, non_blocking=True)
             opt.optimizer.zero_grad(set_to_none=True)
+            self._reduced.clear()
             loss = torch.zeros((), device=self.device)
             scale = None if self.loss_scale is None else self.loss_scale.scale
             record = getattr(model, "fp8_record", None)
             if loss_fn is not None and record is not None:
                 model.fp8_record = False
+            parts = _split(batch, micro)
             try:
-                for mb in _split(batch, micro):
+                for i, mb in enumerate(parts):
+                    # a sharded model reduces once, in the last micro-batch's
+                    # backward (every one under fp16: its unscale reads each
+                    # micro-batch's reduced gradient)
+                    self._sync_fsdp(i == len(parts) - 1 or scale is not None)
                     out = loss_fn(model, mb) if loss_fn is not None else _call(model, mb)
                     mb_loss = _loss_of(out)
                     if scale is None:
@@ -770,10 +926,15 @@ class Accelerator:
             finally:
                 if record is not None:
                     model.fp8_record = record
+                self._sync_fsdp(True)
+            self._reduce_replicated(params)
             finite = True
             if scale is not None:
-                grads = [p.grad for p in params if p.grad is not None]
-                finite = bool(_unscale(grads, scale).item())  # one host read an update
+                from .parallel.sharding import local_grad
+
+                grads = [local_grad(p) for p in params if p.grad is not None]
+                # one host read an update, agreed across the ranks
+                finite = _agree(bool(_unscale(grads, scale).item()), self.device)
                 self.loss_scale.update(finite)
             norm = global_grad_norm(params)
             if finite and self._clip_max_norm is not None:
@@ -828,16 +989,27 @@ class Accelerator:
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
         """``gather`` of tensors (``gather_object`` of anything else, or
-        with ``use_gather_object``). One process's loaders pad no batch,
-        so nothing is trimmed."""
+        with ``use_gather_object``), then, at the end of a prepared loader
+        whose last global batch ``even_batches`` squared up, only its
+        ``remainder`` real samples (the reference's accelerator.py:2052)."""
         try:
             operations.recursively_apply(lambda x: x, input_data, error_on_other_type=True)
             all_tensors = True
         except TypeError:
             all_tensors = False
         if use_gather_object or not all_tensors:
-            return operations.gather_object(input_data)
-        return self.gather(input_data)
+            data = operations.gather_object(input_data)
+        else:
+            data = self.gather(input_data)
+        gs = self.gradient_state
+        if gs.end_of_dataloader and gs.remainder > 0:
+            def trim(t):
+                return t if getattr(t, "ndim", 1) == 0 else t[:gs.remainder]
+
+            if isinstance(data, list) and (use_gather_object or not all_tensors):
+                return data[:gs.remainder]
+            return operations.recursively_apply(trim, data)
+        return data
 
     def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
         return operations.reduce(tensor, reduction, scale)

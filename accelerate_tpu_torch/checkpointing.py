@@ -40,10 +40,19 @@ as torch's own ``state_dict()`` in ``optimizer_<i>.bin``, which only the
 port reads. ``safe_serialization=False`` writes pickles of numpy arrays
 (``.bin``) in place of safetensors, as the reference does.
 
-Not carried: the reference's per-rank manifests of a sharded save
-(``save_pytree_dist``; the port's ``load_flat_dict`` raises on them). The
-port keeps one loss scale for all its engines (the Accelerator's): it
-writes it into every engine's entry and loads engine 0's.
+A sharded run (``parallel/sharding.py``) saves each model from the whole
+view of its weights (``torch.distributed.checkpoint.state_dict``'s full
+state dict) and each sharded moment gathered whole; on one process into
+the files above, on more than one into the reference's per-rank
+manifests (``model_<i>.rank<r>.safetensors`` + ``.manifest.json``, and the
+optimizer's alike: each rank writes its share of the entries,
+``utils/serialization.save_entries_dist``), which both sides read back
+whole. Loading puts each whole tensor into the sharded parameters and
+moments (``set_model_state_dict``; each rank keeps its shard). The main
+process writes the other files; each process its own
+``random_states_<rank>.pkl``. The port keeps one loss scale for all its
+engines (the Accelerator's): it writes it into every engine's entry and
+loads engine 0's.
 """
 
 from __future__ import annotations
@@ -61,14 +70,14 @@ import torch
 
 from .models.convert import (from_reference, layout_config, locate,
                              optimizer_state_from_reference, optimizer_state_to_reference,
-                             reference_entries, sgd_has_optax_state)
+                             reference_entries, sgd_has_optax_state, whole)
 from .utils.constants import (CUSTOM_STATE_PATTERN, DATALOADER_STATE_NAME, MODEL_NAME,
                               OPTIMIZER_NAME, RNG_STATE_NAME, SAFE_WEIGHTS_NAME,
                               SCHEDULER_NAME, WEIGHTS_NAME)
 from .utils.phases import phase
 from .utils.random import load_rng_state_dict, rng_state_dict
 from .utils.serialization import (flatten_pytree, load_flat_dict, materialize_entries,
-                                  save_entries, save_pytree)
+                                  save_entries, save_entries_dist, save_pytree)
 
 logger = logging.getLogger(__name__)
 
@@ -76,23 +85,80 @@ PARAMS = "params/"
 EXTRA_STATE = "extra_state/"
 
 
+def _sharded(model) -> bool:
+    from .parallel.sharding import is_sharded
+
+    return isinstance(model, torch.nn.Module) and any(is_sharded(p)
+                                                      for p in model.parameters())
+
+
+def _state(model) -> dict:
+    """The model's weights by ``state_dict`` name: a sharded model's sharded
+    state dict (``get_model_state_dict``, DTensors), which the entries
+    gather one tensor at a time as they are written, so a rank never holds
+    more than one whole tensor on the device."""
+    if not _sharded(model):
+        return dict(model.state_dict())
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
+
+    return dict(get_model_state_dict(model, options=StateDictOptions(full_state_dict=False)))
+
+
+def _load_weights(model, weights: dict):
+    """Load a whole weight dict into ``model``; a sharded one keeps each
+    rank's shard (``set_model_state_dict`` with ``full_state_dict``, which
+    moves one host tensor at a time to the device and keeps its shard)."""
+    if not _sharded(model):
+        if hasattr(model, "load_params"):
+            model.load_params(weights)
+        else:
+            model.load_state_dict(weights, strict=True)
+        return
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
+
+    state = {k: v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
+             for k, v in weights.items()}
+    if hasattr(model, "fp8_histories"):
+        for name, hist in model.fp8_histories().items():
+            state.setdefault(name, hist)
+    set_model_state_dict(model, state, options=StateDictOptions(full_state_dict=True))
+
+
 def _model_entries(model, buffer_prefix: str = EXTRA_STATE) -> list:
     """``(key, shape, dtype, fetch)`` entries of a model's weights under
     ``params/``: a port model's in the reference's layout (its buffers, a
     ResNet's ``batch_stats/...``, under ``buffer_prefix``: the engine's
     ``extra_state/`` in a checkpoint, top-level in ``save_model``'s
-    export), any other module's (or tree's) under its own names."""
+    export), any other module's (or tree's) under its own names. A
+    sharded model's are its whole weights."""
     config = layout_config(model)
     if config is not None:
-        return reference_entries(dict(model.state_dict()), config, prefix=PARAMS,
+        return reference_entries(_state(model), config, prefix=PARAMS,
                                  buffer_prefix=buffer_prefix)
-    tree = model.state_dict() if isinstance(model, torch.nn.Module) else model
-    return [(PARAMS + k, tuple(t.shape), t.dtype, (lambda t: lambda: t.detach())(t))
+    tree = _state(model) if isinstance(model, torch.nn.Module) else model
+    return [(PARAMS + k, tuple(t.shape), t.dtype, (lambda t: lambda: whole(t).detach())(t))
             for k, t in flatten_pytree(tree).items()]
+
+
+def _topology() -> tuple:
+    """(process index, processes) of the run's group, (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def _write(entries, stem: str, safe_serialization: bool,
            max_shard_size: Optional[int] = None) -> list:
+    """One file (one process: the main one), or this process's share of the
+    reference's per-rank files (several)."""
+    rank, world = _topology()
+    if world > 1:
+        if not safe_serialization:
+            raise ValueError("a checkpoint of several processes is per-rank safetensors "
+                             "(the reference's format): use safe_serialization=True")
+        return save_entries_dist(entries, stem, rank, world)
     if safe_serialization:
         return save_entries(entries, stem + ".safetensors", max_shard_size)
     return save_pytree(materialize_entries(entries), stem + ".bin", safe_serialization=False)
@@ -159,6 +225,8 @@ def save_accelerator_state(output_dir: str, models=(), optimizers=(), schedulers
 def _save_accelerator_state(output_dir, models, optimizers, schedulers, dataloaders,
                             custom_objects, step, safe_serialization, loss_scale) -> str:
     os.makedirs(output_dir, exist_ok=True)
+    rank, world = _topology()
+    main = rank == 0
     trainer_state = {"step": step, "engines": []}
     for i, (model, opt, sched) in enumerate(_engines(models, optimizers, schedulers)):
         _write(_model_entries(model), os.path.join(output_dir, f"{MODEL_NAME}_{i}"),
@@ -168,23 +236,33 @@ def _save_accelerator_state(output_dir, models, optimizers, schedulers, dataload
             _write(optimizer_state_to_reference(opt.optimizer, model, sched), stem,
                    safe_serialization)
         elif opt is not None:
+            if _sharded(model) or world > 1:
+                raise NotImplementedError(
+                    f"{type(opt.optimizer).__name__}'s state of a sharded or multi-process "
+                    "run: the port writes AdamW's and SGD's (optax's layout) there")
             _pickle(opt.state_dict(), stem + ".bin")
         meta = {"step_count": opt.step_count if opt else 0}
         if loss_scale is not None:
             # floats, as the reference writes them
             meta["scale"] = {k: float(v) for k, v in loss_scale.state_dict().items()}
         trainer_state["engines"].append(meta)
-    for i, sched in enumerate(schedulers):
-        _pickle(sched.state_dict(), os.path.join(output_dir, f"{SCHEDULER_NAME}_{i}.bin"))
-    for i, dl in enumerate(dataloaders):
-        if hasattr(dl, "state_dict"):
-            _pickle(dl.state_dict(),
-                    os.path.join(output_dir, f"{DATALOADER_STATE_NAME}_{i}.bin"))
-    for i, obj in enumerate(custom_objects):
-        save_custom_state(obj, output_dir, i)
-    with open(os.path.join(output_dir, "trainer_state.json"), "w") as f:
-        json.dump(trainer_state, f, indent=2)
-    _pickle(rng_state_dict(), os.path.join(output_dir, f"{RNG_STATE_NAME}_0.pkl"))
+    if main:
+        for i, sched in enumerate(schedulers):
+            _pickle(sched.state_dict(),
+                    os.path.join(output_dir, f"{SCHEDULER_NAME}_{i}.bin"))
+        for i, dl in enumerate(dataloaders):
+            if hasattr(dl, "state_dict"):
+                _pickle(dl.state_dict(),
+                        os.path.join(output_dir, f"{DATALOADER_STATE_NAME}_{i}.bin"))
+        for i, obj in enumerate(custom_objects):
+            save_custom_state(obj, output_dir, i)
+        with open(os.path.join(output_dir, "trainer_state.json"), "w") as f:
+            json.dump(trainer_state, f, indent=2)
+    _pickle(rng_state_dict(), os.path.join(output_dir, f"{RNG_STATE_NAME}_{rank}.pkl"))
+    if world > 1:
+        import torch.distributed as dist
+
+        dist.barrier()  # every rank's files are down before any returns
     return output_dir
 
 
@@ -239,9 +317,9 @@ def _load_accelerator_state(input_dir, models, optimizers, schedulers, dataloade
                            if k.startswith(EXTRA_STATE)})
             weights = from_reference(params, config)
             _warn_kept(sorted(set(model.fp8_histories()) - set(weights)), config)
-            model.load_params(weights)
+            _load_weights(model, weights)
         else:
-            model.load_state_dict(params, strict=True)
+            _load_weights(model, params)
         opt_path = _find(input_dir, f"{OPTIMIZER_NAME}_{i}")
         if opt is not None and opt_path is not None:
             _load_optimizer(opt_path, opt, model, sched)
@@ -258,7 +336,7 @@ def _load_accelerator_state(input_dir, models, optimizers, schedulers, dataloade
     for i, obj in enumerate(custom_objects):
         if os.path.exists(os.path.join(input_dir, CUSTOM_STATE_PATTERN.format(i) + ".bin")):
             load_custom_state(obj, input_dir, i)
-    rng_path = os.path.join(input_dir, f"{RNG_STATE_NAME}_0.pkl")
+    rng_path = os.path.join(input_dir, f"{RNG_STATE_NAME}_{_topology()[0]}.pkl")
     if os.path.exists(rng_path):
         load_rng_state_dict(_unpickle(rng_path))
     return trainer_state.get("step")
@@ -326,8 +404,8 @@ def _parse_size(size) -> int:
 
 def _find(folder: str, stem: str) -> Optional[str]:
     """``stem``'s sharded index, safetensors file or pickle in ``folder``;
-    the bare stem for the reference's per-rank manifests, on which
-    ``load_flat_dict`` raises (reading them is a later slice)."""
+    the bare stem for per-rank manifests (``load_flat_dict`` reads them
+    whole)."""
     base = os.path.join(folder, stem)
     if glob.glob(f"{glob.escape(base)}.rank*.manifest.json"):
         return base

@@ -16,8 +16,20 @@ batches. A shuffled loader resumes exactly when its order depends only on
 :class:`DataLoader` uses and which ``prepare`` puts in place of a torch
 loader's ``RandomSampler``. That order is torch's ``randperm``, not the
 reference's threefry permutation: unshuffled loaders give the
-reference's batches, shuffled ones another order. Sharding across
-processes and dispatch from one process belong to the multi-device slice.
+reference's batches, shuffled ones another order.
+
+Across processes (a ``mesh``, ``parallel/mesh.py``) the batch is split
+over the ranks of the batch axes (``replica`` x ``data`` x ``fsdp``, the
+reference's ``batch_spec``): each rank's loader reads only its own
+indices (:class:`BatchSamplerShard` over a map-style dataset, with
+``split_batches`` and ``even_batches``; :class:`IterableDatasetShard`
+over an iterable one; round robin over ready-made batches), or, with
+``dispatch_batches``, rank 0 reads each global batch and every rank takes
+its slice (:class:`DataLoaderDispatcher`). The ranks of one ``sequence``
+group get the same rows and consecutive slices of dim 1 (the reference's
+``extra_sequence_axis``). Under ``even_batches`` the last global batch is
+squared up from the first samples, and ``remainder`` (the real samples
+in it) lets ``gather_for_metrics`` drop the repeats.
 
 Each fetch from the wrapped loader and each move to the device is timed
 into the telemetry session's data-wait bucket (``note_data_wait``, the
@@ -44,7 +56,8 @@ import torch
 
 from .state import GradientState
 from .telemetry import note_data_wait
-from .utils.operations import send_to_device
+from .utils.operations import (broadcast_object_list, find_batch_size, recursively_apply,
+                               send_to_device)
 
 
 def _timed_next(iterator):
@@ -156,12 +169,18 @@ class DataLoaderShard:
 
     def __init__(self, loader, device: torch.device,
                  gradient_state: Optional[GradientState] = None, skip_batches: int = 0,
-                 prefetch_depth: int = 0):
+                 prefetch_depth: int = 0, batch_size: Optional[int] = None,
+                 num_shards: int = 1, even_batches: bool = True, sequence: tuple = (0, 1)):
         self.loader = loader
         self.device = device
         self.gradient_state = gradient_state
         self.skip_batches = skip_batches
         self.prefetch_depth = prefetch_depth
+        self.batch_size = batch_size  # per batch shard
+        self.num_shards = num_shards  # ranks of the batch axes
+        self.even_batches = even_batches  # the last global batch is squared up
+        self.sequence = sequence  # (this rank's chunk, chunks) of dim 1
+        self.remainder = -1
         self.end_of_dataloader = False
         self.iteration = 0
         self._position = 0  # batches of this pass taken, skipped ones included
@@ -170,6 +189,36 @@ class DataLoaderShard:
 
     def __len__(self):
         return len(self.loader)
+
+    @property
+    def total_batch_size(self) -> Optional[int]:
+        return None if self.batch_size is None else self.batch_size * self.num_shards
+
+    def _remainder(self) -> int:
+        """The real samples of the last global batch when ``even_batches``
+        squares it up from the first ones, else -1."""
+        ds = getattr(self.loader, "dataset", None)
+        gbs = self.total_batch_size
+        if not (self.even_batches and gbs and ds is not None and hasattr(ds, "__len__")):
+            return -1
+        return len(ds) % gbs or -1
+
+    def _place(self, batch):
+        """``batch`` on the device, dim 1 cut to this rank's chunk on a
+        ``sequence`` axis."""
+        chunk, n = self.sequence
+        if n > 1:
+            def cut(t):
+                if t.ndim < 2:
+                    return t
+                if t.shape[1] % n:
+                    raise ValueError(f"a batch leaf's dim 1 ({t.shape[1]}) does not divide "
+                                     f"over {n} sequence ranks")
+                w = t.shape[1] // n
+                return t[:, chunk * w:(chunk + 1) * w]
+
+            batch = recursively_apply(cut, batch)
+        return _timed_send(batch, self.device)
 
     def set_epoch(self, epoch: int):
         """Set ``iteration`` and the epoch of every part of the loader that
@@ -209,6 +258,7 @@ class DataLoaderShard:
         self.set_epoch(self.iteration)
         self._position = 0
         self._in_epoch = True
+        self.remainder = self._remainder()
         prefetcher = None
         try:
             it = iter(self.loader)
@@ -234,9 +284,9 @@ class DataLoaderShard:
                     nxt = _timed_next(it)
                 except StopIteration:
                     self.end_of_dataloader = True
-                    yield _timed_send(cur, self.device)
+                    yield self._place(cur)
                     return
-                yield _timed_send(cur, self.device)
+                yield self._place(cur)
         finally:
             if prefetcher is not None:
                 # wakes and ends the producer thread, also when the
@@ -276,11 +326,453 @@ def _with_seedable_sampler(loader):
         worker_init_fn=loader.worker_init_fn, generator=loader.generator, **kw)
 
 
+class BatchSamplerShard:
+    """This process's batches of an iterable of index batches (the
+    reference's, data.py:94). ``split_batches``: each global batch is cut
+    into ``num_processes`` contiguous parts (the batch size must divide);
+    else whole batches go round robin (process i takes batches i, i + N,
+    ...). ``even_batches`` gives every process the same number of full
+    batches by wrapping around to the first samples."""
+
+    def __init__(self, batch_sampler, num_processes: int = 1, process_index: int = 0,
+                 split_batches: bool = False, even_batches: bool = True):
+        if split_batches and hasattr(batch_sampler, "batch_size") \
+                and batch_sampler.batch_size % num_processes:
+            raise ValueError(
+                f"To use `BatchSamplerShard` in `split_batches` mode, the batch size "
+                f"({batch_sampler.batch_size}) needs to be a round multiple of the number "
+                f"of processes ({num_processes}).")
+        self.batch_sampler = batch_sampler
+        self.num_processes = num_processes
+        self.process_index = process_index
+        self.split_batches = split_batches
+        self.even_batches = even_batches
+        self.batch_size = getattr(batch_sampler, "batch_size", None)
+        self.drop_last = getattr(batch_sampler, "drop_last", False)
+        if self.batch_size is None and self.even_batches:
+            raise ValueError(
+                "You need to use `even_batches=False` when the batch sampler has no batch size.")
+
+    def __len__(self):
+        if self.split_batches:
+            return len(self.batch_sampler)
+        n, k = len(self.batch_sampler), self.num_processes
+        if n % k == 0 or self.drop_last:
+            return n // k
+        if self.even_batches:
+            return n // k + 1
+        return n // k + (1 if self.process_index < n % k else 0)
+
+    @property
+    def total_length(self):
+        return len(self.batch_sampler)
+
+    def set_epoch(self, epoch: int):
+        for obj in (self.batch_sampler, getattr(self.batch_sampler, "sampler", None)):
+            if obj is not None and hasattr(obj, "set_epoch"):
+                obj.set_epoch(epoch)
+
+    def __iter__(self):
+        return self._iter_with_split() if self.split_batches else self._iter_with_no_split()
+
+    def _iter_with_split(self):
+        # each full global batch gives this process's window [lo:hi]; a
+        # ragged last batch is sliced as it is or squared up from the head
+        per_proc = self.batch_size // self.num_processes
+        lo, hi = per_proc * self.process_index, per_proc * (self.process_index + 1)
+        head, tail = [], []
+        for raw in self.batch_sampler:
+            batch = list(raw)
+            if not head:
+                head = batch
+            if len(batch) == self.batch_size:
+                yield batch[lo:hi]
+                tail = []
+            else:
+                tail = batch
+        if self.drop_last or not tail:
+            return
+        if not self.even_batches:
+            if len(tail) > lo:
+                yield tail[lo:hi]
+            return
+        while len(tail) < self.batch_size:
+            tail = tail + head
+        yield tail[lo:hi]
+
+    def _iter_with_no_split(self):
+        # rounds of num_processes whole batches, process i taking slot i;
+        # the unfinished last round is squared up from the first round's
+        # samples so every process ends with as many full batches
+        pool, round_ = [], []
+        for count, raw in enumerate(self.batch_sampler):
+            batch = list(raw)
+            if not self.drop_last and count < self.num_processes:
+                pool.extend(batch)
+            round_.append(batch)
+            del round_[: -(count % self.num_processes) - 1]
+            if len(round_) == self.num_processes and (
+                    self.batch_size is None or len(batch) == self.batch_size):
+                yield round_[self.process_index]
+                round_ = []
+        if self.drop_last or not pool or not round_:
+            return
+        if not self.even_batches:
+            if self.process_index < len(round_):
+                yield round_[self.process_index]
+            return
+        while len(pool) < self.num_processes * self.batch_size:
+            pool = pool + pool
+        cursor = 0
+        if len(round_[-1]) < self.batch_size:
+            need = self.batch_size - len(round_[-1])
+            round_[-1] = round_[-1] + pool[:need]
+            cursor = need
+        while len(round_) < self.num_processes:
+            round_.append(pool[cursor:cursor + self.batch_size])
+            cursor += self.batch_size
+        yield round_[self.process_index]
+
+
+class SimpleBatchSampler:
+    """Index batches of ``batch_size`` over a sampler of indices."""
+
+    def __init__(self, sampler, batch_size: int, drop_last: bool = False):
+        self.sampler = sampler
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+
+    def __iter__(self):
+        batch = []
+        for idx in self.sampler:
+            batch.append(int(idx))
+            if len(batch) == self.batch_size:
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
+
+    def __len__(self):
+        n = len(self.sampler)
+        return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
+
+
+class IterableDatasetShard:
+    """This process's items of an iterable dataset (the reference's,
+    data.py:251): windows of ``batch_size * num_processes`` items (of
+    ``batch_size`` with ``split_batches``), this process's contiguous part
+    of each; a short last window wraps around to the first one's items
+    under ``even_batches``."""
+
+    def __init__(self, dataset, batch_size: int = 1, drop_last: bool = False,
+                 num_processes: int = 1, process_index: int = 0, split_batches: bool = False,
+                 even_batches: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.num_processes = num_processes
+        self.process_index = process_index
+        self.split_batches = split_batches
+        self.even_batches = even_batches
+
+    def set_epoch(self, epoch: int):
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __iter__(self):
+        window = self.batch_size if self.split_batches else self.batch_size * self.num_processes
+        per_proc = window // self.num_processes
+        lo, hi = per_proc * self.process_index, per_proc * (self.process_index + 1)
+        head, buf = None, []
+        for item in self.dataset:
+            buf.append(item)
+            if len(buf) == window:
+                yield from buf[lo:hi]
+                if head is None:
+                    head = list(buf)
+                buf = []
+        if self.drop_last or not buf:
+            return
+        if not self.even_batches:
+            yield from buf[lo:hi]
+            return
+        pad = head if head is not None else list(buf)
+        while len(buf) < window:
+            buf = buf + pad
+        yield from buf[lo:hi]
+
+
+class _MapLoader:
+    """A map-style dataset read through a (sharded) batch sampler."""
+
+    def __init__(self, dataset, batch_sampler, collate_fn=None):
+        self.dataset = dataset
+        self.batch_sampler = batch_sampler
+        self.collate_fn = collate_fn or default_collate
+
+    def __iter__(self):
+        for indices in self.batch_sampler:
+            yield self.collate_fn([self.dataset[i] for i in indices])
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def set_epoch(self, epoch):
+        for obj in (self.dataset, self.batch_sampler):
+            if hasattr(obj, "set_epoch"):
+                obj.set_epoch(epoch)
+
+
+class _ItemLoader:
+    """Items of an iterable (an :class:`IterableDatasetShard`) collated
+    into batches of ``batch_size``."""
+
+    def __init__(self, items, batch_size: int, collate_fn=None):
+        self.dataset = items
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn or default_collate
+
+    def __iter__(self):
+        buf = []
+        for item in self.dataset:
+            buf.append(item)
+            if len(buf) == self.batch_size:
+                yield self.collate_fn(buf)
+                buf = []
+        if buf:
+            yield self.collate_fn(buf)
+
+    def set_epoch(self, epoch):
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+
+class _RoundRobinLoader:
+    """Ready-made batches, process i taking batches i, i + N, ..."""
+
+    def __init__(self, iterable, num_processes: int, process_index: int):
+        self.iterable = iterable
+        self.num_processes = num_processes
+        self.process_index = process_index
+
+    def __iter__(self):
+        for i, batch in enumerate(self.iterable):
+            if i % self.num_processes == self.process_index:
+                yield batch
+
+    def __len__(self):
+        n = len(self.iterable)
+        return n // self.num_processes + (1 if n % self.num_processes > self.process_index else 0)
+
+    def set_epoch(self, epoch):
+        if hasattr(self.iterable, "set_epoch"):
+            self.iterable.set_epoch(epoch)
+
+
+def _shard_loader(loader, num_processes: int, process_index: int, split_batches: bool,
+                  even_batches: bool):
+    """(a loader of this process's batches only, its per-process batch
+    size or None): the reference's ``_shard_loader``. A torch
+    ``DataLoader`` and the port's :class:`DataLoader` are rebuilt over a
+    :class:`BatchSamplerShard` (a shuffled one over a
+    :class:`SeedableRandomSampler`, as :func:`_with_seedable_sampler`
+    makes it), an iterable torch dataset over an
+    :class:`IterableDatasetShard`; any other iterable of batches goes
+    round robin."""
+    from torch.utils.data import DataLoader as TorchDataLoader
+
+    if isinstance(loader, TorchDataLoader):
+        if loader.batch_sampler is None:  # an iterable-style dataset
+            shard = IterableDatasetShard(
+                loader.dataset, batch_size=loader.batch_size, drop_last=loader.drop_last,
+                num_processes=num_processes, process_index=process_index,
+                split_batches=split_batches, even_batches=even_batches)
+            per = loader.batch_size // num_processes if split_batches else loader.batch_size
+            return _ItemLoader(shard, per, loader.collate_fn), per
+        loader = _with_seedable_sampler(loader)
+        bs = loader.batch_sampler
+        base = SimpleBatchSampler(bs.sampler, bs.batch_size, bs.drop_last)
+        sharded = BatchSamplerShard(base, num_processes, process_index, split_batches,
+                                    even_batches)
+        per = bs.batch_size // num_processes if split_batches else bs.batch_size
+        return _MapLoader(loader.dataset, sharded, loader.collate_fn), per
+    if isinstance(loader, DataLoader):
+        base = SimpleBatchSampler(loader.sampler, loader.batch_size, loader.drop_last)
+        sharded = BatchSamplerShard(base, num_processes, process_index, split_batches,
+                                    even_batches)
+        per = loader.batch_size // num_processes if split_batches else loader.batch_size
+        return _MapLoader(loader.dataset, sharded, loader.collate_fn), per
+    return _RoundRobinLoader(loader, num_processes, process_index), None
+
+
+class DataLoaderDispatcher(DataLoaderShard):
+    """Rank 0 reads each global batch and broadcasts it; every rank keeps
+    its contiguous slice of dim 0 (the reference's, data.py:517 and its
+    ``_scatter_from_main``). A short last global batch is squared up by
+    repeating its first rows (``remainder``: the real ones), or, without
+    ``even_batches``, raises. For sources whose order cannot be replayed
+    on every rank; the sharded :class:`DataLoaderShard` moves no batch
+    between ranks."""
+
+    def __init__(self, loader, device, gradient_state=None, *, batch_size=None,
+                 num_shards: int = 1, shard_index: int = 0, even_batches: bool = True,
+                 sequence: tuple = (0, 1), prefetch_depth: int = 0):
+        super().__init__(loader, device, gradient_state, batch_size=batch_size,
+                         num_shards=num_shards, even_batches=even_batches,
+                         sequence=sequence, prefetch_depth=prefetch_depth)
+        self.shard_index = shard_index
+
+    def _remainder(self) -> int:
+        return -1  # set by each batch as it is read
+
+    def __iter__(self):
+        from .state import PartialState
+
+        main = PartialState().is_main_process
+        shard = self._dispatched(iter(self.loader) if main else None, main)
+        inner, self.loader = self.loader, _Replay(shard, self.loader)
+        try:
+            yield from super().__iter__()
+        finally:
+            self.loader = inner
+
+    def _dispatched(self, it, main: bool):
+        while True:
+            info = [None, None, None]
+            if main:
+                try:
+                    batch = next(it)
+                    batch, real = self._square(batch)
+                    info = [batch, real, None]
+                except StopIteration:
+                    pass
+                except Exception as e:  # every rank raises together
+                    info = [None, None, f"{type(e).__name__}: {e}"]
+            info = broadcast_object_list(info)
+            if info[2] is not None:
+                raise RuntimeError(f"the main process's loader failed: {info[2]}")
+            if info[0] is None:
+                return
+            if info[1] is not None:
+                self.remainder = info[1]
+            yield self._slice(info[0])
+
+    def _square(self, batch):
+        rows = find_batch_size(batch)
+        if rows is None:
+            return batch, None
+        target = (self.batch_size * self.num_shards if self.batch_size is not None
+                  else -(-rows // self.num_shards) * self.num_shards)
+        if rows >= target:
+            return batch, None
+        if not self.even_batches:
+            raise ValueError(
+                f"dispatch_batches with even_batches=False cannot shard a ragged final "
+                f"batch of {rows} rows across {self.num_shards} processes; use "
+                "drop_last=True or keep even_batches=True")
+
+        def pad(t):
+            if t.ndim == 0 or t.shape[0] != rows:
+                return t
+            reps, missing = [t], target - rows
+            while missing > 0:
+                take = min(missing, rows)
+                reps.append(t[:take])
+                missing -= take
+            return torch.cat(reps) if isinstance(t, torch.Tensor) else np.concatenate(reps)
+
+        return recursively_apply(pad, batch), rows
+
+    def _slice(self, batch):
+        rows = find_batch_size(batch)
+        if rows is None:
+            return batch
+        if rows % self.num_shards:
+            raise ValueError(f"dispatch_batches requires the global batch dimension ({rows}) "
+                             f"to divide evenly across {self.num_shards} processes")
+        per = rows // self.num_shards
+        lo = self.shard_index * per
+        return recursively_apply(lambda t: t if t.ndim == 0 else t[lo:lo + per], batch)
+
+
+class _Replay:
+    """An iterable over one pass of ``batches`` with the wrapped loader's
+    length and dataset (what the shard's bookkeeping reads)."""
+
+    def __init__(self, batches, loader):
+        self.batches = batches
+        self.dataset = getattr(loader, "dataset", None)
+        self._len = loader
+
+    def __iter__(self):
+        return self.batches
+
+    def __len__(self):
+        return len(self._len)
+
+
+class _GlobalRebatch:
+    """N consecutive batches of a loader concatenated into one global
+    batch (dispatch from a loader of per-process batches)."""
+
+    def __init__(self, base, n: int):
+        self.base = base
+        self.n = int(n)
+        self.dataset = getattr(base, "dataset", None)
+
+    def __iter__(self):
+        chunk = []
+        for batch in self.base:
+            chunk.append(batch)
+            if len(chunk) == self.n:
+                yield _concat(chunk)
+                chunk = []
+        if chunk:
+            yield _concat(chunk)
+
+    def __len__(self):
+        return -(-len(self.base) // self.n)
+
+
+def _concat(batches: list):
+    from .utils.operations import concatenate
+
+    return batches[0] if len(batches) == 1 else concatenate(batches)
+
+
 def prepare_data_loader(loader, device: torch.device,
                         gradient_state: Optional[GradientState] = None,
-                        prefetch_depth: int = 0) -> DataLoaderShard:
-    return DataLoaderShard(_with_seedable_sampler(loader), device, gradient_state,
-                           prefetch_depth=prefetch_depth)
+                        prefetch_depth: int = 0, mesh=None, config=None):
+    """``loader`` wrapped for this process: a :class:`DataLoaderShard` of
+    the process's shard of every global batch over the mesh's batch axes
+    (a :class:`DataLoaderDispatcher` with ``config.dispatch_batches``),
+    dim 1 cut to its chunk on a ``sequence`` axis; on one process, the
+    loader's own batches. ``config`` is the ``DataLoaderConfiguration``
+    (``split_batches``, ``dispatch_batches``, ``even_batches``)."""
+    from .parallel.mesh import axis_index
+
+    index, count = axis_index(mesh, ("replica", "data", "fsdp"))
+    sequence = axis_index(mesh, ("sequence",))
+    split = bool(config.split_batches) if config is not None else False
+    even = bool(config.even_batches) if config is not None else True
+    if config is not None and config.dispatch_batches and (count > 1 or sequence[1] > 1):
+        bs = getattr(loader, "batch_size", None)
+        per = None if bs is None else (bs // count if split else bs)
+        base = loader if split or count == 1 else _GlobalRebatch(loader, count)
+        return DataLoaderDispatcher(base, device, gradient_state, batch_size=per,
+                                    num_shards=count, shard_index=index, even_batches=even,
+                                    sequence=sequence, prefetch_depth=prefetch_depth)
+    if count == 1:  # one batch shard pads nothing
+        return DataLoaderShard(_with_seedable_sampler(loader), device, gradient_state,
+                               prefetch_depth=prefetch_depth, even_batches=False,
+                               sequence=sequence)
+    base, per = _shard_loader(loader, count, index, split, even)
+    # the last global batch is squared up only from a loader that keeps its
+    # short tail, and never for ready-made batches (round robin)
+    pads = even and per is not None and not getattr(loader, "drop_last", False)
+    return DataLoaderShard(base, device, gradient_state, prefetch_depth=prefetch_depth,
+                           batch_size=per, num_shards=count, even_batches=pads,
+                           sequence=sequence)
 
 
 class _SkipBatches:

@@ -146,8 +146,8 @@ class DecoderConfig:
             )
         if self.pipeline_stages > 1:
             raise NotImplementedError(
-                "pipeline_stages > 1: pipelining is multi-device, a later slice "
-                "of the port (ROADMAP queue 1, multi-device)"
+                "pipeline_stages > 1: pipelining is a later slice of the port "
+                "(ROADMAP queue 1, item 10 part 2)"
             )
         if self.remat_policy not in ("full", "save_attention", "save_dots"):
             raise ValueError(

@@ -541,17 +541,21 @@ def reference_entries(weights: Mapping, config, prefix: str = "",
     the reference's tree order, block leaves stacked along the layer axis
     or unrolled as the reference lays them out. ``fetch`` yields a stacked
     leaf's layer slices one at a time, so a writer holds one slice on the
-    host, not the stack. ``dtype`` None keeps each leaf's own. A buffer (a
-    ResNet's ``batch_stats/...``) goes under ``buffer_prefix`` when one is
-    given, else under ``prefix``."""
+    host, not the stack. A sharded weight (a DTensor) is gathered whole
+    when its slice is fetched, one at a time: a collective, so every rank
+    fetches every entry in the same order. ``dtype`` None keeps each
+    leaf's own. A buffer (a ResNet's ``batch_stats/...``) goes under
+    ``buffer_prefix`` when one is given, else under ``prefix``."""
     family = _family(config)
     out = []
-    for ref, (names, shape) in reference_layout(config, weights).items():
+    shapes = {n: torch.empty(tuple(w.shape), dtype=w.dtype, device="meta")
+              if _is_dtensor(w) else w for n, w in weights.items()}
+    for ref, (names, shape) in reference_layout(config, shapes).items():
         dt = dtype or weights[names[0]].dtype
         key = (buffer_prefix if buffer_prefix is not None and family.is_buffer(names[0])
                else prefix) + ref
         out.append((key, shape, dt,
-                    (lambda ns, dt: lambda: (family.to_ref(weights[n].detach().to(dt))
+                    (lambda ns, dt: lambda: (family.to_ref(whole(weights[n].detach().to(dt)))
                                              for n in ns))(names, dt)))
     return out
 
@@ -645,13 +649,16 @@ def optimizer_state_to_reference(optimizer, model, scheduler=None) -> list:
         if config is not None:
             return reference_entries(m, config, prefix=prefix, dtype=torch.float32)
         return [(prefix + n, tuple(t.shape), torch.float32,
-                 (lambda t: lambda: t.detach().float())(t)) for n, t in m.items()]
+                 (lambda t: lambda: whole(t).detach().float())(t)) for n, t in m.items()]
 
     def moments(key):
+        # a sharded moment stays sharded: its entry gathers it when fetched
         out = {}
         for n, p in params.items():
             t = optimizer.state.get(p, {}).get(key)
-            out[n] = torch.zeros_like(p, dtype=torch.float32) if t is None else t
+            if t is None:  # a zero of the parameter's shape that allocates nothing
+                t = torch.zeros((), dtype=torch.float32, device=p.device).expand(tuple(p.shape))
+            out[n] = t
         return out
 
     sched = _lambda_schedule(scheduler)
@@ -674,6 +681,31 @@ def optimizer_state_to_reference(optimizer, model, scheduler=None) -> list:
     if sched is not None:
         entries.append((SCHEDULE_COUNT, *scalar(sched.last_epoch)))
     return entries
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def whole(t):
+    """``t`` whole: a sharded tensor (a DTensor) gathered from every rank
+    of its mesh (a collective), any other tensor as it is."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def _like_param(src: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``src`` (the whole tensor) as a new tensor laid out like ``p``: its
+    device and dtype, and for a sharded parameter (``parallel/sharding``)
+    this rank's shard of it, placed as ``p`` is."""
+    if _is_dtensor(p):
+        from torch.distributed.tensor import distribute_tensor
+
+        # every rank holds the whole: each keeps its own shard, no scatter
+        return distribute_tensor(src.to(p.device, p.dtype), p.device_mesh, p.placements,
+                                 src_data_rank=None)
+    return torch.empty_like(p, memory_format=torch.contiguous_format).copy_(src)
 
 
 def _step_tensor(optimizer, group, p, count: int) -> torch.Tensor:
@@ -722,7 +754,7 @@ def optimizer_state_from_reference(flat: Mapping, optimizer, model, scheduler=No
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{prefix}{name}: shape {tuple(src.shape)}, parameter "
                                  f"{tuple(p.shape)}")
-            state[key] = torch.empty_like(p, memory_format=torch.contiguous_format).copy_(src)
+            state[key] = _like_param(src, p)
         optimizer.state[p] = state
     sched = _lambda_schedule(scheduler)
     count_key = SGD_SCHEDULE_COUNT if kind == "sgd" else SCHEDULE_COUNT

@@ -112,6 +112,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..parallel.mesh import axis_index, axis_size
 from ..ops.attention import (
     FlashResiduals,
     decode_attention,
@@ -122,7 +123,7 @@ from ..ops.attention import (
 )
 from ..ops import fp8
 from ..ops.layers import apply_rotary_embedding, rms_norm, rotary_embedding_tables, swiglu
-from ..ops.losses import fused_linear_cross_entropy
+from ..ops.losses import fused_linear_cross_entropy_parts, mesh_mean
 from ..utils.quantization import dequantize_kv, kv_cache_bits, quantize_kv
 from ..utils.random import next_key
 from .configs import DecoderConfig
@@ -247,6 +248,9 @@ class _Module(nn.Module):
     # the delayed fp8 recipe's view of the forward in progress
     # (ops/fp8.Fp8Forward), set by _Model._arm_fp8; None: no histories
     fp8_forward = None
+    # the device mesh the model trains on (_Model.set_mesh), None on one
+    # process
+    mesh = None
 
     def _param(self, shape, device, dtype):
         return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
@@ -325,9 +329,17 @@ class DecoderAttention(_Module):
 
     def attend(self, q, k, v, kv_mask=None):
         """Cache-free attention (training, and the plain forward): causal,
-        or bidirectional over ``kv_mask`` for an encoder."""
-        return dot_product_attention(q, k, v, causal=self.causal, kv_mask=kv_mask,
-                                     impl=self.config.attention_impl)
+        or bidirectional over ``kv_mask`` for an encoder. Causal attention
+        without a mask on a mesh whose ``sequence`` axis is > 1 is ring
+        attention over this rank's chunk (``parallel/context.py``), as the
+        reference's."""
+        impl = self.config.attention_impl
+        if self.causal and kv_mask is None and axis_size(self.mesh, "sequence") > 1:
+            from ..parallel.context import ring_attention_sharded
+
+            return ring_attention_sharded(q, k, v, self.mesh, causal=True,
+                                          impl="dense" if impl == "xla" else impl)
+        return dot_product_attention(q, k, v, causal=self.causal, kv_mask=kv_mask, impl=impl)
 
     def forward(self, x, sin, cos, kv_mask=None, cache=None, cache_positions=None,
                 page_table=None, ragged_slots=None, slot_hist=None, decode=False):
@@ -582,6 +594,32 @@ class _Model(_Module):
     parameter a training forward makes, the embedding gather and weight
     loading."""
 
+    def set_mesh(self, mesh):
+        """Train over ``mesh`` (a ``DeviceMesh``, ``parallel/mesh.py``; None:
+        one process): the loss becomes the mean over the global batch
+        (``ops/losses.mesh_mean``) and a decoder's causal attention, on a
+        ``sequence`` axis > 1, ring attention over the rank's chunk. The
+        ``tensor``, ``expert`` and ``stage`` axes are not run yet."""
+        from ..parallel.mesh import axis_size as size
+        from ..utils.dataclasses import NEXT_PART
+
+        bad = {a: size(mesh, a) for a in ("tensor", "expert", "stage") if size(mesh, a) > 1}
+        if bad:
+            raise NotImplementedError(f"mesh axes {bad}: {NEXT_PART}")
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError(f"mesh must be a torch DeviceMesh (parallel/mesh.py), got {mesh!r}")
+        self.mesh = mesh
+        if self.sequence_ring:
+            for m in self.modules():
+                if isinstance(m, _Module):
+                    m.mesh = mesh
+        return self
+
+    # whether the model's blocks see the mesh: a decoder's causal attention
+    # rings over its sequence chunks; the bidirectional families gather the
+    # whole sequence and attend over it as on one process
+    sequence_ring = False
+
     def set_param_cast(self, dtype: Optional[torch.dtype]):
         """Round every floating parameter to ``dtype`` at use (None: off).
         The Accelerator sets its mixed-precision compute dtype here."""
@@ -685,10 +723,13 @@ class DecoderLM(_Model):
     None stores matmul weights and the embedding in the compute dtype and
     norms in fp32, frozen (serving); a dtype stores every parameter in it,
     trainable (fp32 master weights for training). Parameters are created
-    uninitialized: load them with ``models/convert.py``."""
+    uninitialized: load them with ``models/convert.py``. ``mesh``: see
+    :meth:`set_mesh`."""
+
+    sequence_ring = True
 
     def __init__(self, config: DecoderConfig, device=None,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, mesh=None):
         super().__init__()
         self.config = config
         self.device = resolve_device(device)
@@ -705,6 +746,7 @@ class DecoderLM(_Model):
             self.lm_head = self._param((config.embed_dim, config.vocab_size), self.device, dt)
         if param_dtype is None:
             self.requires_grad_(False)
+        self.set_mesh(mesh)
 
     def init_cache(self, batch: int, length: int, kv_cache_dtype: Optional[str] = None) -> list:
         """All-zeros dense KV cache for ``batch`` rows of ``length``
@@ -758,7 +800,10 @@ class DecoderLM(_Model):
         emb = _resolve(self.embedding)
         x = self._gather(emb, input_ids, cfg.dtype)
         if positions is None:
-            positions = torch.arange(s, device=input_ids.device)
+            # on a sequence axis this rank holds chunk i of n: its positions
+            # are global
+            chunk, _ = axis_index(self.mesh, ("sequence",))
+            positions = chunk * s + torch.arange(s, device=input_ids.device)
         sin, cos = rotary_embedding_tables(positions, cfg.head_dim,
                                            theta=cfg.rope_theta, dtype=cfg.dtype)
         drop = None
@@ -788,10 +833,21 @@ class DecoderLM(_Model):
         """HF convention, as the reference's ``_head_ce_loss``: labels ==
         input_ids, shifted here so position i predicts token i+1; mean CE
         over the targets that are not -100, through the fused chunked
-        LM head."""
+        LM head. On a mesh the mean is over the global batch; on a
+        ``sequence`` axis the shift is the global sequence's (a chunk's
+        last position predicts the next chunk's first label, the last
+        chunk's last position nothing)."""
         cfg = self.config
         b, s = x.shape[0], x.shape[1]
-        hidden = x[:, :-1].reshape(b * (s - 1), cfg.embed_dim)
-        targets = labels[:, 1:].reshape(b * (s - 1))
-        return fused_linear_cross_entropy(hidden, head, targets, ignore_index=-100,
-                                          num_chunks=cfg.fused_ce_chunks)
+        if axis_size(self.mesh, "sequence") > 1:
+            from ..parallel.context import next_chunk_first
+
+            hidden = x.reshape(b * s, cfg.embed_dim)
+            targets = torch.cat([labels[:, 1:], next_chunk_first(labels, self.mesh)[:, None]],
+                                dim=1).reshape(b * s)
+        else:
+            hidden = x[:, :-1].reshape(b * (s - 1), cfg.embed_dim)
+            targets = labels[:, 1:].reshape(b * (s - 1))
+        total, count = fused_linear_cross_entropy_parts(
+            hidden, head, targets, ignore_index=-100, num_chunks=cfg.fused_ce_chunks)
+        return mesh_mean(total, count, self.mesh)

@@ -41,7 +41,9 @@ from torch import nn
 
 from ..ops import fp8
 from ..ops.attention import dot_product_attention
-from ..ops.losses import softmax_cross_entropy
+from ..ops.losses import mesh_mean, softmax_cross_entropy
+from ..parallel.context import gather_sequence
+from ..parallel.mesh import axis_size
 from ..utils.random import next_key
 from .configs import EncoderConfig
 from .decoder import _Model, _Module, dropout, resolve_device
@@ -128,10 +130,12 @@ class EncoderClassifier(_Model):
     the CPU). ``param_dtype`` None stores matmul weights, biases and
     embeddings in the compute dtype and LayerNorms in fp32, frozen; a dtype
     stores every parameter in it, trainable (fp32 masters for training).
-    ``mesh`` is the reference's argument: the port runs on one device
-    (multi-device is ROADMAP queue 1, item 10), so a mesh raises, one with
-    a "stage" axis with the reference's message. Parameters are created
-    uninitialized: load them with ``models/convert.py``."""
+    ``mesh`` (a ``DeviceMesh``) makes the loss the mean over the global
+    batch; on a ``sequence`` axis each rank's chunks are gathered into the
+    whole sequence first, which every rank of the axis then attends over
+    (the reference's attention there is bidirectional, not a ring); one
+    with a "stage" axis raises with the reference's message. Parameters
+    are created uninitialized: load them with ``models/convert.py``."""
 
     def __init__(self, config: EncoderConfig, device=None,
                  param_dtype: Optional[torch.dtype] = None, mesh=None):
@@ -142,10 +146,6 @@ class EncoderClassifier(_Model):
                 f"'stage' axis of size {_stage_axis(mesh)} but encoder-only models have no "
                 "stage split. Use DecoderLM or Seq2SeqLM for pipeline stages, or drop "
                 "pipeline_parallel from the sharding config for BERT-family models.")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is multi-device, a later slice of the port "
-                "(ROADMAP queue 1, item 10)")
         self.config = config
         self.device = resolve_device(device)
         dt = param_dtype or config.dtype
@@ -164,11 +164,16 @@ class EncoderClassifier(_Model):
                                     for _ in range(config.num_layers))
         if param_dtype is None:
             self.requires_grad_(False)
+        self.set_mesh(mesh)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None):
         cfg = self.config
+        if axis_size(self.mesh, "sequence") > 1:
+            input_ids, attention_mask, token_type_ids = (
+                None if t is None else gather_sequence(t, self.mesh)
+                for t in (input_ids, attention_mask, token_type_ids))
         s = input_ids.shape[1]
         self._stage()
         self._arm_casts()
@@ -197,5 +202,11 @@ class EncoderClassifier(_Model):
                   + self._use(self.classifier_bias, dt)).float()
         out = {"logits": logits}
         if labels is not None:
-            out["loss"] = softmax_cross_entropy(logits, labels)
+            if self.mesh is None:
+                out["loss"] = softmax_cross_entropy(logits, labels)
+            else:
+                nll = torch.logsumexp(logits, dim=-1) - logits.gather(
+                    -1, labels.long()[:, None])[:, 0]
+                out["loss"] = mesh_mean(nll.sum(), torch.tensor(
+                    float(nll.numel()), device=nll.device), self.mesh)
         return out

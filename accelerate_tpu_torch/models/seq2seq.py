@@ -60,7 +60,9 @@ from torch import nn
 from ..ops import fp8
 from ..ops.attention import dot_product_attention
 from ..ops.layers import rms_norm, rotary_embedding_tables
-from ..ops.losses import fused_linear_cross_entropy
+from ..ops.losses import fused_linear_cross_entropy_parts, mesh_mean
+from ..parallel.context import gather_sequence
+from ..parallel.mesh import axis_size
 from ..utils.random import next_key
 from .decoder import (
     DecoderAttention,
@@ -139,7 +141,7 @@ class Seq2SeqConfig:
         if self.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline_stages > 1: pipelining the decoder tower is multi-device, a "
-                "later slice of the port (ROADMAP queue 1, item 10)")
+                "later slice of the port (ROADMAP queue 1, item 10 part 2)")
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {self.dropout_rate}")
         if self.dtype not in (torch.float32, torch.bfloat16, torch.float16):
@@ -320,11 +322,16 @@ class Seq2SeqLM(_Model):
     ``device="cpu"`` for the plain versions on the CPU. ``param_dtype``
     None stores matmul weights and the embedding in the compute dtype and
     norms in fp32, frozen (serving); a dtype stores every parameter in it,
-    trainable (fp32 master weights for training). Parameters are created
-    uninitialized: load them with ``models/convert.py``."""
+    trainable (fp32 master weights for training). ``mesh`` (a
+    ``DeviceMesh``) makes the loss the mean over the global batch; on a
+    ``sequence`` axis each rank's chunks of the inputs and labels are
+    gathered into the whole sequences first, which every rank of the axis
+    then runs (the reference's attention there is not a ring).
+    Parameters are created uninitialized: load them with
+    ``models/convert.py``."""
 
     def __init__(self, config: Seq2SeqConfig, device=None,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, mesh=None):
         super().__init__()
         self.config = config
         self.device = resolve_device(device)
@@ -343,6 +350,7 @@ class Seq2SeqLM(_Model):
                                      for _ in range(config.num_decoder_layers))
         if param_dtype is None:
             self.requires_grad_(False)
+        self.set_mesh(mesh)
 
     def init_cache(self, batch: int, length: Optional[int] = None) -> list:
         """All-zeros decode cache for ``batch`` rows: per decoder layer the
@@ -430,6 +438,10 @@ class Seq2SeqLM(_Model):
                 labels: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None):
         cfg = self.config
+        if axis_size(self.mesh, "sequence") > 1:
+            input_ids, decoder_input_ids, labels, attention_mask = (
+                None if t is None else gather_sequence(t, self.mesh)
+                for t in (input_ids, decoder_input_ids, labels, attention_mask))
         if decoder_input_ids is None:
             if labels is None:
                 raise ValueError("need decoder_input_ids and/or labels")
@@ -445,14 +457,14 @@ class Seq2SeqLM(_Model):
         if labels is None:
             return {"logits": (x @ self._head()).float()}
         b, s = x.shape[0], x.shape[1]
-        loss = fused_linear_cross_entropy(
+        total, count = fused_linear_cross_entropy_parts(
             x.reshape(b * s, cfg.embed_dim), self._head(), labels.reshape(b * s),
             ignore_index=-100, num_chunks=cfg.fused_ce_chunks)
-        return {"loss": loss}
+        return {"loss": mesh_mean(total, count, self.mesh)}
 
     def pipeline_value_and_grad(self):
         """The reference's 1F1B value-and-grad runs the decoder tower over pipeline
         stages: multi-device, a later slice of the port."""
         raise NotImplementedError(
             "pipeline_value_and_grad: the 1F1B schedule is multi-device, a later slice "
-            "of the port (ROADMAP queue 1, item 10)")
+            "of the port (ROADMAP queue 1, item 10 part 2)")

@@ -721,7 +721,7 @@ def flash_attention_with_lse(
 ):
     """Forward only: ``(out, lse [B, H, Sq] fp32)`` from the forward
     kernel, for a caller that builds its own backward (the ring attention
-    of a later slice) with :func:`flash_attention_bwd`."""
+    of ``parallel/context.py``) with :func:`flash_attention_bwd`."""
     from . import kernels
 
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])

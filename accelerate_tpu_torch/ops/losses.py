@@ -58,6 +58,33 @@ def _chunk_loss(h, lab, vocab_kernel, ignore_index):
     return nll.sum(), torch.tensor(float(lab.shape[0]), device=nll.device)
 
 
+def fused_linear_cross_entropy_parts(
+    hidden: torch.Tensor,
+    vocab_kernel: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    ignore_index: Optional[int] = None,
+    num_chunks: int = 8,
+) -> tuple:
+    """(sum of the CE over the tokens that are not ignored, their count),
+    fp32, of :func:`fused_linear_cross_entropy`: what a rank contributes to
+    a mean over the global batch (:func:`mesh_mean`)."""
+    n, e = hidden.shape
+    if n % num_chunks:
+        num_chunks = next(c for c in range(min(num_chunks, n), 0, -1) if n % c == 0)
+    chunk = n // num_chunks
+    h_chunks = hidden.reshape(chunk, num_chunks, e).transpose(0, 1)
+    l_chunks = labels.reshape(chunk, num_chunks).transpose(0, 1)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(num_chunks):
+        s, cnt = checkpoint(_chunk_loss, h_chunks[c], l_chunks[c], vocab_kernel,
+                            ignore_index, use_reentrant=False)
+        total = total + s
+        count = count + cnt
+    return total, count
+
+
 def fused_linear_cross_entropy(
     hidden: torch.Tensor,
     vocab_kernel: torch.Tensor,
@@ -74,17 +101,23 @@ def fused_linear_cross_entropy(
     is used (the reference's fallback). Chunk c holds the STRIDED rows
     {c, c + C, c + 2C, ...}, as the reference splits them; the mean does
     not depend on the split."""
-    n, e = hidden.shape
-    if n % num_chunks:
-        num_chunks = next(c for c in range(min(num_chunks, n), 0, -1) if n % c == 0)
-    chunk = n // num_chunks
-    h_chunks = hidden.reshape(chunk, num_chunks, e).transpose(0, 1)
-    l_chunks = labels.reshape(chunk, num_chunks).transpose(0, 1)
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c in range(num_chunks):
-        s, cnt = checkpoint(_chunk_loss, h_chunks[c], l_chunks[c], vocab_kernel,
-                            ignore_index, use_reentrant=False)
-        total = total + s
-        count = count + cnt
+    total, count = fused_linear_cross_entropy_parts(
+        hidden, vocab_kernel, labels, ignore_index=ignore_index, num_chunks=num_chunks)
     return total / count.clamp(min=1.0)
+
+
+def mesh_mean(total: torch.Tensor, count: torch.Tensor, mesh) -> torch.Tensor:
+    """``total / count`` over the global batch: on a mesh of N > 1 ranks
+    the value is (sum of the ranks' totals) / (sum of their counts), and
+    the gradient this rank's ``total`` x N / that count, so the mean of
+    the N ranks' gradients (what the sharding strategies reduce to) is the
+    gradient of the global mean: never a mean of the ranks' means."""
+    if mesh is None or mesh.size() == 1:
+        return total / count.clamp(min=1.0)
+    import torch.distributed as dist
+
+    both = torch.stack([total.detach().float(), count.detach().float()])
+    dist.all_reduce(both)
+    denom = both[1].clamp(min=1.0)
+    local = total * mesh.size() / denom
+    return local + (both[0] / denom - local).detach()

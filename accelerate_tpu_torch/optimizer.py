@@ -9,7 +9,10 @@ Accelerator's ``pre_step`` runs (the fp16 finite check and the gradient
 clip), then the wrapped optimizer updates, unless the gradients were not
 all finite: then the update is skipped (``step_was_skipped``).
 ``step_count`` counts the updates (not the micro-steps), skipped ones
-too, as the reference's engine does; its checkpoint records it.
+too, as the reference's engine does; its checkpoint records it. A group
+that holds sharded parameters (DTensors, ``parallel/sharding.py``) beside
+replicated ones steps as two groups of the same settings, one of each
+kind: torch's multi-tensor update takes one kind at a time.
 """
 
 from __future__ import annotations
@@ -19,6 +22,21 @@ from typing import Callable, Optional
 import torch
 
 from .state import GradientState
+
+
+def _by_kind(groups: list) -> list:
+    """``groups`` with each group that mixes sharded and whole parameters
+    split in two of the same settings (``groups`` itself when none does)."""
+    from torch.distributed.tensor import DTensor
+
+    out, split = [], False
+    for group in groups:
+        kinds = {}
+        for p in group["params"]:
+            kinds.setdefault(isinstance(p, DTensor), []).append(p)
+        split |= len(kinds) > 1
+        out.extend(dict(group, params=params) for params in kinds.values())
+    return out if split else groups
 
 
 class AcceleratedOptimizer(torch.optim.Optimizer):
@@ -70,7 +88,14 @@ class AcceleratedOptimizer(torch.optim.Optimizer):
         parameters and the optimizer's state stay as they are); counted
         in ``step_count`` either way."""
         self.step_was_skipped = bool(skip)
-        out = None if skip else self.optimizer.step(closure)
+        out = None
+        if not skip:
+            groups = self.optimizer.param_groups
+            self.optimizer.param_groups = _by_kind(groups)
+            try:
+                out = self.optimizer.step(closure)
+            finally:
+                self.optimizer.param_groups = groups
         self.step_count += 1
         if self._post_step is not None:
             self._post_step(self)

@@ -67,7 +67,7 @@ import threading
 import time
 from typing import Optional
 
-from ..telemetry.exporter import prometheus_text
+from ..telemetry.exporter import http_server, prometheus_text
 
 
 class _EngineMetricsSession:
@@ -135,7 +135,7 @@ class ReplicaServer:
             def log_message(self, *args):
                 pass
 
-        self.httpd = http.server.ThreadingHTTPServer((host, port), Handler)
+        self.httpd = http_server((host, port), Handler)
         self.httpd.daemon_threads = True
         self.host = host
         self.port = self.httpd.server_address[1]

@@ -981,6 +981,8 @@ class RouterServer:
                  port: int = 0):
         import http.server
 
+        from ..telemetry.exporter import http_server
+
         self.router = router
         server = self
 
@@ -996,7 +998,7 @@ class RouterServer:
             def log_message(self, *args):
                 pass
 
-        self.httpd = http.server.ThreadingHTTPServer((host, port), Handler)
+        self.httpd = http_server((host, port), Handler)
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_address[1]
         self._thread = threading.Thread(

@@ -9,10 +9,21 @@ is initialized, else 0 and 1, and ``ACCELERATE_TPU_LOCAL_PROCESS_ID`` or
 ``LOCAL_RANK``), its device (one card a process: ``cuda:<local index>``)
 and the coordination primitives. It knows nothing of precision.
 
+The process group starts here, once (:func:`init_process_group`, the
+reference's ``_maybe_init_jax_distributed``): when the launch
+environment names a world, through the reference's contract
+(``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``, each also
+with its ``ACCELERATE_TPU_`` prefix) or torch's (``RANK`` /
+``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``), on NCCL for a
+process on a card and on gloo on the CPU. One process per device: rank
+``r`` owns ``cuda:<local rank>`` (NCCL refuses two ranks on one card).
+
 The reference's ``AcceleratorState`` is a singleton too, which refuses a
 second, conflicting precision. Here each ``Accelerator`` owns its own
 (and its own ``GradientState``): a process may hold accelerators of
-different precisions at once. Its topology is the ``PartialState``'s.
+different precisions at once. Its topology is the ``PartialState``'s;
+its ``mesh`` is a ``DeviceMesh`` over the process group in
+``MESH_AXIS_ORDER`` (``parallel/mesh.py``), None where no group is up.
 """
 
 from __future__ import annotations
@@ -29,9 +40,63 @@ import torch
 
 from .models.decoder import resolve_device
 from .utils.dataclasses import (DistributedType, GradientAccumulationPlugin,
-                                MixedPrecisionConfig)
+                                InitProcessGroupKwargs, MixedPrecisionConfig, ShardingConfig)
 
 LOCAL_PROCESS_ID_ENV = "ACCELERATE_TPU_LOCAL_PROCESS_ID"
+
+
+def _env(name: str):
+    """``ACCELERATE_TPU_<name>``, else ``<name>``, else None."""
+    return os.environ.get(f"ACCELERATE_TPU_{name}") or os.environ.get(name) or None
+
+
+def launch_world() -> Optional[dict]:
+    """The world the launch environment names, or None: ``{"rank",
+    "world_size", "init_method"}`` from torch's ``RANK`` / ``WORLD_SIZE``
+    / ``MASTER_ADDR`` / ``MASTER_PORT`` (a world of one too, as a torch
+    launcher writes it), else from the reference's
+    ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID`` when
+    they name more than one process."""
+    if all(os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")):
+        return {"rank": int(os.environ["RANK"]), "world_size": int(os.environ["WORLD_SIZE"]),
+                "init_method": "env://"}
+    coord, nproc = _env("COORDINATOR_ADDRESS"), _env("NUM_PROCESSES")
+    if coord and nproc and int(nproc) > 1:
+        return {"rank": int(_env("PROCESS_ID") or 0), "world_size": int(nproc),
+                "init_method": f"tcp://{coord}"}
+    return None
+
+
+def init_process_group(cpu: bool = False,
+                       kwargs: Optional[InitProcessGroupKwargs] = None) -> bool:
+    """Start ``torch.distributed`` once, when :func:`launch_world` names a
+    world: NCCL for a process on a card (bound to ``cuda:<local rank>``),
+    gloo on the CPU, unless ``kwargs.backend`` says otherwise; never one
+    in place of the other. Returns whether a group is up."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return True
+    world = launch_world()
+    if world is None:
+        return False
+    kwargs = kwargs or InitProcessGroupKwargs()
+    options = {}
+    if cpu:
+        backend = kwargs.backend or "gloo"
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass cpu=True to run on the CPU")
+        backend = kwargs.backend or "nccl"
+        device = torch.device("cuda", _local_process_index() % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        if backend == "nccl":
+            options["device_id"] = device
+    if kwargs.timeout is not None:
+        options["timeout"] = kwargs.timeout
+    dist.init_process_group(backend, init_method=kwargs.init_method or world["init_method"],
+                            rank=world["rank"], world_size=world["world_size"], **options)
+    return True
 
 
 def _distributed():
@@ -66,10 +131,12 @@ class PartialState:
 
     _shared_state: dict = {}
 
-    def __init__(self, cpu: bool = False, **kwargs):
+    def __init__(self, cpu: bool = False,
+                 process_group_kwargs: Optional[InitProcessGroupKwargs] = None, **kwargs):
         self.__dict__ = self._shared_state
         if self.initialized:
             return
+        init_process_group(cpu, process_group_kwargs)
         dist = _distributed()
         num_processes = dist.get_world_size() if dist else 1
         process_index = dist.get_rank() if dist else 0
@@ -240,13 +307,37 @@ class AcceleratorState:
     ``cpu=True``) runs the plain versions of the kernels."""
 
     def __init__(self, mixed_precision: Union[str, MixedPrecisionConfig] = "no",
-                 device=None, cpu: bool = False):
+                 device=None, cpu: bool = False,
+                 sharding_config: Optional[ShardingConfig] = None,
+                 process_group_kwargs: Optional[InitProcessGroupKwargs] = None):
         self.device: torch.device = resolve_device("cpu" if cpu else device)
-        self._partial = PartialState(cpu=self.device.type == "cpu")
+        # a world the environment names starts here too, where the process's
+        # PartialState was made before it was named
+        init_process_group(self.device.type == "cpu", process_group_kwargs)
+        self._partial = PartialState(cpu=self.device.type == "cpu",
+                                     process_group_kwargs=process_group_kwargs)
         if device is None and not cpu and self._partial.device.type == "cuda":
             self.device = self._partial.device  # the card with its index
         self.precision = (mixed_precision if isinstance(mixed_precision, MixedPrecisionConfig)
                           else MixedPrecisionConfig(mode=mixed_precision))
+        self.sharding_config = sharding_config or _sharding_config_from_env()
+        axes = self.sharding_config.resolve(self._partial.num_processes)
+        self.mesh = None
+        if _distributed() is not None:
+            from .parallel.mesh import build_mesh
+
+            self.mesh = build_mesh(axes, device_type=self.device.type)
+        self._axes = axes
+
+    @property
+    def mesh_shape(self) -> dict:
+        """``{axis: size}`` in ``MESH_AXIS_ORDER``, size-1 axes kept (the
+        resolved degrees where no process group, and so no mesh, is up)."""
+        if self.mesh is None:
+            return dict(self._axes)
+        from .parallel.mesh import mesh_shape_dict
+
+        return mesh_shape_dict(self.mesh)
 
     @property
     def mixed_precision(self) -> str:
@@ -262,7 +353,27 @@ class AcceleratorState:
         return (f"AcceleratorState(device={self.device}, "
                 f"mixed_precision={self.mixed_precision!r}, "
                 f"distributed_type={self.distributed_type}, "
-                f"num_processes={self.num_processes})")
+                f"num_processes={self.num_processes}, mesh={self.mesh_shape})")
+
+
+def _sharding_config_from_env() -> ShardingConfig:
+    """A ``ShardingConfig`` from the launcher's ``ACCELERATE_TPU_*``
+    variables (the reference's cascade: ``STRATEGY``, ``DATA_PARALLEL``,
+    ``FSDP``, ``TENSOR_PARALLEL``, ``SEQUENCE_PARALLEL``,
+    ``EXPERT_PARALLEL``, ``PIPELINE_PARALLEL``, ``REPLICA``,
+    ``GRAD_COMPRESSION``); unset or empty means not configured."""
+    mapping = {"STRATEGY": ("strategy", str), "DATA_PARALLEL": ("data_parallel", int),
+               "FSDP": ("fsdp", int), "TENSOR_PARALLEL": ("tensor_parallel", int),
+               "SEQUENCE_PARALLEL": ("sequence_parallel", int),
+               "EXPERT_PARALLEL": ("expert_parallel", int),
+               "PIPELINE_PARALLEL": ("pipeline_parallel", int),
+               "REPLICA": ("replica", int), "GRAD_COMPRESSION": ("grad_compression_dtype", str)}
+    kwargs = {}
+    for env_name, (field_name, cast) in mapping.items():
+        v = os.environ.get(f"ACCELERATE_TPU_{env_name}")
+        if v:
+            kwargs[field_name] = cast(v)
+    return ShardingConfig(**kwargs)
 
 
 class GradientState:
@@ -292,6 +403,12 @@ class GradientState:
     def end_of_dataloader(self) -> bool:
         return bool(self.active_dataloader is not None
                     and self.active_dataloader.end_of_dataloader)
+
+    @property
+    def remainder(self) -> int:
+        """The real samples of the active loader's last global batch when
+        ``even_batches`` squared it up, else -1."""
+        return int(getattr(self.active_dataloader, "remainder", -1))
 
     def _add_dataloader(self, dataloader):
         self._dataloaders.append(dataloader)

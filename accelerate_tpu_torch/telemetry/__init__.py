@@ -91,7 +91,7 @@ UNPORTED = {
     "forensics": "no counterpart: the port's recompile is a graph capture, "
                  "which compiles_in_flight counts",
     "cost_registry": "per-executable roofline rows, ROADMAP queue 1 item 11",
-    "watchdog": "the heartbeat watchdog, ROADMAP queue 1 item 10",
+    "watchdog": "the heartbeat watchdog, ROADMAP queue 1 item 10 part 2",
 }
 
 

@@ -24,6 +24,25 @@ import threading
 import time
 from typing import Optional
 
+# connections a server's kernel queue holds while its accept loop waits
+LISTEN_BACKLOG = 1024
+
+
+def http_server(address, handler):
+    """A ``ThreadingHTTPServer`` (a daemon thread a request) whose listen
+    backlog holds ``LISTEN_BACKLOG`` connections. socketserver's default
+    of 5 overflows when a burst of requests (and scrapes) arrives while
+    the accept loop waits for the GIL behind a busy engine thread: the
+    kernel then drops the SYNs, the client resends them after 1 s and 3 s,
+    and a 2 s scrape or a 5 s connect times out on a live server."""
+    import http.server
+
+    class Server(http.server.ThreadingHTTPServer):
+        request_queue_size = LISTEN_BACKLOG
+        daemon_threads = True
+
+    return Server(address, handler)
+
 # exposition metric names allow [a-zA-Z_:][a-zA-Z0-9_:]*; the att_ prefix
 # guarantees the first character, the sub() the rest
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
@@ -216,13 +235,11 @@ class ScrapeServer:
 
         log = logging.getLogger(__name__)
         try:
-            self.server = http.server.ThreadingHTTPServer((host, port), Handler)
+            self.server = http_server((host, port), Handler)
         except OSError as first_err:
             if port:
                 try:
-                    self.server = http.server.ThreadingHTTPServer(
-                        (host, 0), Handler
-                    )
+                    self.server = http_server((host, 0), Handler)
                     log.warning(
                         "telemetry exporter could not bind %s:%s (%s); "
                         "fell back to ephemeral port %s",

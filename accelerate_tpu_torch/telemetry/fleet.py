@@ -627,6 +627,7 @@ class FleetCollector:
         self._last_merged: dict = {}
         self._last_hists: dict = {}  # unflattened name -> merged histogram
         self._executor = None  # lazy scrape pool (poll_once builds it)
+        self._retired: list = []  # pools replaced on a membership change
         self._dir_cache: dict = {}  # target -> (file sig, gauges, last_t)
         self._dir_cache_lock = threading.Lock()
 
@@ -684,7 +685,9 @@ class FleetCollector:
             stale = self._executor
             self._executor = None
         if stale is not None:
+            # its in-flight scrapes finish on their own; close() joins it
             stale.shutdown(wait=False)
+            self._retired.append(stale)
 
     def remove_replica(self, name: str) -> bool:
         """Deregister a replica (elastic scale-in / permanent death):
@@ -1026,10 +1029,15 @@ class FleetCollector:
         return path
 
     def close(self):
+        """Stop polling and join every scrape thread this collector
+        started: none outlives the call (a scrape in flight ends within its
+        fetch timeout)."""
         self.stop()
-        if self._executor is not None:
-            self._executor.shutdown(wait=False)
-            self._executor = None
+        pools, self._retired = self._retired + [self._executor], []
+        self._executor = None
+        for pool in pools:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
         if self.log_dir:
             try:
                 self.write_snapshot()

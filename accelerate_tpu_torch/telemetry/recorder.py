@@ -22,7 +22,7 @@ Triggers: an **unhandled exception** (``sys.excepthook`` chain),
 **SIGTERM** (dump, request a serving drain when the session asks for one,
 then chain to the previous handler so termination semantics are
 unchanged), or an explicit ``dump()`` call. The reference's watchdog
-trigger is a later item of the port (ROADMAP queue 1 item 10); a session
+trigger is a later item of the port (ROADMAP queue 1 item 10 part 2); a session
 configured for it raises.
 
 :class:`CaptureWindow` is the reference's trigger-gated profiler window

@@ -1,4 +1,4 @@
-"""Operations over a tree of tensors, and collectives on one process.
+"""Operations over a tree of tensors, and collectives over the processes.
 
 Counterpart of ``accelerate_tpu/utils/operations.py`` (its lines 56-501)
 on torch tensors and numpy arrays: the tree helpers (``honor_type``,
@@ -6,15 +6,18 @@ on torch tensors and numpy arrays: the tree helpers (``honor_type``,
 ``get_shape``, ``find_batch_size``, ``listify``, ``send_to_device``,
 ``pad_input_tensors``, ``slice_tensors``, ``concatenate``,
 ``drop_padding``, ``convert_to_fp32``, ``find_device``) and the
-collectives with the semantics the reference gives them at one process:
-``gather`` returns every tensor as it is, ``gather_object`` a list of the
-one object (a list as it is), ``reduce`` multiplies by ``scale`` (the sum
-or mean over one process is the value itself), ``pad_across_processes``
-pads nothing (every process's size along ``dim`` is this one's),
-``broadcast`` and ``broadcast_object_list`` return their input. Their
-multi-process forms, and the sharding helpers (``make_global_batch``,
-``psum``, ``pmean``, ``all_gather_axis``), are the multi-device slice
-(ROADMAP queue 1 item 10).
+collectives, over ``torch.distributed``'s group (gloo on the CPU, NCCL on
+cards: a tensor goes to the process's device for the call and comes back
+where it was): ``gather`` concatenates every process's tensors along dim
+0, ``gather_object`` lists every process's object (splicing lists),
+``reduce`` sums (or averages) over the processes and multiplies by
+``scale``, ``pad_across_processes`` pads to the largest size along
+``dim``, ``broadcast`` and ``broadcast_object_list`` give
+``from_process``'s. On one process each is the reference's one-process
+answer (the input, ``[obj]``, ``t * scale``, unpadded). Over the mesh's
+axes (``parallel/mesh.py``): ``make_global_batch`` places this process's
+shard of the global batch, ``psum`` / ``pmean`` reduce over the data
+axes, ``all_gather_axis`` gathers along one axis.
 
 Where the reference walks a tree in JAX's order, so does this module: a
 dict's values in sorted key order (``find_batch_size``, ``find_device``).
@@ -101,65 +104,216 @@ def recursively_apply(func, data, *args, test_type=None, error_on_other_type=Fal
     return data
 
 
+def _dist():
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
 def num_processes() -> int:
     """The processes of the run: torch.distributed's world when it is up,
     else 1."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    dist = _dist()
+    return dist.get_world_size() if dist else 1
 
 
-def _one_process(what: str):
-    if num_processes() > 1:
-        raise NotImplementedError(
-            f"{what} across processes is the multi-device slice of the port "
-            "(ROADMAP queue 1 item 10)")
+def _comm_device():
+    """Where collectives run: the process's card under NCCL, else the CPU."""
+    dist = _dist()
+    if dist is not None and dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _as_tensor(t) -> tuple:
+    """(a tensor of ``t`` on the communication device, a function back to
+    ``t``'s kind and place)."""
+    dev = _comm_device()
+    if isinstance(t, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(t)).to(dev), lambda x: x.cpu().numpy()
+    home = t.device
+    return t.detach().contiguous().to(dev), lambda x: x.to(home)
 
 
 def gather(tensor):
     """Every tensor of ``tensor`` concatenated over the processes along
-    dim 0: on one process, the tensors themselves."""
-    _one_process("gather")
-    return recursively_apply(lambda t: t, tensor)
+    dim 0 (every process's must have one shape: pad them first with
+    :func:`pad_across_processes`); on one process, the tensors
+    themselves."""
+    dist = _dist()
+    if dist is None or dist.get_world_size() == 1:
+        return recursively_apply(lambda t: t, tensor)
+
+    def one(t):
+        x, back = _as_tensor(t)
+        if x.dim() == 0:
+            x = x[None]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, x)
+        return back(torch.cat(parts, dim=0))
+
+    return recursively_apply(one, tensor)
 
 
 def gather_object(obj: Any) -> list:
-    """Every process's ``obj`` in a list (a list's items are spliced in):
-    on one process ``[obj]``, or ``obj`` when it is a list."""
-    _one_process("gather_object")
-    return obj if isinstance(obj, list) else [obj]
+    """Every process's ``obj`` in a list, in process order (a list's items
+    are spliced in): on one process ``[obj]``, or ``obj`` when it is a
+    list."""
+    dist = _dist()
+    if dist is None or dist.get_world_size() == 1:
+        return obj if isinstance(obj, list) else [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    if isinstance(obj, list):
+        return [item for part in out for item in part]
+    return out
 
 
 def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
     """The sum (or mean) of every tensor over the processes, times
-    ``scale``: on one process, each tensor times ``scale``."""
+    ``scale`` (``"none"``: each process's own, times ``scale``)."""
     if reduction not in ("sum", "mean", "none"):
         raise ValueError(f"reduction must be 'sum', 'mean' or 'none', got {reduction!r}")
-    _one_process("reduce")
-    return recursively_apply(lambda t: t * scale, tensor)
+    dist = _dist()
+    n = dist.get_world_size() if dist else 1
+
+    def one(t):
+        if n == 1 or reduction == "none":
+            return t * scale
+        x, back = _as_tensor(t)
+        x = x.clone()
+        dist.all_reduce(x)
+        if reduction == "mean":
+            x = x / n
+        return back(x * scale)
+
+    return recursively_apply(one, tensor)
 
 
 def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
     """Every tensor padded with ``pad_index`` along ``dim`` to the largest
-    size any process holds there: on one process, unpadded."""
-    _one_process("pad_across_processes")
-    return recursively_apply(lambda t: t, tensor)
+    size any process holds there (at the start with ``pad_first``); a
+    tensor with fewer dims passes through."""
+    dist = _dist()
+
+    def one(t):
+        if dim >= t.ndim:
+            return t
+        size = int(t.shape[dim])
+        if dist is not None and dist.get_world_size() > 1:
+            x = torch.tensor([size], device=_comm_device())
+            dist.all_reduce(x, op=dist.ReduceOp.MAX)
+            size = int(x.item())
+        missing = size - int(t.shape[dim])
+        if missing == 0:
+            return t
+        shape = list(t.shape)
+        shape[dim] = missing
+        if isinstance(t, torch.Tensor):
+            pad = torch.full(shape, pad_index, dtype=t.dtype, device=t.device)
+            return torch.cat([pad, t] if pad_first else [t, pad], dim=dim)
+        pad = np.full(shape, pad_index, dtype=t.dtype)
+        return np.concatenate([pad, t] if pad_first else [t, pad], axis=dim)
+
+    return recursively_apply(one, tensor)
 
 
 def broadcast(tensor, from_process: int = 0):
-    """Every tensor of ``tensor`` as ``from_process`` holds it: on one
-    process, ``tensor`` itself."""
-    _one_process("broadcast")
-    return tensor
+    """Every tensor of ``tensor`` as ``from_process`` holds it (every
+    process passes tensors of the same shapes)."""
+    dist = _dist()
+    if dist is None or dist.get_world_size() == 1:
+        return tensor
+
+    def one(t):
+        x, back = _as_tensor(t)
+        x = x.clone()
+        dist.broadcast(x, src=from_process)
+        return back(x)
+
+    return recursively_apply(one, tensor)
 
 
 def broadcast_object_list(object_list, from_process: int = 0):
-    """``object_list`` filled with ``from_process``'s items: on one
-    process, the list itself."""
-    _one_process("broadcast_object_list")
+    """``object_list`` filled in place with ``from_process``'s items (any
+    picklable objects), and returned."""
+    dist = _dist()
+    if dist is None or dist.get_world_size() == 1:
+        return object_list
+    dist.broadcast_object_list(object_list, src=from_process)
     return object_list
+
+
+def axis_group(mesh, axis_names):
+    """The process group of this rank's fellows along ``axis_names`` of
+    ``mesh`` taken together (one group per combination of the other axes'
+    coordinates; built once per mesh and kept on it, by every rank); None
+    for the whole world when ``mesh`` is None."""
+    if mesh is None:
+        return None
+    names = tuple(a for a in mesh.mesh_dim_names if a in axis_names)
+    groups = mesh.__dict__.setdefault("_att_axis_groups", {})
+    if names not in groups:
+        import torch.distributed as dist
+
+        dims = [mesh.mesh_dim_names.index(a) for a in names]
+        rest = [d for d in range(mesh.mesh.dim()) if d not in dims]
+        ranks = mesh.mesh.permute(rest + dims).reshape(-1, max(1, int(np.prod(
+            [mesh.mesh.shape[d] for d in dims]))))
+        groups[names], _ = dist.new_subgroups_by_enumeration([r.tolist() for r in ranks])
+    return groups[names]
+
+
+DATA_AXES = ("replica", "data", "fsdp")
+
+
+def make_global_batch(data, mesh=None, batch_axes=DATA_AXES, batch_dim: int = 0):
+    """This process's shard of the global batch, on its device (one
+    process per device: the process's batch IS the device's shard of the
+    reference's global array). Checks that the global batch (this
+    process's rows x the ranks of ``batch_axes``) divides over them."""
+    from ..parallel.mesh import axis_index
+
+    _, degree = axis_index(mesh, batch_axes)
+    rows = find_batch_size(data) if batch_dim == 0 else None
+    if batch_dim and isinstance(data, dict):
+        rows = next((v.shape[batch_dim] for v in data.values()
+                     if _is_array(v) and v.ndim > batch_dim), None)
+    if rows is not None and (rows * degree) % degree:
+        raise ValueError(f"global batch {rows * degree} does not divide over {degree} ranks")
+    device = mesh.device_type if mesh is not None else "cpu"
+    if mesh is not None and device == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return send_to_device(data, device, non_blocking=True)
+
+
+def psum(x, axis_names=DATA_AXES, mesh=None):
+    """``x`` summed over the ranks of ``axis_names`` (the whole world when
+    ``mesh`` is None); ``x`` itself on one process."""
+    if _dist() is None:
+        return x
+    y = x.clone()
+    _dist().all_reduce(y, group=axis_group(mesh, axis_names))
+    return y
+
+
+def pmean(x, axis_names=DATA_AXES, mesh=None):
+    """``x`` averaged over the ranks of ``axis_names``."""
+    if _dist() is None:
+        return x
+    group = axis_group(mesh, axis_names)
+    return psum(x, axis_names, mesh) / _dist().get_world_size(group)
+
+
+def all_gather_axis(x, axis_name, *, axis: int = 0, tiled: bool = True, mesh=None):
+    """Every rank's ``x`` along mesh axis ``axis_name``, concatenated along
+    ``axis`` (``tiled``) or stacked in a new one; ``x`` on one process."""
+    if _dist() is None:
+        return x
+    group = axis_group(mesh, (axis_name,) if isinstance(axis_name, str) else axis_name)
+    parts = [torch.empty_like(x) for _ in range(_dist().get_world_size(group))]
+    _dist().all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
 
 
 def _to_tensor_leaf(x):

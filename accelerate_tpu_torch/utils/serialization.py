@@ -18,10 +18,13 @@ maps the file once (copy-on-write, so the tensors are writable views that
 never write back) and returns CPU tensors viewing it: no byte is read
 until a consumer touches it (:func:`load_flat_dict`).
 
-Not carried: the reference's per-rank distributed checkpoints
-(``save_pytree_dist``, ``_load_dist`` and the native parallel pread
-that serves them; a base path with rank manifests raises), and its fallback to the ``safetensors`` library for dtype codes
-this reader does not know (they raise).
+The reference's per-rank checkpoints (``att_dist_v1``: a
+``<base>.rank<r>.safetensors`` and manifest per process) are written by
+:func:`save_entries_dist` and read back whole by :func:`load_dist` (and
+so by :func:`load_flat_dict` given the base path). Not carried: the
+native parallel pread that serves the reference's, and its fallback to
+the ``safetensors`` library for dtype codes this reader does not know
+(they raise).
 """
 
 from __future__ import annotations
@@ -250,11 +253,79 @@ def _index_path(path: str) -> str | None:
     return None
 
 
-def _reject_dist(path: str):
-    if glob.glob(f"{glob.escape(path)}.rank*.manifest.json"):
-        raise NotImplementedError(
-            f"{path} is a per-rank distributed checkpoint: reading those is a later slice "
-            "of the port (ROADMAP queue 1, item 10)")
+def _dist_manifests(base: str) -> list:
+    return sorted(glob.glob(f"{glob.escape(base)}.rank*.manifest.json"))
+
+
+def save_entries_dist(entries, base: str | os.PathLike, process_index: int,
+                      num_processes: int) -> list[str]:
+    """This process's share of a per-rank checkpoint, the reference's
+    format (``save_pytree_dist``, ``att_dist_v1``): its entries (every
+    ``num_processes``-th, from ``process_index``; each whole, one chunk at
+    offset 0) in ``<base>.rank<r>.safetensors``, and
+    ``<base>.rank<r>.manifest.json`` placing each chunk in its global
+    tensor. Every process calls it with the same entries and fetches every
+    one of them in their order (a sharded tensor's fetch gathers it, a
+    collective), keeping its own on the host: a process holds its share,
+    and one whole tensor on the device at a time."""
+    base = str(base)
+    fname = f"{base}.rank{process_index}.safetensors"
+    manifest = {"format": "att_dist_v1", "num_processes": int(num_processes), "tensors": {}}
+    chunks = []
+    for i, (key, shape, dtype, fetch) in enumerate(entries):
+        got = fetch()
+        pieces = [got] if isinstance(got, (torch.Tensor, np.ndarray)) else got
+        pieces = [_as_tensor(p) for p in pieces]
+        if i % num_processes != process_index:
+            continue
+        start = [0] * len(shape)
+        ck = f"{key}@{'_'.join(map(str, start))}"
+        chunks.append((ck, shape, dtype, (lambda ps: lambda: ps)(pieces)))
+        manifest["tensors"][key] = {
+            "shape": [int(x) for x in shape], "dtype": _CODES[dtype],
+            "chunks": [{"key": ck, "file": os.path.basename(fname), "start": start,
+                        "shape": [int(x) for x in shape]}]}
+    save_entries(chunks, fname)
+    with open(f"{base}.rank{process_index}.manifest.json", "w") as f:
+        json.dump(manifest, f, indent=1)
+    return [fname]
+
+
+def load_dist(base: str) -> dict[str, torch.Tensor]:
+    """A per-rank checkpoint reassembled (the reference's ``_load_dist``):
+    every rank manifest the save recorded must be there and each tensor's
+    chunks must tile its global volume, else it raises."""
+    manifests = _dist_manifests(base)
+    if not manifests:
+        raise FileNotFoundError(f"no .rank*.manifest.json next to {base}")
+    folder = os.path.dirname(base) or "."
+    out, covered, per_file, expected = {}, {}, {}, None
+    for mpath in manifests:
+        with open(mpath) as f:
+            man = json.load(f)
+        if man.get("num_processes") is not None:
+            expected = max(expected or 0, int(man["num_processes"]))
+        for key, info in man["tensors"].items():
+            if key not in out:
+                out[key] = torch.empty(tuple(info["shape"]),
+                                       dtype=_dtype_of_code(mpath, key, info["dtype"]))
+                covered[key] = 0
+            for ck in info["chunks"]:
+                per_file.setdefault(os.path.join(folder, ck["file"]), []).append((key, ck))
+                covered[key] += int(np.prod(ck["shape"])) if ck["shape"] else 1
+    if expected is not None and len(manifests) < expected:
+        raise ValueError(f"distributed checkpoint {base} is incomplete: {len(manifests)} rank "
+                         f"manifest(s) found but the save recorded {expected} processes")
+    bad = [k for k in out if covered[k] != out[k].numel()]
+    if bad:
+        raise ValueError(f"distributed checkpoint {base} is incomplete: chunk volume does not "
+                         f"tile the global shape for {bad[:5]}")
+    for fpath, refs in per_file.items():
+        data = _load_safetensors(fpath)
+        for key, ck in refs:
+            sl = tuple(slice(a, a + n) for a, n in zip(ck["start"], ck["shape"]))
+            out[key][sl] = data[ck["key"]]
+    return out
 
 
 def _read_header(path: str):
@@ -280,7 +351,16 @@ def peek_flat_structs(path: str | os.PathLike) -> dict[str, torch.Tensor] | None
     bytes: ``{path: meta tensor}``. None for a format without a cheap
     header (pickle)."""
     path = str(path)
-    _reject_dist(path)
+    manifests = _dist_manifests(path)
+    if manifests:
+        out = {}
+        for mpath in manifests:
+            with open(mpath) as f:
+                tensors = json.load(f)["tensors"]
+            for key, info in tensors.items():
+                out[key] = torch.empty(tuple(info["shape"]), device="meta",
+                                       dtype=_dtype_of_code(mpath, key, info["dtype"]))
+        return out
     index = _index_path(path)
     if index is not None:
         with open(index) as f:
@@ -313,7 +393,8 @@ def load_flat_dict(path: str | os.PathLike) -> dict[str, torch.Tensor]:
     tensors are lazy views of the mapped file. Pickle runs code from the
     file: load only checkpoints this program or one you trust wrote."""
     path = str(path)
-    _reject_dist(path)
+    if _dist_manifests(path):
+        return load_dist(path)
     index = _index_path(path)
     if index is not None:
         with open(index) as f:

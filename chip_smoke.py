@@ -130,6 +130,16 @@ the patch, so their graphs replay the zeroed wrapper:
   as a subprocess on the int8 arena (tokens against the in-process int8
   engine, a cancel mid-stream, exit code 0 after SIGTERM) and
   ``--config tiny`` refused on CUDA by the decode kernels' gate;
+- ring attention (``ring_path``): small_1b's attention shapes cut into 4
+  sequence chunks, the ring's hop functions composed in lockstep on the
+  card (10 launches of each of #1-#3 causal, 16 non-causal), held against
+  fp32 ``mha_reference`` and one whole-sequence launch, two controls (a
+  dropped diagonal merge, dk / dv one rotation short), its ms beside the
+  whole launch's; sharded training (``sharded_train_path``): FSDP on an
+  NCCL process group of one that the port's state starts from RANK /
+  WORLD_SIZE / MASTER_ADDR / MASTER_PORT, 3 small_1b updates against the
+  unsharded step, a save / load round trip bit for bit; their launches
+  on lines of their own;
 - training: ``Accelerator(mixed_precision="bf16")`` over fp32 master
   weights, a few steps of the eager loop and of ``build_train_step``,
   launch counts of layers x micro-batches per step, a falling loss on a
@@ -7458,6 +7468,325 @@ def train_fp8_path(dev, card: str):
     return launches
 
 
+# ring_path: small_1b's attention shapes cut into RING_CHUNKS sequence
+# chunks, composed in lockstep on the one card (parallel/context.py)
+RING_CHUNKS = 4
+# Against fp32 mha_reference over the whole sequence (bf16 operands; p and
+# dS rounded to bf16 inside the kernels): for each of out, dq, dk, dv the
+# max abs err in units of the reference tensor's rms must stay within
+# RING_REF_FACTOR x the whole-sequence launch's own (each hop's out and
+# dq / dk / dv are rounded to bf16 before the fp32 merge or sum, and a
+# chunk's dk / dv sum up to RING_CHUNKS such partials: the ring adds
+# roundings, not an error of its own); the two controls must exceed it.
+# Against the whole launch itself: within (1 + RING_REF_FACTOR) x that
+# error (the triangle inequality through the reference)
+RING_REF_FACTOR = float(RING_CHUNKS)
+
+
+def ring_path(dev, card: str):
+    """Ring attention's hops on the card: q [B 8, H 16, 2048, D 128], k / v
+    [B 8, KVH 8, 2048, 128] bf16 cut into RING_CHUNKS chunks of 512, the
+    ring of that many ranks composed in lockstep (``ring_lockstep``: the
+    hop functions of ``ring_attention``, hop r of every rank, then the
+    rotation). Causal: exactly 4 diagonal + 6 full forward hops (6
+    skipped) and as many backward hops, so 10 launches of each of #1-#3;
+    non-causal 16. Out and dq / dk / dv held against fp32 mha_reference
+    over the whole sequence and against one whole-sequence launch of
+    #1-#3; two controls (a ring that drops the diagonal hop's merge, one
+    whose dk / dv rotate one hop short) must fail the first check. Prints
+    the ring's forward + backward ms beside the whole launch's. Returns
+    the causal ring's launches."""
+    import torch
+
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.ops.attention import (flash_attention_bwd,
+                                                    flash_attention_with_lse, mha_reference)
+    from accelerate_tpu_torch.parallel import context
+
+    n, b, h, kvh, s, d = RING_CHUNKS, TRAIN_B, H, KVH, TRAIN_S, D
+    gen = torch.Generator(device=dev).manual_seed(25)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for shape in ((b, h, s, d), (b, kvh, s, d), (b, kvh, s, d), (b, h, s, d)))
+    scale = 1.0 / math.sqrt(d)
+
+    def chunks(t):
+        return [c.contiguous() for c in t.chunk(n, dim=2)]
+
+    def whole(parts):
+        return torch.cat(parts, dim=2)
+
+    qs, ks, vs, dos = chunks(q), chunks(k), chunks(v), chunks(do)
+
+    def ring(causal):
+        outs, (dqs, dks, dvs) = context.ring_lockstep(qs, ks, vs, dos, causal=causal,
+                                                      sm_scale=scale, impl="flash")
+        return whole(outs), whole(dqs), whole(dks), whole(dvs)
+
+    def whole_kernels(causal):
+        out, lse = flash_attention_with_lse(q, k, v, causal=causal, sm_scale=scale)
+        return (out, *flash_attention_bwd(q, k, v, out, lse, do, causal=causal, sm_scale=scale))
+
+    def reference(causal):
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        out = mha_reference(*leaves, causal=causal, sm_scale=scale)
+        out.backward(do.float())
+        return (out.detach(), *(t.grad for t in leaves))
+
+    def rms_errs(got, want, scale=None) -> list:
+        """max abs err of each of the four tensors over the rms of
+        ``scale`` (the fp32 reference's tensors; ``want`` by default)."""
+        return [(g.float() - w).abs().max().item() / r.square().mean().sqrt().item()
+                for g, w, r in zip(got, want, scale or want)]
+
+    def ref_err(got, want, base) -> float:
+        """The largest of the four errors as a multiple of its limit,
+        RING_REF_FACTOR x the whole launch's (above 1: the check fails)."""
+        worst = 0.0
+        for e, e0 in zip(rms_errs(got, want), base):
+            worst = max(worst, e / (RING_REF_FACTOR * e0) if math.isfinite(e) else math.inf)
+        return worst
+
+    names = ("out", "dq", "dk", "dv")
+    results = {}
+    for causal, per_kernel in ((True, 10), (False, n * n)):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = ring(causal)
+        torch.cuda.synchronize()
+        launches = {name: kernels.launch_counts[name] for name in FLASH_KERNELS}
+        if any(c != per_kernel for c in launches.values()):
+            fail(f"ring path (causal={causal}): launches {launches}, expected {per_kernel} "
+                 "of each")
+        want = reference(causal)
+        flash = whole_kernels(causal)
+        base = rms_errs(flash, want)
+        errs = dict(zip(names, rms_errs(got, want)))
+        rel = ref_err(got, want, base)
+        if rel > 1.0:
+            fail(f"ring path (causal={causal}) vs fp32 mha_reference: max abs err / rms "
+                 f"{errs} against the whole launch's {dict(zip(names, base))}: {rel:.3f} x "
+                 "the limit")
+        # |ring - whole| <= |ring - ref| + |whole - ref|: within (1 + factor) x base
+        kerr = dict(zip(names, rms_errs(got, [w.float() for w in flash], want)))
+        for nm, e0 in zip(names, base):
+            if not kerr[nm] <= (1 + RING_REF_FACTOR) * e0:
+                fail(f"ring path (causal={causal}) vs the whole-sequence launch: {nm} max abs "
+                     f"err / rms {kerr[nm]:.3e} over {1 + RING_REF_FACTOR} x {e0:.3e}")
+        results[causal] = (launches, errs, dict(zip(names, base)), kerr, rel)
+    causal_launches = results[True][0]
+
+    # controls: each must land beyond the fp32 reference's limit
+    want = reference(True)
+    base = rms_errs(whole_kernels(True), want)
+    ring_fwd = context.hop_forward
+
+    def no_diagonal(q_, k_, v_, case, sm_scale, plain):
+        if case == context.DIAGONAL:
+            return ring_fwd(q_, k_, v_, context.SKIP, sm_scale, plain)
+        return ring_fwd(q_, k_, v_, case, sm_scale, plain)
+
+    context.hop_forward = no_diagonal
+    try:
+        ctrl_a = ref_err(ring(True), want, base)
+    finally:
+        context.hop_forward = ring_fwd
+    ctrl_b = ref_err(short_rotation_ring(context, qs, ks, vs, dos, scale, whole), want, base)
+    if not (ctrl_a > 1.0 and ctrl_b > 1.0):
+        fail(f"ring path controls passed the reference check: dropped diagonal "
+             f"{ctrl_a:.3f}, dk/dv one rotation short {ctrl_b:.3f} (x the limit)")
+
+    ring_ms = cuda_time_ms(lambda: ring(True), iters=5, warmup=1)
+    whole_ms = cuda_time_ms(lambda: whole_kernels(True), iters=5, warmup=1)
+    for causal, (launches, errs, base, kerr, rel) in results.items():
+        print(f"ring path on {card}: {n} chunks of {s // n} (B {b}, H {h}, KVH {kvh}, D {d}, "
+              f"bf16), causal={causal}: launches {launches}; max abs err / rms vs fp32 "
+              "mha_reference " + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+              + " (whole-sequence launch " + ", ".join(f"{k_} {e:.3e}" for k_, e in base.items())
+              + f"; at most {rel:.3f} x the limit of {RING_REF_FACTOR} x it); max abs err / "
+              "rms vs the whole launch " + ", ".join(f"{k_} {e:.3e}" for k_, e in kerr.items()))
+    print(f"ring path controls on {card}: dropped diagonal merge {ctrl_a:.2f} x the limit, "
+          f"dk / dv one rotation short {ctrl_b:.2f} x the limit (both fail, as they must)")
+    print(f"ring path on {card}: causal forward + backward {ring_ms:.3f} ms as {n} lockstep "
+          f"chunks against {whole_ms:.3f} ms for the whole-sequence kernels (the split's cost, "
+          "no communication)")
+    return causal_launches
+
+
+def short_rotation_ring(context, qs, ks, vs, dos, scale, whole):
+    """The lockstep ring with its dk / dv rotated n - 1 times, not n: each
+    rank's dk / dv land one rank off their owner (a control)."""
+    n = len(qs)
+
+    def rotate(chunks):
+        return [chunks[(p - 1) % n] for p in range(n)]
+
+    outs = []
+    acc = [context._forward_start(q_, v_) for q_, v_ in zip(qs, vs)]
+    k_cur, v_cur = list(ks), list(vs)
+    for r in range(n):
+        for p in range(n):
+            case = context.case_index((p - r) % n, p, True)
+            acc[p] = context.merge_hop(*acc[p], *context.hop_forward(
+                qs[p], k_cur[p], v_cur[p], case, scale, False))
+        k_cur, v_cur = rotate(k_cur), rotate(v_cur)
+    outs = [o.to(q_.dtype) for (o, _), q_ in zip(acc, qs)]
+    dq = [0.0] * n
+    dk = [0.0] * n
+    dv = [0.0] * n
+    k_cur, v_cur = list(ks), list(vs)
+    for r in range(n):
+        for p in range(n):
+            case = context.case_index((p - r) % n, p, True)
+            a, b_, c = context.hop_backward(qs[p], k_cur[p], v_cur[p], outs[p], acc[p][1],
+                                            dos[p], case, scale, False)
+            dq[p] = dq[p] + a.float()
+            dk[p] = dk[p] + b_.float()
+            dv[p] = dv[p] + c.float()
+        k_cur, v_cur = rotate(k_cur), rotate(v_cur)
+        if r != n - 1:
+            dk, dv = rotate(dk), rotate(dv)
+    return whole(outs), whole(dq), whole(dk), whole(dv)
+
+
+SHARDED_STEPS = 3  # build_train_step updates of the sharded path, and of the unsharded
+
+
+def sharded_train_path(dev, card: str):
+    """FSDP on a real NCCL process group of world 1, started by the port's
+    state.py from RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT: small_1b
+    (16 layers, full width) under Accelerator(mixed_precision="bf16",
+    sharding_config=ShardingConfig(strategy="FSDP")), its parameters DTensors
+    on the fsdp mesh; SHARDED_STEPS build_train_step updates at B 8 x 2048
+    held against the unsharded step from the same seed (each loss, every
+    parameter after them, the launches: 16 of each of #1-#3 an update); a
+    save_state / load_state round trip of the FSDP run resumes bit for
+    bit. Prints both step times, tokens/s and peak memory; destroys the
+    group. Returns the sharded run's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.launchers import free_port
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.utils.dataclasses import ShardingConfig
+
+    cfg = DecoderConfig.small_1b()
+    b, s = TRAIN_B, TRAIN_S
+    ids = np.random.RandomState(25).randint(0, cfg.vocab_size, (SHARDED_STEPS, b, s))
+    batches = [{"input_ids": torch.as_tensor(x), "labels": torch.as_tensor(x)} for x in ids]
+
+    def build(sharding):
+        model = DecoderLM(cfg, device=dev, param_dtype=torch.float32)
+        model.load_params(random_params(cfg, seed=0, device=dev, dtype=torch.float32))
+        acc = Accelerator(mixed_precision="bf16", sharding_config=sharding)
+        opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, weight_decay=1e-4)
+        model, opt = acc.prepare(model, opt)
+        acc.clip_grad_norm_(max_norm=1.0)
+        return acc, model, opt, acc.build_train_step(micro_steps=1)
+
+    def run(step, steps):
+        losses, ms, launches = [], [], {}
+        for batch in steps:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            m = step(batch)
+            losses.append(m["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {name: kernels.launch_counts[name] for name in FLASH_KERNELS}
+            if any(c != cfg.num_layers for c in launches.values()):
+                fail(f"sharded train path: launches {launches} in one update, expected "
+                     f"{cfg.num_layers} of each")
+        return losses, ms, launches
+
+    def params_of(model):
+        return {n: (p.full_tensor() if isinstance(p, DTensor) else p).detach().cpu().clone()
+                for n, p in model.named_parameters()}
+
+    # the unsharded step first, before any process group exists
+    torch.cuda.reset_peak_memory_stats()
+    acc, model, opt, step = build(None)
+    plain_losses, plain_ms, plain_launches = run(step, batches[:SHARDED_STEPS])
+    plain_peak = torch.cuda.max_memory_allocated() / 1e9
+    plain_params = params_of(model)
+    del acc, model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    tmp = tempfile.mkdtemp(prefix="sharded-")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        acc, model, opt, step = build(ShardingConfig(strategy="FSDP"))
+        if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                and dist.get_world_size() == 1):
+            fail("sharded train path: the port's state did not start an NCCL group of one")
+        params = list(model.parameters())
+        sharded = [p for p in params if isinstance(p, DTensor)]
+        if not sharded or any(p.device_mesh.mesh_dim_names != ("replicate", "shard")
+                              for p in sharded):
+            fail(f"sharded train path: {len(sharded)} of {len(params)} parameters are DTensors "
+                 "on the (replicate, shard) fsdp mesh")
+        losses, ms, launches = run(step, batches[:SHARDED_STEPS - 1])
+        acc.save_state(tmp)
+        more, more_ms, _ = run(step, batches[SHARDED_STEPS - 1:])
+        losses += more
+        ms += more_ms
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        got = params_of(model)
+        diff = max((got[n] - plain_params[n]).abs().max().item() for n in got)
+        same = all(torch.equal(got[n], plain_params[n]) for n in got)
+        loss_diff = max(abs(a - c) for a, c in zip(losses, plain_losses))
+        if loss_diff > SHARDED_LOSS_ATOL or diff > SHARDED_PARAM_ATOL:
+            fail(f"sharded train path: losses {losses} against the unsharded {plain_losses}, "
+                 f"parameters up to {diff} apart")
+        acc.load_state(tmp)
+        resumed, _, _ = run(step, batches[SHARDED_STEPS - 1:])
+        back = params_of(model)
+        if resumed != more or any(not torch.equal(back[n], got[n]) for n in got):
+            fail(f"sharded train path: the resumed update gave loss {resumed} against "
+                 f"{more}, or other parameters")
+        tok = b * s
+        print(f"sharded train path on {card}: small_1b {cfg.num_layers} layers, FSDP on an "
+              f"NCCL group of {dist.get_world_size()}, {len(sharded)} of {len(params)} "
+              f"parameters DTensors on the fsdp mesh; {SHARDED_STEPS} updates at B {b} x {s}: "
+              f"losses {losses} vs unsharded {plain_losses} (max diff {loss_diff:.3e}), "
+              f"parameters max diff {diff:.3e}, bit for bit {same}; launches an update "
+              f"{launches} (unsharded {plain_launches}); save / load round trip resumed bit "
+              f"for bit; step ms median sharded {sorted(ms)[len(ms) // 2]:.1f} / unsharded "
+              f"{sorted(plain_ms)[len(plain_ms) // 2]:.1f}, tokens/s "
+              f"{tok / sorted(ms)[len(ms) // 2] * 1e3:.0f} / "
+              f"{tok / sorted(plain_ms)[len(plain_ms) // 2] * 1e3:.0f}; peak memory "
+              f"{peak:.2f} / {plain_peak:.2f} GB")
+        del acc, model, opt, step
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(key, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# FSDP over one rank against the unsharded step: the all-gather and the
+# reduce-scatter are copies, so the update is expected bit for bit; these
+# limits bound what is accepted and the line prints whether it was exact
+SHARDED_LOSS_ATOL = 1e-6
+SHARDED_PARAM_ATOL = 1e-6
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -7651,6 +7980,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     timed("resnet train path", resnet_train_path, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # this slice's phases: their launches print on lines of their own
+    ring_launches = timed("ring path", ring_path, dev, card)
+    print(f"ring path launches: {json.dumps(ring_launches)}")
+    sharded_launches = timed("sharded train path", sharded_train_path, dev, card)
+    print(f"sharded train path launches: {json.dumps(sharded_launches)}")
     launches["dense_decode"] += flat_launches + dispatch_launches["dense_decode"]
     launches["flash_fwd"] += dispatch_launches["flash_fwd"]
     for name, n in fp8_launches.items():

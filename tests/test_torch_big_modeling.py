@@ -259,9 +259,21 @@ def test_unaligned_tensor_is_read(tmp_path):
 
 
 def test_distributed_checkpoints_are_a_later_slice(tmp_path):
-    (tmp_path / "m.rank0.manifest.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PS.load_flat_dict(str(tmp_path / "m"))
+    """Per-rank checkpoints were a later slice; they are read now (since
+    the multi-device slice): the reference's manifests, written here for
+    two ranks by the reference's own writer, load whole, and one rank's
+    missing manifest raises."""
+    tree = {"a": np.arange(6, dtype=np.float32).reshape(2, 3), "b": np.ones(4, np.int32)}
+    base = str(tmp_path / "m")
+    for rank in range(2):
+        RS.save_pytree_dist(tree, base, process_index=rank, num_processes=2)
+    got = PS.load_flat_dict(base)
+    assert set(got) == set(tree)
+    for key, want in tree.items():
+        np.testing.assert_array_equal(got[key].numpy(), want)
+    (tmp_path / "m.rank1.manifest.json").unlink()
+    with pytest.raises(ValueError, match="incomplete"):
+        PS.load_flat_dict(base)
 
 
 def test_flatten_matches_reference_order():

@@ -438,12 +438,35 @@ def test_module_and_other_optimizer_round_trip(tmp_path):
     assert opt2.step_count == 1
 
 
-def test_rank_manifests_raise(tmp_path):
-    acc, _, _ = _small_accelerator(tmp_path)
+def test_rank_manifests_are_read(tmp_path):
+    """A checkpoint in the reference's per-rank layout (the weights and
+    the moments each split over two ranks' manifests) loads as its
+    single-file form does; a rank's missing manifest raises."""
+    from accelerate_tpu_torch.utils.serialization import save_entries_dist
+
+    acc, model, opt = _small_accelerator(tmp_path)
+    model(torch.ones(4, 3)).sum().backward()
+    opt.step()
+    saved = [t.detach().clone() for t in (model.weight, model.bias)]
+    moments = {k: v.clone() for k, v in opt.optimizer.state[model.weight].items()}
     path = acc.save_state()
-    os.remove(os.path.join(path, "model_0.safetensors"))
-    open(os.path.join(path, "model_0.rank0.manifest.json"), "w").close()
-    with pytest.raises(NotImplementedError, match="per-rank"):
+    for stem in ("model_0", "optimizer_0"):
+        flat = load_flat_dict(os.path.join(path, stem + ".safetensors"))
+        entries = [(k, tuple(v.shape), v.dtype, (lambda t: lambda: t)(v.clone()))
+                   for k, v in flat.items()]
+        for rank in range(2):
+            save_entries_dist(entries, os.path.join(path, stem), rank, 2)
+        os.remove(os.path.join(path, stem + ".safetensors"))
+    with torch.no_grad():
+        model.weight.zero_()
+        model.bias.zero_()
+    opt.optimizer.state.clear()
+    acc.load_state()
+    assert torch.equal(model.weight, saved[0]) and torch.equal(model.bias, saved[1])
+    for key in ("exp_avg", "exp_avg_sq"):
+        assert torch.equal(opt.optimizer.state[model.weight][key], moments[key])
+    os.remove(os.path.join(path, "model_0.rank1.manifest.json"))
+    with pytest.raises(ValueError, match="incomplete"):
         acc.load_state()
 
 

@@ -221,8 +221,10 @@ def test_unported_parts_and_devices_raise(monkeypatch):
         assert torch.isfinite(model(torch.arange(3, 11)[None])["logits"]).all()
     with pytest.raises(NotImplementedError, match="pipeline parallelism"):
         EncoderClassifier(EncoderConfig.tiny(), device="cpu", mesh={"stage": 2, "data": 4})
+    # a data / fsdp / sequence mesh trains (tests/test_torch_sharded_training.py);
+    # a tensor axis is item 10's next part
     with pytest.raises(NotImplementedError, match="item 10"):
-        EncoderClassifier(EncoderConfig.tiny(), device="cpu", mesh={"data": 8})
+        EncoderClassifier(EncoderConfig.tiny(), device="cpu", mesh={"data": 2, "tensor": 4})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EncoderClassifier(EncoderConfig.tiny())

@@ -656,22 +656,77 @@ def test_live_drill_conserves_counters_and_reranks(tmp_path):
             srv.close()
 
 
-def test_collector_polls_in_the_background_and_stops():
+def _fleet_threads(exclude=frozenset()) -> list:
+    """The live threads of a collector (its sampler and scrape pool),
+    but those in ``exclude``: a collector another test left unclosed keeps
+    its pool alive in this process, which says nothing of this one."""
+    return [t for t in threading.enumerate()
+            if t.name.startswith(("att-fleet", "att-timeline")) and t.is_alive()
+            and t.ident not in exclude]
+
+
+def _poll_then_close(names):
+    """Polls on its own thread, stops at close(): no poll after it, and no
+    thread it started (the sampler, the scrape pool of several replicas)
+    outlives it."""
+    before = {t.ident for t in threading.enumerate()}
     hits = []
 
     def fetch(target):
         hits.append(target)
         return "att_serving_load_score 0.1\n"
 
-    c = port_fleet.FleetCollector([("A", "a")], fetch_fn=fetch, poll_interval_s=0.01)
+    c = port_fleet.FleetCollector([(n, n.lower()) for n in names], fetch_fn=fetch,
+                                  poll_interval_s=0.01)
     c.start()
     deadline = time.time() + 10
     while c.polls < 3 and time.time() < deadline:
         time.sleep(0.005)
     c.close()
-    assert c.polls >= 3 and c.replicas["A"].state == port_fleet.HEALTHY
+    assert c.polls >= 3 and all(c.replicas[n].state == port_fleet.HEALTHY for n in names)
     n = len(hits)
     time.sleep(0.05)
     assert len(hits) == n
-    assert not any(t.name.startswith("att-fleet") and t.is_alive()
-                   for t in threading.enumerate())
+    assert not _fleet_threads(exclude=before)
+
+
+def test_collector_polls_in_the_background_and_stops():
+    _poll_then_close(("A",))
+
+
+def test_collector_close_joins_its_scrape_pool():
+    _poll_then_close(("A", "B", "C"))
+
+
+def test_servers_queue_a_burst_of_connections():
+    """A server whose accept loop is held (as the GIL holds it behind a
+    busy engine thread) still completes a burst of 64 connections in the
+    kernel: none waits out a SYN resend. socketserver's default backlog
+    of 5 completes 6 and leaves the rest to time out."""
+    import http.server
+    import socket
+
+    from accelerate_tpu_torch.telemetry.exporter import http_server
+
+    def burst(server):
+        port = server.server_address[1]
+        socks, ok = [], 0
+        try:
+            for _ in range(64):
+                s = socket.socket()
+                s.settimeout(0.3)
+                try:
+                    s.connect(("127.0.0.1", port))
+                    ok += 1
+                except OSError:
+                    pass
+                socks.append(s)
+        finally:
+            for s in socks:
+                s.close()
+            server.server_close()
+        return ok
+
+    handler = http.server.BaseHTTPRequestHandler
+    assert burst(http_server(("127.0.0.1", 0), handler)) == 64
+    assert burst(http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)) < 64

@@ -81,7 +81,9 @@ def test_import_leaves_jax_unloaded():
             "accelerate_tpu_torch.utils.other, accelerate_tpu_torch.utils.constants, "
             "accelerate_tpu_torch.logging, accelerate_tpu_torch.utils.memory, "
             "accelerate_tpu_torch.utils.profiler, accelerate_tpu_torch.utils.tqdm, "
-            "accelerate_tpu_torch.runtime.prefetch; "
+            "accelerate_tpu_torch.runtime.prefetch, accelerate_tpu_torch.launchers, "
+            "accelerate_tpu_torch.parallel.mesh, accelerate_tpu_torch.parallel.sharding, "
+            "accelerate_tpu_torch.parallel.context; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad")
@@ -107,6 +109,35 @@ def test_entry_points_raise_without_cuda(no_cuda):
     eng = ServingEngine(model, max_cache_len=64, page_size=8, device="cpu")
     out = eng.generate_batched([np.arange(3, 9)], max_new_tokens=2)
     assert out[0].shape == (8,)
+
+
+def test_parallel_entry_points_raise_without_cuda(no_cuda, monkeypatch):
+    """A process group named by the environment starts on NCCL for a card,
+    and without CUDA raises (never gloo in its place) unless the CPU is
+    asked for; a sharding strategy without a group, a part of
+    ShardingConfig the port does not run yet and fp8 over several
+    processes raise."""
+    from accelerate_tpu_torch import state
+    from accelerate_tpu_torch.utils.dataclasses import NEXT_PART, ShardingConfig
+
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state.init_process_group(cpu=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Accelerator(sharding_config=ShardingConfig(strategy="FSDP"))
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var)
+    with pytest.raises(RuntimeError, match="process group"):
+        Accelerator(cpu=True, sharding_config=ShardingConfig(strategy="FSDP"))
+    for bad in (dict(tensor_parallel=2), dict(expert_parallel=2), dict(pipeline_parallel=2),
+                dict(replica=2), dict(grad_compression_dtype="bf16"),
+                dict(offload_params_to_host=True), dict(use_shard_map=True)):
+        with pytest.raises(NotImplementedError, match=NEXT_PART):
+            Accelerator(cpu=True, sharding_config=ShardingConfig(**bad))
+    assert Accelerator(cpu=True, sharding_config=ShardingConfig()).mesh is None
 
 
 def test_dispatch_entry_points_raise_without_cuda(no_cuda, tmp_path):
