@@ -100,13 +100,25 @@ from .utils.dataclasses import (NEXT_PART, AutocastKwargs, DataLoaderConfigurati
 logger = logging.getLogger(__name__)
 
 
-def global_grad_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_grad_norm(params: Iterable[torch.Tensor], stage=None) -> torch.Tensor:
     """sqrt of the sum of every gradient's squared entries, fp32 (optax's
     ``global_norm``), the same on every rank: a sharded gradient's shards
     (``parallel/sharding``) count once, their squared norm summed over
     the ``shard`` group in one all-reduce; parameters without a gradient
-    count as zero."""
+    count as zero. ``stage`` (``(ids, group)``, on a ``stage`` axis) names
+    the parameters of this rank's pipeline stages: their squared norm is
+    summed over the stage group, where every other parameter (replicated
+    over the stages, its gradient already summed) counts once."""
     import torch.distributed as dist
+
+    if stage is not None:
+        ids, group = stage
+        params = list(params)
+        own = global_grad_norm([p for p in params if id(p) in ids])
+        rest = global_grad_norm([p for p in params if id(p) not in ids])
+        sq = (own.float() ** 2).reshape(1).to(rest.device)
+        dist.all_reduce(sq, group=group)
+        return torch.sqrt(sq[0] + rest.float() ** 2)
 
     from .parallel.sharding import is_sharded, local_grad
 
@@ -203,24 +215,54 @@ def _unscale(grads, scale: float, inv: float = 1.0) -> torch.Tensor:
     return found == 0
 
 
-def _scaled_backward(loss: torch.Tensor, params, scale: float, post) -> torch.Tensor:
-    """One micro-batch's backward from ``loss * scale`` into fresh
-    gradients, ``post(grads)`` applied to them (the unscale), then added
-    to what ``params`` had accumulated: the reference's per-micro-batch
-    ``acc + g``. Returns what ``post`` returns."""
+def _scaled_backward(loss: Optional[torch.Tensor], params, scale: float, post,
+                     run: Optional[Callable] = None):
+    """One micro-batch's backward from ``loss * scale`` (or ``run()``, a
+    backward of its own: the 1F1B schedule's) into fresh gradients,
+    ``post(grads)`` applied to them (the unscale), then added to what
+    ``params`` had accumulated: the reference's per-micro-batch ``acc +
+    g``. Returns ``(what post returns, what run returns)``."""
     from .parallel.sharding import local_grad
 
     stash = [p.grad for p in params]
     for p in params:
         p.grad = None
-    (loss.float() * scale).backward()
+    ran = run() if run is not None else (loss.float() * scale).backward()
     out = post([local_grad(p) for p in params if p.grad is not None])
     for p, acc in zip(params, stash):
         if acc is not None and p.grad is not None:
             p.grad = acc.add_(p.grad)
         elif acc is not None:
             p.grad = acc
-    return out
+    return out, ran
+
+
+def _lm_batch(model, vag, batch) -> tuple:
+    """(the keyword arguments of the 1F1B value-and-grad ``vag`` for
+    ``batch``, or None; the reason it falls back, or None): an
+    ``(input_ids, labels)`` batch (a dict, or a tuple bound by the model
+    call's signature), plus any other keyword ``vag`` takes (a seq2seq
+    model's ``attention_mask``)."""
+    import inspect
+
+    if isinstance(batch, dict):
+        named = dict(batch)
+    elif isinstance(batch, (list, tuple)):
+        names = [n for n, p in inspect.signature(model.forward).parameters.items()
+                 if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+        if len(batch) > len(names):
+            return None, f"{len(batch) - len(names)} extra positional arg(s) forced the fallback"
+        named = dict(zip(names, batch))
+    else:
+        return None, "the batch is not a dict or a tuple"
+    if "labels" not in named or "input_ids" not in named:
+        return None, "the batch carries no labels" if "labels" not in named else \
+            "the batch carries no input_ids"
+    takes = set(inspect.signature(vag).parameters) - {"scale"}
+    extra = sorted(k for k in named if k not in takes)
+    if extra:
+        return None, f"batch key(s) {', '.join(extra)} forced the fallback"
+    return named, None
 
 
 def _call(model, batch):
@@ -667,19 +709,25 @@ class Accelerator:
         apply_sharding(model, self.mesh, self.sharding_config)
         after = dict(model.named_parameters())
         for name, p in before.items():
-            self._param_map[id(p)] = after.get(name, p)
+            # None: a block another rank of the stage group holds
+            self._param_map[id(p)] = after.get(name)
 
     def _rebind(self, optimizer: torch.optim.Optimizer):
         """Point ``optimizer``'s groups (and any state) at the parameters
-        that sharding put in place of the ones it was built over."""
+        that sharding put in place of the ones it was built over, dropping
+        those of blocks another stage's rank holds."""
         if not self._param_map:
             return
+        pm = self._param_map
         for group in optimizer.param_groups:
-            group["params"] = [self._param_map.get(id(p), p) for p in group["params"]]
+            group["params"] = [pm.get(id(p), p) for p in group["params"]
+                               if pm.get(id(p), p) is not None]
         state = optimizer.state
         for old in list(state):
-            new = self._param_map.get(id(old), old)
-            if new is not old:
+            new = pm.get(id(old), old)
+            if new is None:
+                state.pop(old)
+            elif new is not old:
                 state[new] = state.pop(old)
 
     def _sync_fsdp(self, sync: bool):
@@ -701,12 +749,31 @@ class Accelerator:
         from .parallel.sharding import reduce_replicated
 
         params = list(params)
-        todo = [p for p in params if p.grad is not None and id(p) not in self._reduced]
-        reduce_replicated(todo)
+        stage = self._stage()
+        if stage is not None:
+            todo = [p for p in params if id(p) not in self._reduced]
+            reduce_replicated(todo, self.mesh, stage)
+        else:
+            todo = [p for p in params if p.grad is not None and id(p) not in self._reduced]
+            reduce_replicated(todo)
         if window_ends:
             self._reduced.difference_update(map(id, params))
         else:
             self._reduced.update(map(id, todo))
+
+    def _stage(self):
+        """``(ids of this rank's pipeline-stage parameters, the stage
+        group)`` on a mesh whose ``stage`` axis is > 1, else None."""
+        from .parallel.mesh import axis_size
+
+        if axis_size(self.mesh, "stage") <= 1:
+            return None
+        ids, group = set(), None
+        for model in self._models:
+            if getattr(model, "num_stages", 1) > 1:
+                ids |= model.stage_param_ids()
+                group = model.stage_plan().group
+        return None if group is None else (ids, group)
 
     def prepare_optimizer(self, optimizer: torch.optim.Optimizer) -> AcceleratedOptimizer:
         self._rebind(optimizer)
@@ -751,7 +818,7 @@ class Accelerator:
             raise TypeError(f"backward() under fp16 loss scaling takes no {sorted(kwargs)}")
         params = [p for p in self._model_params() if p.requires_grad]
         scale = self.loss_scale.scale
-        finite = _scaled_backward(loss, params, scale, lambda g: _unscale(g, scale, 1.0 / n))
+        finite, _ = _scaled_backward(loss, params, scale, lambda g: _unscale(g, scale, 1.0 / n))
         self._finite = finite if self._finite is None else self._finite & finite
 
     @contextlib.contextmanager
@@ -782,7 +849,7 @@ class Accelerator:
             # the window's gradients are whole: reduce the replicated ones
             # now, so the norm is the global one (the update skips them)
             self._reduce_replicated(params, window_ends=False)
-        return global_grad_norm(params)
+        return global_grad_norm(params, self._stage())
 
     def clip_grad_value_(self, parameters=None, clip_value: float = 1.0):
         """Clamp every gradient entry to [-clip_value, clip_value] now, in
@@ -804,7 +871,7 @@ class Accelerator:
         finite = self._update_finite if self.loss_scale is not None else True
         if finite and self._clip_max_norm is not None:
             params = optimizer.parameters()
-            _clip_grads(params, self._clip_max_norm, global_grad_norm(params))
+            _clip_grads(params, self._clip_max_norm, global_grad_norm(params, self._stage()))
         return finite
 
     def _after_update(self, optimizer: AcceleratedOptimizer):
@@ -888,6 +955,12 @@ class Accelerator:
         schedulers = list(self._schedulers)
         micro = micro_steps or self.gradient_state.num_steps
         params = opt.parameters()
+        # a 1F1B-scheduled pipelined model trains (input_ids, labels)
+        # batches through its own value-and-grad; any other batch falls
+        # back to autograd through the GPipe forward, with one warning
+        vag = None
+        if loss_fn is None and hasattr(model, "pipeline_value_and_grad"):
+            vag = model.pipeline_value_and_grad()
 
         def step(batch):
             try:
@@ -915,13 +988,26 @@ class Accelerator:
                     # backward (every one under fp16: its unscale reads each
                     # micro-batch's reduced gradient)
                     self._sync_fsdp(i == len(parts) - 1 or scale is not None)
-                    out = loss_fn(model, mb) if loss_fn is not None else _call(model, mb)
-                    mb_loss = _loss_of(out)
-                    if scale is None:
-                        (mb_loss / micro).backward()
-                    else:  # the reference's acc + g / micro over scaled gradients
-                        _scaled_backward(mb_loss, params, scale,
-                                         lambda g: torch._foreach_div_(g, micro) if g else None)
+                    kw = None
+                    if vag is not None:
+                        kw, why = _lm_batch(model, vag, mb)
+                        if kw is None:
+                            self._warn_pipeline_fallback(why)
+                    div = (lambda g: torch._foreach_div_(g, micro) if g else None)
+                    if kw is not None:  # the 1F1B schedule's own backward
+                        if scale is None:
+                            out = vag(**kw, scale=1.0 / micro)
+                        else:
+                            _, out = _scaled_backward(None, params, scale, div,
+                                                      run=lambda: vag(**kw, scale=scale))
+                        mb_loss = _loss_of(out)
+                    else:
+                        out = loss_fn(model, mb) if loss_fn is not None else _call(model, mb)
+                        mb_loss = _loss_of(out)
+                        if scale is None:
+                            (mb_loss / micro).backward()
+                        else:  # the reference's acc + g / micro over scaled gradients
+                            _scaled_backward(mb_loss, params, scale, div)
                     loss = loss + mb_loss.detach() / micro
             finally:
                 if record is not None:
@@ -936,7 +1022,7 @@ class Accelerator:
                 # one host read an update, agreed across the ranks
                 finite = _agree(bool(_unscale(grads, scale).item()), self.device)
                 self.loss_scale.update(finite)
-            norm = global_grad_norm(params)
+            norm = global_grad_norm(params, self._stage())
             if finite and self._clip_max_norm is not None:
                 _clip_grads(params, self._clip_max_norm, norm)
             self._fused_update = True
@@ -981,6 +1067,21 @@ class Accelerator:
             return metrics
 
         return timed
+
+    def _warn_pipeline_fallback(self, reason: str):
+        """One notice that a 1F1B-scheduled model trains a batch through the
+        GPipe fallback (the reference's ``_warn_pipeline_fallback``): the
+        gradients are the same, but its activations for ALL microbatches
+        are kept (O(M) where the schedule keeps O(S))."""
+        if getattr(self, "_pipeline_fallback_warned", False):
+            return
+        self._pipeline_fallback_warned = True
+        logger.warning(
+            "model exposes pipeline_value_and_grad (1f1b schedule) but this training step "
+            "runs through the autograd/GPipe fallback: %s. The fallback computes the same "
+            "gradients but keeps activations for ALL microbatches (O(M) memory instead of "
+            "the schedule's O(S)): a model sized for 1F1B can run out of memory here. Feed "
+            "plain (input_ids, labels) batches to use the configured schedule.", reason)
 
     # -- one-process collectives (the reference's accelerator.py:2049-2097)
 

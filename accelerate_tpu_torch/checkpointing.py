@@ -97,11 +97,14 @@ def _state(model) -> dict:
     state dict (``get_model_state_dict``, DTensors), which the entries
     gather one tensor at a time as they are written, so a rank never holds
     more than one whole tensor on the device."""
+    from .parallel.pipeline import every_stage
+
     if not _sharded(model):
-        return dict(model.state_dict())
+        return every_stage(model, dict(model.state_dict()))
     from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
 
-    return dict(get_model_state_dict(model, options=StateDictOptions(full_state_dict=False)))
+    return every_stage(model, dict(get_model_state_dict(
+        model, options=StateDictOptions(full_state_dict=False))))
 
 
 def _load_weights(model, weights: dict):
@@ -116,6 +119,8 @@ def _load_weights(model, weights: dict):
         return
     from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
 
+    if hasattr(model, "own_weights"):
+        weights = model.own_weights(weights)
     state = {k: v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
              for k, v in weights.items()}
     if hasattr(model, "fp8_histories"):

@@ -25,8 +25,10 @@ indices (:class:`BatchSamplerShard` over a map-style dataset, with
 ``split_batches`` and ``even_batches``; :class:`IterableDatasetShard`
 over an iterable one; round robin over ready-made batches), or, with
 ``dispatch_batches``, rank 0 reads each global batch and every rank takes
-its slice (:class:`DataLoaderDispatcher`). The ranks of one ``sequence``
-group get the same rows and consecutive slices of dim 1 (the reference's
+its slice (:class:`DataLoaderDispatcher`). The ranks of one ``stage``
+group (pipeline stages) get the same rows, as every stage of a pipeline
+reads the same batch; the ranks of one ``sequence`` group get the same
+rows and consecutive slices of dim 1 (the reference's
 ``extra_sequence_axis``). Under ``even_batches`` the last global batch is
 squared up from the first samples, and ``remainder`` (the real samples
 in it) lets ``gather_for_metrics`` drop the repeats.

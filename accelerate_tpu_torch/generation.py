@@ -21,9 +21,10 @@ its jit caches of compiled prefill and decode programs (``_LOOP_CACHE``,
 ``_SIZED_DEF_CACHE``, ``clear_generation_caches``) exist so that a
 definition re-hits its compiled loops, and the port compiles nothing; a
 right-sized "definition" is here only the cache length handed to
-:meth:`DecoderLM.init_cache`. ``depipeline`` folds pipeline stages back
-into the layer scan, and the port has no pipelining yet (ROADMAP queue
-1).
+:meth:`DecoderLM.init_cache`. A pipelined model (``pipeline_stages`` > 1,
+or a mesh's ``stage`` axis) generates through :func:`depipeline`, which
+folds its stages back into one stack: a decode step is serial across
+stages, so the schedule buys nothing there.
 
 :func:`generate_seq2seq` is the encoder-decoder's (``models/seq2seq.py``):
 the source is encoded once, the prefill runs the start token through the
@@ -94,6 +95,29 @@ def _right_size_cache(config, prompt_len: int, max_new_tokens: int) -> int:
     return sized if sized >= need else int(config.max_seq_len)
 
 
+def depipeline(model):
+    """``model`` with its pipeline stages folded back into one stack (the
+    reference's ``depipeline``): a model of the same family whose config
+    has ``pipeline_stages`` 1 and no mesh, holding ``model``'s tensors on
+    one process. On a ``stage`` axis every rank gathers every block first
+    (a broadcast per tensor from the rank that holds it, a collective of
+    the stage group), as the reference folds ``stage`` into ``data``. A
+    model that is not pipelined is returned as it is. :func:`generate`,
+    :func:`generate_seq2seq` and the ``ServingEngine`` call it; a loop
+    that generates often calls it once and keeps the result."""
+    import dataclasses
+
+    if getattr(model, "num_stages", 1) <= 1:
+        return model
+    from .models.convert import whole
+    from .parallel.pipeline import every_stage
+
+    cfg = dataclasses.replace(model.config, pipeline_stages=1)
+    state = every_stage(model, dict(model.state_dict()))
+    state = {k: whole(v) if hasattr(v, "fetch_whole") else v for k, v in state.items()}
+    return model.rebuilt(cfg, mesh=None, state=state)
+
+
 def _decode_body(model, cache, tok: torch.Tensor, pos: torch.Tensor, greedy: bool):
     """One decode step of :func:`generate` on device buffers, what its CUDA
     graph captures: ``tok`` [B] through the model at position ``pos`` [B]
@@ -129,6 +153,7 @@ def generate(
     stops)."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    model = depipeline(model)
     dev = model.device
     input_ids = torch.as_tensor(input_ids, device=dev).long()
     b, s = input_ids.shape
@@ -213,6 +238,7 @@ def generate_seq2seq(
     before the clock stops)."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    model = depipeline(model)
     cfg = model.config
     dev = model.device
     input_ids = torch.as_tensor(input_ids, device=dev).long()

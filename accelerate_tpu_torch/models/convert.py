@@ -382,10 +382,42 @@ def model_class(config):
 def layout_config(model):
     """The config whose reference layout a model's weights take (a
     ``DecoderLM``, ``Seq2SeqLM``, ``EncoderClassifier`` or ``ResNet``),
-    else None: any other module keeps its own names."""
+    else None: any other module keeps its own names. A model pipelined
+    over the mesh's ``stage`` axis lays its stack out as the reference's
+    pipelined tree, as one with an explicit ``pipeline_stages``."""
     from .decoder import _Model
 
-    return model.config if isinstance(model, _Model) else None
+    if not isinstance(model, _Model):
+        return None
+    cfg = model.config
+    stages = model.num_stages
+    if stages > 1 and getattr(cfg, "pipeline_stages", 1) != stages:
+        cfg = dataclasses.replace(cfg, pipeline_stages=stages)
+    return cfg
+
+
+# the reference's pipelined stack: ``pipeline/schedule/stages/layers/...``
+# in place of ``layers/...`` (a seq2seq model's under ``decoder/``), its
+# leaves [S, L / S, ...] (its parallel/pipeline.remap_params_to_pipeline)
+PIPELINED = "pipeline/schedule/stages/layers/"
+
+
+def _stages(config) -> int:
+    return getattr(config, "pipeline_stages", 1) if isinstance(
+        config, (DecoderConfig, Seq2SeqConfig)) else 1
+
+
+def _unstaged(leaves: dict) -> dict:
+    """A flat reference tree with any pipelined stack folded back into the
+    layer stack: ``.../pipeline/schedule/stages/layers/x`` [S, L / S, ...]
+    -> ``.../layers/x`` [L, ...] (views)."""
+    out = {}
+    for k, v in leaves.items():
+        if PIPELINED in k:
+            k = k.replace(PIPELINED, "layers/")
+            v = v.reshape(v.shape[0] * v.shape[1], *v.shape[2:])
+        out[k] = v
+    return out
 
 
 def _stacked(config):
@@ -454,12 +486,18 @@ def reference_layout(config, weights: Mapping) -> dict:
             continue
         ref, i, _ = locate(name, config)
         groups.setdefault(ref, ([], i is not None))[0].append(name)
+    stages = _stages(config)
+    # the pipelined stack: the decoder's blocks, a seq2seq's decoder tower
+    piped = "decoder/layers/" if isinstance(config, Seq2SeqConfig) else "layers/"
     out = {}
-    for ref in sorted(groups, key=lambda k: k.split("/")):
-        names, stacked = groups[ref]
+    for ref, (names, stacked) in groups.items():
         shape = tuple(family.to_ref(weights[names[0]]).shape)
-        out[ref] = (names, (len(names),) + shape if stacked else shape)
-    return out
+        if stacked and stages > 1 and piped in ref:
+            ref = ref.replace(piped, piped[:-len("layers/")] + PIPELINED)
+            out[ref] = (names, (stages, len(names) // stages) + shape)
+        else:
+            out[ref] = (names, (len(names),) + shape if stacked else shape)
+    return {ref: out[ref] for ref in sorted(out, key=lambda k: k.split("/"))}
 
 
 def _layer(leaf, i: int):
@@ -482,7 +520,7 @@ def from_reference(params, config, dtype: Optional[torch.dtype] = None) -> dict:
     lacks is left out. With ``dtype``, numpy and tensor leaves become CPU
     tensors of it (``torch.float32`` for training's master weights)."""
     family = _family(config)
-    leaves = family.ref_leaves(reference_leaves(params))
+    leaves = _unstaged(family.ref_leaves(reference_leaves(params)))
     cfg = config
     if isinstance(config, DecoderConfig):
         stacked = any(k.startswith("layers/") for k in leaves)
@@ -526,7 +564,7 @@ def to_reference(weights: dict, config) -> dict:
         return np.asarray(x, dtype=np.float32)
 
     to_ref = _family(config).to_ref
-    layout = reference_layout(_stacked(config), weights)
+    layout = reference_layout(_stacked(config), weights)  # staged by pipeline_stages
     return unflatten_to_like({ref: np.stack([arr(to_ref(weights[n]))
                                              for n in names]).reshape(shape)
                               for ref, (names, shape) in layout.items()})
@@ -587,7 +625,9 @@ def _moment_layout(model):
     """(parameters by name, config or None): a port model maps through the
     reference's layout, any other module keeps its own names."""
     params = dict(model.named_parameters())
-    config = getattr(model, "config", None)
+    config = layout_config(model) if hasattr(model, "config") else None
+    if config is None:
+        config = getattr(model, "config", None)
     return params, (config if isinstance(config, CONFIGS) else None)
 
 
@@ -659,7 +699,9 @@ def optimizer_state_to_reference(optimizer, model, scheduler=None) -> list:
             if t is None:  # a zero of the parameter's shape that allocates nothing
                 t = torch.zeros((), dtype=torch.float32, device=p.device).expand(tuple(p.shape))
             out[n] = t
-        return out
+        from ..parallel.pipeline import every_stage
+
+        return every_stage(model, out)
 
     sched = _lambda_schedule(scheduler)
     if kind == "sgd":
@@ -691,7 +733,11 @@ def _is_dtensor(t) -> bool:
 
 def whole(t):
     """``t`` whole: a sharded tensor (a DTensor) gathered from every rank
-    of its mesh (a collective), any other tensor as it is."""
+    of its mesh (a collective), a block's tensor on a stage mesh
+    (``parallel/pipeline.StageTensor``) broadcast from the rank that holds
+    it, any other tensor as it is."""
+    if hasattr(t, "fetch_whole"):
+        return t.fetch_whole()
     return t.full_tensor() if _is_dtensor(t) else t
 
 

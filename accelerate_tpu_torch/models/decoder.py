@@ -273,13 +273,38 @@ class _Module(nn.Module):
         """``body(*args)``, checkpointed per the config's ``remat_policy``
         (``torch.utils.checkpoint``; "full" where the config has none) when
         ``config.remat`` is on and gradients are recorded: a block of a
-        training forward."""
+        training forward. The recompute reads the delayed fp8 view the
+        forward read (a pipelined forward arms one per microbatch)."""
         cfg = self.config
         if not (cfg.remat and torch.is_grad_enabled()):
             return body(*args)
         contexts = _remat_contexts(getattr(cfg, "remat_policy", "full"))
         kw = {} if contexts is None else {"context_fn": contexts}
+        view = self.fp8_forward
+        if view is not None:
+            inner = body
+
+            def body(*a):
+                _set_fp8_view(self, view)
+                return inner(*a)
         return checkpoint(body, *args, use_reentrant=False, **kw)
+
+
+def _set_fp8_view(module: nn.Module, view):
+    """Give ``module`` and its submodules the delayed fp8 view ``view``
+    (an ``ops/fp8.Fp8Forward``, or None)."""
+    for m in module.modules():
+        if isinstance(m, _Module):
+            m.fp8_forward = view
+
+
+class _Absent(nn.Module):
+    """The place of a block that another rank of the ``stage`` group holds
+    (a model on a stage mesh builds only its own stages' blocks): no
+    parameters, never called."""
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError("this block lives on another rank of the stage group")
 
 
 class DecoderAttention(_Module):
@@ -598,17 +623,33 @@ class _Model(_Module):
         """Train over ``mesh`` (a ``DeviceMesh``, ``parallel/mesh.py``; None:
         one process): the loss becomes the mean over the global batch
         (``ops/losses.mesh_mean``) and a decoder's causal attention, on a
-        ``sequence`` axis > 1, ring attention over the rank's chunk. The
-        ``tensor``, ``expert`` and ``stage`` axes are not run yet."""
+        ``sequence`` axis > 1, ring attention over the rank's chunk. On a
+        ``stage`` axis > 1 a pipelined family (:attr:`pipeline_stack`)
+        runs its stack over pipeline stages (``parallel/pipeline.py``) and
+        keeps only its own stages' blocks. The ``tensor`` and ``expert``
+        axes are not run yet."""
         from ..parallel.mesh import axis_size as size
         from ..utils.dataclasses import NEXT_PART
 
-        bad = {a: size(mesh, a) for a in ("tensor", "expert", "stage") if size(mesh, a) > 1}
+        bad = {a: size(mesh, a) for a in ("tensor", "expert") if size(mesh, a) > 1}
+        if size(mesh, "stage") > 1:
+            if self.pipeline_stack is None:
+                bad["stage"] = size(mesh, "stage")
+            elif size(mesh, "sequence") > 1:
+                raise NotImplementedError(
+                    f"a stage axis with a sequence axis: {NEXT_PART}")
         if bad:
             raise NotImplementedError(f"mesh axes {bad}: {NEXT_PART}")
         if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
             raise TypeError(f"mesh must be a torch DeviceMesh (parallel/mesh.py), got {mesh!r}")
         self.mesh = mesh
+        self._plan = None
+        if self.pipeline_stack is not None:
+            stack = getattr(self, self.pipeline_stack)
+            held = self.held_layers()
+            for i in range(len(stack)):
+                if i not in held and not isinstance(stack[i], _Absent):
+                    stack[i] = _Absent()
         if self.sequence_ring:
             for m in self.modules():
                 if isinstance(m, _Module):
@@ -619,6 +660,86 @@ class _Model(_Module):
     # rings over its sequence chunks; the bidirectional families gather the
     # whole sequence and attend over it as on one process
     sequence_ring = False
+    # the ModuleList that runs over pipeline stages (DecoderLM's blocks,
+    # Seq2SeqLM's decoder tower), None for a family without pipelining
+    pipeline_stack: Optional[str] = None
+    _plan = None
+
+    def _stack_depth(self) -> int:
+        cfg = self.config
+        return cfg.num_decoder_layers if self.pipeline_stack == "decoder" else cfg.num_layers
+
+    @property
+    def num_stages(self) -> int:
+        """Pipeline stages of the stack: an explicit ``pipeline_stages`` > 1,
+        else the mesh's ``stage`` axis (``parallel/pipeline.
+        effective_stages``); 1 unpipelined."""
+        if self.pipeline_stack is None:
+            return 1
+        from ..parallel.pipeline import effective_stages
+
+        return effective_stages(getattr(self.config, "pipeline_stages", 1), self._stack_depth(),
+                                self.mesh)
+
+    def stage_plan(self):
+        """This process's ``parallel/pipeline.StagePlan``."""
+        from ..parallel.pipeline import StagePlan
+
+        if self._plan is None or self._plan.num_stages != self.num_stages:
+            self._plan = StagePlan(self.num_stages, self.mesh)
+        return self._plan
+
+    def held_layers(self) -> range:
+        """The stack's layers this process holds: all but on a stage axis,
+        where its stages' L / S each."""
+        n = self._stack_depth()
+        if self.num_stages <= 1:
+            return range(n)
+        plan = self.stage_plan()
+        per = n // plan.num_stages
+        return range(plan.stages[0] * per, (plan.stages[-1] + 1) * per)
+
+    def stage_blocks(self, stage: int) -> list:
+        """``[(global layer index, block)]`` of pipeline stage ``stage``."""
+        stack = getattr(self, self.pipeline_stack)
+        per = len(stack) // self.num_stages
+        return [(i, stack[i]) for i in range(stage * per, (stage + 1) * per)]
+
+    def stage_param_ids(self) -> set:
+        """ids of the parameters of the pipelined stack's held blocks (empty
+        unpipelined): what the Accelerator reduces within a stage only."""
+        if self.num_stages <= 1:
+            return set()
+        stack = getattr(self, self.pipeline_stack)
+        return {id(p) for i in self.held_layers() for p in stack[i].parameters()}
+
+    def rebuilt(self, config, mesh=None, state: Optional[dict] = None):
+        """A model of this family over ``config`` (and ``mesh``), on this
+        model's device, holding this model's tensors (``state``: the
+        weights by name, this model's own when None), not copies: built on
+        the meta device, then given the tensors (``load_state_dict(...,
+        assign=True)``; a block the new model does not hold is left out).
+        Frozen unless this model trains, with its mixed-precision cast."""
+        trains = any(p.requires_grad for p in self.parameters())
+        new = type(self)(config, device="meta",
+                         param_dtype=next(self.parameters()).dtype if trains else None,
+                         mesh=mesh)
+        state = dict(self.state_dict()) if state is None else state
+        new.load_state_dict(new.own_weights(state), strict=True, assign=True)
+        new.device = self.device
+        new.set_param_cast(self.param_cast)
+        new.train(self.training)
+        return new
+
+    def own_weights(self, weights: dict) -> dict:
+        """``weights`` without the blocks another rank of the stage group
+        holds."""
+        if self.pipeline_stack is None or self.num_stages <= 1:
+            return weights
+        prefix = self.pipeline_stack + "."
+        held = {str(i) for i in self.held_layers()}
+        return {k: v for k, v in weights.items()
+                if not k.startswith(prefix) or k.split(".", 2)[1] in held}
 
     def set_param_cast(self, dtype: Optional[torch.dtype]):
         """Round every floating parameter to ``dtype`` at use (None: off).
@@ -639,7 +760,7 @@ class _Model(_Module):
         fp8 amax history the dict lacks keeps its value (state, not a
         weight: the reference's parameter tree has none)."""
         state = {k: v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
-                 for k, v in params.items()}
+                 for k, v in self.own_weights(params).items()}
         for name, hist in self.fp8_histories().items():
             state.setdefault(name, hist)
         self.load_state_dict(state, strict=True)
@@ -727,6 +848,7 @@ class DecoderLM(_Model):
     :meth:`set_mesh`."""
 
     sequence_ring = True
+    pipeline_stack = "layers"
 
     def __init__(self, config: DecoderConfig, device=None,
                  param_dtype: Optional[torch.dtype] = None, mesh=None):
@@ -736,8 +858,11 @@ class DecoderLM(_Model):
         dt = param_dtype or config.dtype
         norm_dt = param_dtype or torch.float32
         self.embedding = self._param((config.vocab_size, config.embed_dim), self.device, dt)
+        self.mesh = mesh
+        held = self.held_layers()
         self.layers = nn.ModuleList(
-            DecoderBlock(config, self.device, dt, norm_dt) for _ in range(config.num_layers)
+            DecoderBlock(config, self.device, dt, norm_dt) if i in held else _Absent()
+            for i in range(config.num_layers)
         )
         self.ln_final = nn.Parameter(
             torch.ones(config.embed_dim, device=self.device, dtype=norm_dt))
@@ -777,9 +902,20 @@ class DecoderLM(_Model):
 
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 *, labels: Optional[torch.Tensor] = None, cache=None, cache_positions=None,
-                page_table=None, ragged_slots=None, slot_hist=None, decode: bool = False):
+                page_table=None, ragged_slots=None, slot_hist=None, decode: bool = False,
+                _piece=None):
+        if _piece is not None:
+            # one piece of the 1F1B schedule, run inside the root call
+            # (parallel/pipeline.py): FSDP's hooks see a forward and its
+            # backward as they do in gradient accumulation
+            return _piece()
         cfg = self.config
         b, s = input_ids.shape
+        if cache is not None and self.num_stages > 1:
+            raise NotImplementedError(
+                "KV-cache decode through the pipeline stages is not supported (a decode "
+                "step is serial across stages by construction); use generation.generate "
+                "or generation.depipeline(), which fold the stages back into one stack")
         if labels is not None and cache is not None:
             raise ValueError("labels (training loss) take the cache-free forward")
         if (cache_positions is not None or decode) and cache is None:
@@ -797,8 +933,7 @@ class DecoderLM(_Model):
         self._stage()
         self._arm_casts(cache_free=cache is None)
         self._arm_fp8(cache_free=cache is None)
-        emb = _resolve(self.embedding)
-        x = self._gather(emb, input_ids, cfg.dtype)
+        x = self._gather(self.embedding, input_ids, cfg.dtype)
         if positions is None:
             # on a sequence axis this rank holds chunk i of n: its positions
             # are global
@@ -809,6 +944,8 @@ class DecoderLM(_Model):
         drop = None
         if cfg.dropout_rate > 0.0 and self.training and cache is None:
             drop = next_key("dropout")
+        if self.num_stages > 1:
+            return self._pipelined(x, sin, cos, drop, labels)
         moe_aux = 0.0  # router load balance, summed over layers
         for i, block in enumerate(self.layers):
             x, block_aux = block(
@@ -819,8 +956,7 @@ class DecoderLM(_Model):
             )
             moe_aux = moe_aux + block_aux
         x = rms_norm(x, self._use(self.ln_final), cfg.norm_eps)
-        head = (self._use(emb, cfg.dtype).t() if cfg.tie_embeddings
-                else self._use(self.lm_head, cfg.dtype))
+        head = self._head()
         if labels is not None:
             loss = self._head_ce_loss(x, head, labels)
             if cfg.moe_num_experts > 1:
@@ -851,3 +987,284 @@ class DecoderLM(_Model):
         total, count = fused_linear_cross_entropy_parts(
             hidden, head, targets, ignore_index=-100, num_chunks=cfg.fused_ce_chunks)
         return mesh_mean(total, count, self.mesh)
+
+    # -- pipeline parallelism (parallel/pipeline.py) -----------------------
+
+    def _head(self):
+        """The LM head [E, V] as the forward reads it (the tied embedding's
+        transpose, or ``lm_head``)."""
+        cfg = self.config
+        return (self._use(self.embedding, cfg.dtype).t() if cfg.tie_embeddings
+                else self._use(self.lm_head, cfg.dtype))
+
+    def _stage_fn(self, sin, cos, drop):
+        """``(s, m, x) -> (y, aux)``: stage s's blocks on microbatch m,
+        dropout keyed by (layer, microbatch) and, under the delayed fp8
+        recipe, a view of the histories of its own (the reference carries
+        them through the belt: each microbatch reads what the ones before
+        it recorded)."""
+        n = self.config.num_layers
+        view = self.fp8_forward
+
+        def run(s, m, x):
+            blocks = self.stage_blocks(s)
+            if view is not None:
+                for _, block in blocks:
+                    _set_fp8_view(block, fp8.Fp8Forward(view.record))
+            aux = 0.0
+            for i, block in blocks:
+                x, a = block(x, sin, cos, drop=None if drop is None else (*drop, i + n * m))
+                aux = aux + a
+            return x, aux
+
+        return run
+
+    def _pipelined(self, x, sin, cos, drop, labels):
+        """The GPipe forward over the stages (``parallel/pipeline.gpipe``):
+        logits (every rank of the stage group gets the last stage's), or
+        the training outputs, the loss the same on every rank."""
+        from ..parallel.pipeline import (Handoff, adapt_microbatches, gpipe,
+                                         merge_microbatches, split_microbatches)
+
+        cfg = self.config
+        _refuse_delayed_1f1b(cfg)
+        b, s = x.shape[0], x.shape[1]
+        plan = self.stage_plan()
+        S = plan.num_stages
+        M = adapt_microbatches(b, cfg.pipeline_microbatches or S, S)
+        handoff = Handoff(plan, (b // M, s, cfg.embed_dim), cfg.dtype, x.device)
+        inputs = list(split_microbatches(x, M).unbind(0)) if plan.first else None
+        outs, aux, tail = gpipe(self._stage_fn(sin, cos, drop), inputs, M, plan, handoff)
+        y = rms_norm(merge_microbatches(outs), self._use(self.ln_final), cfg.norm_eps) \
+            if plan.last else None
+        if labels is None:
+            logits = (y @ self._head()).float() if plan.last else None
+            return _from_last_stage(logits, (b, s, cfg.vocab_size), plan, x.device)
+        if plan.last:
+            hidden = y[:, :-1].reshape(b * (s - 1), cfg.embed_dim)
+            targets = labels[:, 1:].reshape(b * (s - 1))
+            total, count = fused_linear_cross_entropy_parts(
+                hidden, self._head(), targets, ignore_index=-100, num_chunks=cfg.fused_ce_chunks)
+        else:
+            total = count = torch.zeros((), device=x.device)
+        loss = pipeline_mean(total, count, self.mesh)
+        if cfg.moe_num_experts > 1:
+            # sum over (stage, microbatch) of per-microbatch means: M times
+            # the whole batch's, so / M
+            moe = cfg.moe_aux_loss_weight * _stage_sum(aux, plan, x.device) / (cfg.num_layers * M)
+            return {"loss": tail(loss + moe), "lm_loss": loss.detach(), "aux_loss": moe.detach()}
+        return {"loss": tail(loss)}
+
+    def pipeline_value_and_grad(self):
+        """The 1F1B schedule's value-and-grad (``config.pipeline_schedule ==
+        "1f1b"`` on more than one stage; None otherwise, where autograd
+        through the GPipe forward trains):
+        ``vag(input_ids, labels, scale=None) -> outputs``. It accumulates
+        the gradient of ``scale`` x the loss (1 when None: fp16 passes its
+        loss scale, so the whole backward runs in the scaled domain) into
+        the parameters' ``.grad`` and returns the outputs the training
+        forward would (``{"loss"}``, an MoE model's ``{"loss", "lm_loss",
+        "aux_loss"}``), detached, the same on every rank. Each microbatch's
+        CE is weighted by its valid tokens' share of the GLOBAL count, so
+        the summed loss is the forward's mean even with uneven -100
+        padding. Dropout draws the forward's masks: one key per update, a
+        mask per (layer, microbatch), the same in the rematerialized
+        forward."""
+        if self.config.pipeline_schedule != "1f1b" or self.num_stages <= 1:
+            return None
+        _refuse_delayed_1f1b(self.config)
+        return self._one_f_one_b
+
+    def _one_f_one_b(self, input_ids, labels, scale=None):
+        from ..parallel.pipeline import adapt_microbatches, split_microbatches
+
+        cfg = self.config
+        b, s = input_ids.shape
+        S = self.num_stages
+        M = adapt_microbatches(b, cfg.pipeline_microbatches or S, S)
+        self.release_casts()  # each piece casts at use (run_one_f_one_b)
+        self._arm_fp8()
+        drop = None
+        if cfg.dropout_rate > 0.0 and self.training:
+            drop = next_key("dropout")
+        sin, cos = rotary_embedding_tables(torch.arange(s, device=input_ids.device),
+                                           cfg.head_dim, theta=cfg.rope_theta, dtype=cfg.dtype)
+        labels_mb = split_microbatches(labels, M)
+
+        def head_total(m, y):
+            h = rms_norm(y, self._use(self.ln_final), cfg.norm_eps)
+            total, _ = fused_linear_cross_entropy_parts(
+                h[:, :-1].reshape(-1, cfg.embed_dim), self._head(),
+                labels_mb[m][:, 1:].reshape(-1), ignore_index=-100,
+                num_chunks=cfg.fused_ce_chunks)
+            return total
+
+        return run_one_f_one_b(
+            self, M, (b // M, s, cfg.embed_dim), lambda: split_microbatches(
+                self._gather(self.embedding, input_ids, cfg.dtype), M),
+            self._stage_fn(sin, cos, drop), head_total,
+            # position i predicts token i + 1: column 0 never counts
+            (labels_mb[:, :, 1:] != -100).sum(), scale)
+
+
+def run_one_f_one_b(model, M: int, shape: tuple, embed, run, head_total, count,
+                    scale) -> dict:
+    """The 1F1B value-and-grad of a pipelined model (``DecoderLM`` or
+    ``Seq2SeqLM``'s decoder tower; ``parallel/pipeline.one_f_one_b``).
+    ``embed()`` gives stage 0's input [M, *shape] with its graph (the
+    embedding, and a seq2seq's encoder), ``run(s, m, x) -> (y, aux)`` stage
+    s, ``head_total(m, y)`` the summed CE of microbatch m; ``count`` is
+    this rank's valid targets. Each piece runs inside the model's own call
+    (``forward(..., _piece=...)``), so FSDP's hooks see forwards and
+    backwards as in gradient accumulation. No step-long copy of the weights
+    in the compute dtype is kept (``_arm_casts``): a piece casts what it
+    reads at use, so it holds its own stage's copy only while it runs, and
+    every piece's gradients add into the fp32 ``.grad`` (the reference's
+    schedule sums its stage gradients in fp32 too). Returns the outputs,
+    detached, the same on every rank."""
+    from ..parallel.pipeline import Handoff, one_f_one_b
+
+    cfg = model.config
+    plan = model.stage_plan()
+    dev = next(model.parameters()).device
+    seed = 1.0 if scale is None else float(scale)
+    count, data = _global_count(count, model.mesh)
+    moe = getattr(cfg, "moe_num_experts", 0) > 1
+    aux_w = cfg.moe_aux_loss_weight / (cfg.num_layers * M) if moe else 0.0
+    state = {"loss": torch.zeros((), device=dev), "aux": torch.zeros((), device=dev)}
+
+    def forward(st, m, x):
+        def piece():
+            with torch.no_grad():
+                y, a = run(st, m, x)
+            if moe:
+                state["aux"] += a
+            return y
+        return model(None, _piece=piece)
+
+    def backward(st, m, x, cot):
+        def piece():
+            xg = x.detach().requires_grad_()
+            with torch.enable_grad():
+                y, a = run(st, m, xg)
+                outs, grads = [y], [cot]
+                if moe:
+                    outs.append(a)
+                    grads.append(torch.full_like(a, aux_w * seed))
+                torch.autograd.backward(outs, grads)
+            return xg.grad
+        return model(None, _piece=piece)
+
+    def head(m, y):
+        def piece():
+            yg = y.detach().requires_grad_()
+            with torch.enable_grad():
+                total = head_total(m, yg)
+                (total * (data * seed) / count).backward()
+            state["loss"] += total.detach() / count
+            return yg.grad
+        return model(None, _piece=piece)
+
+    belt, inputs = None, None
+    try:
+        if plan.first:
+            belt = model(None, _piece=embed)
+            inputs = [t.detach() for t in belt.unbind(0)]
+        handoff = Handoff(plan, shape, cfg.dtype, dev)
+        dx, stats = one_f_one_b(forward, backward, head, inputs, M, plan, handoff)
+        if plan.first:
+            torch.autograd.backward(belt, torch.stack(dx))
+    finally:
+        model.release_casts()
+    model.last_schedule = stats
+    loss = _world_sum(state["loss"], model.mesh)
+    if moe:
+        aux = cfg.moe_aux_loss_weight * _stage_sum(state["aux"], plan, dev) / (cfg.num_layers * M)
+        return {"loss": loss + aux, "lm_loss": loss, "aux_loss": aux}
+    return {"loss": loss}
+
+
+def _refuse_delayed_1f1b(cfg):
+    """The reference's refusal of delayed fp8 under the 1f1b schedule,
+    where the stages come from the mesh (the config refuses an explicit
+    ``pipeline_stages``)."""
+    if fp8.delayed(cfg) and cfg.pipeline_schedule == "1f1b":
+        from .configs import DELAYED_1F1B
+
+        raise NotImplementedError(DELAYED_1F1B)
+
+
+def _global_count(count: torch.Tensor, mesh) -> tuple:
+    """(the valid-token count over the global batch, fp32; the data
+    group's size D): on a mesh, ``count`` summed over the ranks of this
+    rank's stage (each stage's ranks together hold every row once). The
+    loss a rank backwards is scaled by D, so the mean of the D ranks'
+    gradients within a stage is the global one."""
+    count = count.float()
+    if mesh is None or mesh.size() == 1:
+        return count.clamp(min=1.0), 1
+    import torch.distributed as dist
+
+    from ..parallel.sharding import data_group
+
+    group, d = data_group(mesh)
+    count = count.clone()
+    dist.all_reduce(count, group=group)
+    return count.clamp(min=1.0), d
+
+
+def _world_sum(value: torch.Tensor, mesh) -> torch.Tensor:
+    """``value`` summed over every rank (a quantity only the last stage's
+    ranks hold: the others give 0)."""
+    if mesh is None or mesh.size() == 1:
+        return value
+    import torch.distributed as dist
+
+    value = value.detach().clone()
+    dist.all_reduce(value)
+    return value
+
+
+def _stage_sum(aux, plan, device):
+    """``aux`` (this rank's stages' part, with its graph) plus the other
+    stage-group ranks' parts (values only): the whole stack's."""
+    aux = aux if isinstance(aux, torch.Tensor) else torch.zeros((), device=device)
+    if plan.group is None:
+        return aux
+    import torch.distributed as dist
+
+    total = aux.detach().float().clone()
+    dist.all_reduce(total, group=plan.group)
+    return aux + (total - aux).detach()
+
+
+def pipeline_mean(total: torch.Tensor, count: torch.Tensor, mesh) -> torch.Tensor:
+    """``ops/losses.mesh_mean`` on a mesh that may have a ``stage`` axis:
+    the value is the global mean (only the last stage's ranks give a total
+    and a count, the others zeros), and the gradient this rank's total x D
+    / that count, D the ranks of its stage, over which the blocks'
+    gradients are averaged."""
+    from ..parallel.mesh import axis_size as size
+
+    if mesh is None or mesh.size() == 1:
+        return total / count.clamp(min=1.0)
+    import torch.distributed as dist
+
+    both = torch.stack([total.detach().float(), count.detach().float()])
+    dist.all_reduce(both)
+    denom = both[1].clamp(min=1.0)
+    local = total * (mesh.size() // size(mesh, "stage")) / denom
+    return local + (both[0] / denom - local).detach()
+
+
+def _from_last_stage(value, shape, plan, device):
+    """The last stage's ``value`` on every rank of the stage group (a
+    broadcast from its owner); ``value`` itself on one process."""
+    if plan.group is None:
+        return value
+    import torch.distributed as dist
+
+    if value is None:
+        value = torch.empty(shape, dtype=torch.float32, device=device)
+    dist.broadcast(value, group=plan.group, group_src=plan.owner(plan.num_stages - 1))
+    return value

@@ -64,8 +64,15 @@ from ..ops.losses import fused_linear_cross_entropy_parts, mesh_mean
 from ..parallel.context import gather_sequence
 from ..parallel.mesh import axis_size
 from ..utils.random import next_key
+from .configs import DELAYED_1F1B
 from .decoder import (
     DecoderAttention,
+    _Absent,
+    _from_last_stage,
+    _refuse_delayed_1f1b,
+    _set_fp8_view,
+    pipeline_mean,
+    run_one_f_one_b,
     DecoderMLP,
     _Model,
     _Module,
@@ -138,10 +145,13 @@ class Seq2SeqConfig:
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"num_heads ({self.num_heads}) must be a multiple of "
                              f"num_kv_heads ({self.num_kv_heads})")
-        if self.pipeline_stages > 1:
-            raise NotImplementedError(
-                "pipeline_stages > 1: pipelining the decoder tower is multi-device, a "
-                "later slice of the port (ROADMAP queue 1, item 10 part 2)")
+        if self.pipeline_stages > 1 and self.num_decoder_layers % self.pipeline_stages != 0:
+            raise ValueError(
+                f"num_decoder_layers={self.num_decoder_layers} is not divisible by "
+                f"pipeline_stages={self.pipeline_stages}")
+        if self.fp8_recipe == "delayed" and self.pipeline_stages > 1 \
+                and self.pipeline_schedule == "1f1b":
+            raise NotImplementedError(DELAYED_1F1B)
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {self.dropout_rate}")
         if self.dtype not in (torch.float32, torch.bfloat16, torch.float16):
@@ -330,6 +340,8 @@ class Seq2SeqLM(_Model):
     Parameters are created uninitialized: load them with
     ``models/convert.py``."""
 
+    pipeline_stack = "decoder"
+
     def __init__(self, config: Seq2SeqConfig, device=None,
                  param_dtype: Optional[torch.dtype] = None, mesh=None):
         super().__init__()
@@ -346,8 +358,11 @@ class Seq2SeqLM(_Model):
         self.ln_dec = nn.Parameter(torch.ones(e, device=self.device, dtype=norm_dt))
         self.encoder = nn.ModuleList(EncoderBlock(config, self.device, dt, norm_dt)
                                      for _ in range(config.num_layers))
-        self.decoder = nn.ModuleList(DecoderBlock(config, self.device, dt, norm_dt)
-                                     for _ in range(config.num_decoder_layers))
+        self.mesh = mesh
+        held = self.held_layers()
+        self.decoder = nn.ModuleList(
+            DecoderBlock(config, self.device, dt, norm_dt) if i in held else _Absent()
+            for i in range(config.num_decoder_layers))
         if param_dtype is None:
             self.requires_grad_(False)
         self.set_mesh(mesh)
@@ -427,6 +442,16 @@ class Seq2SeqLM(_Model):
             raise ValueError("cache_positions needs a cache")
         if cache_positions is None and encoder_states is None:
             raise ValueError("decode needs the encoder states (a prefill or an uncached call)")
+        if self.num_stages > 1:
+            if cache is not None:
+                raise NotImplementedError(
+                    "KV-cache decode through the pipeline stages is not supported (a decode "
+                    "step is serial across stages by construction); fold the stages back "
+                    "with generation.depipeline() and generate from that model")
+            self._arm_casts(cache_free=True)
+            self._arm_fp8(cache_free=False)
+            return self._pipelined(decoder_input_ids, lambda: encoder_states, attention_mask,
+                                   None, None)["logits"]
         self._stage()
         self._arm_casts(cache_free=cache is None)
         self._arm_fp8(cache_free=False)
@@ -436,7 +461,9 @@ class Seq2SeqLM(_Model):
 
     def forward(self, input_ids: torch.Tensor, decoder_input_ids: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None,
-                attention_mask: Optional[torch.Tensor] = None):
+                attention_mask: Optional[torch.Tensor] = None, _piece=None):
+        if _piece is not None:  # a piece of the 1F1B schedule (DecoderLM.forward's)
+            return _piece()
         cfg = self.config
         if axis_size(self.mesh, "sequence") > 1:
             input_ids, decoder_input_ids, labels, attention_mask = (
@@ -452,6 +479,10 @@ class Seq2SeqLM(_Model):
         drop = None
         if cfg.dropout_rate > 0.0 and self.training:
             drop = next_key("dropout")
+        if self.num_stages > 1:
+            return self._pipelined(decoder_input_ids,
+                                   lambda: self._encode(input_ids, attention_mask, drop),
+                                   attention_mask, labels, drop)
         enc = self._encode(input_ids, attention_mask, drop)
         x = self._decoder_hidden(decoder_input_ids, enc, attention_mask, drop=drop)
         if labels is None:
@@ -462,9 +493,135 @@ class Seq2SeqLM(_Model):
             ignore_index=-100, num_chunks=cfg.fused_ce_chunks)
         return {"loss": mesh_mean(total, count, self.mesh)}
 
+    # -- pipeline parallelism over the decoder tower (parallel/pipeline.py)
+
+    def _stage_fn(self, s_dec: int, sin, cos, drop, masks):
+        """``(s, m, belt) -> (belt, 0.0)``: stage s's decoder blocks on
+        microbatch m's belt [mb, S + T, E], the decoder states in front and
+        the encoder output behind. The encoder output passes through, so it
+        travels the belt beside the states and its cotangent sums every
+        stage's cross-attention. Dropout is keyed by (layer, microbatch),
+        the delayed fp8 histories viewed per microbatch (as
+        ``DecoderLM._stage_fn``); ``masks`` are the per-microbatch source
+        masks (None: no mask)."""
+        cfg = self.config
+        n_enc, n_all = cfg.num_layers, cfg.num_layers + cfg.num_decoder_layers
+        view = self.fp8_forward
+
+        def run(st, m, buf):
+            blocks = self.stage_blocks(st)
+            if view is not None:
+                for _, block in blocks:
+                    _set_fp8_view(block, fp8.Fp8Forward(view.record))
+            x, mem = buf[:, :s_dec], buf[:, s_dec:]
+            mask = None if masks is None else masks[m]
+            for i, block in blocks:
+                x = block(x, mem, sin, cos, mask,
+                          drop=None if drop is None else (*drop, n_enc + i + n_all * m))
+            return torch.cat([x, mem], dim=1), 0.0
+
+        return run
+
+    def _belt(self, dec_ids, encode, M: int):
+        """Stage 0's input: [M, mb, S + T, E], the decoder embeddings beside
+        the encoder output, strided microbatches."""
+        from ..parallel.pipeline import split_microbatches
+
+        x = self._gather(self.embedding, dec_ids, self.config.dtype)
+        return split_microbatches(torch.cat([x, encode()], dim=1), M)
+
+    def _pipelined(self, dec_ids, encode, attention_mask, labels, drop):
+        """The decoder tower under GPipe (``parallel/pipeline.gpipe``):
+        ``{"logits"}`` on every rank of the stage group, or ``{"loss"}``
+        the same on every rank. ``encode()`` gives the encoder states
+        where stage 0 runs."""
+        from ..parallel.pipeline import (Handoff, adapt_microbatches, gpipe,
+                                         merge_microbatches, split_microbatches)
+
+        cfg = self.config
+        _refuse_delayed_1f1b(cfg)
+        plan = self.stage_plan()
+        S = plan.num_stages
+        b, s_dec = dec_ids.shape
+        M = adapt_microbatches(b, cfg.pipeline_microbatches or S, S)
+        masks = None if attention_mask is None else \
+            list(split_microbatches(attention_mask, M).unbind(0))
+        inputs = list(self._belt(dec_ids, encode, M).unbind(0)) if plan.first else None
+        t_enc = inputs[0].shape[1] - s_dec if plan.first else None
+        t_enc = _from_first_stage(t_enc, plan)
+        sin, cos = self._tables(torch.arange(s_dec, device=dec_ids.device))
+        handoff = Handoff(plan, (b // M, s_dec + t_enc, cfg.embed_dim), cfg.dtype, dec_ids.device)
+        outs, _, tail = gpipe(self._stage_fn(s_dec, sin, cos, drop, masks), inputs, M, plan,
+                              handoff)
+        x = None
+        if plan.last:
+            x = rms_norm(merge_microbatches(outs)[:, :s_dec], self._use(self.ln_dec), cfg.norm_eps)
+        if labels is None:
+            logits = (x @ self._head()).float() if plan.last else None
+            return {"logits": _from_last_stage(logits, (b, s_dec, cfg.vocab_size), plan,
+                                               dec_ids.device)}
+        if plan.last:
+            total, count = fused_linear_cross_entropy_parts(
+                x.reshape(b * s_dec, cfg.embed_dim), self._head(), labels.reshape(b * s_dec),
+                ignore_index=-100, num_chunks=cfg.fused_ce_chunks)
+        else:
+            total = count = torch.zeros((), device=dec_ids.device)
+        return {"loss": tail(pipeline_mean(total, count, self.mesh))}
+
     def pipeline_value_and_grad(self):
-        """The reference's 1F1B value-and-grad runs the decoder tower over pipeline
-        stages: multi-device, a later slice of the port."""
-        raise NotImplementedError(
-            "pipeline_value_and_grad: the 1F1B schedule is multi-device, a later slice "
-            "of the port (ROADMAP queue 1, item 10 part 2)")
+        """The 1F1B value-and-grad of the decoder tower (``config.
+        pipeline_schedule == "1f1b"`` over more than one stage; None
+        otherwise): ``vag(input_ids, labels, scale=None,
+        attention_mask=None) -> {"loss"}``, as ``DecoderLM``'s. The encoder
+        runs once under autograd where stage 0 runs (its output is one
+        [B, T, E] tensor, O(1) in microbatches); the memory part of the
+        belt's input cotangent feeds its backward. Labels align 1:1 with
+        the decoder positions (no shift)."""
+        if self.config.pipeline_schedule != "1f1b" or self.num_stages <= 1:
+            return None
+        _refuse_delayed_1f1b(self.config)
+        return self._one_f_one_b
+
+    def _one_f_one_b(self, input_ids, labels, scale=None, attention_mask=None):
+        from ..parallel.pipeline import adapt_microbatches, split_microbatches
+
+        cfg = self.config
+        b, s_dec = labels.shape
+        t_enc = input_ids.shape[1]
+        S = self.num_stages
+        M = adapt_microbatches(b, cfg.pipeline_microbatches or S, S)
+        dec_ids = shift_right(labels, cfg.decoder_start_token_id)
+        self.release_casts()  # each piece casts at use (run_one_f_one_b)
+        self._arm_fp8()
+        drop = None
+        if cfg.dropout_rate > 0.0 and self.training:
+            drop = next_key("dropout")
+        sin, cos = self._tables(torch.arange(s_dec, device=labels.device))
+        labels_mb = split_microbatches(labels, M)
+        masks = None if attention_mask is None else \
+            list(split_microbatches(attention_mask, M).unbind(0))
+
+        def head_total(m, y):
+            h = rms_norm(y[:, :s_dec], self._use(self.ln_dec), cfg.norm_eps)
+            total, _ = fused_linear_cross_entropy_parts(
+                h.reshape(-1, cfg.embed_dim), self._head(), labels_mb[m].reshape(-1),
+                ignore_index=-100, num_chunks=cfg.fused_ce_chunks)
+            return total
+
+        return run_one_f_one_b(
+            self, M, (b // M, s_dec + t_enc, cfg.embed_dim),
+            lambda: self._belt(dec_ids, lambda: self._encode(input_ids, attention_mask, drop), M),
+            self._stage_fn(s_dec, sin, cos, drop, masks), head_total,
+            (labels_mb != -100).sum(), scale)
+
+
+def _from_first_stage(value, plan):
+    """An int only stage 0's owner knows, on every rank of the stage
+    group."""
+    if plan.group is None:
+        return value
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, group=plan.group, group_src=plan.owner(0))
+    return box[0]

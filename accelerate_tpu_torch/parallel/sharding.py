@@ -62,14 +62,45 @@ def shard_dim(shape, degree: int, min_size: int) -> Optional[int]:
 def fsdp_mesh(mesh):
     """The 2-D (replicate, shard) ``DeviceMesh`` of FSDP2 over the ranks of
     ``mesh``: ``shard`` the ``fsdp`` axis, ``replicate`` every other axis
-    flattened in the mesh's order."""
+    flattened in the mesh's order. On a ``stage`` axis > 1 it spans this
+    rank's stage only (each stage shards its own blocks): the slice of a
+    (stage, replicate, shard) mesh."""
     from torch.distributed.device_mesh import DeviceMesh
 
     names = list(mesh.mesh_dim_names)
     f = names.index("fsdp")
+    if axis_size(mesh, "stage") > 1:
+        st = names.index("stage")
+        order = [st] + [d for d in range(len(names)) if d not in (st, f)] + [f]
+        ranks = mesh.mesh.permute(order).reshape(int(mesh.mesh.shape[st]), -1,
+                                                 int(mesh.mesh.shape[f]))
+        full = DeviceMesh(mesh.device_type, ranks,
+                          mesh_dim_names=("stage", "replicate", "shard"))
+        return full["replicate", "shard"]
     order = [d for d in range(len(names)) if d != f] + [f]
     ranks = mesh.mesh.permute(order).reshape(-1, int(mesh.mesh.shape[f]))
     return DeviceMesh(mesh.device_type, ranks, mesh_dim_names=("replicate", "shard"))
+
+
+def data_group(mesh) -> tuple:
+    """(the process group of the ranks that share this rank's ``stage``
+    coordinate, its size D): the ranks among which a stage's gradients are
+    averaged, the whole world without a stage axis. Made once per mesh and
+    kept on it (every rank makes every stage's group, in order, as
+    ``new_group`` asks: a cache keyed by anything a rank sees alone could
+    make some ranks skip that collective)."""
+    import torch.distributed as dist
+
+    names = list(mesh.mesh_dim_names)
+    if axis_size(mesh, "stage") <= 1:
+        return dist.group.WORLD, mesh.size()
+    made = getattr(mesh, "_stage_data_group", None)
+    if made is None:
+        st = names.index("stage")
+        ranks = mesh.mesh.movedim(st, 0).reshape(int(mesh.mesh.shape[st]), -1)
+        mine, _ = dist.new_subgroups_by_enumeration([r.tolist() for r in ranks])
+        made = mesh._stage_data_group = (mine, int(ranks.shape[1]))
+    return made
 
 
 def _blocks(model: nn.Module) -> list:
@@ -84,7 +115,8 @@ def _blocks(model: nn.Module) -> list:
                 walk(child)
 
     walk(model)
-    return out
+    # a stage mesh's model keeps no parameters where another stage's blocks are
+    return [b for b in out if any(True for _ in b.parameters())]
 
 
 def apply_sharding(model: nn.Module, mesh, config: ShardingConfig) -> ShardingStrategy:
@@ -117,23 +149,59 @@ def is_sharded(p: torch.Tensor) -> bool:
     return isinstance(p, DTensor)
 
 
-def reduce_replicated(params: Iterable[torch.Tensor]):
-    """Average the gradients of the parameters of ``params`` every rank
-    holds whole (all of them under DP; under FSDP those left replicated)
-    over all ranks, in one all-reduce of their concatenation."""
+def _all_reduce_mean(grads: list, group, divisor: int):
+    """Sum ``grads`` over ``group`` in one all-reduce of their
+    concatenation, then divide by ``divisor``."""
     import torch.distributed as dist
 
-    grads = [p.grad for p in params if p.grad is not None and not is_sharded(p)]
-    if not grads or dist.get_world_size() == 1:
+    if not grads:
         return
     flat = torch.cat([g.reshape(-1).float() for g in grads])
-    dist.all_reduce(flat)
-    flat /= dist.get_world_size()
+    dist.all_reduce(flat, group=group)
+    if divisor != 1:
+        flat /= divisor
     offset = 0
     for g in grads:
         n = g.numel()
         g.copy_(flat[offset:offset + n].view_as(g))
         offset += n
+
+
+def reduce_replicated(params: Iterable[torch.Tensor], mesh=None, stage=None):
+    """Average the gradients of the parameters of ``params`` every rank
+    holds whole (all of them under DP; under FSDP those left replicated)
+    over all ranks, in one all-reduce of their concatenation.
+
+    On a ``stage`` axis (``stage``: ``(ids of this rank's pipeline-stage
+    parameters, the stage group)``) a stage's blocks are averaged over the
+    D ranks of their stage only (``data_group``); every other parameter
+    (the embedding, the final norm, the head, an encoder: replicated over
+    the stages, where only some stages add to its gradient) is summed over
+    the stage group, then averaged over the D ranks, in one all-reduce
+    over every rank (/ D); a sharded one, which FSDP averaged within its
+    stage, is summed over the stage group. A parameter with no gradient
+    here gives zeros."""
+    import torch.distributed as dist
+
+    if stage is None:
+        grads = [p.grad for p in params if p.grad is not None and not is_sharded(p)]
+        if dist.get_world_size() > 1:
+            _all_reduce_mean(grads, None, dist.get_world_size())
+        return
+    ids, stage_group = stage
+    group, d = data_group(mesh)
+    own, rest, sharded = [], [], []
+    for p in params:
+        if id(p) in ids:
+            if p.grad is not None and not is_sharded(p):
+                own.append(p.grad)
+            continue
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        (sharded if is_sharded(p) else rest).append(local_grad(p) if is_sharded(p) else p.grad)
+    _all_reduce_mean(own, group, d)
+    _all_reduce_mean(rest, None, d)
+    _all_reduce_mean(sharded, stage_group, 1)
 
 
 def local_grad(p: torch.Tensor) -> Optional[torch.Tensor]:

@@ -319,6 +319,11 @@ class ServingEngine:
                 f"ServingEngine options {names} are not the port's"
             )
         self.device = resolve_device(device)
+        from ..generation import depipeline
+
+        # a pipelined model serves with its stages folded back into one
+        # stack (a decode step is serial across stages)
+        model = depipeline(model)
         if model.device != self.device:
             raise ValueError(
                 f"the model lives on {model.device}, the engine on {self.device}"

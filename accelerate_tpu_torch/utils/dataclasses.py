@@ -205,7 +205,7 @@ class ShardingConfig:
         """The fields set here that the port does not run yet (an empty
         list when it runs them all)."""
         out = [f"{name}={getattr(self, name)}"
-               for name in ("tensor_parallel", "expert_parallel", "pipeline_parallel")
+               for name in ("tensor_parallel", "expert_parallel")
                if getattr(self, name) != 1]
         if self.replica != 1 and self.strategy != ShardingStrategy.HYBRID:
             out.append(f"replica={self.replica} with strategy {self.strategy}")

@@ -140,6 +140,17 @@ the patch, so their graphs replay the zeroed wrapper:
   WORLD_SIZE / MASTER_ADDR / MASTER_PORT, 3 small_1b updates against the
   unsharded step, a save / load round trip bit for bit; their launches
   on lines of their own;
+- pipeline parallelism (``pipeline_path``), one process with the local
+  handoff: small_1b at B 8 x 2048 over 4 stages in 8 microbatches, 2 SGD
+  updates each of GPipe and 1F1B through ``build_train_step`` against
+  the unpipelined step from the same weights and batches (losses, grad
+  norms, every parameter's update, #1-#3 launches worked out from the
+  schedule, 1F1B's peak memory below GPipe's, a control that drops one
+  microbatch's handoff failing the gates); ``prepare_pippy`` on the
+  serving weights over 4 stages (a batch of 6 x 512 padded to 8, logits
+  against the unpipelined forward); ``generate()`` through
+  ``depipeline``, 32 greedy tokens equal to the unpipelined model's;
+  its launches on a line of its own;
 - training: ``Accelerator(mixed_precision="bf16")`` over fp32 master
   weights, a few steps of the eager loop and of ``build_train_step``,
   launch counts of layers x micro-batches per step, a falling loss on a
@@ -7787,6 +7798,238 @@ SHARDED_LOSS_ATOL = 1e-6
 SHARDED_PARAM_ATOL = 1e-6
 
 
+# pipeline parallelism (pipeline_path): small_1b's training cell over
+# PIPE_STAGES stages in PIPE_MICRO microbatches of one row, on one card
+# (the local handoff), against the unpipelined step from the same fp32
+# masters and batches. SGD at PIPE_LR: an update of ~1e-6..1e-4 an entry
+# at these gradients, well above the fp32 rounding of the weights
+# (~2e-9 at 0.02), so an update's gap reads the gradients' and not the
+# storage's. The loss is the head's fp32 CE over bf16 activations that
+# only the products' shapes (rows of one microbatch against the batch's)
+# move: 1e-3 relative. The gradients are not exact in bf16 on either
+# side: every cotangent is rounded to bf16 at each product of each block,
+# and splitting the batch reorders those roundings, so each entry of a
+# gradient moves by a few percent between the two schedules while the
+# norm, a sum over 0.82B squares of that noise, moves by its square:
+# 1e-2 relative. The updates are held as one vector: the distance between
+# the pipelined and the unpipelined run's, over the unpipelined update's
+# norm, within PIPE_UPDATE_RTOL, and each leaf alone within
+# PIPE_LEAF_RTOL. A microbatch whose handoff was dropped (stage 2 reading
+# microbatch 2's activations again in place of 3's) moves a third to a
+# half of the stages' updates: the control, beyond both.
+PIPE_STAGES, PIPE_MICRO, PIPE_STEPS = 4, 8, 2
+PIPE_LR = 0.1
+PIPE_LOSS_RTOL = 1e-3
+PIPE_NORM_RTOL = 1e-2
+PIPE_UPDATE_RTOL = 0.10
+PIPE_LEAF_RTOL = 0.25
+PIPE_PIPPY = (6, 512)  # prepare_pippy's batch, padded up to a multiple of PIPE_STAGES
+PIPE_GEN = (512, 32)   # generate(): prompt and greedy tokens
+
+
+def pipeline_path(dev, card: str):
+    """Pipeline parallelism on one card (see PIPE_*): (a) training,
+    unpipelined, GPipe and 1F1B, plus the dropped-handoff control; (b)
+    prepare_pippy; (c) generate() through depipeline. Returns the
+    launches of #1-#3 an update of each schedule and of (b)."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.generation import generate
+    from accelerate_tpu_torch.inference import prepare_pippy
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.convert import random_params
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+    from accelerate_tpu_torch.ops import kernels
+    from accelerate_tpu_torch.parallel import pipeline
+
+    cfg = DecoderConfig.small_1b()
+    b, s = TRAIN_B, TRAIN_S
+    n, stages, micro = cfg.num_layers, PIPE_STAGES, PIPE_MICRO
+    ids = np.random.RandomState(26).randint(0, cfg.vocab_size, (PIPE_STEPS, b, s))
+    batches = [{"input_ids": torch.as_tensor(x), "labels": torch.as_tensor(x)} for x in ids]
+    t0 = time.perf_counter()
+    weights = random_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    # the unpipelined run's weights after its updates, allocated up front so
+    # every run's peak memory sits on the same resident bytes
+    plain_after = {k: torch.empty_like(v) for k, v in weights.items()}
+    # #1-#3 an update: each (stage, microbatch) pair runs its n / stages
+    # blocks once forward (#1) and once backward (#2, #3); 1F1B's backward
+    # reruns the forward it did not keep (#1 again; remat save_attention
+    # keeps that forward's attention for the backward)
+    want = {"plain": dict.fromkeys(FLASH_KERNELS, n),
+            "gpipe": dict.fromkeys(FLASH_KERNELS, n * micro),
+            "1f1b": {"flash_fwd": 2 * n * micro, "flash_bwd_dq": n * micro,
+                     "flash_bwd_dkv": n * micro}}
+
+    def train(kind: str, dropped: bool = False) -> dict:
+        run_cfg = cfg if kind == "plain" else dataclasses.replace(
+            cfg, pipeline_stages=stages, pipeline_microbatches=micro, pipeline_schedule=kind)
+        model = DecoderLM(run_cfg, device=dev, param_dtype=torch.float32)
+        model.load_params(weights)
+        acc = Accelerator(mixed_precision="bf16")
+        model, opt = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=PIPE_LR))
+        step = acc.build_train_step(micro_steps=1)
+        send = pipeline.Handoff.send
+
+        last = {}
+
+        def dropping(handoff, kind_, stage, mb, tensor):
+            # microbatch 3's activations never reach stage 2, which reads
+            # the buffer microbatch 2 left (a receive that was not posted)
+            if kind_ == pipeline.ACT and stage == 2:
+                tensor = last[2] if mb == 3 else tensor
+                last[mb] = tensor
+            return send(handoff, kind_, stage, mb, tensor)
+
+        out = {"losses": [], "norms": [], "ms": [], "launches": []}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(pipeline.Handoff, "send", dropping) if dropped \
+                else contextlib.nullcontext():
+            for batch in batches:
+                kernels.reset_launch_counts()
+                t = time.perf_counter()
+                m = step(batch)
+                out["losses"].append(m["loss"].item())
+                out["norms"].append(m["grad_norm"].item())
+                out["ms"].append((time.perf_counter() - t) * 1e3)
+                out["launches"].append({k: kernels.launch_counts[k] for k in FLASH_KERNELS})
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if kind == "1f1b":
+            sched = model.last_schedule
+            if sched is None or sched.heads != list(range(micro)) \
+                    or sched.max_stash > 2 * stages - 1:
+                fail(f"pipeline path: the 1F1B schedule did not run as planned ({sched})")
+            out["stash"] = sched.max_stash
+        params = dict(model.named_parameters())
+        if kind == "plain":
+            for k, v in params.items():
+                plain_after[k].copy_(v.detach())
+        else:  # the update against the unpipelined run's, whole and by leaf
+            off = upd = 0.0
+            leaves = {}
+            for k, v in params.items():
+                d_plain = plain_after[k] - weights[k]
+                d_off = v.detach() - plain_after[k]
+                off, upd = off + d_off.norm() ** 2, upd + d_plain.norm() ** 2
+                leaves[k] = (d_off.norm() / d_plain.norm()).item()
+            out["update_gap"] = (off.sqrt() / upd.sqrt()).item()
+            out["leaf_gap"] = max(leaves.values())
+            out["leaf"] = max(leaves, key=leaves.get)
+        del model, opt, acc, step, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def gaps(run, plain):
+        loss = max(abs(a - c) / abs(c) for a, c in zip(run["losses"], plain["losses"]))
+        norm = max(abs(a - c) / abs(c) for a, c in zip(run["norms"], plain["norms"]))
+        return loss, norm, run["update_gap"], run["leaf_gap"]
+
+    def within(loss, norm, upd, leaf) -> bool:
+        return (loss <= PIPE_LOSS_RTOL and norm <= PIPE_NORM_RTOL and upd <= PIPE_UPDATE_RTOL
+                and leaf <= PIPE_LEAF_RTOL)
+
+    runs = {"plain": train("plain")}
+    print(f"pipeline path: small_1b {n} layers, B {b} x {s}, bf16 over fp32 masters, remat "
+          f"{cfg.remat_policy}, SGD lr {PIPE_LR}, {PIPE_STEPS} updates a run; unpipelined "
+          f"losses {runs['plain']['losses']}, grad norms {runs['plain']['norms']}")
+    for kind in ("gpipe", "1f1b"):
+        run = runs[kind] = train(kind)
+        for i, got in enumerate(run["launches"]):
+            if got != want[kind]:
+                fail(f"pipeline path: {kind} update {i} launched {got}, expected {want[kind]} "
+                     f"({stages} stages x {micro} microbatches x {n // stages} blocks)")
+        loss, norm, upd, leaf = gaps(run, runs["plain"])
+        print(f"pipeline path: {kind} ({stages} stages x {micro} microbatches) losses "
+              f"{run['losses']}, grad norms {run['norms']}; against the unpipelined: loss "
+              f"{loss:.3e} rel (limit {PIPE_LOSS_RTOL}), grad norm {norm:.3e} rel (limit "
+              f"{PIPE_NORM_RTOL}), update {upd:.3e} rel (limit {PIPE_UPDATE_RTOL}), worst leaf "
+              f"{leaf:.3e} at {run['leaf']} (limit {PIPE_LEAF_RTOL}); launches an update "
+              f"{run['launches'][-1]}")
+        if not within(loss, norm, upd, leaf):
+            fail(f"pipeline path: {kind} beyond its limits against the unpipelined step")
+    for i, got in enumerate(runs["plain"]["launches"]):
+        if got != want["plain"]:
+            fail(f"pipeline path: unpipelined update {i} launched {got}, expected {want['plain']}")
+    # the control: one microbatch's handoff dropped must fail those gates
+    control = train("1f1b", dropped=True)
+    loss, norm, upd, leaf = gaps(control, runs["plain"])
+    print(f"pipeline path: control (1F1B, stage 2 reads microbatch 2's activations in place of "
+          f"3's): loss {loss:.3e} rel, grad norm {norm:.3e} rel, update {upd:.3e} rel, worst "
+          f"leaf {leaf:.3e} at {control['leaf']}")
+    if within(loss, norm, upd, leaf):
+        fail("pipeline path: the dropped-handoff control passed the gates")
+    if not runs["1f1b"]["peak_gb"] < runs["gpipe"]["peak_gb"]:
+        fail(f"pipeline path: 1F1B's peak {runs['1f1b']['peak_gb']:.2f} GB is not below "
+             f"GPipe's {runs['gpipe']['peak_gb']:.2f} GB")
+    print(f"pipeline path on {card}: ms an update (second of {PIPE_STEPS}) / tokens/s / peak "
+          "memory GB: " + "; ".join(
+              f"{k} {r['ms'][-1]:.1f} / {b * s / r['ms'][-1] * 1e3:.0f} / {r['peak_gb']:.2f}"
+              for k, r in runs.items())
+          + f"; 1F1B's stash held at most {runs['1f1b']['stash']} microbatch inputs a stage")
+    del weights, plain_after
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) prepare_pippy on the serving weights
+    serve = DecoderLM(cfg, device=dev)
+    serve.load_params(random_params(cfg, seed=0, device=dev))
+    rows, length = PIPE_PIPPY
+    x = torch.as_tensor(np.random.RandomState(27).randint(3, cfg.vocab_size, (rows, length)),
+                        device=dev)
+    pipelined = prepare_pippy(serve, num_stages=stages)
+    m = pipelined.num_microbatches
+    kernels.reset_launch_counts()
+    got = pipelined(x)
+    pippy_launches = {"flash_fwd": kernels.launch_counts["flash_fwd"]}
+    with torch.no_grad():
+        plain = serve(x).float()
+    err = (got - plain).abs()
+    worst = (err - KERNEL_RTOL * plain.abs()).max().item()
+    top = plain.argmax(-1)
+    gap = (got.max(-1).values - got.gather(-1, top[..., None])[..., 0]).max().item()
+    padded = -(-rows // m) * m
+    if pippy_launches["flash_fwd"] != n * m:
+        fail(f"pipeline path: prepare_pippy launched {pippy_launches}, expected {n} blocks x "
+             f"{m} microbatches of #1")
+    if got.shape != plain.shape or not worst <= KERNEL_ATOL or gap > TOP2_MARGIN:
+        fail(f"pipeline path: prepare_pippy's logits {tuple(got.shape)} against the "
+             f"unpipelined forward: max abs err {err.max().item()}, argmax gap {gap}")
+    print(f"pipeline path: prepare_pippy {stages} stages x {m} microbatches, a batch of "
+          f"{rows} x {length} padded to {padded}: logits max abs err {err.max().item():.3e} "
+          f"against the unpipelined forward (limit {KERNEL_ATOL} + {KERNEL_RTOL} x |plain|), "
+          f"the plain argmax {gap:.4f} below the top (margin {TOP2_MARGIN}), launches "
+          f"{pippy_launches}")
+    del got, plain, err
+
+    # (c) generate() through depipeline: the unpipelined model's tokens
+    prompt_len, new = PIPE_GEN
+    prompt = torch.as_tensor(np.random.RandomState(28).randint(3, cfg.vocab_size,
+                                                               (1, prompt_len)), device=dev)
+    want_tokens = generate(serve, prompt, max_new_tokens=new)
+    t = time.perf_counter()
+    tokens = generate(pipelined.model, prompt, max_new_tokens=new)
+    gen_s = time.perf_counter() - t
+    if not torch.equal(tokens, want_tokens):
+        fail("pipeline path: generate() through depipeline gave other tokens than the "
+             "unpipelined model's")
+    print(f"pipeline path: generate() on the 4-stage model through depipeline, a {prompt_len}-"
+          f"token prompt + {new} greedy tokens equal to the unpipelined model's "
+          f"({gen_s:.2f} s)")
+    del serve, pipelined
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gpipe": runs["gpipe"]["launches"][-1], "1f1b": runs["1f1b"]["launches"][-1],
+            "prepare_pippy": pippy_launches}
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -7987,6 +8230,10 @@ def main():
     print(f"ring path launches: {json.dumps(ring_launches)}")
     sharded_launches = timed("sharded train path", sharded_train_path, dev, card)
     print(f"sharded train path launches: {json.dumps(sharded_launches)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline_launches = timed("pipeline", pipeline_path, dev, card)
+    print(f"pipeline path launches: {json.dumps(pipeline_launches)}")
     launches["dense_decode"] += flat_launches + dispatch_launches["dense_decode"]
     launches["flash_fwd"] += dispatch_launches["flash_fwd"]
     for name, n in fp8_launches.items():

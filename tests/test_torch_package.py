@@ -132,7 +132,12 @@ def test_parallel_entry_points_raise_without_cuda(no_cuda, monkeypatch):
         monkeypatch.delenv(var)
     with pytest.raises(RuntimeError, match="process group"):
         Accelerator(cpu=True, sharding_config=ShardingConfig(strategy="FSDP"))
-    for bad in (dict(tensor_parallel=2), dict(expert_parallel=2), dict(pipeline_parallel=2),
+    # the stage axis is this port's now (tests/test_torch_pipeline_dist.py): one
+    # process cannot hold a stage axis of 2
+    assert ShardingConfig(pipeline_parallel=2).unsupported() == []
+    with pytest.raises(ValueError, match="not divisible by 2"):
+        Accelerator(cpu=True, sharding_config=ShardingConfig(pipeline_parallel=2))
+    for bad in (dict(tensor_parallel=2), dict(expert_parallel=2),
                 dict(replica=2), dict(grad_compression_dtype="bf16"),
                 dict(offload_params_to_host=True), dict(use_shard_map=True)):
         with pytest.raises(NotImplementedError, match=NEXT_PART):
@@ -314,8 +319,11 @@ def test_later_slices_raise():
     # MoE blocks are this port's now (tests/test_torch_moe.py): the config builds
     cfg = DecoderConfig(moe_num_experts=8, moe_top_k=2)
     assert (cfg.moe_num_experts, cfg.moe_top_k) == (8, 2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DecoderConfig.tiny(pipeline_stages=2)
+    # pipelining is this port's now (tests/test_torch_pipeline*.py): the config
+    # builds, and a stage count that does not divide the layers raises
+    assert DecoderConfig.tiny(num_layers=4, pipeline_stages=2).pipeline_stages == 2
+    with pytest.raises(ValueError, match="divide"):
+        DecoderConfig.tiny(num_layers=3, pipeline_stages=2)
     # fp8 is this port's now (tests/test_torch_fp8.py, tests/test_torch_fp8_models.py):
     # the config builds and runs, and the Accelerator takes mixed_precision="fp8"
     cfg = DecoderConfig.tiny(use_fp8=True, fp8_recipe="delayed")

@@ -425,3 +425,86 @@ def family_worker(d: str):
                                    inputs["lr"])
         acc.free_memory()
     write(d, "family", results)
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism over the stage axis
+# ---------------------------------------------------------------------------
+
+
+def _held(model) -> dict:
+    """This rank's parameters, whole (its stages' blocks and the
+    replicated rest)."""
+    return {k: v.numpy() for k, v in _full(model).items()}
+
+
+def pipeline_worker(d: str, name: str):
+    """Each layout of ``inputs["pipeline"][name]`` on this world, in turn:
+    the pipelined decoder built on the Accelerator's stage mesh (each rank
+    builds only its stage's blocks), one SGD update of the global batch
+    through ``build_train_step`` (GPipe, or 1F1B's value-and-grad), with
+    ``clip_grad_norm_`` where the layout asks; writes the loss, the grad
+    norm, the parameters this rank holds and their count. With a
+    ``"checkpoint"`` entry (world 2): a run resumes from the reference's
+    pipelined checkpoint and saves its own state for the reference to
+    resume."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models.configs import DecoderConfig
+    from accelerate_tpu_torch.models.decoder import DecoderLM
+
+    inputs = read(d)
+    results = {}
+
+    def build(spec):
+        acc = Accelerator(cpu=True, sharding_config=_sharding(spec["layout"]))
+        cfg = DecoderConfig.tiny(**inputs["config"], **spec["pipeline"])
+        model = DecoderLM(cfg, device="cpu", param_dtype=torch.float32, mesh=acc.mesh)
+        model.load_params({k: torch.from_numpy(v) for k, v in inputs["weights"].items()})
+        opt = torch.optim.SGD(model.parameters(), **inputs["sgd"])
+        model, opt = acc.prepare(model, opt)
+        return acc, model, opt
+
+    for key, spec in inputs["pipeline"][name].items():
+        acc, model, opt = build(spec)
+        if "loader" not in results:  # the rows a prepared loader gives this rank
+            from accelerate_tpu_torch.data import DataLoader
+
+            loader = acc.prepare(DataLoader(torch.arange(32), batch_size=8))
+            results["loader"] = [b.tolist() for b in loader]
+        res = {"held": list(model.held_layers()),
+               "numel": sum(p.numel() for p in model.parameters()),
+               "mesh": acc.state.mesh_shape}
+        if spec.get("clip"):
+            acc.clip_grad_norm_(max_norm=inputs["clip"])
+        step = acc.build_train_step()
+        local = _local_rows(acc.mesh, inputs["batch"])
+        m = step({"input_ids": local, "labels": local})
+        from torch.distributed.tensor import DTensor
+
+        res.update(loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
+                   one_f_one_b=getattr(model, "last_schedule", None) is not None,
+                   sharded=sum(isinstance(p, DTensor) for p in model.parameters()),
+                   params=_held(model))
+        results[key] = res
+        acc.free_memory()
+    if name in inputs.get("checkpoint", {}):
+        spec = inputs["checkpoint"][name]
+        acc, model, opt = build(spec)
+        acc.load_state(inputs["reference_dir"])
+        results["loaded"] = _held(model)
+        acc.save_state(os.path.join(d, "ckpt"))
+        # inference on the stage mesh: every rank folds every block in, and
+        # prepare_pippy splits it over the stage axis again
+        from accelerate_tpu_torch.generation import depipeline
+        from accelerate_tpu_torch.inference import prepare_pippy
+
+        ids = torch.from_numpy(inputs["batch"][:4]).long()
+        with torch.no_grad():
+            flat = depipeline(model)
+            results["depipelined"] = {"logits": flat(ids).numpy(),
+                                      "layers": sum(1 for _ in flat.layers.parameters())}
+            pipelined = prepare_pippy(model, num_microbatches=2)
+            results["pippy"] = {"logits": pipelined(ids[:3]).numpy(),
+                                "held": list(pipelined.model.held_layers())}
+        acc.free_memory()
+    write(d, name, results)
